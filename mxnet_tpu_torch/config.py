@@ -1,0 +1,40 @@
+"""MXNET_* environment knobs the port reads (subset of mxnet_tpu/config.py).
+
+Same names and defaults as the JAX package, so one environment configures
+both:
+
+  MXNET_DECODE_SLOTS        KV-pool session capacity of a DecodeEngine
+  MXNET_DECODE_MAX_LEN      default per-session cache length
+  MXNET_DECODE_MAX_NEW      per-request generation budget when omitted
+  MXNET_QUANT_DTYPE         weight-only quantization target ("int8"|"fp8")
+  MXNET_DEVSTATS            0 disables the device-memory preflight
+  MXNET_DEVSTATS_HBM_BYTES  pins the device memory budget the preflight
+                            checks against (else the card's total memory)
+"""
+from __future__ import annotations
+
+import os
+
+_DOCUMENTED = {
+    "MXNET_DEVSTATS": 1,
+    "MXNET_DEVSTATS_HBM_BYTES": None,
+    "MXNET_DECODE_SLOTS": 8,
+    "MXNET_DECODE_MAX_LEN": 256,
+    "MXNET_DECODE_MAX_NEW": 32,
+    "MXNET_QUANT_DTYPE": "int8",
+}
+
+
+def get(name, default=None):
+    """Read an MXNET_* var with its documented default."""
+    if default is None:
+        default = _DOCUMENTED.get(name)
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    if isinstance(default, int):
+        try:
+            return int(raw)
+        except ValueError:
+            return default
+    return raw

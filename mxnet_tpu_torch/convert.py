@@ -1,0 +1,71 @@
+"""The JAX package's parameters as the port's tensors.
+
+The JAX package hands parameters around as ``{name: np.ndarray}`` dicts
+(``DecodeModel.init_params``) and stores them in ``.mxa`` artifacts whose
+``params.bin`` is the reference NDArray container. This module turns
+either into torch tensors:
+
+* float and int8 arrays are kept as they are (no dtype change);
+* fp8 arrives either as an ``float8_e4m3fn`` numpy array (a JAX-side
+  dict; recognised by its dtype name) or as the ``uint8`` bytes an
+  artifact stores (its manifest's ``quant`` block names them); both
+  become ``torch.float8_e4m3fn`` with the same bytes.
+"""
+from __future__ import annotations
+
+import json
+import zipfile
+
+import numpy as np
+import torch
+
+from .base import MXNetError
+from .ndarray.container import _read_container_dense
+
+__all__ = ["to_tensor", "to_torch_params", "load_decode_artifact"]
+
+
+def to_tensor(a, device=None, fp8=False):
+    """One array as a tensor (``fp8=True``: uint8 bytes are e4m3fn)."""
+    if isinstance(a, torch.Tensor):
+        t = a
+    else:
+        a = np.asarray(a)
+        if a.dtype.name == "float8_e4m3fn":
+            a, fp8 = a.view(np.uint8), True
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:      # container reads are buffer views
+            a = a.copy()
+        t = torch.from_numpy(a)
+    if fp8 and t.dtype == torch.uint8:
+        t = t.view(torch.float8_e4m3fn)
+    return t if device is None else t.to(device)
+
+
+def to_torch_params(params, device=None, fp8_names=()):
+    """{name: array} -> {name: tensor on ``device``}; names in
+    ``fp8_names`` hold e4m3fn bytes stored as uint8."""
+    fp8_names = set(fp8_names)
+    return {n: to_tensor(v, device, n in fp8_names)
+            for n, v in params.items()}
+
+
+def load_decode_artifact(path):
+    """Read a decode ``.mxa`` written by the JAX package
+    (contrib.export.export_decode_model): manifest ``decode`` block ->
+    model config, params.bin -> {name: tensor} on the CPU (fp8 viewed
+    back from its uint8 bytes). Returns (config, params, model_name,
+    quant)."""
+    with zipfile.ZipFile(path) as zf:
+        manifest = json.loads(zf.read("MANIFEST.json"))
+        raw = _read_container_dense(zf.read("params.bin"))
+    dec = manifest.get("decode")
+    if dec is None:
+        raise MXNetError(f"{path}: no 'decode' block in manifest — not a "
+                         "decode artifact")
+    params = {n.split(":", 1)[1]: v for n, v in raw.items()}
+    quant = manifest.get("quant")
+    fp8 = quant.get("params", []) if quant and quant.get("dtype") == "fp8" \
+        else ()
+    return dec, to_torch_params(params, fp8_names=fp8), \
+        manifest.get("model_name"), quant
