@@ -3,17 +3,27 @@
 
     python3 chip_smoke.py
 
-Drives the port's decode-serving path end to end at GPT-2 medium's
-published widths (OpenAI GPT-2 "355M": n_embd 1024, n_head 16, n_layer 24,
-n_positions 1024, vocab 50257, MLP 4096) with random weights from a seed.
-The DecodeModel's own equations differ from GPT-2's: RMSNorm instead of
-LayerNorm, no biases, an untied head. Phases, one JSON line each:
+Drives the port's two paths end to end at GPT-2 medium's published
+widths (OpenAI GPT-2 "355M": n_embd 1024, n_head 16, n_layer 24,
+n_positions 1024, vocab 50257, MLP 4096) with random weights from a seed:
+Gluon training of a causal transformer LM (the repo's TransformerEncoder
+equations: LayerNorm, ReLU FFN, an untied Dense head with bias) and
+decode serving (DecodeModel: RMSNorm, no biases, an untied head). Phases,
+one JSON line each:
 
   device   card name, power limit (nvidia-smi), torch/CUDA versions
   build    nvcc builds every kernel of mxnet_tpu_torch/csrc, timed
   kernels  each kernel against its plain PyTorch version at the main
-           path's shapes (max error vs a stated tolerance), and timed
+           paths' shapes (max error vs a stated tolerance), and timed
            beside its plain version and one library call
+  train    TransformerEncoder + Dense head trained through the port's
+           Gluon (initialize, autograd.record, loss.backward,
+           Trainer("adam").step) on 8 x 1024 tokens: every parameter's
+           gradient held against the plain attention path on a
+           2-sequence slice, then 2 warm-up and 5 timed steps (loss per
+           step, step time, tokens/s, peak memory, launches per step)
+  train_profile
+           one training step under torch.profiler: device time by kernel
   engine_f32 / engine_int8
            DecodeEngine serving 8 staggered sessions with float and
            int8 weights; one session's per-token logits held against a
@@ -50,11 +60,50 @@ PROMPT_LENS = (17, 60, 100, 200, 300, 500, 700, 900)
 NEW_TOKENS = 32
 SEED = 0
 
+# the training model: GPT-2 medium widths in TransformerEncoder + Dense
+TRAIN = dict(vocab_size=50257, units=1024, hidden_size=4096, num_heads=16,
+             num_layers=24, max_length=1024)
+TRAIN_BATCH = 8
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-4
+GRAD_SLICE = 2          # sequences of the first batch in the gradient check
+
 # tolerances, stated before the run. Kernels vs their plain versions:
 # float32 sums taken in another order, |values| ~ 1, so 1e-4 absolute
-# plus 1e-4 relative to the reference's largest magnitude.
+# plus 1e-4 relative to the reference's largest magnitude (the flash
+# backward's sums run over up to S = 4096 terms and stay inside it).
 KERNEL_ATOL = 1e-4
 KERNEL_RTOL = 1e-4
+# training gradients on 2 sequences, per parameter tensor, in two checks:
+# * backward only: kernels vs the forward kernel with the backward's plain
+#   twin swapped in. The forward is bit-identical, so only the dQ and
+#   dK/dV kernels differ: every tensor within BWD_GRAD_RTOL both
+#   norm-wise (||g - g_ref|| / ||g_ref||) and element by element (of the
+#   tensor's max |g_ref|): float32 sums in another order through 24
+#   layers. Earlier runs on the H100 measured 4.2e-6 to 4.7e-6 here;
+#   1e-4 leaves 20x room above that and still catches a dQ or dK/dV sum
+#   off by a few 1e-4.
+# * whole path: kernels vs the plain attention forward and backward (the
+#   blocks' flash_attention swapped for reference_attention), every
+#   tensor within PATH_GRAD_RTOL norm-wise. Looser, because ReLU's
+#   derivative jumps at 0: an FFN pre-activation within rounding distance
+#   of 0 lands on the other side in the other forward, which moves the
+#   FFN's backward at that token by its whole contribution (up to ~1.3% of
+#   a tensor's max |grad| at 2 x 1024 tokens) in ffn1 and the LayerNorm
+#   before it, and attenuated upstream. Earlier runs on the H100 found all
+#   25,316 elements beyond 1e-3 of their tensor's max (of 406 M) in ffn1
+#   weights, and norm-wise errors up to 1.29e-3 (ffn1 weight) and 1.26e-3
+#   (that LayerNorm's gamma). Their losses agree within LOSS_RTOL.
+# The attention key biases are exempt from both: their true gradient is
+# exactly 0 (softmax ignores the per-row shift q . b), so both paths hold
+# rounding noise there; they are held below ZERO_GRAD_RTOL of the largest
+# gradient of the model instead.
+BWD_GRAD_RTOL = 1e-4
+PATH_GRAD_RTOL = 1e-2
+PATH_ELEM_RTOL = 1e-3   # only counts the elements beyond it, as a report
+LOSS_RTOL = 1e-3
+ZERO_GRAD_RTOL = 1e-4
 # engine logits vs full-context recompute through the plain path: 24
 # layers of float32 rounding in another order (and, for int8, the same
 # dequantized weights multiplied in another order), relative to the
@@ -193,6 +242,91 @@ def _flash_case(name, b, h, hkv, s, d, causal, gen):
             "flops": flops}
 
 
+def _flash_bwd_case(name, b, h, hkv, s, d, causal, gen, glse=False,
+                    plain_batch=None, iters=10):
+    """dQ and dK/dV kernels against the plain twin (on the first
+    ``plain_batch`` sequences when the dense (S, S) matrices would not
+    fit), timed beside the twin and SDPA's backward through autograd."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import attention as A
+    dev = "cuda"
+    q = torch.randn(b, h, s, d, generator=gen, device=dev)
+    k = torch.randn(b, hkv, s, d, generator=gen, device=dev)
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev)
+    do = torch.randn(b, h, s, d, generator=gen, device=dev)
+    gl = torch.randn(b, h, s, generator=gen, device=dev) if glse else None
+    o, lse = A.flash_attention_fwd(q, k, v, causal=causal)
+    dq = A.flash_attention_bwd_dq(q, k, v, o, lse, do, gl, causal)
+    dkp, dvp = A.flash_attention_bwd_dkv(q, k, v, o, lse, do, gl, causal)
+    again = A.flash_attention_bwd(q, k, v, o, lse, do, gl, causal)
+    torch.cuda.synchronize()
+    if hkv != h:
+        dk = dkp.reshape(b, hkv, h // hkv, s, d).sum(2)
+        dv = dvp.reshape(b, hkv, h // hkv, s, d).sum(2)
+    else:
+        dk, dv = dkp, dvp
+    deterministic = bool(torch.equal(dq, again[0]) and
+                         torch.equal(dk, again[1]) and
+                         torch.equal(dv, again[2]))
+    pb = plain_batch or b
+    sl = slice(0, pb)
+    ref = A.reference_flash_attention_bwd(
+        q[sl], k[sl], v[sl], o[sl], lse[sl], do[sl],
+        None if gl is None else gl[sl], causal)
+    torch.cuda.synchronize()
+    errs = [err_of(got[sl], r) for got, r in zip((dq, dk, dv), ref)]
+    del ref
+    pairs = s * (s + 1) // 2 if causal else s * s
+    n_in = 4 * (3 * q.numel() + k.numel() + v.numel() + lse.numel()
+                + (gl.numel() if gl is not None else 0))
+    dq_bytes = n_in + 4 * q.numel()
+    dkv_bytes = n_in + 4 * 2 * q.numel()          # per-q-head partials
+    dq_flops = 6 * d * pairs * b * h
+    dkv_flops = 8 * d * pairs * b * h
+    sets = copies(n_in, q, k, v, o, lse, do)
+    if len(sets) > 3:
+        sets = sets[:3]
+    dq_ms = bench_ms(lambda q, k, v, o, l, g: A.flash_attention_bwd_dq(
+        q, k, v, o, l, g, gl, causal), sets, iters)
+    dkv_ms = bench_ms(lambda q, k, v, o, l, g: A.flash_attention_bwd_dkv(
+        q, k, v, o, l, g, gl, causal), sets, iters)
+    psets = [tuple(t[sl] for t in a) for a in sets[:1]]
+    plain = bench_ms(lambda q, k, v, o, l, g: A.reference_flash_attention_bwd(
+        q, k, v, o, l, g, None if gl is None else gl[sl], causal), psets,
+        max(2, iters // 4)) * b / pb
+    # library: the backward of SDPA (recorded once, replayed with
+    # retain_graph), the same dq/dk/dv of the same inputs without glse
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    gqa = {"enable_gqa": True} if hkv != h else {}
+    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, **gqa)
+    lib = bench_ms(lambda g: torch.autograd.grad(
+        lo, (ql, kl, vl), g, retain_graph=True), [(do,)], iters)
+    del lo, ql, kl, vl
+    b_dq, by_dq = bound_ms(dq_bytes, dq_flops)
+    b_dkv, by_dkv = bound_ms(dkv_bytes, dkv_flops)
+    ok = all(e <= t for e, t in errs) and deterministic
+    return {"kernel": "flash_attention_bwd", "case": name,
+            "shape": [b, h, hkv, s, d], "causal": causal, "glse": glse,
+            "plain_batch": pb, "err_dq": errs[0][0], "err_dk": errs[1][0],
+            "err_dv": errs[2][0], "tols": [t for _, t in errs],
+            "max_abs_err": max(e for e, _ in errs),
+            "deterministic": deterministic, "ok": ok,
+            "dq_ms": dq_ms, "dkv_ms": dkv_ms, "kernel_ms": dq_ms + dkv_ms,
+            "plain_ms": plain, "plain_note": "the plain twin computes dq, "
+            "dk and dv together" + (
+                "; timed on %d of %d sequences, scaled" % (pb, b)
+                if pb != b else ""),
+            "library_ms": lib, "library_note": "SDPA backward through "
+            "autograd (dq, dk, dv together)",
+            "dq_bound_ms": b_dq, "dq_bound_by": by_dq,
+            "dkv_bound_ms": b_dkv, "dkv_bound_by": by_dkv,
+            "bound_ms": b_dq + b_dkv,
+            "bound_by": by_dq if by_dq == by_dkv else "mixed",
+            "dq_bytes": dq_bytes, "dkv_bytes": dkv_bytes,
+            "dq_flops": dq_flops, "dkv_flops": dkv_flops}
+
+
 def _decode_case(name, b, h, hkv, s, d, lengths, gen):
     import torch
     import torch.nn.functional as F
@@ -270,18 +404,34 @@ def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     cases = [
+        _flash_case("train_b8_s1024", TRAIN_BATCH, 16, 16, 1024, 64, True,
+                    gen),
         _flash_case("prefill_s128", 1, 16, 16, 128, 64, True, gen),
         _flash_case("prefill_s1024", 1, 16, 16, 1024, 64, True, gen),
         _flash_case("gqa_s512", 1, 16, 4, 512, 64, True, gen),
         _flash_case("ragged_s1000", 1, 16, 16, 1000, 64, True, gen),
         _flash_case("noncausal_s300", 1, 16, 16, 300, 64, False, gen),
         _flash_case("hd128_s1000", 1, 8, 8, 1000, 128, True, gen),
+        _flash_case("hd256_s1000", 1, 8, 8, 1000, 256, True, gen),
+    ]
+    cases += [
+        _flash_bwd_case("train_b8_s1024", TRAIN_BATCH, 16, 16, 1024, 64,
+                        True, gen, plain_batch=2),
+        _flash_bwd_case("longctx_b8_s4096_d128", 8, 8, 8, 4096, 128, True,
+                        gen, plain_batch=1, iters=3),
+        _flash_bwd_case("gqa_h8_kv2_s1024", 2, 8, 2, 1024, 64, True, gen),
+        _flash_bwd_case("ragged_s1000", 2, 16, 16, 1000, 64, True, gen),
+        _flash_bwd_case("noncausal_s512", 2, 16, 16, 512, 64, False, gen),
+        _flash_bwd_case("glse_s1024", 2, 16, 16, 1024, 64, True, gen,
+                        glse=True),
+        _flash_bwd_case("hd256_s1000", 1, 8, 8, 1000, 256, True, gen),
     ]
     lengths = (0, 1, 17, 100, 511, 700, 1000, 1024)
     cases += [
         _decode_case("step_mha", SLOTS, 16, 16, 1024, 64, lengths, gen),
         _decode_case("step_gqa", SLOTS, 16, 4, 1024, 64, lengths, gen),
         _decode_case("step_hd128", SLOTS, 8, 8, 1024, 128, lengths, gen),
+        _decode_case("step_hd256", SLOTS, 8, 8, 1024, 256, lengths, gen),
     ]
     for dt in ("int8", "fp8"):
         cases += [
@@ -294,25 +444,277 @@ def phase_kernels():
     RECORD["kernel_cases"] = cases
     for c in cases:
         emit(dict(phase="kernel_case", **c))
-    bad = [c["case"] for c in cases if not c["ok"]]
+    bad = [c["kernel"] + ":" + c["case"] for c in cases if not c["ok"]]
     if bad:
         raise AssertionError("kernel disagrees with its plain version: %s"
                              % bad)
     return {"cases": len(cases)}
 
 
-def _reset_counts():
+def _wrappers():
     from mxnet_tpu_torch.ops import attention as A, quantization as Q
-    A.flash_attention_fwd.launches = 0
-    A.decode_attention.launches = 0
-    Q.quantized_matmul.launches = 0
+    return {"flash_attention_fwd": A.flash_attention_fwd,
+            "flash_attention_bwd_dq": A.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": A.flash_attention_bwd_dkv,
+            "decode_attention": A.decode_attention,
+            "quantized_matmul": Q.quantized_matmul}
+
+
+def _reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def _read_counts():
-    from mxnet_tpu_torch.ops import attention as A, quantization as Q
-    return {"flash_attention_fwd": A.flash_attention_fwd.launches,
-            "decode_attention": A.decode_attention.launches,
-            "quantized_matmul": Q.quantized_matmul.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def _lm_batch():
+    """Next token = (token + 3) % vocab (examples/transformer_lm.py),
+    8 x 1024 tokens from the seed, as float ids (Gluon's convention)."""
+    import numpy as np
+    import torch
+    v, s = TRAIN["vocab_size"], TRAIN["max_length"]
+    rng = np.random.RandomState(SEED)
+    start = rng.randint(0, v, (TRAIN_BATCH, 1))
+    tokens = (start + np.arange(s + 1) * 3) % v
+    x = torch.tensor(tokens[:, :-1], dtype=torch.float32, device=DEV)
+    y = torch.tensor(tokens[:, 1:], dtype=torch.float32, device=DEV)
+    return x, y
+
+
+def _lm_step_loss(net, head, loss_fn, x, y):
+    logits = head(net(x))
+    return loss_fn(logits.reshape(-1, TRAIN["vocab_size"]),
+                   y.reshape(-1)).mean()
+
+
+def _grad_stats(g_a, g_b, gmax, elem_rtol):
+    """Per-tensor differences of two gradient dicts (g_b the reference);
+    counts the elements beyond ``elem_rtol`` of their tensor's max."""
+    st = {"norm": (0.0, None), "elem": (0.0, None), "key_bias": 0.0, "outliers": {},
+          "n_out": 0, "n_el": 0, "finite": True}
+    for n in g_b:
+        st["finite"] = st["finite"] and bool(g_a[n].isfinite().all())
+        if n.endswith("_key_bias"):
+            st["key_bias"] = max(st["key_bias"],
+                                 float(g_a[n].abs().max()) / gmax,
+                                 float(g_b[n].abs().max()) / gmax)
+            continue
+        diff = (g_a[n] - g_b[n]).abs()
+        rel = float(diff.norm()) / max(float(g_b[n].norm()), 1e-30)
+        scale = max(float(g_b[n].abs().max()), 1e-30)
+        out = int((diff > elem_rtol * scale).sum())
+        st["n_el"] += diff.numel()
+        if out:
+            st["n_out"] += out
+            st["outliers"][n] = out
+        if rel > st["norm"][0]:
+            st["norm"] = (rel, n)
+        if float(diff.max()) / scale > st["elem"][0]:
+            st["elem"] = (float(diff.max()) / scale, n)
+    st["outliers"] = dict(sorted(st["outliers"].items(),
+                                 key=lambda kv: -kv[1])[:12])
+    return st
+
+
+def _grad_check(net, head, params, loss_fn, x, y):
+    """Loss and every parameter's gradient on the first GRAD_SLICE
+    sequences three ways: through the kernels; through the plain
+    attention (the blocks' ``flash_attention`` swapped for
+    ``reference_attention``, differentiated by torch); and through the
+    forward kernel with the backward's plain twin swapped in, which keeps
+    the forward (and every ReLU mask) bit-identical and so isolates the
+    dQ and dK/dV kernels. Both swaps hold for this check only."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.nn import transformer as T
+    from mxnet_tpu_torch.ops import attention as A
+    xs, ys = x[:GRAD_SLICE], y[:GRAD_SLICE]
+    kernel_fwd, kernel_bwd = T.flash_attention, A.flash_attention_bwd
+    runs = {}
+    for mode in ("kernels", "plain", "plain_bwd"):
+        if mode == "plain":
+            T.flash_attention = A.reference_attention
+        if mode == "plain_bwd":
+            A.flash_attention_bwd = A.reference_flash_attention_bwd
+        try:
+            with autograd.record():
+                loss = _lm_step_loss(net, head, loss_fn, xs, ys)
+            loss.backward()
+        finally:
+            T.flash_attention = kernel_fwd
+            A.flash_attention_bwd = kernel_bwd
+        runs[mode] = (float(loss.detach()),
+                      {n: p.grad().detach().clone()
+                       for n, p in params.items()})
+    l_k, g_k = runs["kernels"]
+    l_p, g_p = runs["plain"]
+    gmax = max(float(g.abs().max()) for g in g_p.values())
+    full = _grad_stats(g_k, g_p, gmax, PATH_ELEM_RTOL)
+    bwd = _grad_stats(g_k, runs["plain_bwd"][1], gmax, BWD_GRAD_RTOL)
+    del runs, g_k, g_p
+    res = {"sequences": GRAD_SLICE, "tensors": len(params),
+           "loss_kernels": l_k, "loss_plain": l_p,
+           "loss_rel_err": abs(l_k - l_p) / abs(l_p),
+           "loss_rtol": LOSS_RTOL,
+           "bwd_only_norm_rel_err": bwd["norm"][0],
+           "bwd_only_elem_rel_err_max": bwd["elem"][0],
+           "bwd_only_worst_tensor": bwd["elem"][1],
+           "bwd_only_elems_beyond_rtol_of_max": bwd["n_out"],
+           "bwd_only_rtol": BWD_GRAD_RTOL,
+           "path_norm_rel_err": full["norm"][0],
+           "path_worst_tensor": full["norm"][1],
+           "path_rtol": PATH_GRAD_RTOL,
+           "path_elem_rel_err_max": full["elem"][0],
+           "path_worst_elem_tensor": full["elem"][1],
+           "path_elem_count_rtol": PATH_ELEM_RTOL,
+           "path_elems_beyond_rtol_of_max": full["n_out"],
+           "elems": full["n_el"],
+           "path_tensors_with_such_elems": full["outliers"],
+           "key_bias_max_rel": max(full["key_bias"], bwd["key_bias"]),
+           "key_bias_rtol": ZERO_GRAD_RTOL,
+           "all_finite": full["finite"] and bwd["finite"]}
+    res["ok"] = bool(
+        res["all_finite"] and res["loss_rel_err"] <= LOSS_RTOL and
+        bwd["norm"][0] <= BWD_GRAD_RTOL and
+        bwd["elem"][0] <= BWD_GRAD_RTOL and
+        full["norm"][0] <= PATH_GRAD_RTOL and
+        res["key_bias_max_rel"] <= ZERO_GRAD_RTOL)
+    return res
+
+
+def phase_train():
+    """The Gluon training path at full width: build, gradient check,
+    warm-up, timed steps (launch counts read around the timed steps)."""
+    import math as _m
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, cpu, gluon, gpu
+    t0 = time.perf_counter()
+    mx.random.seed(SEED)
+    ctx = gpu(0) if DEV == "cuda" else cpu()
+    net = gluon.nn.TransformerEncoder(**TRAIN, prefix="lm_")
+    head = gluon.nn.Dense(TRAIN["vocab_size"], flatten=False,
+                          prefix="head_")
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    head.initialize(mx.init.Xavier(), ctx=ctx)
+    params = {**net.collect_params(), **head.collect_params()}
+    trainer = gluon.Trainer(params, "adam", {"learning_rate": TRAIN_LR})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = _lm_batch()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    check = _grad_check(net, head, params, loss_fn, x, y)
+    if DEV == "cuda":
+        check["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    build_s = time.perf_counter() - t0
+    n_params = int(sum(p.data().numel() for p in params.values()))
+    emit(dict(phase="train_grad_check", **check))
+
+    def step():
+        with autograd.record():
+            loss = _lm_step_loss(net, head, loss_fn, x, y)
+        loss.backward()
+        trainer.step(1)             # the loss is a mean already, as in
+        return loss.detach()        # examples/transformer_lm.py
+
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        losses.append(step())
+    _sync()
+    if DEV == "cuda":               # the timed steps' peak alone
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        losses.append(step())
+        _sync()
+        step_s.append(time.perf_counter() - t1)
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    losses = [float(v) for v in losses]
+    tokens = TRAIN_BATCH * TRAIN["max_length"]
+    mean_s = sum(step_s) / len(step_s)
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    want = TRAIN["num_layers"]
+    res = {"model": dict(TRAIN, head="Dense(vocab, flatten=False)"),
+           "batch": TRAIN_BATCH, "tokens_per_step": tokens,
+           "n_params": n_params, "setup_and_check_s": build_s,
+           "grad_check": check, "losses": losses,
+           "step_s": step_s, "step_s_mean": mean_s,
+           "step_s_min": min(step_s), "tokens_per_s": tokens / mean_s,
+           "peak_mem_gb": peak / 1e9, "launches": counts,
+           "launches_per_step": per_step,
+           "all_finite": all(_m.isfinite(v) for v in losses),
+           "loss_falls": losses[-1] < losses[0]}
+    res["ok"] = bool(check["ok"] and res["all_finite"] and res["loss_falls"]
+                     and all(counts[k] == want * TRAIN_STEPS for k in (
+                         "flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv")))
+    RECORD["train"] = res
+    RECORD["_train"] = (net, head, trainer, loss_fn, x, y, mean_s)
+    if not res["ok"]:
+        raise AssertionError("train failed: %s" % json.dumps(res)[:3000])
+    return res
+
+
+def _device_rows(prof, n_steps):
+    rows = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0.0)
+        if t and "CUDA" in str(getattr(ev, "device_type", "")):
+            rows.append((ev.key, t / (1e3 * n_steps), ev.count / n_steps))
+    if DEV == "cuda" and not rows:
+        raise AssertionError("torch.profiler recorded no device time")
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
+# device kernels grouped by name (matched lower-case, first group wins)
+_GROUPS = (("flash_fwd", ("flash_fwd",)), ("flash_bwd_dq", ("flash_bwd_dq",)),
+           ("flash_bwd_dkv", ("flash_bwd_dkv",)),
+           ("gemm", ("gemm", "cutlass", "kernel2")),
+           ("layer_norm", ("layer_norm", "gammabeta")),
+           ("log_softmax", ("softmax",)),
+           ("embedding", ("embedding", "index", "scatter", "gather")))
+
+
+def phase_train_profile():
+    """One training step under torch.profiler: device time by kernel
+    against the host wall per step (the timed steps' mean)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import autograd
+    net, head, trainer, loss_fn, x, y, host_s = RECORD.pop("_train")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with autograd.record():
+            loss = _lm_step_loss(net, head, loss_fn, x, y)
+        loss.backward()
+        trainer.step(1)
+        _sync()
+    rows = _device_rows(prof, 1)
+    dev_ms = sum(r[1] for r in rows)
+    groups = {}
+    for k, t, c in rows:
+        g = next((name for name, keys in _GROUPS
+                  if any(key in k.lower() for key in keys)),
+                 "other (elementwise: Adam, residuals, ReLU, ...)")
+        groups[g] = groups.get(g, 0.0) + t
+    res = {"step_host_ms": host_s * 1e3, "device_ms_per_step": dev_ms,
+           "device_busy_share": dev_ms / (host_s * 1e3),
+           "groups_ms": groups,
+           "top": [{"kernel": k[:100], "ms_per_step": t, "calls": c}
+                   for k, t, c in rows[:15]]}
+    del net, head, trainer, loss, x, y
+    import gc
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return res
 
 
 def _pct(xs, p):
@@ -482,16 +884,7 @@ def _profile_step(model):
         for _ in range(3):
             model.step(kc, vc, toks, lens, act)
         _sync()
-    rows = []
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = getattr(ev, "cuda_time_total", 0.0)
-        if t and "CUDA" in str(getattr(ev, "device_type", "")):
-            rows.append((ev.key, t / 3e3, ev.count / 3))
-    if DEV == "cuda" and not rows:
-        raise AssertionError("torch.profiler recorded no device time")
-    rows.sort(key=lambda r: -r[1])
+    rows = _device_rows(prof, 3)
     dev_total = sum(r[1] for r in rows)
     res.update(device_ms_per_step=dev_total,
                device_busy_share=dev_total / host_ms if host_ms else None,
@@ -502,16 +895,31 @@ def _profile_step(model):
 
 
 PHASES = (("device", phase_device), ("build", phase_build),
-          ("kernels", phase_kernels), ("engines", phase_engines),
-          ("profile", phase_profile))
+          ("kernels", phase_kernels), ("train", phase_train),
+          ("train_profile", phase_train_profile),
+          ("engines", phase_engines), ("profile", phase_profile))
 
+# (name, source, TPU kernel, case kind, case, its time / bound keys, errors)
 KERNEL_ROWS = (
     ("flash_attention_fwd", "mxnet_tpu_torch/csrc/flash_attention.cu",
-     "mxnet_tpu/ops/attention.py:80", "prefill_s1024"),
+     "mxnet_tpu/ops/attention.py:80", "flash_attention_fwd",
+     "train_b8_s1024", "kernel_ms", "bound_ms", "bound_by",
+     ("max_abs_err",)),
+    ("flash_attention_bwd_dq", "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+     "mxnet_tpu/ops/attention.py:144", "flash_attention_bwd",
+     "train_b8_s1024", "dq_ms", "dq_bound_ms", "dq_bound_by", ("err_dq",)),
+    ("flash_attention_bwd_dkv",
+     "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+     "mxnet_tpu/ops/attention.py:197", "flash_attention_bwd",
+     "train_b8_s1024", "dkv_ms", "dkv_bound_ms", "dkv_bound_by",
+     ("err_dk", "err_dv")),
     ("decode_attention", "mxnet_tpu_torch/csrc/decode_attention.cu",
-     "mxnet_tpu/ops/attention.py:612", "step_mha"),
+     "mxnet_tpu/ops/attention.py:612", "decode_attention", "step_mha",
+     "kernel_ms", "bound_ms", "bound_by", ("max_abs_err",)),
     ("quantized_matmul", "mxnet_tpu_torch/csrc/quantized_matmul.cu",
-     "mxnet_tpu/ops/quantization.py:407", "step_head_int8"),
+     "mxnet_tpu/ops/quantization.py:407", "quantized_matmul",
+     "step_head_int8", "kernel_ms", "bound_ms", "bound_by",
+     ("max_abs_err",)),
 )
 
 
@@ -548,24 +956,25 @@ def main():
             traceback.print_exc()
             if name in ("device", "build"):
                 break
-    total = {}
-    for c in RECORD.get("kernel_cases", []):
-        total[c["kernel"]] = max(total.get(c["kernel"], 0.0),
-                                 c["max_abs_err"])
-    eng = RECORD.get("engines", {})
+    cases = RECORD.get("kernel_cases", [])
+    paths = list(RECORD.get("engines", {}).values())
+    if "train" in RECORD:
+        paths.append(RECORD["train"])
     rows = []
-    for name, src, replaces, case in KERNEL_ROWS:
-        c = next((c for c in RECORD.get("kernel_cases", [])
-                  if c["case"] == case), None)
-        launches = sum(e["launches"].get(name, 0) for e in eng.values())
+    for (name, src, replaces, kind, case, ms_key, bound_key, by_key,
+         err_keys) in KERNEL_ROWS:
+        c = next((c for c in cases
+                  if c["kernel"] == kind and c["case"] == case), None)
+        errs = [c[k] for c in cases if c["kernel"] == kind for k in err_keys]
+        launches = sum(p["launches"].get(name, 0) for p in paths)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches,
-                     "max_abs_err": total.get(name),
+                     "max_abs_err": max(errs) if errs else None,
                      "case": case,
-                     "ms": c and c["kernel_ms"],
+                     "ms": c and c[ms_key],
                      "plain_ms": c and c["plain_ms"],
-                     "bound_ms": c and c["bound_ms"],
-                     "bound_by": c and c["bound_by"],
+                     "bound_ms": c and c[bound_key],
+                     "bound_by": c and c[by_key],
                      "library_ms": c and c["library_ms"]})
     RECORD["kernels"] = rows
     os.makedirs(OUT_DIR, exist_ok=True)

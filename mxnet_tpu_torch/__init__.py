@@ -10,12 +10,20 @@ function.
 
 Covered so far: continuous-batching decode serving
 (``serving.DecodeEngine``) with the flash-prefill, decode-attention and
-weight-only quantized-matmul kernels. Entry points run on the card
-unless the caller passes ``device="cpu"``.
+weight-only quantized-matmul kernels; imperative Gluon training
+(``gluon.nn.TransformerEncoder``, ``autograd.record()``,
+``gluon.Trainer``) with the flash forward and the flash backward (dQ,
+dK/dV) kernels. Entry points run on the card unless the caller asks for
+the host (``device="cpu"``, ``ctx=cpu()``).
 """
-from .base import MXNetError
+from .base import MXNetError, NameManager
 from .context import Context, cpu, gpu, resolve_device
+from . import autograd, initializer, optimizer, random  # noqa: F401
+from . import initializer as init  # noqa: F401
+from . import gluon  # noqa: F401
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "resolve_device"]
+__all__ = ["MXNetError", "NameManager", "Context", "cpu", "gpu",
+           "resolve_device", "autograd", "gluon", "init", "initializer",
+           "optimizer", "random"]

@@ -1,9 +1,11 @@
 """The JAX package's parameters as the port's tensors.
 
 The JAX package hands parameters around as ``{name: np.ndarray}`` dicts
-(``DecodeModel.init_params``) and stores them in ``.mxa`` artifacts whose
-``params.bin`` is the reference NDArray container. This module turns
-either into torch tensors:
+(``DecodeModel.init_params``, a Gluon net's ``collect_params()`` values)
+and stores them in ``.mxa`` artifacts whose ``params.bin`` is the
+reference NDArray container. This module turns either into torch
+tensors, and carries a Gluon net's weights across by parameter name
+(:func:`load_gluon_params`, :func:`gluon_params_to_numpy`):
 
 * float and int8 arrays are kept as they are (no dtype change);
 * fp8 arrives either as an ``float8_e4m3fn`` numpy array (a JAX-side
@@ -22,7 +24,8 @@ import torch
 from .base import MXNetError
 from .ndarray.container import _read_container_dense
 
-__all__ = ["to_tensor", "to_torch_params", "load_decode_artifact"]
+__all__ = ["to_tensor", "to_torch_params", "load_decode_artifact",
+           "load_gluon_params", "gluon_params_to_numpy"]
 
 
 def to_tensor(a, device=None, fp8=False):
@@ -69,3 +72,27 @@ def load_decode_artifact(path):
         else ()
     return dec, to_torch_params(params, fp8_names=fp8), \
         manifest.get("model_name"), quant
+
+
+def load_gluon_params(net, arrays, ctx=None):
+    """Install ``{name: array}`` (the JAX package's
+    ``{n: p.data().asnumpy() for n, p in net.collect_params().items()}``)
+    into the port's ``net``, keyed by the same ``collect_params`` names.
+    A parameter not yet initialized (or deferred) is created on ``ctx``
+    (default: the card); one already initialized keeps its device."""
+    params = net.collect_params()
+    missing = [n for n in params.keys() if n not in arrays]
+    if missing:
+        raise MXNetError(f"load_gluon_params: no value for {missing[:5]}")
+    extra = [n for n in arrays if n not in params]
+    if extra:
+        raise MXNetError(f"load_gluon_params: {extra[:5]} are not "
+                         "parameters of the net")
+    for name, p in params.items():
+        p._load_init(np.asarray(arrays[name]), ctx)
+
+
+def gluon_params_to_numpy(net):
+    """{collect_params name: numpy array} of the port's ``net``."""
+    return {n: p.data().detach().cpu().numpy()
+            for n, p in net.collect_params().items()}

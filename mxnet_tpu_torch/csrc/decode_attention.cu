@@ -15,15 +15,18 @@
 //  * one block of 256 threads per (slot, kv head); the GQA group's q rows
 //    sit in shared memory and in registers, so each K/V row is read once
 //    for all G heads that share it;
-//  * D/4 threads own one key (a float4 each), so a warp reads 32/(D/4)
+//  * min(D/4, 32) threads own one key, a float4 each (two at D = 256: a
+//    key spans one warp, the widest a shuffle reaches), so a warp reads
 //    whole rows as contiguous 16-byte loads; the block holds
-//    256/(D/4) keys at a time and each thread issues 4 keys' K and V
-//    loads before using any, 8 x 16 bytes in flight per thread;
+//    256/min(D/4, 32) keys at a time and each thread issues 4 float4
+//    loads of K and of V (4 keys, 2 at D = 256) before using any;
 //  * the loop runs only over positions < lengths[b], so the cost follows
 //    the session's length, not max_len;
 //  * every key group keeps its own online softmax (max, sum, accumulator)
 //    in registers; the groups are merged once at the end through shared
-//    memory, in a fixed order, so the result does not depend on timing.
+//    memory, one q head at a time and in a fixed order, so the result
+//    does not depend on timing and the merge buffer stays at
+//    groups x D floats (8 KB at D = 256).
 // A later step splits long caches across blocks (flash-decoding) so that
 // fewer than ~132 (slot, kv head) pairs still fill the card.
 
@@ -34,55 +37,64 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 4;
 
 template <int D, int G>
 __global__ void __launch_bounds__(kThreads)
 decode_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const int* __restrict__ lengths,
            float* __restrict__ o, int H, int Hkv, int S, float scale) {
-  constexpr int kTpk = D / 4;                // threads per key
-  constexpr int kGroups = kThreads / kTpk;   // keys in flight per pass
+  constexpr int kTpk = D / 4 < 32 ? D / 4 : 32;   // threads per key
+  constexpr int kW = D / (4 * kTpk);              // float4 per thread
+  constexpr int kGroups = kThreads / kTpk;        // keys in flight per pass
+  constexpr int kUnroll = 4 / kW;                 // keys per thread per pass
   __shared__ __align__(16) float qs[G][D];
   __shared__ float red_m[kGroups][G];
   __shared__ float red_l[kGroups][G];
-  __shared__ __align__(16) float red_acc[kGroups][G][D];
+  __shared__ __align__(16) float red_acc[kGroups][D];
 
   const int bhk = blockIdx.x;                // b * Hkv + hk
   const int b = bhk / Hkv, hk = bhk % Hkv;
   const int len = min(max(lengths[b], 0), S);
   const int tid = threadIdx.x;
   const int kg = tid / kTpk;                 // key group of this thread
-  const int c = (tid % kTpk) * 4;            // its 4 of the D dims
+  const int lane = tid % kTpk;               // float4 w of a row: column
+                                             // (w * kTpk + lane) * 4
   const size_t q_base = ((size_t)b * H + (size_t)hk * G) * D;
 
   for (int i = tid; i < G * D; i += kThreads) qs[i / D][i % D] = q[q_base + i];
   __syncthreads();
 
-  float4 qv[G], acc[G];
+  float4 qv[G][kW], acc[G][kW];
   float m[G], l[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    qv[g] = *reinterpret_cast<const float4*>(&qs[g][c]);
-    acc[g] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kW; ++w) {
+      qv[g][w] = *reinterpret_cast<const float4*>(&qs[g][(w * kTpk + lane) * 4]);
+      acc[g][w] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
     m[g] = -INFINITY;
     l[g] = 0.f;
   }
-  const float* kb = k + (size_t)bhk * S * D + c;
-  const float* vb = v + (size_t)bhk * S * D + c;
+  const float* kb = k + (size_t)bhk * S * D + lane * 4;
+  const float* vb = v + (size_t)bhk * S * D + lane * 4;
 
   // the trip count is uniform over the block, so every lane reaches the
   // shuffles below; validity is per key
   for (int base = 0; base < len; base += kGroups * kUnroll) {
-    float4 kk[kUnroll], vv[kUnroll];
+    float4 kk[kUnroll][kW], vv[kUnroll][kW];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int j = base + u * kGroups + kg;
-      if (j < len) {
-        kk[u] = *reinterpret_cast<const float4*>(kb + (size_t)j * D);
-        vv[u] = *reinterpret_cast<const float4*>(vb + (size_t)j * D);
-      } else {
-        kk[u] = vv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int w = 0; w < kW; ++w) {
+        if (j < len) {
+          const size_t off = (size_t)j * D + w * kTpk * 4;
+          kk[u][w] = *reinterpret_cast<const float4*>(kb + off);
+          vv[u][w] = *reinterpret_cast<const float4*>(vb + off);
+        } else {
+          kk[u][w] = vv[u][w] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
       }
     }
 #pragma unroll
@@ -90,8 +102,11 @@ decode_f32(const float* __restrict__ q, const float* __restrict__ k,
       const bool valid = base + u * kGroups + kg < len;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        float s = qv[g].x * kk[u].x + qv[g].y * kk[u].y +
-                  qv[g].z * kk[u].z + qv[g].w * kk[u].w;
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < kW; ++w)
+          s += qv[g][w].x * kk[u][w].x + qv[g][w].y * kk[u][w].y +
+               qv[g][w].z * kk[u][w].z + qv[g][w].w * kk[u][w].w;
 #pragma unroll
         for (int off = kTpk / 2; off > 0; off >>= 1)
           s += __shfl_xor_sync(0xffffffffu, s, off, kTpk);
@@ -101,39 +116,48 @@ decode_f32(const float* __restrict__ q, const float* __restrict__ k,
           const float corr = (m[g] == -INFINITY) ? 0.f : expf(m[g] - m_new);
           const float p = expf(s - m_new);
           l[g] = l[g] * corr + p;
-          acc[g].x = acc[g].x * corr + p * vv[u].x;
-          acc[g].y = acc[g].y * corr + p * vv[u].y;
-          acc[g].z = acc[g].z * corr + p * vv[u].z;
-          acc[g].w = acc[g].w * corr + p * vv[u].w;
+#pragma unroll
+          for (int w = 0; w < kW; ++w) {
+            acc[g][w].x = acc[g][w].x * corr + p * vv[u][w].x;
+            acc[g][w].y = acc[g][w].y * corr + p * vv[u][w].y;
+            acc[g][w].z = acc[g][w].z * corr + p * vv[u][w].z;
+            acc[g][w].w = acc[g][w].w * corr + p * vv[u][w].w;
+          }
           m[g] = m_new;
         }
       }
     }
   }
 
+  if (lane == 0) {
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (c == 0) {
+    for (int g = 0; g < G; ++g) {
       red_m[kg][g] = m[g];
       red_l[kg][g] = l[g];
     }
-    *reinterpret_cast<float4*>(&red_acc[kg][g][c]) = acc[g];
   }
-  __syncthreads();
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D, d = i % D;
-    float mx = -INFINITY;
-    for (int r = 0; r < kGroups; ++r) mx = fmaxf(mx, red_m[r][g]);
-    float lsum = 0.f, out = 0.f;
-    if (mx != -INFINITY) {
-      for (int r = 0; r < kGroups; ++r) {
-        const float mr = red_m[r][g];
-        const float w = (mr == -INFINITY) ? 0.f : expf(mr - mx);
-        lsum += red_l[r][g] * w;
-        out += red_acc[r][g][d] * w;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int w = 0; w < kW; ++w)
+      *reinterpret_cast<float4*>(&red_acc[kg][(w * kTpk + lane) * 4]) =
+          acc[g][w];
+    __syncthreads();
+    for (int d = tid; d < D; d += kThreads) {
+      float mx = -INFINITY;
+      for (int r = 0; r < kGroups; ++r) mx = fmaxf(mx, red_m[r][g]);
+      float lsum = 0.f, out = 0.f;
+      if (mx != -INFINITY) {
+        for (int r = 0; r < kGroups; ++r) {
+          const float mr = red_m[r][g];
+          const float w = (mr == -INFINITY) ? 0.f : expf(mr - mx);
+          lsum += red_l[r][g] * w;
+          out += red_acc[r][d] * w;
+        }
       }
+      o[q_base + (size_t)g * D + d] = out / (lsum == 0.f ? 1.f : lsum);
     }
-    o[q_base + i] = out / (lsum == 0.f ? 1.f : lsum);
+    __syncthreads();                         // red_acc reused for g + 1
   }
 }
 
@@ -190,6 +214,8 @@ extern "C" int mxt_decode_attention_f32(const void* q, const void* k,
     case 64: return launch_g<64>(G, qf, kf, vf, lf, of, B, H, Hkv, S, scale,
                                  st);
     case 128: return launch_g<128>(G, qf, kf, vf, lf, of, B, H, Hkv, S,
+                                   scale, st);
+    case 256: return launch_g<256>(G, qf, kf, vf, lf, of, B, H, Hkv, S,
                                    scale, st);
     default: return cudaErrorInvalidValue;
   }

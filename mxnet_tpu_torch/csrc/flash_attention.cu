@@ -13,11 +13,13 @@
 // the ceiling is the 67 TFLOP/s of the FP32 pipes. The design keeps the
 // FMA pipes fed from registers and shared memory:
 //  * one block per (b*h, 64-row q tile), kSplit threads per q row (one for
-//    D <= 64, D/64 above); each thread keeps its share of the row's q
-//    vector and output accumulator in registers (2*D/kSplit floats, so
-//    D = 128 holds as many as D = 64 and does not spill), and the partners
-//    of a row sum their partial dot products with one warp shuffle;
-//  * K/V tiles (64 keys, 32 at D = 128 to stay within 48 KB) are staged in
+//    D <= 64, D/64 above: 2 at D = 128, 4 at D = 256); each thread keeps
+//    its share of the row's q vector and output accumulator in registers
+//    (2*D/kSplit floats, so D = 128 and 256 hold as many as D = 64 and do
+//    not spill), and the partners of a row sum their partial dot products
+//    with a butterfly of warp shuffles;
+//  * K/V tiles (64*64/D keys above D = 64: 32 at D = 128, 16 at D = 256,
+//    so the two tiles stay at 32 KB of static shared memory) are staged in
 //    shared memory once per block by coalesced float4 loads and read back
 //    as float4 broadcasts, 4 FMAs per shared load; the float4 columns are
 //    dealt to a row's partners in turn, so they read different banks;
@@ -203,6 +205,8 @@ extern "C" int mxt_flash_fwd_f32(const void* q, const void* k, const void* v,
     case 64: return launch<64>(qf, kf, vf, of, lf, B, H, Hkv, S, scale,
                                causal, st);
     case 128: return launch<128>(qf, kf, vf, of, lf, B, H, Hkv, S, scale,
+                                 causal, st);
+    case 256: return launch<256>(qf, kf, vf, of, lf, B, H, Hkv, S, scale,
                                  causal, st);
     default: return cudaErrorInvalidValue;
   }

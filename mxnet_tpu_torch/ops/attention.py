@@ -1,13 +1,22 @@
 """Attention operators: hand-written CUDA kernels and their plain versions.
 
-Counterpart of mxnet_tpu/ops/attention.py. Two kernels, each beside the
+Counterpart of mxnet_tpu/ops/attention.py. Four kernels, each beside the
 plain PyTorch function it is held against:
 
 * :func:`flash_attention_fwd` — causal / non-causal flash forward over
   q (B, H, S, D) and k/v (B, H_kv, S, D), returning out and the per-row
   logsumexp (B, H, S) f32. Kernel: ``csrc/flash_attention.cu``.
+* :func:`flash_attention_bwd_dq` and :func:`flash_attention_bwd_dkv` —
+  the recompute-based backward (dQ; dK/dV), called together by
+  :func:`flash_attention_bwd`; plain twin
+  :func:`reference_flash_attention_bwd`. Kernels:
+  ``csrc/flash_attention_bwd.cu``.
 * :func:`decode_attention` — single-token (q_len = 1) attention over a
   length-masked KV pool. Kernel: ``csrc/decode_attention.cu``.
+
+:func:`flash_attention` and :func:`flash_attention_with_lse` are
+trainable: ``_FlashAttention`` (a ``torch.autograd.Function``) saves q, k,
+v, out and lse, and its backward is :func:`flash_attention_bwd`.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. There is no fallback between the two. The kernels take float32
@@ -25,10 +34,13 @@ from .. import _build
 from ..base import MXNetError
 
 __all__ = ["reference_attention", "reference_attention_with_lse",
-           "reference_decode_attention", "flash_attention",
-           "flash_attention_fwd", "decode_attention"]
+           "reference_flash_attention_bwd", "reference_decode_attention",
+           "flash_attention", "flash_attention_with_lse",
+           "flash_attention_fwd", "flash_attention_bwd",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "decode_attention"]
 
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 _DECODE_GROUPS = (1, 2, 4, 8)
 
 
@@ -59,6 +71,42 @@ def reference_attention_with_lse(q, k, v, causal=False, scale=None):
                           device=q.device).tril(s_k - s_q)
         scores = scores.masked_fill(~mask, float("-inf"))
     return _masked_softmax_out(scores, v, "bhqk,bhkd->bhqd", q.dtype)
+
+
+def reference_flash_attention_bwd(q, k, v, o, lse, do, glse=None,
+                                  causal=False, scale=None):
+    """Dense twin of the flash backward kernels: the same recompute
+    formulas (p = exp(s - lse), delta = rowsum(dO * O) - glse,
+    dS = p (dP - delta) scale) on whole (S, S) matrices. A row whose lse
+    is not finite has no valid key: +inf (the kernel forward's sentinel)
+    and -inf (the dense forward's) both give p = 0, never NaN. GQA sums
+    each group's per-q-head dK/dV. Returns (dq, dk, dv) in f32."""
+    b, h, s_len, d = q.shape
+    h_kv = k.shape[1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    kr, vr = _repeat_kv(k, v, h)
+    qf, dof = q.float(), do.float()
+    scores = torch.einsum("bhqd,bhkd->bhqk", qf, kr.float()) * scale
+    if causal:
+        mask = torch.ones(s_len, s_len, dtype=torch.bool,
+                          device=q.device).tril()
+        scores = scores.masked_fill(~mask, float("-inf"))
+    lse = lse.float()
+    finite = torch.isfinite(lse)
+    p = torch.exp(scores - torch.where(finite, lse, 0.0)[..., None])
+    p = p.masked_fill(~finite[..., None], 0.0)
+    delta = (dof * o.float()).sum(-1)
+    if glse is not None:
+        delta = delta - glse.float()
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vr.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    if h != h_kv:
+        dk = dk.reshape(b, h_kv, h // h_kv, s_len, d).sum(2)
+        dv = dv.reshape(b, h_kv, h // h_kv, s_len, d).sum(2)
+    return dq, dk, dv
 
 
 def _masked_softmax_out(scores, v, spec, dtype):
@@ -122,8 +170,8 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
 
     Replaces the TPU kernel mxnet_tpu/ops/attention.py:_flash_kernel
     (launched by _flash_pallas). On the card, ``csrc/flash_attention.cu``
-    (float32, head dim 16/32/64/128, self-attention: S_q == S_k). On the CPU,
-    :func:`reference_attention_with_lse`. The kernel writes ``+inf`` as
+    (float32, head dim 16/32/64/128/256, self-attention: S_q == S_k). On
+    the CPU, :func:`reference_attention_with_lse`. The kernel writes ``+inf`` as
     the lse of a row with no valid key (the TPU kernel's sentinel); the
     dense oracle writes ``-inf``. Self-attention never has such a row."""
     if q.device.type == "cpu":
@@ -158,9 +206,137 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
 flash_attention_fwd.launches = 0
 
 
+def _check_bwd(name, q, k, v, o, lse, do, glse):
+    b, h, s, d = q.shape
+    _check_cuda_f32(name, q, k, v, o, lse, do,
+                    *([] if glse is None else [glse]))
+    h_kv = k.shape[1]
+    _require(k.shape == v.shape and k.shape[0] == b and k.shape[2] == s
+             and k.shape[3] == d and o.shape == q.shape
+             and do.shape == q.shape, f"{name}: shapes q/o/do "
+             f"{tuple(q.shape)}, k/v {tuple(k.shape)} do not match")
+    _require(lse.shape == (b, h, s) and (glse is None
+                                         or glse.shape == (b, h, s)),
+             f"{name}: lse/glse must be (B, H, S)")
+    _require(h_kv > 0 and h % h_kv == 0,
+             f"{name}: H must be a multiple of H_kv")
+    _require(d in _HEAD_DIMS, f"{name}: head dim {d} not in {_HEAD_DIMS}")
+    _require(0 < b * h <= 65535, f"{name}: B*H out of range")
+    return b, h, h_kv, s, d
+
+
+def _bwd_argtypes(n_out):
+    """q, k, v, o, do, lse, glse, n_out outputs; B, H, H_kv, S, D; scale;
+    causal, device; stream."""
+    return (*[ctypes.c_void_p] * (7 + n_out), *[ctypes.c_int] * 5,
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
+
+def flash_attention_bwd_dq(q, k, v, o, lse, do, glse=None, causal=False,
+                           scale=None):
+    """dQ of the flash backward on the card: (B, H, S, D) f32.
+
+    Replaces the TPU kernel mxnet_tpu/ops/attention.py:
+    _flash_bwd_dq_kernel (launched by _flash_pallas_bwd). Kernel:
+    ``csrc/flash_attention_bwd.cu`` (float32, head dim 16/32/64/128/256);
+    ``glse`` (B, H, S) or None is the lse output's cotangent."""
+    b, h, h_kv, s, d = _check_bwd("flash_attention_bwd_dq", q, k, v, o, lse,
+                                  do, glse)
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    dq = torch.empty_like(q)
+    fn = _build.bind("flash_attention_bwd", "mxt_flash_bwd_dq_f32",
+                     *_bwd_argtypes(1))
+    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
+             None if glse is None else _ptr(glse), _ptr(dq), b, h, h_kv, s,
+             d, float(scale), int(bool(causal)), q.device.index, _stream(q))
+    flash_attention_bwd_dq.launches += 1
+    _build.check(err, "flash_attention_bwd", "flash_attention_bwd_dq")
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, o, lse, do, glse=None, causal=False,
+                            scale=None):
+    """dK/dV of the flash backward on the card: (dk, dv), each
+    (B, H, S, D) f32 — one partial per q head; the caller sums each GQA
+    group. Replaces the TPU kernel mxnet_tpu/ops/attention.py:
+    _flash_bwd_dkv_kernel (launched by _flash_pallas_bwd). Kernel:
+    ``csrc/flash_attention_bwd.cu``."""
+    b, h, h_kv, s, d = _check_bwd("flash_attention_bwd_dkv", q, k, v, o,
+                                  lse, do, glse)
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    dk = torch.empty_like(q)
+    dv = torch.empty_like(q)
+    fn = _build.bind("flash_attention_bwd", "mxt_flash_bwd_dkv_f32",
+                     *_bwd_argtypes(2))
+    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
+             None if glse is None else _ptr(glse), _ptr(dk), _ptr(dv), b, h,
+             h_kv, s, d, float(scale), int(bool(causal)), q.device.index,
+             _stream(q))
+    flash_attention_bwd_dkv.launches += 1
+    _build.check(err, "flash_attention_bwd", "flash_attention_bwd_dkv")
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, glse=None, causal=False,
+                        scale=None):
+    """Flash backward: (dq, dk, dv) from the saved (q, k, v, out, lse),
+    the output cotangent ``do`` and, when lse is itself a differentiated
+    output, its cotangent ``glse`` (None means zeros). On the card the dQ
+    and dK/dV kernels (one launch each; GQA groups summed here); on the
+    CPU :func:`reference_flash_attention_bwd`."""
+    if q.device.type == "cpu":
+        return reference_flash_attention_bwd(q, k, v, o, lse, do, glse,
+                                             causal, scale)
+    dq = flash_attention_bwd_dq(q, k, v, o, lse, do, glse, causal, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, o, lse, do, glse, causal,
+                                     scale)
+    b, h, s, d = q.shape
+    h_kv = k.shape[1]
+    if h != h_kv:
+        dk = dk.reshape(b, h_kv, h // h_kv, s, d).sum(2)
+        dv = dv.reshape(b, h_kv, h // h_kv, s, d).sum(2)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash forward (kernel on the card) saving q, k, v, out and lse;
+    its backward is :func:`flash_attention_bwd`. Both outputs are
+    differentiable: an lse cotangent reaches the kernels as ``glse``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = torch.zeros_like(out) if dout is None else dout.contiguous()
+        glse = None if dlse is None else dlse.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, glse,
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_with_lse(q, k, v, causal=False, scale=None):
+    """(out, lse (B,H,S) f32), both differentiable (the lse cotangent
+    folds into the backward's row term, as in the JAX package)."""
+    return _FlashAttention.apply(q, k, v, bool(causal), scale)
+
+
 def flash_attention(q, k, v, causal=False, scale=None):
-    """Blockwise attention output only (the prefill's call)."""
-    return flash_attention_fwd(q, k, v, causal, scale)[0]
+    """Blockwise attention output, trainable: the prefill's call and the
+    ``_contrib_flash_attention`` role in ``MultiHeadAttention``."""
+    return _FlashAttention.apply(q, k, v, bool(causal), scale)[0]
 
 
 def decode_attention(q, k, v, lengths, scale=None):
@@ -169,7 +345,7 @@ def decode_attention(q, k, v, lengths, scale=None):
     q (B, H, D); k/v (B, H_kv, S, D); lengths (B,) int32 valid-prefix
     lengths. Replaces the TPU kernel mxnet_tpu/ops/attention.py:
     _decode_kernel (launched by _decode_pallas). On the card,
-    ``csrc/decode_attention.cu`` (float32, head dim 16/32/64/128, GQA
+    ``csrc/decode_attention.cu`` (float32, head dim 16/32/64/128/256, GQA
     group 1/2/4/8); on the CPU, :func:`reference_decode_attention`."""
     if q.device.type == "cpu":
         return reference_decode_attention(q, k, v, lengths, scale)

@@ -7,7 +7,9 @@ kernels from mxnet_tpu_torch/csrc and run them:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda -q
 
 Tolerance 1e-4 absolute plus 1e-4 of the reference's largest magnitude:
-float32 sums taken in another order (chip_smoke.py states the same).
+float32 sums taken in another order (chip_smoke.py states the same). The
+flash backward kernels are also checked to give bit-identical gradients
+on a second run (they use no atomics).
 """
 import math
 
@@ -32,7 +34,8 @@ def _close(got, ref):
 @pytest.mark.parametrize("s,h_kv,causal,d", [
     (64, 4, True, 64), (100, 4, True, 64), (100, 2, False, 64),
     (7, 1, True, 64), (100, 2, True, 128), (70, 4, False, 128),
-    (33, 4, True, 16), (33, 4, True, 32)])
+    (33, 4, True, 16), (33, 4, True, 32), (70, 2, True, 256),
+    (33, 4, False, 256)])
 def test_flash_kernel_matches_plain(dev, s, h_kv, causal, d):
     from mxnet_tpu_torch.ops import attention as A
     g = torch.Generator(device=dev).manual_seed(s)
@@ -48,17 +51,58 @@ def test_flash_kernel_matches_plain(dev, s, h_kv, causal, d):
     _close(lse, rlse)
 
 
-@pytest.mark.parametrize("h_kv", [8, 2])
-def test_decode_kernel_matches_plain(dev, h_kv):
+@pytest.mark.parametrize("h_kv,d", [(8, 64), (2, 64), (8, 256), (1, 256)])
+def test_decode_kernel_matches_plain(dev, h_kv, d):
     from mxnet_tpu_torch.ops import attention as A
     g = torch.Generator(device=dev).manual_seed(h_kv)
-    q = torch.randn(4, 8, 64, generator=g, device=dev)
-    k = torch.randn(4, h_kv, 80, 64, generator=g, device=dev)
-    v = torch.randn(4, h_kv, 80, 64, generator=g, device=dev)
+    q = torch.randn(4, 8, d, generator=g, device=dev)
+    k = torch.randn(4, h_kv, 80, d, generator=g, device=dev)
+    v = torch.randn(4, h_kv, 80, d, generator=g, device=dev)
     lengths = torch.tensor([0, 1, 33, 80], dtype=torch.int32, device=dev)
     out = A.decode_attention(q, k, v, lengths)
     _close(out, A.reference_decode_attention(q, k, v, lengths))
     assert not out[0].any()
+
+
+@pytest.mark.parametrize("glse", [False, True], ids=["no_glse", "glse"])
+@pytest.mark.parametrize("s,h_kv,causal,d", [
+    (64, 4, True, 64), (100, 4, True, 64), (100, 2, False, 64),
+    (7, 1, True, 64), (100, 2, True, 128), (70, 2, True, 256),
+    (33, 1, False, 256), (33, 4, True, 16), (33, 4, False, 32)])
+def test_flash_backward_kernels_match_plain(dev, s, h_kv, causal, d, glse):
+    from mxnet_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    q = torch.randn(2, 4, s, d, generator=g, device=dev)
+    k = torch.randn(2, h_kv, s, d, generator=g, device=dev)
+    v = torch.randn(2, h_kv, s, d, generator=g, device=dev)
+    do = torch.randn(2, 4, s, d, generator=g, device=dev)
+    gl = torch.randn(2, 4, s, generator=g, device=dev) if glse else None
+    out, lse = A.flash_attention_fwd(q, k, v, causal=causal)
+    n = (A.flash_attention_bwd_dq.launches, A.flash_attention_bwd_dkv.launches)
+    got = A.flash_attention_bwd(q, k, v, out, lse, do, gl, causal=causal)
+    assert (A.flash_attention_bwd_dq.launches,
+            A.flash_attention_bwd_dkv.launches) == (n[0] + 1, n[1] + 1)
+    ref = A.reference_flash_attention_bwd(q, k, v, out, lse, do, gl,
+                                          causal=causal)
+    again = A.flash_attention_bwd(q, k, v, out, lse, do, gl, causal=causal)
+    torch.cuda.synchronize()
+    for a, r, b in zip(got, ref, again):
+        _close(a, r)
+        assert torch.equal(a, b)              # no atomics: bit-identical
+
+
+def test_trainable_flash_attention_matches_torch_autograd(dev):
+    from mxnet_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(2, 4, 90, 64, generator=g, device=dev)
+               .requires_grad_() for _ in range(3))
+    do = torch.randn(2, 4, 90, 64, generator=g, device=dev)
+    A.flash_attention(q, k, v, causal=True).backward(do)
+    got = [t.grad for t in (q, k, v)]
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    A.reference_attention(q2, k2, v2, causal=True).backward(do)
+    for a, t in zip(got, (q2, k2, v2)):
+        _close(a, t.grad)
 
 
 @pytest.mark.parametrize("dtype", ["int8", "fp8"])

@@ -51,7 +51,12 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serving, "
-            "mxnet_tpu_torch.contrib.quantization, mxnet_tpu_torch.convert\n"
+            "mxnet_tpu_torch.contrib.quantization, mxnet_tpu_torch.convert, "
+            "mxnet_tpu_torch.gluon, mxnet_tpu_torch.gluon.nn, "
+            "mxnet_tpu_torch.gluon.loss, mxnet_tpu_torch.autograd, "
+            "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.initializer, "
+            "mxnet_tpu_torch.random, mxnet_tpu_torch.ops.nn, "
+            "mxnet_tpu_torch.ndarray.container\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'mxnet_tpu')]\n"
             "print(bad)\n"
@@ -77,6 +82,36 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         resolve_device(None)
     # the model's parameters stayed on the host, untouched
     assert all(p.device.type == "cpu" for p in model.parameters())
+
+
+def test_gluon_initialize_and_trainer_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from mxnet_tpu_torch import MXNetError, gluon, init
+    net = gluon.nn.TransformerEncoder(vocab_size=8, units=8, hidden_size=8,
+                                      num_heads=1, num_layers=1,
+                                      max_length=4, prefix="guard_")
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        net.initialize(init.Xavier())
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        gluon.nn.Dense(3).initialize()        # deferred shapes too
+    # nothing was quietly placed on the host, so there is nothing to train
+    with pytest.raises(RuntimeError, match="not been initialized"):
+        gluon.Trainer(net.collect_params(), "adam")
+
+
+def test_gluon_runs_on_the_cpu_when_asked():
+    from mxnet_tpu_torch import autograd, cpu, gluon
+    net = gluon.nn.Dense(2, in_units=3, prefix="host_")
+    net.initialize(ctx=cpu())
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1})
+    with autograd.record():
+        loss = net(torch.ones(4, 3)).sum()
+    loss.backward()
+    trainer.step(4)
+    assert net.weight.data().device.type == "cpu"
+    assert net.weight.list_ctx()[0].device_type == "cpu"
 
 
 def test_cpu_is_used_when_asked():
