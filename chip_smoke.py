@@ -3,19 +3,25 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths end to end at GPT-2 medium's published
-widths (OpenAI GPT-2 "355M": n_embd 1024, n_head 16, n_layer 24,
-n_positions 1024, vocab 50257, MLP 4096) with random weights from a seed:
+Drives the port's paths end to end with random weights and data from a
+seed: at GPT-2 medium's published widths (OpenAI GPT-2 "355M": n_embd
+1024, n_head 16, n_layer 24, n_positions 1024, vocab 50257, MLP 4096),
 Gluon training of a causal transformer LM (the repo's TransformerEncoder
 equations: LayerNorm, ReLU FFN, an untied Dense head with bias) and
-decode serving (DecodeModel: RMSNorm, no biases, an untied head). Phases,
-one JSON line each:
+decode serving (DecodeModel: RMSNorm, no biases, an untied head); at
+ResNet-50's widths (batch 128, bf16), the fused 1x1 convolution of a
+stage-2 bottleneck boundary; and runtime compilation of CUDA C++ through
+NVRTC (rtc.CudaModule). Phases, one JSON line each:
 
   device   card name, power limit (nvidia-smi), torch/CUDA versions
-  build    nvcc builds every kernel of mxnet_tpu_torch/csrc, timed
+  build    nvcc builds every kernel of mxnet_tpu_torch/csrc, timed; fails
+           if ptxas reports a spill in any instance
   kernels  each kernel against its plain PyTorch version at the main
            paths' shapes (max error vs a stated tolerance), and timed
-           beside its plain version and one library call
+           beside its plain version and one library call; head dims 384
+           and 512 through the wide kernels, 96 through the dense route;
+           conv1x1 at ResNet-50's five 1x1 shapes; the rtc kernels over
+           2^26 floats with NVRTC's compile time
   train    TransformerEncoder + Dense head trained through the port's
            Gluon (initialize, autograd.record, loss.backward,
            Trainer("adam").step) on 8 x 1024 tokens: every parameter's
@@ -30,6 +36,14 @@ one JSON line each:
            full-context recompute through the plain path; tokens/s,
            per-token latency, and each kernel's launch count
   profile  one decode step under torch.profiler: device time by kernel
+  conv     ResNet-50 stage 2 at batch 128, bf16, through ops.conv_fused:
+           expand 64 -> 256 with statistics, finalize_stats, bn_fold, then
+           the next block's reduce 256 -> 64 with the BN + residual + ReLU
+           prologue and statistics; held against the same chain through
+           reference_conv1x1; time per application, peak memory, launches
+  rtc      a user's runtime-compiled kernels through rtc.CudaModule:
+           compile, get_kernel, launch (grid, block, dynamic shared
+           memory) over 2^26 floats, checked against torch
 
 then a ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no result)
@@ -39,6 +53,7 @@ chiprun_out/chip_smoke.json.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -47,10 +62,12 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth and
-# the FP32 rate outside the tensor cores (every kernel here is f32 FMA)
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth, the
+# FP32 rate outside the tensor cores (the f32 kernels' type), and the bf16
+# tensor-core rate (the bf16 conv1x1's type)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 # GPT-2 medium widths
 CFG = dict(vocab=50257, layers=24, d_model=1024, heads=16, kv_heads=16,
@@ -104,6 +121,21 @@ PATH_GRAD_RTOL = 1e-2
 PATH_ELEM_RTOL = 1e-3   # only counts the elements beyond it, as a report
 LOSS_RTOL = 1e-3
 ZERO_GRAD_RTOL = 1e-4
+# conv1x1 (bf16) vs reference_conv1x1 on the same inputs: y within one
+# bf16 ulp of the reference plus CONV_ATOL_REL of its largest magnitude
+# (the f32 sums run in another order before the rounding, so a sum near a
+# rounding boundary lands on the other side); the statistics within
+# CONV_STATS_RTOL of their largest magnitude (f32 sums of ~400 k terms in
+# another order); float32 cases use the kernels' tolerance above. The
+# stage-2 chain's second output takes its input through the first one's
+# statistics, so it is held to one ulp plus CHAIN_ATOL_REL.
+CONV_ATOL_REL = 1e-4
+CONV_STATS_RTOL = 1e-3
+CHAIN_ATOL_REL = 1e-3
+# ResNet-50 (He et al. 2016, torchvision resnet50) stage 2 at batch 128
+CONV_BATCH = 128
+# the rtc kernels run over 2^26 float32 elements
+RTC_N = 1 << 26
 # engine logits vs full-context recompute through the plain path: 24
 # layers of float32 rounding in another order (and, for int8, the same
 # dequantized weights multiplied in another order), relative to the
@@ -159,9 +191,9 @@ def copies(nbytes, *ts):
     return [ts] + [tuple(t.clone() for t in ts) for _ in range(n - 1)]
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    tf = flops / PEAK_F32_FLOPS * 1e3
+    tf = flops / peak_flops * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
@@ -199,11 +231,25 @@ def phase_build():
     with open(os.path.join(OUT_DIR, "build_log.txt"), "w") as f:
         for stem, log in info.get("logs", {}).items():
             f.write("== %s\n%s\n" % (stem, log))
-    ptxas = [ln.strip() for log in info.get("logs", {}).values()
-             for ln in log.splitlines() if "registers" in ln or "spill" in ln
-             and "0 bytes spill" not in ln]
-    return {"build_seconds": secs, "built": info.get("built"),
-            "ptxas": ptxas[:40]}
+    spills, regs = [], {}
+    for stem, log in info.get("logs", {}).items():
+        fn = "?"
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m and (int(m.group(1)) or int(m.group(2))):
+                spills.append("%s %s: %s" % (stem, fn, ln.strip()))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                regs[stem] = max(regs.get(stem, 0), int(m.group(1)))
+    res = {"build_seconds": secs, "built": info.get("built"),
+           "max_registers": regs, "spills": spills}
+    if spills:
+        raise AssertionError("ptxas spilled: %s" % spills[:8])
+    return res
 
 
 def _flash_case(name, b, h, hkv, s, d, causal, gen):
@@ -399,6 +445,214 @@ def _qmm_case(name, m, kdim, n, dtype, gen):
             "flops": flops}
 
 
+def _dense_case(name, gen):
+    """Head dim 96 (no kernel takes it) through flash_attention with its
+    backward and through decode_attention: the dense route's answer, and
+    no kernel launch."""
+    import torch
+    from mxnet_tpu_torch.ops import attention as A
+    dev = "cuda"
+    q, k, v = (torch.randn(2, 8, 512, 96, generator=gen, device=dev)
+               .requires_grad_() for _ in range(3))
+    do = torch.randn(2, 8, 512, 96, generator=gen, device=dev)
+    ln = torch.tensor([1, 512], dtype=torch.int32, device=dev)
+    kernels = {n: f.launches for n, f in _wrappers().items()}
+    calls = A.dense_attention.calls
+    out = A.flash_attention(q, k, v, causal=True)
+    out.backward(do)
+    dec = A.decode_attention(q[:, :, -1].detach(), k.detach(), v.detach(), ln)
+    torch.cuda.synchronize()
+    after = {n: f.launches for n, f in _wrappers().items()}
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    ref = A.reference_attention(q2, k2, v2, causal=True)
+    ref.backward(do)
+    rdec = A.reference_decode_attention(q2[:, :, -1].detach(), k2.detach(),
+                                        v2.detach(), ln)
+    errs = [err_of(a.detach(), b.detach())
+            for a, b in ((out, ref), (q.grad, q2.grad), (k.grad, k2.grad),
+                         (v.grad, v2.grad), (dec, rdec))]
+    dense = A.dense_attention.calls - calls
+    return {"kernel": "dense_attention", "case": name,
+            "shape": [2, 8, 8, 512, 96], "dense_calls": dense,
+            "kernel_launches": {n: after[n] - kernels[n] for n in after},
+            "max_abs_err": max(e for e, _ in errs),
+            "ok": dense == 2 and after == kernels
+            and all(e <= t for e, t in errs)}
+
+
+def _bf16_ulp_err(got, ref, atol_rel):
+    """Largest |got - ref| in units of (one bf16 ulp of ref + atol_rel of
+    max |ref|): <= 1 passes."""
+    import torch
+    r = ref.float()
+    _, e = torch.frexp(r)
+    tol = torch.ldexp(torch.ones_like(r), e - 8) \
+        + atol_rel * float(r.abs().max())
+    return float(((got.float() - r).abs() / tol).max())
+
+
+def _stats_err(got, ref):
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(got, ref))
+
+
+def _conv_case(name, n, ci, co, p, dtype, gen, residual=False):
+    """conv1x1 with the relu(bn(x)) prologue (and a residual) plus
+    statistics against reference_conv1x1 on the card; timed beside the
+    plain twin and a library chain (the prologue in torch ops,
+    torch.matmul, two reductions); statistics checked bit-identical on a
+    second run."""
+    import torch
+    from mxnet_tpu_torch.ops import conv_fused as C
+    dev = "cuda"
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    x = torch.randn(n, ci, p, generator=gen, device=dev).to(dt)
+    w = (torch.randn(co, ci, generator=gen, device=dev) / ci ** 0.5).to(dt)
+    scale = torch.rand(ci, generator=gen, device=dev) + 0.5
+    shift = torch.randn(ci, generator=gen, device=dev) * 0.5
+    res = torch.randn(n, ci, p, generator=gen, device=dev).to(dt) \
+        if residual else None
+    kw = dict(bn_in=(scale, shift), residual=res, relu_in=True)
+    y, st = C.conv1x1(x, w, **kw)
+    y2, st2 = C.conv1x1(x, w, **kw)
+    ry, rst = C.reference_conv1x1(x, w, **kw)
+    torch.cuda.synchronize()
+    abs_err = float((y.float() - ry.float()).abs().max())
+    if dtype == "bf16":
+        y_err = _bf16_ulp_err(y, ry, CONV_ATOL_REL)
+        y_ok = y_err <= 1.0
+    else:
+        e, tol = err_of(y, ry)
+        y_err, y_ok = e / tol, e <= tol
+    s_err = _stats_err(st, rst)
+    deterministic = bool(torch.equal(y, y2) and torch.equal(st[0], st2[0])
+                         and torch.equal(st[1], st2[1]))
+    del y2, st2, ry, rst
+    esz = x.element_size()
+    io_bytes = esz * (x.numel() + co * p * n) + w.numel() * w.element_size() \
+        + 8 * ci + 8 * co + (res.numel() * esz if residual else 0)
+    flops = 2 * n * p * ci * co
+    iters = 10
+    sets = [(x, w, res)]
+    ms = bench_ms(lambda x, w, r: C.conv1x1(
+        x, w, bn_in=(scale, shift), residual=r, relu_in=True), sets, iters)
+    plain = bench_ms(lambda x, w, r: C.reference_conv1x1(
+        x, w, bn_in=(scale, shift), residual=r, relu_in=True), sets,
+        max(2, iters // 2))
+    sc3, sh3 = scale.reshape(1, ci, 1), shift.reshape(1, ci, 1)
+
+    def library(x, w, r):
+        xp = x * sc3 + sh3
+        if r is not None:
+            xp = xp + r
+        yl = torch.matmul(w, torch.relu(xp).to(dt))
+        yf = yl.float()
+        return yl, yf.sum(dim=(0, 2)), (yf * yf).sum(dim=(0, 2))
+
+    lib = bench_ms(library, sets, iters)
+    bnd, by = bound_ms(io_bytes, flops,
+                       PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_F32_FLOPS)
+    return {"kernel": "conv1x1", "case": name, "dtype": dtype,
+            "shape": [n, ci, co, p], "residual": residual,
+            "max_abs_err": abs_err, "err_over_tol": y_err,
+            "tol": "one bf16 ulp + %g of max |ref|" % CONV_ATOL_REL
+            if dtype == "bf16" else "%g + %g of max |ref|" % (
+                KERNEL_ATOL, KERNEL_RTOL), "stats_rel_err": s_err,
+            "stats_rtol": CONV_STATS_RTOL, "deterministic": deterministic,
+            "ok": y_ok and s_err <= CONV_STATS_RTOL and deterministic,
+            "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
+            "library_note": "torch prologue + torch.matmul (cuBLAS) + two "
+            "reductions", "bound_ms": bnd, "bound_by": by, "bytes": io_bytes,
+            "flops": flops}
+
+
+RTC_SOURCE = r"""
+extern "C" __global__ void scale_add(const float* x, const float* y,
+                                     float* out, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = x[i] * 2.0f + y[i];
+}
+extern "C" __global__ void negate(const float* x, float* out, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = -x[i];
+}
+// one block per row, a block-wide tree sum in dynamic shared memory
+extern "C" __global__ void row_sum(const float* x, float* out, int cols) {
+  extern __shared__ float part[];
+  const float* row = x + (size_t)blockIdx.x * cols;
+  float s = 0.f;
+  for (int c = threadIdx.x; c < cols; c += blockDim.x) s += row[c];
+  part[threadIdx.x] = s;
+  __syncthreads();
+  for (int h = blockDim.x / 2; h > 0; h >>= 1) {
+    if (threadIdx.x < h) part[threadIdx.x] += part[threadIdx.x + h];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = part[0];
+}
+"""
+RTC_SIGS = {"scale_add": "const float *x, const float *y, float *out, int n",
+            "negate": "const float *x, float *out, int n",
+            "row_sum": "const float *x, float *out, int cols"}
+RTC_ROWS = 4096          # row_sum: (4096, 2^26 / 4096)
+RTC_BLOCK = 256
+
+
+def _rtc_launch(kernels, name, x, y, out):
+    """The launch of each rtc kernel over RTC_N floats, as a user writes
+    it (the grid covers the data; row_sum one block per row)."""
+    from mxnet_tpu_torch import gpu
+    k = kernels[name]
+    if name == "scale_add":
+        k.launch([x, y, out, RTC_N], gpu(0),
+                 ((RTC_N + RTC_BLOCK - 1) // RTC_BLOCK,), (RTC_BLOCK,))
+    elif name == "negate":
+        k.launch([x, out, RTC_N], gpu(0),
+                 ((RTC_N + RTC_BLOCK - 1) // RTC_BLOCK,), (RTC_BLOCK,))
+    else:
+        k.launch([x, out, RTC_N // RTC_ROWS], gpu(0), (RTC_ROWS,),
+                 (RTC_BLOCK,), shared_mem=RTC_BLOCK * 4)
+
+
+def _rtc_cases(gen):
+    """NVRTC's compile time; each rtc kernel over 2^26 floats against its
+    torch expression (plain) and one torch call (library), timed beside
+    its bytes bound."""
+    import torch
+    from mxnet_tpu_torch import rtc
+    t0 = time.perf_counter()
+    mod = rtc.CudaModule(RTC_SOURCE)
+    compile_s = time.perf_counter() - t0
+    kernels = {n: mod.get_kernel(n, sig) for n, sig in RTC_SIGS.items()}
+    x = torch.randn(RTC_N, generator=gen, device="cuda")
+    y = torch.randn(RTC_N, generator=gen, device="cuda")
+    out = torch.empty_like(x)
+    sums = torch.empty(RTC_ROWS, device="cuda")
+    x2 = x.view(RTC_ROWS, -1)
+    exprs = {  # (plain torch expression, one torch call, output, bytes)
+        "scale_add": (lambda: x * 2.0 + y, lambda: torch.add(y, x, alpha=2),
+                      out, 3 * 4 * RTC_N),
+        "negate": (lambda: -x, lambda: torch.neg(x), out, 2 * 4 * RTC_N),
+        "row_sum": (lambda: x2.sum(1), lambda: torch.sum(x2, 1), sums,
+                    4 * RTC_N + 4 * RTC_ROWS)}
+    cases = []
+    for name, (plain_fn, lib_fn, dst, nbytes) in exprs.items():
+        _rtc_launch(kernels, name, x, y, dst)
+        ref = plain_fn()
+        torch.cuda.synchronize()
+        e, tol = err_of(dst, ref)
+        ms = bench_ms(lambda: _rtc_launch(kernels, name, x, y, dst), [()], 20)
+        plain = bench_ms(plain_fn, [()], 20)
+        lib = bench_ms(lib_fn, [()], 20)
+        bnd, by = bound_ms(nbytes, 0)
+        cases.append({"kernel": "rtc", "case": name, "n": RTC_N,
+                      "compile_s": compile_s, "max_abs_err": e, "tol": tol,
+                      "ok": e <= tol, "kernel_ms": ms, "plain_ms": plain,
+                      "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+                      "bytes": nbytes})
+    return cases
+
+
 def phase_kernels():
     import torch
     gen = torch.Generator(device="cuda")
@@ -413,6 +667,8 @@ def phase_kernels():
         _flash_case("noncausal_s300", 1, 16, 16, 300, 64, False, gen),
         _flash_case("hd128_s1000", 1, 8, 8, 1000, 128, True, gen),
         _flash_case("hd256_s1000", 1, 8, 8, 1000, 256, True, gen),
+        _flash_case("hd384_s1000", 1, 8, 8, 1000, 384, True, gen),
+        _flash_case("hd512_s1000", 1, 8, 8, 1000, 512, True, gen),
     ]
     cases += [
         _flash_bwd_case("train_b8_s1024", TRAIN_BATCH, 16, 16, 1024, 64,
@@ -425,6 +681,8 @@ def phase_kernels():
         _flash_bwd_case("glse_s1024", 2, 16, 16, 1024, 64, True, gen,
                         glse=True),
         _flash_bwd_case("hd256_s1000", 1, 8, 8, 1000, 256, True, gen),
+        _flash_bwd_case("hd384_s1000", 1, 8, 8, 1000, 384, True, gen),
+        _flash_bwd_case("hd512_s1000", 1, 8, 8, 1000, 512, True, gen),
     ]
     lengths = (0, 1, 17, 100, 511, 700, 1000, 1024)
     cases += [
@@ -432,6 +690,11 @@ def phase_kernels():
         _decode_case("step_gqa", SLOTS, 16, 4, 1024, 64, lengths, gen),
         _decode_case("step_hd128", SLOTS, 8, 8, 1024, 128, lengths, gen),
         _decode_case("step_hd256", SLOTS, 8, 8, 1024, 256, lengths, gen),
+        _decode_case("step_hd384", SLOTS, 8, 8, 1024, 384, lengths, gen),
+        _decode_case("step_hd512", SLOTS, 8, 8, 1024, 512, lengths, gen),
+        _decode_case("step_hd512_gqa8", SLOTS, 8, 1, 1024, 512, lengths,
+                     gen),
+        _dense_case("hd96", gen),
     ]
     for dt in ("int8", "fp8"):
         cases += [
@@ -441,6 +704,17 @@ def phase_kernels():
         ]
     cases.append(_qmm_case("prefill_w1_int8", 1000, 1024, 4096, "int8",
                            gen))
+    # ResNet-50's 1x1 shapes (docs/megakernel_r04.md section 3), each as
+    # that doc's unit: relu(bn(x)) prologue plus statistics
+    for ci, co, hw in ((256, 64, 56), (64, 256, 56), (128, 512, 28),
+                       (1024, 256, 14), (512, 2048, 7)):
+        cases.append(_conv_case("r50_%dto%d_%d" % (ci, co, hw), CONV_BATCH,
+                                ci, co, hw * hw, "bf16", gen))
+    cases.append(_conv_case("r50_256to64_56_residual", CONV_BATCH, 256, 64,
+                            56 * 56, "bf16", gen, residual=True))
+    cases.append(_conv_case("r50_64to256_56_f32", CONV_BATCH, 64, 256,
+                            56 * 56, "f32", gen))
+    cases += _rtc_cases(gen)
     RECORD["kernel_cases"] = cases
     for c in cases:
         emit(dict(phase="kernel_case", **c))
@@ -452,21 +726,31 @@ def phase_kernels():
 
 
 def _wrappers():
-    from mxnet_tpu_torch.ops import attention as A, quantization as Q
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.ops import attention as A, conv_fused as C, \
+        quantization as Q
     return {"flash_attention_fwd": A.flash_attention_fwd,
             "flash_attention_bwd_dq": A.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": A.flash_attention_bwd_dkv,
             "decode_attention": A.decode_attention,
-            "quantized_matmul": Q.quantized_matmul}
+            "quantized_matmul": Q.quantized_matmul,
+            "conv1x1": C.conv1x1, "rtc": rtc.CudaKernel}
 
 
 def _reset_counts():
+    from mxnet_tpu_torch.ops import attention as A
     for fn in _wrappers().values():
         fn.launches = 0
+    A.dense_attention.calls = 0
 
 
 def _read_counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Kernel launches by wrapper, and the dense attention route's calls
+    (GPT-2 medium's head dim 64 has a kernel: they stay 0)."""
+    from mxnet_tpu_torch.ops import attention as A
+    counts = {name: fn.launches for name, fn in _wrappers().items()}
+    counts["dense_attention"] = A.dense_attention.calls
+    return counts
 
 
 def _lm_batch():
@@ -649,6 +933,7 @@ def phase_train():
            "all_finite": all(_m.isfinite(v) for v in losses),
            "loss_falls": losses[-1] < losses[0]}
     res["ok"] = bool(check["ok"] and res["all_finite"] and res["loss_falls"]
+                     and counts["dense_attention"] == 0
                      and all(counts[k] == want * TRAIN_STEPS for k in (
                          "flash_attention_fwd", "flash_attention_bwd_dq",
                          "flash_attention_bwd_dkv")))
@@ -781,7 +1066,14 @@ def _serve(tag, model, params, need):
     # step of the longest (bucket 1024, decode lengths past 900)
     checks = [(0, range(NEW_TOKENS)), (len(prompts) - 1, (0, NEW_TOKENS - 1))]
     worst, n_checked, finite = {}, 0, True
-    model.plain = True
+    # the plain versions for this recompute only: serving.decode's names
+    # of the three kernel wrappers patched to their reference twins
+    from mxnet_tpu_torch.ops import attention as A, quantization as Q
+    from mxnet_tpu_torch.serving import decode as SD
+    kernels = (SD.flash_attention, SD.decode_attention, SD.quantized_matmul)
+    SD.flash_attention = A.reference_attention
+    SD.decode_attention = A.reference_decode_attention
+    SD.quantized_matmul = Q.reference_quantized_matmul
     try:
         for i, steps_i in checks:
             sess = sessions[i]
@@ -795,8 +1087,10 @@ def _serve(tag, model, params, need):
                 worst[PROMPT_LENS[i]] = max(worst[PROMPT_LENS[i]], rel)
                 n_checked += 1
     finally:
-        model.plain = False
-    ok_counts = all(counts[k] > 0 for k in need)
+        (SD.flash_attention, SD.decode_attention,
+         SD.quantized_matmul) = kernels
+    ok_counts = all(counts[k] > 0 for k in need) \
+        and counts["dense_attention"] == 0
     res = {"setup_s": setup_s, "sessions": len(outs),
            "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
            "steps": steps, "step_ms_mean": wall / max(steps, 1) * 1e3,
@@ -894,10 +1188,121 @@ def _profile_step(model):
     return res
 
 
+def _stage2_chain(conv, x0, w1, w2, r, gamma, beta):
+    """ResNet-50 stage 2's bottleneck boundary through ops.conv_fused:
+    expand with statistics, fold BN, the next block's reduce with the
+    BN + residual + ReLU prologue and statistics, and its BN."""
+    from mxnet_tpu_torch.ops import conv_fused as C
+    count = x0.shape[0] * x0.shape[2]
+    y, (s1, s2) = conv(x0, w1)
+    mean, _, rstd = C.finalize_stats(s1, s2, count, 1e-5)
+    fold = C.bn_fold(gamma, beta, mean, rstd)
+    z, (t1, t2) = conv(y, w2, bn_in=fold, residual=r, relu_in=True)
+    return y, z, C.finalize_stats(t1, t2, count, 1e-5)
+
+
+def phase_conv():
+    """The conv path at ResNet-50's stage-2 widths, batch 128, bf16:
+    x0 (128, 64, 56*56) -> 256 channels -> 64, through conv1x1,
+    finalize_stats and bn_fold. Launch counts are read around the timed
+    applications; the check runs the same chain through
+    reference_conv1x1."""
+    import torch
+    from mxnet_tpu_torch.ops import conv_fused as C
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 2)
+    n, c, p = CONV_BATCH, 64, 56 * 56
+    bf = torch.bfloat16
+    x0 = torch.randn(n, c, p, generator=gen, device=DEV).to(bf)
+    w1 = (torch.randn(4 * c, c, generator=gen, device=DEV) / c ** 0.5).to(bf)
+    w2 = (torch.randn(c, 4 * c, generator=gen, device=DEV)
+          / (4 * c) ** 0.5).to(bf)
+    r = torch.randn(n, 4 * c, p, generator=gen, device=DEV).to(bf)
+    gamma = torch.rand(4 * c, generator=gen, device=DEV) + 0.5
+    beta = torch.randn(4 * c, generator=gen, device=DEV) * 0.1
+    args = (x0, w1, w2, r, gamma, beta)
+    _stage2_chain(C.conv1x1, *args)                  # warm-up
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    iters = 10
+    st = torch.cuda.Event(enable_timing=True)
+    en = torch.cuda.Event(enable_timing=True)
+    st.record()
+    for _ in range(iters):
+        y, z, (mean, var, rstd) = _stage2_chain(C.conv1x1, *args)
+    en.record()
+    en.synchronize()
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ms = st.elapsed_time(en) / iters
+    ry, rz, (rmean, rvar, _) = _stage2_chain(C.reference_conv1x1, *args)
+    torch.cuda.synchronize()
+    y_err = _bf16_ulp_err(y, ry, CONV_ATOL_REL)
+    z_err = _bf16_ulp_err(z, rz, CHAIN_ATOL_REL)
+    stats_err = _stats_err((mean, var), (rmean, rvar))
+    res = {"model": "ResNet-50 stage 2 bottleneck boundary (torchvision "
+           "resnet50: 64 -> 256 expand, 256 -> 64 reduce)",
+           "shape": [n, c, 4 * c, p], "dtype": "bf16",
+           "ms_per_application": ms, "applications": iters,
+           "launches": counts,
+           "launches_per_application": counts["conv1x1"] / iters,
+           "peak_mem_gb": peak / 1e9, "y_err_ulps": y_err,
+           "z_err_ulps": z_err, "bn_stats_rel_err": stats_err,
+           "all_finite": bool(torch.isfinite(z.float()).all()),
+           "bytes_per_application": 2 * (x0.numel() + 2 * y.numel()
+                                         + r.numel() + z.numel())}
+    res["ok"] = bool(counts["conv1x1"] == 2 * iters and y_err <= 1.0
+                     and z_err <= 1.0 and stats_err <= CONV_STATS_RTOL
+                     and res["all_finite"])
+    RECORD["conv"] = res
+    if not res["ok"]:
+        raise AssertionError("conv failed: %s" % json.dumps(res))
+    return res
+
+
+def phase_rtc():
+    """A user's runtime-compiled kernels: rtc.CudaModule compiles the
+    source through NVRTC, get_kernel parses each signature, launch runs
+    each over 2^26 floats (row_sum with a grid of rows, a block and
+    dynamic shared memory); launch counts read around the launches."""
+    import torch
+    from mxnet_tpu_torch import rtc
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 3)
+    _reset_counts()
+    t0 = time.perf_counter()
+    mod = rtc.CudaModule(RTC_SOURCE)
+    kernels = {n: mod.get_kernel(n, sig) for n, sig in RTC_SIGS.items()}
+    x = torch.randn(RTC_N, generator=gen, device=DEV)
+    y = torch.randn(RTC_N, generator=gen, device=DEV)
+    outs = {"scale_add": torch.empty_like(x), "negate": torch.empty_like(x),
+            "row_sum": torch.empty(RTC_ROWS, device=DEV)}
+    for name, dst in outs.items():
+        _rtc_launch(kernels, name, x, y, dst)
+    _sync()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    refs = {"scale_add": x * 2.0 + y, "negate": -x,
+            "row_sum": x.view(RTC_ROWS, -1).sum(1)}
+    errs = {n: err_of(outs[n], refs[n]) for n in outs}
+    res = {"kernels": list(outs), "n": RTC_N, "compile_and_run_s": wall,
+           "launches": counts,
+           "max_abs_err": {n: e for n, (e, _) in errs.items()},
+           "tol": {n: t for n, (_, t) in errs.items()}}
+    res["ok"] = bool(counts["rtc"] == len(outs)
+                     and all(e <= t for e, t in errs.values()))
+    RECORD["rtc"] = res
+    if not res["ok"]:
+        raise AssertionError("rtc failed: %s" % json.dumps(res))
+    return res
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("train", phase_train),
           ("train_profile", phase_train_profile),
-          ("engines", phase_engines), ("profile", phase_profile))
+          ("engines", phase_engines), ("profile", phase_profile),
+          ("conv", phase_conv), ("rtc", phase_rtc))
 
 # (name, source, TPU kernel, case kind, case, its time / bound keys, errors)
 KERNEL_ROWS = (
@@ -920,6 +1325,11 @@ KERNEL_ROWS = (
      "mxnet_tpu/ops/quantization.py:407", "quantized_matmul",
      "step_head_int8", "kernel_ms", "bound_ms", "bound_by",
      ("max_abs_err",)),
+    ("conv1x1", "mxnet_tpu_torch/csrc/conv1x1.cu",
+     "mxnet_tpu/ops/conv_fused.py:69", "conv1x1", "r50_64to256_56",
+     "kernel_ms", "bound_ms", "bound_by", ("max_abs_err",)),
+    ("rtc", "mxnet_tpu_torch/rtc.py", "mxnet_tpu/rtc.py:71", "rtc",
+     "scale_add", "kernel_ms", "bound_ms", "bound_by", ("max_abs_err",)),
 )
 
 
@@ -958,8 +1368,7 @@ def main():
                 break
     cases = RECORD.get("kernel_cases", [])
     paths = list(RECORD.get("engines", {}).values())
-    if "train" in RECORD:
-        paths.append(RECORD["train"])
+    paths += [RECORD[k] for k in ("train", "conv", "rtc") if k in RECORD]
     rows = []
     for (name, src, replaces, kind, case, ms_key, bound_key, by_key,
          err_keys) in KERNEL_ROWS:
@@ -980,6 +1389,9 @@ def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(RECORD, f, indent=1, default=str)
+    unlaunched = [r["name"] for r in rows if not r["launches"]]
+    if unlaunched and not failed:
+        failed.append("no launch on a path: %s" % unlaunched)
     if failed:
         print("chip_smoke: failed phases: %s" % failed, file=sys.stderr)
         return 1

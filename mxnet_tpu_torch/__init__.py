@@ -13,17 +13,20 @@ Covered so far: continuous-batching decode serving
 weight-only quantized-matmul kernels; imperative Gluon training
 (``gluon.nn.TransformerEncoder``, ``autograd.record()``,
 ``gluon.Trainer``) with the flash forward and the flash backward (dQ,
-dK/dV) kernels. Entry points run on the card unless the caller asks for
-the host (``device="cpu"``, ``ctx=cpu()``).
+dK/dV) kernels; the fused 1x1 convolution with a BN prologue and a
+BN-statistics epilogue (``ops.conv_fused.conv1x1``); runtime compilation
+of CUDA C++ through NVRTC (``rtc.CudaModule``). Entry points run on the
+card unless the caller asks for the host (``device="cpu"``, ``ctx=cpu()``;
+the ops follow their tensors' device).
 """
 from .base import MXNetError, NameManager
 from .context import Context, cpu, gpu, resolve_device
-from . import autograd, initializer, optimizer, random  # noqa: F401
+from . import autograd, initializer, optimizer, random, rtc  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import gluon  # noqa: F401
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = ["MXNetError", "NameManager", "Context", "cpu", "gpu",
            "resolve_device", "autograd", "gluon", "init", "initializer",
-           "optimizer", "random"]
+           "optimizer", "random", "rtc"]

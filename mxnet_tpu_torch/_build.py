@@ -36,7 +36,8 @@ _LOCK = threading.Lock()
 _LIBS = {}
 _BOUND = {}
 # what the last build did: seconds, per-source compiler output (ptxas -v
-# register/shared-memory report), and whether it reused cached libraries
+# register/shared-memory report, kept beside each library and read back
+# when it is reused), and which sources it built
 last_build = {}
 
 
@@ -86,7 +87,12 @@ def build():
         if p.returncode != 0:
             failed.append(stem)
         else:
+            lib.with_suffix(".log").write_text(logs[stem])
             os.replace(tmp, lib)
+    for stem, lib in out.items():     # a reused library's compiler report
+        log = lib.with_suffix(".log")
+        if stem not in logs and log.exists():
+            logs[stem] = log.read_text()
     last_build.clear()
     last_build.update(seconds=time.perf_counter() - t0, logs=logs,
                       built=sorted(procs), key=key)

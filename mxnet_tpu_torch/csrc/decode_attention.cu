@@ -29,6 +29,16 @@
 //    groups x D floats (8 KB at D = 256).
 // A later step splits long caches across blocks (flash-decoding) so that
 // fewer than ~132 (slot, kv head) pairs still fill the card.
+//
+// Head dims above 256 (D = 128 * NC: 384 and 512) take decode_wide_f32: one
+// warp per key, lane i owning columns c * 128 + 4 i .. +3 of every
+// 128-column chunk c, so the loop over D runs in chunks and a key's
+// shuffle stays inside its warp. The group's q rows stay in shared memory
+// (one conflict-free float4 load per chunk and key) rather than in
+// registers; only the G accumulators are (4 * G * NC floats: 128 at G = 8,
+// D = 512). The q rows and the per-head merge buffer (8 key groups x D
+// floats) live in dynamic shared memory sized at launch: (G + 8) * D * 4
+// bytes, 32 KB at G = 8, D = 512.
 
 #include <math.h>
 
@@ -187,6 +197,144 @@ cudaError_t launch_g(int G, const float* q, const float* k, const float* v,
   }
 }
 
+template <int NC, int G>
+__global__ void __launch_bounds__(kThreads)
+decode_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const int* __restrict__ lengths,
+                float* __restrict__ o, int H, int Hkv, int S, float scale) {
+  constexpr int D = 128 * NC;
+  constexpr int kGroups = kThreads / 32;     // keys in flight per pass
+  extern __shared__ __align__(16) float wide_smem[];
+  float* qs = wide_smem;                     // [G][D]
+  float* red_acc = wide_smem + G * D;        // [kGroups][D]
+  __shared__ float red_m[kGroups][G];
+  __shared__ float red_l[kGroups][G];
+
+  const int bhk = blockIdx.x;                // b * Hkv + hk
+  const int b = bhk / Hkv, hk = bhk % Hkv;
+  const int len = min(max(lengths[b], 0), S);
+  const int tid = threadIdx.x;
+  const int kg = tid / 32;                   // key group: one warp
+  const int lane = tid % 32;
+  const size_t q_base = ((size_t)b * H + (size_t)hk * G) * D;
+
+  for (int i = tid; i < G * D; i += kThreads) qs[i] = q[q_base + i];
+  __syncthreads();
+
+  float4 acc[G][NC];
+  float m[G], l[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[g][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+  }
+  const float* kb = k + (size_t)bhk * S * D + lane * 4;
+  const float* vb = v + (size_t)bhk * S * D + lane * 4;
+
+  for (int base = 0; base < len; base += kGroups) {
+    const int j = base + kg;
+    if (j >= len) break;                     // whole warp: same key
+    float4 kk[NC], vv[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      kk[c] = *reinterpret_cast<const float4*>(kb + (size_t)j * D + c * 128);
+      vv[c] = *reinterpret_cast<const float4*>(vb + (size_t)j * D + c * 128);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float4 qq =
+            *reinterpret_cast<const float4*>(qs + g * D + c * 128 + lane * 4);
+        s += qq.x * kk[c].x + qq.y * kk[c].y + qq.z * kk[c].z +
+             qq.w * kk[c].w;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      s *= scale;
+      const float m_new = fmaxf(m[g], s);
+      const float corr = (m[g] == -INFINITY) ? 0.f : expf(m[g] - m_new);
+      const float p = expf(s - m_new);
+      l[g] = l[g] * corr + p;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        acc[g][c].x = acc[g][c].x * corr + p * vv[c].x;
+        acc[g][c].y = acc[g][c].y * corr + p * vv[c].y;
+        acc[g][c].z = acc[g][c].z * corr + p * vv[c].z;
+        acc[g][c].w = acc[g][c].w * corr + p * vv[c].w;
+      }
+      m[g] = m_new;
+    }
+  }
+
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      red_m[kg][g] = m[g];
+      red_l[kg][g] = l[g];
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      *reinterpret_cast<float4*>(red_acc + kg * D + c * 128 + lane * 4) =
+          acc[g][c];
+    __syncthreads();
+    for (int d = tid; d < D; d += kThreads) {
+      float mx = -INFINITY;
+      for (int r = 0; r < kGroups; ++r) mx = fmaxf(mx, red_m[r][g]);
+      float lsum = 0.f, out = 0.f;
+      if (mx != -INFINITY) {
+        for (int r = 0; r < kGroups; ++r) {
+          const float mr = red_m[r][g];
+          const float w = (mr == -INFINITY) ? 0.f : expf(mr - mx);
+          lsum += red_l[r][g] * w;
+          out += red_acc[r * D + d] * w;
+        }
+      }
+      o[q_base + (size_t)g * D + d] = out / (lsum == 0.f ? 1.f : lsum);
+    }
+    __syncthreads();                         // red_acc reused for g + 1
+  }
+}
+
+template <int NC, int G>
+cudaError_t launch_wide(const float* q, const float* k, const float* v,
+                        const int* lengths, float* o, int B, int H, int Hkv,
+                        int S, float scale, cudaStream_t stream) {
+  const int smem = (G + kThreads / 32) * 128 * NC * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      decode_wide_f32<NC, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return e;
+  decode_wide_f32<NC, G><<<B * Hkv, kThreads, smem, stream>>>(
+      q, k, v, lengths, o, H, Hkv, S, scale);
+  return cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t launch_wide_g(int G, const float* q, const float* k,
+                          const float* v, const int* lengths, float* o, int B,
+                          int H, int Hkv, int S, float scale,
+                          cudaStream_t stream) {
+  switch (G) {
+    case 1: return launch_wide<NC, 1>(q, k, v, lengths, o, B, H, Hkv, S,
+                                      scale, stream);
+    case 2: return launch_wide<NC, 2>(q, k, v, lengths, o, B, H, Hkv, S,
+                                      scale, stream);
+    case 4: return launch_wide<NC, 4>(q, k, v, lengths, o, B, H, Hkv, S,
+                                      scale, stream);
+    case 8: return launch_wide<NC, 8>(q, k, v, lengths, o, B, H, Hkv, S,
+                                      scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q (B,H,D), k/v (B,Hkv,S,D), lengths (B,) int32, o (B,H,D): contiguous.
@@ -217,6 +365,11 @@ extern "C" int mxt_decode_attention_f32(const void* q, const void* k,
                                    scale, st);
     case 256: return launch_g<256>(G, qf, kf, vf, lf, of, B, H, Hkv, S,
                                    scale, st);
+#define MXT_WIDE(NC)                                                       \
+    case 128 * NC: return launch_wide_g<NC>(G, qf, kf, vf, lf, of, B, H,  \
+                                            Hkv, S, scale, st);
+    MXT_WIDE(3) MXT_WIDE(4)
+#undef MXT_WIDE
     default: return cudaErrorInvalidValue;
   }
 }

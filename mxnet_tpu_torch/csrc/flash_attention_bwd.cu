@@ -44,6 +44,26 @@
 //    read into a sum.
 // Tensor cores (wgmma on bf16, TMA) and one fused FA-2-style kernel are a
 // later step.
+//
+// Head dims above 256 (D = 128 * NC: 384 and 512) take the "wide" kernels
+// below. D/16 partners per row would fill a warp at 512 (and be no power of
+// two at 384), so the split is fixed and the loop runs over D in 128-column
+// chunks instead:
+//  * dQ: 16 threads per q row, 16 rows per block; a thread owns 8 columns
+//    of every chunk and keeps only its dQ accumulator in registers
+//    (8 * NC floats); the block's q and dO rows are staged once in dynamic
+//    shared memory, and K/V tiles of 8 keys stream beside them, all 8
+//    keys' dot products formed before their shuffles (192 * D bytes:
+//    96 KB at D = 512, two blocks an SM). Reading q and dO from device
+//    memory instead, as the forward reads q, made ptxas keep 32 registers
+//    and spill 16-22 KB at D = 384/512 (H100 build);
+//  * dK/dV: 16 threads per key, 16 keys per block; a thread owns 8 columns
+//    of every chunk and keeps dK and dV in registers (16 * NC floats), its
+//    k and v columns re-read per 8 q rows (L1-resident); Q/dO tiles of 16
+//    rows sit in dynamic shared memory (128 * D bytes);
+//  * both butterflies stay inside one warp (8 and 16 aligned lanes).
+// 512 is the ceiling: at D = 768 the dK/dV accumulators spilled at 255
+// registers (ptxas -v on the H100 build).
 
 #include <math.h>
 
@@ -361,6 +381,318 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// wide head dims: D = 128 * NC
+// ---------------------------------------------------------------------------
+constexpr int kWideTile = 16;                // keys (dQ) or q rows (dK/dV)
+constexpr int kWideThreads = 256;
+
+constexpr int kDqRows = 16;                  // dQ: q rows per block
+constexpr int kDqTile = 8;                   // dQ: keys per K/V tile
+
+template <int NC>
+__global__ void __launch_bounds__(kWideThreads)
+flash_bwd_dq_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ o,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ glse, float* __restrict__ dq,
+                      int H, int Hkv, int S, float scale, int causal) {
+  constexpr int D = 128 * NC;
+  constexpr int kSplit = kWideThreads / kDqRows;   // 16 threads per row
+  extern __shared__ __align__(16) float wide_smem[];
+  float* ks = wide_smem;                     // [kDqTile][D]
+  float* vs = ks + kDqTile * D;
+  float* qs = vs + kDqTile * D;              // [kDqRows][D]: the block's rows
+  float* gs = qs + kDqRows * D;              // [kDqRows][D]: their dO
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int hk = (bh % H) / (H / Hkv);
+  const int q0 = blockIdx.x * kDqRows;
+  const int r_loc = threadIdx.x / kSplit;
+  const int row = q0 + r_loc;
+  const int part = threadIdx.x % kSplit;
+  const bool live = row < S;
+  const size_t kv_base = (size_t)(b * Hkv + hk) * S * D;
+  const size_t q_base = (size_t)bh * S * D;
+  const unsigned mask = partner_mask<kSplit>();
+
+  for (int i = threadIdx.x; i < kDqRows * D / 4; i += kWideThreads) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), g = x;
+    if (q0 + r < S) {
+      const size_t off = q_base + (size_t)(q0 + r) * D + c;
+      x = *reinterpret_cast<const float4*>(q + off);
+      g = *reinterpret_cast<const float4*>(dout + off);
+    }
+    *reinterpret_cast<float4*>(qs + r * D + c) = x;
+    *reinterpret_cast<float4*>(gs + r * D + c) = g;
+  }
+  __syncthreads();
+  // this thread's column j of chunk c: c * 128 + j * 64 + part * 4 (+0..3)
+  const float* qr = qs + r_loc * D + part * 4;
+  const float* gr = gs + r_loc * D + part * 4;
+
+  float acc[8 * NC];
+  float dd = 0.f;
+  const float* orow = o + q_base + (size_t)(live ? row : 0) * D + part * 4;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int d = c * 128 + j * 64;
+      if (live)
+        dd = dot4(*reinterpret_cast<const float4*>(gr + d),
+                  *reinterpret_cast<const float4*>(orow + d), dd);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[8 * c + 4 * j + e] = 0.f;
+    }
+  }
+  float delta = row_sum<kSplit>(dd, mask);
+  float lse_r = INFINITY;
+  if (live) {
+    lse_r = lse[(size_t)bh * S + row];
+    if (glse != nullptr) delta -= glse[(size_t)bh * S + row];
+  }
+  const bool empty = !isfinite(lse_r);
+
+  int n_tiles = (S + kDqTile - 1) / kDqTile;
+  if (causal) {
+    const int last = min(q0 + kDqRows, S);
+    n_tiles = min(n_tiles, (last + kDqTile - 1) / kDqTile);
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kDqTile;
+    __syncthreads();
+    for (int i = threadIdx.x; i < kDqTile * D / 4; i += kWideThreads) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
+      if (k0 + r < S) {
+        const size_t off = kv_base + (size_t)(k0 + r) * D + c;
+        kv4 = *reinterpret_cast<const float4*>(k + off);
+        vv4 = *reinterpret_cast<const float4*>(v + off);
+      }
+      *reinterpret_cast<float4*>(ks + r * D + c) = kv4;
+      *reinterpret_cast<float4*>(vs + r * D + c) = vv4;
+    }
+    __syncthreads();
+    if (!live || empty) continue;
+    int kend = min(kDqTile, S - k0);
+    if (causal) kend = min(kend, row - k0 + 1);
+    if (kend <= 0) continue;                 // partners agree: same row
+    // the tile's keys at once: partial dot products over the chunks, then
+    // one butterfly per key
+    float s[kDqTile], dp[kDqTile];
+#pragma unroll
+    for (int jk = 0; jk < kDqTile; ++jk) s[jk] = dp[jk] = 0.f;
+    // one chunk at a time: unrolled over the chunks, the compiler issued
+    // every shared load of the tile at once and spilled at D = 512
+#pragma unroll 1
+    for (int c = 0; c < NC; ++c) {
+      float4 qv[2], gv[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        qv[j] = *reinterpret_cast<const float4*>(qr + c * 128 + j * 64);
+        gv[j] = *reinterpret_cast<const float4*>(gr + c * 128 + j * 64);
+      }
+#pragma unroll
+      for (int jk = 0; jk < kDqTile; ++jk) {
+        const float* kr = ks + jk * D + c * 128 + part * 4;
+        const float* vr = vs + jk * D + c * 128 + part * 4;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          s[jk] = dot4(qv[j], *reinterpret_cast<const float4*>(kr + j * 64),
+                       s[jk]);
+          dp[jk] = dot4(gv[j], *reinterpret_cast<const float4*>(vr + j * 64),
+                        dp[jk]);
+        }
+      }
+    }
+#pragma unroll
+    for (int jk = 0; jk < kDqTile; ++jk) {
+      s[jk] = row_sum<kSplit>(s[jk], mask);
+      dp[jk] = row_sum<kSplit>(dp[jk], mask);
+    }
+#pragma unroll
+    for (int jk = 0; jk < kDqTile; ++jk) {
+      const float p = (jk < kend) ? expf(s[jk] * scale - lse_r) : 0.f;
+      const float ds = p * (dp[jk] - delta) * scale;
+      const float* kr = ks + jk * D + part * 4;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          axpy4(ds, *reinterpret_cast<const float4*>(kr + c * 128 + j * 64),
+                &acc[8 * c + 4 * j]);
+      }
+    }
+  }
+  if (!live) return;
+  float* out = dq + ((size_t)bh * S + row) * D + part * 4;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float* a = &acc[8 * c + 4 * j];
+      *reinterpret_cast<float4*>(out + c * 128 + j * 64) =
+          make_float4(a[0], a[1], a[2], a[3]);
+    }
+  }
+}
+
+template <int NC>
+__global__ void __launch_bounds__(kWideThreads)
+flash_bwd_dkv_wide_f32(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ o,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ glse, float* __restrict__ dk,
+                       float* __restrict__ dv, int H, int Hkv, int S,
+                       float scale, int causal) {
+  constexpr int D = 128 * NC;
+  constexpr int kSplit = 16;
+  constexpr int kRows = kWideThreads / kSplit;   // keys per block
+  constexpr int kDT = kWideThreads / kWideTile;  // threads per row for delta
+  extern __shared__ __align__(16) float wide_smem[];
+  float* qs = wide_smem;                     // [kWideTile][D]
+  float* dos = wide_smem + kWideTile * D;
+  __shared__ float lse_s[kWideTile];
+  __shared__ float delta_s[kWideTile];
+
+  const int bh = blockIdx.y;                 // b * H + h (q head)
+  const int b = bh / H;
+  const int hk = (bh % H) / (H / Hkv);
+  const int k0 = blockIdx.x * kRows;
+  const int key = k0 + threadIdx.x / kSplit;
+  const int part = threadIdx.x % kSplit;
+  const bool live = key < S;
+  const size_t q_base = (size_t)bh * S * D;
+  const unsigned mask = partner_mask<kSplit>();
+  // this thread's column j of chunk c: c * 128 + j * 64 + part * 4 (+0..3)
+  const size_t koff = ((size_t)(b * Hkv + hk) * S + (live ? key : 0)) * D
+                      + part * 4;
+  const float* kp = k + koff;
+  const float* vp = v + koff;
+
+  float dka[8 * NC], dva[8 * NC];
+#pragma unroll
+  for (int i = 0; i < 8 * NC; ++i) dka[i] = dva[i] = 0.f;
+
+  const int n_tiles = (S + kWideTile - 1) / kWideTile;
+  const int t_first = causal ? k0 / kWideTile : 0;
+  for (int t = t_first; t < n_tiles; ++t) {
+    const int r0 = t * kWideTile;
+    __syncthreads();
+    for (int i = threadIdx.x; i < kWideTile * D / 4; i += kWideThreads) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f), g = x;
+      if (r0 + r < S) {
+        const size_t off = q_base + (size_t)(r0 + r) * D + c;
+        x = *reinterpret_cast<const float4*>(q + off);
+        g = *reinterpret_cast<const float4*>(dout + off);
+      }
+      *reinterpret_cast<float4*>(qs + r * D + c) = x;
+      *reinterpret_cast<float4*>(dos + r * D + c) = g;
+    }
+    __syncthreads();
+    {
+      const int r = threadIdx.x / kDT, p = threadIdx.x % kDT;
+      const bool in = r0 + r < S;
+      float acc = 0.f;
+      if (in) {
+        const float* orow = o + q_base + (size_t)(r0 + r) * D;
+        for (int c = p * 4; c < D; c += kDT * 4)
+          acc = dot4(*reinterpret_cast<const float4*>(dos + r * D + c),
+                     *reinterpret_cast<const float4*>(orow + c), acc);
+      }
+      acc = row_sum<kDT>(acc, partner_mask<kDT>());
+      if (p == 0) {
+        float l = INFINITY, g = 0.f;
+        if (in) {
+          l = lse[(size_t)bh * S + r0 + r];
+          if (glse != nullptr) g = glse[(size_t)bh * S + r0 + r];
+        }
+        lse_s[r] = isfinite(l) ? l : INFINITY;
+        delta_s[r] = acc - g;
+      }
+    }
+    __syncthreads();
+    if (!live) continue;
+    const int ibeg = causal ? max(0, key - r0) : 0;
+    const int iend = min(kWideTile, S - r0);
+    for (int c0 = ibeg; c0 < iend; c0 += kChunk) {
+      float s[kChunk], dp[kChunk];
+#pragma unroll
+      for (int jr = 0; jr < kChunk; ++jr) s[jr] = dp[jr] = 0.f;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        float4 kv[2], vv[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          kv[j] = __ldg(reinterpret_cast<const float4*>(kp + c * 128 + j * 64));
+          vv[j] = __ldg(reinterpret_cast<const float4*>(vp + c * 128 + j * 64));
+        }
+#pragma unroll
+        for (int jr = 0; jr < kChunk; ++jr) {
+          const int i = min(c0 + jr, kWideTile - 1);
+          const float* qr = qs + i * D + c * 128 + part * 4;
+          const float* gr = dos + i * D + c * 128 + part * 4;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            s[jr] = dot4(kv[j], *reinterpret_cast<const float4*>(qr + j * 64),
+                         s[jr]);
+            dp[jr] = dot4(vv[j], *reinterpret_cast<const float4*>(gr + j * 64),
+                          dp[jr]);
+          }
+        }
+      }
+#pragma unroll
+      for (int jr = 0; jr < kChunk; ++jr) {
+        s[jr] = row_sum<kSplit>(s[jr], mask);
+        dp[jr] = row_sum<kSplit>(dp[jr], mask);
+      }
+#pragma unroll
+      for (int jr = 0; jr < kChunk; ++jr) {
+        const int i = c0 + jr;
+        if (i < iend) {
+          const float p = expf(s[jr] * scale - lse_s[i]);
+          const float ds = p * (dp[jr] - delta_s[i]) * scale;
+          const float* qr = qs + i * D + part * 4;
+          const float* gr = dos + i * D + part * 4;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              axpy4(p, *reinterpret_cast<const float4*>(gr + c * 128 + j * 64),
+                    &dva[8 * c + 4 * j]);
+              axpy4(ds, *reinterpret_cast<const float4*>(qr + c * 128 + j * 64),
+                    &dka[8 * c + 4 * j]);
+            }
+          }
+        }
+      }
+    }
+  }
+  if (!live) return;
+  const size_t out = ((size_t)bh * S + key) * D + part * 4;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int d = c * 128 + j * 64;
+      const float* a = &dka[8 * c + 4 * j];
+      const float* g = &dva[8 * c + 4 * j];
+      *reinterpret_cast<float4*>(dk + out + d) =
+          make_float4(a[0], a[1], a[2], a[3]);
+      *reinterpret_cast<float4*>(dv + out + d) =
+          make_float4(g[0], g[1], g[2], g[3]);
+    }
+  }
+}
+
 struct Args {
   const float *q, *k, *v, *o, *dout, *lse, *glse;
   float *a, *b;                              // dq | dk, dv
@@ -390,6 +722,34 @@ cudaError_t launch_dkv(const Args& x) {
   return cudaGetLastError();
 }
 
+template <int NC>
+cudaError_t launch_wide(bool dkv, const Args& x) {
+  // dK/dV: Q/dO tiles of 16 rows; dQ: K/V tiles of 8 keys and its 16
+  // rows' q and dO
+  const int smem = (dkv ? 2 * kWideTile : 2 * kDqTile + 2 * kDqRows) * 128
+                   * NC * (int)sizeof(float);
+  if (dkv) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkv_wide_f32<NC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    dim3 grid((x.S + 15) / 16, x.B * x.H);
+    flash_bwd_dkv_wide_f32<NC><<<grid, kWideThreads, smem, x.stream>>>(
+        x.q, x.k, x.v, x.o, x.dout, x.lse, x.glse, x.a, x.b, x.H, x.Hkv, x.S,
+        x.scale, x.causal);
+  } else {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dq_wide_f32<NC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    dim3 grid((x.S + kDqRows - 1) / kDqRows, x.B * x.H);
+    flash_bwd_dq_wide_f32<NC><<<grid, kWideThreads, smem, x.stream>>>(
+        x.q, x.k, x.v, x.o, x.dout, x.lse, x.glse, x.a, x.H, x.Hkv, x.S,
+        x.scale, x.causal);
+  }
+  return cudaGetLastError();
+}
+
 cudaError_t run(bool dkv, int D, const Args& x) {
   switch (D) {
     case 16: return dkv ? launch_dkv<16>(x) : launch_dq<16>(x);
@@ -397,6 +757,8 @@ cudaError_t run(bool dkv, int D, const Args& x) {
     case 64: return dkv ? launch_dkv<64>(x) : launch_dq<64>(x);
     case 128: return dkv ? launch_dkv<128>(x) : launch_dq<128>(x);
     case 256: return dkv ? launch_dkv<256>(x) : launch_dq<256>(x);
+    case 384: return launch_wide<3>(dkv, x);
+    case 512: return launch_wide<4>(dkv, x);
     default: return cudaErrorInvalidValue;
   }
 }

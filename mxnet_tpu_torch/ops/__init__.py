@@ -1,4 +1,5 @@
-"""Operators of the port: attention and weight-only quantized matmul,
-each a hand-written CUDA kernel beside its plain PyTorch version, and the
-neural-network ops of the training path (``nn``)."""
-from . import attention, nn, quantization  # noqa: F401
+"""Operators of the port: attention, weight-only quantized matmul and the
+fused 1x1 convolution, each a hand-written CUDA kernel beside its plain
+PyTorch version, and the neural-network ops of the training path
+(``nn``)."""
+from . import attention, conv_fused, nn, quantization  # noqa: F401

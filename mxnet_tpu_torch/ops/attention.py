@@ -23,6 +23,15 @@ raises. There is no fallback between the two. The kernels take float32
 only (the decode path keeps f32 params and caches). Each wrapper carries
 an integer ``launches`` counter that is raised exactly where its kernel
 launches.
+
+Head dims: the kernels take 16, 32, 64 and the multiples of 128 up to
+:data:`MAX_HEAD_DIM` (:func:`kernel_head_dim`, the head-dim rule of the
+JAX package's ``_pallas_eligible`` / ``_decode_eligible``, which take 64
+and the multiples of 128). Any other head dim (80, 96, ...) is routed by
+:func:`flash_attention`, :func:`flash_attention_with_lse` and
+:func:`decode_attention` to :func:`dense_attention`, as the JAX package
+sends such shapes to its XLA path. The choice rests on the shape alone
+and is made before any launch.
 """
 from __future__ import annotations
 
@@ -38,10 +47,38 @@ __all__ = ["reference_attention", "reference_attention_with_lse",
            "flash_attention", "flash_attention_with_lse",
            "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "decode_attention"]
+           "decode_attention", "dense_attention", "kernel_head_dim",
+           "MAX_HEAD_DIM"]
 
-_HEAD_DIMS = (16, 32, 64, 128, 256)
+# Head dims up to 256 have a kernel instance each; above, the "wide"
+# kernels loop over D in 128-column chunks and keep their accumulators in
+# registers, which sets the ceiling (dK/dV spilled at D = 768).
+MAX_HEAD_DIM = 512
 _DECODE_GROUPS = (1, 2, 4, 8)
+
+
+def kernel_head_dim(d):
+    """True when some kernel of this module takes head dim ``d``: 16, 32,
+    64 or a multiple of 128 (the JAX package's rule, plus 16 and 32).
+    Multiples of 128 above :data:`MAX_HEAD_DIM` pass this test and are
+    refused by the kernel wrappers, naming the limit."""
+    return d in (16, 32, 64) or (d > 0 and d % 128 == 0)
+
+
+def dense_attention(q, k, v, causal=False, scale=None, lengths=None):
+    """The dense route for head dims no kernel takes: plain PyTorch ops,
+    differentiated by autograd, the counterpart of the JAX package's XLA
+    path (``reference_attention`` from ``flash_attention``,
+    ``reference_decode_attention`` from ``decode_attention``). Returns
+    (out, lse) or, given ``lengths``, a decode step's (B, H, D). Counts
+    its calls in ``dense_attention.calls``."""
+    dense_attention.calls += 1
+    if lengths is not None:
+        return reference_decode_attention(q, k, v, lengths, scale)
+    return reference_attention_with_lse(q, k, v, causal, scale)
+
+
+dense_attention.calls = 0
 
 
 def _repeat_kv(k, v, h):
@@ -155,6 +192,16 @@ def _require(cond, what):
         raise MXNetError(what)
 
 
+def _check_head_dim(name, d):
+    _require(kernel_head_dim(d),
+             f"{name}: head dim {d} has no kernel (16, 32, 64 or a multiple "
+             "of 128); flash_attention and decode_attention route it to "
+             "dense_attention")
+    _require(d <= MAX_HEAD_DIM,
+             f"{name}: head dim {d} is above {MAX_HEAD_DIM}, the kernels' "
+             "limit (the flash backward's registers)")
+
+
 def _check_cuda_f32(name, *ts):
     for t in ts:
         _require(t.is_cuda, f"{name}: tensors must all be on the card")
@@ -170,7 +217,8 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
 
     Replaces the TPU kernel mxnet_tpu/ops/attention.py:_flash_kernel
     (launched by _flash_pallas). On the card, ``csrc/flash_attention.cu``
-    (float32, head dim 16/32/64/128/256, self-attention: S_q == S_k). On
+    (float32, head dim 16/32/64 or a multiple of 128 up to
+    :data:`MAX_HEAD_DIM`, self-attention: S_q == S_k). On
     the CPU, :func:`reference_attention_with_lse`. The kernel writes ``+inf`` as
     the lse of a row with no valid key (the TPU kernel's sentinel); the
     dense oracle writes ``-inf``. Self-attention never has such a row."""
@@ -185,8 +233,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
              f"{tuple(k.shape)}")
     _require(h_kv > 0 and h % h_kv == 0,
              "flash_attention_fwd: H must be a multiple of H_kv")
-    _require(d in _HEAD_DIMS,
-             f"flash_attention_fwd: head dim {d} not in {_HEAD_DIMS}")
+    _check_head_dim("flash_attention_fwd", d)
     _require(0 < b * h <= 65535, "flash_attention_fwd: B*H out of range")
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
@@ -208,6 +255,7 @@ flash_attention_fwd.launches = 0
 
 def _check_bwd(name, q, k, v, o, lse, do, glse):
     b, h, s, d = q.shape
+    _check_head_dim(name, d)
     _check_cuda_f32(name, q, k, v, o, lse, do,
                     *([] if glse is None else [glse]))
     h_kv = k.shape[1]
@@ -220,7 +268,6 @@ def _check_bwd(name, q, k, v, o, lse, do, glse):
              f"{name}: lse/glse must be (B, H, S)")
     _require(h_kv > 0 and h % h_kv == 0,
              f"{name}: H must be a multiple of H_kv")
-    _require(d in _HEAD_DIMS, f"{name}: head dim {d} not in {_HEAD_DIMS}")
     _require(0 < b * h <= 65535, f"{name}: B*H out of range")
     return b, h, h_kv, s, d
 
@@ -238,7 +285,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, glse=None, causal=False,
 
     Replaces the TPU kernel mxnet_tpu/ops/attention.py:
     _flash_bwd_dq_kernel (launched by _flash_pallas_bwd). Kernel:
-    ``csrc/flash_attention_bwd.cu`` (float32, head dim 16/32/64/128/256);
+    ``csrc/flash_attention_bwd.cu`` (float32, the forward's head dims);
     ``glse`` (B, H, S) or None is the lse output's cotangent."""
     b, h, h_kv, s, d = _check_bwd("flash_attention_bwd_dq", q, k, v, o, lse,
                                   do, glse)
@@ -329,14 +376,17 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention_with_lse(q, k, v, causal=False, scale=None):
     """(out, lse (B,H,S) f32), both differentiable (the lse cotangent
-    folds into the backward's row term, as in the JAX package)."""
+    folds into the backward's row term, as in the JAX package). A head
+    dim no kernel takes goes to :func:`dense_attention`."""
+    if not kernel_head_dim(q.shape[-1]):
+        return dense_attention(q, k, v, causal, scale)
     return _FlashAttention.apply(q, k, v, bool(causal), scale)
 
 
 def flash_attention(q, k, v, causal=False, scale=None):
     """Blockwise attention output, trainable: the prefill's call and the
     ``_contrib_flash_attention`` role in ``MultiHeadAttention``."""
-    return _FlashAttention.apply(q, k, v, bool(causal), scale)[0]
+    return flash_attention_with_lse(q, k, v, causal, scale)[0]
 
 
 def decode_attention(q, k, v, lengths, scale=None):
@@ -345,8 +395,11 @@ def decode_attention(q, k, v, lengths, scale=None):
     q (B, H, D); k/v (B, H_kv, S, D); lengths (B,) int32 valid-prefix
     lengths. Replaces the TPU kernel mxnet_tpu/ops/attention.py:
     _decode_kernel (launched by _decode_pallas). On the card,
-    ``csrc/decode_attention.cu`` (float32, head dim 16/32/64/128/256, GQA
-    group 1/2/4/8); on the CPU, :func:`reference_decode_attention`."""
+    ``csrc/decode_attention.cu`` (float32, the forward's head dims, GQA
+    group 1/2/4/8); on the CPU, :func:`reference_decode_attention`. A
+    head dim no kernel takes goes to :func:`dense_attention`."""
+    if not kernel_head_dim(q.shape[-1]):
+        return dense_attention(q, k, v, scale=scale, lengths=lengths)
     if q.device.type == "cpu":
         return reference_decode_attention(q, k, v, lengths, scale)
     b, h, d = q.shape
@@ -357,8 +410,7 @@ def decode_attention(q, k, v, lengths, scale=None):
              f"{tuple(q.shape)}")
     _require(h_kv > 0 and h % h_kv == 0,
              "decode_attention: H must be a multiple of H_kv")
-    _require(d in _HEAD_DIMS,
-             f"decode_attention: head dim {d} not in {_HEAD_DIMS}")
+    _check_head_dim("decode_attention", d)
     _require(h // h_kv in _DECODE_GROUPS,
              f"decode_attention: GQA group {h // h_kv} not in "
              f"{_DECODE_GROUPS}")

@@ -47,11 +47,8 @@ from .. import config as _config
 from ..base import MXNetError
 from ..context import resolve_device
 from ..convert import load_decode_artifact, to_torch_params
-from ..ops.attention import (decode_attention, flash_attention,
-                             reference_attention,
-                             reference_decode_attention)
-from ..ops.quantization import (quantized_matmul,
-                                reference_quantized_matmul)
+from ..ops.attention import decode_attention, flash_attention
+from ..ops.quantization import quantized_matmul
 from ..telemetry import devstats
 from .batcher import Future
 
@@ -87,15 +84,9 @@ class DecodeModel(nn.Module):
     "l0.wq", ..., "head"), plus a ``{name}__scale`` companion for each
     weight-only quantized matrix; :meth:`load_params` installs them.
     Every linear goes through :meth:`_mm`, which takes the fused
-    quantized matmul when the companion exists.
-
-    ``plain``: False (the default) runs the kernels on the card and the
-    plain versions on the CPU. Setting it True runs the plain PyTorch
-    versions on any device: that is the reference a kernel run is held
-    against, never a serving mode.
+    quantized matmul when the companion exists. The kernels run on the
+    card and their plain versions on the CPU.
     """
-
-    plain = False
 
     def __init__(self, vocab, layers=2, d_model=64, heads=4, kv_heads=None,
                  d_ff=None, max_len=None):
@@ -201,8 +192,6 @@ class DecodeModel(nn.Module):
         w = p[name]
         s = p.get(name + "__scale")
         if s is not None:
-            if self.plain:
-                return reference_quantized_matmul(x, w, s)
             return quantized_matmul(x, w, s)
         return torch.matmul(x, w)
 
@@ -230,15 +219,13 @@ class DecodeModel(nn.Module):
         s_b = tokens.shape[1]
         h, hkv, hd = self.heads, self.kv_heads, self.head_dim
         x = p["embed"][tokens.long()] + p["pos"][None, :s_b]
-        attend = reference_attention if self.plain \
-            else flash_attention
         for i in range(self.layers):
             pfx = f"l{i}."
             hn = self._norm(x, p[pfx + "ln1"])
             q, k, v = (self._mm(p, pfx + w, hn).reshape(1, s_b, n, hd)
                        .transpose(1, 2).contiguous()
                        for w, n in (("wq", h), ("wk", hkv), ("wv", hkv)))
-            a = attend(q, k, v, causal=True)
+            a = flash_attention(q, k, v, causal=True)
             x = x + self._mm(p, pfx + "wo",
                              a.transpose(1, 2).reshape(1, s_b, h * hd))
             x = self._mlp(p, pfx, x)
@@ -270,8 +257,6 @@ class DecodeModel(nn.Module):
         x = p["embed"][tokens.long()] + p["pos"][pos.long()]
         rows = torch.arange(n, device=tokens.device)
         cols = pos.long()
-        decode = reference_decode_attention if self.plain \
-            else decode_attention
         for i in range(self.layers):
             pfx = f"l{i}."
             hn = self._norm(x, p[pfx + "ln1"])
@@ -280,7 +265,7 @@ class DecodeModel(nn.Module):
             v = self._mm(p, pfx + "wv", hn).reshape(n, hkv, hd)
             kc[i][rows, :, cols] = k
             vc[i][rows, :, cols] = v
-            a = decode(q, kc[i], vc[i], att_len)
+            a = decode_attention(q, kc[i], vc[i], att_len)
             x = x + self._mm(p, pfx + "wo", a.reshape(n, h * hd))
             x = self._mlp(p, pfx, x)
         logits = self._mm(p, "head", self._norm(x, p["lnf"]))

@@ -56,6 +56,7 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.gluon.loss, mxnet_tpu_torch.autograd, "
             "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.initializer, "
             "mxnet_tpu_torch.random, mxnet_tpu_torch.ops.nn, "
+            "mxnet_tpu_torch.ops.conv_fused, mxnet_tpu_torch.rtc, "
             "mxnet_tpu_torch.ndarray.container\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'mxnet_tpu')]\n"
@@ -82,6 +83,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         resolve_device(None)
     # the model's parameters stayed on the host, untouched
     assert all(p.device.type == "cpu" for p in model.parameters())
+
+
+def test_conv_fused_and_rtc_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from mxnet_tpu_torch import MXNetError, rtc
+    from mxnet_tpu_torch.ops import conv_fused
+    # rtc compiles for the default device: without a card it raises
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        rtc.CudaModule('extern "C" __global__ void k() {}')
+    # conv1x1 follows its tensors: the host only for host tensors, and
+    # nothing is moved off the device it was given
+    x = torch.ones(1, 8, 16)
+    before = conv_fused.conv1x1.launches
+    y, (s1, _) = conv_fused.conv1x1(x, torch.ones(4, 8))
+    assert y.device.type == "cpu" and s1.device.type == "cpu"
+    assert conv_fused.conv1x1.launches == before
 
 
 def test_gluon_initialize_and_trainer_default_to_cuda():
