@@ -18,8 +18,11 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            if ptxas reports a spill in any instance
   kernels  each kernel against its plain PyTorch version at the main
            paths' shapes (max error vs a stated tolerance), and timed
-           beside its plain version and one library call; head dims 384
-           and 512 through the wide kernels, 96 through the dense route;
+           (device time) beside its plain version and one library call;
+           head dims 384 and 512 through the wide kernels, 96 and 640
+           through the dense route; decode at GQA groups 7 and 16; the
+           quantized matmul's decode and prefill kernels with float32 and
+           bfloat16 x;
            conv1x1 at ResNet-50's five 1x1 shapes; the rtc kernels over
            2^26 floats with NVRTC's compile time
   train    TransformerEncoder + Dense head trained through the port's
@@ -68,6 +71,12 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+# the quantized matmul's kernels form each f32 x as 3 exact bf16 pieces on
+# the bf16 tensor cores (bf16 x: 1 piece)
+QMM_PIECES = {"f32": 3, "bf16": 1}
+# ... so with f32 x they agree with float64 within QMM_F64_ULPS * K units of
+# 2^-24 of sum |x| |q| * scale: f32 sums of exact products in any order
+QMM_F64_ULPS = 4
 
 # GPT-2 medium widths
 CFG = dict(vocab=50257, layers=24, d_model=1024, heads=16, kv_heads=16,
@@ -142,6 +151,10 @@ RTC_N = 1 << 26
 # largest logit
 LOGIT_RTOL = 1e-3
 
+# cycles a second of torch.cuda._sleep's spin: above the H100's boost clock
+# (1.98 GHz), so the spin outlasts the enqueue it covers
+SPIN_HZ = 2e9
+
 RECORD = {}
 DEV = "cuda"
 
@@ -168,15 +181,23 @@ def nvidia_smi():
 
 
 def bench_ms(fn, argsets, iters):
-    """Mean ms per call by CUDA events, cycling through ``argsets`` so
-    consecutive calls read different buffers (beyond the 50 MB L2 where
-    the main path finds its inputs cold)."""
+    """Mean device ms per call by CUDA events, cycling through ``argsets``
+    so consecutive calls read different buffers (beyond the 50 MB L2 where
+    the main path finds its inputs cold). A spin kernel (``_sleep``) ahead
+    of the timed calls holds the card while the host enqueues them, so a
+    call whose host side takes longer than its kernel is timed by its
+    kernel, not by the host's launch rate."""
     import torch
     for a in argsets[:2]:
         fn(*a)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*argsets[0])
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0        # an upper bound of one enqueue
     st = torch.cuda.Event(enable_timing=True)
     en = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2e9, (1.5 * host_s * iters + 2e-4) * SPIN_HZ)))
     st.record()
     for i in range(iters):
         fn(*argsets[i % len(argsets)])
@@ -382,7 +403,10 @@ def _decode_case(name, b, h, hkv, s, d, lengths, gen):
     k = torch.randn(b, hkv, s, d, generator=gen, device=dev)
     v = torch.randn(b, hkv, s, d, generator=gen, device=dev)
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    n0, dense0 = A.decode_attention.launches, A.dense_attention.calls
     out = A.decode_attention(q, k, v, ln)
+    launched = (A.decode_attention.launches - n0,
+                A.dense_attention.calls - dense0)
     ref = A.reference_decode_attention(q, k, v, ln)
     torch.cuda.synchronize()
     e, tol = err_of(out, ref)
@@ -408,53 +432,123 @@ def _decode_case(name, b, h, hkv, s, d, lengths, gen):
     bnd, by = bound_ms(io_bytes, flops)
     return {"kernel": "decode_attention", "case": name,
             "shape": [b, h, hkv, s, d], "lengths": list(lengths),
-            "max_abs_err": e, "tol": tol, "ok": e <= tol,
+            "group": h // hkv, "launches_and_dense_calls": launched,
+            "max_abs_err": e, "tol": tol,
+            "ok": e <= tol and launched == (1, 0),
             "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
             "bound_ms": bnd, "bound_by": by, "bytes": io_bytes,
             "flops": flops}
 
 
-def _qmm_case(name, m, kdim, n, dtype, gen):
+def _qmm_case(name, m, kdim, n, dtype, gen, xdt="f32"):
+    """The quantized matmul against its plain version (float32 x: the
+    kernels' tolerance; bfloat16 x: one bf16 ulp plus 1e-4 of the largest
+    magnitude), the same bits on a second call, timed beside the plain
+    version and torch.matmul on the wide weight. float32 x is also held
+    against float64 (_qmm_f64_ratio). Both kernels run QMM_PIECES bf16
+    tensor-core products, which set the bound's operations (the FP32
+    pipes' bound is kept beside)."""
     import torch
     from mxnet_tpu_torch.ops import quantization as Q
     dev = "cuda"
     x = torch.randn(m, kdim, generator=gen, device=dev)
+    if xdt == "bf16":
+        x = x.bfloat16()
     w = torch.randn(kdim, n, generator=gen, device=dev) / math.sqrt(kdim)
     q, sc = Q.quantize_rows(w, dtype)
     del w
     out = Q.quantized_matmul(x, q, sc)
+    again = Q.quantized_matmul(x, q, sc)
     ref = Q.reference_quantized_matmul(x, q, sc)
     torch.cuda.synchronize()
+    deterministic = bool(torch.equal(out, again))
+    route = "qmm_tc" if Q._qmm_route(x, q, out) == 1 else "qmm_small"
     e, tol = err_of(out, ref)
-    io_bytes = 4 * m * kdim + q.numel() * q.element_size() + 4 * n \
-        + 4 * m * n
+    f64 = None
+    if xdt == "bf16":
+        ulps = _bf16_ulp_err(out, ref, KERNEL_RTOL)
+        ok, tol_s = ulps <= 1.0, "one bf16 ulp + %g of max |ref|" % KERNEL_RTOL
+    else:
+        # and against float64 within the exact-products bound
+        f64 = _qmm_f64_ratio(out, x, q, sc)
+        ulps, ok, tol_s = None, e <= tol and f64 <= 1.0, tol
+    io_bytes = x.element_size() * (m * kdim + m * n) \
+        + q.numel() * q.element_size() + 4 * n
     flops = 2 * m * n * kdim
     sets = copies(q.numel() * q.element_size(), x, q, sc)
-    wide = [(a[0], Q.dequantize_rows(a[1], a[2])) for a in sets[:2]]
+    wide = [(a[0], Q.dequantize_rows(a[1], a[2]).to(x.dtype))
+            for a in sets[:2]]
     iters = 20
     ms = bench_ms(Q.quantized_matmul, sets, iters)
     plain = bench_ms(Q.reference_quantized_matmul, sets, iters)
     lib = bench_ms(torch.matmul, wide, iters)
-    bnd, by = bound_ms(io_bytes, flops)
+    b_f32, _ = bound_ms(io_bytes, flops)
+    bnd, by = bound_ms(io_bytes, QMM_PIECES[xdt] * flops, PEAK_BF16_FLOPS)
     return {"kernel": "quantized_matmul", "case": name, "dtype": dtype,
-            "shape": [m, kdim, n], "max_abs_err": e, "tol": tol,
-            "ok": e <= tol, "kernel_ms": ms, "plain_ms": plain,
+            "x_dtype": xdt, "route": route,
+            "shape": [m, kdim, n], "max_abs_err": e, "tol": tol_s,
+            "err_bf16_ulps": ulps, "f64_err_over_bound": f64,
+            "deterministic": deterministic,
+            "ok": ok and deterministic, "kernel_ms": ms, "plain_ms": plain,
             "library_ms": lib, "library_note": "torch.matmul on the "
-            "pre-dequantized f32 weight (2 copies rotated)",
-            "bound_ms": bnd, "bound_by": by, "bytes": io_bytes,
-            "flops": flops}
+            "pre-dequantized weight in x's dtype (2 copies rotated)",
+            "bound_ms": bnd, "bound_by": by, "bound_f32_pipes_ms": b_f32,
+            "bytes": io_bytes, "flops": flops}
 
 
-def _dense_case(name, gen):
-    """Head dim 96 (no kernel takes it) through flash_attention with its
-    backward and through decode_attention: the dense route's answer, and
-    no kernel launch."""
+def _qmm_f64_ratio(out, x, q, sc):
+    """The largest |out - x @ q * scale| in float64 over the bound that
+    float32 sums of exact products keep in any order: 4 K units of 2^-24
+    of sum |x| |q| * scale (QMM_F64_ULPS)."""
+    def f64(a, b):
+        return (a.double() @ b.double()) * sc.double()
+    bound = QMM_F64_ULPS * x.shape[1] * 2.0 ** -24 * f64(x.abs(),
+                                                          q.float().abs())
+    return float(((out.double() - f64(x, q)).abs() / bound).nan_to_num(
+        0.0, posinf=float("inf")).max())
+
+
+def _qmm_pieces_case(name, m, kdim, n, dtype, gen):
+    """Both quantized-matmul kernels form exact products: float32 x spans
+    1e-20 to 1e20, so one term rules each short sum, and the result stays
+    within the float64 bound of _qmm_f64_ratio, which x without its third
+    bf16 piece, x as one bf16 value and x rounded to TF32 (emulated in
+    torch on the same inputs) all break."""
+    import torch
+    from mxnet_tpu_torch.ops import quantization as Q
+    dev = "cuda"
+    mag = 10.0 ** (torch.rand(m, kdim, generator=gen, device=dev) * 40 - 20)
+    x = (torch.randn(m, kdim, generator=gen, device=dev).sign() * mag).float()
+    q, sc = Q.quantize_rows(torch.randn(kdim, n, generator=gen, device=dev),
+                            dtype)
+    out = Q.quantized_matmul(x, q, sc)
+    route = Q._qmm_route(x, q, out)
+    hi = x.bfloat16().float()
+    mid = (x - hi).bfloat16().float()
+    tf32 = ((x.view(torch.int32) + 0x1000) & ~0x1fff).view(torch.float32)
+    controls = {}
+    for cname, xw in (("two_pieces", hi + mid), ("one_piece", hi),
+                      ("tf32", tf32)):
+        ref = ((xw.double() @ q.double()) * sc.double()).float()
+        controls[cname] = _qmm_f64_ratio(ref, x, q, sc)
+    ratio = _qmm_f64_ratio(out, x, q, sc)
+    return {"kernel": "quantized_matmul_exact", "case": name,
+            "dtype": dtype, "shape": [m, kdim, n],
+            "route": "qmm_tc" if route == 1 else "qmm_small",
+            "err_over_bound": ratio, "controls_err_over_bound": controls,
+            "ok": ratio <= 1.0 and all(v > 1.0 for v in controls.values())}
+
+
+def _dense_case(name, d, gen):
+    """A head dim no kernel takes (96), or one above the kernels' 512
+    (640), through flash_attention with its backward and through
+    decode_attention: the dense route's answer, and no kernel launch."""
     import torch
     from mxnet_tpu_torch.ops import attention as A
     dev = "cuda"
-    q, k, v = (torch.randn(2, 8, 512, 96, generator=gen, device=dev)
+    q, k, v = (torch.randn(2, 8, 512, d, generator=gen, device=dev)
                .requires_grad_() for _ in range(3))
-    do = torch.randn(2, 8, 512, 96, generator=gen, device=dev)
+    do = torch.randn(2, 8, 512, d, generator=gen, device=dev)
     ln = torch.tensor([1, 512], dtype=torch.int32, device=dev)
     kernels = {n: f.launches for n, f in _wrappers().items()}
     calls = A.dense_attention.calls
@@ -473,7 +567,7 @@ def _dense_case(name, gen):
                          (v.grad, v2.grad), (dec, rdec))]
     dense = A.dense_attention.calls - calls
     return {"kernel": "dense_attention", "case": name,
-            "shape": [2, 8, 8, 512, 96], "dense_calls": dense,
+            "shape": [2, 8, 8, 512, d], "dense_calls": dense,
             "kernel_launches": {n: after[n] - kernels[n] for n in after},
             "max_abs_err": max(e for e, _ in errs),
             "ok": dense == 2 and after == kernels
@@ -694,16 +788,40 @@ def phase_kernels():
         _decode_case("step_hd512", SLOTS, 8, 8, 1024, 512, lengths, gen),
         _decode_case("step_hd512_gqa8", SLOTS, 8, 1, 1024, 512, lengths,
                      gen),
-        _dense_case("hd96", gen),
+        # GQA groups of 7 (Qwen2-7B: 28 q heads over 4 kv heads, D 128) and
+        # 16 (Falcon-40B: 128 over 8, D 64)
+        _decode_case("step_gqa7_hd128", SLOTS, 28, 4, 1024, 128, lengths,
+                     gen),
+        _decode_case("step_gqa16_hd64", SLOTS, 128, 8, 1024, 64, lengths,
+                     gen),
+        _dense_case("hd96", 96, gen),
+        _dense_case("hd640", 640, gen),
     ]
+    # the decode step's six per-layer matmuls (wq, wk, wv, wo at (1024,
+    # 1024); w1; w2) and the head at 8 slots, then prefill at the longest
+    # bucket's 1000 rows
+    cases.append(_qmm_case("step_wq_int8", 8, 1024, 1024, "int8", gen))
     for dt in ("int8", "fp8"):
         cases += [
             _qmm_case("step_w1_" + dt, 8, 1024, 4096, dt, gen),
             _qmm_case("step_w2_" + dt, 8, 4096, 1024, dt, gen),
             _qmm_case("step_head_" + dt, 8, 1024, 50257, dt, gen),
         ]
-    cases.append(_qmm_case("prefill_w1_int8", 1000, 1024, 4096, "int8",
-                           gen))
+    cases += [
+        _qmm_case("step_w2_int8_m1", 1, 4096, 1024, "int8", gen),
+        _qmm_case("step_w2_int8_m16", 16, 4096, 1024, "int8", gen),
+        _qmm_case("step_w1_int8_bf16x", 8, 1024, 4096, "int8", gen, "bf16"),
+        _qmm_case("prefill_w1_int8", 1000, 1024, 4096, "int8", gen),
+        _qmm_case("prefill_w1_fp8", 1000, 1024, 4096, "fp8", gen),
+        _qmm_case("prefill_w2_int8", 1000, 4096, 1024, "int8", gen),
+        _qmm_case("prefill_w1_int8_bf16x", 1000, 1024, 4096, "int8", gen,
+                  "bf16"),
+    ]
+    # exact products, with teeth: K = 8, x over 40 decades
+    cases += [_qmm_pieces_case("exact_%s_%s" % (kind, dt), m, 8, n, dt, gen)
+              for kind, m, n in (("step_head", 8, 50257),
+                                 ("prefill", 1000, 4096))
+              for dt in ("int8", "fp8")]
     # ResNet-50's 1x1 shapes (docs/megakernel_r04.md section 3), each as
     # that doc's unit: relu(bn(x)) prologue plus statistics
     for ci, co, hw in ((256, 64, 56), (64, 256, 56), (128, 512, 28),

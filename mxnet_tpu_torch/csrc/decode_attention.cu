@@ -6,15 +6,20 @@
 // out = softmax(q . K[:len] * scale) V[:len] over the first lengths[b]
 // cached positions of kv head h / G (G = H / H_kv); positions at or past
 // the cursor are stale pool memory and never enter the softmax; a slot
-// with lengths == 0 gets zeros.
+// with lengths == 0 gets zeros. Any group G that divides H is taken, as
+// the TPU kernel takes it.
 //
 // What bounds it on the H100: bytes. Each cached K/V row is used once per
 // q row of its group (G = 1 for MHA), about 0.5 flop per byte, so the
 // ceiling is streaming sum(lengths) * 2 * H_kv * D * 4 bytes at 3.35 TB/s.
 // The design aims at keeping enough loads in flight:
-//  * one block of 256 threads per (slot, kv head); the GQA group's q rows
-//    sit in shared memory and in registers, so each K/V row is read once
-//    for all G heads that share it;
+//  * one block of 256 threads per (slot, kv head, tile of GT q heads);
+//    the tile's q rows sit in shared memory and in registers, so each K/V
+//    row is read once for all GT heads that share it. GT is 1, 2, 4 or 8:
+//    the group itself when it is one of those, else the next power of two
+//    above it, at most 8 (G = 3 takes one tile of 4, G = 7 one of 8, G = 16
+//    two of 8); heads past G in the last tile read zeros and are not
+//    written;
 //  * min(D/4, 32) threads own one key, a float4 each (two at D = 256: a
 //    key spans one warp, the widest a shuffle reaches), so a warp reads
 //    whole rows as contiguous 16-byte loads; the block holds
@@ -52,7 +57,8 @@ template <int D, int G>
 __global__ void __launch_bounds__(kThreads)
 decode_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const int* __restrict__ lengths,
-           float* __restrict__ o, int H, int Hkv, int S, float scale) {
+           float* __restrict__ o, int H, int Hkv, int S, float scale,
+           int group) {
   constexpr int kTpk = D / 4 < 32 ? D / 4 : 32;   // threads per key
   constexpr int kW = D / (4 * kTpk);              // float4 per thread
   constexpr int kGroups = kThreads / kTpk;        // keys in flight per pass
@@ -69,9 +75,12 @@ decode_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int kg = tid / kTpk;                 // key group of this thread
   const int lane = tid % kTpk;               // float4 w of a row: column
                                              // (w * kTpk + lane) * 4
-  const size_t q_base = ((size_t)b * H + (size_t)hk * G) * D;
+  const int g0 = blockIdx.y * G;             // first q head of this tile
+  const int ng = min(G, group - g0);         // heads of the tile below G
+  const size_t q_base = ((size_t)b * H + (size_t)hk * group + g0) * D;
 
-  for (int i = tid; i < G * D; i += kThreads) qs[i / D][i % D] = q[q_base + i];
+  for (int i = tid; i < G * D; i += kThreads)
+    qs[i / D][i % D] = i / D < ng ? q[q_base + i] : 0.f;
   __syncthreads();
 
   float4 qv[G][kW], acc[G][kW];
@@ -165,18 +174,27 @@ decode_f32(const float* __restrict__ q, const float* __restrict__ k,
           out += red_acc[r][d] * w;
         }
       }
-      o[q_base + (size_t)g * D + d] = out / (lsum == 0.f ? 1.f : lsum);
+      if (g < ng)
+        o[q_base + (size_t)g * D + d] = out / (lsum == 0.f ? 1.f : lsum);
     }
     __syncthreads();                         // red_acc reused for g + 1
   }
 }
 
-template <int D, int G>
+// q heads per block for a GQA group: the group when it is 1, 2, 4 or 8,
+// else the next power of two above it, at most 8
+inline int head_tile(int group) {
+  return group >= 8 ? 8 : group > 2 ? (group > 4 ? 8 : 4) : group;
+}
+
+template <int D, int GT>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const int* lengths, float* o, int B, int H, int Hkv, int S,
                    float scale, cudaStream_t stream) {
-  decode_f32<D, G><<<B * Hkv, kThreads, 0, stream>>>(q, k, v, lengths, o, H,
-                                                     Hkv, S, scale);
+  const int group = H / Hkv;
+  dim3 grid(B * Hkv, (group + GT - 1) / GT);
+  decode_f32<D, GT><<<grid, kThreads, 0, stream>>>(q, k, v, lengths, o, H,
+                                                   Hkv, S, scale, group);
   return cudaGetLastError();
 }
 
@@ -184,7 +202,7 @@ template <int D>
 cudaError_t launch_g(int G, const float* q, const float* k, const float* v,
                      const int* lengths, float* o, int B, int H, int Hkv,
                      int S, float scale, cudaStream_t stream) {
-  switch (G) {
+  switch (head_tile(G)) {
     case 1: return launch<D, 1>(q, k, v, lengths, o, B, H, Hkv, S, scale,
                                 stream);
     case 2: return launch<D, 2>(q, k, v, lengths, o, B, H, Hkv, S, scale,
@@ -201,7 +219,8 @@ template <int NC, int G>
 __global__ void __launch_bounds__(kThreads)
 decode_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const int* __restrict__ lengths,
-                float* __restrict__ o, int H, int Hkv, int S, float scale) {
+                float* __restrict__ o, int H, int Hkv, int S, float scale,
+                int group) {
   constexpr int D = 128 * NC;
   constexpr int kGroups = kThreads / 32;     // keys in flight per pass
   extern __shared__ __align__(16) float wide_smem[];
@@ -216,9 +235,12 @@ decode_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int kg = tid / 32;                   // key group: one warp
   const int lane = tid % 32;
-  const size_t q_base = ((size_t)b * H + (size_t)hk * G) * D;
+  const int g0 = blockIdx.y * G;             // first q head of this tile
+  const int ng = min(G, group - g0);
+  const size_t q_base = ((size_t)b * H + (size_t)hk * group + g0) * D;
 
-  for (int i = tid; i < G * D; i += kThreads) qs[i] = q[q_base + i];
+  for (int i = tid; i < G * D; i += kThreads)
+    qs[i] = i / D < ng ? q[q_base + i] : 0.f;
   __syncthreads();
 
   float4 acc[G][NC];
@@ -297,7 +319,8 @@ decode_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
           out += red_acc[r * D + d] * w;
         }
       }
-      o[q_base + (size_t)g * D + d] = out / (lsum == 0.f ? 1.f : lsum);
+      if (g < ng)
+        o[q_base + (size_t)g * D + d] = out / (lsum == 0.f ? 1.f : lsum);
     }
     __syncthreads();                         // red_acc reused for g + 1
   }
@@ -312,8 +335,10 @@ cudaError_t launch_wide(const float* q, const float* k, const float* v,
       decode_wide_f32<NC, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return e;
-  decode_wide_f32<NC, G><<<B * Hkv, kThreads, smem, stream>>>(
-      q, k, v, lengths, o, H, Hkv, S, scale);
+  const int group = H / Hkv;
+  dim3 grid(B * Hkv, (group + G - 1) / G);
+  decode_wide_f32<NC, G><<<grid, kThreads, smem, stream>>>(
+      q, k, v, lengths, o, H, Hkv, S, scale, group);
   return cudaGetLastError();
 }
 
@@ -322,7 +347,7 @@ cudaError_t launch_wide_g(int G, const float* q, const float* k,
                           const float* v, const int* lengths, float* o, int B,
                           int H, int Hkv, int S, float scale,
                           cudaStream_t stream) {
-  switch (G) {
+  switch (head_tile(G)) {
     case 1: return launch_wide<NC, 1>(q, k, v, lengths, o, B, H, Hkv, S,
                                       scale, stream);
     case 2: return launch_wide<NC, 2>(q, k, v, lengths, o, B, H, Hkv, S,

@@ -20,30 +20,53 @@
 // What bounds it on the H100: operations. dQ does 3 dot products of length
 // D per (q row, key) pair (6*D flops), dK/dV 4 (8*D flops); causal S = 1024
 // gives ~400 flops per byte moved, and float32 inputs leave the tensor cores
-// out, so the ceiling is the 67 TFLOP/s of the FP32 pipes. The design:
-//  * the TPU's two-kernel split: dQ gridded over (q tile, b*h), each block
-//    streaming K/V tiles through shared memory; dK/dV gridded over
-//    (key tile, b*h), each block streaming Q/dO tiles. Every output element
-//    is written by one thread, summed in a fixed order, without atomics: a
-//    given input gives bit-identical gradients from run to run;
+// out, so the ceiling is the 67 TFLOP/s of the FP32 pipes. Both kernels
+// keep the TPU's two-kernel split: every output element is written by one
+// thread, summed in a fixed order, without atomics, so a given input gives
+// bit-identical gradients from run to run; a ragged S is masked (rows and
+// keys past S never enter a sum).
+//
+// dQ: gridded over (q tile, b*h), each block streaming K/V tiles through
+// shared memory:
 //  * a row is split over D/16 threads of one warp (one below D = 16), each
 //    owning 16 of its D columns (float4 columns dealt in turn, so the
-//    partners of a row read different banks): dQ keeps q, dO and the dQ
-//    accumulator in registers (3 x 16 floats), dK/dV keeps k, v, dK and dV
-//    (4 x 16), so no width spills (32 columns a thread spilled dQ at
-//    255 registers); partners sum their partial dot products with a
-//    butterfly of shuffles, which leaves the same sum in every partner;
-//  * dot products for kChunk keys (or q rows) are formed before their
-//    shuffles, and the rank-1 updates after, so the shuffles overlap;
-//  * delta is recomputed in each kernel, as on the TPU: dQ from its own
-//    q and O rows, dK/dV once per Q/dO tile (O read from device memory);
-//  * causal: dQ stops at the diagonal tile and each row at its own key;
-//    dK/dV starts at the first q tile that can see the block's first key
-//    (k0 / tile) and each key at its own row;
-//  * a ragged S is masked: rows and keys past S do no work and are never
-//    read into a sum.
-// Tensor cores (wgmma on bf16, TMA) and one fused FA-2-style kernel are a
-// later step.
+//    partners of a row read different banks): q, dO and the dQ accumulator
+//    in registers (3 x 16 floats; 32 columns a thread spilled at 255
+//    registers); partners sum their partial dot products with a butterfly
+//    of shuffles, which leaves the same sum in every partner;
+//  * dot products for kChunk keys are formed before their shuffles, and
+//    the rank-1 updates after, so the shuffles overlap;
+//  * delta is recomputed from the block's own q and O rows, as on the
+//    TPU; causal: it stops at the diagonal tile and each row at its key.
+//
+// dK/dV (D <= 256): FA-2's outer loop, f32 FMA, gridded over (BK keys,
+// b*h). 128 threads; BK = 64 at D <= 64, 32 at D = 128, 16 at D = 256, so
+// that the dK and dV accumulators (2 * BK * D / 128 floats a thread, at
+// most 64) stay in registers:
+//  * the block's K and V rows are staged once in shared memory; Q and dO
+//    tiles of BQ rows stream through cp.async, double-buffered (the next
+//    tile's copy in flight while this one is used) except at D = 64, where
+//    a single buffer lets three blocks share an SM and hide each other's
+//    copies;
+//  * key blocks run on grid y, heads on x, so every head's longest (first)
+//    causal key block is scheduled first and the short ones fill the tail;
+//  * per tile four register-blocked products, each a micro-tile of outer
+//    products per thread with no shuffle: S^T = K Q^T and dP^T = V dO^T
+//    (a thread's JA keys x IB rows, float4 steps along D), then
+//    dV += P^T dO and dK += dS^T Q (a thread's JA2 keys x 4*DC columns,
+//    4 rows a step). At D = 64 each float4 read from shared memory feeds
+//    16 (S, dP) or ~10 (dV, dK) FMAs a float4 (the old one-key-per-thread
+//    kernel fed 4 and paid two butterflies per (key, row) pair);
+//  * P and dS pass between the products through shared memory; rows of
+//    every tile are padded by 4 floats, so the 8 rows (or 4 keys) a warp
+//    reads at once fall in different banks;
+//  * lse and delta come per tile row (delta = dO . O - glse, O read from
+//    device memory, as the TPU kernel recomputes it); the +inf empty-row
+//    lse gives p = 0; causal: the block starts at the first q tile that
+//    sees its first key (the skip from the k side), and masks j > i;
+//  * GQA by index: kv head h / (H / H_kv), one partial per q head.
+// Tensor cores (bf16 pieces as in quantized_matmul.cu, or wgmma) and dQ in
+// the same style are a later step.
 //
 // Head dims above 256 (D = 128 * NC: 384 and 512) take the "wide" kernels
 // below. D/16 partners per row would fill a warp at 512 (and be no power of
@@ -243,10 +266,36 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// dK/dV: one block per (key tile, b*h over q heads); kSplit threads per key
+// dK/dV, FA-2 style: one block per (BK keys, b*h over q heads)
 // ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+
+__device__ __forceinline__ float lane4(float4 v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+constexpr int kDkvThreads = 128;
+
+// BK keys a block, Q/dO tiles of BQ rows. Products S^T = K Q^T and
+// dP^T = V dO^T: a thread owns keys sj + 16 a (a < JA) x rows si + 8 b
+// (b < IB). Products dV += P^T dO and dK += dS^T Q: a thread owns keys
+// aj + JG2 a (a < JA2) x columns ad * 4 + 4 DG c .. + 3 (c < DC).
+template <int D, int BK, int BQ, int STAGES>
+struct DkvCfg {
+  static constexpr int JA = BK / 16, IB = BQ / 8;
+  static constexpr int DG = D / 8;           // 2 float4 columns a thread
+  static constexpr int JG2 = kDkvThreads / DG;
+  static constexpr int JA2 = BK / JG2, DC = D / (4 * DG);
+  static constexpr int KS = D + 4;           // padded row of K, V, Q, dO
+  static constexpr int PS = BQ + 4;          // padded row of P, dS
+  static constexpr int RT = kDkvThreads / BQ;   // threads a row for delta
+  static constexpr int kFloats =
+      2 * BK * KS + 2 * STAGES * BQ * KS + 2 * BK * PS + 2 * BQ;
+  static_assert(JA >= 1 && IB >= 1 && JA2 >= 1 && DC >= 1, "tiling");
+  static_assert(RT >= 1 && RT <= 16 && (RT & (RT - 1)) == 0, "delta");
+};
+
+template <int D, int BK, int BQ, int STAGES>
+__global__ void __launch_bounds__(kDkvThreads)
 flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ o,
                   const float* __restrict__ dout,
@@ -254,64 +303,93 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ glse, float* __restrict__ dk,
                   float* __restrict__ dv, int H, int Hkv, int S, float scale,
                   int causal) {
-  using P = Split<D>;
-  constexpr int kSplit = P::kSplit, kRows = P::kRows, kVec = P::kVec;
-  constexpr int kTile = P::kTile;            // q rows per shared tile
-  constexpr int kDT = kThreads / kTile;      // threads per row for delta
-  static_assert(kDT * kTile == kThreads && kDT <= 32, "delta split");
-  __shared__ __align__(16) float qs[kTile][D];
-  __shared__ __align__(16) float dos[kTile][D];
-  __shared__ float lse_s[kTile];
-  __shared__ float delta_s[kTile];
+  using C = DkvCfg<D, BK, BQ, STAGES>;
+  constexpr int JA = C::JA, IB = C::IB, DG = C::DG, JG2 = C::JG2;
+  constexpr int JA2 = C::JA2, DC = C::DC, KS = C::KS, PS = C::PS;
+  constexpr int RT = C::RT;
+  extern __shared__ __align__(16) float dkv_smem[];
+  float* Ks = dkv_smem;                      // [BK][KS]
+  float* Vs = Ks + BK * KS;                  // [BK][KS]
+  float* Qs = Vs + BK * KS;                  // [STAGES][BQ][KS]
+  float* Gs = Qs + STAGES * BQ * KS;         // [STAGES][BQ][KS]: dO
+  float* Ps = Gs + STAGES * BQ * KS;         // [BK][PS]
+  float* dSs = Ps + BK * PS;                 // [BK][PS]
+  float* lse_s = dSs + BK * PS;              // [BQ]
+  float* delta_s = lse_s + BQ;               // [BQ]
 
-  const int bh = blockIdx.y;                 // b * H + h (q head)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // key blocks on y: the grid runs every head's first key block (the
+  // longest under a causal mask) first, so short blocks fill the tail
+  const int bh = blockIdx.x;                 // b * H + h (q head)
   const int b = bh / H;
   const int hk = (bh % H) / (H / Hkv);
-  const int k0 = blockIdx.x * kRows;
-  const int key = k0 + threadIdx.x / kSplit;
-  const int part = threadIdx.x % kSplit;
-  const bool live = key < S;
+  const int k0 = blockIdx.y * BK;
   const size_t q_base = (size_t)bh * S * D;
-  const unsigned mask = partner_mask<kSplit>();
+  const size_t kv_base = (size_t)(b * Hkv + hk) * S * D;
 
-  float kr[4 * kVec], vr[4 * kVec], dka[4 * kVec], dva[4 * kVec];
-  const size_t koff = ((size_t)(b * Hkv + hk) * S + (live ? key : 0)) * D;
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    const int d = (j * kSplit + part) * 4;
-    float4 tk = make_float4(0.f, 0.f, 0.f, 0.f), tv = tk;
-    if (live) {
-      tk = *reinterpret_cast<const float4*>(k + koff + d);
-      tv = *reinterpret_cast<const float4*>(v + koff + d);
+  // Q and dO rows of tile t into stage st; rows past S are zero-filled
+  auto fetch = [&](int t, int st) {
+    const int r0 = t * BQ;
+    for (int i = tid; i < BQ * D / 4; i += kDkvThreads) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      const bool ok = r0 + r < S;
+      const size_t off = q_base + (size_t)(ok ? r0 + r : 0) * D + c;
+      cp_async16(Qs + (st * BQ + r) * KS + c, q + off, ok);
+      cp_async16(Gs + (st * BQ + r) * KS + c, dout + off, ok);
     }
-    kr[4 * j] = tk.x; kr[4 * j + 1] = tk.y; kr[4 * j + 2] = tk.z;
-    kr[4 * j + 3] = tk.w;
-    vr[4 * j] = tv.x; vr[4 * j + 1] = tv.y; vr[4 * j + 2] = tv.z;
-    vr[4 * j + 3] = tv.w;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[4 * j + e] = dva[4 * j + e] = 0.f;
+    cp_async_commit();
+  };
+
+  const int n_tiles = (S + BQ - 1) / BQ;
+  const int t_first = causal ? k0 / BQ : 0;  // rows below k0 see no key
+  if (STAGES == 2) fetch(t_first, 0);
+  for (int i = tid; i < BK * D / 4; i += kDkvThreads) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
+    if (k0 + r < S) {
+      kk = *reinterpret_cast<const float4*>(k + kv_base + (size_t)(k0 + r) * D + c);
+      vv = *reinterpret_cast<const float4*>(v + kv_base + (size_t)(k0 + r) * D + c);
+    }
+    *reinterpret_cast<float4*>(Ks + r * KS + c) = kk;
+    *reinterpret_cast<float4*>(Vs + r * KS + c) = vv;
   }
 
-  const int n_tiles = (S + kTile - 1) / kTile;
-  const int t_first = causal ? k0 / kTile : 0;
+  const int sj = warp * 4 + (lane >> 3);     // S phase: key group 0..15
+  const int si = lane & 7;                   // S phase: row group 0..7
+  const int ad = tid % DG, aj = tid / DG;    // accumulation phase
+  float dka[JA2][DC][4], dva[JA2][DC][4];
+#pragma unroll
+  for (int a = 0; a < JA2; ++a)
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[a][c][e] = dva[a][c][e] = 0.f;
+
   for (int t = t_first; t < n_tiles; ++t) {
-    const int r0 = t * kTile;
-    __syncthreads();                         // previous tile consumed
-    load_tile<D, kTile>(qs, q + q_base, r0, S);
-    load_tile<D, kTile>(dos, dout + q_base, r0, S);
-    __syncthreads();
+    const int st = STAGES == 2 ? (t - t_first) & 1 : 0;
+    const int r0 = t * BQ;
+    if (STAGES == 1) {
+      __syncthreads();        // tile t - 1 fully consumed
+      fetch(t, 0);
+    }
+    cp_async_wait_all();
+    __syncthreads();          // tile t landed; tile t - 1 fully consumed
+    if (STAGES == 2 && t + 1 < n_tiles) fetch(t + 1, st ^ 1);
+    const float* Qt = Qs + st * BQ * KS;
+    const float* Gt = Gs + st * BQ * KS;
     {
-      // delta and lse of the tile's rows: kDT threads per row
-      const int r = threadIdx.x / kDT, p = threadIdx.x % kDT;
+      // delta = dO . O - glse and lse of the tile's rows, RT threads a
+      // row (O read from device memory, as the TPU kernel recomputes it)
+      const int r = tid / RT, p = tid % RT;
       const bool in = r0 + r < S;
       float acc = 0.f;
       if (in) {
         const float* orow = o + q_base + (size_t)(r0 + r) * D;
-        for (int c = p * 4; c < D; c += kDT * 4)
-          acc = dot4(*reinterpret_cast<const float4*>(&dos[r][c]),
-                     *reinterpret_cast<const float4*>(orow + c), acc);
+        for (int c = p * 4; c < D; c += RT * 4)
+          acc = dot4(*reinterpret_cast<const float4*>(Gt + r * KS + c),
+                     __ldg(reinterpret_cast<const float4*>(orow + c)), acc);
       }
-      acc = row_sum<kDT>(acc, partner_mask<kDT>());
+      acc = row_sum<RT>(acc, partner_mask<RT>());
       if (p == 0) {
         float l = INFINITY, g = 0.f;
         if (in) {
@@ -323,61 +401,111 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
-    if (!live) continue;
-    // q rows of this tile that see this key; partners agree on the range
-    const int ibeg = causal ? max(0, key - r0) : 0;
-    const int iend = min(kTile, S - r0);
-    for (int c0 = ibeg; c0 < iend; c0 += kChunk) {
-      float s[kChunk], dp[kChunk];
+    // S^T -> P, then dP^T -> dS, each into shared memory
+    float pr[JA][IB];
+    {
+      float sacc[JA][IB];
 #pragma unroll
-      for (int jr = 0; jr < kChunk; ++jr) {
-        const int i = min(c0 + jr, kTile - 1);
-        float a = 0.f, c = 0.f;
+      for (int a = 0; a < JA; ++a)
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) {
-          const int d = (j * kSplit + part) * 4;
-          const float4 qq = *reinterpret_cast<const float4*>(&qs[i][d]);
-          const float4 gg = *reinterpret_cast<const float4*>(&dos[i][d]);
-          a = dot4(make_float4(kr[4 * j], kr[4 * j + 1], kr[4 * j + 2],
-                               kr[4 * j + 3]), qq, a);
-          c = dot4(make_float4(vr[4 * j], vr[4 * j + 1], vr[4 * j + 2],
-                               vr[4 * j + 3]), gg, c);
+        for (int bb = 0; bb < IB; ++bb) sacc[a][bb] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {
+        float4 kv[JA], qv[IB];
+#pragma unroll
+        for (int a = 0; a < JA; ++a)
+          kv[a] = *reinterpret_cast<const float4*>(Ks + (sj + 16 * a) * KS + d);
+#pragma unroll
+        for (int bb = 0; bb < IB; ++bb)
+          qv[bb] = *reinterpret_cast<const float4*>(Qt + (si + 8 * bb) * KS + d);
+#pragma unroll
+        for (int a = 0; a < JA; ++a)
+#pragma unroll
+          for (int bb = 0; bb < IB; ++bb)
+            sacc[a][bb] = dot4(kv[a], qv[bb], sacc[a][bb]);
+      }
+#pragma unroll
+      for (int a = 0; a < JA; ++a) {
+        const int j = k0 + sj + 16 * a;
+#pragma unroll
+        for (int bb = 0; bb < IB; ++bb) {
+          const int i = si + 8 * bb;
+          // rows past S have lse = +inf, so p = 0 there
+          const bool ok = j < S && (!causal || j <= r0 + i);
+          pr[a][bb] = ok ? expf(sacc[a][bb] * scale - lse_s[i]) : 0.f;
+          Ps[(sj + 16 * a) * PS + i] = pr[a][bb];
         }
-        s[jr] = a;
-        dp[jr] = c;
+      }
+    }
+    {
+      float dacc[JA][IB];
+#pragma unroll
+      for (int a = 0; a < JA; ++a)
+#pragma unroll
+        for (int bb = 0; bb < IB; ++bb) dacc[a][bb] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {
+        float4 vv[JA], gv[IB];
+#pragma unroll
+        for (int a = 0; a < JA; ++a)
+          vv[a] = *reinterpret_cast<const float4*>(Vs + (sj + 16 * a) * KS + d);
+#pragma unroll
+        for (int bb = 0; bb < IB; ++bb)
+          gv[bb] = *reinterpret_cast<const float4*>(Gt + (si + 8 * bb) * KS + d);
+#pragma unroll
+        for (int a = 0; a < JA; ++a)
+#pragma unroll
+          for (int bb = 0; bb < IB; ++bb)
+            dacc[a][bb] = dot4(vv[a], gv[bb], dacc[a][bb]);
       }
 #pragma unroll
-      for (int jr = 0; jr < kChunk; ++jr) {
-        s[jr] = row_sum<kSplit>(s[jr], mask);
-        dp[jr] = row_sum<kSplit>(dp[jr], mask);
+      for (int a = 0; a < JA; ++a)
+#pragma unroll
+        for (int bb = 0; bb < IB; ++bb) {
+          const int i = si + 8 * bb;
+          dSs[(sj + 16 * a) * PS + i] =
+              pr[a][bb] * (dacc[a][bb] - delta_s[i]) * scale;
+        }
+    }
+    __syncthreads();
+    // dV += P^T dO and dK += dS^T Q over the tile's rows, 4 at a time
+#pragma unroll 2
+    for (int i = 0; i < BQ; i += 4) {
+      float4 pv[JA2], sv[JA2];
+#pragma unroll
+      for (int a = 0; a < JA2; ++a) {
+        pv[a] = *reinterpret_cast<const float4*>(Ps + (aj + JG2 * a) * PS + i);
+        sv[a] = *reinterpret_cast<const float4*>(dSs + (aj + JG2 * a) * PS + i);
       }
 #pragma unroll
-      for (int jr = 0; jr < kChunk; ++jr) {
-        const int i = c0 + jr;
-        if (i < iend) {
-          const float p = expf(s[jr] * scale - lse_s[i]);
-          const float ds = p * (dp[jr] - delta_s[i]) * scale;
+      for (int u = 0; u < 4; ++u) {
 #pragma unroll
-          for (int j = 0; j < kVec; ++j) {
-            const int d = (j * kSplit + part) * 4;
-            axpy4(p, *reinterpret_cast<const float4*>(&dos[i][d]),
-                  &dva[4 * j]);
-            axpy4(ds, *reinterpret_cast<const float4*>(&qs[i][d]),
-                  &dka[4 * j]);
+        for (int c = 0; c < DC; ++c) {
+          const int col = ad * 4 + 4 * DG * c;
+          const float4 g = *reinterpret_cast<const float4*>(Gt + (i + u) * KS + col);
+          const float4 qq = *reinterpret_cast<const float4*>(Qt + (i + u) * KS + col);
+#pragma unroll
+          for (int a = 0; a < JA2; ++a) {
+            axpy4(lane4(pv[a], u), g, dva[a][c]);
+            axpy4(lane4(sv[a], u), qq, dka[a][c]);
           }
         }
       }
     }
   }
-  if (!live) return;
-  const size_t out = ((size_t)bh * S + key) * D;
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    const int d = (j * kSplit + part) * 4;
-    *reinterpret_cast<float4*>(dk + out + d) = make_float4(
-        dka[4 * j], dka[4 * j + 1], dka[4 * j + 2], dka[4 * j + 3]);
-    *reinterpret_cast<float4*>(dv + out + d) = make_float4(
-        dva[4 * j], dva[4 * j + 1], dva[4 * j + 2], dva[4 * j + 3]);
+  for (int a = 0; a < JA2; ++a) {
+    const int j = k0 + aj + JG2 * a;
+    if (j >= S) continue;
+    const size_t out = ((size_t)bh * S + j) * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int col = ad * 4 + 4 * DG * c;
+      *reinterpret_cast<float4*>(dk + out + col) = make_float4(
+          dka[a][c][0], dka[a][c][1], dka[a][c][2], dka[a][c][3]);
+      *reinterpret_cast<float4*>(dv + out + col) = make_float4(
+          dva[a][c][0], dva[a][c][1], dva[a][c][2], dva[a][c][3]);
+    }
   }
 }
 
@@ -712,11 +840,17 @@ cudaError_t launch_dq(const Args& x) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int BK, int BQ, int STAGES>
 cudaError_t launch_dkv(const Args& x) {
-  constexpr int kRows = Split<D>::kRows;
-  dim3 grid((x.S + kRows - 1) / kRows, x.B * x.H);
-  flash_bwd_dkv_f32<D><<<grid, kThreads, 0, x.stream>>>(
+  constexpr int smem =
+      DkvCfg<D, BK, BQ, STAGES>::kFloats * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_f32<D, BK, BQ, STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  if ((x.S + BK - 1) / BK > 65535) return cudaErrorInvalidValue;
+  dim3 grid(x.B * x.H, (x.S + BK - 1) / BK);
+  flash_bwd_dkv_f32<D, BK, BQ, STAGES><<<grid, kDkvThreads, smem, x.stream>>>(
       x.q, x.k, x.v, x.o, x.dout, x.lse, x.glse, x.a, x.b, x.H, x.Hkv, x.S,
       x.scale, x.causal);
   return cudaGetLastError();
@@ -750,13 +884,19 @@ cudaError_t launch_wide(bool dkv, const Args& x) {
   return cudaGetLastError();
 }
 
+// dK/dV tiles per head dim (keys a block, q rows a tile, Q/dO stages):
+// the dK and dV accumulators (2 * BK * D / 128 floats a thread, 64 from
+// D = 64 up) stay in registers; two stages where two blocks share an SM
+// (66-111 KB), one at D = 64 (71 KB), where three blocks an SM measured
+// faster on the H100 than two with the copy overlapped (1.13 vs 1.23 ms at
+// B8 H16 S1024)
 cudaError_t run(bool dkv, int D, const Args& x) {
   switch (D) {
-    case 16: return dkv ? launch_dkv<16>(x) : launch_dq<16>(x);
-    case 32: return dkv ? launch_dkv<32>(x) : launch_dq<32>(x);
-    case 64: return dkv ? launch_dkv<64>(x) : launch_dq<64>(x);
-    case 128: return dkv ? launch_dkv<128>(x) : launch_dq<128>(x);
-    case 256: return dkv ? launch_dkv<256>(x) : launch_dq<256>(x);
+    case 16: return dkv ? launch_dkv<16, 64, 64, 2>(x) : launch_dq<16>(x);
+    case 32: return dkv ? launch_dkv<32, 64, 64, 2>(x) : launch_dq<32>(x);
+    case 64: return dkv ? launch_dkv<64, 64, 32, 1>(x) : launch_dq<64>(x);
+    case 128: return dkv ? launch_dkv<128, 32, 32, 2>(x) : launch_dq<128>(x);
+    case 256: return dkv ? launch_dkv<256, 16, 16, 2>(x) : launch_dq<256>(x);
     case 384: return launch_wide<3>(dkv, x);
     case 512: return launch_wide<4>(dkv, x);
     default: return cudaErrorInvalidValue;

@@ -17,3 +17,18 @@ static inline cudaError_t mxt_set_device(int device) {
   if (e != cudaSuccess || cur == device) return e;
   return cudaSetDevice(device);
 }
+
+// cp.async: 16 bytes from device to shared memory, zero-filled when !pred
+// (src must still be a valid address); commit a group; wait for all.
+static __device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                                  bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+static __device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}

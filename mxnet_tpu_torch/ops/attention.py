@@ -25,13 +25,14 @@ an integer ``launches`` counter that is raised exactly where its kernel
 launches.
 
 Head dims: the kernels take 16, 32, 64 and the multiples of 128 up to
-:data:`MAX_HEAD_DIM` (:func:`kernel_head_dim`, the head-dim rule of the
+:data:`MAX_HEAD_DIM` (:func:`kernel_head_dim` is the head-dim rule of the
 JAX package's ``_pallas_eligible`` / ``_decode_eligible``, which take 64
-and the multiples of 128). Any other head dim (80, 96, ...) is routed by
+and every multiple of 128). Any other head dim (80, 96, ...), and the
+multiples of 128 above :data:`MAX_HEAD_DIM` (640, ...), are routed by
 :func:`flash_attention`, :func:`flash_attention_with_lse` and
 :func:`decode_attention` to :func:`dense_attention`, as the JAX package
-sends such shapes to its XLA path. The choice rests on the shape alone
-and is made before any launch.
+sends the former to its XLA path. The choice rests on the shape alone
+and is made before any launch. The raw kernel wrappers raise on both.
 """
 from __future__ import annotations
 
@@ -54,15 +55,21 @@ __all__ = ["reference_attention", "reference_attention_with_lse",
 # kernels loop over D in 128-column chunks and keep their accumulators in
 # registers, which sets the ceiling (dK/dV spilled at D = 768).
 MAX_HEAD_DIM = 512
-_DECODE_GROUPS = (1, 2, 4, 8)
 
 
 def kernel_head_dim(d):
     """True when some kernel of this module takes head dim ``d``: 16, 32,
     64 or a multiple of 128 (the JAX package's rule, plus 16 and 32).
     Multiples of 128 above :data:`MAX_HEAD_DIM` pass this test and are
-    refused by the kernel wrappers, naming the limit."""
+    refused by the kernel wrappers, naming the limit; the entry points
+    send them to :func:`dense_attention` (:func:`_kernel_route`)."""
     return d in (16, 32, 64) or (d > 0 and d % 128 == 0)
+
+
+def _kernel_route(d):
+    """True when the entry points launch a kernel for head dim ``d``;
+    else they take :func:`dense_attention`."""
+    return kernel_head_dim(d) and d <= MAX_HEAD_DIM
 
 
 def dense_attention(q, k, v, causal=False, scale=None, lengths=None):
@@ -377,8 +384,9 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention_with_lse(q, k, v, causal=False, scale=None):
     """(out, lse (B,H,S) f32), both differentiable (the lse cotangent
     folds into the backward's row term, as in the JAX package). A head
-    dim no kernel takes goes to :func:`dense_attention`."""
-    if not kernel_head_dim(q.shape[-1]):
+    dim no kernel takes, or one above :data:`MAX_HEAD_DIM`, goes to
+    :func:`dense_attention`."""
+    if not _kernel_route(q.shape[-1]):
         return dense_attention(q, k, v, causal, scale)
     return _FlashAttention.apply(q, k, v, bool(causal), scale)
 
@@ -395,10 +403,11 @@ def decode_attention(q, k, v, lengths, scale=None):
     q (B, H, D); k/v (B, H_kv, S, D); lengths (B,) int32 valid-prefix
     lengths. Replaces the TPU kernel mxnet_tpu/ops/attention.py:
     _decode_kernel (launched by _decode_pallas). On the card,
-    ``csrc/decode_attention.cu`` (float32, the forward's head dims, GQA
-    group 1/2/4/8); on the CPU, :func:`reference_decode_attention`. A
-    head dim no kernel takes goes to :func:`dense_attention`."""
-    if not kernel_head_dim(q.shape[-1]):
+    ``csrc/decode_attention.cu`` (float32, the forward's head dims, any
+    GQA group that divides H); on the CPU, :func:`reference_decode_attention`.
+    A head dim no kernel takes, or one above :data:`MAX_HEAD_DIM`, goes to
+    :func:`dense_attention`."""
+    if not _kernel_route(q.shape[-1]):
         return dense_attention(q, k, v, scale=scale, lengths=lengths)
     if q.device.type == "cpu":
         return reference_decode_attention(q, k, v, lengths, scale)
@@ -411,9 +420,6 @@ def decode_attention(q, k, v, lengths, scale=None):
     _require(h_kv > 0 and h % h_kv == 0,
              "decode_attention: H must be a multiple of H_kv")
     _check_head_dim("decode_attention", d)
-    _require(h // h_kv in _DECODE_GROUPS,
-             f"decode_attention: GQA group {h // h_kv} not in "
-             f"{_DECODE_GROUPS}")
     lengths = torch.as_tensor(lengths, device=q.device)
     _require(lengths.dtype == torch.int32 and lengths.shape == (b,)
              and lengths.is_contiguous(),

@@ -7,6 +7,9 @@
 * D = 96 (no kernel in either package): the JAX package's auto route
   takes its XLA path; the port routes to ``dense_attention``, before any
   launch, and counts it.
+* D = 640 (a multiple of 128 above the port's kernels' 512): the JAX
+  side runs its kernels under the interpreter, the port routes to
+  ``dense_attention`` and counts it.
 
 Forward, backward (gradients through autograd on both sides) and decode,
 at a tiny size, from the same seeded numpy inputs. Tolerances as
@@ -40,8 +43,13 @@ def _t(*arrays):
 
 
 def _jax_force(d):
-    # 384: the JAX kernels under the interpreter; 96: its own auto route
+    # 384, 640: the JAX kernels under the interpreter; 96: its auto route
     return "interpret" if d % 128 == 0 else None
+
+
+def _dense(d):
+    """Whether the port's entry points take the dense route at head dim d."""
+    return d == 96 or d > TA.MAX_HEAD_DIM
 
 
 def test_kernel_head_dim_mirrors_the_jax_eligibility_rule():
@@ -54,7 +62,7 @@ def test_kernel_head_dim_mirrors_the_jax_eligibility_rule():
         assert TA.kernel_head_dim(d) == (jax_kernel or d in (16, 32)), d
 
 
-@pytest.mark.parametrize("d", [96, 384])
+@pytest.mark.parametrize("d", [96, 384, 640])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_forward_matches_jax(d, causal):
     q, k, v, _ = _inputs(1, 2, 1, 16, d, seed=d)
@@ -62,14 +70,14 @@ def test_forward_matches_jax(d, causal):
                                                force=_jax_force(d))
     dense = TA.dense_attention.calls
     t_out, t_lse = TA.flash_attention_with_lse(*_t(q, k, v), causal=causal)
-    assert TA.dense_attention.calls == dense + (d == 96)
+    assert TA.dense_attention.calls == dense + _dense(d)
     np.testing.assert_allclose(t_out.detach().numpy(), np.asarray(j_out),
                                **FWD_TOL)
     np.testing.assert_allclose(t_lse.detach().numpy(), np.asarray(j_lse),
                                **FWD_TOL)
 
 
-@pytest.mark.parametrize("d", [96, 384])
+@pytest.mark.parametrize("d", [96, 384, 640])
 def test_backward_matches_jax_vjp(d):
     q, k, v, do = _inputs(1, 2, 2, 16, d, seed=d + 1)
     _, vjp = jax.vjp(lambda q, k, v: JA.flash_attention(
@@ -78,12 +86,12 @@ def test_backward_matches_jax_vjp(d):
     tq, tk, tv = [x.requires_grad_() for x in _t(q, k, v)]
     dense = TA.dense_attention.calls
     TA.flash_attention(tq, tk, tv, causal=True).backward(torch.from_numpy(do))
-    assert TA.dense_attention.calls == dense + (d == 96)
+    assert TA.dense_attention.calls == dense + _dense(d)
     for t, jg in zip((tq, tk, tv), j):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg), **BWD_TOL)
 
 
-@pytest.mark.parametrize("d,h_kv", [(96, 2), (384, 2), (384, 1)])
+@pytest.mark.parametrize("d,h_kv", [(96, 2), (384, 2), (384, 1), (640, 2)])
 def test_decode_matches_jax(d, h_kv):
     rng = np.random.RandomState(d + h_kv)
     b, h, s = 3, 4, 16
@@ -98,7 +106,7 @@ def test_decode_matches_jax(d, h_kv):
     counts = (TA.dense_attention.calls, TA.decode_attention.launches)
     t = TA.decode_attention(*_t(q, k, v), torch.from_numpy(lengths))
     assert (TA.dense_attention.calls,
-            TA.decode_attention.launches) == (counts[0] + (d == 96),
+            TA.decode_attention.launches) == (counts[0] + _dense(d),
                                               counts[1])
     np.testing.assert_allclose(t.numpy(), np.asarray(j), **FWD_TOL)
     assert not t[0].any()

@@ -14,7 +14,15 @@ within one bf16 ulp of the reference plus 1e-4 of its largest magnitude
 (the f32 sums differ in order before rounding), its statistics within
 1e-3 of their largest magnitude, and bit-identical on a second run.
 The rtc cases mirror tests/test_rtc.py with CUDA source through NVRTC.
+The quantized matmul runs both of its kernels (qmm_small at M <= 16 or
+on shapes qmm_tc does not take); with bfloat16 x it is held within one
+bf16 ulp plus 1e-4 of the largest magnitude, and every case gives
+bit-identical results on a second call. With float32 x over 40 decades
+both are held against float64 within the bound that exact products keep
+(and that x without its third bf16 piece breaks), and every weight byte
+is widened bit for bit.
 """
+import functools
 import math
 
 import pytest
@@ -70,12 +78,34 @@ def test_decode_kernel_matches_plain(dev, h_kv, d):
     assert not out[0].any()
 
 
+# GQA groups that are not 1, 2, 4 or 8: 3; 7 (Qwen2-7B: 28 q heads over 4);
+# 16 (Falcon-40B: 128 over 8); through the D <= 256 and the wide kernels
+@pytest.mark.parametrize("h,h_kv,d", [(6, 2, 64), (28, 4, 128), (128, 8, 64),
+                                      (21, 3, 256), (14, 2, 384),
+                                      (48, 3, 512), (12, 1, 32)])
+def test_decode_kernel_takes_any_group(dev, h, h_kv, d):
+    from mxnet_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev).manual_seed(h + d)
+    q = torch.randn(3, h, d, generator=g, device=dev)
+    k = torch.randn(3, h_kv, 90, d, generator=g, device=dev)
+    v = torch.randn(3, h_kv, 90, d, generator=g, device=dev)
+    lengths = torch.tensor([0, 37, 90], dtype=torch.int32, device=dev)
+    n, dense = A.decode_attention.launches, A.dense_attention.calls
+    out = A.decode_attention(q, k, v, lengths)
+    assert A.decode_attention.launches == n + 1
+    assert A.dense_attention.calls == dense
+    _close(out, A.reference_decode_attention(q, k, v, lengths))
+    assert not out[0].any()
+
+
 @pytest.mark.parametrize("glse", [False, True], ids=["no_glse", "glse"])
 @pytest.mark.parametrize("s,h_kv,causal,d", [
     (64, 4, True, 64), (100, 4, True, 64), (100, 2, False, 64),
     (7, 1, True, 64), (100, 2, True, 128), (70, 2, True, 256),
     (33, 1, False, 256), (33, 4, True, 16), (33, 4, False, 32),
-    (70, 2, True, 384), (33, 1, False, 512), (20, 4, True, 512)])
+    (70, 2, True, 384), (33, 1, False, 512), (20, 4, True, 512),
+    (257, 2, True, 64), (150, 1, False, 128), (90, 2, True, 256),
+    (130, 4, True, 32), (70, 4, False, 16)])
 def test_flash_backward_kernels_match_plain(dev, s, h_kv, causal, d, glse):
     from mxnet_tpu_torch.ops import attention as A
     g = torch.Generator(device=dev).manual_seed(s + d)
@@ -124,6 +154,109 @@ def test_quantized_matmul_kernel_matches_plain(dev, dtype, m, k, n):
     _close(Q.quantized_matmul(x, q, s), Q.reference_quantized_matmul(x, q, s))
 
 
+@functools.lru_cache(maxsize=4)
+def _qweights(k, n, dtype):
+    from mxnet_tpu_torch.ops import quantization as Q
+    g = torch.Generator(device="cuda").manual_seed(k + n)
+    w = torch.randn(k, n, generator=g, device="cuda") / math.sqrt(k)
+    return Q.quantize_rows(w, dtype)
+
+
+@pytest.mark.parametrize("xdt", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("k", [100, 1024, 4096])
+@pytest.mark.parametrize("n", [129, 1024, 4096, 50257])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 64, 1000])
+def test_quantized_matmul_kernels_over_shapes(dev, m, n, k, dtype, xdt):
+    """Both kernels over decode and prefill shapes (odd N is the vocab
+    head's): a launch each, the plain version's answer, and the same bits
+    on a second call."""
+    from mxnet_tpu_torch.ops import quantization as Q
+    q, s = _qweights(k, n, dtype)
+    g = torch.Generator(device=dev).manual_seed(m * 7 + k)
+    x = torch.randn(m, k, generator=g, device=dev)
+    if xdt == "bf16":
+        x = x.bfloat16()
+    n0 = Q.quantized_matmul.launches
+    out = Q.quantized_matmul(x, q, s)
+    assert Q.quantized_matmul.launches == n0 + 1
+    assert out.dtype == x.dtype and out.shape == (m, n)
+    again = Q.quantized_matmul(x, q, s)
+    ref = Q.reference_quantized_matmul(x, q, s)
+    torch.cuda.synchronize()
+    if xdt == "bf16":
+        _bf16_close(out, ref)
+    else:
+        _close(out, ref)
+    assert torch.equal(out, again)
+
+
+def _pieces(x):
+    """x as the sum of three bf16 values, as the kernels split it."""
+    hi = x.bfloat16().float()
+    mid = (x - hi).bfloat16().float()
+    return hi, mid, (x - hi - mid).bfloat16().float()
+
+
+def _f64(x, q, s):
+    return (x.double() @ q.double()) * s.double()
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("m,k,n", [(8, 1, 1024), (8, 8, 50257), (16, 8, 1024),
+                                   (64, 8, 128), (1000, 8, 4096),
+                                   (8, 1024, 4096), (1000, 1024, 4096)])
+def test_quantized_matmul_forms_exact_products(dev, dtype, m, k, n):
+    """Both kernels against float64, with float32 x spanning 1e-20 to 1e20
+    so that one term rules each short sum: within 4 K units of 2^-24 of
+    sum |x| |q| * scale, what float32 sums of exact products stay inside
+    in any order. The bound has teeth at K <= 8: x without its third bf16
+    piece, x as one bf16 value and x rounded to TF32 (each emulated here)
+    fall outside it."""
+    from mxnet_tpu_torch.ops import quantization as Q
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    mag = 10.0 ** (torch.rand(m, k, generator=g, device=dev) * 40 - 20)
+    x = (torch.randn(m, k, generator=g, device=dev).sign() * mag).float()
+    q, s = Q.quantize_rows(torch.randn(k, n, generator=g, device=dev), dtype)
+    out = Q.quantized_matmul(x, q, s)
+    ref = _f64(x, q, s)
+    bound = 4 * k * 2.0 ** -24 * _f64(x.abs(), q.float().abs(), s)
+    assert bool(((out.double() - ref).abs() <= bound).all())
+    if k <= 8:
+        hi, mid, _ = _pieces(x)
+        tf32 = ((x.view(torch.int32) + 0x1000) & ~0x1fff).view(torch.float32)
+        for wrong in (hi + mid, hi, tf32):
+            assert bool(((_f64(wrong, q, s) - ref).abs() > bound).any())
+
+
+@pytest.mark.parametrize("xdt", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype,nan", [("int8", False), ("fp8", False),
+                                       ("fp8", True)],
+                         ids=["int8", "fp8", "fp8_nan_codes"])
+@pytest.mark.parametrize("m,n", [(8, 256), (8, 257), (64, 256)])
+def test_quantized_matmul_widens_every_code(dev, m, n, dtype, nan, xdt):
+    """Every weight byte once in each of 16 rows, x one-hot rows: each
+    output is one code's value times its scale, bit for bit the plain
+    version's (e4m3fn's NaN codes, where kept, make their columns NaN in
+    both)."""
+    from mxnet_tpu_torch.ops import quantization as Q
+    codes = (torch.arange(n, device=dev)[None, :]
+             + 16 * torch.arange(16, device=dev)[:, None]) % 256
+    if dtype == "fp8" and not nan:
+        codes[(codes & 0x7f) == 0x7f] = 0
+    q = codes.to(torch.uint8).view(
+        torch.int8 if dtype == "int8" else torch.float8_e4m3fn)
+    g = torch.Generator(device=dev).manual_seed(n)
+    s = torch.rand(n, generator=g, device=dev) + 0.5
+    x = torch.nn.functional.one_hot(torch.arange(m, device=dev) % 16,
+                                    16).float()
+    if xdt == "bf16":
+        x = x.bfloat16()
+    out = Q.quantized_matmul(x, q, s)
+    torch.testing.assert_close(out, Q.reference_quantized_matmul(x, q, s),
+                               rtol=0, atol=0, equal_nan=True)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     from mxnet_tpu_torch.base import MXNetError
     from mxnet_tpu_torch.ops import attention as A, quantization as Q
@@ -136,7 +269,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(MXNetError, match="above 512"):
         x = torch.randn(1, 1, 8, 640, device=dev)
         A.flash_attention_fwd(x, x, x)
-    with pytest.raises(MXNetError, match="float32"):
+    with pytest.raises(MXNetError, match="float32 or bfloat16"):
         Q.quantized_matmul(torch.randn(2, 4, device=dev).half(),
                            torch.zeros(4, 4, dtype=torch.int8, device=dev),
                            torch.ones(4, device=dev))
@@ -159,6 +292,34 @@ def test_head_dim_96_takes_the_dense_route(dev):
     assert (A.flash_attention_fwd.launches, A.flash_attention_bwd_dq.launches,
             A.flash_attention_bwd_dkv.launches,
             A.decode_attention.launches) == kernels
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    A.reference_attention(q2, k2, v2, causal=True).backward(do)
+    for a, t in zip((q, k, v), (q2, k2, v2)):
+        _close(a.grad, t.grad)
+    _close(out, A.reference_decode_attention(q[:, :, 0].detach(), k.detach(),
+                                             v.detach(), lengths))
+
+
+def test_head_dim_above_512_takes_the_dense_route(dev):
+    """D = 640, a multiple of 128 above the kernels' 512: the entry points
+    take the dense route, decided by shape before any launch."""
+    from mxnet_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev).manual_seed(640)
+    q, k, v = (torch.randn(1, 2, 40, 640, generator=g, device=dev)
+               .requires_grad_() for _ in range(3))
+    do = torch.randn(1, 2, 40, 640, generator=g, device=dev)
+    kernels = {n: f.launches for n, f in (
+        ("fwd", A.flash_attention_fwd), ("dq", A.flash_attention_bwd_dq),
+        ("dkv", A.flash_attention_bwd_dkv), ("dec", A.decode_attention))}
+    dense = A.dense_attention.calls
+    A.flash_attention(q, k, v, causal=True).backward(do)
+    lengths = torch.tensor([40], dtype=torch.int32, device=dev)
+    out = A.decode_attention(q[:, :, 0].detach(), k.detach(), v.detach(),
+                             lengths)
+    assert A.dense_attention.calls == dense + 2
+    assert kernels == {n: f.launches for n, f in (
+        ("fwd", A.flash_attention_fwd), ("dq", A.flash_attention_bwd_dq),
+        ("dkv", A.flash_attention_bwd_dkv), ("dec", A.decode_attention))}
     q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
     A.reference_attention(q2, k2, v2, causal=True).backward(do)
     for a, t in zip((q, k, v), (q2, k2, v2)):

@@ -109,3 +109,89 @@ def test_calibrate_weights_rejects_nothing_to_quantize():
     from mxnet_tpu_torch.base import MXNetError
     with pytest.raises(MXNetError):
         TCQ.calibrate_weights({"embed": np.ones((4, 4), np.float32)})
+
+
+def _bf16_ulps(got, ref):
+    """|got - ref| in bf16 ulps of ref (ref's exponent; 2^-133 floor)."""
+    ref = np.asarray(ref, np.float32)
+    _, e = np.frexp(ref)
+    ulp = np.ldexp(np.float32(1.0), np.maximum(e - 8, -133))
+    return np.abs(np.asarray(got, np.float32) - ref) / ulp
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("shape", [(5, 24, 12), (3, 40, 13)],
+                         ids=["even", "ragged_n"])
+def test_quantized_matmul_bf16_x_matches_jax_interpret(dtype, shape):
+    """bfloat16 activations: both packages accumulate in f32 and round to
+    bf16 once, so they differ only where the sums' order moves a result
+    across a rounding boundary: at most 1 bf16 ulp."""
+    import jax.numpy as jnp
+    m, k, n = shape
+    rng = np.random.RandomState(m + 1)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    jq, js = JQ.quantize_rows(_weights(k, n, seed=k + 1), dtype)
+    j = JQ.quantized_matmul(jnp.asarray(x, jnp.bfloat16), jq, js,
+                            force="interpret")
+    assert j.dtype == jnp.bfloat16
+    tx = torch.from_numpy(x).bfloat16()
+    t = TQ.quantized_matmul(tx, to_tensor(jq), torch.from_numpy(np.asarray(js)))
+    assert t.dtype == torch.bfloat16
+    assert _bf16_ulps(t.float().numpy(), np.asarray(j, np.float32)).max() <= 1
+
+
+def _pieces(x):
+    """The kernels' split of float32 x into bf16 values."""
+    hi = x.bfloat16().float()
+    mid = (x - hi).bfloat16().float()
+    lo = (x - hi - mid).bfloat16().float()
+    return hi, mid, lo
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+def test_tensor_core_pieces_are_exact(dtype):
+    """The premise of both quantized-matmul kernels
+    (csrc/quantized_matmul.cu), emulated on the CPU: an f32 x is the exact sum of three bf16
+    pieces, every weight is a bf16 value, so sum over pieces of
+    piece @ bf16(q), times scale, agrees with reference_quantized_matmul
+    within f32 rounding of sums that span x from 1e-20 to 1e20: 4 * K
+    units of 2^-24 of sum |x| |q| * scale."""
+    rng = np.random.RandomState(7)
+    m, k, n = 6, 64, 20
+    mag = 10.0 ** rng.uniform(-20, 20, (m, k))
+    x = torch.from_numpy((np.sign(rng.standard_normal((m, k))) * mag)
+                         .astype(np.float32))
+    q, s = TQ.quantize_rows(_weights(k, n, seed=3), dtype)
+    hi, mid, lo = _pieces(x)
+    assert torch.equal(hi + mid + lo, x)
+    for p in (hi, mid, lo):
+        assert torch.equal(p.bfloat16().float(), p)
+    qb = q.bfloat16().float()
+    assert torch.equal(qb, q.float())          # every weight is a bf16
+    emu = sum(torch.matmul(p.double(), qb.double()).float()
+              for p in (hi, mid, lo)) * s
+    # f32 accumulation of the pieces' products, as the tensor cores do
+    emu32 = sum(torch.matmul(p, qb) for p in (hi, mid, lo)) * s
+    ref = TQ.reference_quantized_matmul(x, q, s)
+    bound = 4 * k * 2.0 ** -24 * (torch.matmul(x.abs().double(),
+                                                qb.abs().double())
+                                  * s.double()).float()
+    assert bool(((emu32 - ref).abs() <= bound).all())
+    assert bool(((emu - ref).abs() <= bound).all())
+
+
+def test_quantized_matmul_route_by_shape():
+    """The wrapper's shape route: the decode kernel (qmm_small) up to 16
+    rows and on shapes the prefill kernel (qmm_tc) does not take."""
+    q = torch.zeros(1024, 4096, dtype=torch.int8)
+    for m, x_dtype, k, n, route in ((8, torch.float32, 1024, 4096, 0),
+                                    (16, torch.float32, 1024, 4096, 0),
+                                    (17, torch.float32, 1024, 4096, 1),
+                                    (1000, torch.bfloat16, 1024, 4096, 1),
+                                    (1000, torch.float32, 1024, 129, 0),
+                                    (1000, torch.float32, 100, 4096, 1),
+                                    (1000, torch.bfloat16, 100, 4096, 0)):
+        x = torch.zeros(m, k, dtype=x_dtype)
+        w = q[:k, :n].contiguous() if (k, n) != (1024, 4096) else q
+        out = torch.empty(m, n, dtype=x_dtype)
+        assert TQ._qmm_route(x, w, out) == route, (m, x_dtype, k, n)
