@@ -20,7 +20,14 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            paths' shapes (max error vs a stated tolerance), and timed
            (device time) beside its plain version and one library call;
            head dims 384 and 512 through the wide kernels, 96 and 640
-           through the dense route; decode at GQA groups 7 and 16; the
+           and cross-attention (S_q 128, S_k 512) through the dense
+           route; the attention kernels in bfloat16 and float16 beside
+           SDPA in the same type (each element against its row's
+           magnitude; a control with one tile of keys dropped must fail
+           that check); the f32 flash forward and dQ against
+           float64 (exact_flash_*: within 4x the plain f32 version's own
+           error, which one TF32 pass, emulated, must break); decode at
+           GQA groups 7 and 16; the
            quantized matmul's decode and prefill kernels with float32 and
            bfloat16 x;
            conv1x1 at ResNet-50's five 1x1 shapes; the rtc kernels over
@@ -71,6 +78,26 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
+# the flash forward and dQ kernels form each f32 product as 3 TF32
+# tensor-core products (bf16/f16 inputs: 1 product at the bf16 rate)
+TF32_PIECES = 3
+# f32 flash forward and dQ against float64: within F64_FACTOR times the
+# plain f32 version's own float64 error
+F64_FACTOR = 4
+# bf16/f16 attention outputs vs their plain versions, element by element:
+# |got - ref| within HALF_ULPS units of (one ulp of |ref| there + one ulp
+# of the root-sum-square of the terms it sums), ulps of the output type
+# (mxnet_tpu_torch.test_utils.half_units). The kernels round P and dS to
+# the input type before their second product, as the TPU kernels do,
+# which moves an element by a fraction of its terms; the plain versions
+# round once at the end. Causal rows and keys differ in magnitude by 30x
+# and more, so no tensor-wide scale is used. Each bf16/f16 flash case also
+# holds a control, its plain version with DROP_KEYS keys from S/2 on left
+# out of every row (a skipped K/V tile), which must fail the check.
+HALF_ULPS = 2
+DROP_KEYS = 64
+DTYPES = {}             # "f32" / "bf16" / "f16" -> torch dtype, at run time
 # the quantized matmul's kernels form each f32 x as 3 exact bf16 pieces on
 # the bf16 tensor cores (bf16 x: 1 piece)
 QMM_PIECES = {"f32": 3, "bf16": 1}
@@ -273,20 +300,82 @@ def phase_build():
     return res
 
 
-def _flash_case(name, b, h, hkv, s, d, causal, gen):
+def _max_rule_ulps(got, ref):
+    """The tensor-wide rule the element check replaced: max |got - ref| in
+    ulps of max |ref|. Kept for the controls' record only."""
+    import torch
+    r = ref.float()
+    m = float(r.abs().max())
+    return float((got.float() - r).abs().max()) / (
+        2.0 ** math.floor(math.log2(m)) * torch.finfo(got.dtype).eps)
+
+
+def _held(got, ref, terms=None):
+    """(error, its tolerance, ok): float32 outputs by err_of, bf16/f16 by
+    half_units (``terms``: the root-sum-squares of their terms) against
+    HALF_ULPS."""
+    import torch
+    from mxnet_tpu_torch import test_utils as U
+    if got.dtype == torch.float32:
+        e, tol = err_of(got, ref)
+        return e, tol, e <= tol
+    u = U.half_units(got, ref, terms)
+    return u, "%d units of ulp(|ref|) + ulp(rss of its terms)" \
+        % HALF_ULPS, u <= HALF_ULPS
+
+
+def _control(ctrl, ref, terms):
+    """A control's record: its error by the check (it must fail) and by
+    the tensor-wide rule that the check replaced."""
+    from mxnet_tpu_torch import test_utils as U
+    return {"units": U.half_units(ctrl, ref, terms),
+            "max_rule_ulps": _max_rule_ulps(ctrl, ref)}
+
+
+def _tc_bound(io_bytes, flops, dt):
+    """A flash kernel's bound at the tensor cores' peak for its inputs (3
+    TF32 products for f32, the forward's and dQ's design; one bf16/f16
+    product), and the FP32 pipes' bound."""
+    if dt == "f32":
+        design = bound_ms(io_bytes, TF32_PIECES * flops, PEAK_TF32_FLOPS)
+    else:
+        design = bound_ms(io_bytes, flops, PEAK_BF16_FLOPS)
+    return design, bound_ms(io_bytes, flops)[0]
+
+
+def _flash_case(name, b, h, hkv, s, d, causal, gen, dt="f32"):
     import torch
     import torch.nn.functional as F
+    from mxnet_tpu_torch import test_utils as U
     from mxnet_tpu_torch.ops import attention as A
     dev = "cuda"
-    q = torch.randn(b, h, s, d, generator=gen, device=dev)
-    k = torch.randn(b, hkv, s, d, generator=gen, device=dev)
-    v = torch.randn(b, hkv, s, d, generator=gen, device=dev)
+    tdt = DTYPES[dt]
+    q = torch.randn(b, h, s, d, generator=gen, device=dev).to(tdt)
+    k = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(tdt)
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(tdt)
+    n0, dense0 = A.flash_attention_fwd.launches, A.dense_attention.calls
     out, lse = A.flash_attention_fwd(q, k, v, causal=causal)
+    launched = (A.flash_attention_fwd.launches - n0,
+                A.dense_attention.calls - dense0)
+    again = A.flash_attention_fwd(q, k, v, causal=causal)
     rout, rlse = A.reference_attention_with_lse(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    e_o, tol_o = err_of(out, rout)
+    deterministic = bool(torch.equal(out, again[0]) and
+                         torch.equal(lse, again[1]))
+    control = terms = None
+    if dt != "f32":
+        terms = U.attention_term_scales(q, k, v, causal)[0]
+        ctrl = U.attention_without_keys(q, k, v, s // 2, s // 2 + DROP_KEYS,
+                                        causal)[0]
+        control = _control(ctrl, rout, terms)
+        del ctrl
+    e_o, tol_o, ok_o = _held(out, rout, terms)
     e_l, tol_l = err_of(lse, rlse)
-    io_bytes = 4 * (2 * q.numel() + k.numel() + v.numel() + lse.numel())
+    del terms
+    ok_o = ok_o and (control is None or control["units"] > HALF_ULPS)
+    esz = q.element_size()
+    io_bytes = esz * (2 * q.numel() + k.numel() + v.numel()) \
+        + 4 * lse.numel()
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * b * h * d * pairs
     sets = copies(io_bytes, q, k, v)
@@ -298,30 +387,40 @@ def _flash_case(name, b, h, hkv, s, d, causal, gen):
     gqa = {"enable_gqa": True} if hkv != h else {}
     lib = bench_ms(lambda q, k, v: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, **gqa), sets, iters)
-    bnd, by = bound_ms(io_bytes, flops)
-    return {"kernel": "flash_attention_fwd", "case": name,
+    (bnd, by), b_f32 = _tc_bound(io_bytes, flops, dt)
+    return {"kernel": "flash_attention_fwd", "case": name, "dtype": dt,
+            "held_in_ulps": dt != "f32",
             "shape": [b, h, hkv, s, d], "causal": causal,
-            "max_abs_err": max(e_o, e_l), "err_out": e_o, "err_lse": e_l,
+            "max_abs_err": max(float((out.float() - rout.float()).abs()
+                                     .max()), e_l),
+            "err_out": e_o, "err_lse": e_l,
             "tol_out": tol_o, "tol_lse": tol_l,
-            "ok": e_o <= tol_o and e_l <= tol_l,
+            "control_dropped_keys": control,
+            "launches_and_dense_calls": launched,
+            "deterministic": deterministic,
+            "ok": ok_o and e_l <= tol_l and launched == (1, 0)
+            and deterministic,
             "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
-            "bound_ms": bnd, "bound_by": by, "bytes": io_bytes,
-            "flops": flops}
+            "library_note": "SDPA in %s" % dt,
+            "bound_ms": bnd, "bound_by": by, "bound_f32_pipes_ms": b_f32,
+            "bytes": io_bytes, "flops": flops}
 
 
 def _flash_bwd_case(name, b, h, hkv, s, d, causal, gen, glse=False,
-                    plain_batch=None, iters=10):
+                    plain_batch=None, iters=10, dt="f32"):
     """dQ and dK/dV kernels against the plain twin (on the first
     ``plain_batch`` sequences when the dense (S, S) matrices would not
     fit), timed beside the twin and SDPA's backward through autograd."""
     import torch
     import torch.nn.functional as F
+    from mxnet_tpu_torch import test_utils as U
     from mxnet_tpu_torch.ops import attention as A
     dev = "cuda"
-    q = torch.randn(b, h, s, d, generator=gen, device=dev)
-    k = torch.randn(b, hkv, s, d, generator=gen, device=dev)
-    v = torch.randn(b, hkv, s, d, generator=gen, device=dev)
-    do = torch.randn(b, h, s, d, generator=gen, device=dev)
+    tdt = DTYPES[dt]
+    q = torch.randn(b, h, s, d, generator=gen, device=dev).to(tdt)
+    k = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(tdt)
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(tdt)
+    do = torch.randn(b, h, s, d, generator=gen, device=dev).to(tdt)
     gl = torch.randn(b, h, s, generator=gen, device=dev) if glse else None
     o, lse = A.flash_attention_fwd(q, k, v, causal=causal)
     dq = A.flash_attention_bwd_dq(q, k, v, o, lse, do, gl, causal)
@@ -329,10 +428,9 @@ def _flash_bwd_case(name, b, h, hkv, s, d, causal, gen, glse=False,
     again = A.flash_attention_bwd(q, k, v, o, lse, do, gl, causal)
     torch.cuda.synchronize()
     if hkv != h:
-        dk = dkp.reshape(b, hkv, h // hkv, s, d).sum(2)
-        dv = dvp.reshape(b, hkv, h // hkv, s, d).sum(2)
-    else:
-        dk, dv = dkp, dvp
+        dkp = dkp.reshape(b, hkv, h // hkv, s, d).sum(2)
+        dvp = dvp.reshape(b, hkv, h // hkv, s, d).sum(2)
+    dk, dv = dkp.to(tdt), dvp.to(tdt)
     deterministic = bool(torch.equal(dq, again[0]) and
                          torch.equal(dk, again[1]) and
                          torch.equal(dv, again[2]))
@@ -342,13 +440,27 @@ def _flash_bwd_case(name, b, h, hkv, s, d, causal, gen, glse=False,
         q[sl], k[sl], v[sl], o[sl], lse[sl], do[sl],
         None if gl is None else gl[sl], causal)
     torch.cuda.synchronize()
-    errs = [err_of(got[sl], r) for got, r in zip((dq, dk, dv), ref)]
-    del ref
+    abs_err = max(float((got[sl].float() - r.float()).abs().max())
+                  for got, r in zip((dq, dk, dv), ref))
+    control, terms = None, (None,) * 3
+    if dt != "f32":
+        gsl = None if gl is None else gl[sl]
+        terms = U.attention_term_scales(q[sl], k[sl], v[sl], causal,
+                                        o=o[sl], do=do[sl], glse=gsl)[1:]
+        ctrl = U.attention_without_keys(q[sl], k[sl], v[sl], s // 2,
+                                        s // 2 + DROP_KEYS, causal,
+                                        do=do[sl], glse=gsl)[1:]
+        control = [_control(c, r, t) for c, r, t in zip(ctrl, ref, terms)]
+        del ctrl
+    held = [_held(got[sl], r, t) for got, r, t in zip((dq, dk, dv), ref,
+                                                       terms)]
+    del ref, terms
     pairs = s * (s + 1) // 2 if causal else s * s
-    n_in = 4 * (3 * q.numel() + k.numel() + v.numel() + lse.numel()
-                + (gl.numel() if gl is not None else 0))
-    dq_bytes = n_in + 4 * q.numel()
-    dkv_bytes = n_in + 4 * 2 * q.numel()          # per-q-head partials
+    esz = q.element_size()
+    n_in = esz * (3 * q.numel() + k.numel() + v.numel()) + 4 * (
+        lse.numel() + (gl.numel() if gl is not None else 0))
+    dq_bytes = n_in + esz * q.numel()
+    dkv_bytes = n_in + 4 * 2 * q.numel()          # f32 per-q-head partials
     dq_flops = 6 * d * pairs * b * h
     dkv_flops = 8 * d * pairs * b * h
     sets = copies(n_in, q, k, v, o, lse, do)
@@ -370,38 +482,47 @@ def _flash_bwd_case(name, b, h, hkv, s, d, causal, gen, glse=False,
     lib = bench_ms(lambda g: torch.autograd.grad(
         lo, (ql, kl, vl), g, retain_graph=True), [(do,)], iters)
     del lo, ql, kl, vl
-    b_dq, by_dq = bound_ms(dq_bytes, dq_flops)
-    b_dkv, by_dkv = bound_ms(dkv_bytes, dkv_flops)
-    ok = all(e <= t for e, t in errs) and deterministic
-    return {"kernel": "flash_attention_bwd", "case": name,
+    (b_dq, by_dq), b_dq_f32 = _tc_bound(dq_bytes, dq_flops, dt)
+    # dK/dV does its math on the FP32 pipes, but the card could do the
+    # same work at the forward's and dQ's rates: its bound is theirs
+    (b_dkv, by_dkv), b_dkv_f32 = _tc_bound(dkv_bytes, dkv_flops, dt)
+    ok = all(h_[2] for h_ in held) and deterministic and (
+        control is None or all(c["units"] > HALF_ULPS for c in control))
+    return {"kernel": "flash_attention_bwd", "case": name, "dtype": dt,
+            "held_in_ulps": dt != "f32",
             "shape": [b, h, hkv, s, d], "causal": causal, "glse": glse,
-            "plain_batch": pb, "err_dq": errs[0][0], "err_dk": errs[1][0],
-            "err_dv": errs[2][0], "tols": [t for _, t in errs],
-            "max_abs_err": max(e for e, _ in errs),
+            "plain_batch": pb, "err_dq": held[0][0], "err_dk": held[1][0],
+            "err_dv": held[2][0], "tols": [t for _, t, _ in held],
+            "control_dropped_keys": control,
+            "max_abs_err": abs_err,
             "deterministic": deterministic, "ok": ok,
             "dq_ms": dq_ms, "dkv_ms": dkv_ms, "kernel_ms": dq_ms + dkv_ms,
             "plain_ms": plain, "plain_note": "the plain twin computes dq, "
             "dk and dv together" + (
                 "; timed on %d of %d sequences, scaled" % (pb, b)
                 if pb != b else ""),
-            "library_ms": lib, "library_note": "SDPA backward through "
-            "autograd (dq, dk, dv together)",
+            "library_ms": lib, "library_note": "SDPA backward in %s "
+            "through autograd (dq, dk, dv together)" % dt,
             "dq_bound_ms": b_dq, "dq_bound_by": by_dq,
+            "dq_bound_f32_pipes_ms": b_dq_f32,
             "dkv_bound_ms": b_dkv, "dkv_bound_by": by_dkv,
+            "dkv_bound_f32_pipes_ms": b_dkv_f32,
             "bound_ms": b_dq + b_dkv,
             "bound_by": by_dq if by_dq == by_dkv else "mixed",
             "dq_bytes": dq_bytes, "dkv_bytes": dkv_bytes,
             "dq_flops": dq_flops, "dkv_flops": dkv_flops}
 
 
-def _decode_case(name, b, h, hkv, s, d, lengths, gen):
+def _decode_case(name, b, h, hkv, s, d, lengths, gen, dt="f32"):
     import torch
     import torch.nn.functional as F
+    from mxnet_tpu_torch import test_utils as U
     from mxnet_tpu_torch.ops import attention as A
     dev = "cuda"
-    q = torch.randn(b, h, d, generator=gen, device=dev)
-    k = torch.randn(b, hkv, s, d, generator=gen, device=dev)
-    v = torch.randn(b, hkv, s, d, generator=gen, device=dev)
+    tdt = DTYPES[dt]
+    q = torch.randn(b, h, d, generator=gen, device=dev).to(tdt)
+    k = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(tdt)
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(tdt)
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
     n0, dense0 = A.decode_attention.launches, A.dense_attention.calls
     out = A.decode_attention(q, k, v, ln)
@@ -409,11 +530,13 @@ def _decode_case(name, b, h, hkv, s, d, lengths, gen):
                 A.dense_attention.calls - dense0)
     ref = A.reference_decode_attention(q, k, v, ln)
     torch.cuda.synchronize()
-    e, tol = err_of(out, ref)
+    e, tol, ok = _held(out, ref, None if dt == "f32" else
+                       U.decode_term_scales(q, k, v, ln))
     tot = int(sum(lengths))
-    io_bytes = 4 * (2 * q.numel() + 2 * hkv * d * tot) + 4 * b
+    esz = q.element_size()
+    io_bytes = esz * (2 * q.numel() + 2 * hkv * d * tot) + 4 * b
     flops = 4 * h * d * tot
-    pool_bytes = 4 * (k.numel() + v.numel())
+    pool_bytes = esz * (k.numel() + v.numel())
     sets = copies(pool_bytes, q, k, v)
     mask = (torch.arange(s, device=dev)[None, :] < ln[:, None])
     mask = mask[:, None, None, :]
@@ -430,11 +553,13 @@ def _decode_case(name, b, h, hkv, s, d, lengths, gen):
         q, k, v, ln), sets, iters)
     lib = bench_ms(lib_fn, sets, iters)
     bnd, by = bound_ms(io_bytes, flops)
-    return {"kernel": "decode_attention", "case": name,
+    return {"kernel": "decode_attention", "case": name, "dtype": dt,
+            "held_in_ulps": dt != "f32",
             "shape": [b, h, hkv, s, d], "lengths": list(lengths),
             "group": h // hkv, "launches_and_dense_calls": launched,
-            "max_abs_err": e, "tol": tol,
-            "ok": e <= tol and launched == (1, 0),
+            "max_abs_err": float((out.float() - ref.float()).abs().max()),
+            "err": e, "tol": tol,
+            "ok": ok and launched == (1, 0),
             "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
             "bound_ms": bnd, "bound_by": by, "bytes": io_bytes,
             "flops": flops}
@@ -539,39 +664,100 @@ def _qmm_pieces_case(name, m, kdim, n, dtype, gen):
             "ok": ratio <= 1.0 and all(v > 1.0 for v in controls.values())}
 
 
-def _dense_case(name, d, gen):
+def _dense_case(name, d, gen, s_q=512):
     """A head dim no kernel takes (96), or one above the kernels' 512
     (640), through flash_attention with its backward and through
-    decode_attention: the dense route's answer, and no kernel launch."""
+    decode_attention; or cross-attention (``s_q`` query rows against 512
+    keys, causal from the bottom right) through flash_attention alone:
+    the dense route's answer, and no kernel launch."""
     import torch
     from mxnet_tpu_torch.ops import attention as A
     dev = "cuda"
-    q, k, v = (torch.randn(2, 8, 512, d, generator=gen, device=dev)
-               .requires_grad_() for _ in range(3))
-    do = torch.randn(2, 8, 512, d, generator=gen, device=dev)
+    q = torch.randn(2, 8, s_q, d, generator=gen, device=dev).requires_grad_()
+    k, v = (torch.randn(2, 8, 512, d, generator=gen, device=dev)
+            .requires_grad_() for _ in range(2))
+    do = torch.randn(2, 8, s_q, d, generator=gen, device=dev)
     ln = torch.tensor([1, 512], dtype=torch.int32, device=dev)
+    decode = not A.kernel_head_dim(d) or d > A.MAX_HEAD_DIM
     kernels = {n: f.launches for n, f in _wrappers().items()}
     calls = A.dense_attention.calls
     out = A.flash_attention(q, k, v, causal=True)
     out.backward(do)
-    dec = A.decode_attention(q[:, :, -1].detach(), k.detach(), v.detach(), ln)
+    if decode:
+        dec = A.decode_attention(q[:, :, -1].detach(), k.detach(),
+                                 v.detach(), ln)
     torch.cuda.synchronize()
     after = {n: f.launches for n, f in _wrappers().items()}
     q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
     ref = A.reference_attention(q2, k2, v2, causal=True)
     ref.backward(do)
-    rdec = A.reference_decode_attention(q2[:, :, -1].detach(), k2.detach(),
-                                        v2.detach(), ln)
-    errs = [err_of(a.detach(), b.detach())
-            for a, b in ((out, ref), (q.grad, q2.grad), (k.grad, k2.grad),
-                         (v.grad, v2.grad), (dec, rdec))]
+    pairs = [(out, ref), (q.grad, q2.grad), (k.grad, k2.grad),
+             (v.grad, v2.grad)]
+    if decode:
+        pairs.append((dec, A.reference_decode_attention(
+            q2[:, :, -1].detach(), k2.detach(), v2.detach(), ln)))
+    errs = [err_of(a.detach(), b.detach()) for a, b in pairs]
+    finite = all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
     dense = A.dense_attention.calls - calls
     return {"kernel": "dense_attention", "case": name,
-            "shape": [2, 8, 8, 512, d], "dense_calls": dense,
+            "shape": [2, 8, 8, s_q, 512, d], "dense_calls": dense,
             "kernel_launches": {n: after[n] - kernels[n] for n in after},
-            "max_abs_err": max(e for e, _ in errs),
-            "ok": dense == 2 and after == kernels
+            "max_abs_err": max(e for e, _ in errs), "finite_grads": finite,
+            "ok": dense == 1 + decode and after == kernels and finite
             and all(e <= t for e, t in errs)}
+
+
+def _flash_exact_case(name, b, h, s, d, gen):
+    """The f32 flash forward (``exact_flash_fwd_f32``) or dQ
+    (``exact_flash_dq_f32``) against float64: its largest error within
+    F64_FACTOR times the plain f32 version's own, while one TF32 pass (the
+    same formulas on tf32-rounded q, k, v, P and dS, in float64; the
+    control) must exceed that bound."""
+    import torch
+    from mxnet_tpu_torch.ops import attention as A
+    dev = "cuda"
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=dev)
+                   for _ in range(4))
+    out, lse = A.flash_attention_fwd(q, k, v, causal=True)
+    mask = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+
+    def f64(rnd):
+        sc = rnd(q) @ rnd(k).transpose(-1, -2) / math.sqrt(d)
+        sc = sc.masked_fill(~mask, float("-inf"))
+        p = torch.exp(sc - torch.logsumexp(sc, -1, keepdim=True))
+        o = rnd(p) @ rnd(v)
+        if name.startswith("exact_flash_fwd"):
+            return o
+        dp = rnd(do) @ rnd(v).transpose(-1, -2)
+        ds = p * (dp - (do.double() * o).sum(-1, keepdim=True)) \
+            / math.sqrt(d)
+        return rnd(ds) @ rnd(k)
+
+    def exact(x):
+        return x.double()
+
+    def one_tf32(x):
+        x = x.float()
+        return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(
+            torch.float32).double()
+
+    if name.startswith("exact_flash_fwd"):
+        got = out
+        plain = A.reference_attention_with_lse(q, k, v, causal=True)[0]
+    else:
+        got = A.flash_attention_bwd_dq(q, k, v, out, lse, do, causal=True)
+        plain = A.reference_flash_attention_bwd(q, k, v, out, lse, do,
+                                                causal=True)[0]
+    ref = f64(exact)
+    bound = F64_FACTOR * float((plain.double() - ref).abs().max())
+    ratio = float((got.double() - ref).abs().max()) / bound
+    control = float((f64(one_tf32) - ref).abs().max()) / bound
+    return {"kernel": "flash_attention_exact", "case": name,
+            "shape": [b, h, h, s, d], "err_over_bound": ratio,
+            "control_one_tf32_err_over_bound": control,
+            "bound": "%d x the plain f32 version's float64 error (%g)"
+                     % (F64_FACTOR, bound),
+            "ok": ratio <= 1.0 and control > 1.0}
 
 
 def _bf16_ulp_err(got, ref, atol_rel):
@@ -749,6 +935,7 @@ def _rtc_cases(gen):
 
 def phase_kernels():
     import torch
+    DTYPES.update(f32=torch.float32, bf16=torch.bfloat16, f16=torch.float16)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     cases = [
@@ -763,6 +950,14 @@ def phase_kernels():
         _flash_case("hd256_s1000", 1, 8, 8, 1000, 256, True, gen),
         _flash_case("hd384_s1000", 1, 8, 8, 1000, 384, True, gen),
         _flash_case("hd512_s1000", 1, 8, 8, 1000, 512, True, gen),
+        _flash_case("train_b8_s1024_bf16", TRAIN_BATCH, 16, 16, 1024, 64,
+                    True, gen, "bf16"),
+        _flash_case("hd128_s1000_bf16", 1, 8, 8, 1000, 128, True, gen,
+                    "bf16"),
+        _flash_case("train_b8_s1024_f16", TRAIN_BATCH, 16, 16, 1024, 64,
+                    True, gen, "f16"),
+        _flash_exact_case("exact_flash_fwd_f32", 2, 16, 1024, 64, gen),
+        _flash_exact_case("exact_flash_fwd_f32_hd128", 1, 8, 1000, 128, gen),
     ]
     cases += [
         _flash_bwd_case("train_b8_s1024", TRAIN_BATCH, 16, 16, 1024, 64,
@@ -774,9 +969,20 @@ def phase_kernels():
         _flash_bwd_case("noncausal_s512", 2, 16, 16, 512, 64, False, gen),
         _flash_bwd_case("glse_s1024", 2, 16, 16, 1024, 64, True, gen,
                         glse=True),
+        # f32 D = 128 dQ on both sides of its tile choice: one wave of
+        # blocks here (32-key tiles), many at S 4096 above (16-key tiles)
+        _flash_bwd_case("hd128_s1000", 1, 8, 8, 1000, 128, True, gen),
         _flash_bwd_case("hd256_s1000", 1, 8, 8, 1000, 256, True, gen),
         _flash_bwd_case("hd384_s1000", 1, 8, 8, 1000, 384, True, gen),
         _flash_bwd_case("hd512_s1000", 1, 8, 8, 1000, 512, True, gen),
+        _flash_bwd_case("train_b8_s1024_bf16", TRAIN_BATCH, 16, 16, 1024, 64,
+                        True, gen, plain_batch=2, dt="bf16"),
+        _flash_bwd_case("hd128_s1000_bf16", 1, 8, 8, 1000, 128, True, gen,
+                        dt="bf16"),
+        _flash_bwd_case("gqa_h8_kv2_s1024_f16", 2, 8, 2, 1024, 64, True, gen,
+                        glse=True, dt="f16"),
+        _flash_exact_case("exact_flash_dq_f32", 2, 16, 1024, 64, gen),
+        _flash_exact_case("exact_flash_dq_f32_hd128", 1, 8, 1000, 128, gen),
     ]
     lengths = (0, 1, 17, 100, 511, 700, 1000, 1024)
     cases += [
@@ -794,8 +1000,15 @@ def phase_kernels():
                      gen),
         _decode_case("step_gqa16_hd64", SLOTS, 128, 8, 1024, 64, lengths,
                      gen),
+        _decode_case("step_mha_bf16", SLOTS, 16, 16, 1024, 64, lengths, gen,
+                     "bf16"),
+        _decode_case("step_hd128_bf16", SLOTS, 8, 8, 1024, 128, lengths,
+                     gen, "bf16"),
+        _decode_case("step_gqa_f16", SLOTS, 16, 4, 1024, 64, lengths, gen,
+                     "f16"),
         _dense_case("hd96", 96, gen),
         _dense_case("hd640", 640, gen),
+        _dense_case("cross_sq128_sk512", 64, gen, s_q=128),
     ]
     # the decode step's six per-layer matmuls (wq, wk, wv, wo at (1024,
     # 1024); w1; w2) and the head at 8 slots, then prefill at the longest
@@ -1492,7 +1705,10 @@ def main():
          err_keys) in KERNEL_ROWS:
         c = next((c for c in cases
                   if c["kernel"] == kind and c["case"] == case), None)
-        errs = [c[k] for c in cases if c["kernel"] == kind for k in err_keys]
+        # absolute errors, but of the attention cases in bf16/f16: those
+        # are held in ulps and kept in chip_smoke.json
+        errs = [c[k] for c in cases if c["kernel"] == kind
+                and not c.get("held_in_ulps") for k in err_keys]
         launches = sum(p["launches"].get(name, 0) for p in paths)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches,

@@ -1,5 +1,6 @@
-// Single-token decode attention over a length-masked KV pool, float32,
-// for Hopper (sm_90a).
+// Single-token decode attention over a length-masked KV pool, for Hopper
+// (sm_90a): float32, bfloat16 or float16 q and caches (one type), widened
+// to f32 at load, f32 math, the output rounded once to the input type.
 //
 // Replaces: mxnet_tpu/ops/attention.py:_decode_kernel (launched by
 // _decode_pallas). Same function: for each slot b and q head h,
@@ -35,7 +36,7 @@
 // A later step splits long caches across blocks (flash-decoding) so that
 // fewer than ~132 (slot, kv head) pairs still fill the card.
 //
-// Head dims above 256 (D = 128 * NC: 384 and 512) take decode_wide_f32: one
+// Head dims above 256 (D = 128 * NC: 384 and 512) take decode_wide: one
 // warp per key, lane i owning columns c * 128 + 4 i .. +3 of every
 // 128-column chunk c, so the loop over D runs in chunks and a key's
 // shuffle stays inside its warp. The group's q rows stay in shared memory
@@ -53,12 +54,12 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int D, int G>
+template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads)
-decode_f32(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const int* __restrict__ lengths,
-           float* __restrict__ o, int H, int Hkv, int S, float scale,
-           int group) {
+decode_attn(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const int* __restrict__ lengths,
+            T* __restrict__ o, int H, int Hkv, int S, float scale,
+            int group) {
   constexpr int kTpk = D / 4 < 32 ? D / 4 : 32;   // threads per key
   constexpr int kW = D / (4 * kTpk);              // float4 per thread
   constexpr int kGroups = kThreads / kTpk;        // keys in flight per pass
@@ -80,7 +81,7 @@ decode_f32(const float* __restrict__ q, const float* __restrict__ k,
   const size_t q_base = ((size_t)b * H + (size_t)hk * group + g0) * D;
 
   for (int i = tid; i < G * D; i += kThreads)
-    qs[i / D][i % D] = i / D < ng ? q[q_base + i] : 0.f;
+    qs[i / D][i % D] = i / D < ng ? mxt_f32(q[q_base + i]) : 0.f;
   __syncthreads();
 
   float4 qv[G][kW], acc[G][kW];
@@ -95,8 +96,8 @@ decode_f32(const float* __restrict__ q, const float* __restrict__ k,
     m[g] = -INFINITY;
     l[g] = 0.f;
   }
-  const float* kb = k + (size_t)bhk * S * D + lane * 4;
-  const float* vb = v + (size_t)bhk * S * D + lane * 4;
+  const T* kb = k + (size_t)bhk * S * D + lane * 4;
+  const T* vb = v + (size_t)bhk * S * D + lane * 4;
 
   // the trip count is uniform over the block, so every lane reaches the
   // shuffles below; validity is per key
@@ -109,8 +110,8 @@ decode_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int w = 0; w < kW; ++w) {
         if (j < len) {
           const size_t off = (size_t)j * D + w * kTpk * 4;
-          kk[u][w] = *reinterpret_cast<const float4*>(kb + off);
-          vv[u][w] = *reinterpret_cast<const float4*>(vb + off);
+          kk[u][w] = mxt_ld4(kb + off);
+          vv[u][w] = mxt_ld4(vb + off);
         } else {
           kk[u][w] = vv[u][w] = make_float4(0.f, 0.f, 0.f, 0.f);
         }
@@ -175,7 +176,8 @@ decode_f32(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
       if (g < ng)
-        o[q_base + (size_t)g * D + d] = out / (lsum == 0.f ? 1.f : lsum);
+        o[q_base + (size_t)g * D + d] =
+            mxt_round<T>(out / (lsum == 0.f ? 1.f : lsum));
     }
     __syncthreads();                         // red_acc reused for g + 1
   }
@@ -187,40 +189,42 @@ inline int head_tile(int group) {
   return group >= 8 ? 8 : group > 2 ? (group > 4 ? 8 : 4) : group;
 }
 
-template <int D, int GT>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const int* lengths, float* o, int B, int H, int Hkv, int S,
-                   float scale, cudaStream_t stream) {
-  const int group = H / Hkv;
-  dim3 grid(B * Hkv, (group + GT - 1) / GT);
-  decode_f32<D, GT><<<grid, kThreads, 0, stream>>>(q, k, v, lengths, o, H,
-                                                   Hkv, S, scale, group);
+template <typename T>
+struct Args {
+  const T *q, *k, *v;
+  const int* lengths;
+  T* o;
+  int B, H, Hkv, S;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, int GT>
+cudaError_t launch(const Args<T>& x) {
+  const int group = x.H / x.Hkv;
+  dim3 grid(x.B * x.Hkv, (group + GT - 1) / GT);
+  decode_attn<T, D, GT><<<grid, kThreads, 0, x.stream>>>(
+      x.q, x.k, x.v, x.lengths, x.o, x.H, x.Hkv, x.S, x.scale, group);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_g(int G, const float* q, const float* k, const float* v,
-                     const int* lengths, float* o, int B, int H, int Hkv,
-                     int S, float scale, cudaStream_t stream) {
-  switch (head_tile(G)) {
-    case 1: return launch<D, 1>(q, k, v, lengths, o, B, H, Hkv, S, scale,
-                                stream);
-    case 2: return launch<D, 2>(q, k, v, lengths, o, B, H, Hkv, S, scale,
-                                stream);
-    case 4: return launch<D, 4>(q, k, v, lengths, o, B, H, Hkv, S, scale,
-                                stream);
-    case 8: return launch<D, 8>(q, k, v, lengths, o, B, H, Hkv, S, scale,
-                                stream);
+template <typename T, int D>
+cudaError_t launch_g(const Args<T>& x) {
+  switch (head_tile(x.H / x.Hkv)) {
+    case 1: return launch<T, D, 1>(x);
+    case 2: return launch<T, D, 2>(x);
+    case 4: return launch<T, D, 4>(x);
+    case 8: return launch<T, D, 8>(x);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int NC, int G>
+template <typename T, int NC, int G>
 __global__ void __launch_bounds__(kThreads)
-decode_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const int* __restrict__ lengths,
-                float* __restrict__ o, int H, int Hkv, int S, float scale,
-                int group) {
+decode_wide(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const int* __restrict__ lengths,
+            T* __restrict__ o, int H, int Hkv, int S, float scale,
+            int group) {
   constexpr int D = 128 * NC;
   constexpr int kGroups = kThreads / 32;     // keys in flight per pass
   extern __shared__ __align__(16) float wide_smem[];
@@ -240,7 +244,7 @@ decode_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
   const size_t q_base = ((size_t)b * H + (size_t)hk * group + g0) * D;
 
   for (int i = tid; i < G * D; i += kThreads)
-    qs[i] = i / D < ng ? q[q_base + i] : 0.f;
+    qs[i] = i / D < ng ? mxt_f32(q[q_base + i]) : 0.f;
   __syncthreads();
 
   float4 acc[G][NC];
@@ -252,8 +256,8 @@ decode_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
     m[g] = -INFINITY;
     l[g] = 0.f;
   }
-  const float* kb = k + (size_t)bhk * S * D + lane * 4;
-  const float* vb = v + (size_t)bhk * S * D + lane * 4;
+  const T* kb = k + (size_t)bhk * S * D + lane * 4;
+  const T* vb = v + (size_t)bhk * S * D + lane * 4;
 
   for (int base = 0; base < len; base += kGroups) {
     const int j = base + kg;
@@ -261,8 +265,8 @@ decode_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
     float4 kk[NC], vv[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      kk[c] = *reinterpret_cast<const float4*>(kb + (size_t)j * D + c * 128);
-      vv[c] = *reinterpret_cast<const float4*>(vb + (size_t)j * D + c * 128);
+      kk[c] = mxt_ld4(kb + (size_t)j * D + c * 128);
+      vv[c] = mxt_ld4(vb + (size_t)j * D + c * 128);
     }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -320,81 +324,78 @@ decode_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
       if (g < ng)
-        o[q_base + (size_t)g * D + d] = out / (lsum == 0.f ? 1.f : lsum);
+        o[q_base + (size_t)g * D + d] =
+            mxt_round<T>(out / (lsum == 0.f ? 1.f : lsum));
     }
     __syncthreads();                         // red_acc reused for g + 1
   }
 }
 
-template <int NC, int G>
-cudaError_t launch_wide(const float* q, const float* k, const float* v,
-                        const int* lengths, float* o, int B, int H, int Hkv,
-                        int S, float scale, cudaStream_t stream) {
+template <typename T, int NC, int G>
+cudaError_t launch_wide(const Args<T>& x) {
   const int smem = (G + kThreads / 32) * 128 * NC * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      decode_wide_f32<NC, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_wide<T, NC, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return e;
-  const int group = H / Hkv;
-  dim3 grid(B * Hkv, (group + G - 1) / G);
-  decode_wide_f32<NC, G><<<grid, kThreads, smem, stream>>>(
-      q, k, v, lengths, o, H, Hkv, S, scale, group);
+  const int group = x.H / x.Hkv;
+  dim3 grid(x.B * x.Hkv, (group + G - 1) / G);
+  decode_wide<T, NC, G><<<grid, kThreads, smem, x.stream>>>(
+      x.q, x.k, x.v, x.lengths, x.o, x.H, x.Hkv, x.S, x.scale, group);
   return cudaGetLastError();
 }
 
-template <int NC>
-cudaError_t launch_wide_g(int G, const float* q, const float* k,
-                          const float* v, const int* lengths, float* o, int B,
-                          int H, int Hkv, int S, float scale,
-                          cudaStream_t stream) {
-  switch (head_tile(G)) {
-    case 1: return launch_wide<NC, 1>(q, k, v, lengths, o, B, H, Hkv, S,
-                                      scale, stream);
-    case 2: return launch_wide<NC, 2>(q, k, v, lengths, o, B, H, Hkv, S,
-                                      scale, stream);
-    case 4: return launch_wide<NC, 4>(q, k, v, lengths, o, B, H, Hkv, S,
-                                      scale, stream);
-    case 8: return launch_wide<NC, 8>(q, k, v, lengths, o, B, H, Hkv, S,
-                                      scale, stream);
+template <typename T, int NC>
+cudaError_t launch_wide_g(const Args<T>& x) {
+  switch (head_tile(x.H / x.Hkv)) {
+    case 1: return launch_wide<T, NC, 1>(x);
+    case 2: return launch_wide<T, NC, 2>(x);
+    case 4: return launch_wide<T, NC, 4>(x);
+    case 8: return launch_wide<T, NC, 8>(x);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t run(int D, const void* q, const void* k, const void* v,
+                const void* lengths, void* o, int B, int H, int Hkv, int S,
+                float scale, cudaStream_t stream) {
+  const Args<T> x{static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<const int*>(lengths),
+                  static_cast<T*>(o), B, H, Hkv, S, scale, stream};
+  switch (D) {
+    case 16: return launch_g<T, 16>(x);
+    case 32: return launch_g<T, 32>(x);
+    case 64: return launch_g<T, 64>(x);
+    case 128: return launch_g<T, 128>(x);
+    case 256: return launch_g<T, 256>(x);
+    case 384: return launch_wide_g<T, 3>(x);
+    case 512: return launch_wide_g<T, 4>(x);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q (B,H,D), k/v (B,Hkv,S,D), lengths (B,) int32, o (B,H,D): contiguous.
-extern "C" int mxt_decode_attention_f32(const void* q, const void* k,
-                                        const void* v, const void* lengths,
-                                        void* o, int B, int H, int Hkv, int S,
-                                        int D, float scale, int device,
-                                        void* stream) {
+// q (B,H,D), k/v (B,Hkv,S,D), o (B,H,D) of one element type (dtype:
+// MXT_F32, MXT_BF16 or MXT_F16); lengths (B,) int32; all contiguous.
+extern "C" int mxt_decode_attention(const void* q, const void* k,
+                                    const void* v, const void* lengths,
+                                    void* o, int B, int H, int Hkv, int S,
+                                    int D, float scale, int dtype, int device,
+                                    void* stream) {
   cudaError_t e = mxt_set_device(device);
   if (e != cudaSuccess) return e;
   if (B * Hkv <= 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv) return cudaErrorInvalidValue;
-  const int G = H / Hkv;
   auto st = static_cast<cudaStream_t>(stream);
-  auto qf = static_cast<const float*>(q);
-  auto kf = static_cast<const float*>(k);
-  auto vf = static_cast<const float*>(v);
-  auto lf = static_cast<const int*>(lengths);
-  auto of = static_cast<float*>(o);
-  switch (D) {
-    case 16: return launch_g<16>(G, qf, kf, vf, lf, of, B, H, Hkv, S, scale,
-                                 st);
-    case 32: return launch_g<32>(G, qf, kf, vf, lf, of, B, H, Hkv, S, scale,
-                                 st);
-    case 64: return launch_g<64>(G, qf, kf, vf, lf, of, B, H, Hkv, S, scale,
-                                 st);
-    case 128: return launch_g<128>(G, qf, kf, vf, lf, of, B, H, Hkv, S,
-                                   scale, st);
-    case 256: return launch_g<256>(G, qf, kf, vf, lf, of, B, H, Hkv, S,
-                                   scale, st);
-#define MXT_WIDE(NC)                                                       \
-    case 128 * NC: return launch_wide_g<NC>(G, qf, kf, vf, lf, of, B, H,  \
-                                            Hkv, S, scale, st);
-    MXT_WIDE(3) MXT_WIDE(4)
-#undef MXT_WIDE
+  switch (dtype) {
+    case MXT_F32: return run<float>(D, q, k, v, lengths, o, B, H, Hkv, S,
+                                    scale, st);
+    case MXT_BF16: return run<__nv_bfloat16>(D, q, k, v, lengths, o, B, H,
+                                             Hkv, S, scale, st);
+    case MXT_F16: return run<__half>(D, q, k, v, lengths, o, B, H, Hkv, S,
+                                     scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,4 +1,5 @@
-// Flash attention backward, float32, for Hopper (sm_90a): dQ and dK/dV.
+// Flash attention backward, for Hopper (sm_90a): dQ and dK/dV, over
+// float32, bfloat16 or float16 q/k/v/o/dO.
 //
 // Replaces: mxnet_tpu/ops/attention.py:_flash_bwd_dq_kernel and
 // _flash_bwd_dkv_kernel (both launched by _flash_pallas_bwd). Same
@@ -14,49 +15,56 @@
 //   dS_ij = p_ij * (dO_i . v_j - delta_i) * scale
 //   dQ_i  = sum_j dS_ij k_j,   dK_j = sum_i dS_ij q_i,   dV_j = sum_i p_ij dO_i
 // K/V of q head h are those of kv head h / (H / H_kv) (GQA by index). The
-// dK/dV kernel writes one partial per q head, (B, H, S, D); the caller sums
-// each GQA group, as the TPU path does outside its kernel.
+// dK/dV kernel writes one f32 partial per q head, (B, H, S, D); the caller
+// sums each GQA group in f32 and rounds once to k's type, as the TPU path
+// sums outside its kernel. dQ comes back in q's type.
 //
-// What bounds it on the H100: operations. dQ does 3 dot products of length
-// D per (q row, key) pair (6*D flops), dK/dV 4 (8*D flops); causal S = 1024
-// gives ~400 flops per byte moved, and float32 inputs leave the tensor cores
-// out, so the ceiling is the 67 TFLOP/s of the FP32 pipes. Both kernels
-// keep the TPU's two-kernel split: every output element is written by one
-// thread, summed in a fixed order, without atomics, so a given input gives
-// bit-identical gradients from run to run; a ragged S is masked (rows and
-// keys past S never enter a sum).
+// What bounds it on the H100: operations. dQ does 3 products of length D
+// per (q row, key) pair (6*D flops), dK/dV 4 (8*D flops); causal S = 1024
+// gives ~400 flops per byte moved. Both kernels keep the TPU's two-kernel
+// split: every output element is written by one thread, summed in a fixed
+// order, without atomics, so a given input gives bit-identical gradients
+// from run to run; a ragged S is masked (rows and keys past S never enter
+// a sum).
 //
-// dQ: gridded over (q tile, b*h), each block streaming K/V tiles through
-// shared memory:
-//  * a row is split over D/16 threads of one warp (one below D = 16), each
-//    owning 16 of its D columns (float4 columns dealt in turn, so the
-//    partners of a row read different banks): q, dO and the dQ accumulator
-//    in registers (3 x 16 floats; 32 columns a thread spilled at 255
-//    registers); partners sum their partial dot products with a butterfly
-//    of shuffles, which leaves the same sum in every partner;
-//  * dot products for kChunk keys are formed before their shuffles, and
-//    the rank-1 updates after, so the shuffles overlap;
-//  * delta is recomputed from the block's own q and O rows, as on the
-//    TPU; causal: it stops at the diagonal tile and each row at its key.
+// dQ (flash_bwd_dq_tc, head dims 16-256): the flash forward's design on
+// the tensor cores (mxt_tc.cuh):
+//  * one block of 4 warps per (q tile, b*h); a warp owns MT m-tiles of 16
+//    q rows (MT = 2 for f32 up to D = 64) and their dQ accumulator in mma
+//    C fragments; the block's Q
+//    and dO rows sit in shared memory, and K/V tiles of BN keys stream
+//    through a cp.async double buffer, one barrier a tile;
+//  * per tile three products on the same mma types as the forward:
+//    S = Q K^T and dP = dO V^T (rows by rows), then dQ += dS K with dS
+//    taken from its C fragments as the A operand (no shared-memory trip);
+//    bfloat16 / float16 round dS to the input type first, as the TPU
+//    kernel does (ds.astype(k.dtype)); float32 runs 3xTF32;
+//  * delta is computed once per row at block start from the block's own
+//    dO rows (shared memory) and O (device memory), two lanes a row; lse
+//    and delta sit in shared memory in the C fragments' row order;
+//  * causal: the block stops at its last row's tile, a warp skips tiles
+//    wholly above its rows, and only tiles crossing a warp's diagonal (or
+//    the ragged end) pay the mask.
+// BN is 32 keys (64 for half types at D = 64, 16 at D = 256): dq_bn below
+// has the measurements.
 //
 // dK/dV (D <= 256): FA-2's outer loop, f32 FMA, gridded over (BK keys,
 // b*h). 128 threads; BK = 64 at D <= 64, 32 at D = 128, 16 at D = 256, so
 // that the dK and dV accumulators (2 * BK * D / 128 floats a thread, at
 // most 64) stay in registers:
-//  * the block's K and V rows are staged once in shared memory; Q and dO
-//    tiles of BQ rows stream through cp.async, double-buffered (the next
-//    tile's copy in flight while this one is used) except at D = 64, where
-//    a single buffer lets three blocks share an SM and hide each other's
-//    copies;
+//  * the block's K and V rows are staged once in shared memory (widened to
+//    f32); Q and dO tiles of BQ rows stream through cp.async (f32 inputs),
+//    double-buffered (the next tile's copy in flight while this one is
+//    used) except at D = 64, where a single buffer lets three blocks share
+//    an SM and hide each other's copies; half types are widened by the
+//    loading threads into the same f32 tiles;
 //  * key blocks run on grid y, heads on x, so every head's longest (first)
 //    causal key block is scheduled first and the short ones fill the tail;
 //  * per tile four register-blocked products, each a micro-tile of outer
 //    products per thread with no shuffle: S^T = K Q^T and dP^T = V dO^T
 //    (a thread's JA keys x IB rows, float4 steps along D), then
 //    dV += P^T dO and dK += dS^T Q (a thread's JA2 keys x 4*DC columns,
-//    4 rows a step). At D = 64 each float4 read from shared memory feeds
-//    16 (S, dP) or ~10 (dV, dK) FMAs a float4 (the old one-key-per-thread
-//    kernel fed 4 and paid two butterflies per (key, row) pair);
+//    4 rows a step);
 //  * P and dS pass between the products through shared memory; rows of
 //    every tile are padded by 4 floats, so the 8 rows (or 4 keys) a warp
 //    reads at once fall in different banks;
@@ -65,13 +73,13 @@
 //    lse gives p = 0; causal: the block starts at the first q tile that
 //    sees its first key (the skip from the k side), and masks j > i;
 //  * GQA by index: kv head h / (H / H_kv), one partial per q head.
-// Tensor cores (bf16 pieces as in quantized_matmul.cu, or wgmma) and dQ in
-// the same style are a later step.
+// Tensor cores for dK/dV are a later step.
 //
 // Head dims above 256 (D = 128 * NC: 384 and 512) take the "wide" kernels
-// below. D/16 partners per row would fill a warp at 512 (and be no power of
-// two at 384), so the split is fixed and the loop runs over D in 128-column
-// chunks instead:
+// below (FP32 pipes, templated on the element type: widen at load, round
+// once at store). D/16 partners per row would fill a warp at 512 (and be no
+// power of two at 384), so the split is fixed and the loop runs over D in
+// 128-column chunks instead:
 //  * dQ: 16 threads per q row, 16 rows per block; a thread owns 8 columns
 //    of every chunk and keeps only its dQ accumulator in registers
 //    (8 * NC floats); the block's q and dO rows are staged once in dynamic
@@ -90,21 +98,11 @@
 
 #include <math.h>
 
-#include "mxt_common.cuh"
+#include "mxt_tc.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr int kChunk = 8;
-
-template <int D>
-struct Split {
-  static constexpr int kCols = D < 16 ? D : 16;    // columns per thread
-  static constexpr int kSplit = D / kCols;         // threads per row
-  static constexpr int kRows = kThreads / kSplit;  // rows per block
-  static constexpr int kVec = kCols / 4;           // float4 per thread
-  static constexpr int kTile = D > 64 ? 4096 / D : 64;  // rows per smem tile
-};
 
 // Lanes of this thread's row partners (kSplit consecutive, aligned lanes).
 template <int kSplit>
@@ -136,132 +134,178 @@ __device__ __forceinline__ void axpy4(float a, float4 x, float* y) {
   y[3] = fmaf(a, x.w, y[3]);
 }
 
-// rows [r0, r0 + T) of a (S, D) matrix into shared memory; rows past S are 0
-template <int D, int T>
-__device__ __forceinline__ void load_tile(float (*dst)[D],
-                                          const float* __restrict__ src,
-                                          int r0, int S) {
-  for (int i = threadIdx.x; i < T * D / 4; i += kThreads) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < S) x = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * D + c);
-    *reinterpret_cast<float4*>(&dst[r][c]) = x;
-  }
+// ---------------------------------------------------------------------------
+// dQ on the tensor cores: one block per (64-row q tile, b*h)
+// ---------------------------------------------------------------------------
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// m-tiles of 16 rows a warp, and keys a K/V tile (H100 measurements, B8
+// H16 S1024 D64 and H8 S1000 D128 causal): f32 takes two m-tiles of 32
+// keys up to D = 64 (0.720 ms; one m-tile of 64 keys: 0.744), half types
+// one of 64 at D = 64 (0.1415; two of 32: 0.151; at D = 32, 64 keys
+// spilled); D = 128 tiles of 32 keys (f32 0.204 against 0.256 with 16;
+// f32 grids of more than two waves take 16: run()); D = 256 of 16
+template <typename T, int D>
+constexpr int dq_mt() {
+  return !mxt_tc::Tile<T>::kHalf && D <= 64 ? 2 : 1;
+}
+template <typename T, int D>
+constexpr int dq_bn() {
+  return D == 256 ? 16 : D == 64 && mxt_tc::Tile<T>::kHalf ? 64 : 32;
 }
 
-// ---------------------------------------------------------------------------
-// dQ: one block per (q tile, b*h); kSplit threads per q row
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ o,
-                 const float* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ glse, float* __restrict__ dq,
-                 int H, int Hkv, int S, float scale, int causal) {
-  using P = Split<D>;
-  constexpr int kSplit = P::kSplit, kRows = P::kRows, kVec = P::kVec;
-  constexpr int kTile = P::kTile;
-  __shared__ __align__(16) float ks[kTile][D];
-  __shared__ __align__(16) float vs[kTile][D];
+template <typename T, int D, int BN, int MT>
+struct DqTc {
+  static constexpr int kRows = 16 * MT * kTcWarps;      // q rows a block
+  static constexpr int LD = D + mxt_tc::Tile<T>::kPad;   // padded row
+  static constexpr int kSmem =
+      (2 * kRows + 4 * BN) * LD * (int)sizeof(T) + 2 * kRows * 4;
+};
 
+template <typename T, int D, int BN, int MT>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ o,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ glse, T* __restrict__ dq, int H,
+                int Hkv, int S, float scale, int causal) {
+  using C = DqTc<T, D, BN, MT>;
+  constexpr int kRows = C::kRows, LD = C::LD, NT = BN / 8, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  T* Qs = reinterpret_cast<T*>(tc_smem);     // [kRows][LD]
+  T* Gs = Qs + kRows * LD;                   // [kRows][LD]: dO
+  T* Ks = Gs + kRows * LD;                   // [2][BN][LD]
+  T* Vs = Ks + 2 * BN * LD;                  // [2][BN][LD]
+  float* lse_s = reinterpret_cast<float*>(Vs + 2 * BN * LD);  // log2 units
+  float* delta_s = lse_s + kRows;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y;                 // b * H + h
   const int b = bh / H;
   const int hk = (bh % H) / (H / Hkv);
-  const int q0 = blockIdx.x * kRows;
-  const int row = q0 + threadIdx.x / kSplit;
-  const int part = threadIdx.x % kSplit;
-  const bool live = row < S;
-  const size_t kv_base = (size_t)(b * Hkv + hk) * S * D;
-  const unsigned mask = partner_mask<kSplit>();
+  // the last q tiles first: under a causal mask they are the longest, and
+  // the short ones fill the tail
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int w0 = q0 + warp * 16 * MT;        // the warp's first row
+  const size_t q_base = (size_t)bh * S * D;
+  const T* kb = k + (size_t)(b * Hkv + hk) * S * D;
+  const T* vb = v + (size_t)(b * Hkv + hk) * S * D;
+  const float scale_log2 = scale * kLog2e;
 
-  // register 4*j.. holds columns (j*kSplit + part)*4 ..+3
-  float qr[4 * kVec], dor[4 * kVec], acc[4 * kVec];
-  const size_t roff = ((size_t)bh * S + (live ? row : 0)) * D;
-  float dd = 0.f;
+  int n_tiles = (S + BN - 1) / BN;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + kRows, S) + BN - 1) / BN);
+  mxt_tc::fetch_rows<T, D, kRows, kTcThreads>(Qs, q + q_base, q0, S, LD);
+  mxt_tc::fetch_rows<T, D, kRows, kTcThreads>(Gs, dout + q_base, q0, S, LD);
+  mxt_tc::fetch_rows<T, D, BN, kTcThreads>(Ks, kb, 0, S, LD);
+  mxt_tc::fetch_rows<T, D, BN, kTcThreads>(Vs, vb, 0, S, LD);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  // delta = dO . O - glse and lse of the warp's rows, two lanes a row
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    const int d = (j * kSplit + part) * 4;
-    float4 tq = make_float4(0.f, 0.f, 0.f, 0.f), tdo = tq, to = tq;
-    if (live) {
-      tq = *reinterpret_cast<const float4*>(q + roff + d);
-      tdo = *reinterpret_cast<const float4*>(dout + roff + d);
-      to = *reinterpret_cast<const float4*>(o + roff + d);
-    }
-    dd = dot4(tdo, to, dd);
-    qr[4 * j] = tq.x; qr[4 * j + 1] = tq.y; qr[4 * j + 2] = tq.z;
-    qr[4 * j + 3] = tq.w;
-    dor[4 * j] = tdo.x; dor[4 * j + 1] = tdo.y; dor[4 * j + 2] = tdo.z;
-    dor[4 * j + 3] = tdo.w;
-    acc[4 * j] = acc[4 * j + 1] = acc[4 * j + 2] = acc[4 * j + 3] = 0.f;
-  }
-  float delta = row_sum<kSplit>(dd, mask);
-  float lse_r = INFINITY;
-  if (live) {
-    lse_r = lse[(size_t)bh * S + row];
-    if (glse != nullptr) delta -= glse[(size_t)bh * S + row];
-  }
-  const bool empty = !isfinite(lse_r);       // no valid key: p = 0, dQ = 0
-
-  int n_tiles = (S + kTile - 1) / kTile;
-  if (causal) {
-    const int last = min(q0 + kRows, S);     // one past the block's last row
-    n_tiles = min(n_tiles, (last + kTile - 1) / kTile);
-  }
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();                         // previous tile consumed
-    load_tile<D, kTile>(ks, k + kv_base, k0, S);
-    load_tile<D, kTile>(vs, v + kv_base, k0, S);
-    __syncthreads();
-    if (!live || empty) continue;
-    // valid keys of this tile; a row's partners agree on it, so they take
-    // every shuffle below together
-    int kend = min(kTile, S - k0);
-    if (causal) kend = min(kend, row - k0 + 1);
-    for (int c0 = 0; c0 < kend; c0 += kChunk) {
-      float s[kChunk], dp[kChunk];
-#pragma unroll
-      for (int jk = 0; jk < kChunk; ++jk) {
-        float a = 0.f, c = 0.f;
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) {
-          const int d = (j * kSplit + part) * 4;
-          const float4 kk = *reinterpret_cast<const float4*>(&ks[c0 + jk][d]);
-          const float4 vv = *reinterpret_cast<const float4*>(&vs[c0 + jk][d]);
-          a = dot4(make_float4(qr[4 * j], qr[4 * j + 1], qr[4 * j + 2],
-                               qr[4 * j + 3]), kk, a);
-          c = dot4(make_float4(dor[4 * j], dor[4 * j + 1], dor[4 * j + 2],
-                               dor[4 * j + 3]), vv, c);
-        }
-        s[jk] = a;
-        dp[jk] = c;
-      }
-#pragma unroll
-      for (int jk = 0; jk < kChunk; ++jk) {
-        s[jk] = row_sum<kSplit>(s[jk], mask);
-        dp[jk] = row_sum<kSplit>(dp[jk], mask);
-      }
-#pragma unroll
-      for (int jk = 0; jk < kChunk; ++jk) {
-        const float p = (c0 + jk < kend) ? expf(s[jk] * scale - lse_r) : 0.f;
-        const float ds = p * (dp[jk] - delta) * scale;
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) {
-          const int d = (j * kSplit + part) * 4;
-          axpy4(ds, *reinterpret_cast<const float4*>(&ks[c0 + jk][d]),
-                &acc[4 * j]);
-        }
+  for (int i = 0; i < MT; ++i) {
+    const int r = (warp * MT + i) * 16 + (lane >> 1), row = q0 + r;
+    float dd = 0.f;
+    if (row < S) {
+      const T* orow = o + q_base + (size_t)row * D;
+      const T* grow = Gs + r * LD;
+#pragma unroll 4
+      for (int c = (lane & 1) * 4; c < D; c += 8) {
+        const float4 x = mxt_ld4(orow + c), y = mxt_ld4(grow + c);
+        dd = fmaf(x.x, y.x, fmaf(x.y, y.y, fmaf(x.z, y.z, fmaf(x.w, y.w,
+                                                               dd))));
       }
     }
+    dd += __shfl_xor_sync(0xffffffffu, dd, 1);
+    if ((lane & 1) == 0) {
+      float ls = INFINITY, gl = 0.f;
+      if (row < S) {
+        ls = lse[(size_t)bh * S + row];
+        if (glse != nullptr) gl = glse[(size_t)bh * S + row];
+      }
+      lse_s[r] = isfinite(ls) ? ls * kLog2e : INFINITY;   // empty row: p = 0
+      delta_s[r] = dd - gl;
+    }
   }
-  if (!live) return;
-  float* out = dq + (size_t)(bh * (size_t)S + row) * D;
+  __syncwarp();
+  // rows g + 8 r of m-tile i
+  float lse_r[MT][2], delta_r[MT][2];
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    const int d = (j * kSplit + part) * 4;
-    *reinterpret_cast<float4*>(out + d) =
-        make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lse_r[i][r] = lse_s[(warp * MT + i) * 16 + g + 8 * r];
+      delta_r[i][r] = delta_s[(warp * MT + i) * 16 + g + 8 * r];
+    }
+
+  float acc[MT][DT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1, k0 = it * BN;
+    cp_async_wait_all();
+    __syncthreads();          // tile it landed; tile it - 1 fully consumed
+    if (it + 1 < n_tiles) {
+      mxt_tc::fetch_rows<T, D, BN, kTcThreads>(Ks + (st ^ 1) * BN * LD, kb,
+                                               k0 + BN, S, LD);
+      mxt_tc::fetch_rows<T, D, BN, kTcThreads>(Vs + (st ^ 1) * BN * LD, vb,
+                                               k0 + BN, S, LD);
+      cp_async_commit();
+    }
+    if (causal && k0 > w0 + 16 * MT - 1) continue;   // no key for its rows
+    const T* Kt = Ks + st * BN * LD;
+    float s[MT][NT][4], dp[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][j][e] = dp[i][j][e] = 0.f;
+    mxt_tc::rows_by_rows<T, D, NT, MT>(Qs + warp * 16 * MT * LD, Kt, LD, s,
+                                       lane);
+    mxt_tc::rows_by_rows<T, D, NT, MT>(Gs + warp * 16 * MT * LD,
+                                       Vs + st * BN * LD, LD, dp, lane);
+    const bool mask = k0 + BN > S || (causal && k0 + BN - 1 > w0);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float p = mxt_tc::exp2_<T>(
+              fmaf(s[i][j][e], scale_log2, -lse_r[i][r]));
+          if (mask) {
+            const int kj = k0 + j * 8 + 2 * t + (e & 1);
+            const int qi = w0 + 16 * i + g + 8 * r;
+            if (kj >= S || (causal && kj > qi)) p = 0.f;
+          }
+          s[i][j][e] = p * (dp[i][j][e] - delta_r[i][r]) * scale;   // dS
+        }
+      }
+    }
+    mxt_tc::cols_by_rows<T, D, NT, MT>(s, Kt, LD, acc, lane);
+  }
+
+  T* out = dq + q_base;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = w0 + 16 * i + g + 8 * r;
+      if (row >= S) continue;
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+        mxt_tc::store2(out + (size_t)row * D + n * 8 + 2 * t,
+                       acc[i][n][2 * r], acc[i][n][2 * r + 1]);
+    }
   }
 }
 
@@ -294,15 +338,14 @@ struct DkvCfg {
   static_assert(RT >= 1 && RT <= 16 && (RT & (RT - 1)) == 0, "delta");
 };
 
-template <int D, int BK, int BQ, int STAGES>
+template <typename T, int D, int BK, int BQ, int STAGES>
 __global__ void __launch_bounds__(kDkvThreads)
-flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ o,
-                  const float* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ glse, float* __restrict__ dk,
-                  float* __restrict__ dv, int H, int Hkv, int S, float scale,
-                  int causal) {
+flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ o,
+              const T* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ glse, float* __restrict__ dk,
+              float* __restrict__ dv, int H, int Hkv, int S, float scale,
+              int causal) {
   using C = DkvCfg<D, BK, BQ, STAGES>;
   constexpr int JA = C::JA, IB = C::IB, DG = C::DG, JG2 = C::JG2;
   constexpr int JA2 = C::JA2, DC = C::DC, KS = C::KS, PS = C::PS;
@@ -327,15 +370,33 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   const size_t q_base = (size_t)bh * S * D;
   const size_t kv_base = (size_t)(b * Hkv + hk) * S * D;
 
-  // Q and dO rows of tile t into stage st; rows past S are zero-filled
+  // Q and dO rows of tile t into stage st; rows past S are zero-filled.
+  // f32 by cp.async; half types widened to f32 by the loading threads
   auto fetch = [&](int t, int st) {
     const int r0 = t * BQ;
-    for (int i = tid; i < BQ * D / 4; i += kDkvThreads) {
-      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-      const bool ok = r0 + r < S;
-      const size_t off = q_base + (size_t)(ok ? r0 + r : 0) * D + c;
-      cp_async16(Qs + (st * BQ + r) * KS + c, q + off, ok);
-      cp_async16(Gs + (st * BQ + r) * KS + c, dout + off, ok);
+    if constexpr (std::is_same<T, float>::value) {
+      for (int i = tid; i < BQ * D / 4; i += kDkvThreads) {
+        const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+        const bool ok = r0 + r < S;
+        const size_t off = q_base + (size_t)(ok ? r0 + r : 0) * D + c;
+        cp_async16(Qs + (st * BQ + r) * KS + c, q + off, ok);
+        cp_async16(Gs + (st * BQ + r) * KS + c, dout + off, ok);
+      }
+    } else {
+      // rolled: unrolled, the widening held ptxas's register budget over
+      // and spilled loop invariants (H100 build)
+#pragma unroll 1
+      for (int i = tid; i < BQ * D / 4; i += kDkvThreads) {
+        const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+        if (r0 + r < S) {
+          const size_t off = q_base + (size_t)(r0 + r) * D + c;
+          x = mxt_ld4(q + off);
+          y = mxt_ld4(dout + off);
+        }
+        *reinterpret_cast<float4*>(Qs + (st * BQ + r) * KS + c) = x;
+        *reinterpret_cast<float4*>(Gs + (st * BQ + r) * KS + c) = y;
+      }
     }
     cp_async_commit();
   };
@@ -347,8 +408,8 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
     float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
     if (k0 + r < S) {
-      kk = *reinterpret_cast<const float4*>(k + kv_base + (size_t)(k0 + r) * D + c);
-      vv = *reinterpret_cast<const float4*>(v + kv_base + (size_t)(k0 + r) * D + c);
+      kk = mxt_ld4(k + kv_base + (size_t)(k0 + r) * D + c);
+      vv = mxt_ld4(v + kv_base + (size_t)(k0 + r) * D + c);
     }
     *reinterpret_cast<float4*>(Ks + r * KS + c) = kk;
     *reinterpret_cast<float4*>(Vs + r * KS + c) = vv;
@@ -384,10 +445,10 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
       const bool in = r0 + r < S;
       float acc = 0.f;
       if (in) {
-        const float* orow = o + q_base + (size_t)(r0 + r) * D;
+        const T* orow = o + q_base + (size_t)(r0 + r) * D;
         for (int c = p * 4; c < D; c += RT * 4)
           acc = dot4(*reinterpret_cast<const float4*>(Gt + r * KS + c),
-                     __ldg(reinterpret_cast<const float4*>(orow + c)), acc);
+                     mxt_ld4(orow + c), acc);
       }
       acc = row_sum<RT>(acc, partner_mask<RT>());
       if (p == 0) {
@@ -518,14 +579,13 @@ constexpr int kWideThreads = 256;
 constexpr int kDqRows = 16;                  // dQ: q rows per block
 constexpr int kDqTile = 8;                   // dQ: keys per K/V tile
 
-template <int NC>
+template <typename T, int NC>
 __global__ void __launch_bounds__(kWideThreads)
-flash_bwd_dq_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ o,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ glse, float* __restrict__ dq,
-                      int H, int Hkv, int S, float scale, int causal) {
+flash_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ o,
+                  const T* __restrict__ dout, const float* __restrict__ lse,
+                  const float* __restrict__ glse, T* __restrict__ dq, int H,
+                  int Hkv, int S, float scale, int causal) {
   constexpr int D = 128 * NC;
   constexpr int kSplit = kWideThreads / kDqRows;   // 16 threads per row
   extern __shared__ __align__(16) float wide_smem[];
@@ -546,16 +606,26 @@ flash_bwd_dq_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
   const size_t q_base = (size_t)bh * S * D;
   const unsigned mask = partner_mask<kSplit>();
 
-  for (int i = threadIdx.x; i < kDqRows * D / 4; i += kWideThreads) {
+  // the block's q and dO rows; half types in a rolled loop (unrolled, the
+  // widening spilled loop invariants: H100 build)
+  auto stage = [&](int i) {
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f), g = x;
     if (q0 + r < S) {
       const size_t off = q_base + (size_t)(q0 + r) * D + c;
-      x = *reinterpret_cast<const float4*>(q + off);
-      g = *reinterpret_cast<const float4*>(dout + off);
+      x = mxt_ld4(q + off);
+      g = mxt_ld4(dout + off);
     }
     *reinterpret_cast<float4*>(qs + r * D + c) = x;
     *reinterpret_cast<float4*>(gs + r * D + c) = g;
+  };
+  if constexpr (std::is_same<T, float>::value) {
+    for (int i = threadIdx.x; i < kDqRows * D / 4; i += kWideThreads)
+      stage(i);
+  } else {
+#pragma unroll 1
+    for (int i = threadIdx.x; i < kDqRows * D / 4; i += kWideThreads)
+      stage(i);
   }
   __syncthreads();
   // this thread's column j of chunk c: c * 128 + j * 64 + part * 4 (+0..3)
@@ -564,7 +634,7 @@ flash_bwd_dq_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   float acc[8 * NC];
   float dd = 0.f;
-  const float* orow = o + q_base + (size_t)(live ? row : 0) * D + part * 4;
+  const T* orow = o + q_base + (size_t)(live ? row : 0) * D + part * 4;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
 #pragma unroll
@@ -572,7 +642,7 @@ flash_bwd_dq_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
       const int d = c * 128 + j * 64;
       if (live)
         dd = dot4(*reinterpret_cast<const float4*>(gr + d),
-                  *reinterpret_cast<const float4*>(orow + d), dd);
+                  mxt_ld4(orow + d), dd);
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[8 * c + 4 * j + e] = 0.f;
     }
@@ -598,8 +668,8 @@ flash_bwd_dq_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
       float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
       if (k0 + r < S) {
         const size_t off = kv_base + (size_t)(k0 + r) * D + c;
-        kv4 = *reinterpret_cast<const float4*>(k + off);
-        vv4 = *reinterpret_cast<const float4*>(v + off);
+        kv4 = mxt_ld4(k + off);
+        vv4 = mxt_ld4(v + off);
       }
       *reinterpret_cast<float4*>(ks + r * D + c) = kv4;
       *reinterpret_cast<float4*>(vs + r * D + c) = vv4;
@@ -657,29 +727,25 @@ flash_bwd_dq_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   if (!live) return;
-  float* out = dq + ((size_t)bh * S + row) * D + part * 4;
+  T* out = dq + ((size_t)bh * S + row) * D + part * 4;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const float* a = &acc[8 * c + 4 * j];
-      *reinterpret_cast<float4*>(out + c * 128 + j * 64) =
-          make_float4(a[0], a[1], a[2], a[3]);
+      mxt_st4(out + c * 128 + j * 64, make_float4(a[0], a[1], a[2], a[3]));
     }
   }
 }
 
-template <int NC>
+template <typename T, int NC>
 __global__ void __launch_bounds__(kWideThreads)
-flash_bwd_dkv_wide_f32(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ o,
-                       const float* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ glse, float* __restrict__ dk,
-                       float* __restrict__ dv, int H, int Hkv, int S,
-                       float scale, int causal) {
+flash_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ o,
+                   const T* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ glse, float* __restrict__ dk,
+                   float* __restrict__ dv, int H, int Hkv, int S, float scale,
+                   int causal) {
   constexpr int D = 128 * NC;
   constexpr int kSplit = 16;
   constexpr int kRows = kWideThreads / kSplit;   // keys per block
@@ -702,8 +768,8 @@ flash_bwd_dkv_wide_f32(const float* __restrict__ q,
   // this thread's column j of chunk c: c * 128 + j * 64 + part * 4 (+0..3)
   const size_t koff = ((size_t)(b * Hkv + hk) * S + (live ? key : 0)) * D
                       + part * 4;
-  const float* kp = k + koff;
-  const float* vp = v + koff;
+  const T* kp = k + koff;
+  const T* vp = v + koff;
 
   float dka[8 * NC], dva[8 * NC];
 #pragma unroll
@@ -719,8 +785,8 @@ flash_bwd_dkv_wide_f32(const float* __restrict__ q,
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f), g = x;
       if (r0 + r < S) {
         const size_t off = q_base + (size_t)(r0 + r) * D + c;
-        x = *reinterpret_cast<const float4*>(q + off);
-        g = *reinterpret_cast<const float4*>(dout + off);
+        x = mxt_ld4(q + off);
+        g = mxt_ld4(dout + off);
       }
       *reinterpret_cast<float4*>(qs + r * D + c) = x;
       *reinterpret_cast<float4*>(dos + r * D + c) = g;
@@ -731,10 +797,10 @@ flash_bwd_dkv_wide_f32(const float* __restrict__ q,
       const bool in = r0 + r < S;
       float acc = 0.f;
       if (in) {
-        const float* orow = o + q_base + (size_t)(r0 + r) * D;
+        const T* orow = o + q_base + (size_t)(r0 + r) * D;
         for (int c = p * 4; c < D; c += kDT * 4)
           acc = dot4(*reinterpret_cast<const float4*>(dos + r * D + c),
-                     *reinterpret_cast<const float4*>(orow + c), acc);
+                     mxt_ld4(orow + c), acc);
       }
       acc = row_sum<kDT>(acc, partner_mask<kDT>());
       if (p == 0) {
@@ -760,8 +826,8 @@ flash_bwd_dkv_wide_f32(const float* __restrict__ q,
         float4 kv[2], vv[2];
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          kv[j] = __ldg(reinterpret_cast<const float4*>(kp + c * 128 + j * 64));
-          vv[j] = __ldg(reinterpret_cast<const float4*>(vp + c * 128 + j * 64));
+          kv[j] = mxt_ld4(kp + c * 128 + j * 64);
+          vv[j] = mxt_ld4(vp + c * 128 + j * 64);
         }
 #pragma unroll
         for (int jr = 0; jr < kChunk; ++jr) {
@@ -821,65 +887,71 @@ flash_bwd_dkv_wide_f32(const float* __restrict__ q,
   }
 }
 
+template <typename T>
 struct Args {
-  const float *q, *k, *v, *o, *dout, *lse, *glse;
-  float *a, *b;                              // dq | dk, dv
+  const T *q, *k, *v, *o, *dout;
+  const float *lse, *glse;
+  void *a, *b;                               // dq (T) | dk, dv (f32)
   int B, H, Hkv, S;
   float scale;
   int causal;
   cudaStream_t stream;
 };
 
-template <int D>
-cudaError_t launch_dq(const Args& x) {
-  constexpr int kRows = Split<D>::kRows;
-  dim3 grid((x.S + kRows - 1) / kRows, x.B * x.H);
-  flash_bwd_dq_f32<D><<<grid, kThreads, 0, x.stream>>>(
-      x.q, x.k, x.v, x.o, x.dout, x.lse, x.glse, x.a, x.H, x.Hkv, x.S,
-      x.scale, x.causal);
+template <typename T, int D, int BN = dq_bn<T, D>(), int MT = dq_mt<T, D>()>
+cudaError_t launch_dq(const Args<T>& x) {
+  using C = DqTc<T, D, BN, MT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_tc<T, D, BN, MT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((x.S + C::kRows - 1) / C::kRows, x.B * x.H);
+  flash_bwd_dq_tc<T, D, BN, MT><<<grid, kTcThreads, C::kSmem, x.stream>>>(
+      x.q, x.k, x.v, x.o, x.dout, x.lse, x.glse, static_cast<T*>(x.a), x.H,
+      x.Hkv, x.S, x.scale, x.causal);
   return cudaGetLastError();
 }
 
-template <int D, int BK, int BQ, int STAGES>
-cudaError_t launch_dkv(const Args& x) {
+template <typename T, int D, int BK, int BQ, int STAGES>
+cudaError_t launch_dkv(const Args<T>& x) {
   constexpr int smem =
       DkvCfg<D, BK, BQ, STAGES>::kFloats * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_f32<D, BK, BQ, STAGES>,
+      flash_bwd_dkv<T, D, BK, BQ, STAGES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   if ((x.S + BK - 1) / BK > 65535) return cudaErrorInvalidValue;
   dim3 grid(x.B * x.H, (x.S + BK - 1) / BK);
-  flash_bwd_dkv_f32<D, BK, BQ, STAGES><<<grid, kDkvThreads, smem, x.stream>>>(
-      x.q, x.k, x.v, x.o, x.dout, x.lse, x.glse, x.a, x.b, x.H, x.Hkv, x.S,
-      x.scale, x.causal);
+  flash_bwd_dkv<T, D, BK, BQ, STAGES><<<grid, kDkvThreads, smem, x.stream>>>(
+      x.q, x.k, x.v, x.o, x.dout, x.lse, x.glse, static_cast<float*>(x.a),
+      static_cast<float*>(x.b), x.H, x.Hkv, x.S, x.scale, x.causal);
   return cudaGetLastError();
 }
 
-template <int NC>
-cudaError_t launch_wide(bool dkv, const Args& x) {
+template <typename T, int NC>
+cudaError_t launch_wide(bool dkv, const Args<T>& x) {
   // dK/dV: Q/dO tiles of 16 rows; dQ: K/V tiles of 8 keys and its 16
   // rows' q and dO
   const int smem = (dkv ? 2 * kWideTile : 2 * kDqTile + 2 * kDqRows) * 128
                    * NC * (int)sizeof(float);
   if (dkv) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkv_wide_f32<NC>,
+        flash_bwd_dkv_wide<T, NC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     dim3 grid((x.S + 15) / 16, x.B * x.H);
-    flash_bwd_dkv_wide_f32<NC><<<grid, kWideThreads, smem, x.stream>>>(
-        x.q, x.k, x.v, x.o, x.dout, x.lse, x.glse, x.a, x.b, x.H, x.Hkv, x.S,
-        x.scale, x.causal);
+    flash_bwd_dkv_wide<T, NC><<<grid, kWideThreads, smem, x.stream>>>(
+        x.q, x.k, x.v, x.o, x.dout, x.lse, x.glse, static_cast<float*>(x.a),
+        static_cast<float*>(x.b), x.H, x.Hkv, x.S, x.scale, x.causal);
   } else {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dq_wide_f32<NC>,
+        flash_bwd_dq_wide<T, NC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     dim3 grid((x.S + kDqRows - 1) / kDqRows, x.B * x.H);
-    flash_bwd_dq_wide_f32<NC><<<grid, kWideThreads, smem, x.stream>>>(
-        x.q, x.k, x.v, x.o, x.dout, x.lse, x.glse, x.a, x.H, x.Hkv, x.S,
-        x.scale, x.causal);
+    flash_bwd_dq_wide<T, NC><<<grid, kWideThreads, smem, x.stream>>>(
+        x.q, x.k, x.v, x.o, x.dout, x.lse, x.glse, static_cast<T*>(x.a),
+        x.H, x.Hkv, x.S, x.scale, x.causal);
   }
   return cudaGetLastError();
 }
@@ -890,64 +962,100 @@ cudaError_t launch_wide(bool dkv, const Args& x) {
 // (66-111 KB), one at D = 64 (71 KB), where three blocks an SM measured
 // faster on the H100 than two with the copy overlapped (1.13 vs 1.23 ms at
 // B8 H16 S1024)
-cudaError_t run(bool dkv, int D, const Args& x) {
+template <typename T>
+cudaError_t run(bool dkv, int D, const Args<T>& x) {
+  // f32 D = 128 with more blocks than two waves: tiles of 16 keys (two
+  // blocks an SM) keep the SMs busier than 32 (one): 12.2 against 13.5 ms
+  // at B8 H8 S4096; one wave (H8 S1000) runs faster with 32: 0.227
+  // against 0.268 (H100)
+  if (!dkv && D == 128 && std::is_same<T, float>::value) {
+    int sms = 0, dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    const long blocks = (long)(x.S + 63) / 64 * x.B * x.H;
+    if (blocks > 2L * sms) return launch_dq<T, 128, 16>(x);
+  }
   switch (D) {
-    case 16: return dkv ? launch_dkv<16, 64, 64, 2>(x) : launch_dq<16>(x);
-    case 32: return dkv ? launch_dkv<32, 64, 64, 2>(x) : launch_dq<32>(x);
-    case 64: return dkv ? launch_dkv<64, 64, 32, 1>(x) : launch_dq<64>(x);
-    case 128: return dkv ? launch_dkv<128, 32, 32, 2>(x) : launch_dq<128>(x);
-    case 256: return dkv ? launch_dkv<256, 16, 16, 2>(x) : launch_dq<256>(x);
-    case 384: return launch_wide<3>(dkv, x);
-    case 512: return launch_wide<4>(dkv, x);
+    case 16: return dkv ? launch_dkv<T, 16, 64, 64, 2>(x)
+                        : launch_dq<T, 16>(x);
+    case 32: return dkv ? launch_dkv<T, 32, 64, 64, 2>(x)
+                        : launch_dq<T, 32>(x);
+    case 64: return dkv ? launch_dkv<T, 64, 64, 32, 1>(x)
+                        : launch_dq<T, 64>(x);
+    case 128: return dkv ? launch_dkv<T, 128, 32, 32, 2>(x)
+                         : launch_dq<T, 128>(x);
+    case 256: return dkv ? launch_dkv<T, 256, 16, 16, 2>(x)
+                         : launch_dq<T, 256>(x);
+    case 384: return launch_wide<T, 3>(dkv, x);
+    case 512: return launch_wide<T, 4>(dkv, x);
     default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t prepare(int device, const Args& x) {
+template <typename T>
+cudaError_t run_typed(bool dkv, int D, const void* q, const void* k,
+                      const void* v, const void* o, const void* dout,
+                      const void* lse, const void* glse, void* a, void* b,
+                      int B, int H, int Hkv, int S, float scale, int causal,
+                      cudaStream_t stream) {
+  const Args<T> x{static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<const T*>(o),
+                  static_cast<const T*>(dout),
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(glse), a, b, B, H, Hkv, S,
+                  scale, causal, stream};
+  return run<T>(dkv, D, x);
+}
+
+cudaError_t dispatch(bool dkv, int dtype, int D, const void* q,
+                     const void* k, const void* v, const void* o,
+                     const void* dout, const void* lse, const void* glse,
+                     void* a, void* b, int B, int H, int Hkv, int S,
+                     float scale, int causal, int device, void* stream) {
   cudaError_t e = mxt_set_device(device);
   if (e != cudaSuccess) return e;
-  if (x.Hkv <= 0 || x.H % x.Hkv) return cudaErrorInvalidValue;
-  return cudaSuccess;
+  if (Hkv <= 0 || H % Hkv) return cudaErrorInvalidValue;
+  if (S <= 0 || B * H <= 0) return cudaSuccess;
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case MXT_F32:
+      return run_typed<float>(dkv, D, q, k, v, o, dout, lse, glse, a, b, B,
+                              H, Hkv, S, scale, causal, st);
+    case MXT_BF16:
+      return run_typed<__nv_bfloat16>(dkv, D, q, k, v, o, dout, lse, glse,
+                                      a, b, B, H, Hkv, S, scale, causal, st);
+    case MXT_F16:
+      return run_typed<__half>(dkv, D, q, k, v, o, dout, lse, glse, a, b, B,
+                               H, Hkv, S, scale, causal, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// q, o, dout (B,H,S,D); k, v (B,Hkv,S,D); lse (B,H,S); glse (B,H,S) or
-// NULL; dq (B,H,S,D): contiguous f32.
-extern "C" int mxt_flash_bwd_dq_f32(const void* q, const void* k,
-                                    const void* v, const void* o,
-                                    const void* dout, const void* lse,
-                                    const void* glse, void* dq, int B, int H,
-                                    int Hkv, int S, int D, float scale,
-                                    int causal, int device, void* stream) {
-  const Args x{static_cast<const float*>(q), static_cast<const float*>(k),
-               static_cast<const float*>(v), static_cast<const float*>(o),
-               static_cast<const float*>(dout),
-               static_cast<const float*>(lse),
-               static_cast<const float*>(glse), static_cast<float*>(dq),
-               nullptr, B, H, Hkv, S, scale, causal,
-               static_cast<cudaStream_t>(stream)};
-  cudaError_t e = prepare(device, x);
-  if (e != cudaSuccess || S <= 0 || B * H <= 0) return e;
-  return run(false, D, x);
+// q, o, dout (B,H,S,D) and k, v (B,Hkv,S,D) of one element type (dtype:
+// MXT_F32, MXT_BF16 or MXT_F16); lse (B,H,S) f32; glse (B,H,S) f32 or
+// NULL; dq (B,H,S,D) of the same type: all contiguous.
+extern "C" int mxt_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* o, const void* dout,
+                                const void* lse, const void* glse, void* dq,
+                                int B, int H, int Hkv, int S, int D,
+                                float scale, int causal, int dtype,
+                                int device, void* stream) {
+  return dispatch(false, dtype, D, q, k, v, o, dout, lse, glse, dq, nullptr,
+                  B, H, Hkv, S, scale, causal, device, stream);
 }
 
-// as above; dk, dv (B,H,S,D): one partial per q head (sum each GQA group).
-extern "C" int mxt_flash_bwd_dkv_f32(const void* q, const void* k,
-                                     const void* v, const void* o,
-                                     const void* dout, const void* lse,
-                                     const void* glse, void* dk, void* dv,
-                                     int B, int H, int Hkv, int S, int D,
-                                     float scale, int causal, int device,
-                                     void* stream) {
-  const Args x{static_cast<const float*>(q), static_cast<const float*>(k),
-               static_cast<const float*>(v), static_cast<const float*>(o),
-               static_cast<const float*>(dout),
-               static_cast<const float*>(lse),
-               static_cast<const float*>(glse), static_cast<float*>(dk),
-               static_cast<float*>(dv), B, H, Hkv, S, scale, causal,
-               static_cast<cudaStream_t>(stream)};
-  cudaError_t e = prepare(device, x);
-  if (e != cudaSuccess || S <= 0 || B * H <= 0) return e;
-  return run(true, D, x);
+// as above; dk, dv (B,H,S,D) f32: one partial per q head (sum each GQA
+// group, then round to k's type).
+extern "C" int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                 const void* o, const void* dout,
+                                 const void* lse, const void* glse, void* dk,
+                                 void* dv, int B, int H, int Hkv, int S,
+                                 int D, float scale, int causal, int dtype,
+                                 int device, void* stream) {
+  return dispatch(true, dtype, D, q, k, v, o, dout, lse, glse, dk, dv, B, H,
+                  Hkv, S, scale, causal, device, stream);
 }

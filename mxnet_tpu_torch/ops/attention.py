@@ -19,10 +19,14 @@ trainable: ``_FlashAttention`` (a ``torch.autograd.Function``) saves q, k,
 v, out and lse, and its backward is :func:`flash_attention_bwd`.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises. There is no fallback between the two. The kernels take float32
-only (the decode path keeps f32 params and caches). Each wrapper carries
-an integer ``launches`` counter that is raised exactly where its kernel
-launches.
+raises. There is no fallback between the two. The kernels take float32,
+bfloat16 or float16 q/k/v (one type for all of them, and for o and dO),
+as the JAX package's kernels keep the storage dtype: out and dq come back
+in q's type, dk and dv in k's and v's, lse in float32. The flash forward
+and dQ run their products on the tensor cores (bf16/f16: one mma a
+product; f32: three TF32 pieces); dK/dV and decode widen to f32 at load
+and round once at store. Each wrapper carries an integer ``launches``
+counter that is raised exactly where its kernel launches.
 
 Head dims: the kernels take 16, 32, 64 and the multiples of 128 up to
 :data:`MAX_HEAD_DIM` (:func:`kernel_head_dim` is the head-dim rule of the
@@ -31,8 +35,10 @@ and every multiple of 128). Any other head dim (80, 96, ...), and the
 multiples of 128 above :data:`MAX_HEAD_DIM` (640, ...), are routed by
 :func:`flash_attention`, :func:`flash_attention_with_lse` and
 :func:`decode_attention` to :func:`dense_attention`, as the JAX package
-sends the former to its XLA path. The choice rests on the shape alone
-and is made before any launch. The raw kernel wrappers raise on both.
+sends the former to its XLA path. So is cross-attention (q's sequence
+length differs from k's), as the JAX package's ``_pallas_eligible`` sends
+it to its XLA path. The choice rests on the shapes alone and is made
+before any launch. The raw kernel wrappers raise on all of these.
 """
 from __future__ import annotations
 
@@ -66,14 +72,18 @@ def kernel_head_dim(d):
     return d in (16, 32, 64) or (d > 0 and d % 128 == 0)
 
 
-def _kernel_route(d):
-    """True when the entry points launch a kernel for head dim ``d``;
-    else they take :func:`dense_attention`."""
-    return kernel_head_dim(d) and d <= MAX_HEAD_DIM
+def _kernel_route(d, s_q=None, s_k=None):
+    """True when the entry points launch a kernel for head dim ``d`` (and,
+    for the flash kernels, q and k of sequence lengths ``s_q`` and
+    ``s_k``: self-attention only); else they take
+    :func:`dense_attention`."""
+    return kernel_head_dim(d) and d <= MAX_HEAD_DIM and s_q == s_k
 
 
 def dense_attention(q, k, v, causal=False, scale=None, lengths=None):
-    """The dense route for head dims no kernel takes: plain PyTorch ops,
+    """The dense route for head dims no kernel takes and for
+    cross-attention (S_q != S_k; causal masks bottom-right, as the JAX
+    package's ``reference_attention_with_lse``): plain PyTorch ops,
     differentiated by autograd, the counterpart of the JAX package's XLA
     path (``reference_attention`` from ``flash_attention``,
     ``reference_decode_attention`` from ``decode_attention``). Returns
@@ -121,19 +131,21 @@ def reference_flash_attention_bwd(q, k, v, o, lse, do, glse=None,
                                   causal=False, scale=None):
     """Dense twin of the flash backward kernels: the same recompute
     formulas (p = exp(s - lse), delta = rowsum(dO * O) - glse,
-    dS = p (dP - delta) scale) on whole (S, S) matrices. A row whose lse
-    is not finite has no valid key: +inf (the kernel forward's sentinel)
-    and -inf (the dense forward's) both give p = 0, never NaN. GQA sums
-    each group's per-q-head dK/dV. Returns (dq, dk, dv) in f32."""
-    b, h, s_len, d = q.shape
-    h_kv = k.shape[1]
+    dS = p (dP - delta) scale) on whole (S_q, S_k) matrices, in f32. A
+    row whose lse is not finite has no valid key: +inf (the kernel
+    forward's sentinel) and -inf (the dense forward's) both give p = 0,
+    never NaN. The causal mask is the forward's (bottom-right:
+    ``tril(s_k - s_q)``). GQA sums each group's per-q-head dK/dV in f32.
+    Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    b, h, s_q, d = q.shape
+    h_kv, s_k = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     kr, vr = _repeat_kv(k, v, h)
     qf, dof = q.float(), do.float()
     scores = torch.einsum("bhqd,bhkd->bhqk", qf, kr.float()) * scale
     if causal:
-        mask = torch.ones(s_len, s_len, dtype=torch.bool,
-                          device=q.device).tril()
+        mask = torch.ones(s_q, s_k, dtype=torch.bool,
+                          device=q.device).tril(s_k - s_q)
         scores = scores.masked_fill(~mask, float("-inf"))
     lse = lse.float()
     finite = torch.isfinite(lse)
@@ -148,9 +160,9 @@ def reference_flash_attention_bwd(q, k, v, o, lse, do, glse=None,
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     if h != h_kv:
-        dk = dk.reshape(b, h_kv, h // h_kv, s_len, d).sum(2)
-        dv = dv.reshape(b, h_kv, h // h_kv, s_len, d).sum(2)
-    return dq, dk, dv
+        dk = dk.reshape(b, h_kv, h // h_kv, s_k, d).sum(2)
+        dv = dv.reshape(b, h_kv, h // h_kv, s_k, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _masked_softmax_out(scores, v, spec, dtype):
@@ -209,35 +221,60 @@ def _check_head_dim(name, d):
              "limit (the flash backward's registers)")
 
 
-def _check_cuda_f32(name, *ts):
-    for t in ts:
+# the element types of the attention kernels, by the C entries' codes
+# (csrc/mxt_common.cuh: MXT_F32, MXT_BF16, MXT_F16)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _check_cuda(name, ts, rows=()):
+    """The card's checks of a launch: ``ts`` (q, k, v, and o, dO) on one
+    card, contiguous, 16-byte aligned and of one type the kernels take,
+    whose C code is returned; ``rows`` (lse, glse) float32 there."""
+    dts = sorted({str(t.dtype) for t in ts})
+    _require(len(dts) == 1, f"{name}: q, k, v (and o, do) must share one "
+             f"dtype, got {', '.join(dts)}")
+    _require(ts[0].dtype in _DTYPES, f"{name}: the kernels take float32, "
+             f"bfloat16 or float16, got {ts[0].dtype}")
+    for t in (*ts, *rows):
         _require(t.is_cuda, f"{name}: tensors must all be on the card")
-        _require(t.dtype == torch.float32,
-                 f"{name}: the kernel takes float32, got {t.dtype}")
         _require(t.is_contiguous(), f"{name}: tensors must be contiguous")
         _require(t.device == ts[0].device,
                  f"{name}: tensors on different devices")
+    for t in ts:
+        _require(t.data_ptr() % 16 == 0,
+                 f"{name}: tensors must start on 16 bytes")
+    for t in rows:
+        _require(t.dtype == torch.float32,
+                 f"{name}: lse/glse must be float32, got {t.dtype}")
+    return _DTYPES[ts[0].dtype]
+
+
+def _check_self(name, q, k):
+    _require(k.shape[2] == q.shape[2],
+             f"{name}: k/v must be (B, H_kv, S, D) with q's S "
+             f"{q.shape[2]}, got {tuple(k.shape)}; cross-attention "
+             "(S_q != S_k) takes dense_attention through flash_attention")
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
-    """Flash forward: (out (B,H,S,D), lse (B,H,S) f32).
+    """Flash forward: (out (B,H,S,D) in q's dtype, lse (B,H,S) f32).
 
     Replaces the TPU kernel mxnet_tpu/ops/attention.py:_flash_kernel
     (launched by _flash_pallas). On the card, ``csrc/flash_attention.cu``
-    (float32, head dim 16/32/64 or a multiple of 128 up to
-    :data:`MAX_HEAD_DIM`, self-attention: S_q == S_k). On
-    the CPU, :func:`reference_attention_with_lse`. The kernel writes ``+inf`` as
+    (float32, bfloat16 or float16; head dim 16/32/64 or a multiple of 128
+    up to :data:`MAX_HEAD_DIM`; self-attention: S_q == S_k). On the CPU,
+    :func:`reference_attention_with_lse`. The kernel writes ``+inf`` as
     the lse of a row with no valid key (the TPU kernel's sentinel); the
     dense oracle writes ``-inf``. Self-attention never has such a row."""
     if q.device.type == "cpu":
         return reference_attention_with_lse(q, k, v, causal, scale)
     b, h, s, d = q.shape
-    _check_cuda_f32("flash_attention_fwd", q, k, v)
+    code = _check_cuda("flash_attention_fwd", (q, k, v))
     h_kv = k.shape[1]
-    _require(k.shape == v.shape and k.shape[0] == b and k.shape[2] == s
-             and k.shape[3] == d, "flash_attention_fwd: k/v must be "
-             f"(B, H_kv, S, D) matching q {tuple(q.shape)}, got "
-             f"{tuple(k.shape)}")
+    _require(k.shape == v.shape and k.shape[0] == b and k.shape[3] == d,
+             "flash_attention_fwd: k/v must be (B, H_kv, S, D) matching q "
+             f"{tuple(q.shape)}, got {tuple(k.shape)}")
+    _check_self("flash_attention_fwd", q, k)
     _require(h_kv > 0 and h % h_kv == 0,
              "flash_attention_fwd: H must be a multiple of H_kv")
     _check_head_dim("flash_attention_fwd", d)
@@ -245,12 +282,11 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    fn = _build.bind("flash_attention", "mxt_flash_fwd_f32",
+    fn = _build.bind("flash_attention", "mxt_flash_fwd",
                      *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 5,
-                     ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_void_p)
+                     ctypes.c_float, *[ctypes.c_int] * 3, ctypes.c_void_p)
     err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), b, h, h_kv,
-             s, d, float(scale), int(bool(causal)), q.device.index,
+             s, d, float(scale), int(bool(causal)), code, q.device.index,
              _stream(q))
     flash_attention_fwd.launches += 1
     _build.check(err, "flash_attention", "flash_attention_fwd")
@@ -263,46 +299,48 @@ flash_attention_fwd.launches = 0
 def _check_bwd(name, q, k, v, o, lse, do, glse):
     b, h, s, d = q.shape
     _check_head_dim(name, d)
-    _check_cuda_f32(name, q, k, v, o, lse, do,
-                    *([] if glse is None else [glse]))
+    code = _check_cuda(name, (q, k, v, o, do),
+                       (lse,) if glse is None else (lse, glse))
     h_kv = k.shape[1]
-    _require(k.shape == v.shape and k.shape[0] == b and k.shape[2] == s
-             and k.shape[3] == d and o.shape == q.shape
-             and do.shape == q.shape, f"{name}: shapes q/o/do "
-             f"{tuple(q.shape)}, k/v {tuple(k.shape)} do not match")
+    _require(k.shape == v.shape and k.shape[0] == b and k.shape[3] == d
+             and o.shape == q.shape and do.shape == q.shape,
+             f"{name}: shapes q/o/do {tuple(q.shape)}, k/v "
+             f"{tuple(k.shape)} do not match")
+    _check_self(name, q, k)
     _require(lse.shape == (b, h, s) and (glse is None
                                          or glse.shape == (b, h, s)),
              f"{name}: lse/glse must be (B, H, S)")
     _require(h_kv > 0 and h % h_kv == 0,
              f"{name}: H must be a multiple of H_kv")
     _require(0 < b * h <= 65535, f"{name}: B*H out of range")
-    return b, h, h_kv, s, d
+    return b, h, h_kv, s, d, code
 
 
 def _bwd_argtypes(n_out):
     """q, k, v, o, do, lse, glse, n_out outputs; B, H, H_kv, S, D; scale;
-    causal, device; stream."""
+    causal, dtype, device; stream."""
     return (*[ctypes.c_void_p] * (7 + n_out), *[ctypes.c_int] * 5,
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+            ctypes.c_float, *[ctypes.c_int] * 3, ctypes.c_void_p)
 
 
 def flash_attention_bwd_dq(q, k, v, o, lse, do, glse=None, causal=False,
                            scale=None):
-    """dQ of the flash backward on the card: (B, H, S, D) f32.
+    """dQ of the flash backward on the card: (B, H, S, D) in q's dtype.
 
     Replaces the TPU kernel mxnet_tpu/ops/attention.py:
     _flash_bwd_dq_kernel (launched by _flash_pallas_bwd). Kernel:
-    ``csrc/flash_attention_bwd.cu`` (float32, the forward's head dims);
-    ``glse`` (B, H, S) or None is the lse output's cotangent."""
-    b, h, h_kv, s, d = _check_bwd("flash_attention_bwd_dq", q, k, v, o, lse,
-                                  do, glse)
+    ``csrc/flash_attention_bwd.cu`` (the forward's types and head dims);
+    ``glse`` (B, H, S) f32 or None is the lse output's cotangent."""
+    b, h, h_kv, s, d, code = _check_bwd("flash_attention_bwd_dq", q, k, v,
+                                        o, lse, do, glse)
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     dq = torch.empty_like(q)
-    fn = _build.bind("flash_attention_bwd", "mxt_flash_bwd_dq_f32",
+    fn = _build.bind("flash_attention_bwd", "mxt_flash_bwd_dq",
                      *_bwd_argtypes(1))
     err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
              None if glse is None else _ptr(glse), _ptr(dq), b, h, h_kv, s,
-             d, float(scale), int(bool(causal)), q.device.index, _stream(q))
+             d, float(scale), int(bool(causal)), code, q.device.index,
+             _stream(q))
     flash_attention_bwd_dq.launches += 1
     _build.check(err, "flash_attention_bwd", "flash_attention_bwd_dq")
     return dq
@@ -314,21 +352,22 @@ flash_attention_bwd_dq.launches = 0
 def flash_attention_bwd_dkv(q, k, v, o, lse, do, glse=None, causal=False,
                             scale=None):
     """dK/dV of the flash backward on the card: (dk, dv), each
-    (B, H, S, D) f32 — one partial per q head; the caller sums each GQA
-    group. Replaces the TPU kernel mxnet_tpu/ops/attention.py:
-    _flash_bwd_dkv_kernel (launched by _flash_pallas_bwd). Kernel:
-    ``csrc/flash_attention_bwd.cu``."""
-    b, h, h_kv, s, d = _check_bwd("flash_attention_bwd_dkv", q, k, v, o,
-                                  lse, do, glse)
+    (B, H, S, D) float32, whatever the inputs' type — one partial per q
+    head; the caller sums each GQA group in f32 and rounds once to k's
+    and v's dtypes (:func:`flash_attention_bwd`). Replaces the TPU kernel
+    mxnet_tpu/ops/attention.py:_flash_bwd_dkv_kernel (launched by
+    _flash_pallas_bwd). Kernel: ``csrc/flash_attention_bwd.cu``."""
+    b, h, h_kv, s, d, code = _check_bwd("flash_attention_bwd_dkv", q, k, v,
+                                        o, lse, do, glse)
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    dk = torch.empty_like(q)
-    dv = torch.empty_like(q)
-    fn = _build.bind("flash_attention_bwd", "mxt_flash_bwd_dkv_f32",
+    dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    fn = _build.bind("flash_attention_bwd", "mxt_flash_bwd_dkv",
                      *_bwd_argtypes(2))
     err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
              None if glse is None else _ptr(glse), _ptr(dk), _ptr(dv), b, h,
-             h_kv, s, d, float(scale), int(bool(causal)), q.device.index,
-             _stream(q))
+             h_kv, s, d, float(scale), int(bool(causal)), code,
+             q.device.index, _stream(q))
     flash_attention_bwd_dkv.launches += 1
     _build.check(err, "flash_attention_bwd", "flash_attention_bwd_dkv")
     return dk, dv
@@ -342,8 +381,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, glse=None, causal=False,
     """Flash backward: (dq, dk, dv) from the saved (q, k, v, out, lse),
     the output cotangent ``do`` and, when lse is itself a differentiated
     output, its cotangent ``glse`` (None means zeros). On the card the dQ
-    and dK/dV kernels (one launch each; GQA groups summed here); on the
-    CPU :func:`reference_flash_attention_bwd`."""
+    and dK/dV kernels (one launch each; GQA groups summed here in f32);
+    on the CPU :func:`reference_flash_attention_bwd`. dq, dk, dv come back
+    in q's, k's and v's dtypes."""
     if q.device.type == "cpu":
         return reference_flash_attention_bwd(q, k, v, o, lse, do, glse,
                                              causal, scale)
@@ -355,7 +395,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, glse=None, causal=False,
     if h != h_kv:
         dk = dk.reshape(b, h_kv, h // h_kv, s, d).sum(2)
         dv = dv.reshape(b, h_kv, h // h_kv, s, d).sum(2)
-    return dq, dk, dv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -384,9 +424,9 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention_with_lse(q, k, v, causal=False, scale=None):
     """(out, lse (B,H,S) f32), both differentiable (the lse cotangent
     folds into the backward's row term, as in the JAX package). A head
-    dim no kernel takes, or one above :data:`MAX_HEAD_DIM`, goes to
-    :func:`dense_attention`."""
-    if not _kernel_route(q.shape[-1]):
+    dim no kernel takes, one above :data:`MAX_HEAD_DIM`, and
+    cross-attention (S_q != S_k) go to :func:`dense_attention`."""
+    if not _kernel_route(q.shape[-1], q.shape[2], k.shape[2]):
         return dense_attention(q, k, v, causal, scale)
     return _FlashAttention.apply(q, k, v, bool(causal), scale)
 
@@ -403,8 +443,9 @@ def decode_attention(q, k, v, lengths, scale=None):
     q (B, H, D); k/v (B, H_kv, S, D); lengths (B,) int32 valid-prefix
     lengths. Replaces the TPU kernel mxnet_tpu/ops/attention.py:
     _decode_kernel (launched by _decode_pallas). On the card,
-    ``csrc/decode_attention.cu`` (float32, the forward's head dims, any
-    GQA group that divides H); on the CPU, :func:`reference_decode_attention`.
+    ``csrc/decode_attention.cu`` (float32, bfloat16 or float16 q and
+    caches, out in q's dtype; the forward's head dims; any GQA group that
+    divides H); on the CPU, :func:`reference_decode_attention`.
     A head dim no kernel takes, or one above :data:`MAX_HEAD_DIM`, goes to
     :func:`dense_attention`."""
     if not _kernel_route(q.shape[-1]):
@@ -412,7 +453,7 @@ def decode_attention(q, k, v, lengths, scale=None):
     if q.device.type == "cpu":
         return reference_decode_attention(q, k, v, lengths, scale)
     b, h, d = q.shape
-    _check_cuda_f32("decode_attention", q, k, v)
+    code = _check_cuda("decode_attention", (q, k, v))
     h_kv, s = k.shape[1], k.shape[2]
     _require(k.shape == v.shape and k.shape[0] == b and k.shape[3] == d,
              f"decode_attention: k/v {tuple(k.shape)} do not match q "
@@ -427,11 +468,12 @@ def decode_attention(q, k, v, lengths, scale=None):
              "tensor")
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
-    fn = _build.bind("decode_attention", "mxt_decode_attention_f32",
+    fn = _build.bind("decode_attention", "mxt_decode_attention",
                      *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 5,
-                     ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+                     ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p)
     err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(lengths), _ptr(out), b, h,
-             h_kv, s, d, float(scale), q.device.index, _stream(q))
+             h_kv, s, d, float(scale), code, q.device.index, _stream(q))
     decode_attention.launches += 1
     _build.check(err, "decode_attention", "decode_attention")
     return out

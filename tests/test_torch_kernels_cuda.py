@@ -21,6 +21,20 @@ bit-identical results on a second call. With float32 x over 40 decades
 both are held against float64 within the bound that exact products keep
 (and that x without its third bf16 piece breaks), and every weight byte
 is widened bit for bit.
+
+The attention kernels also take bfloat16 and float16: out, dq, dk, dv
+and the decode output are held element by element within 2 units of
+(one ulp of the reference there + one ulp of the root-sum-square of the
+terms it sums), in their type (``mxnet_tpu_torch.test_utils``; the
+forward and dQ kernels round P and dS to the input type before their
+second product, as the TPU kernels do, which moves an element by a
+fraction of its terms; the plain versions round once at the end); the
+same attention with one tile of keys left out must fail that check; lse
+is held to the float32 tolerance, and every second call is
+bit-identical. The f32 flash forward
+and dQ (three TF32 tensor-core products each) are held against float64
+within 4x the plain f32 version's own error, which one TF32 pass
+(emulated in torch) exceeds. Cross-attention takes the dense route.
 """
 import functools
 import math
@@ -261,8 +275,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     from mxnet_tpu_torch.base import MXNetError
     from mxnet_tpu_torch.ops import attention as A, quantization as Q
     q = torch.randn(1, 2, 8, 64, device=dev)
-    with pytest.raises(MXNetError, match="float32"):
-        A.flash_attention_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        A.flash_attention_fwd(q.double(), q.double(), q.double())
+    with pytest.raises(MXNetError, match="share one dtype"):
+        A.flash_attention_fwd(q, q.half(), q.half())
+    with pytest.raises(MXNetError, match="dense_attention"):
+        x = torch.randn(1, 2, 16, 64, device=dev)
+        A.flash_attention_fwd(q, x, x)
     with pytest.raises(MXNetError, match="head dim"):
         x = torch.randn(1, 2, 8, 48, device=dev)
         A.flash_attention_fwd(x, x, x)
@@ -470,3 +489,181 @@ def test_rtc_cuda_module_errors(dev):
         k.launch([x, x], gpu(0), (1,), (2,))
     with pytest.raises(MXNetError, match="takes torch.float32"):
         k.launch([x.int(), x, 2], gpu(0), (1,), (2,))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("s,h_kv,causal,d,glse", [
+    (64, 4, True, 64, False), (100, 2, True, 64, True),
+    (70, 4, False, 128, False), (130, 1, True, 128, True),
+    (90, 2, True, 256, False), (33, 4, False, 256, True),
+    (70, 2, True, 384, True), (40, 1, False, 512, False),
+    (33, 4, True, 16, False), (50, 2, False, 32, True)])
+def test_half_attention_kernels_match_plain(dev, dt, s, h_kv, causal, d,
+                                            glse):
+    from mxnet_tpu_torch import test_utils as U
+    from mxnet_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev).manual_seed(s + d + h_kv)
+    q = torch.randn(2, 4, s, d, generator=g, device=dev).to(dt)
+    k = torch.randn(2, h_kv, s, d, generator=g, device=dev).to(dt)
+    v = torch.randn(2, h_kv, s, d, generator=g, device=dev).to(dt)
+    do = torch.randn(2, 4, s, d, generator=g, device=dev).to(dt)
+    gl = torch.randn(2, 4, s, generator=g, device=dev) if glse else None
+    counts = [f.launches for f in (A.flash_attention_fwd,
+                                   A.flash_attention_bwd_dq,
+                                   A.flash_attention_bwd_dkv,
+                                   A.decode_attention)]
+    dense = A.dense_attention.calls
+    out, lse = A.flash_attention_fwd(q, k, v, causal=causal)
+    grads = A.flash_attention_bwd(q, k, v, out, lse, do, gl, causal=causal)
+    lengths = torch.tensor([s // 3, s], dtype=torch.int32, device=dev)
+    dec = A.decode_attention(q[:, :, -1].contiguous(), k, v, lengths)
+    assert [f.launches for f in (A.flash_attention_fwd,
+                                 A.flash_attention_bwd_dq,
+                                 A.flash_attention_bwd_dkv,
+                                 A.decode_attention)] == [
+        c + 1 for c in counts]
+    assert A.dense_attention.calls == dense
+    assert out.dtype == dt and lse.dtype == torch.float32
+    assert [t.dtype for t in grads] == [dt] * 3 and dec.dtype == dt
+    ref, rlse = A.reference_attention_with_lse(q, k, v, causal=causal)
+    rgrads = A.reference_flash_attention_bwd(q, k, v, out, lse, do, gl,
+                                             causal=causal)
+    rdec = A.reference_decode_attention(q[:, :, -1], k, v, lengths)
+    terms = U.attention_term_scales(q, k, v, causal, o=out, do=do, glse=gl)
+    torch.cuda.synchronize()
+    assert U.half_units(out, ref, terms[0]) <= 2
+    _close(lse, rlse)
+    for a, r, t in zip(grads, rgrads, terms[1:]):
+        assert U.half_units(a, r, t) <= 2
+    assert U.half_units(dec, rdec, U.decode_term_scales(
+        q[:, :, -1], k, v, lengths)) <= 2
+    # the check has teeth: one tile of 16 keys left out fails it
+    ctrl = U.attention_without_keys(q, k, v, s // 2, s // 2 + 16, causal,
+                                    do=do, glse=gl)
+    for c, r, t in zip(ctrl, (ref, *rgrads), terms):
+        assert U.half_units(c, r, t) > 2
+    again = (A.flash_attention_fwd(q, k, v, causal=causal),
+             A.flash_attention_bwd(q, k, v, out, lse, do, gl, causal=causal))
+    assert torch.equal(again[0][0], out) and torch.equal(again[0][1], lse)
+    for a, b in zip(grads, again[1]):
+        assert torch.equal(a, b)
+
+
+def _tf32(x):
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_f32_flash_kernels_hold_float64_accuracy(dev, d):
+    """The f32 forward and dQ (three TF32 tensor-core products each)
+    against float64: within 4x the plain f32 version's own error; one TF32
+    pass (the same formulas on tf32-rounded q, k, v, P and dS, in float64)
+    breaks it."""
+    from mxnet_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev).manual_seed(d)
+    q, k, v, do = (torch.randn(2, 4, 200, d, generator=g, device=dev)
+                   for _ in range(4))
+    out, lse = A.flash_attention_fwd(q, k, v, causal=True)
+    dq = A.flash_attention_bwd_dq(q, k, v, out, lse, do, causal=True)
+    p_out, p_lse = A.reference_attention_with_lse(q, k, v, causal=True)
+    p_dq = A.reference_flash_attention_bwd(q, k, v, out, lse, do,
+                                           causal=True)[0]
+
+    def f64(q, k, v, rnd):
+        mask = torch.ones(200, 200, dtype=torch.bool, device=dev).tril()
+        s = rnd(q) @ rnd(k).transpose(-1, -2) / math.sqrt(d)
+        s = s.masked_fill(~mask, float("-inf"))
+        lse = torch.logsumexp(s, -1)
+        p = torch.exp(s - lse[..., None])
+        o = rnd(p) @ rnd(v)
+        dp = rnd(do.double()) @ rnd(v).transpose(-1, -2)
+        ds = p * (dp - (do.double() * o).sum(-1, keepdim=True)) / math.sqrt(d)
+        return o, rnd(ds) @ rnd(k)
+
+    def exact(x):
+        return x.double()
+
+    def one_tf32(x):
+        return _tf32(x.float()).double()
+
+    o64, dq64 = f64(q, k, v, exact)
+    c_out, c_dq = f64(q, k, v, one_tf32)
+    for got, plain, ctrl, ref in ((out, p_out, c_out, o64),
+                                  (dq, p_dq, c_dq, dq64)):
+        bound = 4 * float((plain.double() - ref).abs().max())
+        assert float((got.double() - ref).abs().max()) <= bound
+        assert float((ctrl - ref).abs().max()) > bound
+
+
+@pytest.mark.parametrize("s_q,s_k", [(128, 512), (96, 32)])
+def test_cross_attention_takes_the_dense_route(dev, s_q, s_k):
+    from mxnet_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev).manual_seed(s_q + s_k)
+    q = torch.randn(2, 4, s_q, 64, generator=g, device=dev).requires_grad_()
+    k, v = (torch.randn(2, 2, s_k, 64, generator=g, device=dev)
+            .requires_grad_() for _ in range(2))
+    do = torch.randn(2, 4, s_q, 64, generator=g, device=dev)
+    kernels = [f.launches for f in (A.flash_attention_fwd,
+                                    A.flash_attention_bwd_dq,
+                                    A.flash_attention_bwd_dkv)]
+    dense = A.dense_attention.calls
+    A.flash_attention(q, k, v, causal=True).backward(do)
+    assert A.dense_attention.calls == dense + 1
+    assert [f.launches for f in (A.flash_attention_fwd,
+                                 A.flash_attention_bwd_dq,
+                                 A.flash_attention_bwd_dkv)] == kernels
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    A.reference_attention(q2, k2, v2, causal=True).backward(do)
+    for a, t in zip((q, k, v), (q2, k2, v2)):
+        assert torch.isfinite(a.grad).all()
+        _close(a.grad, t.grad)
+
+
+def test_dq_f32_d128_over_many_blocks_matches_plain(dev):
+    """f32 dQ at D = 128 takes tiles of 16 keys when its grid spans more
+    than two waves of the card's SMs (B4 H8 S640: 320 blocks), 32 below:
+    both against the plain twin, and bit-identical on a second call."""
+    from mxnet_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev).manual_seed(640)
+    for b, s in ((4, 640), (1, 100)):
+        q = torch.randn(b, 8, s, 128, generator=g, device=dev)
+        k, v = (torch.randn(b, 2, s, 128, generator=g, device=dev)
+                for _ in range(2))
+        do = torch.randn(b, 8, s, 128, generator=g, device=dev)
+        out, lse = A.flash_attention_fwd(q, k, v, causal=True)
+        dq = A.flash_attention_bwd_dq(q, k, v, out, lse, do, causal=True)
+        ref = A.reference_flash_attention_bwd(q, k, v, out, lse, do,
+                                              causal=True)[0]
+        again = A.flash_attention_bwd_dq(q, k, v, out, lse, do, causal=True)
+        torch.cuda.synchronize()
+        _close(dq, ref)
+        assert torch.equal(dq, again)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("scale", [-0.3, 0.0, 2.0])
+def test_flash_kernels_take_any_scale(dev, dt, scale):
+    """A caller's scale of either sign (or 0) through the forward and
+    both backward kernels, against the plain versions."""
+    from mxnet_tpu_torch import test_utils as U
+    from mxnet_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, do = (torch.randn(2, 4, 100, 64, generator=g, device=dev).to(dt)
+                   for _ in range(4))
+    out, lse = A.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+    grads = A.flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+                                  scale=scale)
+    ref, rlse = A.reference_attention_with_lse(q, k, v, causal=True,
+                                               scale=scale)
+    rgrads = A.reference_flash_attention_bwd(q, k, v, out, lse, do,
+                                             causal=True, scale=scale)
+    terms = U.attention_term_scales(q, k, v, True, scale, o=out, do=do)
+    torch.cuda.synchronize()
+    for a, r, t in zip((out, *grads), (ref, *rgrads), terms):
+        if dt == torch.float32:
+            _close(a, r)
+        else:
+            assert U.half_units(a, r, t) <= 2
+    _close(lse, rlse)
