@@ -26,12 +26,17 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            magnitude; a control with one tile of keys dropped must fail
            that check); the f32 flash forward and dQ against
            float64 (exact_flash_*: within 4x the plain f32 version's own
-           error, which one TF32 pass, emulated, must break); decode at
-           GQA groups 7 and 16; the
-           quantized matmul's decode and prefill kernels with float32 and
-           bfloat16 x;
-           conv1x1 at ResNet-50's five 1x1 shapes; the rtc kernels over
-           2^26 floats with NVRTC's compile time
+           error, which one TF32 pass, emulated, must break); decode (split
+           over the pool, one launch a call) at GQA groups 7 and 16, with
+           every slot at 512 of 1024 (the serving profile's step) and at
+           Llama-3-8B's widths over a 32768-position pool, a second call
+           bit-identical, and f32 decode against float64 as the flash
+           kernels (exact_decode_f32_*); the quantized matmul's decode and prefill kernels with float32,
+           bfloat16 and float16 x; conv1x1 at ResNet-50's five 1x1 shapes
+           (bf16), f32, f16 and a mixed (f16 x, bf16 w) pair; the rtc
+           kernels over 2^26 floats with NVRTC's compile time. Each
+           case also reads its kernel launches a call from the counter
+           that every launch site in csrc raises (_build.launches)
   train    TransformerEncoder + Dense head trained through the port's
            Gluon (initialize, autograd.record, loss.backward,
            Trainer("adam").step) on 8 x 1024 tokens: every parameter's
@@ -46,6 +51,13 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            full-context recompute through the plain path; tokens/s,
            per-token latency, and each kernel's launch count
   profile  one decode step under torch.profiler: device time by kernel
+  serve_gqa
+           DecodeEngine serving 8 sessions (prompts 17..4000 tokens) at
+           Qwen2-7B's attention and model widths (28 q heads over 4 kv
+           heads, head dim 128, d_model 3584, d_ff 18944, vocab 152064;
+           4 of its 28 layers, max_len 4096) with f32 weights drawn on the
+           card, logits against a full-context recompute, then a decode
+           step under torch.profiler with decode attention's share
   conv     ResNet-50 stage 2 at batch 128, bf16, through ops.conv_fused:
            expand 64 -> 256 with statistics, finalize_stats, bn_fold, then
            the next block's reduce 256 -> 64 with the BN + residual + ReLU
@@ -55,10 +67,18 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            compile, get_kernel, launch (grid, block, dynamic shared
            memory) over 2^26 floats, checked against torch
 
-then a ``kernels`` summary line, the nvidia-smi line, and last
+then the nvidia-smi line, a ``kernels`` summary line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no result)
 without CUDA, or when any phase fails. Details go to
 chiprun_out/chip_smoke.json.
+
+    python3 chip_smoke.py --phases device,engines,profile [--package ROOT]
+
+runs only the named phases (the serving pair, say), with the package
+found under ROOT (default: this script's directory), so that two trees
+can be measured by the same script on one card: run the parent's and
+the change's trees in turn, parent, change, change, parent. It prints
+the phases' lines and ``{"ok": ..., "phases": [...]}``.
 """
 import json
 import math
@@ -99,8 +119,9 @@ HALF_ULPS = 2
 DROP_KEYS = 64
 DTYPES = {}             # "f32" / "bf16" / "f16" -> torch dtype, at run time
 # the quantized matmul's kernels form each f32 x as 3 exact bf16 pieces on
-# the bf16 tensor cores (bf16 x: 1 piece)
-QMM_PIECES = {"f32": 3, "bf16": 1}
+# the bf16 tensor cores (bf16 x: 1 piece; f16 x: 1 product on the f16
+# tensor cores, where every int8 and e4m3 weight is exact)
+QMM_PIECES = {"f32": 3, "bf16": 1, "f16": 1}
 # ... so with f32 x they agree with float64 within QMM_F64_ULPS * K units of
 # 2^-24 of sum |x| |q| * scale: f32 sums of exact products in any order
 QMM_F64_ULPS = 4
@@ -112,6 +133,16 @@ SLOTS = 8
 PROMPT_LENS = (17, 60, 100, 200, 300, 500, 700, 900)
 NEW_TOKENS = 32
 SEED = 0
+
+# GQA serving at Qwen2-7B's widths (Qwen's published config.json for
+# Qwen2-7B: hidden_size 3584, num_attention_heads 28, num_key_value_heads
+# 4, intermediate_size 18944, vocab_size 152064; head dim 128, group 7) in
+# DecodeModel's own blocks (RMSNorm, tanh-GELU MLP, learned positions: not
+# Qwen2's SwiGLU and rotary positions). Cut: 4 of 28 layers, max_len 4096
+# (of 32768), to stay in the script's time; f32 weights drawn on the card.
+QWEN = dict(vocab=152064, layers=4, d_model=3584, heads=28, kv_heads=4,
+            d_ff=18944, max_len=4096)
+QWEN_PROMPT_LENS = (17, 100, 300, 700, 1200, 2000, 3000, 4000)
 
 # the training model: GPT-2 medium widths in TransformerEncoder + Dense
 TRAIN = dict(vocab_size=50257, units=1024, hidden_size=4096, num_heads=16,
@@ -256,6 +287,23 @@ def err_of(got, ref):
     return e, KERNEL_ATOL + KERNEL_RTOL * scale
 
 
+def launches_per_call(call, stem):
+    """Kernel launches one ``call()`` makes, read from the counter that
+    every launch site of ``csrc/<stem>.cu`` raises (``_build.launches``);
+    for rtc (``stem`` None), whose kernels are a user's, from
+    ``rtc.CudaKernel.launches``."""
+    import torch
+    from mxnet_tpu_torch import _build, rtc
+
+    def count():
+        return rtc.CudaKernel.launches if stem is None \
+            else _build.launches(stem)
+    n0 = count()
+    call()
+    torch.cuda.synchronize()
+    return count() - n0
+
+
 # -- phases -------------------------------------------------------------------
 
 def phase_device():
@@ -373,6 +421,9 @@ def _flash_case(name, b, h, hkv, s, d, causal, gen, dt="f32"):
     e_l, tol_l = err_of(lse, rlse)
     del terms
     ok_o = ok_o and (control is None or control["units"] > HALF_ULPS)
+    per_call = launches_per_call(
+        lambda: A.flash_attention_fwd(q, k, v, causal=causal),
+        "flash_attention")
     esz = q.element_size()
     io_bytes = esz * (2 * q.numel() + k.numel() + v.numel()) \
         + 4 * lse.numel()
@@ -397,9 +448,10 @@ def _flash_case(name, b, h, hkv, s, d, causal, gen, dt="f32"):
             "tol_out": tol_o, "tol_lse": tol_l,
             "control_dropped_keys": control,
             "launches_and_dense_calls": launched,
+            "kernel_launches_per_call": per_call,
             "deterministic": deterministic,
             "ok": ok_o and e_l <= tol_l and launched == (1, 0)
-            and deterministic,
+            and deterministic and per_call == 1,
             "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
             "library_note": "SDPA in %s" % dt,
             "bound_ms": bnd, "bound_by": by, "bound_f32_pipes_ms": b_f32,
@@ -455,6 +507,10 @@ def _flash_bwd_case(name, b, h, hkv, s, d, causal, gen, glse=False,
     held = [_held(got[sl], r, t) for got, r, t in zip((dq, dk, dv), ref,
                                                        terms)]
     del ref, terms
+    dq_per_call = launches_per_call(lambda: A.flash_attention_bwd_dq(
+        q, k, v, o, lse, do, gl, causal), "flash_attention_bwd")
+    dkv_per_call = launches_per_call(lambda: A.flash_attention_bwd_dkv(
+        q, k, v, o, lse, do, gl, causal), "flash_attention_bwd")
     pairs = s * (s + 1) // 2 if causal else s * s
     esz = q.element_size()
     n_in = esz * (3 * q.numel() + k.numel() + v.numel()) + 4 * (
@@ -487,7 +543,8 @@ def _flash_bwd_case(name, b, h, hkv, s, d, causal, gen, glse=False,
     # same work at the forward's and dQ's rates: its bound is theirs
     (b_dkv, by_dkv), b_dkv_f32 = _tc_bound(dkv_bytes, dkv_flops, dt)
     ok = all(h_[2] for h_ in held) and deterministic and (
-        control is None or all(c["units"] > HALF_ULPS for c in control))
+        control is None or all(c["units"] > HALF_ULPS for c in control)) \
+        and dq_per_call == dkv_per_call == 1
     return {"kernel": "flash_attention_bwd", "case": name, "dtype": dt,
             "held_in_ulps": dt != "f32",
             "shape": [b, h, hkv, s, d], "causal": causal, "glse": glse,
@@ -495,6 +552,8 @@ def _flash_bwd_case(name, b, h, hkv, s, d, causal, gen, glse=False,
             "err_dv": held[2][0], "tols": [t for _, t, _ in held],
             "control_dropped_keys": control,
             "max_abs_err": abs_err,
+            "dq_kernel_launches_per_call": dq_per_call,
+            "dkv_kernel_launches_per_call": dkv_per_call,
             "deterministic": deterministic, "ok": ok,
             "dq_ms": dq_ms, "dkv_ms": dkv_ms, "kernel_ms": dq_ms + dkv_ms,
             "plain_ms": plain, "plain_note": "the plain twin computes dq, "
@@ -528,10 +587,17 @@ def _decode_case(name, b, h, hkv, s, d, lengths, gen, dt="f32"):
     out = A.decode_attention(q, k, v, ln)
     launched = (A.decode_attention.launches - n0,
                 A.dense_attention.calls - dense0)
+    again = A.decode_attention(q, k, v, ln)
     ref = A.reference_decode_attention(q, k, v, ln)
     torch.cuda.synchronize()
+    deterministic = bool(torch.equal(out, again))
+    tiles, splits, chunk = A.decode_plan(
+        b, h, hkv, s, torch.cuda.get_device_properties(0)
+        .multi_processor_count)
     e, tol, ok = _held(out, ref, None if dt == "f32" else
                        U.decode_term_scales(q, k, v, ln))
+    per_call = launches_per_call(lambda: A.decode_attention(q, k, v, ln),
+                                 "decode_attention")
     tot = int(sum(lengths))
     esz = q.element_size()
     io_bytes = esz * (2 * q.numel() + 2 * hkv * d * tot) + 4 * b
@@ -557,9 +623,13 @@ def _decode_case(name, b, h, hkv, s, d, lengths, gen, dt="f32"):
             "held_in_ulps": dt != "f32",
             "shape": [b, h, hkv, s, d], "lengths": list(lengths),
             "group": h // hkv, "launches_and_dense_calls": launched,
+            "splits": splits, "chunk": chunk, "head_tiles": tiles,
+            "kernel_launches_per_call": per_call,
+            "deterministic": deterministic,
             "max_abs_err": float((out.float() - ref.float()).abs().max()),
             "err": e, "tol": tol,
-            "ok": ok and launched == (1, 0),
+            "ok": ok and launched == (1, 0) and deterministic
+            and per_call == 1,
             "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
             "bound_ms": bnd, "bound_by": by, "bytes": io_bytes,
             "flops": flops}
@@ -567,8 +637,9 @@ def _decode_case(name, b, h, hkv, s, d, lengths, gen, dt="f32"):
 
 def _qmm_case(name, m, kdim, n, dtype, gen, xdt="f32"):
     """The quantized matmul against its plain version (float32 x: the
-    kernels' tolerance; bfloat16 x: one bf16 ulp plus 1e-4 of the largest
-    magnitude), the same bits on a second call, timed beside the plain
+    kernels' tolerance; bfloat16 / float16 x: one ulp of x's type plus
+    1e-4 of the largest magnitude), the same bits on a second call, timed
+    beside the plain
     version and torch.matmul on the wide weight. float32 x is also held
     against float64 (_qmm_f64_ratio). Both kernels run QMM_PIECES bf16
     tensor-core products, which set the bound's operations (the FP32
@@ -576,9 +647,7 @@ def _qmm_case(name, m, kdim, n, dtype, gen, xdt="f32"):
     import torch
     from mxnet_tpu_torch.ops import quantization as Q
     dev = "cuda"
-    x = torch.randn(m, kdim, generator=gen, device=dev)
-    if xdt == "bf16":
-        x = x.bfloat16()
+    x = torch.randn(m, kdim, generator=gen, device=dev).to(DTYPES[xdt])
     w = torch.randn(kdim, n, generator=gen, device=dev) / math.sqrt(kdim)
     q, sc = Q.quantize_rows(w, dtype)
     del w
@@ -590,13 +659,16 @@ def _qmm_case(name, m, kdim, n, dtype, gen, xdt="f32"):
     route = "qmm_tc" if Q._qmm_route(x, q, out) == 1 else "qmm_small"
     e, tol = err_of(out, ref)
     f64 = None
-    if xdt == "bf16":
-        ulps = _bf16_ulp_err(out, ref, KERNEL_RTOL)
-        ok, tol_s = ulps <= 1.0, "one bf16 ulp + %g of max |ref|" % KERNEL_RTOL
+    if xdt != "f32":
+        ulps = _half_ulp_err(out, ref, KERNEL_RTOL)
+        ok, tol_s = ulps <= 1.0, "one ulp of x's type + %g of max |ref|" \
+            % KERNEL_RTOL
     else:
         # and against float64 within the exact-products bound
         f64 = _qmm_f64_ratio(out, x, q, sc)
         ulps, ok, tol_s = None, e <= tol and f64 <= 1.0, tol
+    per_call = launches_per_call(lambda: Q.quantized_matmul(x, q, sc),
+                                 "quantized_matmul")
     io_bytes = x.element_size() * (m * kdim + m * n) \
         + q.numel() * q.element_size() + 4 * n
     flops = 2 * m * n * kdim
@@ -612,9 +684,11 @@ def _qmm_case(name, m, kdim, n, dtype, gen, xdt="f32"):
     return {"kernel": "quantized_matmul", "case": name, "dtype": dtype,
             "x_dtype": xdt, "route": route,
             "shape": [m, kdim, n], "max_abs_err": e, "tol": tol_s,
-            "err_bf16_ulps": ulps, "f64_err_over_bound": f64,
+            "err_half_ulps": ulps, "f64_err_over_bound": f64,
             "deterministic": deterministic,
-            "ok": ok and deterministic, "kernel_ms": ms, "plain_ms": plain,
+            "kernel_launches_per_call": per_call,
+            "ok": ok and deterministic and per_call == 1,
+            "kernel_ms": ms, "plain_ms": plain,
             "library_ms": lib, "library_note": "torch.matmul on the "
             "pre-dequantized weight in x's dtype (2 copies rotated)",
             "bound_ms": bnd, "bound_by": by, "bound_f32_pipes_ms": b_f32,
@@ -760,14 +834,54 @@ def _flash_exact_case(name, b, h, s, d, gen):
             "ok": ratio <= 1.0 and control > 1.0}
 
 
-def _bf16_ulp_err(got, ref, atol_rel):
-    """Largest |got - ref| in units of (one bf16 ulp of ref + atol_rel of
-    max |ref|): <= 1 passes."""
+def _decode_exact_case(name, b, h, hkv, s, d, lengths, gen):
+    """The f32 decode kernel (``exact_decode_f32_*``) against float64: its
+    largest error within F64_FACTOR times the plain f32 version's own,
+    while one TF32 pass (q, k, P and v rounded to TF32, the same formulas
+    in float64; the control) must exceed that bound."""
+    import torch
+    from mxnet_tpu_torch.ops import attention as A
+    dev = "cuda"
+    q = torch.randn(b, h, d, generator=gen, device=dev)
+    k = torch.randn(b, hkv, s, d, generator=gen, device=dev)
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = A.decode_attention(q, k, v, ln)
+    plain = A.reference_decode_attention(q, k, v, ln)
+    kk, vv = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
+    valid = torch.arange(s, device=dev)[None, None, :] < ln[:, None, None]
+
+    def f64(rnd):
+        sc = torch.einsum("bhd,bhsd->bhs", rnd(q), rnd(kk)) / math.sqrt(d)
+        p = torch.softmax(sc.masked_fill(~valid, float("-inf")), -1)
+        return torch.einsum("bhs,bhsd->bhd", rnd(p), rnd(vv))
+
+    def one_tf32(x):
+        x = x.float()
+        return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(
+            torch.float32).double()
+
+    ref = f64(lambda x: x.double())
+    bound = F64_FACTOR * float((plain.double() - ref).abs().max())
+    ratio = float((got.double() - ref).abs().max()) / bound
+    control = float((f64(one_tf32) - ref).abs().max()) / bound
+    return {"kernel": "decode_attention_exact", "case": name,
+            "shape": [b, h, hkv, s, d], "lengths": list(lengths),
+            "err_over_bound": ratio,
+            "control_one_tf32_err_over_bound": control,
+            "bound": "%d x the plain f32 version's float64 error (%g)"
+                     % (F64_FACTOR, bound),
+            "ok": ratio <= 1.0 and control > 1.0}
+
+
+def _half_ulp_err(got, ref, atol_rel):
+    """Largest |got - ref| in units of (one ulp of ref in got's type,
+    bfloat16 or float16, + atol_rel of max |ref|): <= 1 passes."""
     import torch
     r = ref.float()
     _, e = torch.frexp(r)
-    tol = torch.ldexp(torch.ones_like(r), e - 8) \
-        + atol_rel * float(r.abs().max())
+    tol = torch.ldexp(torch.full_like(r, torch.finfo(got.dtype).eps),
+                      e - 1) + atol_rel * float(r.abs().max())
     return float(((got.float() - r).abs() / tol).max())
 
 
@@ -776,18 +890,30 @@ def _stats_err(got, ref):
                for a, b in zip(got, ref))
 
 
-def _conv_case(name, n, ci, co, p, dtype, gen, residual=False):
-    """conv1x1 with the relu(bn(x)) prologue (and a residual) plus
-    statistics against reference_conv1x1 on the card; timed beside the
-    plain twin and a library chain (the prologue in torch ops,
-    torch.matmul, two reductions); statistics checked bit-identical on a
-    second run."""
+def _conv_pieces(xdt, wdt):
+    """Tensor-core products conv1x1 takes for an (x, w) pair: the product
+    of each side's exact pieces in the mma's type (f16 when both sides
+    are f16, else bf16): one for that type, two for f16 under bf16, three
+    for f32; None for f32 x f32 (the FMA kernel)."""
+    if xdt == wdt == "f32":
+        return None
+    n = {"f32": 3, "bf16": 1, "f16": 1 if xdt == wdt else 2}
+    return n[xdt] * n[wdt]
+
+
+def _conv_case(name, n, ci, co, p, dtype, gen, residual=False, wdtype=None):
+    """conv1x1 with the relu(bn(x)) prologue (and a residual in x's type)
+    plus statistics against reference_conv1x1 on the card; timed beside
+    the plain twin and a library chain (the prologue in torch ops,
+    torch.matmul in the pair's common type, two reductions); y and the
+    statistics checked bit-identical on a second run."""
     import torch
     from mxnet_tpu_torch.ops import conv_fused as C
     dev = "cuda"
-    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    wdtype = wdtype or dtype
+    dt, wdt = DTYPES[dtype], DTYPES[wdtype]
     x = torch.randn(n, ci, p, generator=gen, device=dev).to(dt)
-    w = (torch.randn(co, ci, generator=gen, device=dev) / ci ** 0.5).to(dt)
+    w = (torch.randn(co, ci, generator=gen, device=dev) / ci ** 0.5).to(wdt)
     scale = torch.rand(ci, generator=gen, device=dev) + 0.5
     shift = torch.randn(ci, generator=gen, device=dev) * 0.5
     res = torch.randn(n, ci, p, generator=gen, device=dev).to(dt) \
@@ -798,8 +924,8 @@ def _conv_case(name, n, ci, co, p, dtype, gen, residual=False):
     ry, rst = C.reference_conv1x1(x, w, **kw)
     torch.cuda.synchronize()
     abs_err = float((y.float() - ry.float()).abs().max())
-    if dtype == "bf16":
-        y_err = _bf16_ulp_err(y, ry, CONV_ATOL_REL)
+    if dtype != "f32":
+        y_err = _half_ulp_err(y, ry, CONV_ATOL_REL)
         y_ok = y_err <= 1.0
     else:
         e, tol = err_of(y, ry)
@@ -808,6 +934,8 @@ def _conv_case(name, n, ci, co, p, dtype, gen, residual=False):
     deterministic = bool(torch.equal(y, y2) and torch.equal(st[0], st2[0])
                          and torch.equal(st[1], st2[1]))
     del y2, st2, ry, rst
+    per_call = launches_per_call(lambda: C.conv1x1(
+        x, w, bn_in=(scale, shift), residual=res, relu_in=True), "conv1x1")
     esz = x.element_size()
     io_bytes = esz * (x.numel() + co * p * n) + w.numel() * w.element_size() \
         + 8 * ci + 8 * co + (res.numel() * esz if residual else 0)
@@ -820,30 +948,37 @@ def _conv_case(name, n, ci, co, p, dtype, gen, residual=False):
         x, w, bn_in=(scale, shift), residual=r, relu_in=True), sets,
         max(2, iters // 2))
     sc3, sh3 = scale.reshape(1, ci, 1), shift.reshape(1, ci, 1)
+    common = dt if dt == wdt else torch.float32
 
     def library(x, w, r):
         xp = x * sc3 + sh3
         if r is not None:
             xp = xp + r
-        yl = torch.matmul(w, torch.relu(xp).to(dt))
+        yl = torch.matmul(w.to(common), torch.relu(xp).to(dt).to(common))
         yf = yl.float()
-        return yl, yf.sum(dim=(0, 2)), (yf * yf).sum(dim=(0, 2))
+        return yl.to(dt), yf.sum(dim=(0, 2)), (yf * yf).sum(dim=(0, 2))
 
     lib = bench_ms(library, sets, iters)
-    bnd, by = bound_ms(io_bytes, flops,
-                       PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_F32_FLOPS)
+    pieces = _conv_pieces(dtype, wdtype)
+    if pieces is None:
+        bnd, by = bound_ms(io_bytes, flops, PEAK_F32_FLOPS)
+    else:
+        bnd, by = bound_ms(io_bytes, pieces * flops, PEAK_BF16_FLOPS)
     return {"kernel": "conv1x1", "case": name, "dtype": dtype,
+            "w_dtype": wdtype, "products": pieces,
             "shape": [n, ci, co, p], "residual": residual,
             "max_abs_err": abs_err, "err_over_tol": y_err,
-            "tol": "one bf16 ulp + %g of max |ref|" % CONV_ATOL_REL
-            if dtype == "bf16" else "%g + %g of max |ref|" % (
+            "tol": "one ulp of y's type + %g of max |ref|" % CONV_ATOL_REL
+            if dtype != "f32" else "%g + %g of max |ref|" % (
                 KERNEL_ATOL, KERNEL_RTOL), "stats_rel_err": s_err,
             "stats_rtol": CONV_STATS_RTOL, "deterministic": deterministic,
-            "ok": y_ok and s_err <= CONV_STATS_RTOL and deterministic,
+            "kernel_launches_per_call": per_call,
+            "ok": y_ok and s_err <= CONV_STATS_RTOL and deterministic
+            and per_call == 1,
             "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
-            "library_note": "torch prologue + torch.matmul (cuBLAS) + two "
-            "reductions", "bound_ms": bnd, "bound_by": by, "bytes": io_bytes,
-            "flops": flops}
+            "library_note": "torch prologue + torch.matmul (cuBLAS) in the "
+            "pair's common type + two reductions", "bound_ms": bnd,
+            "bound_by": by, "bytes": io_bytes, "flops": flops}
 
 
 RTC_SOURCE = r"""
@@ -921,13 +1056,17 @@ def _rtc_cases(gen):
         ref = plain_fn()
         torch.cuda.synchronize()
         e, tol = err_of(dst, ref)
+        per_call = launches_per_call(
+            lambda: _rtc_launch(kernels, name, x, y, dst), None)
         ms = bench_ms(lambda: _rtc_launch(kernels, name, x, y, dst), [()], 20)
         plain = bench_ms(plain_fn, [()], 20)
         lib = bench_ms(lib_fn, [()], 20)
         bnd, by = bound_ms(nbytes, 0)
         cases.append({"kernel": "rtc", "case": name, "n": RTC_N,
                       "compile_s": compile_s, "max_abs_err": e, "tol": tol,
-                      "ok": e <= tol, "kernel_ms": ms, "plain_ms": plain,
+                      "kernel_launches_per_call": per_call,
+                      "ok": e <= tol and per_call == 1,
+                      "kernel_ms": ms, "plain_ms": plain,
                       "library_ms": lib, "bound_ms": bnd, "bound_by": by,
                       "bytes": nbytes})
     return cases
@@ -987,6 +1126,9 @@ def phase_kernels():
     lengths = (0, 1, 17, 100, 511, 700, 1000, 1024)
     cases += [
         _decode_case("step_mha", SLOTS, 16, 16, 1024, 64, lengths, gen),
+        # the serving profile's step: every slot at 512 of the 1024 pool
+        _decode_case("step_mha_uniform512", SLOTS, 16, 16, 1024, 64,
+                     (512,) * SLOTS, gen),
         _decode_case("step_gqa", SLOTS, 16, 4, 1024, 64, lengths, gen),
         _decode_case("step_hd128", SLOTS, 8, 8, 1024, 128, lengths, gen),
         _decode_case("step_hd256", SLOTS, 8, 8, 1024, 256, lengths, gen),
@@ -1006,6 +1148,16 @@ def phase_kernels():
                      gen, "bf16"),
         _decode_case("step_gqa_f16", SLOTS, 16, 4, 1024, 64, lengths, gen,
                      "f16"),
+        # long context at Llama-3-8B's attention widths (32 q heads over 8
+        # kv heads, head dim 128), bf16: 2 slots of a 32768-position pool
+        _decode_case("longctx_llama3_8b_bf16", 2, 32, 8, 32768, 128,
+                     (32768, 20000), gen, "bf16"),
+        # f32 decode against float64 at the MHA step and the G7 shape
+        _decode_exact_case("exact_decode_f32_mha", SLOTS, 16, 16, 1024, 64,
+                           (1, 17, 100, 511, 700, 1000, 1024, 1024), gen),
+        _decode_exact_case("exact_decode_f32_gqa7_hd128", SLOTS, 28, 4, 1024,
+                           128, (1, 17, 100, 511, 700, 1000, 1024, 1024),
+                           gen),
         _dense_case("hd96", 96, gen),
         _dense_case("hd640", 640, gen),
         _dense_case("cross_sq128_sk512", 64, gen, s_q=128),
@@ -1024,11 +1176,14 @@ def phase_kernels():
         _qmm_case("step_w2_int8_m1", 1, 4096, 1024, "int8", gen),
         _qmm_case("step_w2_int8_m16", 16, 4096, 1024, "int8", gen),
         _qmm_case("step_w1_int8_bf16x", 8, 1024, 4096, "int8", gen, "bf16"),
+        _qmm_case("step_w1_int8_f16x", 8, 1024, 4096, "int8", gen, "f16"),
         _qmm_case("prefill_w1_int8", 1000, 1024, 4096, "int8", gen),
         _qmm_case("prefill_w1_fp8", 1000, 1024, 4096, "fp8", gen),
         _qmm_case("prefill_w2_int8", 1000, 4096, 1024, "int8", gen),
         _qmm_case("prefill_w1_int8_bf16x", 1000, 1024, 4096, "int8", gen,
                   "bf16"),
+        _qmm_case("prefill_w1_int8_f16x", 1000, 1024, 4096, "int8", gen,
+                  "f16"),
     ]
     # exact products, with teeth: K = 8, x over 40 decades
     cases += [_qmm_pieces_case("exact_%s_%s" % (kind, dt), m, 8, n, dt, gen)
@@ -1045,6 +1200,12 @@ def phase_kernels():
                             56 * 56, "bf16", gen, residual=True))
     cases.append(_conv_case("r50_64to256_56_f32", CONV_BATCH, 64, 256,
                             56 * 56, "f32", gen))
+    # float16, and a mixed pair (f16 x, bf16 w: two exact bf16 pieces)
+    cases.append(_conv_case("r50_64to256_56_f16", CONV_BATCH, 64, 256,
+                            56 * 56, "f16", gen))
+    cases.append(_conv_case("r50_256to64_56_f16x_bf16w", CONV_BATCH, 256,
+                            64, 56 * 56, "f16", gen, residual=True,
+                            wdtype="bf16"))
     cases += _rtc_cases(gen)
     RECORD["kernel_cases"] = cases
     for c in cases:
@@ -1345,7 +1506,7 @@ def _recompute_logits(model, toks):
     fresh one-slot cache."""
     import torch
     from mxnet_tpu_torch.serving.decode import prompt_buckets
-    bucket = next(b for b in prompt_buckets(CFG["max_len"])
+    bucket = next(b for b in prompt_buckets(model.max_len)
                   if b >= len(toks))
     kc, vc = model.init_cache(1)
     padded = torch.zeros(1, bucket, dtype=torch.int64, device=DEV)
@@ -1354,23 +1515,26 @@ def _recompute_logits(model, toks):
     return ref.float().cpu().numpy()
 
 
-def _serve(tag, model, params, need):
-    """Serve the staggered sessions; check logits; return the phase."""
+def _serve(tag, model, params, need, prompt_lens=None):
+    """Serve the staggered sessions (``prompt_lens``, default PROMPT_LENS)
+    of ``model``; check logits; return the phase."""
     import numpy as np
     import torch
     from mxnet_tpu_torch.serving.decode import DecodeEngine, prompt_buckets
+    prompt_lens = prompt_lens or PROMPT_LENS
+    max_len = model.max_len
     rng = np.random.RandomState(SEED + 1)
-    prompts = [rng.randint(0, CFG["vocab"], size=n).tolist()
-               for n in PROMPT_LENS]
+    prompts = [rng.randint(0, model.vocab, size=n).tolist()
+               for n in prompt_lens]
     t0 = time.perf_counter()
     eng = DecodeEngine(model, params, num_slots=SLOTS, name=tag, device=DEV)
     setup_s = time.perf_counter() - t0
     try:
         # warm the allocator and every prompt bucket off the clock
-        ladder = prompt_buckets(CFG["max_len"])
+        ladder = prompt_buckets(max_len)
         for b in sorted({next(b for b in ladder if b >= n)
-                         for n in PROMPT_LENS}):
-            eng.generate([1] * min(b, CFG["max_len"] - 1), max_new_tokens=2)
+                         for n in prompt_lens}):
+            eng.generate([1] * min(b, max_len - 1), max_new_tokens=2)
         _sync()
         _reset_counts()
         steps0 = eng.step_executions
@@ -1394,7 +1558,7 @@ def _serve(tag, model, params, need):
     ttft = [(s.t_emit[0] - t) * 1e3 for s, t in zip(sessions, t_sub)]
     # served logits vs a full-context recompute through the plain path:
     # every step of the shortest prompt (bucket 32), and the first and last
-    # step of the longest (bucket 1024, decode lengths past 900)
+    # step of the longest (the largest bucket, decode lengths past it)
     checks = [(0, range(NEW_TOKENS)), (len(prompts) - 1, (0, NEW_TOKENS - 1))]
     worst, n_checked, finite = {}, 0, True
     # the plain versions for this recompute only: serving.decode's names
@@ -1408,14 +1572,14 @@ def _serve(tag, model, params, need):
     try:
         for i, steps_i in checks:
             sess = sessions[i]
-            worst[PROMPT_LENS[i]] = 0.0
+            worst[prompt_lens[i]] = 0.0
             for t in steps_i:
                 got = sess.logits[t]
                 finite = finite and bool(np.isfinite(got).all())
                 ref = _recompute_logits(model, prompts[i] + sess.tokens[:t])
                 rel = float(np.abs(got - ref).max()
                             / max(1e-30, np.abs(ref).max()))
-                worst[PROMPT_LENS[i]] = max(worst[PROMPT_LENS[i]], rel)
+                worst[prompt_lens[i]] = max(worst[prompt_lens[i]], rel)
                 n_checked += 1
     finally:
         (SD.flash_attention, SD.decode_attention,
@@ -1485,12 +1649,15 @@ def phase_profile():
 
 
 def _profile_step(model):
+    """A decode step with every slot at half the model's max_len: host
+    wall time, then device time by kernel under torch.profiler, and the
+    decode-attention kernels' share of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     kc, vc = model.init_cache(SLOTS)
     dev = DEV
     toks = torch.arange(SLOTS, dtype=torch.int32, device=dev)
-    lens = torch.tensor([CFG["max_len"] // 2] * SLOTS, dtype=torch.int32,
+    lens = torch.tensor([model.max_len // 2] * SLOTS, dtype=torch.int32,
                         device=dev)
     act = torch.ones(SLOTS, dtype=torch.bool, device=dev)
     for _ in range(3):
@@ -1503,7 +1670,7 @@ def _profile_step(model):
     _sync()
     host_ms = (time.perf_counter() - t0) / n * 1e3
     res = {"step_host_ms": host_ms, "slots": SLOTS,
-           "length": CFG["max_len"] // 2}
+           "length": model.max_len // 2}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
@@ -1511,12 +1678,74 @@ def _profile_step(model):
         _sync()
     rows = _device_rows(prof, 3)
     dev_total = sum(r[1] for r in rows)
+    dec = sum(r[1] for r in rows if "decode_" in r[0])
     res.update(device_ms_per_step=dev_total,
+               decode_attention_ms_per_step=dec,
+               decode_attention_share=dec / dev_total if dev_total else None,
                device_busy_share=dev_total / host_ms if host_ms else None,
                top=[{"kernel": k[:80], "ms_per_step": t, "calls": c}
                     for k, t, c in rows[:12]])
     del kc, vc
     return res
+
+
+def _device_params(model, seed):
+    """DecodeModel.init_params's recipe (standard normal over sqrt(fan-in),
+    positions scaled by 0.1, norms at 1) drawn on the card from a
+    torch.Generator seeded ``seed``: numpy would take tens of seconds of
+    host time for Qwen2-7B's widths. The CPU tests hold the model against
+    the JAX package at small widths."""
+    import torch
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    d, h, hkv, hd = model.d_model, model.heads, model.kv_heads, \
+        model.head_dim
+
+    def w(*shape):
+        t = torch.randn(*shape, generator=gen, device=DEV)
+        return t.mul_(1.0 / math.sqrt(shape[0]))
+
+    p = {"embed": w(model.vocab, d), "pos": w(model.max_len, d).mul_(0.1),
+         "lnf": torch.ones(d, device=DEV), "head": w(d, model.vocab)}
+    for i in range(model.layers):
+        p[f"l{i}.ln1"] = torch.ones(d, device=DEV)
+        p[f"l{i}.wq"] = w(d, h * hd)
+        p[f"l{i}.wk"] = w(d, hkv * hd)
+        p[f"l{i}.wv"] = w(d, hkv * hd)
+        p[f"l{i}.wo"] = w(h * hd, d)
+        p[f"l{i}.ln2"] = torch.ones(d, device=DEV)
+        p[f"l{i}.w1"] = w(d, model.d_ff)
+        p[f"l{i}.w2"] = w(model.d_ff, d)
+    return p
+
+
+def phase_serve_gqa():
+    """GQA serving through the new decode kernel at Qwen2-7B's attention
+    and model widths (QWEN: 28 q heads over 4 kv heads, head dim 128, 4
+    layers, max_len 4096), f32 weights: 8 staggered sessions of 17..4000
+    prompt tokens, 32 new tokens each, through DecodeEngine; logits held
+    against a full-context recompute; then a full-occupancy decode step
+    (slots at 2048) under torch.profiler with decode attention's share."""
+    import torch
+    from mxnet_tpu_torch.serving.decode import DecodeModel
+    t0 = time.perf_counter()
+    model = DecodeModel(**QWEN)
+    params = _device_params(model, SEED)
+    _sync()
+    init_s = time.perf_counter() - t0
+    n_params = int(sum(v.numel() for v in params.values()))
+    r = _serve("qwen2-7b-widths-f32", model, params,
+               ("flash_attention_fwd", "decode_attention"),
+               prompt_lens=QWEN_PROMPT_LENS)
+    del params
+    r.update(model="DecodeModel at Qwen2-7B widths (config.json: hidden "
+             "3584, 28 heads, 4 kv heads, intermediate 18944, vocab "
+             "152064); RMSNorm/tanh-GELU/learned positions, not Qwen2's "
+             "blocks", cut="layers 28 -> 4, max_len 4096",
+             init_params_s=init_s, n_params=n_params,
+             profile=_profile_step(model))
+    RECORD["serve_gqa"] = r
+    return r
 
 
 def _stage2_chain(conv, x0, w1, w2, r, gamma, beta):
@@ -1535,9 +1764,9 @@ def _stage2_chain(conv, x0, w1, w2, r, gamma, beta):
 def phase_conv():
     """The conv path at ResNet-50's stage-2 widths, batch 128, bf16:
     x0 (128, 64, 56*56) -> 256 channels -> 64, through conv1x1,
-    finalize_stats and bn_fold. Launch counts are read around the timed
-    applications; the check runs the same chain through
-    reference_conv1x1."""
+    finalize_stats and bn_fold, timed by CUDA events behind a spin (device
+    time). Launch counts are read around the timed applications; the
+    check runs the same chain through reference_conv1x1."""
     import torch
     from mxnet_tpu_torch.ops import conv_fused as C
     gen = torch.Generator(device=DEV)
@@ -1554,11 +1783,18 @@ def phase_conv():
     args = (x0, w1, w2, r, gamma, beta)
     _stage2_chain(C.conv1x1, *args)                  # warm-up
     _sync()
+    t0 = time.perf_counter()
+    _stage2_chain(C.conv1x1, *args)
+    _sync()
+    host_s = time.perf_counter() - t0   # an upper bound of one enqueue
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     iters = 10
     st = torch.cuda.Event(enable_timing=True)
     en = torch.cuda.Event(enable_timing=True)
+    # a spin holds the card while the host enqueues the timed applications
+    # (as bench_ms): device time, not the host's pace
+    torch.cuda._sleep(int(min(2e9, (1.5 * host_s * iters + 2e-4) * SPIN_HZ)))
     st.record()
     for _ in range(iters):
         y, z, (mean, var, rstd) = _stage2_chain(C.conv1x1, *args)
@@ -1569,8 +1805,8 @@ def phase_conv():
     ms = st.elapsed_time(en) / iters
     ry, rz, (rmean, rvar, _) = _stage2_chain(C.reference_conv1x1, *args)
     torch.cuda.synchronize()
-    y_err = _bf16_ulp_err(y, ry, CONV_ATOL_REL)
-    z_err = _bf16_ulp_err(z, rz, CHAIN_ATOL_REL)
+    y_err = _half_ulp_err(y, ry, CONV_ATOL_REL)
+    z_err = _half_ulp_err(z, rz, CHAIN_ATOL_REL)
     stats_err = _stats_err((mean, var), (rmean, rvar))
     res = {"model": "ResNet-50 stage 2 bottleneck boundary (torchvision "
            "resnet50: 64 -> 256 expand, 256 -> 64 reduce)",
@@ -1633,38 +1869,54 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("train", phase_train),
           ("train_profile", phase_train_profile),
           ("engines", phase_engines), ("profile", phase_profile),
-          ("conv", phase_conv), ("rtc", phase_rtc))
+          ("serve_gqa", phase_serve_gqa), ("conv", phase_conv),
+          ("rtc", phase_rtc))
 
-# (name, source, TPU kernel, case kind, case, its time / bound keys, errors)
+# (name, source, TPU kernel, case kind, case, its time / bound keys, errors,
+# its kernel launches a call: counted in the case)
 KERNEL_ROWS = (
     ("flash_attention_fwd", "mxnet_tpu_torch/csrc/flash_attention.cu",
      "mxnet_tpu/ops/attention.py:80", "flash_attention_fwd",
      "train_b8_s1024", "kernel_ms", "bound_ms", "bound_by",
-     ("max_abs_err",)),
+     ("max_abs_err",), "kernel_launches_per_call"),
     ("flash_attention_bwd_dq", "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
      "mxnet_tpu/ops/attention.py:144", "flash_attention_bwd",
-     "train_b8_s1024", "dq_ms", "dq_bound_ms", "dq_bound_by", ("err_dq",)),
+     "train_b8_s1024", "dq_ms", "dq_bound_ms", "dq_bound_by", ("err_dq",),
+     "dq_kernel_launches_per_call"),
     ("flash_attention_bwd_dkv",
      "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
      "mxnet_tpu/ops/attention.py:197", "flash_attention_bwd",
      "train_b8_s1024", "dkv_ms", "dkv_bound_ms", "dkv_bound_by",
-     ("err_dk", "err_dv")),
+     ("err_dk", "err_dv"), "dkv_kernel_launches_per_call"),
     ("decode_attention", "mxnet_tpu_torch/csrc/decode_attention.cu",
      "mxnet_tpu/ops/attention.py:612", "decode_attention", "step_mha",
-     "kernel_ms", "bound_ms", "bound_by", ("max_abs_err",)),
+     "kernel_ms", "bound_ms", "bound_by", ("max_abs_err",),
+     "kernel_launches_per_call"),
     ("quantized_matmul", "mxnet_tpu_torch/csrc/quantized_matmul.cu",
      "mxnet_tpu/ops/quantization.py:407", "quantized_matmul",
      "step_head_int8", "kernel_ms", "bound_ms", "bound_by",
-     ("max_abs_err",)),
+     ("max_abs_err",), "kernel_launches_per_call"),
     ("conv1x1", "mxnet_tpu_torch/csrc/conv1x1.cu",
      "mxnet_tpu/ops/conv_fused.py:69", "conv1x1", "r50_64to256_56",
-     "kernel_ms", "bound_ms", "bound_by", ("max_abs_err",)),
+     "kernel_ms", "bound_ms", "bound_by", ("max_abs_err",),
+     "kernel_launches_per_call"),
     ("rtc", "mxnet_tpu_torch/rtc.py", "mxnet_tpu/rtc.py:71", "rtc",
-     "scale_add", "kernel_ms", "bound_ms", "bound_by", ("max_abs_err",)),
+     "scale_add", "kernel_ms", "bound_ms", "bound_by", ("max_abs_err",),
+     "kernel_launches_per_call"),
 )
 
 
-def main():
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run (default: all)")
+    ap.add_argument("--package", default=HERE,
+                    help="directory holding mxnet_tpu_torch")
+    args = ap.parse_args(argv)
+    chosen = None if args.phases is None else args.phases.split(",")
+    if chosen is not None and not set(chosen) <= {n for n, _ in PHASES}:
+        ap.error("phases are %s" % ", ".join(n for n, _ in PHASES))
     try:
         import torch
     except ImportError:
@@ -1673,7 +1925,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    root = os.path.abspath(args.package)
+    sys.path.insert(0, root)
     try:
         import mxnet_tpu_torch  # noqa: F401
         from mxnet_tpu_torch import _build
@@ -1681,10 +1934,12 @@ def main():
             raise ImportError("no kernel sources under %s" % _build.CSRC)
     except ImportError as e:
         print("chip_smoke: mxnet_tpu_torch not importable from %s: %s"
-              % (HERE, e), file=sys.stderr)
+              % (root, e), file=sys.stderr)
         return 2
     failed = []
     for name, fn in PHASES:
+        if chosen is not None and name not in chosen:
+            continue
         t0 = time.perf_counter()
         try:
             res = fn()
@@ -1697,12 +1952,17 @@ def main():
             traceback.print_exc()
             if name in ("device", "build"):
                 break
+    if chosen is not None:
+        emit({"ok": not failed, "phases": chosen,
+              "package": mxnet_tpu_torch.__file__})
+        return 1 if failed else 0
     cases = RECORD.get("kernel_cases", [])
     paths = list(RECORD.get("engines", {}).values())
-    paths += [RECORD[k] for k in ("train", "conv", "rtc") if k in RECORD]
+    paths += [RECORD[k] for k in ("train", "serve_gqa", "conv", "rtc")
+              if k in RECORD]
     rows = []
     for (name, src, replaces, kind, case, ms_key, bound_key, by_key,
-         err_keys) in KERNEL_ROWS:
+         err_keys, per_call_key) in KERNEL_ROWS:
         c = next((c for c in cases
                   if c["kernel"] == kind and c["case"] == case), None)
         # absolute errors, but of the attention cases in bf16/f16: those
@@ -1718,7 +1978,8 @@ def main():
                      "plain_ms": c and c["plain_ms"],
                      "bound_ms": c and c[bound_key],
                      "bound_by": c and c[by_key],
-                     "library_ms": c and c["library_ms"]})
+                     "library_ms": c and c["library_ms"],
+                     "kernel_launches_per_call": c and c[per_call_key]})
     RECORD["kernels"] = rows
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -24,8 +24,8 @@ from pathlib import Path
 
 from .base import MXNetError
 
-__all__ = ["build", "library", "bind", "check", "FLAGS", "CSRC",
-           "BUILD_DIR"]
+__all__ = ["build", "library", "bind", "launches", "check", "FLAGS",
+           "CSRC", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -122,6 +122,18 @@ def bind(stem, name, *argtypes):
         fn.restype = ctypes.c_int
         _BOUND[(stem, name)] = fn
     return fn
+
+
+def launches(stem):
+    """Kernel launches the library of ``csrc/<stem>.cu`` has made in this
+    process: its launch sites count each launch (``mxt_launches``)."""
+    fn = _BOUND.get((stem, "mxt_launches"))
+    if fn is None:
+        fn = getattr(library(stem), "mxt_launches")
+        fn.argtypes = []
+        fn.restype = ctypes.c_ulonglong
+        _BOUND[(stem, "mxt_launches")] = fn
+    return int(fn())
 
 
 def check(err, stem, what):

@@ -285,6 +285,7 @@ cudaError_t launch_tc(const Args<T>& x) {
   flash_fwd_tc<T, D, BN, MT><<<grid, kTcThreads, C::kSmem, x.stream>>>(
       x.q, x.k, x.v, x.o, x.lse, x.H, x.Hkv, x.S, x.scale * kLog2e,
       x.causal);
+  mxt_counted();
   return cudaGetLastError();
 }
 
@@ -429,6 +430,7 @@ cudaError_t launch_wide(const Args<T>& x) {
   dim3 grid((x.S + kWideRows - 1) / kWideRows, x.B * x.H);
   flash_fwd_wide<T, NC><<<grid, kWideThreads, smem, x.stream>>>(
       x.q, x.k, x.v, x.o, x.lse, x.H, x.Hkv, x.S, x.scale, x.causal);
+  mxt_counted();
   return cudaGetLastError();
 }
 

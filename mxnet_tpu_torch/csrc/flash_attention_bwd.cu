@@ -909,6 +909,7 @@ cudaError_t launch_dq(const Args<T>& x) {
   flash_bwd_dq_tc<T, D, BN, MT><<<grid, kTcThreads, C::kSmem, x.stream>>>(
       x.q, x.k, x.v, x.o, x.dout, x.lse, x.glse, static_cast<T*>(x.a), x.H,
       x.Hkv, x.S, x.scale, x.causal);
+  mxt_counted();
   return cudaGetLastError();
 }
 
@@ -925,6 +926,7 @@ cudaError_t launch_dkv(const Args<T>& x) {
   flash_bwd_dkv<T, D, BK, BQ, STAGES><<<grid, kDkvThreads, smem, x.stream>>>(
       x.q, x.k, x.v, x.o, x.dout, x.lse, x.glse, static_cast<float*>(x.a),
       static_cast<float*>(x.b), x.H, x.Hkv, x.S, x.scale, x.causal);
+  mxt_counted();
   return cudaGetLastError();
 }
 
@@ -943,6 +945,7 @@ cudaError_t launch_wide(bool dkv, const Args<T>& x) {
     flash_bwd_dkv_wide<T, NC><<<grid, kWideThreads, smem, x.stream>>>(
         x.q, x.k, x.v, x.o, x.dout, x.lse, x.glse, static_cast<float*>(x.a),
         static_cast<float*>(x.b), x.H, x.Hkv, x.S, x.scale, x.causal);
+    mxt_counted();
   } else {
     cudaError_t e = cudaFuncSetAttribute(
         flash_bwd_dq_wide<T, NC>,
@@ -952,6 +955,7 @@ cudaError_t launch_wide(bool dkv, const Args<T>& x) {
     flash_bwd_dq_wide<T, NC><<<grid, kWideThreads, smem, x.stream>>>(
         x.q, x.k, x.v, x.o, x.dout, x.lse, x.glse, static_cast<T*>(x.a),
         x.H, x.Hkv, x.S, x.scale, x.causal);
+    mxt_counted();
   }
   return cudaGetLastError();
 }

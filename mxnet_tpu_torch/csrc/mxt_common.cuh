@@ -14,6 +14,16 @@ extern "C" const char* mxt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Kernel launches this library has made: every launch site calls
+// mxt_counted once it has launched; mxt_launches reads the count.
+static unsigned long long mxt_launch_count = 0;
+static inline void mxt_counted() {
+  __atomic_add_fetch(&mxt_launch_count, 1ULL, __ATOMIC_RELAXED);
+}
+extern "C" unsigned long long mxt_launches() {
+  return __atomic_load_n(&mxt_launch_count, __ATOMIC_RELAXED);
+}
+
 // Select the tensors' device for this library's runtime (it keeps its own
 // current-device state, separate from PyTorch's) before a launch.
 static inline cudaError_t mxt_set_device(int device) {

@@ -1,5 +1,5 @@
-// Weight-only quantized matmul, float32 or bfloat16 activations x int8 /
-// fp8-e4m3 weights, for Hopper (sm_90a).
+// Weight-only quantized matmul, float32, bfloat16 or float16 activations x
+// int8 / fp8-e4m3 weights, for Hopper (sm_90a).
 //
 // Replaces: mxnet_tpu/ops/quantization.py:_qmm_kernel (launched by
 // _qmm_pallas). Same function: out[m, n] = (sum_k x[m, k] * widen(q[k, n]))
@@ -14,6 +14,9 @@
 // bf16(x - hi - mid)), so sum over pieces of piece @ bf16(q), accumulated in
 // f32 by mma.sync.m16n8k16, forms every product x * q exactly and differs
 // from an f32 FMA loop only in the order of the sums. bf16 x is one piece.
+// f16 x is one piece too, on the f16 tensor cores (mma_x): every int8 and
+// every e4m3 value is also an f16 value, so the weights widen into f16
+// exactly (pack_w) and the product needs no split.
 // Weights are widened in registers without the conversion pipe (16
 // conversions a clock an SM): int8 by a byte permute under the exponent of
 // 2^23 and one subtraction; e4m3 by moving its 7 exponent+mantissa bits
@@ -52,7 +55,7 @@
 //    shared memory (DSMEM) in split order: one launch, no atomics, no
 //    workspace, and a second call gives bit-identical results.
 //
-// qmm_tc — prefill (M > 16; N % 16 == 0, K % 4 (f32) or % 8 (bf16), all
+// qmm_tc — prefill (M > 16; N % 16 == 0, K % 4 (f32) or % 8 (halves), all
 // pointers 16-byte aligned). What bounds it: operations, on the tensor
 // cores as above.
 //  * 128 x 128 output blocks, 256 threads (8 warps of 64 x 32), K in
@@ -108,13 +111,12 @@ __device__ __forceinline__ void widen4(uint32_t w, float* f) {
   }
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 // SMs of a device, asked once (the launchers size their grids by it)
@@ -185,9 +187,43 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+__device__ __forceinline__ void mma_f16(float* c, const uint32_t* a,
+                                        const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// the product of x's type: f16 mma for float16 x, else bf16 mma (f32 x as
+// bf16 pieces)
+template <typename XT>
+__device__ __forceinline__ void mma_x(float* c, const uint32_t* a,
+                                      const uint32_t* b) {
+  if constexpr (std::is_same<XT, __half>::value)
+    mma_f16(c, a, b);
+  else
+    mma_bf16(c, a, b);
+}
+
 // two floats that are bf16 values (low 16 bits zero) as one bf16x2 word
 __device__ __forceinline__ uint32_t pack_exact(float lo, float hi) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// two widened weights as one word of the mma's type: bf16x2, or f16x2 for
+// float16 x (every int8 and every e4m3 value, NaN aside, is an f16 value,
+// so the conversion is exact)
+template <typename XT>
+__device__ __forceinline__ uint32_t pack_w(float lo, float hi) {
+  if constexpr (std::is_same<XT, __half>::value) {
+    uint32_t r;
+    asm("cvt.rn.f16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+    return r;
+  } else {
+    return pack_exact(lo, hi);
+  }
 }
 
 // x = hi + mid + lo exactly, each a bf16 value (rounded to nearest)
@@ -281,8 +317,8 @@ qmm_tc(const XT* __restrict__ x, const uint8_t* __restrict__ w,
       for (int j = 0; j < 4; ++j) {
         float f[4];
         widen4<KIND>(words[j], f);
-        packed[2 * j] = pack_exact(f[0], f[1]);
-        packed[2 * j + 1] = pack_exact(f[2], f[3]);
+        packed[2 * j] = pack_w<XT>(f[0], f[1]);
+        packed[2 * j + 1] = pack_w<XT>(f[2], f[3]);
       }
       uint4* dst = reinterpret_cast<uint4*>(wide + r * kBStride + nc);
       dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
@@ -326,7 +362,7 @@ qmm_tc(const XT* __restrict__ x, const uint8_t* __restrict__ w,
                         + ((lane >> 3) & 1) * 8) * kAStride
                      + kk + (lane >> 4) * 8, a);
 #pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a, b[ni]);
+          for (int ni = 0; ni < 4; ++ni) mma_x<XT>(acc[mi][ni], a, b[ni]);
         }
       }
     }
@@ -415,6 +451,7 @@ cudaError_t run_tc(const XT* x, const uint8_t* w, const float* scale,
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, qmm_tc<KIND, XT>, x, w, scale, out, M, N, K);
   if (e != cudaSuccess) return e;
+  mxt_counted();
   return cudaGetLastError();
 }
 
@@ -567,7 +604,7 @@ qmm_small(const XT* __restrict__ x, const uint8_t* __restrict__ w,
           b[nt][p][0] = pack_exact(a[0][p], a[1][p]);
           b[nt][p][1] = pack_exact(a[2][p], a[3][p]);
         }
-      } else {                               // bf16 x: its own bits
+      } else {                               // bf16/f16 x: its own bits
         const uint16_t* u = reinterpret_cast<const uint16_t*>(xr);
         b[nt][0][0] = u[0] | (uint32_t)u[4] << 16;
         b[nt][0][1] = u[8] | (uint32_t)u[12] << 16;
@@ -580,14 +617,15 @@ qmm_small(const XT* __restrict__ x, const uint8_t* __restrict__ w,
       for (int i = 0; i < 4; ++i) widen4<KIND>(wd[i][q], f[i]);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {          // tile 2q + h: bytes 2h, 2h + 1
-        const uint32_t a[4] = {pack_exact(f[0][2 * h], f[1][2 * h]),
-                               pack_exact(f[0][2 * h + 1], f[1][2 * h + 1]),
-                               pack_exact(f[2][2 * h], f[3][2 * h]),
-                               pack_exact(f[2][2 * h + 1], f[3][2 * h + 1])};
+        const uint32_t a[4] = {pack_w<XT>(f[0][2 * h], f[1][2 * h]),
+                               pack_w<XT>(f[0][2 * h + 1], f[1][2 * h + 1]),
+                               pack_w<XT>(f[2][2 * h], f[3][2 * h]),
+                               pack_w<XT>(f[2][2 * h + 1], f[3][2 * h + 1])};
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int p = 0; p < P; ++p) mma_bf16(acc[nt][2 * q + h], a, b[nt][p]);
+          for (int p = 0; p < P; ++p)
+            mma_x<XT>(acc[nt][2 * q + h], a, b[nt][p]);
       }
     }
   };
@@ -709,6 +747,7 @@ cudaError_t launch_small_as(const XT* x, const uint8_t* w, const float* scale,
   e = cudaLaunchKernelEx(&cfg, qmm_small<KIND, NT, P, ALIGNED, XT>, x, w,
                          scale, out, M, N, K);
   if (e != cudaSuccess) return e;
+  mxt_counted();
   return cudaGetLastError();
 }
 
@@ -748,11 +787,11 @@ cudaError_t dispatch(int route, int kind, const void* x, const void* w,
 
 }  // namespace
 
-// x (M,K) f32 (xdtype 0) or bf16 (xdtype 1); w (K,N) int8 (kind 0) or
+// x (M,K) f32 (xdtype 0), bf16 (1) or f16 (2); w (K,N) int8 (kind 0) or
 // fp8-e4m3 bytes (kind 1); scale (N,) f32; out (M,N) in x's dtype; all
 // contiguous. route 0: qmm_small (any shape, M tiles of up to 16 past
 // (M+15)/16 <= 65535); route 1: qmm_tc (N % 16 == 0, K % 4 (f32) or % 8
-// (bf16), x, w and out 16-byte aligned). One launch either way.
+// (bf16, f16), x, w and out 16-byte aligned). One launch either way.
 extern "C" int mxt_quantized_matmul(const void* x, const void* w,
                                     const void* scale, void* out, int M,
                                     int N, int K, int kind, int xdtype,
@@ -760,7 +799,7 @@ extern "C" int mxt_quantized_matmul(const void* x, const void* w,
   cudaError_t e = mxt_set_device(device);
   if (e != cudaSuccess) return e;
   if (M <= 0 || N <= 0) return cudaSuccess;
-  if (kind < 0 || kind > 1 || xdtype < 0 || xdtype > 1 || route < 0 ||
+  if (kind < 0 || kind > 1 || xdtype < 0 || xdtype > 2 || route < 0 ||
       route > 1)
     return cudaErrorInvalidValue;
   if (route == 0 && ((M + 15) / 16 > 65535 || N >= (1 << 27)))
@@ -772,6 +811,9 @@ extern "C" int mxt_quantized_matmul(const void* x, const void* w,
   if (xdtype == 0)
     return dispatch<float>(route, kind, x, w, scale, out, M, N, K, device,
                            st);
-  return dispatch<__nv_bfloat16>(route, kind, x, w, scale, out, M, N, K,
-                                 device, st);
+  if (xdtype == 1)
+    return dispatch<__nv_bfloat16>(route, kind, x, w, scale, out, M, N, K,
+                                   device, st);
+  return dispatch<__half>(route, kind, x, w, scale, out, M, N, K, device,
+                          st);
 }

@@ -12,7 +12,8 @@ plain PyTorch function it is held against:
   :func:`reference_flash_attention_bwd`. Kernels:
   ``csrc/flash_attention_bwd.cu``.
 * :func:`decode_attention` — single-token (q_len = 1) attention over a
-  length-masked KV pool. Kernel: ``csrc/decode_attention.cu``.
+  length-masked KV pool, split over the pool (flash-decoding,
+  :func:`decode_plan`). Kernel: ``csrc/decode_attention.cu``.
 
 :func:`flash_attention` and :func:`flash_attention_with_lse` are
 trainable: ``_FlashAttention`` (a ``torch.autograd.Function``) saves q, k,
@@ -24,8 +25,9 @@ bfloat16 or float16 q/k/v (one type for all of them, and for o and dO),
 as the JAX package's kernels keep the storage dtype: out and dq come back
 in q's type, dk and dv in k's and v's, lse in float32. The flash forward
 and dQ run their products on the tensor cores (bf16/f16: one mma a
-product; f32: three TF32 pieces); dK/dV and decode widen to f32 at load
-and round once at store. Each wrapper carries an integer ``launches``
+product; f32: three TF32 pieces), decode too for bf16/f16 (f32 decode
+takes f32 FMA products); dK/dV widens to f32 at load and rounds once at
+store. Each wrapper carries an integer ``launches``
 counter that is raised exactly where its kernel launches.
 
 Head dims: the kernels take 16, 32, 64 and the multiples of 128 up to
@@ -54,8 +56,8 @@ __all__ = ["reference_attention", "reference_attention_with_lse",
            "flash_attention", "flash_attention_with_lse",
            "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "decode_attention", "dense_attention", "kernel_head_dim",
-           "MAX_HEAD_DIM"]
+           "decode_attention", "decode_plan", "dense_attention",
+           "kernel_head_dim", "MAX_HEAD_DIM"]
 
 # Head dims up to 256 have a kernel instance each; above, the "wide"
 # kernels loop over D in 128-column chunks and keep their accumulators in
@@ -437,17 +439,81 @@ def flash_attention(q, k, v, causal=False, scale=None):
     return flash_attention_with_lse(q, k, v, causal, scale)[0]
 
 
+# decode attention's split-KV plan (csrc/decode_attention.cu): a block
+# takes up to 16 q heads of a GQA group and one split of the pool, whose
+# keys are a multiple of 128. A grid whose (slot, kv head, tile) blocks
+# fill DECODE_FULL of a wave of the card's SMs by themselves (8 slots of
+# MHA at 16 heads: 128 blocks) is not split: splitting it adds only blocks
+# that exit or merge, and the GPT-2-medium decode step ran slower so on
+# the H100. A smaller grid takes splits (at most DECODE_MAX_SPLITS) for
+# about DECODE_WAVES waves
+DECODE_ROWS = 16
+DECODE_SPLIT_KEYS = 128
+DECODE_WAVES = 4
+DECODE_FULL = 0.75
+DECODE_MAX_SPLITS = 128
+_SMS = {}
+_ARRIVALS = {}
+
+
+def decode_plan(b, h, h_kv, s, sms=132):
+    """(tiles, splits, chunk) of the decode kernel for q (b, h, D) over a
+    pool of ``s`` positions and ``h_kv`` kv heads: ``tiles`` blocks of up
+    to :data:`DECODE_ROWS` q heads per (slot, kv head), ``splits`` blocks
+    of ``chunk`` keys (a multiple of :data:`DECODE_SPLIT_KEYS`) per tile,
+    ``splits * chunk >= s``: one split where ``b * h_kv * tiles`` fills
+    :data:`DECODE_FULL` of ``sms``, else about :data:`DECODE_WAVES` waves
+    of them. It rests on the shapes and the card's SM count alone, never
+    on the lengths (which lie on the card: reading them would stall the
+    serving step)."""
+    tiles = -(-(h // h_kv) // DECODE_ROWS)
+    blocks = max(1, b * h_kv * tiles)
+    want = 1 if blocks >= DECODE_FULL * sms \
+        else -(-DECODE_WAVES * sms // blocks)
+    splits = max(1, min(want, -(-s // DECODE_SPLIT_KEYS),
+                        DECODE_MAX_SPLITS))
+    per = -(-s // splits)                     # keys a split, then rounded up
+    chunk = max(1, -(-per // DECODE_SPLIT_KEYS)) * DECODE_SPLIT_KEYS
+    return tiles, max(1, -(-s // chunk)), chunk
+
+
+def _sm_count(device):
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def _arrivals(device, stream, n):
+    """At least ``n`` zeroed int32 arrival counters of the split decode
+    kernel (one a slot, kv head and q-head tile) for calls on ``stream``:
+    the block that arrives last sets its counter back to 0, so they stay
+    zero between calls, which run in order on one stream."""
+    key = (device.index, stream.value)
+    t = _ARRIVALS.get(key)
+    if t is None or t.numel() < n:
+        t = _ARRIVALS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                         device=device)
+    return t
+
+
 def decode_attention(q, k, v, lengths, scale=None):
     """Single-token decode attention against a length-masked KV pool.
 
     q (B, H, D); k/v (B, H_kv, S, D); lengths (B,) int32 valid-prefix
-    lengths. Replaces the TPU kernel mxnet_tpu/ops/attention.py:
-    _decode_kernel (launched by _decode_pallas). On the card,
-    ``csrc/decode_attention.cu`` (float32, bfloat16 or float16 q and
-    caches, out in q's dtype; the forward's head dims; any GQA group that
-    divides H); on the CPU, :func:`reference_decode_attention`.
-    A head dim no kernel takes, or one above :data:`MAX_HEAD_DIM`, goes to
-    :func:`dense_attention`."""
+    lengths (clamped to [0, S]). Replaces the TPU kernel
+    mxnet_tpu/ops/attention.py:_decode_kernel (launched by
+    _decode_pallas). On the card, ``csrc/decode_attention.cu`` (float32,
+    bfloat16 or float16 q and caches, out in q's dtype; the forward's head
+    dims; any GQA group that divides H), split over the pool as
+    :func:`decode_plan` says, in one launch: where a slot's keys span more
+    than one split, its splits write f32 partials (scratch allocated here)
+    and the last block of each (slot, kv head, q-head tile) to arrive
+    merges them in split order; splits past a slot's length exit at once.
+    ``launches`` counts calls. On the CPU,
+    :func:`reference_decode_attention`. A head dim no kernel takes, or one
+    above :data:`MAX_HEAD_DIM`, goes to :func:`dense_attention`."""
     if not _kernel_route(q.shape[-1]):
         return dense_attention(q, k, v, scale=scale, lengths=lengths)
     if q.device.type == "cpu":
@@ -467,13 +533,26 @@ def decode_attention(q, k, v, lengths, scale=None):
              "decode_attention: lengths must be a contiguous (B,) int32 "
              "tensor")
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    tiles, splits, chunk = decode_plan(b, h, h_kv, s, _sm_count(q.device))
     out = torch.empty_like(q)
+    stream = _stream(q)
+    pm = pl = pacc = count = None
+    if splits > 1:
+        rows = b * h * splits
+        part = torch.empty(rows * (d + 2), dtype=torch.float32,
+                           device=q.device)
+        pacc, pm, pl = part[:rows * d], part[rows * d:rows * (d + 1)], \
+            part[rows * (d + 1):]
+        count = _arrivals(q.device, stream, b * h_kv * tiles)
     fn = _build.bind("decode_attention", "mxt_decode_attention",
-                     *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 5,
+                     *[ctypes.c_void_p] * 9, *[ctypes.c_int] * 7,
                      ctypes.c_float, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p)
-    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(lengths), _ptr(out), b, h,
-             h_kv, s, d, float(scale), code, q.device.index, _stream(q))
+    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(lengths), _ptr(out),
+             *(None if t is None else _ptr(t)
+               for t in (pm, pl, pacc, count)),
+             b, h, h_kv, s, d, chunk, splits, float(scale), code,
+             q.device.index, stream)
     decode_attention.launches += 1
     _build.check(err, "decode_attention", "decode_attention")
     return out

@@ -18,11 +18,13 @@ semantics:
   it raises (``spatial dim ... not blockable``, its VMEM budget) so does
   :func:`conv1x1`, so both packages accept the same calls.
 
-x and w are float32 or bfloat16 each (bf16 x with f32 w keeps w's f32
-values, as JAX promotes the pair to f32); y has x's dtype. A CPU tensor
-runs the plain version; a CUDA tensor launches the kernel or raises. The
-wrapper's ``launches`` counter is raised exactly where the kernel
-launches.
+x, w and the residual are float32, bfloat16 or float16 each, every pair
+the JAX function takes (a mixed pair keeps both sides' values, as JAX
+promotes it to f32: the kernel forms each product exactly, from exact
+bf16 pieces of the wider or the other half type); y has x's dtype. A CPU
+tensor runs the plain version; a CUDA tensor launches the kernel or
+raises. The wrapper's ``launches`` counter is raised exactly where the
+kernel launches.
 """
 from __future__ import annotations
 
@@ -37,9 +39,8 @@ __all__ = ["conv1x1", "reference_conv1x1", "finalize_stats", "bn_fold",
            "eligible"]
 
 _BLOCK_P = 512          # the JAX kernel's lane block (multiple of 128)
-_TILE_P = 64            # positions per block of csrc/conv1x1.cu (checked
-                        # there against the partials' shape)
-_DTYPES = (torch.float32, torch.bfloat16)
+# the element types of csrc/conv1x1.cu, by its codes (MXT_F32/BF16/F16)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _pick_block_p(p, ci, co, has_residual=False):
@@ -103,7 +104,8 @@ def conv1x1(x, w, *, bn_in=None, residual=None, relu_in=False,
     """Fused 1x1 convolution: ``y`` or ``(y, (sum, sumsq))``.
 
     Replaces the TPU kernel mxnet_tpu/ops/conv_fused.py:_c1x1_kernel. On
-    the card ``csrc/conv1x1.cu`` (one launch; the per-block statistics
+    the card ``csrc/conv1x1.cu`` (one launch: the tensor-core kernel, or
+    the FMA kernel for float32 x with float32 w; the per-block statistics
     partials are summed here, as the JAX function sums its own); on the
     CPU :func:`reference_conv1x1`."""
     n, ci, p = x.shape
@@ -117,8 +119,8 @@ def conv1x1(x, w, *, bn_in=None, residual=None, relu_in=False,
     for t in ts:
         _require(t.is_cuda and t.device == x.device,
                  "tensors must all be on x's card")
-        _require(t.dtype in _DTYPES,
-                 f"the kernel takes float32 or bfloat16, got {t.dtype}")
+        _require(t.dtype in _DTYPES, "the kernel takes float32, bfloat16 "
+                 f"or float16, got {t.dtype}")
         _require(t.is_contiguous(), "tensors must be contiguous")
     _require(w.shape == (co, ci), f"w must be (Co, Ci) = (*, {ci}), got "
              f"{tuple(w.shape)}")
@@ -129,18 +131,21 @@ def conv1x1(x, w, *, bn_in=None, residual=None, relu_in=False,
         scale, shift = (t.to(device=x.device, dtype=torch.float32)
                         .reshape(ci).contiguous() for t in bn_in)
     y = torch.empty((n, co, p), dtype=x.dtype, device=x.device)
-    pt = -(-p // _TILE_P)
+    codes = _DTYPES[x.dtype], _DTYPES[w.dtype]
+    # the positions a block covers, which set the partials' second axis,
+    # as the kernels' source states them for the pair
+    tile = _build.bind("conv1x1", "mxt_conv1x1_tile", ctypes.c_int,
+                       ctypes.c_int)(*codes)
+    pt = -(-p // tile)
     part = None
     if want_stats:
         part = torch.empty((n, pt, 2, co), dtype=torch.float32,
                            device=x.device)
     fn = _build.bind("conv1x1", "mxt_conv1x1", *[ctypes.c_void_p] * 7,
                      *[ctypes.c_int] * 10, ctypes.c_void_p)
-    bf16 = torch.bfloat16
     err = fn(_ptr(x), _ptr(w), _ptr(scale), _ptr(shift), _ptr(residual),
-             _ptr(y), _ptr(part), n, ci, co, p, pt, int(x.dtype == bf16),
-             int(w.dtype == bf16),
-             int(residual is not None and residual.dtype == bf16),
+             _ptr(y), _ptr(part), n, ci, co, p, pt, *codes,
+             0 if residual is None else _DTYPES[residual.dtype],
              int(bool(relu_in)), x.device.index,
              ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     conv1x1.launches += 1

@@ -9,12 +9,14 @@ Counterpart of the weight-only part of mxnet_tpu/ops/quantization.py
 * :func:`quantized_matmul` — ``x @ (q widened) * scale`` without the wide
   weight ever existing. Kernels: ``csrc/quantized_matmul.cu``; plain
   version: :func:`reference_quantized_matmul`. A CPU tensor runs the plain
-  version, a CUDA tensor a kernel (or raises). The kernels take float32
-  or bfloat16 activations and return x's dtype, as the JAX function does.
+  version, a CUDA tensor a kernel (or raises). The kernels take float32,
+  bfloat16 or float16 activations and return x's dtype, as the JAX
+  function does.
   :func:`_qmm_route` picks one of two kernels by shape: ``qmm_small``
   (decode, M <= 16: the narrow weight streamed by cp.async at HBM rate,
   K split over a thread-block cluster) or ``qmm_tc`` (prefill: 128 x 128
-  output tiles). Both multiply on the bf16 tensor cores, float32 x as an
+  output tiles). Both multiply on the bf16 tensor cores (float16 x on the
+  f16 ones, where every int8 and e4m3 weight is exact), float32 x as an
   exact three-piece split, so every product is exact. Each call is one
   launch; the ``launches`` counter is raised where it launches.
 """
@@ -33,7 +35,7 @@ __all__ = ["quantize_rows", "dequantize_rows", "quantized_matmul",
 
 WEIGHT_QDTYPES = ("int8", "fp8")
 _KIND = {torch.int8: 0, torch.float8_e4m3fn: 1}
-_XDTYPE = {torch.float32: 0, torch.bfloat16: 1}
+_XDTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the decode step's rows (slots) at most, for the weight-streaming kernel
 SMALL_M = 16
 
@@ -88,7 +90,8 @@ def reference_quantized_matmul(x, q, scale):
 def _qmm_route(x, q, out):
     """0: ``qmm_small`` (M <= SMALL_M, or a shape the tensor-core kernel
     does not take); 1: ``qmm_tc`` (M > SMALL_M, N % 16 == 0, K % 4 for
-    float32 x or K % 8 for bfloat16, every pointer 16-byte aligned). The
+    float32 x or K % 8 for bfloat16 / float16, every pointer 16-byte
+    aligned). The
     choice rests on shapes and addresses alone."""
     m, k = x.shape
     n = q.shape[1]
@@ -107,9 +110,9 @@ def _qmm_kernel(x, q, scale):
         if not t.is_contiguous():
             raise MXNetError(f"quantized_matmul: {name} must be contiguous")
     if x.dtype not in _XDTYPE or scale.dtype != torch.float32:
-        raise MXNetError("quantized_matmul: the kernels take float32 or "
-                         f"bfloat16 x and float32 scale, got {x.dtype} and "
-                         f"{scale.dtype}")
+        raise MXNetError("quantized_matmul: the kernels take float32, "
+                         "bfloat16 or float16 x and float32 scale, got "
+                         f"{x.dtype} and {scale.dtype}")
     if q.dtype not in _KIND:
         raise MXNetError("quantized_matmul: weights must be int8 or "
                          f"float8_e4m3fn, got {q.dtype}")
@@ -140,7 +143,7 @@ def _qmm_kernel(x, q, scale):
 def quantized_matmul(x, q, scale):
     """x @ dequant(q, scale) without materializing the wide weight.
 
-    x: (..., K) float32 or bfloat16 activations; q: (K, N) int8 or
+    x: (..., K) float32, bfloat16 or float16 activations; q: (K, N) int8 or
     float8_e4m3fn; scale: (N,) float32; the result has x's dtype.
     Replaces the TPU kernel mxnet_tpu/ops/quantization.py:_qmm_kernel
     (launched by _qmm_pallas). Any M, N and K: the kernels mask ragged

@@ -9,19 +9,26 @@ kernels from mxnet_tpu_torch/csrc and run them:
 Tolerance 1e-4 absolute plus 1e-4 of the reference's largest magnitude:
 float32 sums taken in another order (chip_smoke.py states the same). The
 flash backward kernels are also checked to give bit-identical gradients
-on a second run (they use no atomics). The bf16 conv1x1 output is held
-within one bf16 ulp of the reference plus 1e-4 of its largest magnitude
-(the f32 sums differ in order before rounding), its statistics within
-1e-3 of their largest magnitude, and bit-identical on a second run.
+on a second run (they use no atomics). The bf16/f16 conv1x1 output (every
+pair of x and w types) is held within one ulp of its type of the
+reference plus 1e-4 of its largest magnitude (the f32 sums differ in
+order before rounding), its statistics within 1e-3 of their largest
+magnitude, and bit-identical on a second run.
 The rtc cases mirror tests/test_rtc.py with CUDA source through NVRTC.
 The quantized matmul runs both of its kernels (qmm_small at M <= 16 or
-on shapes qmm_tc does not take); with bfloat16 x it is held within one
-bf16 ulp plus 1e-4 of the largest magnitude, and every case gives
+on shapes qmm_tc does not take); with bfloat16 or float16 x it is held
+within one ulp of x's type plus 1e-4 of the largest magnitude, and every
+case gives
 bit-identical results on a second call. With float32 x over 40 decades
 both are held against float64 within the bound that exact products keep
 (and that x without its third bf16 piece breaks), and every weight byte
 is widened bit for bit.
 
+Decode attention is split over the pool (one split and many, chunks
+wholly past a slot's length, lengths 0 and > S), each second call
+bit-identical, and its arrival counters back at 0 after every call; its
+f32 kernel (FMA products) is held against float64 as the flash kernels
+are.
 The attention kernels also take bfloat16 and float16: out, dq, dk, dv
 and the decode output are held element by element within 2 units of
 (one ulp of the reference there + one ulp of the root-sum-square of the
@@ -112,6 +119,102 @@ def test_decode_kernel_takes_any_group(dev, h, h_kv, d):
     assert not out[0].any()
 
 
+_TYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+          "f16": torch.float16}
+
+
+# one split (a pool of <= 128 positions) and many (the plan cuts the pool
+# into 128-key multiples): chunks wholly past a slot's length, a slot with
+# length 0 and one with length > S, GQA groups 1/2/3/7/16, D 16..512
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("d,group,s", [
+    (64, 3, 100), (64, 16, 2000), (128, 7, 100), (128, 7, 2000),
+    (256, 3, 2000), (512, 7, 600), (16, 1, 300), (32, 16, 1000),
+    (384, 2, 500)])
+def test_decode_split_kernel_matches_plain(dev, dt, d, group, s):
+    from mxnet_tpu_torch import _build, test_utils as U
+    from mxnet_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev).manual_seed(d + group + s)
+    b, h_kv = 4, 2
+    h = group * h_kv
+    q = torch.randn(b, h, d, generator=g, device=dev).to(_TYPES[dt])
+    k = torch.randn(b, h_kv, s, d, generator=g, device=dev).to(_TYPES[dt])
+    v = torch.randn(b, h_kv, s, d, generator=g, device=dev).to(_TYPES[dt])
+    lengths = torch.tensor([0, s + 50, max(1, s // 3), 1], dtype=torch.int32,
+                           device=dev)
+    _, splits, chunk = A.decode_plan(b, h, h_kv, s, torch.cuda.
+                                     get_device_properties(dev).
+                                     multi_processor_count)
+    assert (splits == 1) == (s <= 128) and splits * chunk >= s
+    n = A.decode_attention.launches
+    kernels = _build.launches("decode_attention")
+    out = A.decode_attention(q, k, v, lengths)
+    again = A.decode_attention(q, k, v, lengths)
+    assert A.decode_attention.launches == n + 2
+    assert _build.launches("decode_attention") == kernels + 2   # one a call
+    ref = A.reference_decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and torch.equal(out, again)
+    assert not out[0].any()
+    if dt == "f32":
+        _close(out, ref)
+    else:
+        assert U.half_units(out, ref, U.decode_term_scales(
+            q, k, v, lengths)) <= 2
+
+
+def test_decode_arrival_counters_return_to_zero(dev):
+    """Calls of several shapes share one stream's arrival counters: the
+    block that merges a (slot, kv head, tile) sets its counter back to 0,
+    so every call finds them zeroed and is right."""
+    from mxnet_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev).manual_seed(3)
+    for b, h, h_kv, s, d in ((8, 16, 16, 1024, 64), (3, 28, 4, 700, 128),
+                             (2, 8, 2, 4000, 32), (8, 16, 16, 1024, 64)):
+        q = torch.randn(b, h, d, generator=g, device=dev)
+        k = torch.randn(b, h_kv, s, d, generator=g, device=dev)
+        v = torch.randn(b, h_kv, s, d, generator=g, device=dev)
+        lengths = torch.randint(0, s + 1, (b,), generator=g, device=dev,
+                                dtype=torch.int32)
+        out = A.decode_attention(q, k, v, lengths)
+        _close(out, A.reference_decode_attention(q, k, v, lengths))
+        torch.cuda.synchronize()
+        assert A._ARRIVALS and all(not t.any()
+                                   for t in A._ARRIVALS.values())
+
+
+@pytest.mark.parametrize("h,h_kv,d", [(16, 16, 64), (28, 4, 128),
+                                      (8, 8, 512)])
+def test_f32_decode_kernel_holds_float64_accuracy(dev, h, h_kv, d):
+    """f32 decode (FMA products, split over the pool) against float64:
+    within 4x the plain f32 version's own error; one TF32 pass (q, k, P
+    and v rounded to TF32, in float64) breaks it."""
+    from mxnet_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev).manual_seed(h + d)
+    b, s = 4, 1000
+    q = torch.randn(b, h, d, generator=g, device=dev)
+    k = torch.randn(b, h_kv, s, d, generator=g, device=dev)
+    v = torch.randn(b, h_kv, s, d, generator=g, device=dev)
+    lengths = torch.tensor([1, 130, 777, 1000], dtype=torch.int32,
+                           device=dev)
+    got = A.decode_attention(q, k, v, lengths)
+    plain = A.reference_decode_attention(q, k, v, lengths)
+    kk, vv = (t.repeat_interleave(h // h_kv, dim=1) for t in (k, v))
+    valid = torch.arange(s, device=dev)[None, None, :] \
+        < lengths[:, None, None]
+
+    def f64(rnd):
+        sc = torch.einsum("bhd,bhsd->bhs", rnd(q), rnd(kk)) / math.sqrt(d)
+        p = torch.softmax(sc.masked_fill(~valid, float("-inf")), -1)
+        return torch.einsum("bhs,bhsd->bhd", rnd(p), rnd(vv))
+
+    ref = f64(lambda x: x.double())
+    bound = 4 * float((plain.double() - ref).abs().max())
+    assert float((got.double() - ref).abs().max()) <= bound
+    ctrl = f64(lambda x: _tf32(x.float()).double())
+    assert float((ctrl - ref).abs().max()) > bound
+
+
 @pytest.mark.parametrize("glse", [False, True], ids=["no_glse", "glse"])
 @pytest.mark.parametrize("s,h_kv,causal,d", [
     (64, 4, True, 64), (100, 4, True, 64), (100, 2, False, 64),
@@ -176,7 +279,7 @@ def _qweights(k, n, dtype):
     return Q.quantize_rows(w, dtype)
 
 
-@pytest.mark.parametrize("xdt", ["f32", "bf16"])
+@pytest.mark.parametrize("xdt", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("dtype", ["int8", "fp8"])
 @pytest.mark.parametrize("k", [100, 1024, 4096])
 @pytest.mark.parametrize("n", [129, 1024, 4096, 50257])
@@ -188,9 +291,7 @@ def test_quantized_matmul_kernels_over_shapes(dev, m, n, k, dtype, xdt):
     from mxnet_tpu_torch.ops import quantization as Q
     q, s = _qweights(k, n, dtype)
     g = torch.Generator(device=dev).manual_seed(m * 7 + k)
-    x = torch.randn(m, k, generator=g, device=dev)
-    if xdt == "bf16":
-        x = x.bfloat16()
+    x = torch.randn(m, k, generator=g, device=dev).to(_TYPES[xdt])
     n0 = Q.quantized_matmul.launches
     out = Q.quantized_matmul(x, q, s)
     assert Q.quantized_matmul.launches == n0 + 1
@@ -198,10 +299,10 @@ def test_quantized_matmul_kernels_over_shapes(dev, m, n, k, dtype, xdt):
     again = Q.quantized_matmul(x, q, s)
     ref = Q.reference_quantized_matmul(x, q, s)
     torch.cuda.synchronize()
-    if xdt == "bf16":
-        _bf16_close(out, ref)
-    else:
+    if xdt == "f32":
         _close(out, ref)
+    else:
+        _half_close(out, ref)
     assert torch.equal(out, again)
 
 
@@ -243,7 +344,7 @@ def test_quantized_matmul_forms_exact_products(dev, dtype, m, k, n):
             assert bool(((_f64(wrong, q, s) - ref).abs() > bound).any())
 
 
-@pytest.mark.parametrize("xdt", ["f32", "bf16"])
+@pytest.mark.parametrize("xdt", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("dtype,nan", [("int8", False), ("fp8", False),
                                        ("fp8", True)],
                          ids=["int8", "fp8", "fp8_nan_codes"])
@@ -263,9 +364,7 @@ def test_quantized_matmul_widens_every_code(dev, m, n, dtype, nan, xdt):
     g = torch.Generator(device=dev).manual_seed(n)
     s = torch.rand(n, generator=g, device=dev) + 0.5
     x = torch.nn.functional.one_hot(torch.arange(m, device=dev) % 16,
-                                    16).float()
-    if xdt == "bf16":
-        x = x.bfloat16()
+                                    16).to(_TYPES[xdt])
     out = Q.quantized_matmul(x, q, s)
     torch.testing.assert_close(out, Q.reference_quantized_matmul(x, q, s),
                                rtol=0, atol=0, equal_nan=True)
@@ -288,8 +387,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(MXNetError, match="above 512"):
         x = torch.randn(1, 1, 8, 640, device=dev)
         A.flash_attention_fwd(x, x, x)
-    with pytest.raises(MXNetError, match="float32 or bfloat16"):
-        Q.quantized_matmul(torch.randn(2, 4, device=dev).half(),
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16 x"):
+        Q.quantized_matmul(torch.randn(2, 4, device=dev).double(),
                            torch.zeros(4, 4, dtype=torch.int8, device=dev),
                            torch.ones(4, device=dev))
 
@@ -347,12 +446,13 @@ def test_head_dim_above_512_takes_the_dense_route(dev):
                                              v.detach(), lengths))
 
 
-def _bf16_close(got, ref):
-    """Within one bf16 ulp of the reference plus 1e-4 of its largest
-    magnitude (f32 sums in another order before the rounding)."""
+def _half_close(got, ref):
+    """Within one ulp of the reference in got's type (bfloat16 or float16)
+    plus 1e-4 of its largest magnitude (f32 sums in another order before
+    the rounding)."""
     r = ref.float()
     _, e = torch.frexp(r)
-    ulp = torch.ldexp(torch.ones_like(r), e - 8)
+    ulp = torch.ldexp(torch.full_like(r, torch.finfo(got.dtype).eps), e - 1)
     assert bool(((got.float() - r).abs()
                  <= ulp + 1e-4 * float(r.abs().max())).all())
 
@@ -368,11 +468,23 @@ def _stats_close(got, ref):
     ("bf16", "bf16", 3, 512, 2048, 49, False, False),
     ("bf16", "f32", 2, 40, 72, 100, True, True),
     ("f32", "f32", 2, 64, 256, 784, True, True),
-    ("f32", "bf16", 2, 24, 8, 64, False, False)])
+    ("f32", "bf16", 2, 24, 8, 64, False, False),
+    # float16 and every mixed pair, ragged P (3136, 196, 49), Co and Ci
+    # edges (72, 40, 200), the residual in x's type
+    ("f16", "f16", 2, 64, 256, 3136, True, True),
+    ("f16", "f16", 3, 512, 2048, 49, False, False),
+    ("f16", "bf16", 2, 64, 256, 196, True, False),
+    ("bf16", "f16", 2, 256, 64, 3136, True, True),
+    ("f16", "f32", 2, 40, 72, 100, True, True),
+    ("f32", "f16", 2, 40, 200, 196, True, True),
+    ("f32", "bf16", 2, 64, 256, 3136, True, True),
+    ("bf16", "f32", 2, 128, 512, 784, True, False),
+    ("f16", "f16", 2, 1024, 256, 196, True, False),
+    ("bf16", "bf16", 2, 40, 72, 49, True, True)])
 def test_conv1x1_kernel_matches_plain(dev, dt, wdt, n, ci, co, p, prologue,
                                       residual):
     from mxnet_tpu_torch.ops import conv_fused as C
-    types = {"bf16": torch.bfloat16, "f32": torch.float32}
+    types = _TYPES
     g = torch.Generator(device=dev).manual_seed(ci + co + p)
     x = torch.randn(n, ci, p, generator=g, device=dev).to(types[dt])
     w = (torch.randn(co, ci, generator=g, device=dev) / ci ** 0.5) \
@@ -392,10 +504,10 @@ def test_conv1x1_kernel_matches_plain(dev, dt, wdt, n, ci, co, p, prologue,
     ry, rstats = C.reference_conv1x1(x, w, **kw)
     y2, stats2 = C.conv1x1(x, w, **kw)
     torch.cuda.synchronize()
-    if dt == "bf16":
-        _bf16_close(y, ry)
-    else:
+    if dt == "f32":
         _close(y, ry)
+    else:
+        _half_close(y, ry)
     _stats_close(stats, rstats)
     assert torch.equal(y, y2)
     assert all(torch.equal(a, b) for a, b in zip(stats, stats2))
@@ -406,8 +518,8 @@ def test_conv1x1_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     from mxnet_tpu_torch.base import MXNetError
     from mxnet_tpu_torch.ops import conv_fused as C
     x = torch.randn(2, 16, 64, device=dev)
-    with pytest.raises(MXNetError, match="float32 or bfloat16"):
-        C.conv1x1(x.half(), torch.randn(8, 16, device=dev).half())
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        C.conv1x1(x.double(), torch.randn(8, 16, device=dev).double())
     with pytest.raises(MXNetError, match="contiguous"):
         C.conv1x1(x.transpose(1, 2).contiguous().transpose(1, 2),
                   torch.randn(8, 16, device=dev))
