@@ -47,17 +47,32 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            one training step under torch.profiler: device time by kernel
   engine_f32 / engine_int8
            DecodeEngine serving 8 staggered sessions with float and
-           int8 weights; one session's per-token logits held against a
-           full-context recompute through the plain path; tokens/s,
-           per-token latency, and each kernel's launch count
-  profile  one decode step under torch.profiler: device time by kernel
+           int8 weights through its CUDA graphs (the step, and one graph
+           a prompt bucket, captured before the timed run); one
+           session's per-token logits held against a full-context
+           recompute through the plain path; tokens/s, the served step's
+           wall time, per-token latency, each kernel's launch count, and
+           the graphs: capture seconds, plan_compiles (step_compiles must
+           be 1, no capture in the timed run), plan_resident_bytes, the
+           launches captured and those the replays made
+  profile  one decode step, eager and as the engine's step graph, side by
+           side: host wall time of each, the graph run as the engine
+           serves it (also at ragged lengths with two logits rows kept,
+           and with the card idle between steps) and back to back, device
+           time by kernel under torch.profiler
   serve_gqa
            DecodeEngine serving 8 sessions (prompts 17..4000 tokens) at
            Qwen2-7B's attention and model widths (28 q heads over 4 kv
            heads, head dim 128, d_model 3584, d_ff 18944, vocab 152064;
            4 of its 28 layers, max_len 4096) with f32 weights drawn on the
-           card, logits against a full-context recompute, then a decode
-           step under torch.profiler with decode attention's share
+           card, through graphs as the engines, logits against a
+           full-context recompute, then the profile phase's step with
+           decode attention's share
+  export   the decode artifact's write side at GPT-2 medium's widths, 2 of
+           its 24 layers: export_decode_model (f32), quantize_decode_
+           artifact (int8), DecodeEngine on the int8 file; its params and
+           tokens held bit for bit against an engine given the same int8
+           params in memory
   conv     ResNet-50 stage 2 at batch 128, bf16, through ops.conv_fused:
            expand 64 -> 256 with statistics, finalize_stats, bn_fold, then
            the next block's reduce 256 -> 64 with the BN + residual + ReLU
@@ -130,6 +145,8 @@ QMM_F64_ULPS = 4
 CFG = dict(vocab=50257, layers=24, d_model=1024, heads=16, kv_heads=16,
            d_ff=4096, max_len=1024)
 SLOTS = 8
+# the export phase's cut of GPT-2 medium's 24 layers
+EXPORT_LAYERS = 2
 PROMPT_LENS = (17, 60, 100, 200, 300, 500, 700, 900)
 NEW_TOKENS = 32
 SEED = 0
@@ -1436,7 +1453,9 @@ def phase_train():
     return res
 
 
-def _device_rows(prof, n_steps):
+def _device_rows(prof, n_steps, required=True):
+    """(kernel, device ms a step, calls a step) by kernel, largest first;
+    raises when the card recorded nothing, unless not ``required``."""
     rows = []
     for ev in prof.key_averages():
         t = getattr(ev, "device_time_total", None)
@@ -1444,7 +1463,7 @@ def _device_rows(prof, n_steps):
             t = getattr(ev, "cuda_time_total", 0.0)
         if t and "CUDA" in str(getattr(ev, "device_type", "")):
             rows.append((ev.key, t / (1e3 * n_steps), ev.count / n_steps))
-    if DEV == "cuda" and not rows:
+    if required and DEV == "cuda" and not rows:
         raise AssertionError("torch.profiler recorded no device time")
     rows.sort(key=lambda r: -r[1])
     return rows
@@ -1515,11 +1534,19 @@ def _recompute_logits(model, toks):
     return ref.float().cpu().numpy()
 
 
+def _served_step_s(eng):
+    """(sum, count) of the engine's step-seconds histogram: the wall time
+    of each served step (state in, replay, next tokens out)."""
+    snap = eng._m_step.snapshot()
+    return snap["sum"], snap["count"]
+
+
 def _serve(tag, model, params, need, prompt_lens=None):
     """Serve the staggered sessions (``prompt_lens``, default PROMPT_LENS)
-    of ``model``; check logits; return the phase."""
+    of ``model`` through the engine's CUDA graphs; check logits, plans and
+    launches; return the phase."""
     import numpy as np
-    import torch
+    from mxnet_tpu_torch.ops import attention as A
     from mxnet_tpu_torch.serving.decode import DecodeEngine, prompt_buckets
     prompt_lens = prompt_lens or PROMPT_LENS
     max_len = model.max_len
@@ -1530,14 +1557,20 @@ def _serve(tag, model, params, need, prompt_lens=None):
     eng = DecodeEngine(model, params, num_slots=SLOTS, name=tag, device=DEV)
     setup_s = time.perf_counter() - t0
     try:
-        # warm the allocator and every prompt bucket off the clock
+        # capture every prompt bucket's graph off the clock
         ladder = prompt_buckets(max_len)
-        for b in sorted({next(b for b in ladder if b >= n)
-                         for n in prompt_lens}):
+        buckets = sorted({next(b for b in ladder if b >= n)
+                          for n in prompt_lens} | {ladder[0]})
+        t0 = time.perf_counter()
+        for b in buckets:
             eng.generate([1] * min(b, max_len - 1), max_new_tokens=2)
+        warm_s = time.perf_counter() - t0
         _sync()
+        compiles = eng.plan_compiles
         _reset_counts()
         steps0 = eng.step_executions
+        rep0 = eng.graph_launches()["replayed"]
+        step_s0 = _served_step_s(eng)
         t_sub, sessions = [], []
         t_start = time.perf_counter()
         for i, p in enumerate(prompts):
@@ -1550,6 +1583,22 @@ def _serve(tag, model, params, need, prompt_lens=None):
         wall = time.perf_counter() - t_start
         counts = _read_counts()
         steps = eng.step_executions - steps0
+        rep1 = eng.graph_launches()["replayed"]
+        step_s1 = _served_step_s(eng)
+        plans = eng.plans()
+        graphs = {"plan_compiles": eng.plan_compiles,
+                  "step_compiles": eng.step_compiles,
+                  "plan_resident_bytes": eng.plan_resident_bytes,
+                  "resident_bytes": eng.resident_bytes(),
+                  "capture_s": {p["name"]: p["capture_s"] for p in plans},
+                  "peak_bytes": {p["name"]: p["peak_bytes"] for p in plans},
+                  "captured_launches": eng.graph_launches()["captured"],
+                  "replayed_launches": {k: n - rep0.get(k, 0)
+                                        for k, n in rep1.items()},
+                  "all_graphs": all(p["graph"] for p in plans),
+                  "compiles_in_run": eng.plan_compiles - compiles,
+                  "arrivals_zero": all(not t.any()
+                                       for t in A._ARRIVALS.values())}
     finally:
         eng.close()
     n_tok = sum(len(o) for o in outs)
@@ -1562,8 +1611,9 @@ def _serve(tag, model, params, need, prompt_lens=None):
     checks = [(0, range(NEW_TOKENS)), (len(prompts) - 1, (0, NEW_TOKENS - 1))]
     worst, n_checked, finite = {}, 0, True
     # the plain versions for this recompute only: serving.decode's names
-    # of the three kernel wrappers patched to their reference twins
-    from mxnet_tpu_torch.ops import attention as A, quantization as Q
+    # of the three kernel wrappers patched to their reference twins; the
+    # engine is closed, so no graph is captured while they are in place
+    from mxnet_tpu_torch.ops import quantization as Q
     from mxnet_tpu_torch.serving import decode as SD
     kernels = (SD.flash_attention, SD.decode_attention, SD.quantized_matmul)
     SD.flash_attention = A.reference_attention
@@ -1584,19 +1634,29 @@ def _serve(tag, model, params, need, prompt_lens=None):
     finally:
         (SD.flash_attention, SD.decode_attention,
          SD.quantized_matmul) = kernels
-    ok_counts = all(counts[k] > 0 for k in need) \
-        and counts["dense_attention"] == 0
-    res = {"setup_s": setup_s, "sessions": len(outs),
-           "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
-           "steps": steps, "step_ms_mean": wall / max(steps, 1) * 1e3,
+    replayed = graphs["replayed_launches"]
+    ok_counts = all(counts[k] > 0 and replayed.get(k, 0) > 0
+                    for k in need) and counts["dense_attention"] == 0
+    ok_graphs = (graphs["all_graphs"] and graphs["step_compiles"] == 1
+                 and graphs["plan_compiles"] == 1 + len(buckets)
+                 and graphs["compiles_in_run"] == 0
+                 and graphs["arrivals_zero"])
+    served = (step_s1[0] - step_s0[0]) / max(step_s1[1] - step_s0[1], 1)
+    res = {"setup_s": setup_s, "bucket_capture_s": warm_s,
+           "sessions": len(outs), "tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "steps": steps,
+           "served_step_ms": served * 1e3,
+           "step_ms_mean": wall / max(steps, 1) * 1e3,
            "itl_p50_ms": _pct(itl, 50), "itl_p99_ms": _pct(itl, 99),
            "ttft_p50_ms": _pct(ttft, 50), "ttft_max_ms": max(ttft),
-           "launches": counts, "logits_checked": n_checked,
+           "launches": counts, "graphs": graphs,
+           "logits_checked": n_checked,
            "logits_max_rel_err": max(worst.values()),
            "logits_max_rel_err_by_prompt": worst,
            "logits_tol_rel": LOGIT_RTOL, "all_finite": finite,
            "lens_ok": all(len(o) == NEW_TOKENS for o in outs)}
-    res["ok"] = bool(ok_counts and res["logits_max_rel_err"] <= LOGIT_RTOL
+    res["ok"] = bool(ok_counts and ok_graphs
+                     and res["logits_max_rel_err"] <= LOGIT_RTOL
                      and finite and res["lens_ok"])
     if not res["ok"]:
         raise AssertionError("%s failed: %s" % (tag, json.dumps(res)))
@@ -1642,50 +1702,119 @@ def phase_engines():
 
 def phase_profile():
     """A full-occupancy decode step of each served model (float, int8),
-    timed by host clock and under torch.profiler (device time by
-    kernel)."""
+    eager and as the engine's graph, timed by host clock and under
+    torch.profiler (device time by kernel)."""
     models = RECORD.pop("_models")
-    return {tag: _profile_step(m) for tag, m in models.items()}
+    RECORD["profile"] = {tag: _profile_step(m, tag)
+                         for tag, m in models.items()}
+    return RECORD["profile"]
 
 
-def _profile_step(model):
-    """A decode step with every slot at half the model's max_len: host
-    wall time, then device time by kernel under torch.profiler, and the
-    decode-attention kernels' share of it."""
+def _profile_step(model, tag):
+    """A decode step with every slot at half the model's max_len, side by
+    side in one run: the eager step (host wall time, then device time by
+    kernel under torch.profiler) and the engine's step plan (its CUDA
+    graph), run as the engine serves it (state in, replay, next tokens
+    out, synchronise: host wall time), run back to back with one
+    synchronisation at the end (host wall time over many: the device's
+    pace), and under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    kc, vc = model.init_cache(SLOTS)
-    dev = DEV
-    toks = torch.arange(SLOTS, dtype=torch.int32, device=dev)
-    lens = torch.tensor([model.max_len // 2] * SLOTS, dtype=torch.int32,
-                        device=dev)
-    act = torch.ones(SLOTS, dtype=torch.bool, device=dev)
-    for _ in range(3):
-        model.step(kc, vc, toks, lens, act)
-    _sync()
-    t0 = time.perf_counter()
-    n = 10
-    for _ in range(n):
-        model.step(kc, vc, toks, lens, act)
-    _sync()
-    host_ms = (time.perf_counter() - t0) / n * 1e3
-    res = {"step_host_ms": host_ms, "slots": SLOTS,
-           "length": model.max_len // 2}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from mxnet_tpu_torch.serving.decode import DecodeEngine
+    eng = DecodeEngine(model, None, num_slots=SLOTS, name=tag + "-profile",
+                       device=DEV)
+    try:
+        kc, vc = eng._k, eng._v
+        dev = DEV
+        toks = torch.arange(SLOTS, dtype=torch.int32, device=dev)
+        lens = torch.tensor([model.max_len // 2] * SLOTS, dtype=torch.int32,
+                            device=dev)
+        act = torch.ones(SLOTS, dtype=torch.bool, device=dev)
         for _ in range(3):
             model.step(kc, vc, toks, lens, act)
         _sync()
-    rows = _device_rows(prof, 3)
-    dev_total = sum(r[1] for r in rows)
-    dec = sum(r[1] for r in rows if "decode_" in r[0])
-    res.update(device_ms_per_step=dev_total,
-               decode_attention_ms_per_step=dec,
-               decode_attention_share=dec / dev_total if dev_total else None,
-               device_busy_share=dev_total / host_ms if host_ms else None,
-               top=[{"kernel": k[:80], "ms_per_step": t, "calls": c}
-                    for k, t, c in rows[:12]])
-    del kc, vc
+        t0 = time.perf_counter()
+        n = 10
+        for _ in range(n):
+            model.step(kc, vc, toks, lens, act)
+        _sync()
+        host_ms = (time.perf_counter() - t0) / n * 1e3
+        plan = eng._step_plan
+        plan.host_in.copy_(torch.stack([toks, lens, act.int()]).cpu())
+        with eng._stream_ctx():
+            for _ in range(3):
+                plan.run()
+            eng._sync()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                plan.run()
+                eng._sync()
+            served_ms = (time.perf_counter() - t0) / n * 1e3
+            m = 50
+            t0 = time.perf_counter()
+            for _ in range(m):
+                plan.run()
+            eng._sync()
+            replay_ms = (time.perf_counter() - t0) / m * 1e3
+            # as served by _serve: ragged lengths (its prompts, 16 tokens
+            # in) and two slots' logits rows copied out; then the same
+            # with the card left idle 1.5 ms between steps (the served
+            # loop's host work between replays)
+            ragged = [min(n + 16, model.max_len - 1) for n in PROMPT_LENS]
+            plan.host_in[1] = torch.tensor(
+                (ragged * SLOTS)[:SLOTS], dtype=torch.int32)
+            rows = (0, SLOTS - 1)
+            served_ragged_ms, served_gap_ms = [], []
+            for gap in (0.0, 1.5e-3):
+                for _ in range(3):
+                    plan.run(rows)
+                    eng._sync()
+                total = 0.0
+                for _ in range(n):
+                    t0 = time.perf_counter()
+                    plan.run(rows)
+                    eng._sync()
+                    total += time.perf_counter() - t0
+                    if gap:
+                        time.sleep(gap)
+                (served_gap_ms if gap else served_ragged_ms).append(
+                    total / n * 1e3)
+            plan.host_in[1] = lens.cpu()
+        res = {"step_host_ms": host_ms, "served_step_ms": served_ms,
+               "replay_ms": replay_ms,
+               "served_ragged_ms": served_ragged_ms[0],
+               "served_idle_gap_ms": served_gap_ms[0], "slots": SLOTS,
+               "length": model.max_len // 2,
+               "launches_per_replay": plan.launches}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                model.step(kc, vc, toks, lens, act)
+            _sync()
+        rows = _device_rows(prof, 3)
+        dev_total = sum(r[1] for r in rows)
+        dec = sum(r[1] for r in rows if "decode_" in r[0])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with eng._stream_ctx():
+                for _ in range(3):
+                    plan.run()
+                eng._sync()
+        # the kernels of a replay, where the profiler traces graphs
+        graph_rows = _device_rows(prof, 3, required=False)
+        res.update(device_ms_per_step=dev_total,
+                   device_ms_per_replay=sum(r[1] for r in graph_rows)
+                   if graph_rows else "not traced",
+                   decode_attention_ms_per_step=dec,
+                   decode_attention_share=dec / dev_total
+                   if dev_total else None,
+                   device_busy_share=dev_total / host_ms if host_ms else None,
+                   served_over_device=served_ms / dev_total
+                   if dev_total else None,
+                   top=[{"kernel": k[:80], "ms_per_step": t, "calls": c}
+                        for k, t, c in rows[:12]])
+    finally:
+        eng.close()
     return res
 
 
@@ -1743,9 +1872,70 @@ def phase_serve_gqa():
              "152064); RMSNorm/tanh-GELU/learned positions, not Qwen2's "
              "blocks", cut="layers 28 -> 4, max_len 4096",
              init_params_s=init_s, n_params=n_params,
-             profile=_profile_step(model))
+             profile=_profile_step(model, "qwen2-7b-widths-f32"))
     RECORD["serve_gqa"] = r
     return r
+
+
+def phase_export():
+    """The decode artifact's write side at GPT-2 medium's widths cut to
+    EXPORT_LAYERS layers: export_decode_model (f32) ->
+    quantize_decode_artifact (int8) -> DecodeEngine(path). The engine
+    loaded from the artifact must hold the same int8 params, bit for bit,
+    as one given calibrate_weights of the same float params in memory,
+    and serve the same tokens."""
+    import tempfile
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.contrib.export import export_decode_model
+    from mxnet_tpu_torch.contrib.quantization import (
+        calibrate_weights, quantize_decode_artifact)
+    from mxnet_tpu_torch.serving.decode import DecodeEngine, DecodeModel
+    cfg = dict(CFG, layers=EXPORT_LAYERS)
+    model = DecodeModel(**cfg)
+    params = model.init_params(seed=SEED)
+    rng = np.random.RandomState(SEED + 2)
+    prompts = [rng.randint(0, cfg["vocab"], size=n).tolist()
+               for n in PROMPT_LENS[:4]]
+    work = os.path.join(HERE, "build")
+    os.makedirs(work, exist_ok=True)
+    res = {"model": "DecodeModel at GPT-2 medium widths",
+           "cut": "layers 24 -> %d" % EXPORT_LAYERS}
+    with tempfile.TemporaryDirectory(dir=work) as td:
+        f32, q8 = os.path.join(td, "f32.mxa"), os.path.join(td, "int8.mxa")
+        t0 = time.perf_counter()
+        export_decode_model(f32, model.config(), params,
+                            model_name="gpt2m-2l")
+        res["export_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        quant = quantize_decode_artifact(f32, q8, dtype="int8")
+        res["quantize_s"] = time.perf_counter() - t0
+        res.update(f32_mb=os.path.getsize(f32) / 1e6,
+                   int8_mb=os.path.getsize(q8) / 1e6,
+                   quantized=len(quant["params"]))
+        qparams, _ = calibrate_weights(params, "int8")
+        t0 = time.perf_counter()
+        with DecodeEngine(q8, num_slots=SLOTS, device=DEV) as a:
+            res["load_s"] = time.perf_counter() - t0
+            got = [a.generate(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+            loaded = dict(a.model.named_parameters())
+            graphs = all(p["graph"] for p in a.plans())
+            name = a.name
+        with DecodeEngine(DecodeModel(**cfg), qparams, num_slots=SLOTS,
+                          name="gpt2m-2l-mem", device=DEV) as b:
+            ref = [b.generate(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+            same = sorted(loaded) == sorted(
+                n for n, _ in b.model.named_parameters()) and all(
+                torch.equal(t, b.model.get_parameter(n))
+                for n, t in loaded.items())
+    res.update(engine=name, sessions=len(got), tokens=sum(map(len, got)),
+               params_equal=same, tokens_equal=got == ref, graphs=graphs)
+    res["ok"] = bool(same and got == ref and graphs and name == "gpt2m-2l"
+                     and all(len(o) == NEW_TOKENS for o in got))
+    RECORD["export"] = res
+    if not res["ok"]:
+        raise AssertionError("export failed: %s" % json.dumps(res))
+    return res
 
 
 def _stage2_chain(conv, x0, w1, w2, r, gamma, beta):
@@ -1869,7 +2059,8 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("train", phase_train),
           ("train_profile", phase_train_profile),
           ("engines", phase_engines), ("profile", phase_profile),
-          ("serve_gqa", phase_serve_gqa), ("conv", phase_conv),
+          ("serve_gqa", phase_serve_gqa), ("export", phase_export),
+          ("conv", phase_conv),
           ("rtc", phase_rtc))
 
 # (name, source, TPU kernel, case kind, case, its time / bound keys, errors,

@@ -24,8 +24,8 @@ from pathlib import Path
 
 from .base import MXNetError
 
-__all__ = ["build", "library", "bind", "launches", "check", "FLAGS",
-           "CSRC", "BUILD_DIR"]
+__all__ = ["build", "library", "bind", "launches", "add_launches", "check",
+           "FLAGS", "CSRC", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -134,6 +134,18 @@ def launches(stem):
         fn.restype = ctypes.c_ulonglong
         _BOUND[(stem, "mxt_launches")] = fn
     return int(fn())
+
+
+def add_launches(stem, n):
+    """Add ``n`` to the launch count of ``csrc/<stem>.cu``: the kernels a
+    CUDA graph replay launches, which pass no launch site."""
+    fn = _BOUND.get((stem, "mxt_add_launches"))
+    if fn is None:
+        fn = getattr(library(stem), "mxt_add_launches")
+        fn.argtypes = [ctypes.c_ulonglong]
+        fn.restype = None
+        _BOUND[(stem, "mxt_add_launches")] = fn
+    fn(int(n))
 
 
 def check(err, stem, what):

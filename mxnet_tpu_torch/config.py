@@ -10,6 +10,11 @@ both:
   MXNET_DEVSTATS            0 disables the device-memory preflight
   MXNET_DEVSTATS_HBM_BYTES  pins the device memory budget the preflight
                             checks against (else the card's total memory)
+  MXNET_DEVSTATS_RECOMPILE_LIMIT
+                            compiles of one plan past which the recompile
+                            sentinel warns (<= 0 disables)
+  MXNET_TELEMETRY_PORT      port of the /metrics + /healthz exporter that
+                            ``telemetry.start_server()`` binds
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ import os
 _DOCUMENTED = {
     "MXNET_DEVSTATS": 1,
     "MXNET_DEVSTATS_HBM_BYTES": None,
+    "MXNET_DEVSTATS_RECOMPILE_LIMIT": 32,
+    "MXNET_TELEMETRY_PORT": None,
     "MXNET_DECODE_SLOTS": 8,
     "MXNET_DECODE_MAX_LEN": 256,
     "MXNET_DECODE_MAX_NEW": 32,

@@ -15,13 +15,18 @@ extern "C" const char* mxt_error_string(int err) {
 }
 
 // Kernel launches this library has made: every launch site calls
-// mxt_counted once it has launched; mxt_launches reads the count.
+// mxt_counted once it has launched; mxt_launches reads the count. A CUDA
+// graph replay launches the kernels its capture recorded without passing
+// a launch site: the replaying code adds them with mxt_add_launches.
 static unsigned long long mxt_launch_count = 0;
 static inline void mxt_counted() {
   __atomic_add_fetch(&mxt_launch_count, 1ULL, __ATOMIC_RELAXED);
 }
 extern "C" unsigned long long mxt_launches() {
   return __atomic_load_n(&mxt_launch_count, __ATOMIC_RELAXED);
+}
+extern "C" void mxt_add_launches(unsigned long long n) {
+  __atomic_add_fetch(&mxt_launch_count, n, __ATOMIC_RELAXED);
 }
 
 // Select the tensors' device for this library's runtime (it keeps its own

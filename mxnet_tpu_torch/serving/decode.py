@@ -3,7 +3,7 @@
 Counterpart of mxnet_tpu/serving/decode.py on PyTorch. A prompt is
 *prefilled* once into its session's block of a preallocated KV pool; then
 one fixed-shape *decode step* (q_len = 1) advances every live session by
-one token. The invariants carry over, restated for eager execution:
+one token. The invariants carry over, restated for the port:
 
 * **One fixed-shape step over all ``num_slots`` rows, any occupancy.**
   Sessions join at prefill and leave at EOS / token budget / max_len by
@@ -18,6 +18,18 @@ one token. The invariants carry over, restated for eager execution:
   updates the pool in place (JAX donated it between steps), so one pool
   exists in steady state.
 
+* **Each plan is compiled once.** On the card the step is one CUDA graph
+  and each prompt bucket another, captured into one memory pool and
+  replayed in order on the engine's stream: the step and the smallest
+  bucket at construction, every other bucket at its first use (the JAX
+  engine's AOT-compiled plans). A step's host work is one copy of the
+  (3, N) token/length/active state into the step graph's static input,
+  one replay and one copy of (2, N) next tokens and lengths back. Slot
+  and prompt length reach a prefill graph as device scalars, so neither
+  re-keys it. A capture or replay that fails raises; nothing falls back
+  to eager dispatch. On the CPU a plan calls the model eagerly and is
+  counted as compiled at its first use all the same.
+
 Attention goes through ``ops.attention``: the flash kernel for prefill,
 the decode kernel for steps. A weight with a ``{name}__scale`` companion
 (weight-only int8/fp8 from ``contrib.quantization.calibrate_weights``)
@@ -31,6 +43,8 @@ are identical to one-at-a-time decode.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import threading
@@ -47,9 +61,10 @@ from .. import config as _config
 from ..base import MXNetError
 from ..context import resolve_device
 from ..convert import load_decode_artifact, to_torch_params
+from ..ops import attention as _attention, quantization as _quantization
 from ..ops.attention import decode_attention, flash_attention
 from ..ops.quantization import quantized_matmul
-from ..telemetry import devstats
+from ..telemetry import counter, devstats, gauge, histogram
 from .batcher import Future
 
 __all__ = ["DecodeModel", "DecodeEngine", "Session", "SessionPool",
@@ -72,6 +87,11 @@ def prompt_buckets(max_len, lo=8):
         b *= 2
     buckets.append(int(max_len))
     return buckets
+
+
+def _index1(v, device):
+    """An int or a 0-d integer tensor as a (1,) int64 index on ``device``."""
+    return torch.as_tensor(v, device=device).reshape(1).long()
 
 
 # -- model ------------------------------------------------------------------
@@ -108,12 +128,19 @@ class DecodeModel(nn.Module):
         for i in range(self.layers):
             self.add_module(f"l{i}", nn.Module())
 
+    def config(self):
+        """Manifest-serializable architecture block."""
+        return {"vocab": self.vocab, "layers": self.layers,
+                "d_model": self.d_model, "heads": self.heads,
+                "kv_heads": self.kv_heads, "d_ff": self.d_ff,
+                "max_len": self.max_len}
+
     @classmethod
-    def from_config(cls, cfg):
+    def from_config(cls, cfg, **kw):
         return cls(vocab=cfg["vocab"], layers=cfg["layers"],
                    d_model=cfg["d_model"], heads=cfg["heads"],
                    kv_heads=cfg["kv_heads"], d_ff=cfg["d_ff"],
-                   max_len=cfg["max_len"])
+                   max_len=cfg["max_len"], **kw)
 
     def param_names(self):
         names = ["embed", "pos"]
@@ -213,11 +240,17 @@ class DecodeModel(nn.Module):
         padded to its bucket; positions >= ``true_len`` are pad, which
         causal masking keeps out of every valid row and the decode
         step's length mask keeps dead. Writes K/V for all S_b positions
-        into ``slot`` of kc/vc IN PLACE. Returns (kc, vc, first_token,
-        last_logits) with the logits of row ``true_len - 1`` only."""
+        into ``slot`` of kc/vc IN PLACE. ``true_len`` and ``slot`` are
+        ints or 0-d integer tensors on the cache's device (the engine's
+        plans pass tensors: indexing by them reads nothing back to the
+        host, so one CUDA graph a bucket serves every slot and length).
+        Returns (kc, vc, first_token, last_logits) with the logits of row
+        ``true_len - 1`` only."""
         p = dict(self.named_parameters())
         s_b = tokens.shape[1]
         h, hkv, hd = self.heads, self.kv_heads, self.head_dim
+        slot = _index1(slot, kc[0].device)
+        last = _index1(true_len, tokens.device) - 1
         x = p["embed"][tokens.long()] + p["pos"][None, :s_b]
         for i in range(self.layers):
             pfx = f"l{i}."
@@ -229,11 +262,11 @@ class DecodeModel(nn.Module):
             x = x + self._mm(p, pfx + "wo",
                              a.transpose(1, 2).reshape(1, s_b, h * hd))
             x = self._mlp(p, pfx, x)
-            kc[i][slot, :, :s_b] = k[0]
-            vc[i][slot, :, :s_b] = v[0]
+            kc[i][:, :, :s_b].index_copy_(0, slot, k)
+            vc[i][:, :, :s_b].index_copy_(0, slot, v)
         # logits of the LAST VALID position only: the vocab projection
         # runs on one row, not the bucket
-        xlast = x[0, true_len - 1:true_len]
+        xlast = x[0].index_select(0, last)
         logits = self._mm(p, "head", self._norm(xlast, p["lnf"]))
         tok0 = torch.argmax(logits[0], dim=-1).to(torch.int32)
         return kc, vc, tok0, logits[0]
@@ -361,6 +394,136 @@ class SessionPool:
         self.retired += 1
         return sess
 
+    def active_sessions(self):
+        return dict(self._by_slot)
+
+
+# -- plans ------------------------------------------------------------------
+
+# the launch counters the decode path raises: each kernel wrapper's
+# ``launches`` (raised where it launches its kernel) and the dense route's
+# ``calls``; and the kernel libraries (csrc/<stem>.cu) whose own counts
+# (``_build.launches``) its launches raise
+_COUNTERS = (("flash_attention_fwd", _attention.flash_attention_fwd,
+              "launches"),
+             ("decode_attention", _attention.decode_attention, "launches"),
+             ("quantized_matmul", _quantization.quantized_matmul,
+              "launches"),
+             ("dense_attention", _attention.dense_attention, "calls"))
+_STEMS = ("flash_attention", "decode_attention", "quantized_matmul")
+
+
+def _launch_counts():
+    """{counter: value} of :data:`_COUNTERS` and of each library of
+    :data:`_STEMS` (as ``lib:<stem>``)."""
+    out = {name: getattr(fn, attr) for name, fn, attr in _COUNTERS}
+    out.update({"lib:" + s: _build.launches(s) for s in _STEMS})
+    return out
+
+
+def _add_launches(counts):
+    """Raise the counters of :func:`_launch_counts` by ``counts``: the
+    launches of one graph replay, which passes no wrapper and no launch
+    site."""
+    for name, fn, attr in _COUNTERS:
+        if counts.get(name):
+            setattr(fn, attr, getattr(fn, attr) + counts[name])
+    for stem in _STEMS:
+        if counts.get("lib:" + stem):
+            _build.add_launches(stem, counts["lib:" + stem])
+
+
+class _Plan:
+    """One compiled plan of an engine: ``fn(static_in) -> (out, logits)``
+    over a static int32 input buffer on the device, ``out`` an int32
+    tensor and ``logits`` (rows, vocab).
+
+    On the card the plan is a CUDA graph (:meth:`capture`): its inputs
+    and outputs keep their addresses for the engine's lifetime, so the
+    routes the kernel wrappers chose from addresses and shapes at capture
+    stay right. :meth:`run` copies ``host_in`` (pinned) to the card,
+    replays (or, on the CPU, calls ``fn``) and queues the copy of ``out``
+    into ``host_out``; the caller synchronises before reading it. The
+    plans of one engine share one memory pool, in which one graph's
+    temporaries may lie where another's outputs do: a plan's outputs are
+    copied out before any other plan of its engine runs."""
+
+    def __init__(self, name, fn, in_shape, out_shape, device):
+        cuda = device.type == "cuda"
+        self.name = name
+        self.fn = fn
+        self.device = device
+        self.host_in = torch.zeros(in_shape, dtype=torch.int32,
+                                   pin_memory=cuda)
+        self.host_out = torch.zeros(out_shape, dtype=torch.int32,
+                                    pin_memory=cuda)
+        self.host_logits = None
+        self.static_in = torch.zeros(in_shape, dtype=torch.int32,
+                                     device=device)
+        self.out = self.logits = self.graph = None
+        self.launches = {}          # counter -> launches a replay makes
+        self.replays = 0
+        self.capture_s = 0.0
+        self.peak_bytes = 0
+
+    def capture(self, stream, pool):
+        """A warm-up call on ``stream`` outside any graph (it loads every
+        kernel the plan launches, sizes cuBLAS's workspace for the stream
+        and creates decode attention's arrival counters for it, none of
+        which may happen under capture), then the capture into ``pool``.
+        ``launches`` is what the counters moved by across the capture:
+        launches by other threads during it would be counted with it."""
+        dev = self.device
+        t0 = time.perf_counter()
+        torch.cuda.synchronize(dev)
+        with torch.cuda.stream(stream):
+            self.static_in.copy_(self.host_in, non_blocking=True)
+            self.fn(self.static_in)
+        stream.synchronize()
+        before = _launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            # "thread_local": a capture runs on the engine's loop thread
+            # (a prompt bucket at its first use) while callers' threads
+            # may allocate or synchronise on the card. Under "global"
+            # their calls would fail, or break the capture; a call of
+            # this thread that is unsafe under capture still raises
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                self.out, self.logits = self.fn(self.static_in)
+            finally:
+                graph.capture_end()
+        after = _launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}
+        self.peak_bytes = int(torch.cuda.max_memory_allocated(dev))
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self, rows=()):
+        """Run the plan on ``host_in``; queue ``out`` and the logits
+        ``rows`` to the host (``host_out``, ``host_logits``)."""
+        self.static_in.copy_(self.host_in, non_blocking=True)
+        if self.graph is None:
+            self.out, self.logits = self.fn(self.static_in)
+        else:
+            self.graph.replay()
+            _add_launches(self.launches)
+        self.replays += 1
+        self.host_out.copy_(self.out, non_blocking=True)
+        if rows and self.host_logits is None:
+            self.host_logits = torch.empty(
+                self.logits.shape, dtype=self.logits.dtype,
+                pin_memory=self.device.type == "cuda")
+        for r in rows:
+            # before the next replay overwrites the static logits
+            self.host_logits[r].copy_(self.logits[r], non_blocking=True)
+
+    def release(self):
+        """Drop the graph and its outputs (their pool memory with them)."""
+        self.graph = self.out = self.logits = None
+
 
 # -- engine -----------------------------------------------------------------
 
@@ -369,15 +532,27 @@ class DecodeEngine:
 
     A background loop owns the device state (params, KV pool, per-slot
     token/length/active vectors): it prefills queued sessions into free
-    slots, then runs the decode step while anyone is active. Callers use
-    :meth:`submit` (non-blocking; returns a :class:`Session` whose future
-    resolves to the token list) or :meth:`generate` (blocking).
+    slots, then runs the decode-step plan while anyone is active. Callers
+    use :meth:`submit` (non-blocking; returns a :class:`Session` whose
+    future resolves to the token list) or :meth:`generate` (blocking).
 
     Accepts a (model, params) pair — params a {name: array or tensor}
     dict, or None when the model already holds its parameters — or a
-    decode ``.mxa`` path written by the JAX package. ``device=None`` is
-    the card and raises without CUDA; pass ``device="cpu"`` for the
-    plain versions on the host."""
+    decode ``.mxa`` path (``contrib.export.export_decode_model`` of
+    either package). ``device=None`` is the card and raises without CUDA;
+    pass ``device="cpu"`` for the plain versions on the host.
+
+    Plans (module docstring): ``step_compiles`` stays 1 whatever the
+    occupancy; ``plan_compiles`` counts the step and every prompt bucket
+    compiled; ``plan_resident_bytes`` is the bytes of the CUDA graphs'
+    memory pool after the last capture (0 on the CPU, where no graph
+    exists). The graphs hold the addresses of the model's parameters and
+    of the KV pool: load no other params into the model while the engine
+    is open; :meth:`close` releases them. The engine's series in the
+    telemetry registry are the JAX
+    engine's: ``mxnet_decode_tokens_total``, ``mxnet_decode_kv_occupancy``,
+    ``mxnet_decode_kv_cache_bytes`` and ``mxnet_decode_step_seconds``,
+    labelled ``engine=<name>``."""
 
     def __init__(self, model, params=None, num_slots=None, max_len=None,
                  queue_depth=None, name=None, device=None):
@@ -420,6 +595,11 @@ class DecodeEngine:
         self.pool = SessionPool(self.num_slots, self.max_len,
                                 self.session_bytes, queue_depth)
         self._buckets = prompt_buckets(self.max_len)
+        self._step_plan = None
+        self._prefill_plans = {}
+        self.plan_compiles = 0
+        self.step_compiles = 0      # stays 1: occupancy never re-keys
+        self.plan_resident_bytes = 0
         self.step_executions = 0
         self.prefill_executions = 0
         self.tokens_generated = 0
@@ -429,18 +609,143 @@ class DecodeEngine:
         self._cv = threading.Condition()
         self._closed = False
 
+        # one series per engine name under shared metric names, so
+        # concurrent engines never fight over label sets
+        labels = {"engine": self.name}
+        self._m_tokens = counter(
+            "mxnet_decode_tokens_total",
+            help="greedy tokens emitted across all sessions",
+            labels=labels, series=self.name)
+        self._m_occ = gauge(
+            "mxnet_decode_kv_occupancy",
+            help="KV-pool slots holding a live session", labels=labels,
+            series=self.name)
+        self._m_cache = gauge(
+            "mxnet_decode_kv_cache_bytes",
+            help="bytes preallocated for the KV pool", labels=labels,
+            series=self.name)
+        self._m_step = histogram(
+            "mxnet_decode_step_seconds",
+            help="wall time of one decode-step dispatch", labels=labels,
+            series=self.name)
+        self._m_cache.set(self.cache_bytes)
+        self._m_occ.set(0)
+
+        self._stream = self._pool = None
         if self.device.type == "cuda":
             _build.library("flash_attention")   # builds every kernel
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        self._ensure_step_plan()
+        self._prefill_plan(self._buckets[0])
         self._thread = threading.Thread(target=self._loop,
                                         name=f"{self.name}-loop",
                                         daemon=True)
         self._thread.start()
+
+    # -- plans --------------------------------------------------------------
+
+    def _pool_bytes(self):
+        """Bytes of the segments the graphs' memory pool holds."""
+        if self._pool is None:
+            return 0
+        pid = tuple(self._pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if seg["device"] == self.device.index
+                   and tuple(seg["segment_pool_id"]) == pid)
+
+    def _compile(self, plan, label):
+        """Capture ``plan`` (on the card) and account for it, as the JAX
+        engine's ``_record_plan``: record it, preflight its peak against
+        what the plans already hold, note the compile."""
+        if self._stream is not None:
+            plan.capture(self._stream, self._pool)
+        self.plan_compiles += 1
+        pool = self._pool_bytes()
+        if devstats.enabled():
+            pname = f"{self.name}.{label}"
+            devstats.record_program(
+                pname, {"peak_bytes": plan.peak_bytes,
+                        "resident_bytes": pool - self.plan_resident_bytes},
+                kind="serving")
+            devstats.preflight(pname, plan.peak_bytes,
+                               resident_bytes=self.plan_resident_bytes,
+                               what="decode plan", device=self.device)
+            devstats.note_compile(pname)
+        self.plan_resident_bytes = pool
+
+    def _step_fn(self, state):
+        _, _, nxt, new_len, logits = self.model.step(
+            self._k, self._v, state[0], state[1], state[2].bool())
+        return torch.stack([nxt, new_len]), logits
+
+    def _prefill_fn(self, bucket, inp):
+        # inp: the bucket's tokens, then the true length, then the slot
+        _, _, tok0, logits = self.model.prefill(
+            self._k, self._v, inp[:bucket].view(1, bucket), inp[bucket],
+            inp[bucket + 1])
+        return tok0.reshape(1), logits.reshape(1, -1)
+
+    def _ensure_step_plan(self):
+        if self._step_plan is None:
+            n = self.num_slots
+            plan = _Plan(f"{self.name}.step", self._step_fn, (3, n), (2, n),
+                         self.device)
+            self._compile(plan, "step")
+            self.step_compiles += 1
+            self._step_plan = plan
+        return self._step_plan
+
+    def _prefill_plan(self, bucket, slot=0):
+        """The plan of prompt bucket ``bucket``, compiled at its first
+        use; the warm-up call ahead of its capture writes a one-token
+        prompt into ``slot``, which must hold no live session (the slot
+        being prefilled: its prefill then overwrites it)."""
+        plan = self._prefill_plans.get(bucket)
+        if plan is None:
+            plan = _Plan(f"{self.name}.prefill.b{bucket}",
+                         functools.partial(self._prefill_fn, bucket),
+                         (bucket + 2,), (1,), self.device)
+            plan.host_in[bucket] = 1
+            plan.host_in[bucket + 1] = slot
+            self._compile(plan, "prefill.b%d" % bucket)
+            self._prefill_plans[bucket] = plan
+        return plan
 
     def _bucket_for(self, n):
         for b in self._buckets:
             if b >= n:
                 return b
         return self._buckets[-1]
+
+    def _stream_ctx(self):
+        return contextlib.nullcontext() if self._stream is None \
+            else torch.cuda.stream(self._stream)
+
+    def _sync(self):
+        if self._stream is not None:
+            self._stream.synchronize()
+
+    def plans(self):
+        """One record a compiled plan: name, capture seconds, peak bytes,
+        replays, and the launches one replay makes by counter (empty on
+        the CPU)."""
+        plans = [self._step_plan] + [self._prefill_plans[b]
+                                     for b in sorted(self._prefill_plans)]
+        return [{"name": p.name, "graph": p.graph is not None,
+                 "capture_s": p.capture_s, "peak_bytes": p.peak_bytes,
+                 "replays": p.replays, "launches": dict(p.launches)}
+                for p in plans]
+
+    def graph_launches(self):
+        """{"captured": launches recorded in the graphs (each graph once),
+        "replayed": launches their replays made}, by counter."""
+        cap, rep = {}, {}
+        for p in [self._step_plan, *self._prefill_plans.values()]:
+            for k, n in p.launches.items():
+                cap[k] = cap.get(k, 0) + n
+                rep[k] = rep.get(k, 0) + n * p.replays
+        return {"captured": cap, "replayed": rep}
 
     # -- public API ---------------------------------------------------------
 
@@ -498,9 +803,15 @@ class DecodeEngine:
                 "tokens_per_s": self.tokens_generated / dt,
                 "step_executions": self.step_executions,
                 "prefill_executions": self.prefill_executions,
+                "plan_compiles": self.plan_compiles,
+                "plan_resident_bytes": self.plan_resident_bytes,
                 "session_cache_bytes": self.session_bytes,
                 "kv_cache_bytes": self.cache_bytes,
                 "params_bytes": self.params_bytes}
+
+    def resident_bytes(self):
+        return self.cache_bytes + self.params_bytes \
+            + self.plan_resident_bytes
 
     def close(self, drain=True):
         with self._cv:
@@ -514,6 +825,9 @@ class DecodeEngine:
                         RuntimeError("DecodeEngine closed"))
             self._cv.notify_all()
         self._thread.join(timeout=60.0)
+        if not self._thread.is_alive():
+            for plan in [self._step_plan, *self._prefill_plans.values()]:
+                plan.release()
 
     def __enter__(self):
         return self
@@ -524,6 +838,12 @@ class DecodeEngine:
     # -- decode loop --------------------------------------------------------
 
     def _loop(self):
+        # every plan runs on the engine's stream, one after another (the
+        # graphs share one memory pool)
+        with self._stream_ctx():
+            self._serve_forever()
+
+    def _serve_forever(self):
         while True:
             with self._cv:
                 while (not self.pool._pending and not self.pool._by_slot
@@ -533,6 +853,7 @@ class DecodeEngine:
                         and not self.pool._by_slot):
                     return
                 newly = self.pool.assign()
+                self._m_occ.set(self.pool.occupancy())
             for sess in newly:
                 try:
                     self._do_prefill(sess)
@@ -554,42 +875,50 @@ class DecodeEngine:
         with self._cv:
             self.pool.retire(sess.slot)
             self._active[sess.slot] = False
+            self._m_occ.set(self.pool.occupancy())
         sess.future._set_exception(exc)
 
     def _do_prefill(self, sess):
-        bucket = self._bucket_for(len(sess.prompt))
-        toks = np.zeros((1, bucket), np.int64)
-        toks[0, :len(sess.prompt)] = sess.prompt
-        _, _, tok0, logits = self.model.prefill(
-            self._k, self._v, torch.from_numpy(toks).to(self.device),
-            len(sess.prompt), sess.slot)
+        n, slot = len(sess.prompt), sess.slot
+        bucket = self._bucket_for(n)
+        plan = self._prefill_plan(bucket, slot)
+        inp = plan.host_in.numpy()
+        inp[:] = 0
+        inp[:n] = sess.prompt
+        inp[bucket], inp[bucket + 1] = n, slot
+        plan.run((0,) if sess.logits is not None else ())
+        self._sync()
         self.prefill_executions += 1
-        tok0 = int(tok0)
-        slot = sess.slot
+        tok0 = int(plan.host_out[0])
         self._tokens[slot] = tok0
-        self._lengths[slot] = len(sess.prompt)
+        self._lengths[slot] = n
         self._active[slot] = True
         if sess.logits is not None:
-            sess.logits.append(logits.float().cpu().numpy())
+            sess.logits.append(plan.host_logits[0].float().numpy().copy())
         self._emit(sess, tok0)
 
     def _do_step(self):
-        state = torch.from_numpy(np.stack(
-            [self._tokens, self._lengths,
-             self._active.astype(np.int32)])).to(self.device)
-        _, _, nxt, new_len, logits = self.model.step(
-            self._k, self._v, state[0], state[1], state[2].bool())
-        out = torch.stack([nxt, new_len]).cpu().numpy()
-        self.step_executions += 1
+        t0 = time.perf_counter()
+        with self._cv:
+            live = [(slot, s) for slot, s in self.pool._by_slot.items()
+                    if self._active[slot]]
+        rows = [slot for slot, s in live if s.logits is not None]
+        plan = self._ensure_step_plan()
+        state = plan.host_in.numpy()
+        state[0], state[1], state[2] = \
+            self._tokens, self._lengths, self._active
+        plan.run(rows)
+        self._sync()
+        out = plan.host_out.numpy()
         self._tokens = out[0].copy()
         self._lengths = out[1].copy()
-        with self._cv:
-            live = list(self.pool._by_slot.items())
+        self.step_executions += 1
+        self._m_step.observe(time.perf_counter() - t0)
         for slot, sess in live:
-            if self._active[slot]:
-                if sess.logits is not None:
-                    sess.logits.append(logits[slot].float().cpu().numpy())
-                self._emit(sess, int(self._tokens[slot]))
+            if sess.logits is not None:
+                sess.logits.append(
+                    plan.host_logits[slot].float().numpy().copy())
+            self._emit(sess, int(self._tokens[slot]))
 
     def _emit(self, sess, tok):
         """Record one generated token; retire the session when its stream
@@ -597,6 +926,7 @@ class DecodeEngine:
         sess.tokens.append(tok)
         sess.t_emit.append(time.perf_counter())
         self.tokens_generated += 1
+        self._m_tokens.inc()
         done = (len(sess.tokens) >= sess.max_new
                 or (sess.eos_id is not None and tok == sess.eos_id)
                 # the next step would write this token's K/V at position
@@ -606,6 +936,7 @@ class DecodeEngine:
             with self._cv:
                 self.pool.retire(sess.slot)
                 self._active[sess.slot] = False
+                self._m_occ.set(self.pool.occupancy())
             sess.t_done = time.monotonic()
             self.sessions_done += 1
             sess.future._set(list(sess.tokens))
@@ -655,6 +986,7 @@ def _selftest(sessions=8, new_tokens=40, stagger_ms=1.0, device=None):
             "batched_tokens_per_s": conc_tps,
             "speedup": conc_tps / seq_tps,
             "step_executions": stats["step_executions"],
+            "plan_compiles": stats["plan_compiles"],
             "kv_cache_bytes": stats["kv_cache_bytes"],
             "ok": bool(identical and conc_tps > seq_tps)}
 

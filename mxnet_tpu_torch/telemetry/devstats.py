@@ -1,17 +1,42 @@
-"""Device-memory preflight (subset of mxnet_tpu/telemetry/devstats.py).
+"""Device-memory preflight, plan accounting and the recompile sentinel
+(subset of mxnet_tpu/telemetry/devstats.py).
 
-Only the admission check carries over: a KV pool plus weights that cannot
-fit the card fails at construction with a sized error instead of running
-out of memory mid-request. XLA cost analysis and plan accounting have no
-counterpart yet.
+* **Preflight**: a KV pool plus weights, or a plan, that cannot fit the
+  card fails with a sized error (:class:`HBMPreflightError`) instead of
+  running out of memory mid-request.
+* **Plan accounting** (:func:`record_program`, :func:`program_stats`,
+  :func:`counters`): each compiled plan (the decode engine's CUDA graphs)
+  records its name, kind, peak bytes (the caching allocator's peak across
+  its capture) and resident bytes (what its capture added to the graphs'
+  memory pool).
+* **Recompile sentinel** (:func:`note_compile`): compiles per plan, and a
+  warning once one plan passes ``MXNET_DEVSTATS_RECOMPILE_LIMIT``.
+
+The JAX package also records each program's FLOPs and bytes accessed from
+XLA's cost analysis. A CUDA graph carries no such analysis and PyTorch
+offers none for eager kernels, so those fields are absent here until the
+port has a source for them.
 """
 from __future__ import annotations
 
+import logging
 import os
+import threading
 
 from .. import config
+from .registry import counter as _counter
 
-__all__ = ["HBMPreflightError", "enabled", "hbm_budget", "preflight"]
+__all__ = ["HBMPreflightError", "enabled", "hbm_budget", "preflight",
+           "record_program", "program_stats", "note_compile", "counters",
+           "recompile_limit"]
+
+log = logging.getLogger("mxnet_tpu_torch.devstats")
+
+_LOCK = threading.RLock()
+_PROGRAMS = {}       # name -> stats dict (peak/resident bytes + "kind")
+_COMPILES = {}       # name -> compiles observed (sentinel input)
+_STORMED = set()     # programs whose storm already fired
+_STORMS = [0]
 
 
 class HBMPreflightError(RuntimeError):
@@ -22,6 +47,12 @@ class HBMPreflightError(RuntimeError):
 def enabled():
     """Live MXNET_DEVSTATS flag (default on; ``0`` is fully inert)."""
     return bool(config.get("MXNET_DEVSTATS"))
+
+
+def recompile_limit():
+    """Sentinel threshold: compiles of one plan past this warn
+    (``MXNET_DEVSTATS_RECOMPILE_LIMIT``, <= 0 disables)."""
+    return int(config.get("MXNET_DEVSTATS_RECOMPILE_LIMIT"))
 
 
 def hbm_budget(device=None):
@@ -49,18 +80,87 @@ def _mib(n):
     return "%d B" % int(n)
 
 
-def preflight(name, need_bytes, what="plan", device=None):
-    """Check an estimated footprint against the budget of ``device``
-    *before* allocating. Returns headroom bytes (None when no budget is
+def preflight(name, need_bytes, resident_bytes=0, budget=None, what="plan",
+              device=None):
+    """Check an estimated footprint (``need_bytes`` on top of
+    ``resident_bytes`` already held) against the budget (``budget``, else
+    that of ``device``). Returns headroom bytes (None when no budget is
     known); raises :class:`HBMPreflightError` when it does not fit."""
-    budget = hbm_budget(device)
+    if budget is None:
+        budget = hbm_budget(device)
     if budget is None:
         return None
-    need = int(need_bytes)
-    if need > budget:
+    total = int(need_bytes) + int(resident_bytes)
+    if total > budget:
         raise HBMPreflightError(
-            "HBM preflight: %s %r needs %s but the device memory budget "
-            "is %s — over by %s. Shrink the pool, or raise "
-            "MXNET_DEVSTATS_HBM_BYTES if the budget is wrong."
-            % (what, name, _mib(need), _mib(budget), _mib(need - budget)))
-    return budget - need
+            "HBM preflight: %s %r needs %s (estimated peak %s + %s "
+            "already resident) but the device memory budget is %s — "
+            "over by %s. Shrink the batch/bucket, evict cached plans, "
+            "or raise MXNET_DEVSTATS_HBM_BYTES if the budget is wrong."
+            % (what, name, _mib(total), _mib(need_bytes),
+               _mib(resident_bytes), _mib(budget), _mib(total - budget)))
+    return budget - total
+
+
+# -- plan accounting ----------------------------------------------------------
+
+def record_program(name, stats, kind="program"):
+    """Record one plan's stats (``peak_bytes``, ``resident_bytes``) under
+    ``name``; returns them. Last write wins."""
+    with _LOCK:
+        _PROGRAMS[name] = dict(stats, kind=kind)
+    return stats
+
+
+def program_stats(name=None):
+    """Snapshot of recorded plan stats (one dict, or all)."""
+    with _LOCK:
+        if name is not None:
+            s = _PROGRAMS.get(name)
+            return dict(s) if s else None
+        return {k: dict(v) for k, v in _PROGRAMS.items()}
+
+
+def _rec_counter():
+    return _counter("mxnet_recompiles_total",
+                    "plan compiles (graph captures) noted by devstats")
+
+
+def note_compile(name, n=1):
+    """Count ``n`` compiles of plan ``name``; warn once when the plan's
+    total crosses :func:`recompile_limit`."""
+    if n <= 0:
+        return
+    _rec_counter().inc(n)
+    limit = recompile_limit()
+    storm = False
+    with _LOCK:
+        c = _COMPILES.get(name, 0) + n
+        _COMPILES[name] = c
+        if 0 < limit < c and name not in _STORMED:
+            _STORMED.add(name)
+            _STORMS[0] += 1
+            storm = True
+    if storm:
+        log.warning(
+            "devstats: recompile storm — plan %r compiled %d times "
+            "(limit %d). Shape churn is defeating the plan cache; pad or "
+            "bucket inputs. (MXNET_DEVSTATS_RECOMPILE_LIMIT)",
+            name, c, limit)
+
+
+def counters():
+    """Plan accounting as one dict: plan count, storms, the budget,
+    compiles by plan, and ``peak_bytes`` / ``resident_bytes`` by plan."""
+    with _LOCK:
+        progs = {k: dict(v) for k, v in _PROGRAMS.items()}
+        compiles = dict(_COMPILES)
+        storms = _STORMS[0]
+    out = {"programs": len(progs), "recompile_storms": storms,
+           "hbm_budget_bytes": hbm_budget() or 0, "recompiles": compiles}
+    for stat in ("peak_bytes", "resident_bytes"):
+        series = {n: s.get(stat, 0) for n, s in progs.items()}
+        if series:
+            out[stat] = series
+    return out
+

@@ -779,3 +779,148 @@ def test_flash_kernels_take_any_scale(dev, dt, scale):
         else:
             assert U.half_units(a, r, t) <= 2
     _close(lse, rlse)
+
+
+# -- the decode engine's CUDA graphs ------------------------------------------
+
+# head dim 64; 8 slots over 2 kv heads make 16 decode blocks, so decode
+# attention splits the pool (partials, arrival counters) inside the graph
+GRAPH_CFG = dict(vocab=512, layers=2, d_model=256, heads=4, kv_heads=2,
+                 d_ff=512, max_len=256)
+
+
+def _graph_engine(dev, quant, name, slots=8):
+    from mxnet_tpu_torch.contrib.quantization import calibrate_weights
+    from mxnet_tpu_torch.serving.decode import DecodeEngine, DecodeModel
+    model = DecodeModel(**GRAPH_CFG)
+    params = model.init_params(seed=0)
+    if quant:
+        params, _ = calibrate_weights(params, quant)
+    return DecodeEngine(model, params, num_slots=slots, name=name,
+                        device=dev)
+
+
+def _fill_pool(eng, seed):
+    g = torch.Generator(device=eng.device).manual_seed(seed)
+    for t in eng._k + eng._v:
+        t.normal_(generator=g)
+    torch.cuda.synchronize()
+
+
+def _step_state(dev, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, GRAPH_CFG["vocab"], (n,), generator=g,
+                         device=dev, dtype=torch.int32)
+    lens = torch.randint(0, GRAPH_CFG["max_len"], (n,), generator=g,
+                         device=dev, dtype=torch.int32)
+    act = (torch.arange(n, device=dev) % 3 != 2).to(torch.int32)
+    return toks, lens, act
+
+
+@pytest.mark.parametrize("quant", [None, "int8"], ids=["f32", "int8"])
+def test_step_graph_replay_is_bitwise_the_eager_step(dev, quant):
+    from mxnet_tpu_torch.ops import attention as A
+    with _graph_engine(dev, quant, f"cg-step-{quant}") as eng:
+        plan = eng._step_plan
+        assert plan.graph is not None and eng.step_compiles == 1
+        _fill_pool(eng, 1)
+        toks, lens, act = _step_state(dev, eng.num_slots, 2)
+        kc = [t.clone() for t in eng._k]
+        vc = [t.clone() for t in eng._v]
+        _, _, nxt, new_len, logits = eng.model.step(kc, vc, toks, lens,
+                                                    act.bool())
+        torch.cuda.synchronize()
+        plan.host_in.copy_(torch.stack([toks, lens, act]).cpu())
+        rows = list(range(eng.num_slots))
+        for _ in range(2):          # a second replay gives the same bits
+            with torch.cuda.stream(eng._stream):
+                plan.run(rows)
+            eng._stream.synchronize()
+            assert torch.equal(plan.host_out, torch.stack([nxt, new_len])
+                               .cpu())
+            assert torch.equal(plan.logits, logits)
+            assert torch.equal(plan.host_logits, logits.cpu())
+            for a, b in zip(eng._k + eng._v, kc + vc):
+                assert torch.equal(a, b)
+            assert all(not t.any() for t in A._ARRIVALS.values())
+
+
+def test_prefill_graph_replays_for_two_slots_and_two_lengths(dev):
+    with _graph_engine(dev, None, "cg-prefill", slots=4) as eng:
+        _fill_pool(eng, 3)
+        plan = eng._prefill_plan(32, slot=2)
+        assert plan.graph is not None and eng.plan_compiles == 3
+        g = torch.Generator().manual_seed(4)
+        for slot, n in ((1, 17), (3, 32)):
+            toks = torch.zeros(32, dtype=torch.int32)
+            toks[:n] = torch.randint(0, GRAPH_CFG["vocab"], (n,), generator=g,
+                                     dtype=torch.int32)
+            kc = [t.clone() for t in eng._k]
+            vc = [t.clone() for t in eng._v]
+            _, _, tok0, logits = eng.model.prefill(
+                kc, vc, toks.view(1, 32).to(dev), n, slot)
+            torch.cuda.synchronize()
+            plan.host_in.copy_(torch.cat([toks, torch.tensor(
+                [n, slot], dtype=torch.int32)]))
+            with torch.cuda.stream(eng._stream):
+                plan.run((0,))
+            eng._stream.synchronize()
+            assert int(plan.host_out[0]) == int(tok0)
+            assert torch.equal(plan.host_logits[0], logits.cpu())
+            for a, b in zip(eng._k + eng._v, kc + vc):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("quant", [None, "int8"], ids=["f32", "int8"])
+def test_graph_launches_are_the_eager_launches_on_every_replay(dev, quant):
+    from mxnet_tpu_torch.serving.decode import _launch_counts
+    with _graph_engine(dev, quant, f"cg-count-{quant}") as eng:
+        plan = eng._step_plan
+        toks, lens, act = _step_state(dev, eng.num_slots, 5)
+        c0 = _launch_counts()
+        eng.model.step([t.clone() for t in eng._k],
+                       [t.clone() for t in eng._v], toks, lens, act.bool())
+        torch.cuda.synchronize()
+        c1 = _launch_counts()
+        eager = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+        assert plan.launches == eager
+        assert eager["decode_attention"] == GRAPH_CFG["layers"]
+        assert eager["lib:decode_attention"] == GRAPH_CFG["layers"]
+        assert eager.get("quantized_matmul", 0) == \
+            (6 * GRAPH_CFG["layers"] + 1 if quant else 0)
+        plan.host_in.copy_(torch.stack([toks, lens, act]).cpu())
+        before = eng.graph_launches()["replayed"]
+        with torch.cuda.stream(eng._stream):
+            for _ in range(5):
+                plan.run()
+        eng._stream.synchronize()
+        c2 = _launch_counts()
+        assert {k: c2[k] - c1[k] for k in c2 if c2[k] != c1[k]} == \
+            {k: 5 * n for k, n in eager.items()}
+        after = eng.graph_launches()["replayed"]
+        assert {k: after[k] - before.get(k, 0) for k in after
+                if after[k] != before.get(k, 0)} == \
+            {k: 5 * n for k, n in eager.items()}
+
+
+def test_engine_serves_through_graphs(dev):
+    from mxnet_tpu_torch.ops import attention as A
+    with _graph_engine(dev, "int8", "cg-serve", slots=4) as eng:
+        dense = A.dense_attention.calls
+        sessions = [eng.submit(list(range(1, n + 1)), max_new_tokens=6)
+                    for n in (3, 20, 40, 9, 100)]
+        outs = [s.result(timeout=300) for s in sessions]
+        assert all(len(o) == 6 for o in outs)
+        assert eng.step_compiles == 1
+        # the step, and buckets 8, 32, 64, 16, 128
+        assert eng.plan_compiles == 1 + 5
+        assert all(p["graph"] for p in eng.plans())
+        assert eng.plan_resident_bytes == eng._pool_bytes() > 0
+        assert eng.resident_bytes() == (eng.cache_bytes + eng.params_bytes
+                                        + eng.plan_resident_bytes)
+        rep = eng.graph_launches()["replayed"]
+        for k in ("flash_attention_fwd", "decode_attention",
+                  "quantized_matmul"):
+            assert rep[k] > 0, k
+        assert A.dense_attention.calls == dense
+        assert all(not t.any() for t in A._ARRIVALS.values())

@@ -57,7 +57,11 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.initializer, "
             "mxnet_tpu_torch.random, mxnet_tpu_torch.ops.nn, "
             "mxnet_tpu_torch.ops.conv_fused, mxnet_tpu_torch.rtc, "
-            "mxnet_tpu_torch.ndarray.container\n"
+            "mxnet_tpu_torch.ndarray.container, mxnet_tpu_torch.telemetry, "
+            "mxnet_tpu_torch.telemetry.registry, "
+            "mxnet_tpu_torch.telemetry.exporter, "
+            "mxnet_tpu_torch.telemetry.devstats, "
+            "mxnet_tpu_torch.contrib.export\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'mxnet_tpu')]\n"
             "print(bad)\n"
