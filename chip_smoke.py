@@ -95,6 +95,7 @@ can be measured by the same script on one card: run the parent's and
 the change's trees in turn, parent, change, change, parent. It prints
 the phases' lines and ``{"ok": ..., "phases": [...]}``.
 """
+import contextlib
 import json
 import math
 import os
@@ -230,6 +231,62 @@ LOGIT_RTOL = 1e-3
 # (1.98 GHz), so the spin outlasts the enqueue it covers
 SPIN_HZ = 2e9
 
+# the symbolic training path (Module.fit). ResNet-50 v1 at bench.py's
+# flagship lane: batch 128, 224 x 224, float32, SGD lr 0.05 momentum 0.9
+# rescale_grad 1 / 128, synthetic data from seed 0, 2 warm-up and 5 timed
+# steps. LeNet as examples/train_mnist.py runs it: tanh LeNet (500 hidden
+# units), its synthetic digits (n 2048, seed 0, 7/8 for training), batch
+# 64, 8 epochs, lr 0.3, momentum 0.9, rescale_grad 1 / 64.
+R50_BATCH = 128
+R50_IMG = 224
+R50_WARMUP = 2
+R50_STEPS = 5
+R50_LR = 0.05
+R50_CHECK_BATCH = 2     # the card-against-CPU check's batch
+LENET_N = 2048
+LENET_BATCH = 64
+LENET_EPOCHS = 8
+LENET_LR = 0.3
+LENET_BAR = 0.9         # examples/train_mnist.py's validation bar
+LENET_CHECK_STEPS = 10  # steps held against the port on the CPU
+# card against the port on the CPU from the same initial parameters: both
+# float32 (the convolutions without TF32, the matmuls without TF32), so
+# only the summation order differs (cuDNN / cuBLAS against oneDNN / MKL).
+# LeNet after 10 SGD steps: every parameter within MODULE_RTOL of its
+# tensor's largest magnitude. ResNet-50 at batch 2, one forward and
+# backward from the same parameters, in two checks:
+# * float64 on the card and on the CPU: every tensor (output, each
+#   gradient, each moving statistic) within R50_F64_RTOL of its largest
+#   magnitude (float64 sums in another order through 53 layers; cuDNN's
+#   float64 kernels); this holds every op of the path on the card;
+# * float32 on the card and on the CPU, each against the float64 step:
+#   the output's error on the card within R50_F32_FACTOR times the CPU's
+#   (plus R50_F32_FLOOR); the gradients' norm-wise errors, median and
+#   largest over the tensors, within R50_F32_FACTOR times the CPU's. Not
+#   tensor by tensor: at batch 2 a ReLU that lands on the other side of 0
+#   in another summation order moves a whole BatchNorm channel of 98
+#   values (2 x 7 x 7): two CPU runs (8 threads and 1) differ by up to
+#   1.1% norm-wise and 9% of a tensor's largest element, and each lies up
+#   to 2.6% norm-wise from the float64 step.
+#   A whole step in TF32 must fail this rule: the script runs it (the
+#   control: the port's per-call guard off, TF32 allowed in cuDNN and
+#   cuBLAS) through the same check, and fails unless the check rejects
+#   it. On an H100 the control's median norm-wise error read 34% against
+#   the float32 step's 1.2% and the CPU's 0.68%. A TF32 convolution also
+#   shows in the stem check against float64 (CONV_F64_RTOL).
+MODULE_RTOL = 1e-4
+R50_F64_RTOL = 1e-9
+R50_F32_FACTOR = 4
+R50_F32_FLOOR = 1e-6
+# the stem convolution (7 x 7 / 2, batch 2 at 224) through the registered
+# op against float64: its output (sums of 147 products) within
+# CONV_F64_RTOL and its weight gradient (sums of 2 x 112 x 112 products)
+# within CONV_F64_DW_RTOL of their largest magnitude; TF32 products
+# (10-bit mantissas) land near 1e-3, as the script's control (cuDNN with
+# TF32 allowed) reports beside them
+CONV_F64_RTOL = 1e-5
+CONV_F64_DW_RTOL = 1e-4
+
 RECORD = {}
 DEV = "cuda"
 
@@ -321,6 +378,116 @@ def launches_per_call(call, stem):
     return count() - n0
 
 
+# -- symbols of the symbolic path (importable without a card) ----------------
+
+def resnet_v1_symbol(sym, layers=(3, 4, 6, 3),
+                     channels=(64, 256, 512, 1024, 2048), classes=1000,
+                     prefix="resnetv10_"):
+    """ResNet v1 with bottlenecks as the model zoo builds it
+    (mxnet_tpu/gluon/model_zoo/vision/resnet.py: ResNetV1 with
+    BottleneckV1), as a Symbol of the package ``sym`` (the port's
+    ``mx.sym``, or the JAX package's for the parity tests), with the zoo's
+    parameter names and attrs: a 7 x 7 / 2 stem without bias, BatchNorm
+    (fix_gamma False, eps 1e-5, momentum 0.9), max-pool 3 / 2 / 1; each
+    bottleneck a 1 x 1 conv with bias (the stride), a 3 x 3 without, a
+    1 x 1 with bias, and a 1 x 1 downsample without bias where the width
+    or stride changes; global average pooling, FullyConnected(classes),
+    SoftmaxOutput. Defaults: ResNet-50 (layers 3, 4, 6, 3)."""
+    count = {}
+
+    def name(scope, kind):
+        n = count.get((scope, kind), 0)
+        count[(scope, kind)] = n + 1
+        return f"{scope}{kind}{n}"
+
+    def var(n, init=None):
+        # the zoo's parameters carry their own initializers (__init__)
+        return sym.Variable(n, init=None if init is None
+                            else '["%s", {}]' % init)
+
+    def conv(x, scope, ch, k, stride, pad, bias):
+        n = name(scope, "conv")
+        kw = {"weight": var(n + "_weight")}
+        if bias:
+            kw["bias"] = var(n + "_bias", "zero")
+        return sym.Convolution(x, kernel=(k, k), stride=(stride, stride),
+                               dilate=(1, 1), pad=(pad, pad), num_filter=ch,
+                               num_group=1, no_bias=not bias,
+                               name=n + "_fwd", **kw)
+
+    def bn(x, scope):
+        n = name(scope, "batchnorm")
+        return sym.BatchNorm(
+            x, gamma=var(n + "_gamma", "one"), beta=var(n + "_beta", "zero"),
+            moving_mean=var(n + "_running_mean", "zero"),
+            moving_var=var(n + "_running_var", "one"), axis=1, eps=1e-5,
+            momentum=0.9, fix_gamma=False, use_global_stats=False,
+            name=n + "_fwd")
+
+    def relu(x, scope):
+        return sym.Activation(x, act_type="relu",
+                              name=name(scope, "relu") + "_fwd")
+
+    x = sym.Variable("data")
+    x = relu(bn(conv(x, prefix, channels[0], 7, 2, 3, False), prefix),
+             prefix)
+    x = sym.Pooling(x, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                    global_pool=False, pool_type="max",
+                    pooling_convention="valid", name=prefix + "pool0_fwd")
+    for i, n_blocks in enumerate(layers):
+        scope = f"{prefix}stage{i + 1}_"
+        ch = channels[i + 1]
+        for b in range(n_blocks):
+            stride = (1 if i == 0 else 2) if b == 0 else 1
+            body = relu(bn(conv(x, scope, ch // 4, 1, stride, 0, True),
+                           scope), scope)
+            body = relu(bn(conv(body, scope, ch // 4, 3, 1, 1, False),
+                           scope), scope)
+            body = bn(conv(body, scope, ch, 1, 1, 0, True), scope)
+            res = x
+            if b == 0 and channels[i] != ch:
+                res = bn(conv(x, scope, ch, 1, stride, 0, False), scope)
+            x = relu(sym.elemwise_add(body, res,
+                                      name=name(scope, "add") + "_fwd"),
+                     scope)
+    x = sym.Pooling(x, kernel=(1, 1), stride=(1, 1), pad=(0, 0),
+                    global_pool=True, pool_type="avg",
+                    pooling_convention="full", name=prefix + "pool1_fwd")
+    x = sym.FullyConnected(x, weight=var(prefix + "dense0_weight"),
+                           bias=var(prefix + "dense0_bias", "zero"),
+                           num_hidden=classes, flatten=True,
+                           name=prefix + "dense0_fwd")
+    return sym.SoftmaxOutput(x, name="softmax")
+
+
+def lenet_symbol(sym):
+    """examples/train_mnist.py's LeNet (tanh, 500 hidden units)."""
+    data = sym.Variable("data")
+    net = sym.Convolution(data, kernel=(5, 5), num_filter=20, name="c1")
+    net = sym.Activation(net, act_type="tanh")
+    net = sym.Pooling(net, pool_type="max", kernel=(2, 2), stride=(2, 2))
+    net = sym.Convolution(net, kernel=(5, 5), num_filter=50, name="c2")
+    net = sym.Activation(net, act_type="tanh")
+    net = sym.Pooling(net, pool_type="max", kernel=(2, 2), stride=(2, 2))
+    net = sym.FullyConnected(sym.Flatten(net), num_hidden=500, name="f1")
+    net = sym.Activation(net, act_type="tanh")
+    net = sym.FullyConnected(net, num_hidden=10, name="f2")
+    return sym.SoftmaxOutput(net, name="softmax")
+
+
+def synthetic_mnist(n=2048, seed=0):
+    """examples/train_mnist.py's separable synthetic digits (copied: the
+    card's machine runs the port alone): class-dependent stripes."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, 10, n)
+    x = rng.normal(0, 0.3, (n, 1, 28, 28)).astype(np.float32)
+    for i in range(n):
+        x[i, 0, (y[i] * 2 + 2) % 26] += 2.0     # class-indexed bright row
+        x[i, 0, :, (y[i] + 3) % 26] += 1.0
+    return x, y.astype(np.float32)
+
+
 # -- phases -------------------------------------------------------------------
 
 def phase_device():
@@ -331,7 +498,8 @@ def phase_device():
     return {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
             "count": torch.cuda.device_count(), "torch": torch.__version__,
             "cuda": torch.version.cuda,
-            "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
 
 
 def phase_build():
@@ -2055,13 +2223,419 @@ def phase_rtc():
     return res
 
 
+def _free_card():
+    import gc
+    import torch
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _rel_err(got, ref):
+    """max |got - ref| over the reference's largest magnitude (numpy)."""
+    import numpy as np
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(got - ref).max() / max(1e-30, np.abs(ref).max()))
+
+
+def _ctx():
+    import mxnet_tpu_torch as mx
+    return mx.gpu(0) if DEV == "cuda" else mx.cpu()
+
+
+def _lenet_iters(mx, shuffle):
+    x, y = synthetic_mnist(LENET_N, SEED)
+    split = LENET_N * 7 // 8
+    import numpy as np
+    np.random.seed(SEED)                # NDArrayIter shuffles by np.random
+    train = mx.io.NDArrayIter(x[:split], y[:split], LENET_BATCH,
+                              shuffle=shuffle, label_name="softmax_label")
+    val = mx.io.NDArrayIter(x[split:], y[split:], LENET_BATCH,
+                            label_name="softmax_label")
+    return train, val
+
+
+def phase_module_lenet():
+    """examples/train_mnist.py's LeNet through Module.fit on the card
+    (validation accuracy, seconds an epoch, samples/s), after its first
+    LENET_CHECK_STEPS SGD steps are held against the port on the CPU from
+    the same initial parameters."""
+    import time
+    import torch
+    import mxnet_tpu_torch as mx
+    _free_card()
+    opt = {"learning_rate": LENET_LR, "momentum": 0.9,
+           "rescale_grad": 1.0 / LENET_BATCH}
+    # 1. card against CPU, unshuffled, from the CPU module's parameters
+    train, _ = _lenet_iters(mx, shuffle=False)
+    mods = []
+    for ctx in (_ctx(), mx.cpu()):
+        with mx.NameManager():
+            m = mx.mod.Module(lenet_symbol(mx.sym), context=ctx)
+        m.bind(data_shapes=train.provide_data,
+               label_shapes=train.provide_label)
+        mods.append(m)
+    card, host = mods
+    mx.random.seed(SEED)
+    host.init_params(mx.init.Uniform(0.01))
+    card.set_params(*host.get_params())
+    for m in mods:
+        m.init_optimizer(optimizer="sgd", optimizer_params=opt)
+    batches = iter(train)
+    for _ in range(LENET_CHECK_STEPS):
+        b = next(batches)
+        for m in mods:
+            m.forward_backward(b)
+            m.update()
+    ca, ha = card.get_params()[0], host.get_params()[0]
+    check = {n: _rel_err(ca[n].asnumpy(), ha[n].asnumpy()) for n in ha}
+    del mods, card, host
+    # 2. the example's fit, on the card
+    train, val = _lenet_iters(mx, shuffle=True)
+    with mx.NameManager():
+        mod = mx.mod.Module(lenet_symbol(mx.sym), context=_ctx())
+    epoch_t = []
+    _reset_counts()
+    t0 = time.perf_counter()
+    mod.fit(train, eval_data=val, num_epoch=LENET_EPOCHS, optimizer="sgd",
+            optimizer_params=opt, eval_metric="acc",
+            batch_end_callback=mx.callback.Speedometer(LENET_BATCH, 10),
+            epoch_end_callback=lambda *a: epoch_t.append(
+                time.perf_counter()))
+    fit_s = time.perf_counter() - t0
+    counts = _read_counts()
+    acc = mod.score(val, mx.metric.Accuracy())[0][1]
+    n_train = LENET_N * 7 // 8 // LENET_BATCH * LENET_BATCH
+    spans = [b - a for a, b in zip([t0] + epoch_t, epoch_t)]
+    res = {"val_accuracy": float(acc), "bar": LENET_BAR,
+           "epochs": LENET_EPOCHS, "fit_s": fit_s,
+           "epoch_s": spans, "epoch_s_after_first": sum(spans[1:]) /
+           max(1, len(spans) - 1),
+           "samples_per_s": n_train * LENET_EPOCHS / fit_s,
+           "samples_per_s_after_first": n_train * (len(spans) - 1) /
+           max(1e-9, sum(spans[1:])),
+           "check_steps": LENET_CHECK_STEPS, "check_rtol": MODULE_RTOL,
+           "check_max_rel_err": max(check.values()), "check": check,
+           "launches": counts,
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    res["ok"] = bool(acc > LENET_BAR and res["check_max_rel_err"]
+                     <= MODULE_RTOL
+                     and not any(counts[k] for k in _wrappers()))
+    RECORD["module_lenet"] = res
+    if not res["ok"]:
+        raise AssertionError("module_lenet failed: %s" % json.dumps(res))
+    return res
+
+
+def _init_bound(ex, mx, seed):
+    """He-normal weights, zero biases and betas, unit gammas and
+    variances, zero means, drawn on the host from ``seed``."""
+    gen = __import__("torch").Generator().manual_seed(seed)
+    init = mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                          magnitude=2, generator=gen)
+    attrs = ex._symbol.attr_dict()
+    for name, arr in list(ex.arg_dict.items()) + list(ex.aux_dict.items()):
+        if name in ("data", "softmax_label"):
+            continue
+        init(mx.init.InitDesc(name, attrs.get(name, {})), arr)
+
+
+def _conv_tf32_check():
+    """The stem convolution through the registered op (forward and the
+    weight gradient) against float64, beside the same convolution with
+    cuDNN's TF32 allowed (the control, which must break the bound)."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import registry
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.rand(R50_CHECK_BATCH, 3, R50_IMG, R50_IMG, generator=gen)
+    w = torch.randn(64, 3, 7, 7, generator=gen) * 0.1
+    dy = torch.randn(R50_CHECK_BATCH, 64, R50_IMG // 2, R50_IMG // 2,
+                     generator=gen)
+    ref_y = F.conv2d(x.double(), w.double(), None, 2, 3)
+    ref_dw = torch.ops.aten.convolution_backward(
+        dy.double(), x.double(), w.double(), None, [2, 2], [3, 3], [1, 1],
+        False, [0, 0], 1, [False, True, False])[1]
+    xc, wc, dyc = (t.to(DEV) for t in (x, w, dy))
+    op = registry.get_op("Convolution")
+    attrs = op.parse_attrs(dict(kernel=(7, 7), stride=(2, 2), pad=(3, 3),
+                                num_filter=64, no_bias=True))
+    wl = wc.clone().requires_grad_(True)
+    y = op.fcompute(attrs, registry.OpCtx(is_train=True), xc, wl)[0]
+    dw = torch.autograd.grad(y, wl, dyc)[0]
+    res = {"y_err": _rel_err(y.detach().cpu(), ref_y),
+           "dw_err": _rel_err(dw.cpu(), ref_dw),
+           "y_rtol": CONV_F64_RTOL, "dw_rtol": CONV_F64_DW_RTOL,
+           "cudnn_allow_tf32_default": torch.backends.cudnn.allow_tf32}
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        cy = F.conv2d(xc, wc, None, 2, 3)
+        cdw = torch.ops.aten.convolution_backward(
+            dyc, xc, wc, None, [2, 2], [3, 3], [1, 1], False, [0, 0], 1,
+            [False, True, False])[1]
+        _sync()
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    res["tf32_control_y_err"] = _rel_err(cy.cpu(), ref_y)
+    res["tf32_control_dw_err"] = _rel_err(cdw.cpu(), ref_dw)
+    return res
+
+
+@contextlib.contextmanager
+def _tf32_everywhere():
+    """The control's precision: the port's per-call guard (``cudnn_f32``)
+    off and TF32 allowed in cuDNN and cuBLAS, so every convolution and
+    product of the step multiplies 10-bit mantissas."""
+    import torch
+    from mxnet_tpu_torch.ops import nn as nnops
+    cd, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    old = (cd.allow_tf32, mm.allow_tf32, nnops.cudnn_f32)
+    nnops.cudnn_f32 = contextlib.nullcontext
+    cd.allow_tf32 = mm.allow_tf32 = True
+    try:
+        yield
+    finally:
+        cd.allow_tf32, mm.allow_tf32, nnops.cudnn_f32 = old
+
+
+def _f32_rule(card, cpu, ref):
+    """A float32 step on the card against the same step on the CPU, each
+    against the float64 step (R50_F32_FACTOR): the output's error, and
+    the median and largest norm-wise error over the tensors."""
+    import numpy as np
+    norm = {who: {k: float(np.linalg.norm(t[k] - v)
+                           / max(1e-30, np.linalg.norm(v)))
+                  for k, v in ref.items()}
+            for who, t in (("card", card), ("cpu", cpu))}
+    out = {who: _rel_err(t["output"], ref["output"])
+           for who, t in (("card", card), ("cpu", cpu))}
+    med = {w: float(np.median(list(norm[w].values()))) for w in norm}
+    top = {w: max(norm[w].values()) for w in norm}
+    return {"output_err": out, "norm_err_median": med, "norm_err_max": top,
+            "factor": R50_F32_FACTOR,
+            "worst": sorted(((k, norm["card"][k], norm["cpu"][k])
+                             for k in ref), key=lambda r: -r[1])[:4],
+            "ok": bool(out["card"] <= R50_F32_FACTOR * out["cpu"]
+                       + R50_F32_FLOOR
+                       and med["card"] <= R50_F32_FACTOR * med["cpu"]
+                       and top["card"] <= R50_F32_FACTOR * top["cpu"])}
+
+
+def phase_module_resnet50():
+    """ResNet-50 v1 trained through Module.fit on the card at bench.py's
+    flagship configuration; beforehand the card's forward and backward at
+    batch R50_CHECK_BATCH against the port on the CPU from the same
+    parameters, and the stem convolution against float64 (no TF32)."""
+    import time
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mx
+    _free_card()
+    res = {"batch": R50_BATCH, "image": R50_IMG, "dtype": "float32",
+           "cudnn_allow_tf32_outside_calls": torch.backends.cudnn.allow_tf32,
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    # 1. convolutions without TF32, against float64
+    res["conv_f64"] = _conv_tf32_check()
+    # 2. card against the port on the CPU at batch 2: float64 on both
+    # (held tight), and float32 on both against the float64 step
+    with mx.NameManager():
+        sym = resnet_v1_symbol(mx.sym)
+    shape = (R50_CHECK_BATCH, 3, R50_IMG, R50_IMG)
+    rng = np.random.RandomState(SEED)
+    xb = rng.uniform(0, 1, shape).astype(np.float32)
+    yb = rng.randint(0, 1000, R50_CHECK_BATCH).astype(np.float32)
+    host = sym.simple_bind(ctx=mx.cpu(), data=shape)
+    _init_bound(host, mx, SEED)
+    exs = {"cpu32": host}
+    for key, ctx, dt in (("cpu64", mx.cpu(), "float64"),
+                         ("card64", _ctx(), "float64"),
+                         ("card32", _ctx(), "float32"),
+                         ("card32_tf32", _ctx(), "float32")):
+        ex = sym.simple_bind(ctx=ctx, data=shape, type_dict={
+            n: dt for n in sym.list_arguments()})
+        for a in ex.aux_dict.values():
+            a._data = a._data.to(torch.float64 if dt == "float64"
+                                 else torch.float32)
+        ex.copy_params_from(host.arg_dict, host.aux_dict)
+        exs[key] = ex
+    for key, ex in exs.items():
+        with (_tf32_everywhere() if key == "card32_tf32"
+              else contextlib.nullcontext()):
+            ex.forward(is_train=True, data=mx.nd.array(xb, ctx=mx.cpu()),
+                       softmax_label=mx.nd.array(yb, ctx=mx.cpu()))
+            ex.backward()
+
+    def tensors(ex):
+        out = {"output": ex.outputs[0]}
+        out.update({"grad:" + n: g for n, g in ex.grad_dict.items()
+                    if n not in ("data", "softmax_label")})
+        out.update({"aux:" + n: a for n, a in ex.aux_dict.items()})
+        return {k: v.asnumpy().astype(np.float64) for k, v in out.items()}
+    t = {k: tensors(ex) for k, ex in exs.items()}
+    ref = t["cpu64"]
+    e64 = {k: _rel_err(t["card64"][k], v) for k, v in ref.items()}
+    f32 = _f32_rule(t["card32"], t["cpu32"], ref)
+    control = _f32_rule(t["card32_tf32"], t["cpu32"], ref)
+    res["check"] = {
+        "batch": R50_CHECK_BATCH, "tensors": len(ref),
+        "f64_card_vs_cpu_max": max(e64.values()),
+        "f64_rtol": R50_F64_RTOL,
+        "f64_worst": sorted(e64.items(), key=lambda kv: -kv[1])[:4],
+        "f32": f32, "tf32_control": control,
+        "f32_card_vs_cpu_max_elem": max(
+            _rel_err(t["card32"][k], t["cpu32"][k]) for k in ref)}
+    res["check"]["ok"] = bool(max(e64.values()) <= R50_F64_RTOL
+                              and f32["ok"] and not control["ok"])
+    init_args = {n: a.copy() for n, a in host.arg_dict.items()
+                 if n not in ("data", "softmax_label")}
+    init_aux = {n: a.copy() for n, a in host.aux_dict.items()}
+    del host, exs
+    _free_card()
+    # 3. Module.fit at batch 128 over an NDArrayIter of synthetic images
+    n_steps = R50_WARMUP + R50_STEPS
+    rng = np.random.RandomState(SEED)
+    x = rng.uniform(0, 1, (n_steps * R50_BATCH, 3, R50_IMG, R50_IMG)) \
+        .astype(np.float32)
+    y = rng.randint(0, 1000, n_steps * R50_BATCH).astype(np.float32)
+    it = mx.io.NDArrayIter(x, y, R50_BATCH, label_name="softmax_label")
+    del x
+    mod = mx.mod.Module(sym, context=_ctx())
+    marks = []
+
+    def on_batch(param):
+        _sync()
+        marks.append(time.perf_counter())
+        if len(marks) == R50_WARMUP and DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+
+    metric = mx.metric.create(["acc", "ce"])
+    _reset_counts()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, optimizer="sgd",
+            optimizer_params={"learning_rate": R50_LR, "momentum": 0.9,
+                              "rescale_grad": 1.0 / R50_BATCH},
+            arg_params=init_args, aux_params=init_aux, eval_metric=metric,
+            batch_end_callback=on_batch)
+    counts = _read_counts()
+    fit_s = time.perf_counter() - t0
+    timed = marks[-1] - marks[R50_WARMUP - 1]
+    step_s = timed / R50_STEPS
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    names, vals = metric.get()
+    train_ce = dict(zip(names, vals))["cross-entropy"]
+    # 4. host against device: steps outside fit, the host's enqueue time
+    # (forward_backward + update, before any sync) against the step
+    batch = next(iter(it))
+    host_ms, wall_ms = [], []
+    for _ in range(3):
+        _sync()
+        a = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        b = time.perf_counter()
+        _sync()
+        c = time.perf_counter()
+        host_ms.append((b - a) * 1e3)
+        wall_ms.append((c - a) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mod.forward_backward(batch)
+        mod.update()
+        _sync()
+    rows = _device_rows(prof, 1)
+    dev_ms = sum(r[1] for r in rows)
+    h2d = sum(r[1] for r in rows if "htod" in r[0].lower()
+              or "memcpy hto" in r[0].lower())
+    # the batch copy alone, by CUDA events: host batch (pinned) into the
+    # bound array, as the executor's forward does it
+    src = batch.data[0]._data
+    dst = mod._exec.arg_dict["data"]._data
+    copy_ms = 0.0
+    if DEV == "cuda":
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        _sync()
+        ev[0].record()
+        for _ in range(5):
+            dst.copy_(src, non_blocking=True)
+        ev[1].record()
+        _sync()
+        copy_ms = ev[0].elapsed_time(ev[1]) / 5
+    # 5. the host's own cost of a step: the same step at batch 2, where
+    # the card's work is small, so the wall time is the host's dispatch
+    # (at batch 128 the launch queue fills and the host waits on the card)
+    small = mx.mod.Module(sym, context=_ctx())
+    small.bind(data_shapes=[("data", shape)],
+               label_shapes=[("softmax_label", (R50_CHECK_BATCH,))])
+    small.set_params(init_args, init_aux)
+    small.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": R50_LR, "momentum": 0.9,
+        "rescale_grad": 1.0 / R50_BATCH})
+    sb = mx.io.DataBatch([mx.nd.array(xb, ctx=mx.cpu())],
+                         [mx.nd.array(yb, ctx=mx.cpu())])
+    small_ms = []
+    for i in range(R50_WARMUP + R50_STEPS):
+        _sync()
+        a = time.perf_counter()
+        small.forward_backward(sb)
+        small.update()
+        _sync()
+        if i >= R50_WARMUP:
+            small_ms.append((time.perf_counter() - a) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        small.forward_backward(sb)
+        small.update()
+        _sync()
+    small_dev = sum(r[1] for r in _device_rows(prof, 1))
+    del small
+    flops = 3 * 8.18e9 * R50_BATCH
+    res.update({
+        "fit_s": fit_s, "step_ms": step_s * 1e3,
+        "img_per_s": R50_BATCH / step_s,
+        "step_ms_each": [(b - a) * 1e3 for a, b in zip(marks, marks[1:])],
+        "train_ce": float(train_ce), "loss_finite": bool(
+            np.isfinite(train_ce)),
+        "peak_mem_gb": peak / 1e9,
+        "host_enqueue_ms": host_ms, "step_wall_ms": wall_ms,
+        "device_ms_per_step": dev_ms,
+        "device_busy_share": dev_ms / float(np.median(wall_ms)),
+        "h2d_copy_ms": h2d, "h2d_share": h2d / max(1e-9, dev_ms),
+        "batch_copy_event_ms": copy_ms,
+        "batch_copy_share": copy_ms / (step_s * 1e3),
+        "batch_pinned": bool(src.is_pinned()),
+        "flop_per_step": flops,
+        "fp32_bound_ms": flops / PEAK_F32_FLOPS * 1e3,
+        "flop_share_of_fp32_peak": flops / step_s / PEAK_F32_FLOPS,
+        "top": [{"kernel": k[:100], "ms_per_step": t, "calls": c}
+                for k, t, c in rows[:12]],
+        "kernels_a_step": sum(r[2] for r in rows),
+        "host_step_ms_batch2": small_ms,
+        "device_ms_batch2": small_dev,
+        "launches": counts,
+        "params": len(mod._param_names)})
+    res["ok"] = bool(res["loss_finite"] and res["check"]["ok"]
+                     and res["conv_f64"]["y_err"] <= CONV_F64_RTOL
+                     and res["conv_f64"]["dw_err"] <= CONV_F64_DW_RTOL
+                     and not any(counts[k] for k in _wrappers()))
+    RECORD["module_resnet50"] = res
+    del mod, it
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("module_resnet50 failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("train", phase_train),
           ("train_profile", phase_train_profile),
           ("engines", phase_engines), ("profile", phase_profile),
           ("serve_gqa", phase_serve_gqa), ("export", phase_export),
           ("conv", phase_conv),
-          ("rtc", phase_rtc))
+          ("rtc", phase_rtc), ("module_lenet", phase_module_lenet),
+          ("module_resnet50", phase_module_resnet50))
 
 # (name, source, TPU kernel, case kind, case, its time / bound keys, errors,
 # its kernel launches a call: counted in the case)
@@ -2149,7 +2723,8 @@ def main(argv=None):
         return 1 if failed else 0
     cases = RECORD.get("kernel_cases", [])
     paths = list(RECORD.get("engines", {}).values())
-    paths += [RECORD[k] for k in ("train", "serve_gqa", "conv", "rtc")
+    paths += [RECORD[k] for k in ("train", "serve_gqa", "conv", "rtc",
+                                  "module_lenet", "module_resnet50")
               if k in RECORD]
     rows = []
     for (name, src, replaces, kind, case, ms_key, bound_key, by_key,

@@ -15,18 +15,34 @@ weight-only quantized-matmul kernels; imperative Gluon training
 ``gluon.Trainer``) with the flash forward and the flash backward (dQ,
 dK/dV) kernels; the fused 1x1 convolution with a BN prologue and a
 BN-statistics epilogue (``ops.conv_fused.conv1x1``); runtime compilation
-of CUDA C++ through NVRTC (``rtc.CudaModule``). Entry points run on the
-card unless the caller asks for the host (``device="cpu"``, ``ctx=cpu()``;
-the ops follow their tensors' device).
+of CUDA C++ through NVRTC (``rtc.CudaModule``); the symbolic training
+path (``nd`` arrays over tensors, the op registry, ``sym.Symbol``,
+``simple_bind`` and the executor, ``mod.Module.fit`` with ``io``,
+``metric``, ``lr_scheduler``, ``callback`` and ``model`` checkpoints).
+Entry points run on the card unless the caller asks for the host
+(``device="cpu"``, ``ctx=cpu()``, ``with cpu():``; the ops follow their
+tensors' device).
 """
-from .base import MXNetError, NameManager
-from .context import Context, cpu, gpu, resolve_device
+from .base import AttrScope, MXNetError, NameManager
+from .context import Context, cpu, current_context, gpu, resolve_device
 from . import autograd, initializer, optimizer, random, rtc  # noqa: F401
 from . import initializer as init  # noqa: F401
+from . import ops  # noqa: F401
+from . import ndarray  # noqa: F401
+from . import ndarray as nd  # noqa: F401
+from . import symbol  # noqa: F401
+from . import symbol as sym  # noqa: F401
+from . import executor, imperative  # noqa: F401
+from . import callback, io, lr_scheduler, metric, model  # noqa: F401
+from . import module  # noqa: F401
+from . import module as mod  # noqa: F401
 from . import gluon  # noqa: F401
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
-__all__ = ["MXNetError", "NameManager", "Context", "cpu", "gpu",
-           "resolve_device", "autograd", "gluon", "init", "initializer",
-           "optimizer", "random", "rtc"]
+__all__ = ["AttrScope", "MXNetError", "NameManager", "Context", "cpu",
+           "gpu", "current_context", "resolve_device",
+           "autograd", "callback", "executor", "gluon", "imperative", "init",
+           "initializer", "io", "lr_scheduler", "metric", "mod", "model",
+           "module", "nd", "ndarray", "optimizer", "random", "rtc", "sym",
+           "symbol"]

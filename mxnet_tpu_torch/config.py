@@ -15,6 +15,9 @@ both:
                             sentinel warns (<= 0 disables)
   MXNET_TELEMETRY_PORT      port of the /metrics + /healthz exporter that
                             ``telemetry.start_server()`` binds
+  MXNET_BACKWARD_DO_MIRROR  activation mirroring in the executor's
+                            backward: not ported, so a nonzero value
+                            raises at bind instead of being ignored
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ _DOCUMENTED = {
     "MXNET_DECODE_MAX_LEN": 256,
     "MXNET_DECODE_MAX_NEW": 32,
     "MXNET_QUANT_DTYPE": "int8",
+    "MXNET_BACKWARD_DO_MIRROR": 0,
 }
 
 

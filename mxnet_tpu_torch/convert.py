@@ -5,7 +5,10 @@ The JAX package hands parameters around as ``{name: np.ndarray}`` dicts
 and stores them in ``.mxa`` artifacts whose ``params.bin`` is the
 reference NDArray container. This module turns either into torch
 tensors, and carries a Gluon net's weights across by parameter name
-(:func:`load_gluon_params`, :func:`gluon_params_to_numpy`):
+(:func:`load_gluon_params`, :func:`gluon_params_to_numpy`) and a
+Module's (:func:`load_module_params`, :func:`module_params_to_numpy`;
+checkpoints need nothing here: ``model.save_checkpoint`` /
+``load_checkpoint`` write and read the JAX package's files as they are):
 
 * float and int8 arrays are kept as they are (no dtype change);
 * fp8 arrives either as an ``float8_e4m3fn`` numpy array (a JAX-side
@@ -25,7 +28,8 @@ from .base import MXNetError
 from .ndarray.container import _read_container_dense
 
 __all__ = ["to_tensor", "to_torch_params", "load_decode_artifact",
-           "load_gluon_params", "gluon_params_to_numpy"]
+           "load_gluon_params", "gluon_params_to_numpy", "load_module_params",
+           "module_params_to_numpy"]
 
 
 def to_tensor(a, device=None, fp8=False):
@@ -96,3 +100,27 @@ def gluon_params_to_numpy(net):
     """{collect_params name: numpy array} of the port's ``net``."""
     return {n: p.data().detach().cpu().numpy()
             for n, p in net.collect_params().items()}
+
+
+def load_module_params(mod, arg_params, aux_params=None,
+                       allow_missing=False):
+    """Install the JAX package's Module parameters (``{name: numpy}``
+    dicts, e.g. ``{n: a.asnumpy() for n, a in jmod.get_params()[0]
+    .items()}``) into the bound port Module ``mod``, on its device."""
+    from .ndarray.ndarray import array
+    from .context import cpu
+
+    def nds(d):
+        return {n: array(np.asarray(v), ctx=cpu(), dtype=np.asarray(v).dtype)
+                for n, v in (d or {}).items()}
+    mod.set_params(nds(arg_params), nds(aux_params),
+                   allow_missing=allow_missing, force_init=True)
+
+
+def module_params_to_numpy(mod):
+    """(arg_params, aux_params) of the port Module ``mod`` as
+    ``{name: numpy}`` dicts (what the JAX package's ``set_params``
+    takes after ``mx.nd.array``)."""
+    args, auxs = mod.get_params()
+    return ({n: a.asnumpy() for n, a in args.items()},
+            {n: a.asnumpy() for n, a in auxs.items()})

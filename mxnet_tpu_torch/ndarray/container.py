@@ -5,7 +5,8 @@ The reader is a copy of the JAX package's dense reader
 reads the JAX package's ``.params`` files and ``.mxa`` params without
 importing it; the writer emits the same V2 list form as
 mxnet_tpu/ndarray/container.py ``container_bytes``, so the JAX package
-reads what the port saves. Arrays are numpy on both sides.
+reads what the port saves, byte for byte. Arrays are numpy on both
+sides; a file without names (``nd.save`` of a list) reads as a list.
 """
 from __future__ import annotations
 
@@ -66,16 +67,27 @@ def _read_container_dense(buf):
         arrays.append(np.frombuffer(take(n * dt.itemsize),
                                     dt.newbyteorder("<")).reshape(s))
     names = [take(u64()).decode("utf-8") for _ in range(u64())]
+    if not names:
+        return arrays                   # the list form: no names
+    if len(names) != len(arrays):
+        raise ValueError(f"container: {len(arrays)} arrays but "
+                         f"{len(names)} names")
     return dict(zip(names, arrays))
 
 
 def container_bytes(arrays):
-    """{name: array} -> container bytes (NDArray::Save list form: V2
-    dense blobs with a cpu(0) context, then the names)."""
-    names = list(arrays)
-    out = [struct.pack("<QQ", _LIST_MAGIC, 0), struct.pack("<Q", len(names))]
-    for n in names:
-        a = np.ascontiguousarray(arrays[n])
+    """{name: array} or [array] -> container bytes (NDArray::Save list
+    form: V2 dense blobs with a cpu(0) context, then the names; a list
+    has none)."""
+    if isinstance(arrays, dict):
+        names, values = list(arrays), list(arrays.values())
+    else:
+        names, values = [], list(arrays)
+    out = [struct.pack("<QQ", _LIST_MAGIC, 0),
+           struct.pack("<Q", len(values))]
+    for i, a in enumerate(values):
+        a = np.ascontiguousarray(a)
+        n = names[i] if names else f"array {i}"
         flag = _DTYPE_TO_FLAG.get(a.dtype)
         if flag is None:
             raise ValueError(f"container: dtype {a.dtype} of {n!r} has no "
@@ -94,7 +106,7 @@ def container_bytes(arrays):
 
 
 def save_container(fname, arrays):
-    """Write {name: array} atomically (temp file + rename)."""
+    """Write {name: array} or [array] atomically (temp file + rename)."""
     fname = os.fspath(fname)
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(fname) or ".",
                                prefix=os.path.basename(fname) + ".tmp")
@@ -109,6 +121,7 @@ def save_container(fname, arrays):
 
 
 def load_container(fname):
-    """{name: numpy array} of a container file."""
+    """{name: numpy array} of a container file ([numpy array] for the
+    list form)."""
     with open(fname, "rb") as f:
         return _read_container_dense(f.read())

@@ -3,7 +3,7 @@
 The JAX package threads explicit keys; the port draws from explicit
 ``torch.Generator`` objects. :func:`seed` fixes the port-owned default
 generators (one per device, created on first use from that seed), which
-initializers and ``Dropout`` use when no generator is passed. The numbers
+initializers, ``nd.random``, ``Dropout`` and the executor use when no generator is passed. The numbers
 differ from the JAX package's for the same seed: tests hand both packages
 the same numpy draws instead.
 """
@@ -20,8 +20,9 @@ _SEED = [None]
 _GENERATORS = {}
 
 
-def seed(seed_state):
-    """Seed the port's default generators (every device)."""
+def seed(seed_state, ctx=None):
+    """Seed the port's default generators (every device; ``ctx`` is
+    accepted for the reference's signature)."""
     with _LOCK:
         _SEED[0] = int(seed_state)
         _GENERATORS.clear()

@@ -17,8 +17,8 @@ loaded through the CUDA driver API, and launched on PyTorch's current stream;
     k.launch([x, y, 2.0, n], mx.gpu(0), ((n + 255) // 256, 1, 1),
              (256, 1, 1))
 
-Arguments are CUDA ``torch.Tensor``s (or integer device pointers) for
-pointer parameters and Python numbers for scalars. The launch does not
+Arguments are CUDA ``torch.Tensor``s or NDArrays (or integer device
+pointers) for pointer parameters and Python numbers for scalars. The launch does not
 synchronise. Both libraries are loaded with ``ctypes`` at first use:
 ``libnvrtc.so`` from the toolkit that holds ``nvcc`` (``$CUDA_HOME``) and
 the CUDA driver's ``libcuda.so.1``. Nothing is loaded when the module is
@@ -228,6 +228,12 @@ def _dims(dims, what):
     return dims + (1,) * (3 - len(dims))
 
 
+def _unwrap(arg):
+    """An NDArray argument is passed as its tensor."""
+    from .ndarray.ndarray import NDArray
+    return arg._data if isinstance(arg, NDArray) else arg
+
+
 class CudaKernel:
     """A kernel of a :class:`CudaModule`; see :meth:`launch`. The class
     counts every launch of every such kernel in ``CudaKernel.launches``."""
@@ -248,6 +254,7 @@ class CudaKernel:
         vals = []
         for i, (arg, (ptr, _, ctype)) in enumerate(zip(args, self._params)):
             dtype, scalar = _CTYPES[ctype]
+            arg = _unwrap(arg)
             if ptr:
                 if isinstance(arg, torch.Tensor):
                     if arg.device != device:

@@ -43,6 +43,7 @@ and dQ (three TF32 tensor-core products each) are held against float64
 within 4x the plain f32 version's own error, which one TF32 pass
 (emulated in torch) exceeds. Cross-attention takes the dense route.
 """
+import contextlib
 import functools
 import math
 
@@ -924,3 +925,127 @@ def test_engine_serves_through_graphs(dev):
             assert rep[k] > 0, k
         assert A.dense_attention.calls == dense
         assert all(not t.any() for t in A._ARRIVALS.values())
+
+
+def _lenet_symbol(mx):
+    with mx.NameManager():
+        data = mx.sym.Variable("data")
+        net = mx.sym.Convolution(data, kernel=(5, 5), num_filter=20,
+                                 name="c1")
+        net = mx.sym.Activation(net, act_type="tanh")
+        net = mx.sym.Pooling(net, pool_type="max", kernel=(2, 2),
+                             stride=(2, 2))
+        net = mx.sym.Convolution(net, kernel=(5, 5), num_filter=50,
+                                 name="c2")
+        net = mx.sym.BatchNorm(net, fix_gamma=False, name="bn")
+        net = mx.sym.Activation(net, act_type="relu")
+        net = mx.sym.Pooling(net, pool_type="max", kernel=(2, 2),
+                             stride=(2, 2))
+        net = mx.sym.FullyConnected(mx.sym.Flatten(net), num_hidden=500,
+                                    name="f1")
+        net = mx.sym.Activation(net, act_type="tanh")
+        net = mx.sym.FullyConnected(net, num_hidden=10, name="f2")
+        return mx.sym.SoftmaxOutput(net, name="softmax")
+
+
+def test_executor_on_the_card_matches_the_cpu(dev):
+    """LeNet (with a BatchNorm + ReLU pair) bound on the card and on the
+    CPU from the same parameters. A training step in float64 (data and
+    arguments): output and every gradient within 1e-9 of each tensor's
+    largest magnitude, the (float32) moving statistics within 1e-6. A
+    training step in float32 on the card against the CPU's float64 step:
+    output and every gradient within F32_STEP_RTOL of the tensor's
+    largest magnitude, and the same step with TF32 allowed everywhere
+    (the port's per-call guard off) must break that bound. The float32
+    inference output within 1e-5 of the CPU's.
+
+    Readings on these inputs, each against the CPU's float64 step (card:
+    H100 80GB HBM3, 700 W). The CPU's float32 step, at one thread and at
+    four: c1_weight's gradient below 1.7e-6, c1_bias 3.5e-5 / 4.0e-5
+    (the largest); one thread against four differs by 1.2e-6 on
+    c1_weight. So no ReLU flips between summation orders here. The
+    card's float32 step: 1.56e-3 on c1_weight, every other tensor at
+    most 2.3e-5; with cuDNN disabled every tensor at most 2.9e-5; with
+    TF32 allowed 3.1e-2 on c1_weight and 8.6e-2 on c2_weight. So the
+    1.56e-3 comes from the weight-gradient algorithm cuDNN picks for c1
+    (1 input channel, 5 x 5, batch 8), not from TF32. F32_STEP_RTOL =
+    4e-3 holds it, and the TF32 control reads 8 to 21 times that."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    sym = _lenet_symbol(mx)
+    rng = np.random.RandomState(0)
+    shape = (8, 1, 28, 28)
+    arg_shapes, _, aux_shapes = sym.infer_shape(data=shape)
+    args = {n: (rng.standard_normal(s) * 0.1).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), arg_shapes)}
+    args["softmax_label"] = rng.randint(0, 10, shape[0]).astype(np.float32)
+    aux = {n: np.ones(s, np.float32) for n, s in
+           zip(sym.list_auxiliary_states(), aux_shapes)}
+
+    def bound(ctx, dt):
+        ex = sym.simple_bind(ctx=ctx, data=shape, type_dict={
+            n: dt for n in sym.list_arguments()})
+        ex.copy_params_from(args, aux)
+        return ex
+
+    def close(a, b, tol, what):
+        a, b = a.asnumpy().astype(np.float64), b.asnumpy().astype(np.float64)
+        scale = max(1e-30, float(np.abs(b).max()))
+        assert float(np.abs(a - b).max()) <= tol * scale, what
+
+    exs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        ex = bound(ctx, "float64")
+        ex.forward(is_train=True,
+                   data=mx.nd.array(args["data"], ctx=mx.cpu()),
+                   softmax_label=mx.nd.array(args["softmax_label"],
+                                             ctx=mx.cpu()))
+        ex.backward()
+        exs.append(ex)
+    card, host = exs
+    assert card.arg_dict["c1_weight"]._data.device.type == "cuda"
+    close(card.outputs[0], host.outputs[0], 1e-9, "out")
+    for n in host.grad_dict:
+        close(card.grad_dict[n], host.grad_dict[n], 1e-9, n)
+    for n in host.aux_dict:
+        close(card.aux_dict[n], host.aux_dict[n], 1e-6, n)
+    F32_STEP_RTOL = 4e-3
+
+    def f32_step_errors(tf32):
+        from mxnet_tpu_torch.ops import nn as nnops
+        cd, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+        old = (cd.allow_tf32, mm.allow_tf32, nnops.cudnn_f32)
+        if tf32:
+            nnops.cudnn_f32 = contextlib.nullcontext
+            cd.allow_tf32 = mm.allow_tf32 = True
+        try:
+            ex = bound(mx.gpu(0), "float32")
+            ex.forward(is_train=True,
+                       data=mx.nd.array(args["data"], ctx=mx.cpu()),
+                       softmax_label=mx.nd.array(args["softmax_label"],
+                                                 ctx=mx.cpu()))
+            ex.backward()
+            torch.cuda.synchronize()
+        finally:
+            cd.allow_tf32, mm.allow_tf32, nnops.cudnn_f32 = old
+        pairs = [("out", ex.outputs[0], host.outputs[0])]
+        pairs += [(n, ex.grad_dict[n], host.grad_dict[n])
+                  for n in host.grad_dict]
+        errs = {}
+        for n, a, b in pairs:
+            a, b = a.asnumpy().astype(np.float64), b.asnumpy()
+            errs[n] = float(np.abs(a - b).max()) / max(
+                1e-30, float(np.abs(b).max()))
+        return errs
+
+    errs = f32_step_errors(tf32=False)
+    assert max(errs.values()) <= F32_STEP_RTOL, errs
+    control = f32_step_errors(tf32=True)
+    assert max(control.values()) > F32_STEP_RTOL, control
+    outs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        ex = bound(ctx, "float32")
+        outs.append(ex.forward(data=mx.nd.array(args["data"],
+                                                ctx=mx.cpu()))[0])
+    assert not torch.backends.cuda.matmul.allow_tf32
+    close(outs[0], outs[1], 1e-5, "float32 inference output")

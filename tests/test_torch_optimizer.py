@@ -84,3 +84,56 @@ def test_registry_and_learning_rate():
     assert o.learning_rate == 0.25
     with pytest.raises(ValueError):
         topt.create("nosuch")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tensors_and_ndarrays_take_one_update_path(case):
+    """Gluon's tensors and Module's NDArrays go through the same update
+    op: three updates give bit-identical weights and states."""
+    from mxnet_tpu_torch import nd
+    kwargs = dict(CASES[case])
+    name = case.split("_")[0]
+    rng = np.random.RandomState(7)
+    w0 = rng.standard_normal((7, 5)).astype(np.float32)
+    grads = [(rng.standard_normal((7, 5)) * 3).astype(np.float32)
+             for _ in range(3)]
+    tu = topt.get_updater(topt.create(name, **kwargs))
+    nu = topt.get_updater(topt.create(name, **kwargs))
+    tw = torch.from_numpy(w0.copy())
+    nw = nd.NDArray(torch.from_numpy(w0.copy()))
+    for g in grads:
+        tu(0, torch.from_numpy(g), tw)
+        nu(0, nd.NDArray(torch.from_numpy(g)), nw)
+    assert torch.equal(tw, nw._data)
+    ts, ns = tu.states[0], nu.states[0]
+    ts = ts if isinstance(ts, tuple) else (ts,)
+    ns = ns if isinstance(ns, tuple) else (ns,)
+    for a, b in zip(ts, ns):
+        assert (a is None and b is None) or torch.equal(a, b._data)
+
+
+@pytest.mark.parametrize("kind", ["tensor", "ndarray"])
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_multi_precision_sgd_keeps_a_float32_master(kind, momentum):
+    """float16 weights under multi_precision: the update runs on a float32
+    master (the mp_sgd ops), so the half weight is exactly the float32
+    run's weight rounded, for tensors and NDArrays alike."""
+    from mxnet_tpu_torch import nd
+    rng = np.random.RandomState(5)
+    w0 = rng.standard_normal((6, 4)).astype(np.float16)
+    grads = [rng.standard_normal((6, 4)).astype(np.float16)
+             for _ in range(3)]
+    kw = dict(learning_rate=0.1, momentum=momentum, wd=0.01,
+              rescale_grad=0.5, clip_gradient=0.4)
+    wrap = (lambda t: t) if kind == "tensor" else nd.NDArray
+    mp = topt.get_updater(topt.create("sgd", multi_precision=True, **kw))
+    f32 = topt.get_updater(topt.create("sgd", **kw))
+    w16 = wrap(torch.from_numpy(w0.copy()))
+    w32 = torch.from_numpy(w0.astype(np.float32))
+    for g in grads:
+        mp(0, wrap(torch.from_numpy(g)), w16)
+        f32(0, torch.from_numpy(g.astype(np.float32)), w32)
+    got = w16 if kind == "tensor" else w16._data
+    assert got.dtype == torch.float16
+    assert torch.equal(got, w32.to(torch.float16))
+    assert not torch.equal(got, torch.from_numpy(w0))

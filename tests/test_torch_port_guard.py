@@ -61,7 +61,18 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.telemetry.registry, "
             "mxnet_tpu_torch.telemetry.exporter, "
             "mxnet_tpu_torch.telemetry.devstats, "
-            "mxnet_tpu_torch.contrib.export\n"
+            "mxnet_tpu_torch.contrib.export, mxnet_tpu_torch.base, "
+            "mxnet_tpu_torch.config, mxnet_tpu_torch.context, "
+            "mxnet_tpu_torch.ops.registry, mxnet_tpu_torch.ops.tensor, "
+            "mxnet_tpu_torch.ops.optimizer_ops, mxnet_tpu_torch.imperative, "
+            "mxnet_tpu_torch.ndarray, mxnet_tpu_torch.ndarray.ndarray, "
+            "mxnet_tpu_torch.ndarray.random, mxnet_tpu_torch.symbol, "
+            "mxnet_tpu_torch.symbol.symbol, mxnet_tpu_torch.executor, "
+            "mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.metric, "
+            "mxnet_tpu_torch.io, mxnet_tpu_torch.model, "
+            "mxnet_tpu_torch.callback, mxnet_tpu_torch.module, "
+            "mxnet_tpu_torch.module.base_module, "
+            "mxnet_tpu_torch.module.module\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'mxnet_tpu')]\n"
             "print(bad)\n"
@@ -155,3 +166,45 @@ def test_config_knobs_keep_the_jax_package_names_and_defaults():
     from mxnet_tpu_torch import config as tcfg
     for name in tcfg._DOCUMENTED:
         assert tcfg.get(name) == jcfg.get(name), name
+
+
+def _mlp_symbol():
+    import mxnet_tpu_torch as mx
+    with mx.NameManager():
+        net = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=4,
+                                    name="fc")
+        return mx.sym.SoftmaxOutput(net, name="softmax")
+
+
+def test_symbolic_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    import mxnet_tpu_torch as mx
+    sym = _mlp_symbol()
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        mx.mod.Module(sym)
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        sym.simple_bind(data=(2, 3))
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        mx.nd.array(np.ones(3))
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        mx.nd.zeros((2,))
+
+
+def test_symbolic_path_runs_on_the_cpu_when_asked():
+    import mxnet_tpu_torch as mx
+    sym = _mlp_symbol()
+    x = np.random.RandomState(0).rand(8, 3).astype(np.float32)
+    y = np.arange(8) % 4
+    it = mx.io.NDArrayIter(x, y.astype(np.float32), 4)
+    mod = mx.mod.Module(sym, context=mx.cpu())
+    mod.fit(it, num_epoch=2, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1})
+    args, _ = mod.get_params()
+    assert all(a._data.device.type == "cpu" for a in args.values())
+    ex = sym.simple_bind(ctx=mx.cpu(), data=(2, 3))
+    assert ex.arg_dict["fc_weight"]._data.device.type == "cpu"
+    with mx.cpu():
+        assert mx.nd.array(x).context == mx.cpu()
+        ex2 = sym.simple_bind(data=(2, 3))
+    assert ex2.arg_dict["data"]._data.device.type == "cpu"
