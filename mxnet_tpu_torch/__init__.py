@@ -18,7 +18,10 @@ BN-statistics epilogue (``ops.conv_fused.conv1x1``); runtime compilation
 of CUDA C++ through NVRTC (``rtc.CudaModule``); the symbolic training
 path (``nd`` arrays over tensors, the op registry, ``sym.Symbol``,
 ``simple_bind`` and the executor, ``mod.Module.fit`` with ``io``,
-``metric``, ``lr_scheduler``, ``callback`` and ``model`` checkpoints).
+``metric``, ``lr_scheduler``, ``callback`` and ``model`` checkpoints);
+data-parallel training (``parallel.DataParallelTrainer`` over a mesh,
+with ``step_k`` as CUDA graph replays, ``kvstore``, ``Module`` over
+several contexts and ``fit(steps_per_dispatch=K)``).
 Entry points run on the card unless the caller asks for the host
 (``device="cpu"``, ``ctx=cpu()``, ``with cpu():``; the ops follow their
 tensors' device).
@@ -36,6 +39,8 @@ from . import executor, imperative  # noqa: F401
 from . import callback, io, lr_scheduler, metric, model  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
+from . import kvstore, parallel  # noqa: F401
+from . import kvstore as kv  # noqa: F401
 from . import gluon  # noqa: F401
 
 __version__ = "0.4.0"
@@ -43,6 +48,6 @@ __version__ = "0.4.0"
 __all__ = ["AttrScope", "MXNetError", "NameManager", "Context", "cpu",
            "gpu", "current_context", "resolve_device",
            "autograd", "callback", "executor", "gluon", "imperative", "init",
-           "initializer", "io", "lr_scheduler", "metric", "mod", "model",
-           "module", "nd", "ndarray", "optimizer", "random", "rtc", "sym",
-           "symbol"]
+           "initializer", "io", "kv", "kvstore", "lr_scheduler", "metric",
+           "mod", "model", "module", "nd", "ndarray", "optimizer",
+           "parallel", "random", "rtc", "sym", "symbol"]

@@ -15,6 +15,8 @@ both:
                             sentinel warns (<= 0 disables)
   MXNET_TELEMETRY_PORT      port of the /metrics + /healthz exporter that
                             ``telemetry.start_server()`` binds
+  MXNET_UPDATE_ON_KVSTORE   run the updater inside the kvstore of a
+                            several-context Module (default 1)
   MXNET_BACKWARD_DO_MIRROR  activation mirroring in the executor's
                             backward: not ported, so a nonzero value
                             raises at bind instead of being ignored
@@ -33,6 +35,7 @@ _DOCUMENTED = {
     "MXNET_DECODE_MAX_NEW": 32,
     "MXNET_QUANT_DTYPE": "int8",
     "MXNET_BACKWARD_DO_MIRROR": 0,
+    "MXNET_UPDATE_ON_KVSTORE": 1,
 }
 
 

@@ -8,7 +8,10 @@ tensors, and carries a Gluon net's weights across by parameter name
 (:func:`load_gluon_params`, :func:`gluon_params_to_numpy`) and a
 Module's (:func:`load_module_params`, :func:`module_params_to_numpy`;
 checkpoints need nothing here: ``model.save_checkpoint`` /
-``load_checkpoint`` write and read the JAX package's files as they are):
+``load_checkpoint`` write and read the JAX package's files as they are),
+and a data-parallel trainer's state (:func:`dp_state_from_jax`,
+:func:`dp_state_to_numpy`: the dicts ``DataParallelTrainer.
+export_training_state`` writes, so a run continues in the other package):
 
 * float and int8 arrays are kept as they are (no dtype change);
 * fp8 arrives either as an ``float8_e4m3fn`` numpy array (a JAX-side
@@ -29,7 +32,7 @@ from .ndarray.container import _read_container_dense
 
 __all__ = ["to_tensor", "to_torch_params", "load_decode_artifact",
            "load_gluon_params", "gluon_params_to_numpy", "load_module_params",
-           "module_params_to_numpy"]
+           "module_params_to_numpy", "dp_state_from_jax", "dp_state_to_numpy"]
 
 
 def to_tensor(a, device=None, fp8=False):
@@ -124,3 +127,21 @@ def module_params_to_numpy(mod):
     args, auxs = mod.get_params()
     return ({n: a.asnumpy() for n, a in args.items()},
             {n: a.asnumpy() for n, a in auxs.items()})
+
+
+def dp_state_from_jax(trainer, arrays, meta):
+    """The port trainer's (params, states, aux) tuples from the JAX
+    package's ``DataParallelTrainer.export_training_state`` output
+    (``param:<name>``, ``opt:<name>:<i>``, ``aux:<name>`` numpy arrays and
+    its meta); the trainer's step count ``t`` is restored, so Adam's bias
+    correction continues. The JAX rng key does not carry over."""
+    return trainer.import_training_state(
+        {k: np.asarray(v) for k, v in arrays.items()}, dict(meta))
+
+
+def dp_state_to_numpy(trainer, params, states, aux):
+    """(arrays, meta) in the JAX package's export format from the port
+    trainer's tuples: what ``mxnet_tpu``'s
+    ``DataParallelTrainer.import_training_state`` takes (its rng entry
+    None, so that package keeps its own key)."""
+    return trainer.export_training_state(params, states, aux)

@@ -20,11 +20,30 @@ feeds only it, and ``_dead_bias_convs`` gives a Convolution or
 FullyConnected whose only consumer is a batch-statistics BatchNorm an
 exact-zero bias gradient.
 
+A data-parallel executor (``simple_bind(..., mesh=, sharded_args=)``,
+Module over several contexts) keeps the JAX package's single program
+over the mesh: one walk of the graph a call over the mesh's replicas in
+lock step (``_run_mesh``). Each replica gets its equal shard of the
+``sharded_args`` (axis 0) and a differentiable copy of every other
+argument and aux state; the bound arrays stay single global arrays on
+the first context's device, the counterpart of JAX's global arrays.
+Whatever reduces over the batch axis reduces over the whole batch, as
+GSPMD's inserted all-reduce makes it in the JAX package: BatchNorm's
+training statistics and a loss head's normalisation (the ops' ``fmesh``
+hooks), the parameter gradients (autograd sums the replicas' copies into
+the one leaf) and the outputs (concatenated). Any other op that takes a
+batch-carrying value must compute each sample alone and keep the batch
+on axis 0 (``_per_sample_rules``: elementwise ops, Convolution, Pooling,
+FullyConnected, a Reshape that keeps dim 0, softmax off axis 0, ...);
+else it raises on a mesh instead of computing on one shard. A one-device
+mesh is the one-device executor.
+
 Not ported (each raises instead of being ignored): ``group2ctx`` model
-parallelism, a data-parallel ``mesh`` and ``sharded_args`` (ROADMAP queue
-1 item 8), and ``MXNET_BACKWARD_DO_MIRROR``.
+parallelism (ROADMAP queue 1 item 8) and ``MXNET_BACKWARD_DO_MIRROR``.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as _np
 import torch
@@ -112,6 +131,113 @@ def _dead_bias_convs(symbol, topo):
     return dead
 
 
+def _reduces_axis0(attrs, ndim):
+    from .ops.tensor import _norm_axes
+    axes = attrs["axis"]
+    if axes is None and not attrs.get("exclude"):
+        return True
+    return 0 in _norm_axes(axes, ndim, attrs.get("exclude", False))
+
+
+def _axis_not0(key):
+    return lambda a, carried, xs: (a[key] is not None
+                                   and a[key] % xs[0].ndim != 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _per_sample_rules():
+    """op name -> rule(attrs, positions of the inputs that carry the
+    batch, the inputs): true where the op computes each sample from that
+    sample alone and keeps the batch on axis 0. On a data-parallel mesh
+    an op that takes a batch-carrying input and is neither here (with its
+    rule true) nor has an ``fmesh`` hook raises (``_Plan.run_replicas``):
+    run on one shard a replica it would give another result than the JAX
+    package's one global array."""
+    from .ops.tensor import ELEMENTWISE
+
+    def always(a, carried, xs):
+        return True
+
+    def data_only(a, carried, xs):
+        return carried == {0}
+
+    def reduce_(a, carried, xs):
+        return not _reduces_axis0(a, xs[0].ndim)
+
+    def dot(a, carried, xs):
+        return carried == {0} and not a["transpose_a"] and xs[0].ndim > 1
+
+    def take(a, carried, xs):
+        if 0 in carried:       # the data carries: gather off the batch
+            return 1 not in carried and a["axis"] % xs[0].ndim != 0
+        return a["axis"] % xs[0].ndim == 0      # indices carry
+
+    def pick(a, carried, xs):
+        return a["axis"] is not None and a["axis"] % xs[0].ndim != 0
+
+    def transpose(a, carried, xs):
+        return bool(a["axes"]) and a["axes"][0] % xs[0].ndim == 0
+
+    def expand_dims(a, carried, xs):
+        return a["axis"] % (xs[0].ndim + 1) != 0
+
+    def squeeze(a, carried, xs):
+        return a["axis"] is not None and all(
+            ax % xs[0].ndim != 0 for ax in a["axis"])
+
+    def slice_(a, carried, xs):
+        begin, end, step = a["begin"], a["end"], a["step"] or ()
+        return not begin or (begin[0] in (None, 0)
+                             and (len(end) == 0 or end[0] is None)
+                             and (len(step) == 0 or step[0] in (None, 1)))
+
+    def norm(a, carried, xs):
+        return a["axis"] is not None and not _reduces_axis0(a, xs[0].ndim)
+
+    rules = {n: always for n in ELEMENTWISE}
+    rules.update({n: data_only for n in (
+        "Activation", "Dropout", "Flatten", "Pooling", "Convolution",
+        "FullyConnected", "argmax_channel", "one_hot")})
+    rules.update({n: reduce_ for n in (
+        "sum", "_square_sum", "mean", "prod", "nansum", "nanprod", "max",
+        "min")})
+    rules.update({
+        # a row-major reshape that keeps dim 0 keeps each sample's row
+        # (the output check below holds dim 0)
+        "Reshape": always, "broadcast_to": always, "batch_dot": always,
+        "softmax": _axis_not0("axis"), "log_softmax": _axis_not0("axis"),
+        "argmax": _axis_not0("axis"), "argmin": _axis_not0("axis"),
+        "Concat": _axis_not0("dim"), "slice_axis": _axis_not0("axis"),
+        "norm": norm, "dot": dot, "take": take, "pick": pick,
+        "transpose": transpose, "expand_dims": expand_dims,
+        "squeeze": squeeze, "slice": slice_})
+    return rules
+
+
+def _check_per_sample(op, attrs, name, carried, xs, outs=None):
+    """Raise unless ``op`` runs per sample on a batch-carrying input
+    (``_per_sample_rules``); with ``outs`` (the first replica's results),
+    unless each output keeps the shard's batch on axis 0 (an elementwise
+    op also its rank, so broadcasting cannot move the batch)."""
+    b = xs[min(carried)].shape[0] if xs[min(carried)].ndim else None
+    if outs is None:
+        rule = _per_sample_rules().get(op.name)
+        ok = b is not None and rule is not None and rule(attrs, carried, xs)
+    else:
+        from .ops.tensor import ELEMENTWISE
+        rank = max(xs[j].ndim for j in carried)
+        ok = all(o.ndim >= 1 and o.shape[0] == b
+                 and (op.name not in ELEMENTWISE or o.ndim == rank)
+                 for o in outs)
+    if not ok:
+        raise MXNetError(
+            f"{op.name} ({name}) on a data-parallel mesh: with these attrs "
+            "it mixes samples or moves the batch axis of a sharded value, "
+            "and each replica holds one shard; only per-sample ops and "
+            "ops with a whole-batch hook (BatchNorm, SoftmaxOutput) run "
+            "there")
+
+
 class _Plan:
     """One walk of the graph for a mode (training or not), resolved once:
     each op's parsed attrs (with the passes' flags), where its inputs come
@@ -179,6 +305,82 @@ class _Plan:
                             else f"{name}_output", res[i])
         return [vals[q][i] for (q, i) in self.outputs], updates
 
+    def batch_carriers(self, sharded):
+        """Positions whose values carry the batch axis of the ``sharded``
+        arguments (an op's outputs do when any input does)."""
+        carry = {p for p, kind, name in self.variables
+                 if kind == "arg" and name in sharded}
+        for p, op, parsed, ins, *_ in self.steps:
+            if any(q in carry for q, _ in ins):
+                carry.add(p)
+        return carry
+
+    def run_replicas(self, replicas, devices, carry, rng=None):
+        """One walk over a mesh's replicas in lock step. ``replicas``: one
+        (args, aux) pair of name -> tensor dicts a replica. An op with an
+        ``fmesh`` hook sees every replica's inputs at once; any other op
+        runs on each replica. Returns (each replica's outputs, [(aux name,
+        new value)] of the first replica: the hooks give every replica the
+        same global values)."""
+        n = len(devices)
+        vals = [None] * self.n
+        for p, kind, name in self.variables:
+            vals[p] = [((a if kind == "aux" else g)[name],)
+                       for g, a in replicas]
+        octxs = [OpCtx(is_train=self.is_train, rng=rng, device=d)
+                 for d in devices]
+        updates = []
+        for p, op, parsed, ins, n_out, aux_writes, name in self.steps:
+            xs = [[vals[q][r][i] for (q, i) in ins] for r in range(n)]
+            if op is None:
+                vals[p] = [(x[0],) for x in xs]
+                continue
+            carried = {j for j, (q, _) in enumerate(ins) if q in carry}
+            if op.fmesh is not None:
+                res = op.fmesh(parsed, octxs[0], xs)
+            elif carried:
+                _check_per_sample(op, parsed, name, carried, xs[0])
+                res = [op.fcompute(parsed, octxs[0], *xs[0])]
+                _check_per_sample(op, parsed, name, carried, xs[0],
+                                  res[0][:n_out])
+                res += [op.fcompute(parsed, octxs[r], *xs[r])
+                        for r in range(1, n)]
+            else:
+                res = [op.fcompute(parsed, octxs[r], *xs[r])
+                       for r in range(n)]
+            vals[p] = [r_[:n_out] for r_ in res]
+            for j, aux_name in aux_writes:
+                updates.append((aux_name, res[0][j]))
+        return [[vals[q][r][i] for (q, i) in self.outputs]
+                for r in range(n)], updates
+
+
+def _run_mesh(plan, args, aux, devices, sharded, rng=None):
+    """A walk of ``plan`` over a mesh's replica ``devices``: ``args`` /
+    ``aux`` are the global name -> tensor dicts on ``devices[0]``; each
+    replica gets its equal shard (axis 0) of the ``sharded`` arguments and
+    a differentiable copy (``Tensor.to``) of every other value, so
+    autograd sums the replicas' gradients into the global tensors.
+    Outputs that carry the batch axis are concatenated onto
+    ``devices[0]``, others are the first replica's. One device: the plain
+    walk. Returns (outputs, aux updates)."""
+    if len(devices) == 1:
+        return plan.run(args, aux, devices[0], rng)
+    n = len(devices)
+    chunks = {k: torch.chunk(v, n, dim=0) for k, v in args.items()
+              if k in sharded}
+    replicas = [({k: (chunks[k][r] if k in chunks else v).to(d)
+                  for k, v in args.items()},
+                 {k: v.to(d) for k, v in aux.items()})
+                for r, d in enumerate(devices)]
+    carry = plan.batch_carriers(sharded)
+    outs, updates = plan.run_replicas(replicas, devices, carry, rng)
+    dev0 = devices[0]
+    merged = [torch.cat([o[i].to(dev0) for o in outs], 0)
+              if plan.outputs[i][0] in carry else outs[0][i]
+              for i in range(len(plan.outputs))]
+    return merged, updates
+
 
 def _unsupported(what, item):
     return MXNetError(f"{what} is not ported yet (ROADMAP queue 1 item "
@@ -191,14 +393,25 @@ class Executor:
         from . import config
         if group2ctx:
             raise _unsupported("group2ctx model parallelism", 8)
-        if mesh is not None or sharded_args:
-            raise _unsupported("a data-parallel mesh executor", 8)
         if config.get("MXNET_BACKWARD_DO_MIRROR"):
             raise MXNetError("MXNET_BACKWARD_DO_MIRROR (activation "
                              "mirroring) is not ported; unset it")
         self._symbol = symbol
         self._ctx = ctx or current_context()
         self._device = resolve_device(self._ctx)
+        # a data-parallel mesh: the replicas' devices (one: no mesh)
+        from .parallel.mesh import Mesh
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise MXNetError(f"mesh must be a parallel.Mesh, not "
+                             f"{type(mesh).__name__}")
+        self._mesh = mesh
+        self._sharded_args = frozenset(sharded_args)
+        self._replicas = mesh.replicas if mesh is not None \
+            else [self._device]
+        if self._replicas[0] != self._device:
+            raise MXNetError(f"the mesh's first device "
+                             f"{self._replicas[0]} is not the executor's "
+                             f"{self._device}")
         self._arg_names = symbol.list_arguments()
         self._aux_names = symbol.list_auxiliary_states()
         self._output_names = symbol.list_outputs()
@@ -310,6 +523,13 @@ class Executor:
         src = value._data if isinstance(value, NDArray) else value
         if not isinstance(src, torch.Tensor):
             src = _from_numpy(src)
+        n = len(self._replicas)
+        if name in self._sharded_args and n > 1 and src.ndim and \
+                src.shape[0] % n != 0:
+            raise MXNetError(
+                f"forward: batch size {src.shape[0]} of '{name}' must be "
+                f"divisible by the {n}-device mesh (pad or drop the last "
+                "batch, e.g. NDArrayIter(..., last_batch_handle='discard'))")
         if tuple(src.shape) == dst.shape:
             dst._data.copy_(src.detach(), non_blocking=True)
         else:
@@ -327,20 +547,27 @@ class Executor:
             rng = _random.generator(self._device)
         aux = {n: a._data for n, a in self.aux_dict.items()}
         monitor = self._monitor_fn()
+        if monitor is not None and len(self._replicas) > 1:
+            raise MXNetError("a monitor callback on a data-parallel mesh "
+                             "executor is not ported")
+
+        def run(args):
+            if monitor is not None:
+                return plan.run(args, aux, self._device, rng, monitor)
+            return _run_mesh(plan, args, aux, self._replicas,
+                             self._sharded_args, rng)
         if is_train and self._diff_names:
             leaves = {n: self.arg_dict[n]._data.detach().requires_grad_(True)
                       for n in self._diff_names}
             args = {n: leaves.get(n, a._data)
                     for n, a in self.arg_dict.items()}
             with torch.enable_grad():
-                outs, updates = plan.run(args, aux, self._device, rng,
-                                         monitor)
+                outs, updates = run(args)
             self._pending = (outs, leaves)
         else:
             args = {n: a._data for n, a in self.arg_dict.items()}
             with torch.no_grad():
-                outs, updates = plan.run(args, aux, self._device, rng,
-                                         monitor)
+                outs, updates = run(args)
         with torch.no_grad():
             for name, value in updates:
                 self.aux_dict[name]._data.copy_(value)
@@ -449,7 +676,8 @@ class Executor:
                         else ndmod.zeros(s, ctx=self._ctx))
                     for n, s in zip(self._aux_names, aux_shapes)}
         return Executor(self._symbol, self._ctx, arg_dict, grad_dict,
-                        dict(self._grad_req), aux_dict)
+                        dict(self._grad_req), aux_dict, mesh=self._mesh,
+                        sharded_args=self._sharded_args)
 
 
 def _copy_value(src, dst):

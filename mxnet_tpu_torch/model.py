@@ -6,14 +6,18 @@ the JAX package writes and reads), ``BatchEndParam``, ``_create_kvstore``
 and ``_update_params``.
 
 One device has no kvstore: ``_create_kvstore("local", 1, ...)`` returns
-``(None, False)`` and the updater runs locally, as the reference does. A
-kvstore across devices or hosts (ROADMAP queue 1 item 8) and the legacy
+``(None, False)`` and the updater runs locally, as the reference does.
+Several devices get a ``kvstore.KVStore`` and, by default
+(``MXNET_UPDATE_ON_KVSTORE=1``), the updater runs inside it, unless a
+parameter has more than 16M elements (the reference's rule for
+``local``). The ``dist*`` kinds (ROADMAP queue 1 item 16) and the legacy
 ``FeedForward`` are not ported.
 """
 from __future__ import annotations
 
 import collections
 import logging
+import math
 
 from .base import MXNetError
 from .ndarray import ndarray as nd
@@ -63,27 +67,72 @@ def load_checkpoint(prefix, epoch):
 
 
 def _create_kvstore(kvstore, num_device, arg_params):
-    """(kvstore, update_on_kvstore): none for one device and a local or
-    absent kvstore; anything else is not ported and raises."""
+    """(kvstore instance, update_on_kvstore) as the JAX package's
+    ``model._create_kvstore``."""
+    from . import config
+    from . import kvstore as kvs
+    update_on_kvstore = bool(config.get("MXNET_UPDATE_ON_KVSTORE"))
     if kvstore is None:
-        return None, False
-    if isinstance(kvstore, str) and num_device == 1 \
-            and "dist" not in kvstore:
-        return None, False
-    raise MXNetError(f"kvstore {kvstore!r} over {num_device} device(s) is "
-                     "not ported yet (ROADMAP queue 1 item 8)")
+        kv = None
+    elif isinstance(kvstore, kvs.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            kv = None
+        else:
+            kv = kvs.create(kvstore)
+            if kvstore == "local":
+                max_size = max(math.prod(param.shape)
+                               for param in arg_params.values())
+                if max_size > 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    if kv is None:
+        update_on_kvstore = False
+    return (kv, update_on_kvstore)
+
+
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    """Init each parameter on the kvstore; with the updater there, pull
+    the initial values into the devices' arrays."""
+    for idx, param_on_devs in enumerate(param_arrays):
+        name = param_names[idx]
+        kvstore.init(name, arg_params[name])
+        if update_on_kvstore:
+            kvstore.pull(name, param_on_devs, priority=-idx)
+
+
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore,
+                              param_names):
+    """Push each gradient, pull the updated weight."""
+    for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
+                                                      grad_arrays)):
+        if grad_list[0] is None:
+            continue
+        name = param_names[index]
+        kvstore.push(name, grad_list, priority=-index)
+        kvstore.pull(name, arg_list, priority=-index)
 
 
 def _update_params(param_arrays, grad_arrays, updater, num_device,
                    kvstore=None, param_names=None):
-    """The local updater path: one updater call per parameter (index i
-    of device k is i * num_device + k), in parameter order."""
-    if kvstore is not None:
-        raise MXNetError("kvstore updates are not ported yet (ROADMAP "
-                         "queue 1 item 8)")
+    """The local updater path: with a kvstore, each gradient is pushed
+    and pulled back (summed) first; then one updater call per parameter
+    and device, index ``i * num_device + k`` for parameter i on device k,
+    device by device."""
+    updates = [[] for _ in range(num_device)]
     for i, (arg_list, grad_list) in enumerate(zip(param_arrays,
                                                   grad_arrays)):
         if grad_list[0] is None:
             continue
+        if kvstore:
+            name = param_names[i]
+            kvstore.push(name, grad_list, priority=-i)
+            kvstore.pull(name, grad_list, priority=-i)
         for k, (w, g) in enumerate(zip(arg_list, grad_list)):
-            updater(i * num_device + k, g, w)
+            updates[k].append((i * num_device + k, g, w))
+    for dev_updates in updates:
+        for upd in dev_updates:
+            updater(*upd)

@@ -155,15 +155,18 @@ class BaseModule:
         get_params / set_params, the epoch-end callbacks and the
         validation score.
 
+        ``steps_per_dispatch=K`` (K > 1) runs K training steps a dispatch
+        through ``_fit_fused`` (Module: a ``parallel.DataParallelTrainer``
+        whose ``step_k`` is K replays of one CUDA graph on the card): the
+        same updates on the same batches as K = 1, the training metric
+        updated and the batch-end callbacks called once a block of K
+        batches; a configuration that cannot fuse warns and falls back
+        to the per-batch loop, as in the JAX package.
+
         Options of the JAX package not ported yet raise instead of being
-        ignored: ``steps_per_dispatch > 1`` (the fused fit, ROADMAP queue
-        1 item 8), ``checkpoint_dir`` / ``resume`` (item 14) and
-        ``monitor``."""
+        ignored: ``checkpoint_dir`` / ``resume`` (ROADMAP queue 1 item 14)
+        and ``monitor``."""
         assert num_epoch is not None, "please specify number of epochs"
-        if steps_per_dispatch and steps_per_dispatch > 1:
-            raise MXNetError("fit(steps_per_dispatch > 1), the fused "
-                             "multi-step fit, is not ported yet (ROADMAP "
-                             "queue 1 item 8)")
         if checkpoint_dir is not None or resume or checkpoint_period:
             raise MXNetError("fit(checkpoint_dir=, resume=) is not ported "
                              "yet (ROADMAP queue 1 item 14); use "
@@ -171,6 +174,21 @@ class BaseModule:
         if monitor is not None:
             raise MXNetError("fit(monitor=): monitor.Monitor is not ported "
                              "yet; use the executor's set_monitor_callback")
+        if steps_per_dispatch and steps_per_dispatch > 1:
+            if self._fit_fused(
+                    train_data, eval_data=eval_data, eval_metric=eval_metric,
+                    epoch_end_callback=epoch_end_callback,
+                    batch_end_callback=batch_end_callback, kvstore=kvstore,
+                    optimizer=optimizer, optimizer_params=optimizer_params,
+                    eval_end_callback=eval_end_callback,
+                    eval_batch_end_callback=eval_batch_end_callback,
+                    initializer=initializer, arg_params=arg_params,
+                    aux_params=aux_params, allow_missing=allow_missing,
+                    force_rebind=force_rebind, force_init=force_init,
+                    begin_epoch=begin_epoch, num_epoch=num_epoch,
+                    validation_metric=validation_metric,
+                    steps_per_dispatch=int(steps_per_dispatch)):
+                return
 
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
@@ -235,6 +253,15 @@ class BaseModule:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
             train_data.reset()
+
+    def _fit_fused(self, train_data, **kwargs):
+        """The steps_per_dispatch > 1 hook: a subclass that can fuse K
+        steps into one dispatch (Module) overrides it; False falls back to
+        the per-batch loop."""
+        logging.warning(
+            "%s does not support steps_per_dispatch>1; falling back to "
+            "per-batch dispatch", type(self).__name__)
+        return False
 
     # -- symbol/params interface (implemented by subclasses) -----------------
 

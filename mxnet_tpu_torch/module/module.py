@@ -1,24 +1,34 @@
 """Module — symbolic training on a bound executor (counterpart of
-mxnet_tpu/module/module.py), on one device.
+mxnet_tpu/module/module.py).
 
 ``bind`` simple-binds the symbol on the module's context (the card by
 default); ``init_params`` fills the bound arrays through an initializer
 (with each variable's attrs) or from given params; ``init_optimizer``
 creates the optimizer with the symbol's lr/wd multipliers and
 ``rescale_grad = 1 / batch``; ``update`` runs the updater once per
-parameter. Several contexts, ``group2ctxs`` and a kvstore (ROADMAP queue
-1 item 8) raise.
+parameter. Several contexts bind one data-parallel executor over their
+mesh (``parallel.mesh_for_contexts``: the batch split over the contexts,
+BatchNorm's statistics and the gradients over the whole batch, as the
+JAX package's sharded executor) and a kvstore (``model._create_kvstore``)
+that runs the updater by default. ``fit(steps_per_dispatch=K)`` trains
+through a ``parallel.DataParallelTrainer`` (``_fit_fused``).
+``group2ctxs`` (ROADMAP queue 1 item 8) raises.
 """
 from __future__ import annotations
 
 import logging
+import time
 import warnings
+
+import torch
 
 from ..base import MXNetError
 from ..context import Context, current_context
 from ..initializer import Uniform, InitDesc
 from .. import optimizer as opt_mod
-from ..model import (_create_kvstore, _update_params, load_checkpoint)
+from ..model import (_create_kvstore, _initialize_kvstore,
+                     _update_params_on_kvstore, _update_params,
+                     load_checkpoint)
 from ..io import DataDesc
 from .base_module import BaseModule, _check_input_names
 
@@ -36,17 +46,14 @@ class Module(BaseModule):
             context = [current_context()]
         if isinstance(context, Context):
             context = [context]
-        if len(context) != 1:
-            raise MXNetError(f"Module over {len(context)} contexts is not "
-                             "ported yet (ROADMAP queue 1 item 8): pass one")
+        context = list(context)
         if group2ctxs:
             raise MXNetError("Module(group2ctxs=) model parallelism is not "
                              "ported yet (ROADMAP queue 1 item 8)")
-        if compression_params:
-            raise MXNetError("gradient compression needs a kvstore, which is "
-                             "not ported yet (ROADMAP queue 1 item 8)")
-        context[0].torch_device()       # no card: raise before binding
+        for c in context:
+            c.torch_device()            # no card: raise before binding
         self._context = context
+        self._compression_params = compression_params
         self._work_load_list = work_load_list
 
         self._symbol = symbol
@@ -104,6 +111,12 @@ class Module(BaseModule):
         self.save_params(param_name)
         logging.info('Saved checkpoint to "%s"', param_name)
         if save_optimizer_states:
+            if not self.optimizer_initialized:
+                # the fused fit keeps the optimizer inside its trainer
+                logging.warning(
+                    "save_checkpoint: optimizer not initialized (fused "
+                    "fit?); skipping optimizer states for %s", prefix)
+                return
             state_name = "%s-%04d.states" % (prefix, epoch)
             self.save_optimizer_states(state_name)
             logging.info('Saved optimizer state to "%s"', state_name)
@@ -275,9 +288,22 @@ class Module(BaseModule):
                 reqs[name] = "null"
         self._grad_req = reqs
 
+        # several contexts: one executor over their mesh (the JAX
+        # package's sharded executor), inputs split on the batch axis
+        mesh, sharded = None, ()
+        if len(self._context) > 1:
+            from ..parallel.mesh import mesh_for_contexts
+            mesh = mesh_for_contexts(self._context)
+            sharded = tuple(self._data_names) + tuple(self._label_names)
+            n = len(self._context)
+            for d in self._data_shapes + self._label_shapes:
+                if d.shape and d.shape[0] % n != 0:
+                    raise MXNetError(
+                        f"batch size {d.shape[0]} of input '{d.name}' must "
+                        f"be divisible by the number of contexts ({n})")
         self._exec = self._symbol.simple_bind(
             ctx=self._context[0], grad_req=reqs, type_dict=type_kwargs,
-            **shape_kwargs)
+            mesh=mesh, sharded_args=sharded, **shape_kwargs)
         self.binded = True
 
         # already-initialized params (Module.load / rebind) must reach the
@@ -286,6 +312,165 @@ class Module(BaseModule):
         if self.params_initialized and self._arg_params is not None:
             self._exec.copy_params_from(self._arg_params,
                                         self._aux_params or {})
+
+    # -- fused multi-step fit (steps_per_dispatch > 1) -----------------------
+    def _fit_fused(self, train_data, eval_data, eval_metric,
+                   epoch_end_callback, batch_end_callback, kvstore,
+                   optimizer, optimizer_params, eval_end_callback,
+                   eval_batch_end_callback, initializer, arg_params,
+                   aux_params, allow_missing, force_rebind, force_init,
+                   begin_epoch, num_epoch, validation_metric,
+                   steps_per_dispatch):
+        """The K-steps-a-dispatch training loop (the JAX package's
+        ``Module._fit_fused``): a normal bind and ``init_params`` (the
+        parameter draw of K = 1), then a ``DataParallelTrainer`` over the
+        contexts' mesh fed K stacked batches a ``step_k(outputs_mode=
+        "all")``, whose outputs update the training metric; parameters and
+        aux written back into the module at every epoch end, before the
+        epoch-end callbacks and validation. Returns False, with the JAX
+        package's warning, for a configuration that cannot fuse."""
+        import itertools
+        from ..ndarray.ndarray import NDArray
+        from ..parallel.dp import DataParallelTrainer, _OPT_OPS
+        from ..parallel.mesh import mesh_for_contexts
+        from .base_module import _as_list
+        from .. import metric as metric_mod
+        from ..model import BatchEndParam
+
+        opt_params = dict(optimizer_params or {})
+        blockers = []
+        if not (isinstance(optimizer, str) and optimizer in _OPT_OPS):
+            blockers.append(f"optimizer {optimizer!r} has no fused update "
+                            f"op (supported: {sorted(_OPT_OPS)})")
+        if not (kvstore is None or (isinstance(kvstore, str) and
+                                    "dist" not in kvstore)):
+            blockers.append(f"kvstore {kvstore!r} is distributed/custom")
+        if "lr_scheduler" in opt_params:
+            blockers.append("lr_scheduler (drive set_learning_rate "
+                            "externally instead)")
+        if self._state_names:
+            blockers.append("state_names")
+        if self._fixed_param_names:
+            blockers.append("fixed_param_names")
+        if not blockers:
+            from ..ops.registry import get_op
+            op_entry = _OPT_OPS[optimizer]
+            opname = op_entry({"momentum": opt_params.get("momentum")}) \
+                if callable(op_entry) else op_entry
+            # the fused path keeps fp32 masters, so multi_precision holds
+            handled = {"learning_rate", "momentum", "wd", "rescale_grad",
+                       "clip_gradient", "multi_precision"}
+            extra = [k for k in opt_params
+                     if k not in handled and k not in get_op(opname).params]
+            if extra:
+                blockers.append(
+                    f"optimizer_params {extra} not supported by the fused "
+                    f"{opname} op")
+        if blockers:
+            self.logger.warning(
+                "steps_per_dispatch>1 unsupported for this config (%s); "
+                "falling back to per-batch dispatch", "; ".join(blockers))
+            return False
+        k = steps_per_dispatch
+
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        if validation_metric is None:
+            validation_metric = eval_metric
+        if not isinstance(eval_metric, metric_mod.EvalMetric):
+            eval_metric = metric_mod.create(eval_metric)
+        batch_callbacks = _as_list(batch_end_callback)
+        epoch_callbacks = _as_list(epoch_end_callback)
+
+        batch_size = self._data_shapes[0].shape[0]
+        lr = float(opt_params.pop("learning_rate", 0.01))
+        opt_params.pop("multi_precision", None)
+        trainer = DataParallelTrainer(
+            self._symbol, mesh_for_contexts(self._context),
+            data_names=tuple(self._data_names),
+            label_names=tuple(self._label_names), optimizer=optimizer,
+            learning_rate=lr,
+            momentum=float(opt_params.pop("momentum", 0.0)),
+            wd=float(opt_params.pop("wd", 0.0)),
+            rescale_grad=float(opt_params.pop("rescale_grad",
+                                              1.0 / batch_size)),
+            clip_gradient=opt_params.pop("clip_gradient", None),
+            **opt_params)
+        shape_kwargs = {d.name: d.shape for d in
+                        self._data_shapes + (self._label_shapes or [])}
+        params, states, aux = trainer.init_state(
+            shape_kwargs, arg_params=self._arg_params,
+            aux_params=self._aux_params)
+        self.fused_trainer = trainer
+        data_idx = {n: i for i, n in enumerate(self._data_names)}
+        label_idx = {n: i for i, n in enumerate(self._label_names)}
+
+        def _column(block, name):
+            if name in data_idx:
+                return [b.data[data_idx[name]]._data for b in block]
+            return [b.label[label_idx[name]]._data for b in block]
+
+        for epoch in range(begin_epoch, num_epoch):
+            epoch_start = time.time()
+            eval_metric.reset()
+            src = iter(train_data)
+            nbatch = 0
+            while True:
+                # torch.stack copies: the iterator may reuse its buffers
+                block = list(itertools.islice(src, k))
+                if not block:
+                    break
+                inputs = trainer.shard_inputs(
+                    [torch.stack(_column(block, n))
+                     for n in trainer.input_names], stacked=True)
+                params, states, aux, _, outputs = trainer.step_k(
+                    params, states, aux, inputs, outputs_mode="all")
+                # the metric over the block's K batches at once, the scan
+                # axis folded into the batch axis
+                pred_dict = {name: NDArray(o.reshape((-1,) + o.shape[2:]))
+                             for name, o in zip(self._output_names,
+                                                outputs)}
+                label_dict = {name: NDArray(torch.cat(
+                    [b.label[i]._data for b in block]))
+                    for name, i in label_idx.items()}
+                eval_metric.update_dict(label_dict, pred_dict)
+                nbatch += len(block)
+                if batch_callbacks:
+                    cb_param = BatchEndParam(epoch=epoch, nbatch=nbatch - 1,
+                                             eval_metric=eval_metric,
+                                             locals=locals())
+                    for callback in batch_callbacks:
+                        callback(cb_param)
+
+            for name, val in eval_metric.get_name_value():
+                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                             time.time() - epoch_start)
+            # the trainer's state written back (copies: the trainer keeps
+            # updating its own tensors), so callbacks, checkpoints and
+            # validation see what K = 1 would
+            self.set_params(
+                {n: NDArray(torch.from_numpy(v))
+                 for n, v in trainer.host_params(params).items()},
+                {n: NDArray(torch.from_numpy(v))
+                 for n, v in trainer.host_aux(aux).items()})
+            snapshot_args, snapshot_aux = self.get_params()
+            for callback in epoch_callbacks:
+                callback(epoch, self.symbol, snapshot_args, snapshot_aux)
+            if eval_data is not None:
+                for name, val in self.score(
+                        eval_data, validation_metric,
+                        score_end_callback=eval_end_callback,
+                        batch_end_callback=eval_batch_end_callback,
+                        epoch=epoch):
+                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                     name, val)
+            train_data.reset()
+        return True
 
     # -- optimizer -----------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -325,7 +510,20 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._kvstore = kvstore
         self._update_on_kvstore = update_on_kvstore
-        self._updater = opt_mod.get_updater(optimizer)
+        self._updater = None
+        if kvstore:
+            if self._compression_params:
+                kvstore.set_gradient_compression(self._compression_params)
+            _initialize_kvstore(
+                kvstore=kvstore,
+                param_arrays=[[self._exec.arg_dict[n]]
+                              for n in self._param_names],
+                arg_params=self._arg_params, param_names=self._param_names,
+                update_on_kvstore=update_on_kvstore)
+        if update_on_kvstore:
+            kvstore.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt_mod.get_updater(optimizer)
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
@@ -374,16 +572,25 @@ class Module(BaseModule):
         self._exec.backward(out_grads=out_grads)
 
     def update(self):
-        """One updater call per parameter with a gradient (the JAX
-        package's ``_update_params`` loop)."""
+        """One update per parameter with a gradient: through the kvstore
+        (push, pull) when it runs the updater, else the updater here, at
+        the JAX package's indices (``i * len(context)`` for parameter i:
+        its one global array is device 0's, while ``idx2name`` maps i, so
+        with several contexts the lr/wd multipliers of another parameter
+        are read, as in the JAX package)."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
         self._params_dirty = True
-        _update_params(
-            [[self._exec.arg_dict[n]] for n in self._param_names],
-            [[self._exec.grad_dict.get(n)] for n in self._param_names],
-            updater=self._updater, num_device=len(self._context),
-            kvstore=self._kvstore, param_names=self._param_names)
+        params = [[self._exec.arg_dict[n]] for n in self._param_names]
+        grads = [[self._exec.grad_dict.get(n)] for n in self._param_names]
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(params, grads, self._kvstore,
+                                      self._param_names)
+        else:
+            _update_params(params, grads, updater=self._updater,
+                           num_device=len(self._context),
+                           kvstore=self._kvstore,
+                           param_names=self._param_names)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
@@ -418,11 +625,17 @@ class Module(BaseModule):
 
     def save_optimizer_states(self, fname):
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         from ..base import atomic_write
         atomic_write(fname, self._updater.get_states())
 
     def load_optimizer_states(self, fname):
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as f:
             self._updater.set_states(f.read())
 

@@ -111,19 +111,58 @@ def pick(data, index, axis=-1, keepdims=False):
 
 @contextlib.contextmanager
 def cudnn_f32():
-    """cuDNN in full float32 for the enclosed calls: PyTorch lets cuDNN
-    convolutions use TF32 by default (``torch.backends.cudnn.allow_tf32``
-    is True), unlike its matmuls. The flag is lowered for the call and
+    """cuDNN and cuBLAS in full float32 for the enclosed calls: PyTorch
+    lets cuDNN convolutions use TF32 by default
+    (``torch.backends.cudnn.allow_tf32`` is True), unlike its matmuls;
+    the convolutions' GEMM weight gradient (``_conv_wgrad_gemm``) runs
+    inside the same scope. The flags are lowered for the call and
     restored after it, never flipped for the process."""
-    cd = torch.backends.cudnn
-    old = cd.allow_tf32
-    if old:
-        cd.allow_tf32 = False
+    cd, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    old = (cd.allow_tf32, mm.allow_tf32)
+    cd.allow_tf32 = mm.allow_tf32 = False
     try:
         yield
     finally:
-        if old:
-            cd.allow_tf32 = True
+        cd.allow_tf32, mm.allow_tf32 = old
+
+
+def _conv_wgrad_gemm(dy, x, w_shape, stride, pad, dilate):
+    """A 2-D convolution's weight gradient (groups 1, dilation 1) as one
+    float32 GEMM: dW[o, c, i, j] = sum over n, h, w of dy[n, o, h, w] *
+    xpad[n, c, h * s + i, w * s + j], the input's windows taken as a
+    strided view (``Tensor.unfold``) and contracted by ``tensordot``
+    (a copy of each operand into GEMM order, then one product). It keeps
+    float32's precision where cuDNN's heuristic may pick a weight-gradient
+    algorithm that loses it (``_wgrad_route``)."""
+    if dilate != (1, 1):
+        raise MXNetError("_conv_wgrad_gemm takes dilation 1")
+    xp = F.pad(x, (pad[1], pad[1], pad[0], pad[0])) if any(pad) else x
+    win = xp.unfold(2, w_shape[2], stride[0]).unfold(3, w_shape[3],
+                                                     stride[1])
+    return torch.tensordot(dy, win, dims=([0, 2, 3], [0, 2, 3]))
+
+
+# cuDNN's float32 weight gradient on the H100 (cuDNN 9.2): at stride 1
+# with 5 x 5 kernels its heuristic picks, for some shapes, an algorithm
+# that lies 6.8e-4 to 1.6e-2 of the gradient's largest magnitude from
+# float64 (LeNet's c1 at batch 8: 6.8e-4; 64 -> 64 channels at 56 x 56,
+# batch 128: 1.6e-2), where the GEMM stays within 3.5e-6
+# (tools/torch_f32_witness.py --sweep, PERF.md). Which 5 x 5 shapes it
+# picks that algorithm for follows no rule the port can see, so every
+# float32 stride-1 5 x 5 2-D convolution (groups 1, dilation 1) takes the
+# GEMM. 3 x 3 stays on cuDNN: its worst swept error is 4.8e-5, within the
+# card test's bound, and the GEMM would cost ResNet-50 ~10 ms a step.
+_WGRAD_GEMM_KERNELS = ((5, 5),)
+
+
+def _wgrad_route(x, w, stride, dilate, groups):
+    """"gemm" or "cudnn" for a convolution's weight gradient, from its
+    shape and type alone."""
+    if (x.dtype == torch.float32 and x.ndim == 4 and groups == 1
+            and tuple(w.shape[2:]) in _WGRAD_GEMM_KERNELS
+            and tuple(stride) == (1, 1) and tuple(dilate) == (1, 1)):
+        return "gemm"
+    return "cudnn"
 
 
 class _BiasAddDead(torch.autograd.Function):
@@ -187,8 +226,9 @@ class _Conv(torch.autograd.Function):
     """Convolution with its forward and backward both in full float32
     (``cudnn_f32``): the backward convolutions run when autograd calls
     them, outside any scope around the forward, so they set the flag
-    themselves. ``dead_bias`` returns an exact zero bias gradient
-    without reducing dy."""
+    themselves. The weight gradient of the shapes ``_wgrad_route`` names
+    is the GEMM of ``_conv_wgrad_gemm``, not cuDNN's. ``dead_bias``
+    returns an exact zero bias gradient without reducing dy."""
 
     @staticmethod
     def forward(ctx, x, w, b, stride, pad, dilate, groups, dead_bias):
@@ -203,11 +243,16 @@ class _Conv(torch.autograd.Function):
         x, w = ctx.saved_tensors
         stride, pad, dilate, groups, has_bias, dead_bias = ctx.conf
         need_b = has_bias and not dead_bias and ctx.needs_input_grad[2]
+        need_w = ctx.needs_input_grad[1]
+        gemm = need_w and _wgrad_route(x, w, stride, dilate,
+                                       groups) == "gemm"
         with cudnn_f32():
             dx, dw, db = torch.ops.aten.convolution_backward(
                 dy, x, w, [w.shape[0]] if has_bias else None, list(stride),
                 list(pad), list(dilate), False, [0] * len(stride), groups,
-                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], need_b])
+                [ctx.needs_input_grad[0], need_w and not gemm, need_b])
+            if gemm:
+                dw = _conv_wgrad_gemm(dy, x, w.shape, stride, pad, dilate)
         if has_bias and dead_bias:
             db = torch.zeros(w.shape[0], dtype=dy.dtype, device=dy.device)
         return dx, dw, db, None, None, None, None, None
@@ -433,7 +478,11 @@ class _SoftmaxOutput(torch.autograd.Function):
                 tgt = tgt * m
                 out_m = out * m
         grad = out_m - tgt
-        if a["normalization"] == "batch":
+        denom = a.get("__denominator__")
+        if denom is not None:            # the whole batch's (a mesh)
+            grad = grad / (denom.to(grad.device)
+                           if isinstance(denom, torch.Tensor) else denom)
+        elif a["normalization"] == "batch":
             grad = grad / out.shape[0]
         elif a["normalization"] == "valid":
             grad = grad / torch.clamp_min(valid.sum(), 1.0)
@@ -443,6 +492,34 @@ class _SoftmaxOutput(torch.autograd.Function):
 
 def _softmax_output(attrs, octx, data, label):
     return (_SoftmaxOutput.apply(data, label, attrs),)
+
+
+def _softmax_output_mesh(attrs, octx, replicas):
+    """SoftmaxOutput over a mesh's replicas: the ``batch`` / ``valid``
+    normalisation divides by the whole batch's count, as the JAX package's
+    one global array does."""
+    norm = attrs["normalization"]
+    if norm in ("batch", "valid"):
+        attrs = type(attrs)(attrs)
+        if norm == "batch":
+            attrs["__denominator__"] = float(sum(d.shape[0]
+                                                 for d, _ in replicas))
+        else:
+            dev = replicas[0][0].device
+            attrs["__denominator__"] = torch.clamp_min(sum(
+                _valid_count(attrs, d, lbl).to(dev)
+                for d, lbl in replicas), 1.0)
+    return [_softmax_output(attrs, octx, d, lbl) for d, lbl in replicas]
+
+
+def _valid_count(a, data, lbl):
+    """The labels SoftmaxOutput's ``valid`` normalisation counts."""
+    if lbl.shape == data.shape:
+        return torch.tensor(float(lbl.shape[0]), device=data.device)
+    if a["use_ignore"]:
+        return (lbl.to(torch.int64) != int(a["ignore_label"])).sum() \
+            .to(torch.float32)
+    return torch.tensor(float(lbl.numel()), device=data.device)
 
 
 def _softmax_output_infer(attrs, in_shapes):
@@ -464,7 +541,7 @@ register("SoftmaxOutput", _softmax_output,
                  "out_grad": Param("bool", False),
                  "smooth_alpha": Param("float", 0.0)},
          inputs=("data", "label"), aliases=("Softmax",),
-         infer_shape=_softmax_output_infer)
+         infer_shape=_softmax_output_infer, fmesh=_softmax_output_mesh)
 
 
 def _bn_shapes(data, axis):
@@ -480,70 +557,6 @@ def _acc_dtype(data):
     return torch.promote_types(data.dtype, torch.float32)
 
 
-def _bn_stats(data, red):
-    """Two-pass statistics (mean first, then E[(x - mean)^2]) in
-    ``_acc_dtype``: the one-pass E[x^2] - mean^2 cancels when
-    |mean| >> std."""
-    acc = _acc_dtype(data)
-    m = torch.mean(data, dim=red, dtype=acc, keepdim=True)
-    d = data.to(acc) - m
-    return m.reshape(-1), torch.mean(d * d, dim=red)
-
-
-class _BNTrain(torch.autograd.Function):
-    """Training-mode BatchNorm (the JAX package's ``_bn_train``): returns
-    (out, batch mean, batch var), statistics in float32 (float64 for
-    float64 data). The backward is
-    the two-pass one of ``_bn_train_bwd``; with ``relu`` (the executor's
-    BN+ReLU fusion) the forward applies the ReLU and the backward masks
-    dy by recomputing the pre-activation from xhat (g * xhat + beta > 0)
-    instead of saving the output: an element exactly on the boundary may
-    round to the other side (one ulp of gradient noise, accepted)."""
-
-    @staticmethod
-    def forward(ctx, data, gamma, beta, axis, eps, fix_gamma, relu):
-        red, bshape = _bn_shapes(data, axis)
-        mean, var = _bn_stats(data, red)
-        rstd = torch.rsqrt(var + eps)
-        g = torch.ones_like(gamma) if fix_gamma else gamma
-        acc = _acc_dtype(data)
-        gf = g.to(acc)
-        scale = (gf * rstd).to(data.dtype)
-        shift = (beta.to(acc) - mean * gf * rstd).to(data.dtype)
-        out = data * scale.reshape(bshape) + shift.reshape(bshape)
-        if relu:
-            out = torch.relu(out)
-        ctx.save_for_backward(data, gamma, beta, mean, rstd)
-        ctx.conf = (axis, fix_gamma, relu)
-        ctx.mark_non_differentiable(mean, var)
-        return out, mean, var
-
-    @staticmethod
-    def backward(ctx, dy, _dmean, _dvar):
-        data, gamma, beta, mean, rstd = ctx.saved_tensors
-        axis, fix_gamma, relu = ctx.conf
-        red, bshape = _bn_shapes(data, axis)
-        n = math.prod(data.shape[i] for i in red)
-        xhat = (data - mean.reshape(bshape).to(data.dtype)) \
-            * rstd.reshape(bshape).to(data.dtype)
-        g = torch.ones_like(gamma) if fix_gamma else gamma
-        if relu:
-            pre = xhat * g.reshape(bshape).to(data.dtype) \
-                + beta.reshape(bshape).to(data.dtype)
-            dy = torch.where(pre > 0, dy, torch.zeros((), dtype=dy.dtype,
-                                                      device=dy.device))
-        # pass 1: both channel reductions; pass 2: dx
-        acc = _acc_dtype(data)
-        dbeta = torch.sum(dy, dim=red, dtype=acc)
-        dgamma = torch.sum(dy * xhat, dim=red, dtype=acc)
-        coef = (g.to(acc) * rstd).reshape(bshape).to(data.dtype)
-        dx = coef * (dy - (dbeta / n).reshape(bshape).to(data.dtype)
-                     - xhat * (dgamma / n).reshape(bshape).to(data.dtype))
-        dgamma_out = torch.zeros_like(gamma) if fix_gamma \
-            else dgamma.to(gamma.dtype)
-        return dx, dgamma_out, dbeta.to(gamma.dtype), None, None, None, None
-
-
 def _batch_norm(attrs, octx, data, gamma, beta, moving_mean, moving_var):
     eps = attrs["eps"]
     momentum = attrs["momentum"]
@@ -551,8 +564,8 @@ def _batch_norm(attrs, octx, data, gamma, beta, moving_mean, moving_var):
     _, bshape = _bn_shapes(data, axis)
     relu = bool(attrs.get("__fuse_relu__", False))
     if octx.is_train and not attrs["use_global_stats"]:
-        out, mean, var = _BNTrain.apply(data, gamma, beta, axis, eps,
-                                        bool(attrs["fix_gamma"]), relu)
+        out, mean, var = _BNTrain.apply(axis, eps, bool(attrs["fix_gamma"]),
+                                        relu, gamma, beta, data)
         with torch.no_grad():
             new_mean = momentum * moving_mean \
                 + (1 - momentum) * mean.to(moving_mean.dtype)
@@ -567,6 +580,113 @@ def _batch_norm(attrs, octx, data, gamma, beta, moving_mean, moving_var):
     if relu:
         out = torch.relu(out)
     return (out, moving_mean, moving_var)
+
+
+class _BNTrain(torch.autograd.Function):
+    """Training-mode BatchNorm (the JAX package's ``_bn_train``) over one
+    batch tensor or over a mesh's replicas, with the whole batch's
+    statistics (a synchronised BatchNorm: the JAX package shards one
+    global array, so its statistics are the global batch's). Statistics
+    are float32 (float64 for float64 data) and two-pass: the sum, then
+    the squared deviations from the mean (E[x^2] - mean^2 cancels when
+    |mean| >> std). The replicas' partial sums go to the first replica's
+    device and are added there, in both passes and in the backward's two
+    channel reductions; each replica then normalises, or forms dx, with
+    the global values. With ``relu`` (the executor's BN+ReLU fusion) the
+    forward applies the ReLU and the backward masks dy by recomputing the
+    pre-activation from xhat (g * xhat + beta > 0) instead of saving the
+    output: an element exactly on the boundary may round to the other
+    side (one ulp of gradient noise, accepted). Inputs (axis, eps,
+    fix_gamma, relu, gamma, beta, *data); outputs (*out, mean, var),
+    statistics on the first device."""
+
+    @staticmethod
+    def forward(ctx, axis, eps, fix_gamma, relu, gamma, beta, *datas):
+        dev0 = gamma.device
+        red, bshape = _bn_shapes(datas[0], axis)
+        acc = _acc_dtype(datas[0])
+        count = sum(math.prod(d.shape[i] for i in red) for d in datas)
+        mean = _sum_to(dev0, [torch.sum(d, dim=red, dtype=acc)
+                              for d in datas]) / count
+        var = _sum_to(dev0, [torch.sum(torch.square(
+            d.to(acc) - mean.to(d.device).reshape(bshape)), dim=red)
+            for d in datas]) / count
+        rstd = torch.rsqrt(var + eps)
+        gf = (torch.ones_like(gamma) if fix_gamma else gamma).to(acc)
+        scale, shift = gf * rstd, beta.to(acc) - mean * gf * rstd
+        outs = []
+        for d in datas:
+            o = d * scale.to(d.device, d.dtype).reshape(bshape) \
+                + shift.to(d.device, d.dtype).reshape(bshape)
+            outs.append(torch.relu(o) if relu else o)
+        ctx.save_for_backward(gamma, beta, mean, rstd, *datas)
+        ctx.conf = (axis, fix_gamma, relu, count)
+        ctx.mark_non_differentiable(mean, var)
+        return (*outs, mean, var)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        gamma, beta, mean, rstd, *datas = ctx.saved_tensors
+        axis, fix_gamma, relu, count = ctx.conf
+        dev0 = gamma.device
+        red, bshape = _bn_shapes(datas[0], axis)
+        acc = _acc_dtype(datas[0])
+        g = torch.ones_like(gamma) if fix_gamma else gamma
+        xhats, dys = [], []
+        for d, dy in zip(datas, grads[:len(datas)]):
+            xhat = (d - mean.to(d.device, d.dtype).reshape(bshape)) \
+                * rstd.to(d.device, d.dtype).reshape(bshape)
+            if relu:
+                pre = xhat * g.to(d.device, d.dtype).reshape(bshape) \
+                    + beta.to(d.device, d.dtype).reshape(bshape)
+                dy = torch.where(pre > 0, dy, torch.zeros(
+                    (), dtype=dy.dtype, device=dy.device))
+            xhats.append(xhat)
+            dys.append(dy)
+        dbeta = _sum_to(dev0, [torch.sum(dy, dim=red, dtype=acc)
+                               for dy in dys])
+        dgamma = _sum_to(dev0, [torch.sum(dy * xh, dim=red, dtype=acc)
+                                for dy, xh in zip(dys, xhats)])
+        coef = g.to(acc) * rstd
+        dxs = []
+        for d, dy, xh in zip(datas, dys, xhats):
+            c = coef.to(d.device, d.dtype).reshape(bshape)
+            dxs.append(c * (dy - (dbeta / count).to(d.device, d.dtype)
+                            .reshape(bshape) - xh * (dgamma / count).to(
+                                d.device, d.dtype).reshape(bshape)))
+        dgamma_out = torch.zeros_like(gamma) if fix_gamma \
+            else dgamma.to(gamma.dtype)
+        return (None, None, None, None, dgamma_out, dbeta.to(beta.dtype),
+                *dxs)
+
+
+def _sum_to(device, parts):
+    """The sum of per-replica tensors, on ``device``, in replica order."""
+    total = parts[0].to(device)
+    for p in parts[1:]:
+        total = total + p.to(device)
+    return total
+
+
+def _batch_norm_mesh(attrs, octx, replicas):
+    """BatchNorm over a mesh's replicas: batch statistics of the whole
+    batch (``_BNTrain``) and one moving-statistics update from them, the
+    same on every replica; any other mode is per replica."""
+    if not (octx.is_train and not attrs["use_global_stats"]):
+        return [_batch_norm(attrs, octx, *r) for r in replicas]
+    data0, gamma, beta, moving_mean, moving_var = replicas[0]
+    res = _BNTrain.apply(attrs["axis"] % data0.ndim, attrs["eps"],
+                             bool(attrs["fix_gamma"]),
+                             bool(attrs.get("__fuse_relu__", False)),
+                             gamma, beta, *[r[0] for r in replicas])
+    mean, var = res[-2:]
+    momentum = attrs["momentum"]
+    with torch.no_grad():
+        new_mean = momentum * moving_mean \
+            + (1 - momentum) * mean.to(moving_mean.dtype)
+        new_var = momentum * moving_var \
+            + (1 - momentum) * var.to(moving_var.dtype)
+    return [(out, new_mean, new_var) for out in res[:-2]]
 
 
 def _bn_infer(attrs, in_shapes):
@@ -590,7 +710,8 @@ register("BatchNorm", _batch_norm,
                  "cudnn_off": Param("bool", False)},
          inputs=("data", "gamma", "beta", "moving_mean", "moving_var"),
          aux=("moving_mean", "moving_var"), mutates_aux=True,
-         infer_shape=_bn_infer, aliases=("BatchNorm_v1",))
+         infer_shape=_bn_infer, aliases=("BatchNorm_v1",),
+         fmesh=_batch_norm_mesh)
 
 
 def _dropout(attrs, octx, x):

@@ -108,6 +108,11 @@ class OpSchema:
     infer_shape: Optional[Callable] = None
     infer_type: Optional[Callable] = None
     aliases: Sequence[str] = ()
+    # ops that reduce over the batch axis (BatchNorm's statistics, a loss
+    # head's normalisation): ``fmesh(attrs, octx, replicas)`` takes each
+    # replica's inputs of a data-parallel walk and returns each replica's
+    # result tuple, reduced over the whole batch (executor._run_mesh)
+    fmesh: Optional[Callable] = None
 
     def parse_attrs(self, kwargs) -> AttrDict:
         out = AttrDict()
@@ -149,7 +154,7 @@ _REGISTRY: dict = {}
 def register(name, fcompute, *, params=None, inputs=("data",), num_outputs=1,
              aux=(), mutates_aux=False, aux_always=False, needs_rng=False,
              key_var_num_args=None, infer_shape=None, infer_type=None,
-             aliases=()):
+             aliases=(), fmesh=None):
     """Register an operator; ``aux`` names the inputs that are auxiliary
     states. Returns the OpSchema."""
     params = {k: (v if isinstance(v, Param) else Param(*v)
@@ -163,7 +168,7 @@ def register(name, fcompute, *, params=None, inputs=("data",), num_outputs=1,
                       aux_always=aux_always, needs_rng=needs_rng,
                       key_var_num_args=key_var_num_args,
                       infer_shape=infer_shape, infer_type=infer_type,
-                      aliases=tuple(aliases))
+                      aliases=tuple(aliases), fmesh=fmesh)
     for n in (name, *aliases):
         if n in _REGISTRY:
             raise MXNetError(f"op {n!r} already registered")

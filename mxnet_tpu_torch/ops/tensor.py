@@ -42,7 +42,15 @@ def _scalar(x, s):
     return int(s)
 
 
+# ops that compute each element from the same element of their inputs
+# (of the broadcast inputs, for the broadcast family): per sample on a
+# data-parallel mesh (executor._per_sample_rules)
+ELEMENTWISE = {"_copy", "BlockGrad", "Cast", "add_n", "clip", "zeros_like",
+               "ones_like"}
+
+
 def _unary(name, fn, aliases=()):
+    ELEMENTWISE.add(name)
     register(name, lambda attrs, octx, x: (fn(x),), aliases=aliases,
              infer_shape=_same_shape_infer)
 
@@ -51,6 +59,7 @@ def _binary(name, fn, aliases=(), cast_to_input=False, same_shape=False):
     def fcompute(attrs, octx, lhs, rhs):
         y = fn(lhs, rhs)
         return (y.to(lhs.dtype) if cast_to_input else y,)
+    ELEMENTWISE.add(name)
     register(name, fcompute, inputs=("lhs", "rhs"), aliases=aliases,
              infer_shape=_same_shape_infer if same_shape else None)
 
@@ -59,6 +68,7 @@ def _scalar_op(name, fn, aliases=(), cast_to_input=False):
     def fcompute(attrs, octx, x):
         y = fn(x, _scalar(x, attrs["scalar"]))
         return (y.to(x.dtype) if cast_to_input else y,)
+    ELEMENTWISE.add(name)
     register(name, fcompute, params={"scalar": Param("float", 0.0, True)},
              aliases=aliases, infer_shape=_same_shape_infer)
 

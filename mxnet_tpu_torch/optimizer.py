@@ -25,6 +25,7 @@ and its states in place. The ops follow MXNet's rules, which differ from
 """
 from __future__ import annotations
 
+import io
 import logging
 import math
 import pickle
@@ -330,7 +331,9 @@ class Updater:
         return state
 
     def set_states(self, states):
-        states = pickle.loads(states)
+        """Load ``get_states`` bytes of this package or of the JAX
+        package (its NDArrays rebuilt as the port's)."""
+        states = _StateUnpickler(io.BytesIO(states)).load()
         if isinstance(states, tuple) and len(states) == 2:
             self.states, self.optimizer = states
         else:
@@ -340,6 +343,18 @@ class Updater:
     def get_states(self, dump_optimizer=False):
         return pickle.dumps((self.states, self.optimizer) if dump_optimizer
                             else self.states)
+
+
+class _StateUnpickler(pickle.Unpickler):
+    """Optimizer states pickled by either package: the JAX package's
+    names (``mxnet_tpu.ndarray.ndarray._from_numpy_reduce``) resolve to
+    the port's module of the same name, so nothing of that package is
+    imported."""
+
+    def find_class(self, module, name):
+        if module == "mxnet_tpu" or module.startswith("mxnet_tpu."):
+            module = "mxnet_tpu_torch" + module[len("mxnet_tpu"):]
+        return super().find_class(module, name)
 
 
 def get_updater(optimizer):

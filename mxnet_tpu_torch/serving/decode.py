@@ -481,7 +481,7 @@ class _Plan:
             self.fn(self.static_in)
         stream.synchronize()
         before = _launch_counts()
-        torch.cuda.reset_peak_memory_stats(dev)
+        mark = devstats.capture_mark(pool, dev)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(stream):
             # "thread_local": a capture runs on the engine's loop thread
@@ -497,7 +497,7 @@ class _Plan:
         after = _launch_counts()
         self.launches = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}
-        self.peak_bytes = int(torch.cuda.max_memory_allocated(dev))
+        self.peak_bytes = devstats.capture_peak(pool, dev, mark)
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
 
@@ -649,10 +649,7 @@ class DecodeEngine:
         """Bytes of the segments the graphs' memory pool holds."""
         if self._pool is None:
             return 0
-        pid = tuple(self._pool)
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if seg["device"] == self.device.index
-                   and tuple(seg["segment_pool_id"]) == pid)
+        return devstats.pool_bytes(self._pool, self.device)
 
     def _compile(self, plan, label):
         """Capture ``plan`` (on the card) and account for it, as the JAX

@@ -27,8 +27,8 @@ from .. import config
 from .registry import counter as _counter
 
 __all__ = ["HBMPreflightError", "enabled", "hbm_budget", "preflight",
-           "record_program", "program_stats", "note_compile", "counters",
-           "recompile_limit"]
+           "pool_bytes", "record_program", "program_stats", "note_compile",
+           "counters", "recompile_limit"]
 
 log = logging.getLogger("mxnet_tpu_torch.devstats")
 
@@ -103,6 +103,34 @@ def preflight(name, need_bytes, resident_bytes=0, budget=None, what="plan",
 
 
 # -- plan accounting ----------------------------------------------------------
+
+def pool_bytes(pool, device):
+    """Bytes of the segments a CUDA graph memory pool holds on
+    ``device`` (``torch.cuda.memory_snapshot``)."""
+    import torch
+    pid = tuple(pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg["device"] == device.index
+               and tuple(seg["segment_pool_id"]) == pid)
+
+
+def capture_mark(pool, device):
+    """(bytes allocated on ``device``, bytes of ``pool``'s segments) now.
+    Taken before a CUDA graph capture into ``pool`` and passed to
+    ``capture_peak`` after it: the capture's peak without resetting the
+    process's peak counters (a caller's own measurement)."""
+    import torch
+    return torch.cuda.memory_allocated(device), pool_bytes(pool, device)
+
+
+def capture_peak(pool, device, mark):
+    """The peak bytes of a capture into ``pool`` since ``mark``
+    (``capture_mark``): the bytes allocated before it plus the segments it
+    added to the pool, which hold every block it allocated (the caching
+    allocator's rounding makes this an upper bound)."""
+    allocated, held = mark
+    return allocated + pool_bytes(pool, device) - held
+
 
 def record_program(name, stats, kind="program"):
     """Record one plan's stats (``peak_bytes``, ``resident_bytes``) under

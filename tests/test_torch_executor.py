@@ -232,7 +232,8 @@ def test_unported_options_raise():
     with pytest.raises(tmx.MXNetError, match="item 8"):
         ts.simple_bind(ctx=tmx.cpu(), data=shape,
                        group2ctx={"a": tmx.cpu()})
-    with pytest.raises(tmx.MXNetError, match="item 8"):
+    # the data-parallel mesh is ported: what is not a Mesh raises
+    with pytest.raises(tmx.MXNetError, match="parallel.Mesh"):
         ts.simple_bind(ctx=tmx.cpu(), data=shape, mesh=object())
     os.environ["MXNET_BACKWARD_DO_MIRROR"] = "1"
     try:

@@ -393,14 +393,16 @@ def test_composite_metric_and_custom():
 
 def test_unported_fit_options_raise():
     _, tmod, _, tit = _pair("mlp", batch=8)
-    for kw, item in ((dict(steps_per_dispatch=4), "item 8"),
+    # several contexts and the fused fit are ported
+    # (test_torch_module_multi.py); a checkpoint directory is not, fused
+    # or per batch
+    for kw, item in ((dict(steps_per_dispatch=4, checkpoint_dir="x"),
+                      "item 14"),
                      (dict(checkpoint_dir="x"), "item 14")):
         with pytest.raises(tmx.MXNetError, match=item):
             tmod.fit(tit, num_epoch=1, **kw)
     with tmx.NameManager():
         s = mlp(tmx)
-    with pytest.raises(tmx.MXNetError, match="item 8"):
-        tmx.mod.Module(s, context=[tmx.cpu(), tmx.cpu(1)])
     with pytest.raises(tmx.MXNetError, match="item 8"):
         tmx.mod.Module(s, context=tmx.cpu(), group2ctxs={"a": tmx.cpu()})
     with pytest.raises(tmx.MXNetError, match="item 14"):

@@ -72,7 +72,9 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.io, mxnet_tpu_torch.model, "
             "mxnet_tpu_torch.callback, mxnet_tpu_torch.module, "
             "mxnet_tpu_torch.module.base_module, "
-            "mxnet_tpu_torch.module.module\n"
+            "mxnet_tpu_torch.module.module, mxnet_tpu_torch.kvstore, "
+            "mxnet_tpu_torch.parallel, mxnet_tpu_torch.parallel.mesh, "
+            "mxnet_tpu_torch.parallel.dp\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'mxnet_tpu')]\n"
             "print(bad)\n"
@@ -208,3 +210,42 @@ def test_symbolic_path_runs_on_the_cpu_when_asked():
         assert mx.nd.array(x).context == mx.cpu()
         ex2 = sym.simple_bind(data=(2, 3))
     assert ex2.arg_dict["data"]._data.device.type == "cpu"
+
+
+def test_data_parallel_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import (DataParallelTrainer,
+                                          data_parallel_mesh,
+                                          mesh_for_contexts)
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        data_parallel_mesh()
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        DataParallelTrainer(_mlp_symbol(), data_parallel_mesh(1))
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        mesh_for_contexts([mx.gpu(0), mx.gpu(1)])
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        mx.mod.Module(_mlp_symbol(), context=[mx.gpu(0), mx.gpu(1)])
+
+
+def test_data_parallel_runs_on_host_replicas_when_asked():
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import (DataParallelTrainer,
+                                          mesh_for_contexts)
+    ctxs = [mx.cpu(i) for i in range(2)]
+    tr = DataParallelTrainer(_mlp_symbol(), mesh_for_contexts(ctxs),
+                             learning_rate=0.1)
+    params, states, aux = tr.init_state({"data": (4, 3),
+                                         "softmax_label": (4,)})
+    x = np.random.RandomState(0).rand(4, 3).astype(np.float32)
+    y = (np.arange(4) % 4).astype(np.float32)
+    params, states, aux, loss, outs = tr.step(params, states, aux,
+                                              tr.shard_inputs([x, y]))
+    assert params[0].device.type == "cpu" and tr.captures == 0
+    assert outs[0].shape == (4, 4)
+    it = mx.io.NDArrayIter(x, y, 4)
+    mod = mx.mod.Module(_mlp_symbol(), context=ctxs)
+    mod.fit(it, num_epoch=1, optimizer="sgd", steps_per_dispatch=2)
+    assert mod.get_params()[0]["fc_weight"].context == mx.cpu()
+
