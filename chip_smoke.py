@@ -86,6 +86,24 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            (examples/train_mnist.py) and ResNet-50 v1 at bench.py's
            flagship configuration in float32, each held against the port
            on the CPU
+  gluon_resnet50
+           the model zoo's resnet50_v1 through hybridized Gluon at
+           bench.py's flagship configuration (batch 128, 224², float32,
+           SoftmaxCrossEntropyLoss, Trainer("sgd"), 20 steps after 2):
+           img/s beside module_resnet50's, host and device time a step,
+           peak memory; beforehand a whole batch-2 step (output,
+           gradients, moving statistics, updated parameters) against the
+           port on the CPU in float64 and by module_resnet50's float32
+           rule (a TF32 control must fail it)
+  gluon_cifar
+           examples/gluon_cifar.py's program on the card with only its
+           import changed (mx.gpu() for mx.tpu()): its own accuracy bar
+  gluon_lm_hybrid
+           the causal LM of examples/transformer_lm.py at GPT-2 medium's
+           widths, hybridized (the flash kernels through the registered
+           _contrib_flash_attention op in the executor's walk), 8 x 1024
+           tokens, Adam, 3 steps after 1, held against the same net run
+           eagerly from the same parameters; the flash kernels' launches
   dp_resnet50
            bench.py's flagship lane through parallel.DataParallelTrainer
            on data_parallel_mesh(1): ResNet-50 v1 at batch 128, bf16 with
@@ -300,6 +318,32 @@ MODULE_RTOL = 1e-4
 R50_F64_RTOL = 1e-9
 R50_F32_FACTOR = 4
 R50_F32_FLOOR = 1e-6
+# Gluon on the card (gluon_resnet50, gluon_cifar, gluon_lm_hybrid):
+# ResNet-50 v1 from the model zoo at bench.py's flagship configuration
+# (batch 128, 224 x 224, float32), hybridized, SoftmaxCrossEntropyLoss,
+# Trainer("sgd", lr 0.05, momentum 0.9), record / backward / step(128):
+# GLUON_R50_WARMUP steps, then GLUON_R50_STEPS timed. Beforehand one whole
+# step at batch R50_CHECK_BATCH (the output, every gradient, the moving
+# statistics and every parameter after the update) on the card against
+# the port on the CPU from the same parameters: in float64
+# (net.cast("float64")) within R50_F64_RTOL, and in float32 by
+# module_resnet50's rule (_f32_rule), which the whole step in TF32 must
+# fail. examples/gluon_cifar.py's program with its own arguments on the
+# card: its accuracy bar (> 0.9) holds. The causal LM of
+# examples/transformer_lm.py at GPT-2 medium's widths (TRAIN, GLM_LAYERS
+# of its 24 layers), 8 x 1024 tokens, Adam, hybridized: GLM_WARMUP + GLM_STEPS
+# steps, held against the same net not hybridized from the same
+# parameters (losses, and every parameter after the steps norm-wise,
+# within GLM_RTOL: the same kernels run on both); the flash kernels
+# launched once each a layer a step, through _contrib_flash_attention.
+GLUON_R50_WARMUP = 2
+GLUON_R50_STEPS = 20
+GLM_LAYERS = 24
+GLM_WARMUP = 1
+GLM_STEPS = 3
+GLM_RTOL = 1e-5
+CIFAR_BAR = 0.9         # examples/gluon_cifar.py's own bar
+
 # the stem convolution (7 x 7 / 2, batch 2 at 224) through the registered
 # op against float64: its output (sums of 147 products) within
 # CONV_F64_RTOL and its weight gradient (sums of 2 x 112 x 112 products)
@@ -455,81 +499,17 @@ def launches_per_call(call, stem):
 def resnet_v1_symbol(sym, layers=(3, 4, 6, 3),
                      channels=(64, 256, 512, 1024, 2048), classes=1000,
                      prefix="resnetv10_"):
-    """ResNet v1 with bottlenecks as the model zoo builds it
-    (mxnet_tpu/gluon/model_zoo/vision/resnet.py: ResNetV1 with
-    BottleneckV1), as a Symbol of the package ``sym`` (the port's
-    ``mx.sym``, or the JAX package's for the parity tests), with the zoo's
-    parameter names and attrs: a 7 x 7 / 2 stem without bias, BatchNorm
-    (fix_gamma False, eps 1e-5, momentum 0.9), max-pool 3 / 2 / 1; each
-    bottleneck a 1 x 1 conv with bias (the stride), a 3 x 3 without, a
-    1 x 1 with bias, and a 1 x 1 downsample without bias where the width
-    or stride changes; global average pooling, FullyConnected(classes),
-    SoftmaxOutput. Defaults: ResNet-50 (layers 3, 4, 6, 3)."""
-    count = {}
-
-    def name(scope, kind):
-        n = count.get((scope, kind), 0)
-        count[(scope, kind)] = n + 1
-        return f"{scope}{kind}{n}"
-
-    def var(n, init=None):
-        # the zoo's parameters carry their own initializers (__init__)
-        return sym.Variable(n, init=None if init is None
-                            else '["%s", {}]' % init)
-
-    def conv(x, scope, ch, k, stride, pad, bias):
-        n = name(scope, "conv")
-        kw = {"weight": var(n + "_weight")}
-        if bias:
-            kw["bias"] = var(n + "_bias", "zero")
-        return sym.Convolution(x, kernel=(k, k), stride=(stride, stride),
-                               dilate=(1, 1), pad=(pad, pad), num_filter=ch,
-                               num_group=1, no_bias=not bias,
-                               name=n + "_fwd", **kw)
-
-    def bn(x, scope):
-        n = name(scope, "batchnorm")
-        return sym.BatchNorm(
-            x, gamma=var(n + "_gamma", "one"), beta=var(n + "_beta", "zero"),
-            moving_mean=var(n + "_running_mean", "zero"),
-            moving_var=var(n + "_running_var", "one"), axis=1, eps=1e-5,
-            momentum=0.9, fix_gamma=False, use_global_stats=False,
-            name=n + "_fwd")
-
-    def relu(x, scope):
-        return sym.Activation(x, act_type="relu",
-                              name=name(scope, "relu") + "_fwd")
-
-    x = sym.Variable("data")
-    x = relu(bn(conv(x, prefix, channels[0], 7, 2, 3, False), prefix),
-             prefix)
-    x = sym.Pooling(x, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
-                    global_pool=False, pool_type="max",
-                    pooling_convention="valid", name=prefix + "pool0_fwd")
-    for i, n_blocks in enumerate(layers):
-        scope = f"{prefix}stage{i + 1}_"
-        ch = channels[i + 1]
-        for b in range(n_blocks):
-            stride = (1 if i == 0 else 2) if b == 0 else 1
-            body = relu(bn(conv(x, scope, ch // 4, 1, stride, 0, True),
-                           scope), scope)
-            body = relu(bn(conv(body, scope, ch // 4, 3, 1, 1, False),
-                           scope), scope)
-            body = bn(conv(body, scope, ch, 1, 1, 0, True), scope)
-            res = x
-            if b == 0 and channels[i] != ch:
-                res = bn(conv(x, scope, ch, 1, stride, 0, False), scope)
-            x = relu(sym.elemwise_add(body, res,
-                                      name=name(scope, "add") + "_fwd"),
-                     scope)
-    x = sym.Pooling(x, kernel=(1, 1), stride=(1, 1), pad=(0, 0),
-                    global_pool=True, pool_type="avg",
-                    pooling_convention="full", name=prefix + "pool1_fwd")
-    x = sym.FullyConnected(x, weight=var(prefix + "dense0_weight"),
-                           bias=var(prefix + "dense0_bias", "zero"),
-                           num_hidden=classes, flatten=True,
-                           name=prefix + "dense0_fwd")
-    return sym.SoftmaxOutput(x, name="softmax")
+    """ResNet v1 with bottlenecks from the model zoo of the package whose
+    ``mx.sym`` is ``sym`` (the port's, or the JAX package's for the parity
+    tests): ``ResNetV1(BottleneckV1, layers, channels, classes)`` applied
+    to ``Variable("data")``, under SoftmaxOutput, as bench.py builds its
+    flagship. Defaults: ``resnet50_v1()``."""
+    import importlib
+    package = sym.__name__.rpartition(".")[0]
+    zoo = importlib.import_module(package + ".gluon.model_zoo.vision.resnet")
+    net = zoo.ResNetV1(zoo.BottleneckV1, list(layers), list(channels),
+                       classes=classes, prefix=prefix)
+    return sym.SoftmaxOutput(net(sym.Variable("data")), name="softmax")
 
 
 def lenet_symbol(sym):
@@ -1554,20 +1534,20 @@ def _grad_stats(g_a, g_b, gmax, elem_rtol):
 def _grad_check(net, head, params, loss_fn, x, y):
     """Loss and every parameter's gradient on the first GRAD_SLICE
     sequences three ways: through the kernels; through the plain
-    attention (the blocks' ``flash_attention`` swapped for
+    attention (``ops.attention.flash_attention``, which the blocks'
+    ``_contrib_flash_attention`` op calls, swapped for
     ``reference_attention``, differentiated by torch); and through the
     forward kernel with the backward's plain twin swapped in, which keeps
     the forward (and every ReLU mask) bit-identical and so isolates the
     dQ and dK/dV kernels. Both swaps hold for this check only."""
     from mxnet_tpu_torch import autograd
-    from mxnet_tpu_torch.gluon.nn import transformer as T
     from mxnet_tpu_torch.ops import attention as A
     xs, ys = x[:GRAD_SLICE], y[:GRAD_SLICE]
-    kernel_fwd, kernel_bwd = T.flash_attention, A.flash_attention_bwd
+    kernel_fwd, kernel_bwd = A.flash_attention, A.flash_attention_bwd
     runs = {}
     for mode in ("kernels", "plain", "plain_bwd"):
         if mode == "plain":
-            T.flash_attention = A.reference_attention
+            A.flash_attention = A.reference_attention
         if mode == "plain_bwd":
             A.flash_attention_bwd = A.reference_flash_attention_bwd
         try:
@@ -1575,10 +1555,10 @@ def _grad_check(net, head, params, loss_fn, x, y):
                 loss = _lm_step_loss(net, head, loss_fn, xs, ys)
             loss.backward()
         finally:
-            T.flash_attention = kernel_fwd
+            A.flash_attention = kernel_fwd
             A.flash_attention_bwd = kernel_bwd
         runs[mode] = (float(loss.detach()),
-                      {n: p.grad().detach().clone()
+                      {n: p.grad()._data.detach().clone()
                        for n, p in params.items()})
     l_k, g_k = runs["kernels"]
     l_p, g_p = runs["plain"]
@@ -1641,7 +1621,7 @@ def phase_train():
     if DEV == "cuda":
         check["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     build_s = time.perf_counter() - t0
-    n_params = int(sum(p.data().numel() for p in params.values()))
+    n_params = int(sum(p.data().size for p in params.values()))
     emit(dict(phase="train_grad_check", **check))
 
     def step():
@@ -2700,6 +2680,364 @@ def phase_module_resnet50():
     return res
 
 
+def _gluon_r50(mx, params=None, ctx=None, dtype=None):
+    """The model zoo's resnet50_v1 (1000 classes), its parameters
+    ``params`` (numpy, by name) installed on ``ctx``, cast to ``dtype``,
+    hybridized."""
+    from mxnet_tpu_torch.convert import load_gluon_params
+    net = mx.gluon.model_zoo.vision.resnet50_v1(classes=1000,
+                                                prefix="resnetv10_")
+    if params is not None:
+        load_gluon_params(net, params, ctx=ctx)
+    if dtype is not None:
+        net.cast(dtype)
+    net.hybridize()
+    return net
+
+
+def _gluon_trainer(mx, net):
+    return (mx.gluon.Trainer(net.collect_params(), "sgd",
+                             {"learning_rate": R50_LR, "momentum": 0.9}),
+            mx.gluon.loss.SoftmaxCrossEntropyLoss())
+
+
+def _gluon_check_step(mx, net, xb, yb, ctx, dtype):
+    """A whole batch-2 step's tensors (numpy float64): the output, every
+    gradient, the moving statistics after the forward, every parameter
+    after the update."""
+    import numpy as np
+    trainer, loss_fn = _gluon_trainer(mx, net)
+    x = mx.nd.array(xb, ctx=ctx, dtype=dtype)
+    y = mx.nd.array(yb, ctx=ctx, dtype=dtype)
+    with mx.autograd.record():
+        out = net(x)
+        loss = loss_fn(out, y)
+    loss.backward()
+    params = net.collect_params()
+    t = {"output": out.asnumpy()}
+    t.update({"grad:" + n: p.grad().asnumpy() for n, p in params.items()
+              if p.grad_req != "null"})
+    t.update({"aux:" + n: p.data().asnumpy() for n, p in params.items()
+              if p.grad_req == "null"})
+    trainer.step(R50_CHECK_BATCH)
+    t.update({"param:" + n: p.data().asnumpy() for n, p in params.items()
+              if p.grad_req != "null"})
+    return {k: np.asarray(v, np.float64) for k, v in t.items()}
+
+
+def phase_gluon_resnet50():
+    """ResNet-50 v1 of the model zoo trained through hybridized Gluon on
+    the card at bench.py's flagship configuration, after a whole batch-2
+    step held against the port on the CPU (float64 and float32)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import gluon_params_to_numpy
+    _free_card()
+    res = {"batch": R50_BATCH, "image": R50_IMG, "dtype": "float32",
+           "model": "gluon.model_zoo.vision.resnet50_v1(classes=1000)",
+           "hybridized": True}
+    # 1. parameters drawn on the host (He-normal, as module_resnet50),
+    # deferred shapes finished by one forward
+    mx.random.seed(SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    host = mx.gluon.model_zoo.vision.resnet50_v1(classes=1000,
+                                                 prefix="resnetv10_")
+    host.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2, generator=gen),
+                    ctx=mx.cpu())
+    host(mx.nd.array(np.zeros((1, 3, 32, 32), np.float32), ctx=mx.cpu()))
+    init = gluon_params_to_numpy(host)
+    del host
+    # 2. a whole step at batch 2: card against the CPU
+    rng = np.random.RandomState(SEED)
+    shape = (R50_CHECK_BATCH, 3, R50_IMG, R50_IMG)
+    xb = rng.uniform(0, 1, shape).astype(np.float32)
+    yb = rng.randint(0, 1000, R50_CHECK_BATCH).astype(np.float32)
+    t = {}
+    for key, ctx, dt in (("cpu64", mx.cpu(), "float64"),
+                         ("card64", _ctx(), "float64"),
+                         ("cpu32", mx.cpu(), "float32"),
+                         ("card32", _ctx(), "float32"),
+                         ("card32_tf32", _ctx(), "float32")):
+        net = _gluon_r50(mx, init, ctx, dt)
+        with (_tf32_everywhere() if key == "card32_tf32"
+              else contextlib.nullcontext()):
+            t[key] = _gluon_check_step(mx, net, xb, yb, ctx, dt)
+        del net
+        _free_card()
+    ref = t["cpu64"]
+    e64 = {k: _rel_err(t["card64"][k], v) for k, v in ref.items()}
+    f32 = _f32_rule(t["card32"], t["cpu32"], ref)
+    control = _f32_rule(t["card32_tf32"], t["cpu32"], ref)
+    res["check"] = {
+        "batch": R50_CHECK_BATCH, "tensors": len(ref),
+        "f64_card_vs_cpu_max": max(e64.values()), "f64_rtol": R50_F64_RTOL,
+        "f64_worst": sorted(e64.items(), key=lambda kv: -kv[1])[:4],
+        "f32": f32, "tf32_control": control}
+    res["check"]["ok"] = bool(max(e64.values()) <= R50_F64_RTOL
+                              and f32["ok"] and not control["ok"])
+    del t
+    # 3. training at batch 128 on data made on the card
+    net = _gluon_r50(mx, init, _ctx())
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    x = mx.nd.NDArray(torch.rand((R50_BATCH, 3, R50_IMG, R50_IMG),
+                                 generator=g, device=DEV))
+    y = mx.nd.NDArray(torch.randint(0, 1000, (R50_BATCH,), generator=g,
+                                    device=DEV).float())
+    losses = []
+    trainer, loss_fn = _gluon_trainer(mx, net)
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(R50_BATCH)
+        return loss
+
+    for _ in range(GLUON_R50_WARMUP):
+        losses.append(step().mean())
+    _sync()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    marks = [time.perf_counter()]
+    for _ in range(GLUON_R50_STEPS):
+        losses.append(step().mean())
+        _sync()
+        marks.append(time.perf_counter())
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    mean_ms = (marks[-1] - marks[0]) * 1e3 / GLUON_R50_STEPS
+    # 4. host against device: the host's enqueue time of a step (before
+    # any sync) against its wall time, and a profiled step's device time
+    host_ms, wall_ms = [], []
+    for _ in range(3):
+        _sync()
+        a = time.perf_counter()
+        step()
+        b = time.perf_counter()
+        _sync()
+        host_ms.append((b - a) * 1e3)
+        wall_ms.append((time.perf_counter() - a) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        _sync()
+    rows = _device_rows(prof, 1)
+    dev_ms = sum(r[1] for r in rows)
+    # 5. the host's own cost of a step: the same step at batch 2, where
+    # the card's work is small (at batch 128 the launch queue fills and
+    # the host waits on the card)
+    xs = mx.nd.NDArray(x._data[:R50_CHECK_BATCH].contiguous())
+    ys = mx.nd.NDArray(y._data[:R50_CHECK_BATCH].contiguous())
+    small_ms = []
+    for i in range(R50_WARMUP + R50_STEPS):
+        _sync()
+        a = time.perf_counter()
+        with mx.autograd.record():
+            loss = loss_fn(net(xs), ys)
+        loss.backward()
+        trainer.step(R50_BATCH)
+        _sync()
+        if i >= R50_WARMUP:
+            small_ms.append((time.perf_counter() - a) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with mx.autograd.record():
+            loss = loss_fn(net(xs), ys)
+        loss.backward()
+        trainer.step(R50_BATCH)
+        _sync()
+    small_dev = sum(r[1] for r in _device_rows(prof, 1))
+    losses = [float(v.asnumpy()) for v in losses]
+    flops = 3 * 8.18e9 * R50_BATCH
+    module_ips = RECORD.get("module_resnet50", {}).get("img_per_s")
+    res.update({
+        "step_ms": mean_ms, "step_ms_each": step_ms,
+        "img_per_s": R50_BATCH / mean_ms * 1e3,
+        "module_fit_img_per_s_same_run": module_ips,
+        "losses": losses,
+        "loss_finite": all(math.isfinite(v) for v in losses),
+        "peak_mem_gb": peak / 1e9,
+        "host_enqueue_ms": host_ms, "step_wall_ms": wall_ms,
+        "device_ms_per_step": dev_ms,
+        "device_busy_share": dev_ms / float(np.median(wall_ms)),
+        "flop_per_step": flops,
+        "fp32_bound_ms": flops / PEAK_F32_FLOPS * 1e3,
+        "top": [{"kernel": k[:100], "ms_per_step": ms, "calls": c}
+                for k, ms, c in rows[:12]],
+        "kernels_a_step": sum(r[2] for r in rows),
+        "host_step_ms_batch2": small_ms, "device_ms_batch2": small_dev,
+        "params": len(net.collect_params()),
+        "launches": counts})
+    res["ok"] = bool(res["loss_finite"] and res["check"]["ok"])
+    RECORD["gluon_resnet50"] = res
+    del net, x, y, xs, ys
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("gluon_resnet50 failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
+def phase_gluon_cifar():
+    """examples/gluon_cifar.py's program on the card through the port:
+    its source with ``mxnet_tpu`` imported as ``mxnet_tpu_torch`` and
+    ``mx.gpu()`` where it says ``mx.tpu()``, its own arguments (resnet18_v1,
+    10 classes, batch 32, 32 x 32, Xavier(magnitude=2), hybridized, SGD
+    0.05 / 0.9, 30 steps); its own bar: accuracy above 0.9."""
+    import io
+    path = os.path.join(HERE, "examples", "gluon_cifar.py")
+    with open(path) as f:
+        src = f.read()
+    for a, b in (("import mxnet_tpu as mx", "import mxnet_tpu_torch as mx"),
+                 ("from mxnet_tpu import", "from mxnet_tpu_torch import"),
+                 ("mx.tpu()", "mx.gpu()" if DEV == "cuda" else "mx.cpu()")):
+        if a not in src:
+            raise AssertionError("examples/gluon_cifar.py has no %r" % a)
+        src = src.replace(a, b)
+    argv, sys.argv = sys.argv, [path]
+    buf = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            exec(compile(src, path, "exec"), {"__name__": "__main__",
+                                              "__file__": path})
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    finally:
+        sys.argv = argv
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    acc = float(lines[-1].split("acc")[-1]) if lines else float("nan")
+    res = {"program": "examples/gluon_cifar.py", "exit_code": code,
+           "lines": lines, "final_acc": acc, "bar": CIFAR_BAR,
+           "seconds": seconds, "launches": _read_counts()}
+    res["ok"] = bool(code == 0 and acc > CIFAR_BAR)
+    RECORD["gluon_cifar"] = res
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("gluon_cifar failed: %s" % json.dumps(res))
+    return res
+
+
+def _glm_run(mx, init, hybrid, x, y):
+    """The LM (GLM_LAYERS layers at GPT-2 medium's widths) from ``init``
+    (numpy by name, for the encoder and the head), trained GLM_WARMUP +
+    GLM_STEPS steps with Adam: (losses, launches of the steps after
+    warm-up, step seconds, parameters after as host tensors, graphs
+    traced)."""
+    from mxnet_tpu_torch.convert import load_gluon_params
+    cfg = dict(TRAIN, num_layers=GLM_LAYERS)
+    net = mx.gluon.nn.TransformerEncoder(**cfg, prefix="lm_")
+    head = mx.gluon.nn.Dense(cfg["vocab_size"], flatten=False,
+                             prefix="head_")
+    for block in (net, head):
+        load_gluon_params(block, {n: init[n] for n in
+                                  block.collect_params().keys()},
+                          ctx=_ctx())
+        if hybrid:
+            block.hybridize()
+    params = {**net.collect_params(), **head.collect_params()}
+    trainer = mx.gluon.Trainer(params, "adam", {"learning_rate": TRAIN_LR})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    losses, step_s = [], []
+    for i in range(GLM_WARMUP + GLM_STEPS):
+        if i == GLM_WARMUP:
+            _sync()
+            _reset_counts()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            logits = head(net(x))
+            loss = loss_fn(logits.reshape((-3, 0)),
+                           y.reshape((-1,))).mean()
+        loss.backward()
+        trainer.step(1)
+        losses.append(float(loss.asnumpy()))
+        if i >= GLM_WARMUP:
+            step_s.append(time.perf_counter() - t0)
+    counts = _read_counts()
+    after = {n: p.data()._data.detach().to("cpu", copy=True)
+             for n, p in params.items()}
+    graphs = sum(1 for b in (net, head) if b._cached_graph)
+    del net, head, params, trainer
+    _free_card()
+    return losses, counts, step_s, after, graphs
+
+
+def phase_gluon_lm_hybrid():
+    """The causal LM of examples/transformer_lm.py at GPT-2 medium's
+    widths trained hybridized (the attention through
+    _contrib_flash_attention in the executor's walk), held against the
+    same net run eagerly from the same parameters."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import gluon_params_to_numpy
+    _free_card()
+    cfg = dict(TRAIN, num_layers=GLM_LAYERS)
+    mx.random.seed(SEED)
+    net = mx.gluon.nn.TransformerEncoder(**cfg, prefix="lm_")
+    head = mx.gluon.nn.Dense(cfg["vocab_size"], flatten=False,
+                             prefix="head_")
+    net.initialize(mx.init.Xavier(), ctx=_ctx())
+    head.initialize(mx.init.Xavier(), ctx=_ctx())
+    x, y = _lm_batch()
+    x, y = mx.nd.NDArray(x), mx.nd.NDArray(y)
+    head(net(x[:1]))                    # finish the head's deferred shape
+    init = gluon_params_to_numpy(net)
+    init.update(gluon_params_to_numpy(head))
+    del net, head
+    _free_card()
+    hyb = _glm_run(mx, init, True, x, y)
+    eag = _glm_run(mx, init, False, x, y)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(hyb[0], eag[0]))
+    norm_err = {n: float((hyb[3][n] - eag[3][n]).norm()
+                         / max(float(eag[3][n].norm()), 1e-30))
+                for n in eag[3]}
+    elem_err = {n: float((hyb[3][n] - eag[3][n]).abs().max()
+                         / max(float(eag[3][n].abs().max()), 1e-30))
+                for n in eag[3]}
+    want = GLM_LAYERS * GLM_STEPS
+    counts = hyb[1]
+    res = {"model": dict(cfg, head="Dense(vocab, flatten=False)"),
+           "batch": TRAIN_BATCH, "tokens_per_step": TRAIN_BATCH
+           * cfg["max_length"], "steps": GLM_STEPS, "warmup": GLM_WARMUP,
+           "losses_hybrid": hyb[0], "losses_eager": eag[0],
+           "loss_rel_err": loss_err,
+           "param_norm_rel_err_max": max(norm_err.values()),
+           "param_worst": sorted(norm_err.items(),
+                                 key=lambda kv: -kv[1])[:4],
+           "param_elem_rel_err_max": max(elem_err.values()),
+           "rtol": GLM_RTOL, "graphs_traced": hyb[4],
+           "step_s_hybrid": hyb[2], "step_s_eager": eag[2],
+           "launches": counts, "launches_eager": eag[1],
+           "launches_want_each": want,
+           "finite": bool(all(np.isfinite(hyb[0]))
+                          and all(bool(torch.isfinite(t).all())
+                                  for t in hyb[3].values()))}
+    flash = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    res["ok"] = bool(res["finite"] and hyb[4] == 2
+                     and loss_err <= GLM_RTOL
+                     and res["param_norm_rel_err_max"] <= GLM_RTOL
+                     and all(counts[k] == want for k in flash)
+                     and all(eag[1][k] == want for k in flash)
+                     and counts["dense_attention"] == 0)
+    RECORD["gluon_lm_hybrid"] = res
+    del hyb, eag
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("gluon_lm_hybrid failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
 def _dp_trainer(sym, dtype, batch, device=None):
     """bench.py's trainer on one device: the card (``DEV``) unless
     ``device`` names another."""
@@ -3146,6 +3484,9 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("conv", phase_conv),
           ("rtc", phase_rtc), ("module_lenet", phase_module_lenet),
           ("module_resnet50", phase_module_resnet50),
+          ("gluon_resnet50", phase_gluon_resnet50),
+          ("gluon_cifar", phase_gluon_cifar),
+          ("gluon_lm_hybrid", phase_gluon_lm_hybrid),
           ("dp_resnet50", phase_dp_resnet50),
           ("module_fused", phase_module_fused))
 
@@ -3237,7 +3578,9 @@ def main(argv=None):
     paths = list(RECORD.get("engines", {}).values())
     paths += [RECORD[k] for k in ("train", "serve_gqa", "conv", "rtc",
                                   "module_lenet", "module_resnet50",
-                                  "dp_resnet50", "module_fused")
+                                  "gluon_resnet50", "gluon_cifar",
+                                  "gluon_lm_hybrid", "dp_resnet50",
+                                  "module_fused")
               if k in RECORD]
     rows = []
     for (name, src, replaces, kind, case, ms_key, bound_key, by_key,

@@ -10,10 +10,11 @@ function.
 
 Covered so far: continuous-batching decode serving
 (``serving.DecodeEngine``) with the flash-prefill, decode-attention and
-weight-only quantized-matmul kernels; imperative Gluon training
-(``gluon.nn.TransformerEncoder``, ``autograd.record()``,
-``gluon.Trainer``) with the flash forward and the flash backward (dQ,
-dK/dV) kernels; the fused 1x1 convolution with a BN prologue and a
+weight-only quantized-matmul kernels; Gluon as the JAX package has it
+(blocks over NDArrays, eager or ``hybridize()``-d through the executor,
+NDArray autograd, ``export`` / ``SymbolBlock``, the conv and other
+layers, the model zoo, ``gluon.Trainer``), the transformer LM on the
+flash forward and the flash backward (dQ, dK/dV) kernels; the fused 1x1 convolution with a BN prologue and a
 BN-statistics epilogue (``ops.conv_fused.conv1x1``); runtime compilation
 of CUDA C++ through NVRTC (``rtc.CudaModule``); the symbolic training
 path (``nd`` arrays over tensors, the op registry, ``sym.Symbol``,

@@ -93,7 +93,10 @@ def to_numpy(a):
         a = a.detach()
         if a.dtype == torch.bfloat16:
             a = a.float()
-        return a.cpu().numpy()
+        # a host tensor's numpy() shares its memory: copy, so that later
+        # in-place writes (a gradient buffer's) do not show through
+        return a.numpy().copy() if a.device.type == "cpu" \
+            else a.cpu().numpy()
     return _np.asarray(a)
 
 

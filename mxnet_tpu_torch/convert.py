@@ -83,10 +83,14 @@ def load_decode_artifact(path):
 
 def load_gluon_params(net, arrays, ctx=None):
     """Install ``{name: array}`` (the JAX package's
-    ``{n: p.data().asnumpy() for n, p in net.collect_params().items()}``)
-    into the port's ``net``, keyed by the same ``collect_params`` names.
-    A parameter not yet initialized (or deferred) is created on ``ctx``
-    (default: the card); one already initialized keeps its device."""
+    ``{n: p.data().asnumpy() for n, p in net.collect_params().items()}``,
+    or NDArrays) into the port's ``net`` (a model-zoo net, a
+    ``SymbolBlock``, any Block), keyed by the same ``collect_params``
+    names: weights, and aux states such as BatchNorm's ``running_mean`` /
+    ``running_var`` (grad_req "null") alike. A parameter not yet
+    initialized (or deferred, or of a shape still unknown) is created on
+    ``ctx`` (default: the card) with the array's shape; one already
+    initialized keeps its device."""
     params = net.collect_params()
     missing = [n for n in params.keys() if n not in arrays]
     if missing:
@@ -96,13 +100,14 @@ def load_gluon_params(net, arrays, ctx=None):
         raise MXNetError(f"load_gluon_params: {extra[:5]} are not "
                          "parameters of the net")
     for name, p in params.items():
-        p._load_init(np.asarray(arrays[name]), ctx)
+        a = arrays[name]
+        p._load_init(a.asnumpy() if hasattr(a, "asnumpy") else np.asarray(a),
+                     ctx)
 
 
 def gluon_params_to_numpy(net):
     """{collect_params name: numpy array} of the port's ``net``."""
-    return {n: p.data().detach().cpu().numpy()
-            for n, p in net.collect_params().items()}
+    return {n: p.data().asnumpy() for n, p in net.collect_params().items()}
 
 
 def load_module_params(mod, arg_params, aux_params=None,

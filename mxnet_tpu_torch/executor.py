@@ -205,6 +205,7 @@ def _per_sample_rules():
         # a row-major reshape that keeps dim 0 keeps each sample's row
         # (the output check below holds dim 0)
         "Reshape": always, "broadcast_to": always, "batch_dot": always,
+        "_contrib_flash_attention": always,
         "softmax": _axis_not0("axis"), "log_softmax": _axis_not0("axis"),
         "argmax": _axis_not0("axis"), "argmin": _axis_not0("axis"),
         "Concat": _axis_not0("dim"), "slice_axis": _axis_not0("axis"),

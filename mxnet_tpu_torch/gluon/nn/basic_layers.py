@@ -1,21 +1,72 @@
-"""Gluon basic layers (subset of mxnet_tpu/gluon/nn/basic_layers.py):
-Sequential, HybridSequential, Dense, Activation, Dropout, LayerNorm,
-Embedding — same constructor arguments, parameter names and equations."""
+"""Gluon basic layers (counterpart of mxnet_tpu/gluon/nn/basic_layers.py):
+Sequential/HybridSequential, Dense, Dropout, BatchNorm, InstanceNorm,
+LayerNorm, Embedding, Flatten, Activation, LeakyReLU, PReLU, ELU, SELU,
+Swish, Lambda, HybridLambda. Each calls the registered op the JAX file
+calls (``F.FullyConnected``, ``F.BatchNorm``, ...), with the same
+constructor arguments and parameter names."""
 from __future__ import annotations
 
-import math
-
-from ... import autograd
 from ..block import Block, HybridBlock
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
-           "Dropout", "LayerNorm", "Embedding"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "InstanceNorm", "LayerNorm", "Embedding", "Flatten", "Activation",
+           "LeakyReLU", "PReLU", "ELU", "SELU", "Swish", "Lambda",
+           "HybridLambda"]
 
 
-class _SequentialMixin:
+class Sequential(Block):
+    """Sequentially stacked blocks."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
     def add(self, *blocks):
         for block in blocks:
             self.register_child(block)
+
+    def forward(self, x):
+        for block in self._children.values():
+            x = block(x)
+        return x
+
+    def __len__(self):
+        return len(self._children)
+
+    def __getitem__(self, key):
+        layers = list(self._children.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
+
+    def __iter__(self):
+        return iter(self._children.values())
+
+    def hybridize(self, active=True, **kwargs):
+        if self._children and all(isinstance(c, HybridBlock)
+                                  for c in self._children.values()):
+            import warnings
+            warnings.warn(
+                f"All children of this Sequential layer '{self.prefix}' are "
+                "HybridBlocks. Consider using HybridSequential for the best "
+                "performance.", stacklevel=2)
+        super().hybridize(active, **kwargs)
+
+
+class HybridSequential(HybridBlock):
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def hybrid_forward(self, F, x):
+        for block in self._children.values():
+            x = block(x)
+        return x
 
     def __len__(self):
         return len(self._children)
@@ -33,25 +84,8 @@ class _SequentialMixin:
         return iter(self._children.values())
 
 
-class Sequential(_SequentialMixin, Block):
-    """Sequentially stacked blocks."""
-
-    def forward(self, x):
-        for block in self._children.values():
-            x = block(x)
-        return x
-
-
-class HybridSequential(_SequentialMixin, HybridBlock):
-    def hybrid_forward(self, F, x):
-        for block in self._children.values():
-            x = block(x)
-        return x
-
-
 class Dense(HybridBlock):
-    """FullyConnected layer: weight (units, in_units), in_units=0 deferred
-    to the first forward."""
+    """FullyConnected layer (basic_layers.py Dense)."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
@@ -75,21 +109,22 @@ class Dense(HybridBlock):
             else:
                 self.act = None
 
-    def infer_shape(self, x, *args):
-        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
-        self.weight.shape = (self._units, int(in_units))
-
     def hybrid_forward(self, F, x, weight, bias=None):
-        act = F.FullyConnected(x, weight, bias, num_hidden=self._units,
-                               no_bias=bias is None, flatten=self._flatten)
+        if bias is None:
+            act = F.FullyConnected(x, weight, no_bias=True,
+                                   num_hidden=self._units,
+                                   flatten=self._flatten)
+        else:
+            act = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                                   flatten=self._flatten)
         if self.act is not None:
             act = self.act(act)
         return act
 
-    def extra_repr(self):
+    def __repr__(self):
         shape = self.weight.shape
-        return (f"{shape[1] if shape[1] else None} -> {shape[0]}, "
-                f"{'linear' if self.act is None else self.act._act_type}")
+        return (f"Dense({shape[1] if shape[1] else None} -> {shape[0]}, "
+                f"{'linear' if self.act is None else self.act})")
 
 
 class Activation(HybridBlock):
@@ -103,34 +138,75 @@ class Activation(HybridBlock):
     def hybrid_forward(self, F, x):
         return F.Activation(x, act_type=self._act_type)
 
-    def extra_repr(self):
-        return self._act_type
+    def __repr__(self):
+        return f"Activation({self._act_type})"
 
 
 class Dropout(HybridBlock):
-    """Inverted dropout, active only in training mode
-    (``autograd.record()`` / ``train_mode()``); masks come from the
-    port's default generator of the input's device."""
-
     def __init__(self, rate, axes=(), **kwargs):
         super().__init__(**kwargs)
         self._rate = rate
         self._axes = axes
 
     def hybrid_forward(self, F, x):
-        return F.Dropout(x, p=self._rate, training=autograd.is_training())
+        return F.Dropout(x, p=self._rate, axes=self._axes)
 
-    def extra_repr(self):
-        return f"p = {self._rate}, axes={self._axes}"
+    def __repr__(self):
+        return f"Dropout(p = {self._rate}, axes={self._axes})"
 
 
-class LayerNorm(HybridBlock):
-    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+class BatchNorm(HybridBlock):
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
+                        "fix_gamma": not scale,
+                        "use_global_stats": use_global_stats}
+        self.in_channels = in_channels
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True, differentiable=center)
+            self.running_mean = self.params.get(
+                "running_mean", grad_req="null", shape=(in_channels,),
+                init=running_mean_initializer, allow_deferred_init=True,
+                differentiable=False)
+            self.running_var = self.params.get(
+                "running_var", grad_req="null", shape=(in_channels,),
+                init=running_variance_initializer, allow_deferred_init=True,
+                differentiable=False)
+
+    def cast(self, dtype):
+        if dtype in ("float16", "bfloat16"):
+            dtype = "float32"  # norm stats stay fp32
+        super().cast(dtype)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                           **self._kwargs)
+
+    def __repr__(self):
+        in_channels = self.gamma.shape[0]
+        return (f"BatchNorm(axis={self._kwargs['axis']}, "
+                f"eps={self._kwargs['eps']}, "
+                f"momentum={self._kwargs['momentum']}, "
+                f"in_channels={in_channels or None})")
+
+
+class InstanceNorm(HybridBlock):
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
                  beta_initializer="zeros", gamma_initializer="ones",
-                 in_channels=0, prefix=None, params=None):
-        super().__init__(prefix=prefix, params=params)
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"eps": epsilon}
         self._axis = axis
-        self._epsilon = epsilon
         with self.name_scope():
             self.gamma = self.params.get(
                 "gamma", grad_req="write" if scale else "null",
@@ -141,10 +217,33 @@ class LayerNorm(HybridBlock):
                 shape=(in_channels,), init=beta_initializer,
                 allow_deferred_init=True)
 
-    def infer_shape(self, x, *args):
-        c = (int(x.shape[self._axis]),)
-        self.gamma.shape = c
-        self.beta.shape = c
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, **self._kwargs)
+        x = x.swapaxes(1, self._axis)
+        return F.InstanceNorm(x, gamma, beta,
+                              **self._kwargs).swapaxes(1, self._axis)
+
+
+class LayerNorm(HybridBlock):
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._kwargs = {"eps": epsilon, "axis": axis}
+        self._axis = axis
+        self._epsilon = epsilon
+        self._center = center
+        self._scale = scale
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
 
     def hybrid_forward(self, F, data, gamma, beta):
         return F.LayerNorm(data, gamma, beta, axis=self._axis,
@@ -156,7 +255,7 @@ class Embedding(HybridBlock):
                  weight_initializer=None, sparse_grad=False, **kwargs):
         super().__init__(**kwargs)
         self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
-                        "dtype": dtype}             # for the repr
+                        "dtype": dtype}
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim),
@@ -164,7 +263,116 @@ class Embedding(HybridBlock):
                 allow_deferred_init=True)
 
     def hybrid_forward(self, F, x, weight):
-        return F.Embedding(x, weight, self._kwargs["input_dim"])
+        return F.Embedding(x, weight, **self._kwargs)
 
-    def extra_repr(self):
-        return "{input_dim} -> {output_dim}, {dtype}".format(**self._kwargs)
+    def __repr__(self):
+        return "Embedding({input_dim} -> {output_dim}, {dtype})".format(
+            **self._kwargs)
+
+
+class Flatten(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
+
+    def __repr__(self):
+        return "Flatten"
+
+
+class LeakyReLU(HybridBlock):
+    def __init__(self, alpha, **kwargs):
+        assert alpha >= 0, "Slope coefficient for LeakyReLU must be no less than 0."
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+    def __repr__(self):
+        return f"LeakyReLU({self._alpha})"
+
+
+class PReLU(HybridBlock):
+    def __init__(self, alpha_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        from ... import initializer
+        if alpha_initializer is None:
+            alpha_initializer = initializer.Constant(0.25)
+        with self.name_scope():
+            self.alpha = self.params.get("alpha", shape=(1,),
+                                         init=alpha_initializer)
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, gamma=alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class Swish(HybridBlock):
+    def __init__(self, beta=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)
+
+
+class Lambda(Block):
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as ndmod
+            assert hasattr(ndmod, function), \
+                f"Function name {function} is not found in ndarray."
+            self._func_impl = getattr(ndmod, function)
+            self._func_name = function
+        elif callable(function):
+            self._func_impl = function
+            self._func_name = function.__name__
+        else:
+            raise ValueError("Unrecognized function in lambda: "
+                             f"{function} of type {type(function)}")
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+    def __repr__(self):
+        return f"Lambda({self._func_name})"
+
+
+class HybridLambda(HybridBlock):
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as ndmod
+            from ... import symbol as symmod
+            assert hasattr(ndmod, function) and hasattr(symmod, function), \
+                f"Function name {function} is not found in symbol/ndarray."
+            self._func_name = function
+
+            def _f(F, *args):
+                return getattr(F, function)(*args)
+            self._func = _f
+        elif callable(function):
+            self._func = lambda F, *args: function(F, *args)
+            self._func_name = function.__name__
+        else:
+            raise ValueError("Unrecognized function in lambda: "
+                             f"{function} of type {type(function)}")
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)
+
+    def __repr__(self):
+        return f"HybridLambda({self._func_name})"

@@ -1,16 +1,14 @@
 """Transformer blocks (counterpart of mxnet_tpu/gluon/nn/transformer.py):
-the same equations and parameter names. The attention core is the port's
-trainable flash attention (``ops.attention.flash_attention``, the
-``_contrib_flash_attention`` role): the flash forward kernel, and the dQ
+the same equations, parameter names and registered ops. The attention
+core is ``F._contrib_flash_attention``: eagerly (``mx.nd``) and
+hybridized (the executor) alike it reaches the port's trainable
+``ops.attention.flash_attention`` — the flash forward kernel, and the dQ
 and dK/dV kernels in its backward, on the card; their plain versions on
 the CPU."""
 from __future__ import annotations
 
-import torch
-
-from ...ops.attention import flash_attention
 from ..block import HybridBlock
-from .basic_layers import Dense, Dropout, Embedding, LayerNorm
+from .basic_layers import Dense, Dropout, LayerNorm, Embedding
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderCell",
            "TransformerEncoder"]
@@ -18,8 +16,8 @@ __all__ = ["MultiHeadAttention", "TransformerEncoderCell",
 
 class MultiHeadAttention(HybridBlock):
     """Multi-head scaled-dot-product attention over (batch, seq, units),
-    with one Dense each for the query, key, value and output projections.
-    """
+    with one Dense each for the query, key, value and output
+    projections."""
 
     def __init__(self, units, num_heads, dropout=0.0, causal=False,
                  use_bias=True, **kwargs):
@@ -41,21 +39,21 @@ class MultiHeadAttention(HybridBlock):
                                   prefix="out_")
             self.dropout = Dropout(dropout) if dropout else None
 
-    def _split_heads(self, x):
-        # (B, S, U) -> (B, H, S, U/H), contiguous for the kernels
-        b, s, _ = x.shape
-        return x.reshape(b, s, self._num_heads, -1).transpose(1, 2) \
-            .contiguous()
+    def _split_heads(self, F, x):
+        # (B, S, U) -> (B, H, S, U/H)
+        x = F.reshape(x, shape=(0, 0, self._num_heads, -1))
+        return F.transpose(x, axes=(0, 2, 1, 3))
 
     def hybrid_forward(self, F, query, key=None, value=None):
         key = query if key is None else key
         value = key if value is None else value
-        q = self._split_heads(self.proj_query(query))
-        k = self._split_heads(self.proj_key(key))
-        v = self._split_heads(self.proj_value(value))
-        att = flash_attention(q, k, v, causal=self._causal)
-        b, _, s, _ = att.shape
-        out = self.proj_out(att.transpose(1, 2).reshape(b, s, -1))
+        q = self._split_heads(F, self.proj_query(query))
+        k = self._split_heads(F, self.proj_key(key))
+        v = self._split_heads(F, self.proj_value(value))
+        att = F._contrib_flash_attention(q, k, v, causal=self._causal)
+        att = F.transpose(att, axes=(0, 2, 1, 3))
+        att = F.reshape(att, shape=(0, 0, -1))
+        out = self.proj_out(att)
         if self.dropout is not None:
             out = self.dropout(out)
         return out
@@ -89,9 +87,7 @@ class TransformerEncoderCell(HybridBlock):
 
 class TransformerEncoder(HybridBlock):
     """Token embedding + N pre-norm blocks + final LayerNorm; emits
-    (batch, seq, units) features (add a Dense head for an LM). The cells
-    are registered as children "2", "3", ... (after embed and pos_embed),
-    as in the reference, which their saved keys carry."""
+    (batch, seq, units) features (add a Dense head for LM/classification)."""
 
     def __init__(self, vocab_size, units, hidden_size, num_heads, num_layers,
                  max_length=512, dropout=0.0, causal=True, **kwargs):
@@ -111,13 +107,17 @@ class TransformerEncoder(HybridBlock):
             self.ln_final = LayerNorm()
 
     def hybrid_forward(self, F, tokens):
-        if tokens.ndim > 1 and tokens.shape[1] > self._max_length:
+        shape = getattr(tokens, "shape", None)   # Symbols have no shape
+        if isinstance(shape, tuple) and len(shape) > 1 and \
+                isinstance(shape[1], int) and shape[1] > self._max_length:
             raise ValueError(
-                f"sequence length {tokens.shape[1]} exceeds max_length "
+                f"sequence length {shape[1]} exceeds max_length "
                 f"{self._max_length} (positional table size)")
         x = self.embed(tokens)
-        pos = torch.arange(tokens.shape[1], device=tokens.device) \
-            .expand(tokens.shape)
+        # positions 0..S-1 of each row, from a cumulative sum of ones
+        # (traceable in both namespaces)
+        ones = F.ones_like(tokens)
+        pos = F.cumsum(ones, axis=1) - 1
         x = x + self.pos_embed(pos)
         for cell in self.cells:
             x = cell(x)

@@ -1,12 +1,16 @@
-"""Gluon Parameter / ParameterDict (subset of
+"""Gluon Parameter / ParameterDict (counterpart of
 mxnet_tpu/gluon/parameter.py).
 
-A ``Parameter`` holds one ``torch.Tensor`` leaf on one device: its name,
-shape, initializer, ``grad_req``, ``lr_mult``/``wd_mult`` and deferred
+A ``Parameter`` holds one ``torch.Tensor`` leaf on one device (``_data``)
+and hands it out as an NDArray over that leaf (``data()``; ``grad()`` is
+an NDArray over the leaf's ``.grad``): its name, shape, dtype,
+initializer, ``grad_req``, ``lr_mult``/``wd_mult`` and deferred
 initialization (a shape with a 0 resolves on the block's first forward).
-``grad_req="write"`` overwrites the gradient on every backward, where
-torch would accumulate (see :mod:`mxnet_tpu_torch.autograd`). Several
-devices per parameter (and the kvstore) are not ported yet.
+The leaf is an autograd variable (``autograd._mark``): ``grad_req=
+"write"`` overwrites the gradient on every backward, where torch would
+accumulate. ``var()`` is the parameter's Symbol for a hybridized trace.
+Several devices per parameter are not ported yet (ROADMAP queue 1
+item 9): a second context raises.
 """
 from __future__ import annotations
 
@@ -15,18 +19,13 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, torch_dtype
 from ..context import Context, gpu
+from .. import autograd
 from .. import initializer as init_mod
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
-
-
-def _torch_dtype(dtype):
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    name = dtype if dtype == "bfloat16" else np.dtype(dtype).name
-    return getattr(torch, name)
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict"]
 
 
 def _context_list(ctx):
@@ -37,15 +36,19 @@ def _context_list(ctx):
         ctx = [ctx]
     ctx = list(ctx)
     if len(ctx) != 1:
-        raise MXNetError("the port keeps a parameter on one device; "
-                         f"got contexts {ctx}")
+        raise MXNetError("the port keeps a parameter on one device "
+                         "(several contexts a Parameter are ROADMAP queue 1 "
+                         f"item 9); got contexts {ctx}")
     ctx[0].torch_device()            # resolve now: raises without CUDA
     return ctx
 
 
 def _as_tensor(data):
+    from ..ndarray.ndarray import NDArray
+    if isinstance(data, NDArray):
+        return data._data.detach()
     if isinstance(data, torch.Tensor):
-        return data
+        return data.detach()
     return torch.from_numpy(np.array(data))   # a copy: container reads
                                               # are read-only views
 
@@ -69,8 +72,11 @@ def _apply_init(init, default_init, name, data):
 class Parameter:
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
-                 allow_deferred_init=False):
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
+        self._var = None
         self._data = None           # the torch leaf
+        self._nd = None             # the NDArray over it
         self._ctx = None            # [Context]
         self._deferred_init = ()
         self.name = name
@@ -81,6 +87,7 @@ class Parameter:
         self.dtype = dtype
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
+        self._differentiable = differentiable
         self.grad_req = grad_req
         self.init = init
         self.allow_deferred_init = allow_deferred_init
@@ -98,9 +105,11 @@ class Parameter:
         if req not in ("write", "add", "null"):
             raise ValueError("grad_req must be write, add, or null, but got "
                              f"{req}")
+        if not self._differentiable:
+            req = "null"
         self._grad_req = req
         if self._data is not None:
-            self._init_grad()
+            autograd._mark(self._data, req)
 
     # -- initialization -----------------------------------------------------
 
@@ -114,7 +123,7 @@ class Parameter:
                           "ignoring. Set force_reinit=True to re-initialize.",
                           stacklevel=2)
             return
-        self._data = None
+        self._data = self._nd = None
         ctx = _context_list(ctx)
         if not isinstance(default_init, init_mod.Initializer):
             default_init = init_mod.create(default_init)
@@ -136,37 +145,23 @@ class Parameter:
         dev = ctx[0].torch_device()
         with torch.no_grad():
             if data is None:
-                arr = torch.empty(self.shape, dtype=_torch_dtype(self.dtype),
+                arr = torch.empty(self.shape, dtype=torch_dtype(self.dtype),
                                   device=dev)
                 _apply_init(init, default_init, self.name, arr)
             else:
                 arr = _as_tensor(data).to(device=dev, copy=True,
-                                          dtype=_torch_dtype(self.dtype))
-        self._data = arr
+                                          dtype=torch_dtype(self.dtype))
+        self._set_leaf(arr)
         self._ctx = ctx
         self._deferred_init = ()
-        self._hooked = False
-        self._init_grad()
 
-    def _before_accumulate(self, grad):
-        # runs just before torch accumulates into .grad: "write" starts
-        # from nothing, so .grad ends as this backward's gradient alone
-        if self._grad_req == "write":
-            self._data.grad = None
-
-    def _init_grad(self):
-        """Zero gradient buffer (the reference allocates one per
-        parameter); "null" drops it and stops requiring grad."""
-        if self._grad_req == "null":
-            self._data.requires_grad_(False)
-            self._data.grad = None
-            return
-        self._data.requires_grad_(True)
-        if not self._hooked:
-            self._data.register_hook(self._before_accumulate)
-            self._hooked = True
-        if self._data.grad is None:
-            self._data.grad = torch.zeros_like(self._data)
+    def _set_leaf(self, t):
+        from ..ndarray.ndarray import NDArray
+        self._data = autograd._mark(t, self._grad_req)
+        if self._nd is None:
+            self._nd = NDArray(self._data)
+        else:
+            self._nd._data = self._data
 
     def _finish_deferred_init(self):
         if not self._deferred_init:
@@ -178,7 +173,7 @@ class Parameter:
         self._init_impl(init, default_init, ctx)
 
     def _load_init(self, data, ctx=None):
-        """Install ``data`` (numpy array or tensor) as the value,
+        """Install ``data`` (numpy array, tensor or NDArray) as the value,
         finishing a deferred initialization or replacing the current one."""
         shape = tuple(data.shape)
         if self.shape:
@@ -200,8 +195,13 @@ class Parameter:
 
     # -- access -------------------------------------------------------------
 
-    def _check_initialized(self):
+    def _check_initialized(self, ctx=None):
         if self._data is not None:
+            if ctx is not None and ctx is not list and \
+                    Context.of(self._data.device) != ctx:
+                raise RuntimeError(
+                    f"Parameter '{self.name}' was not initialized on context "
+                    f"{ctx}. It was only initialized on {self._ctx}.")
             return
         if self._deferred_init:
             raise DeferredInitializationError(
@@ -217,18 +217,28 @@ class Parameter:
             "later does not include Parameters of nested child Blocks")
 
     def data(self, ctx=None):
-        self._check_initialized()
-        return self._data
+        """The value, an NDArray over the parameter's leaf tensor (the
+        same NDArray on every call)."""
+        self._check_initialized(ctx)
+        return self._nd
+
+    def list_data(self):
+        return [self.data()]
 
     def grad(self, ctx=None):
-        self._check_initialized()
+        """The gradient buffer, an NDArray over the leaf's ``.grad``."""
+        from ..ndarray.ndarray import NDArray
+        self._check_initialized(ctx)
         if self._grad_req == "null":
             raise RuntimeError(
                 f"Cannot get gradient array for Parameter '{self.name}' "
                 "because grad_req='null'")
         if self._data.grad is None:
             self._data.grad = torch.zeros_like(self._data)
-        return self._data.grad
+        return NDArray(self._data.grad)
+
+    def list_grad(self):
+        return [self.grad()]
 
     def list_ctx(self):
         if self._data is None:
@@ -237,6 +247,22 @@ class Parameter:
             raise RuntimeError(f"Parameter '{self.name}' has not been "
                                "initialized")
         return list(self._ctx)
+
+    def reset_ctx(self, ctx):
+        """Move the value (or a deferred initialization) to ``ctx``."""
+        ctx = _context_list(ctx)
+        if self._data is not None:
+            with torch.no_grad():
+                self._set_leaf(self._data.detach().to(
+                    ctx[0].torch_device(), copy=True))
+            self._ctx = ctx
+        elif self._deferred_init:
+            init, _, default_init = self._deferred_init
+            self._deferred_init = (init, ctx, default_init)
+        else:
+            raise ValueError(f"Cannot reset context for Parameter "
+                             f"'{self.name}' because it has not been "
+                             "initialized.")
 
     def set_data(self, data):
         """Copy ``data`` into the value in place (the leaf, its hooks and
@@ -253,6 +279,46 @@ class Parameter:
     def zero_grad(self):
         if self._data is not None and self._data.grad is not None:
             self._data.grad.zero_()
+
+    def var(self):
+        """This parameter's Symbol variable (for a hybridized trace)."""
+        from .. import symbol as sym_mod
+        if self._var is None:
+            self._var = sym_mod.Variable(self.name, shape=self.shape,
+                                         dtype=self.dtype,
+                                         lr_mult=self.lr_mult,
+                                         wd_mult=self.wd_mult,
+                                         init=self.init)
+        return self._var
+
+    def cast(self, dtype):
+        """Cast the value (and its gradient buffer) to ``dtype``: a new
+        leaf, which the NDArray ``data()`` returns now holds."""
+        self.dtype = dtype
+        if self._data is None:
+            return
+        with torch.no_grad():
+            self._set_leaf(self._data.detach().to(torch_dtype(dtype)))
+
+
+class Constant(Parameter):
+    """A parameter that is not learned (grad_req "null"), initialized
+    from ``value``."""
+
+    def __init__(self, name, value):
+        from ..ndarray.ndarray import NDArray, array
+        from ..context import cpu
+        if not isinstance(value, NDArray):
+            value = array(value, ctx=cpu())
+        self.value = value
+
+        class Init(init_mod.Initializer):
+            def _init_weight(self2, _, arr):
+                init_mod._tensor(arr).copy_(value._data)
+        init_name = f"Constant_{name}_{id(self)}"
+        init_mod._INIT_REGISTRY[init_name.lower()] = Init
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, init=init_name)
 
 
 class ParameterDict:
@@ -273,6 +339,9 @@ class ParameterDict:
 
     def __iter__(self):
         return iter(self._params)
+
+    def __len__(self):
+        return len(self._params)
 
     def items(self):
         return self._params.items()
@@ -323,6 +392,17 @@ class ParameterDict:
                     f"'{k}': desired '{v}' vs stored '{existing}'")
         return param
 
+    def get_constant(self, name, value=None):
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise KeyError(f"No constant named '{name}'. Please specify "
+                               "value if you want to create a new constant.")
+            param = Constant(name, value)
+            self._params[name] = param
+        return param
+
     def update(self, other):
         for k, v in other.items():
             if k in self._params:
@@ -333,7 +413,8 @@ class ParameterDict:
             else:
                 self._params[k] = v
 
-    def initialize(self, init=None, ctx=None, force_reinit=False):
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
         if init is None:
             init = init_mod.Uniform()
         for v in self.values():
@@ -343,7 +424,18 @@ class ParameterDict:
         for v in self.values():
             v.zero_grad()
 
+    def reset_ctx(self, ctx):
+        for v in self.values():
+            v.reset_ctx(ctx)
+
+    def setattr(self, name, value):
+        for v in self.values():
+            setattr(v, name, value)
+
     def save(self, filename, strip_prefix=""):
+        """Values under their names less ``strip_prefix``, in the
+        reference container (``export`` writes ``arg:`` / ``aux:``
+        names, which ``load`` strips)."""
         from ..ndarray.container import save_container
         arg_dict = {}
         for param in self.values():
@@ -355,7 +447,7 @@ class ParameterDict:
                     f"saving, but Parameter's name '{param.name}' does not "
                     f"start with '{strip_prefix}'.")
             arg_dict[param.name[len(strip_prefix):]] = \
-                param.data().detach().cpu().numpy()
+                param.data().asnumpy()
         save_container(filename, arg_dict)
 
     def load(self, filename, ctx=None, allow_missing=False,

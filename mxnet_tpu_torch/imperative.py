@@ -6,12 +6,16 @@ An op without array inputs runs on ``ctx`` (else ``out``'s device, else
 the current context, which is the card unless a ``with cpu():`` scope or
 ``ctx=cpu()`` says otherwise). ``is_train`` defaults to
 ``autograd.is_training()``; torch's grad mode (``autograd.record()``)
-decides whether the op is recorded.
+decides whether the op is recorded: ``invoke`` sets it from
+``autograd.is_recording()`` for the call, so nothing is recorded outside
+``record()``, as in the reference.
 """
 from __future__ import annotations
 
 import torch
 
+from . import autograd
+from . import random as _random
 from .base import MXNetError
 from .context import resolve_device
 from .ops.registry import OpCtx, OpSchema
@@ -22,12 +26,13 @@ __all__ = ["invoke", "write_into"]
 def write_into(dst, value):
     """Store ``value`` in the NDArray ``dst``: copied into its tensor when
     shape, dtype and device agree and nothing is being recorded through
-    it (so the storage other holders see is updated in place), rebound
-    otherwise."""
+    it (so the storage other holders see is updated in place: a
+    variable's leaf, such as a Gluon parameter's, stays the leaf),
+    rebound otherwise."""
     t = dst._data
     if t.shape == value.shape and t.dtype == value.dtype \
             and t.device == value.device and not value.requires_grad \
-            and not t.requires_grad:
+            and (t.is_leaf or not t.requires_grad):
         if t.data_ptr() != value.data_ptr():
             with torch.no_grad():
                 t.copy_(value)
@@ -54,8 +59,6 @@ def invoke(schema: OpSchema, inputs, kwargs, out=None, is_train=None,
            ctx=None):
     """Run ``schema`` on NDArrays (or tensors); returns an NDArray, a list
     of them, or ``out``."""
-    from . import autograd
-    from . import random as _random
     from .ndarray.ndarray import NDArray
 
     attrs = schema.parse_attrs(kwargs)
@@ -68,8 +71,13 @@ def invoke(schema: OpSchema, inputs, kwargs, out=None, is_train=None,
     datas = [x._data if isinstance(x, NDArray) else x for x in inputs]
     device = _run_device(datas, ctx, out)
     rng = _random.generator(device) if schema.needs_rng else None
-    results = schema.fcompute(attrs, OpCtx(is_train=is_train, rng=rng,
-                                           device=device), *datas)
+    octx = OpCtx(is_train=is_train, rng=rng, device=device)
+    recording = autograd.is_recording()
+    if torch.is_grad_enabled() == recording:
+        results = schema.fcompute(attrs, octx, *datas)
+    else:
+        with torch.set_grad_enabled(recording):
+            results = schema.fcompute(attrs, octx, *datas)
     if not isinstance(results, tuple):
         results = (results,)
     n_out = schema.n_outputs(attrs)

@@ -85,7 +85,10 @@ class Initializer:
             desc.global_init = self
         init = desc.attrs.get("__init__", "")
         if init:
-            klass, kwargs = json.loads(init)
+            # a dumps() string, or a registered name (a Gluon parameter's
+            # string initializer, carried by Parameter.var())
+            klass, kwargs = json.loads(init) if init.lstrip().startswith(
+                "[") else (init, {})
             inner = create(klass, **kwargs)
             inner._generator = self._generator
             inner._init_weight(desc, arr)

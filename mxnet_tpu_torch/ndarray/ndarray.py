@@ -10,9 +10,9 @@ of the NDArray sees the new values. ``nd.save`` / ``nd.load`` use the
 reference's binary container (``ndarray/container.py``), byte for byte
 what the JAX package writes.
 
-Gradients of NDArrays (``attach_grad``, ``NDArray.backward``) belong to
-the part of ``autograd`` not ported yet; the symbolic path computes its
-gradients in the executor.
+Inside ``autograd.record()`` the ops are recorded by torch's autograd:
+``attach_grad`` makes the tensor a leaf variable, ``backward`` fills its
+``grad`` (:mod:`mxnet_tpu_torch.autograd`).
 """
 from __future__ import annotations
 
@@ -82,15 +82,24 @@ class NDArray:
 
     @property
     def grad(self):
-        raise MXNetError("NDArray gradients (attach_grad) are not ported "
-                         "yet (ROADMAP queue 1 item 5): bind a Symbol and "
-                         "read the executor's grad_dict")
+        """The gradient buffer ``attach_grad`` allocated (None without
+        one): the values of the last backward ("write") or their sum
+        ("add")."""
+        g = self._data.grad if self._data.is_leaf else None
+        return None if g is None else NDArray(g)
 
     def attach_grad(self, grad_req="write", stype=None):
-        self.grad  # noqa: B018 -- raises
+        """Make this array a variable: backwards inside ``record()`` fill
+        ``grad`` (see :mod:`mxnet_tpu_torch.autograd`)."""
+        if stype not in (None, "default"):
+            raise MXNetError("sparse gradient storage is not ported")
+        from .. import autograd
+        autograd.mark_variables([self], [None], grad_req)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
-        self.grad  # noqa: B018 -- raises
+        from .. import autograd
+        autograd.backward([self], None if out_grad is None else [out_grad],
+                          retain_graph=retain_graph, train_mode=train_mode)
 
     def __repr__(self):
         return f"\n{self.asnumpy()!s}\n<NDArray {self.shape} @{self.context}>"
@@ -189,7 +198,7 @@ class NDArray:
                        reverse=kwargs.get("reverse", False))
 
     def reshape_like(self, other):
-        return _invoke("Reshape", self, shape=other.shape)
+        return _invoke("reshape_like", self, other)
 
     def flatten(self):
         return _invoke("Flatten", self)
@@ -198,6 +207,9 @@ class NDArray:
         if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
             axes = tuple(axes[0])
         return _invoke("transpose", self, axes=axes or ())
+
+    def swapaxes(self, dim1, dim2):
+        return _invoke("SwapAxis", self, dim1=dim1, dim2=dim2)
 
     def expand_dims(self, axis):
         return _invoke("expand_dims", self, axis=axis)
@@ -224,20 +236,25 @@ class NDArray:
         return _invoke("pick", self, index, axis=axis, keepdims=keepdims)
 
     # -- reductions and elementwise -------------------------------------------
-    def sum(self, axis=None, keepdims=False, **kw):
-        return _invoke("sum", self, axis=axis, keepdims=keepdims)
+    def sum(self, axis=None, keepdims=False, exclude=False):
+        return _invoke("sum", self, axis=axis, keepdims=keepdims,
+                       exclude=exclude)
 
-    def mean(self, axis=None, keepdims=False, **kw):
-        return _invoke("mean", self, axis=axis, keepdims=keepdims)
+    def mean(self, axis=None, keepdims=False, exclude=False):
+        return _invoke("mean", self, axis=axis, keepdims=keepdims,
+                       exclude=exclude)
 
-    def prod(self, axis=None, keepdims=False, **kw):
-        return _invoke("prod", self, axis=axis, keepdims=keepdims)
+    def prod(self, axis=None, keepdims=False, exclude=False):
+        return _invoke("prod", self, axis=axis, keepdims=keepdims,
+                       exclude=exclude)
 
-    def max(self, axis=None, keepdims=False, **kw):
-        return _invoke("max", self, axis=axis, keepdims=keepdims)
+    def max(self, axis=None, keepdims=False, exclude=False):
+        return _invoke("max", self, axis=axis, keepdims=keepdims,
+                       exclude=exclude)
 
-    def min(self, axis=None, keepdims=False, **kw):
-        return _invoke("min", self, axis=axis, keepdims=keepdims)
+    def min(self, axis=None, keepdims=False, exclude=False):
+        return _invoke("min", self, axis=axis, keepdims=keepdims,
+                       exclude=exclude)
 
     def norm(self, ord=2, axis=None, keepdims=False):
         return _invoke("norm", self, ord=ord, axis=axis, keepdims=keepdims)

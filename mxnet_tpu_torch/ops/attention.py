@@ -50,6 +50,7 @@ import torch
 
 from .. import _build
 from ..base import MXNetError
+from .registry import Param, register
 
 __all__ = ["reference_attention", "reference_attention_with_lse",
            "reference_flash_attention_bwd", "reference_decode_attention",
@@ -559,3 +560,22 @@ def decode_attention(q, k, v, lengths, scale=None):
 
 
 decode_attention.launches = 0
+
+
+# -- registry surface ---------------------------------------------------------
+
+def _flash_attention_op(attrs, octx, q, k, v):
+    """``_contrib_flash_attention`` (the JAX package's op of that name):
+    :func:`flash_attention`, looked up at each call, on contiguous q, k,
+    v: the flash kernels on the card (their launches counted by the
+    wrappers), the plain versions on the CPU, the dense route where
+    :func:`_kernel_route` sends the shapes."""
+    return (flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=attrs["causal"], scale=attrs["scale"]),)
+
+
+register("_contrib_flash_attention", _flash_attention_op,
+         params={"causal": Param("bool", False),
+                 "scale": Param("float", None)},
+         inputs=("query", "key", "value"),
+         infer_shape=lambda attrs, s: (s, [s[0]]))

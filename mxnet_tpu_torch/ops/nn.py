@@ -1,10 +1,8 @@
-"""Neural-network operators (counterpart of mxnet_tpu/ops/nn.py), in two
-forms. The functions at the top take tensors and keyword attrs with the
-reference semantics; Gluon's ``hybrid_forward(F, ...)`` receives this
-module as ``F``. The registered ops below them (FullyConnected,
-Convolution, Pooling, Activation, softmax, log_softmax, SoftmaxOutput,
-BatchNorm, Dropout) take ``(attrs, octx, *tensors)`` for the registry,
-the executor and ``mx.nd``.
+"""Neural-network operators (counterpart of mxnet_tpu/ops/nn.py),
+registered with the JAX package's names, attrs and shape rules: each
+fcompute takes ``(attrs, octx, *tensors)`` and returns a tuple, for the
+registry, the executor, ``mx.nd`` and ``mx.sym`` (and so for Gluon's
+``hybrid_forward(F, ...)``, eager and hybridized).
 
 None of these has a Pallas kernel in the JAX package (XLA fuses them
 there), so they are plain PyTorch ops here, in full float32: the matrix
@@ -23,41 +21,10 @@ import torch.nn.functional as F
 from ..base import MXNetError
 from .registry import Param, register
 
-__all__ = ["FullyConnected", "LayerNorm", "Embedding", "Activation",
-           "Dropout", "log_softmax", "pick", "cudnn_f32"]
+__all__ = ["cudnn_f32"]
 
 
-def FullyConnected(data, weight, bias=None, num_hidden=None, no_bias=False,
-                   flatten=True):
-    """y = x W^T + b with the reference's weight layout (num_hidden, in).
-    ``flatten`` folds every axis after the first into the input width."""
-    x = data.reshape(data.shape[0], -1) if flatten else data
-    return F.linear(x, weight, None if no_bias else bias)
-
-
-def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5):
-    """(x - mean) * rsqrt(var + eps) * gamma + beta over ``axis``, with the
-    biased variance."""
-    axis = axis % data.ndim
-    if axis == data.ndim - 1:
-        return F.layer_norm(data, (data.shape[-1],), gamma, beta, eps)
-    mean = data.mean(dim=axis, keepdim=True)
-    var = data.var(dim=axis, keepdim=True, unbiased=False)
-    bshape = [data.shape[axis] if i == axis else 1 for i in range(data.ndim)]
-    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape) \
-        + beta.reshape(bshape)
-
-
-def Embedding(data, weight, input_dim=None):
-    """Rows of ``weight`` at ``data``: float ids are cast to int
-    (truncation) and clipped to [0, input_dim - 1], where
-    ``torch.embedding`` would raise on an id out of range."""
-    n = weight.shape[0] if input_dim is None else int(input_dim)
-    idx = data.to(torch.int64).clamp(0, n - 1)
-    return F.embedding(idx, weight)
-
-
-def Activation(x, act_type):
+def _activation(x, act_type):
     if act_type == "relu":
         return torch.relu(x)
     if act_type == "sigmoid":
@@ -69,37 +36,6 @@ def Activation(x, act_type):
     if act_type == "softsign":
         return x / (1 + x.abs())
     raise MXNetError(f"Activation: unknown act_type {act_type}")
-
-
-def Dropout(x, p=0.5, training=False, generator=None):
-    """Inverted dropout: in training mode each element is kept with
-    probability 1 - p and scaled by 1 / (1 - p); otherwise x unchanged.
-    The mask is drawn from ``generator`` (the port's default generator of
-    x's device when None)."""
-    if not training or p <= 0:
-        return x
-    if generator is None:
-        from ..random import generator as default_generator
-        generator = default_generator(x.device)
-    keep = 1.0 - p
-    mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
-    return x * mask / keep
-
-
-def log_softmax(x, axis=-1, temperature=1.0):
-    z = x / temperature if temperature != 1.0 else x
-    return torch.log_softmax(z, dim=axis)
-
-
-def pick(data, index, axis=-1, keepdims=False):
-    """data[..., index, ...] along ``axis``, index clipped into range."""
-    idx = index.to(torch.int64)
-    axis = axis % data.ndim
-    if idx.ndim < data.ndim:
-        idx = idx.unsqueeze(axis)
-    idx = idx.clamp(0, data.shape[axis] - 1)
-    out = torch.gather(data, axis, idx)
-    return out if keepdims else out.squeeze(axis)
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +244,74 @@ _conv_schema = register(
 _conv_schema.list_inputs = _optional_bias_inputs
 _conv_schema.num_inputs = lambda attrs: 2 if attrs["no_bias"] else 3
 
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+class _Deconv(torch.autograd.Function):
+    """Transposed convolution (the gradient of a convolution with
+    respect to its input), forward and backward in full float32 as
+    ``_Conv``. The weight is (in_channels, num_filter / groups, *kernel),
+    the reference's layout and torch's."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, pad, dilate, adj, groups):
+        with cudnn_f32():
+            y = _DECONV[x.ndim - 2](x, w, b, stride, pad, adj, groups,
+                                    dilate)
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, pad, dilate, adj, groups, b is not None)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        stride, pad, dilate, adj, groups, has_bias = ctx.conf
+        with cudnn_f32():
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                dy, x, w, [w.shape[1] * groups] if has_bias else None,
+                list(stride), list(pad), list(dilate), True, list(adj),
+                groups, [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                         has_bias and ctx.needs_input_grad[2]])
+        return dx, dw, db, None, None, None, None, None
+
+
+def _deconv(attrs, octx, data, weight, bias=None):
+    ns = len(attrs["kernel"])
+    _, stride, dilate, pad = _conv_attrs(attrs, ns)
+    adj = tuple(attrs["adj"] or (0,) * ns)
+    b = None if attrs["no_bias"] else bias.to(data.dtype)
+    return (_Deconv.apply(data, weight, b, stride, pad, dilate, adj,
+                          attrs["num_group"]),)
+
+
+def _deconv_infer(attrs, in_shapes):
+    ds = in_shapes[0]
+    nf = attrs["num_filter"]
+    ns = len(attrs["kernel"])
+    k, stride, dilate, pad = _conv_attrs(attrs, ns)
+    adj = attrs["adj"] or (0,) * ns
+    in_shapes = list(in_shapes)
+    if ds is not None and in_shapes[1] is None:
+        in_shapes[1] = (ds[1], nf // attrs["num_group"]) + k
+    if not attrs["no_bias"] and len(in_shapes) > 2 and in_shapes[2] is None:
+        in_shapes[2] = (nf,)
+    if ds is None:
+        return in_shapes, [None]
+    spatial = tuple(stride[i] * (ds[2 + i] - 1) + dilate[i] * (k[i] - 1)
+                    + 1 - 2 * pad[i] + adj[i] for i in range(ns))
+    return in_shapes, [(ds[0], nf) + spatial]
+
+
+_deconv_params = dict(_conv_schema.params)
+_deconv_params["adj"] = Param("shape", None)
+_deconv_params["target_shape"] = Param("shape", None)
+_deconv_schema = register("Deconvolution", _deconv, params=_deconv_params,
+                          inputs=("data", "weight", "bias"),
+                          infer_shape=_deconv_infer)
+_deconv_schema.list_inputs = _optional_bias_inputs
+_deconv_schema.num_inputs = lambda attrs: 2 if attrs["no_bias"] else 3
+
 _MAXPOOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 _AVGPOOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
 
@@ -410,7 +414,7 @@ def _same1(attrs, in_shapes):
 
 
 register("Activation",
-         lambda attrs, octx, x: (Activation(x, attrs["act_type"]),),
+         lambda attrs, octx, x: (_activation(x, attrs["act_type"]),),
          params={"act_type": Param("str", None, True)}, infer_shape=_same1)
 
 
@@ -420,7 +424,8 @@ def _softmax(attrs, octx, x):
 
 
 def _log_softmax(attrs, octx, x):
-    return (log_softmax(x, attrs["axis"], attrs["temperature"]),)
+    t = attrs["temperature"]
+    return (torch.log_softmax(x / t if t != 1.0 else x, dim=attrs["axis"]),)
 
 
 register("softmax", _softmax,
@@ -732,3 +737,151 @@ register("Dropout", _dropout,
          params={"p": Param("float", 0.5), "mode": Param("str", "training"),
                  "axes": Param("shape", None)},
          needs_rng=True, infer_shape=_same1)
+
+
+# ---------------------------------------------------------------------------
+# normalisations, Embedding and LeakyReLU (Gluon's layers call these)
+# ---------------------------------------------------------------------------
+
+def _chan_shape(data, axis):
+    return tuple(data.shape[axis] if i == axis else 1
+                 for i in range(data.ndim))
+
+
+def _layer_norm(attrs, octx, data, gamma, beta):
+    """(x - mean) * rsqrt(var + eps) * gamma + beta over ``axis``, with
+    the biased variance."""
+    axis = attrs["axis"] % data.ndim
+    eps = attrs["eps"]
+    if axis == data.ndim - 1:
+        return (F.layer_norm(data, (data.shape[-1],), gamma, beta, eps),)
+    mean = data.mean(dim=axis, keepdim=True)
+    var = data.var(dim=axis, keepdim=True, unbiased=False)
+    bshape = _chan_shape(data, axis)
+    return ((data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape)
+            + beta.reshape(bshape),)
+
+
+def _ln_infer(attrs, in_shapes):
+    ds = in_shapes[0]
+    in_shapes = list(in_shapes)
+    if ds is not None:
+        c = (ds[attrs["axis"] % len(ds)],)
+        for i in (1, 2):
+            if in_shapes[i] is None:
+                in_shapes[i] = c
+    return in_shapes, [ds]
+
+
+register("LayerNorm", _layer_norm,
+         params={"axis": Param("int", -1), "eps": Param("float", 1e-5),
+                 "output_mean_var": Param("bool", False)},
+         inputs=("data", "gamma", "beta"), infer_shape=_ln_infer)
+
+
+def _instance_norm(attrs, octx, data, gamma, beta):
+    """Each sample's channels normalised over their spatial axes."""
+    axes = tuple(range(2, data.ndim))
+    mean = data.mean(dim=axes, keepdim=True)
+    var = data.var(dim=axes, keepdim=True, unbiased=False)
+    bshape = _chan_shape(data, 1)
+    return ((data - mean) * torch.rsqrt(var + attrs["eps"])
+            * gamma.reshape(bshape) + beta.reshape(bshape),)
+
+
+def _in_infer(attrs, in_shapes):
+    ds = in_shapes[0]
+    in_shapes = list(in_shapes)
+    if ds is not None:
+        for i in (1, 2):
+            if in_shapes[i] is None:
+                in_shapes[i] = (ds[1],)
+    return in_shapes, [ds]
+
+
+register("InstanceNorm", _instance_norm,
+         params={"eps": Param("float", 1e-3)},
+         inputs=("data", "gamma", "beta"), infer_shape=_in_infer)
+
+
+def _embedding(attrs, octx, data, weight):
+    """Rows of ``weight`` at ``data``: float ids are cast to int
+    (truncation) and clipped to [0, input_dim - 1], where
+    ``torch.embedding`` would raise on an id out of range."""
+    idx = data.to(torch.int64).clamp(0, attrs["input_dim"] - 1)
+    return (F.embedding(idx, weight),)
+
+
+def _embedding_infer(attrs, in_shapes):
+    in_shapes = list(in_shapes)
+    if in_shapes[1] is None:
+        in_shapes[1] = (attrs["input_dim"], attrs["output_dim"])
+    ds = in_shapes[0]
+    if ds is None:
+        return in_shapes, [None]
+    return in_shapes, [tuple(ds) + (attrs["output_dim"],)]
+
+
+register("Embedding", _embedding,
+         params={"input_dim": Param("int", None, True),
+                 "output_dim": Param("int", None, True),
+                 "dtype": Param("dtype", "float32"),
+                 "sparse_grad": Param("bool", False)},
+         inputs=("data", "weight"), infer_shape=_embedding_infer)
+
+# the reference's SELU constants (src/operator/leaky_relu-inl.h)
+_SELU_ALPHA = 1.6732632423543772848170429916717
+_SELU_LAMBDA = 1.0507009873554804934193349852946
+
+
+def _leaky_relu(attrs, octx, *inputs):
+    t = attrs["act_type"]
+    x = inputs[0]
+    slope = attrs["slope"]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if t == "leaky":
+        return (torch.where(x > 0, x, slope * x),)
+    if t == "elu":
+        return (torch.where(x > 0, x, slope * torch.expm1(torch.minimum(
+            x, zero))),)
+    if t == "selu":
+        return (_SELU_LAMBDA * torch.where(
+            x > 0, x, _SELU_ALPHA * torch.expm1(torch.minimum(x, zero))),)
+    if t == "prelu":
+        gamma = inputs[1]
+        g = gamma.reshape((1, -1) + (1,) * (x.ndim - 2)) if x.ndim > 1 \
+            else gamma
+        return (torch.where(x > 0, x, g * x),)
+    if t == "rrelu":
+        lo, hi = attrs["lower_bound"], attrs["upper_bound"]
+        if octx.is_train and octx.rng is not None:
+            a = torch.empty(x.shape, dtype=x.dtype, device=x.device) \
+                .uniform_(lo, hi, generator=octx.rng)
+        else:
+            a = (lo + hi) / 2.0
+        return (torch.where(x > 0, x, a * x),)
+    if t == "gelu":
+        # the JAX package's jax.nn.gelu: the tanh approximation
+        return (F.gelu(x, approximate="tanh"),)
+    raise MXNetError(f"LeakyReLU: unknown act_type {t}")
+
+
+def _lrelu_infer(attrs, in_shapes):
+    in_shapes = list(in_shapes)
+    if attrs["act_type"] == "prelu" and len(in_shapes) > 1 and \
+            in_shapes[1] is None and in_shapes[0] is not None:
+        in_shapes[1] = (in_shapes[0][1],)
+    return in_shapes, [in_shapes[0]]
+
+
+_lrelu_schema = register(
+    "LeakyReLU", _leaky_relu,
+    params={"act_type": Param("str", "leaky"),
+            "slope": Param("float", 0.25),
+            "lower_bound": Param("float", 0.125),
+            "upper_bound": Param("float", 0.334)},
+    inputs=("data", "gamma"), needs_rng=True, infer_shape=_lrelu_infer)
+_lrelu_schema.num_inputs = lambda a: 2 if a["act_type"] == "prelu" else 1
+_lrelu_schema.list_inputs = lambda a: (["data", "gamma"]
+                                       if a["act_type"] == "prelu"
+                                       else ["data"])

@@ -75,6 +75,17 @@ class AttrDict(dict):
             raise AttributeError(k)
 
 
+_PLAIN = (str, int, float, bool, type(None))
+
+
+def _plain(v):
+    """A value whose equality is plain value equality (the parse cache's
+    keys): a str, number, bool or None, or a tuple of them."""
+    t = type(v)
+    return t in _PLAIN or (t is tuple and all(type(x) in _PLAIN
+                                               for x in v))
+
+
 @dataclasses.dataclass
 class OpCtx:
     """Per-invocation context handed to fcompute (role of OpContext):
@@ -113,8 +124,21 @@ class OpSchema:
     # replica's inputs of a data-parallel walk and returns each replica's
     # result tuple, reduced over the whole batch (executor._run_mesh)
     fmesh: Optional[Callable] = None
+    _parsed: dict = dataclasses.field(default_factory=dict, repr=False,
+                                      compare=False)
 
     def parse_attrs(self, kwargs) -> AttrDict:
+        """The typed attrs of ``kwargs`` (a fresh AttrDict: callers add
+        flags to it); parses of plain kwargs are cached."""
+        if not all(_plain(v) for v in kwargs.values()):
+            return self._parse_attrs(kwargs)
+        key = tuple(kwargs.items())
+        hit = self._parsed.get(key)
+        if hit is None:
+            hit = self._parsed[key] = self._parse_attrs(kwargs)
+        return AttrDict(hit)
+
+    def _parse_attrs(self, kwargs) -> AttrDict:
         out = AttrDict()
         for k, p in self.params.items():
             if k in kwargs and kwargs[k] is not None:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..base import MXNetError, torch_dtype
 from .registry import Param, register
@@ -641,3 +642,108 @@ register("zeros_like", lambda attrs, octx, x: (torch.zeros_like(x),),
          infer_shape=_same_shape_infer)
 register("ones_like", lambda attrs, octx, x: (torch.ones_like(x),),
          infer_shape=_same_shape_infer)
+
+
+# ---------------------------------------------------------------------------
+# shape and selection ops Gluon's layers and losses call
+# ---------------------------------------------------------------------------
+
+
+def _reshape_like_infer(attrs, in_shapes):
+    return in_shapes, [in_shapes[1]]
+
+
+register("reshape_like", lambda attrs, octx, x, like: (x.reshape(like.shape),),
+         inputs=("lhs", "rhs"), infer_shape=_reshape_like_infer)
+
+
+def _swapaxes_infer(attrs, in_shapes):
+    s = in_shapes[0]
+    if s is None:
+        return in_shapes, [None]
+    s = list(s)
+    a, b = attrs["dim1"] % len(s), attrs["dim2"] % len(s)
+    s[a], s[b] = s[b], s[a]
+    return in_shapes, [tuple(s)]
+
+
+register("SwapAxis",
+         lambda attrs, octx, x: (x.transpose(attrs["dim1"], attrs["dim2"]),),
+         params={"dim1": Param("int", 0), "dim2": Param("int", 0)},
+         aliases=("swapaxes",), infer_shape=_swapaxes_infer)
+
+
+def _where(attrs, octx, cond, x, y):
+    return (torch.where(cond != 0, x, y),)
+
+
+ELEMENTWISE.add("where")
+register("where", _where, inputs=("condition", "x", "y"),
+         infer_shape=_same_shape_infer)
+
+_PAD_MODES = {"constant": "constant", "edge": "replicate",
+              "reflect": "reflect"}
+
+
+def _pad(attrs, octx, x):
+    """``pad_width`` lists (before, after) for every axis, first axis
+    first. torch pads the trailing axes, last axis first: the leading
+    axes must have no padding (the reference requires that of the first
+    two), and edge / reflect take up to three padded axes."""
+    pw = attrs["pad_width"]
+    mode = attrs["mode"]
+    if mode not in _PAD_MODES:
+        raise MXNetError(f"Pad: unknown mode {mode}")
+    pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(len(pw) // 2)]
+    if len(pairs) != x.ndim:
+        raise MXNetError(f"Pad: pad_width has {len(pw)} entries for a "
+                         f"{x.ndim}-d input")
+    first = next((i for i, p in enumerate(pairs) if p != (0, 0)), x.ndim)
+    spec = []
+    for lo, hi in reversed(pairs[first:]):
+        spec += [lo, hi]
+    if not spec:
+        return (x.clone(),)
+    if mode == "constant":
+        return (F.pad(x, spec, value=attrs["constant_value"]),)
+    if x.ndim - first > 3 or first == 0:
+        raise MXNetError(f"Pad: mode {mode} pads at most the last three "
+                         "axes, after one unpadded leading axis")
+    return (F.pad(x, spec, mode=_PAD_MODES[mode]),)
+
+
+def _pad_infer(attrs, in_shapes):
+    s = in_shapes[0]
+    if s is None:
+        return in_shapes, [None]
+    pw = attrs["pad_width"]
+    return in_shapes, [tuple(d + pw[2 * i] + pw[2 * i + 1]
+                             for i, d in enumerate(s))]
+
+
+register("Pad", _pad,
+         params={"mode": Param("str", "constant"),
+                 "pad_width": Param("shape", None, True),
+                 "constant_value": Param("float", 0.0)},
+         aliases=("pad",), infer_shape=_pad_infer)
+
+
+def _cumsum(attrs, octx, x):
+    dt = torch_dtype(attrs["dtype"]) if attrs["dtype"] else None
+    if attrs["axis"] is None:
+        return (torch.cumsum(x.reshape(-1), 0, dtype=dt),)
+    return (torch.cumsum(x, attrs["axis"], dtype=dt),)
+
+
+def _cumsum_infer(attrs, in_shapes):
+    s = in_shapes[0]
+    if s is None:
+        return in_shapes, [None]
+    if attrs["axis"] is None:
+        return in_shapes, [(math.prod(s),)]
+    return in_shapes, [tuple(s)]
+
+
+register("cumsum", _cumsum, params={"axis": Param("int", None),
+                                    "dtype": Param("dtype", None)},
+         infer_shape=_cumsum_infer, aliases=("_np_cumsum",))

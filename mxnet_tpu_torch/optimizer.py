@@ -32,12 +32,13 @@ import pickle
 
 import torch
 
+from .ndarray.ndarray import NDArray
+
 __all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "register",
            "create"]
 
 
 def _is_nd(x):
-    from .ndarray.ndarray import NDArray
     return isinstance(x, NDArray)
 
 
@@ -92,6 +93,17 @@ class Optimizer:
         self.param_dict = param_dict if param_dict else {}
         self.set_lr_mult({})
         self.set_wd_mult({})
+
+    def __getstate__(self):
+        # the Gluon parameters are the Trainer's, not state: it sets
+        # param_dict again after loading (as the reference's optimizer)
+        state = self.__dict__.copy()
+        state["param_dict"] = {}
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.param_dict = {}
 
     @property
     def learning_rate(self):

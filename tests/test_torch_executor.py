@@ -213,7 +213,9 @@ def test_monitor_sees_every_node_unfused():
                                                   ctx=tmx.cpu()))
     n_ops = sum(1 for n in tex._symbol._topo() if n.op is not None)
     assert len(seen) == n_ops
-    relu = [s for s in seen if "relu" in s]
+    # the model zoo names its ReLUs activation0, activation1, ...: the
+    # ones the fused plan folds into their BatchNorm are seen here too
+    relu = [s for s in seen if s.startswith("activation")]
     assert relu and all(s.endswith("_output") for s in seen)
 
 

@@ -126,7 +126,7 @@ def test_xavier_shapes_and_scale_match_jax(factor, rnd):
     jnet.initialize(jmx.init.Xavier(rnd_type=rnd, factor_type=factor,
                                     magnitude=2))
     tnet.initialize(init, ctx=cpu())
-    jw, tw = jnet.weight.data().asnumpy(), tnet.weight.data().detach().numpy()
+    jw, tw = jnet.weight.data().asnumpy(), tnet.weight.data().asnumpy()
     assert jw.shape == tw.shape == (300, 200)
     fan = {"avg": 250.0, "in": 200.0, "out": 300.0}[factor]
     scale = np.sqrt(2 / fan)
@@ -138,15 +138,16 @@ def test_xavier_shapes_and_scale_match_jax(factor, rnd):
     for w in (tw, jw):
         assert abs(w.std() / want_std - 1) < 0.03
     # bias is zero in both (its own "zeros" initializer)
-    assert not tnet.bias.data().any() and not jnet.bias.data().asnumpy().any()
+    assert not tnet.bias.data().asnumpy().any() and \
+        not jnet.bias.data().asnumpy().any()
 
 
 def test_default_initializer_is_uniform_007():
     tmx.random.seed(1)
     net = tgluon.nn.Dense(64, in_units=64, prefix="u_")
     net.initialize(ctx=cpu())
-    w = net.weight.data().detach()
-    assert float(w.abs().max()) <= 0.07 and float(w.std()) > 0.03
+    w = net.weight.data().asnumpy()
+    assert float(np.abs(w).max()) <= 0.07 and float(w.std()) > 0.03
 
 
 def _tiny_lm(g, prefix):
@@ -188,9 +189,8 @@ def test_load_parameters_reads_a_file_the_jax_package_saved(tmp_path):
                                jnet(jmx.nd.array(x)).asnumpy(), rtol=1e-5,
                                atol=1e-5)
     # and back: the JAX package reads what the port saves
-    with torch.no_grad():
-        for p in tnet.collect_params().values():
-            p.data().mul_(0.5)
+    for p in tnet.collect_params().values():
+        p.set_data(p.data() * 0.5)
     back = str(tmp_path / "back.params")
     tnet.save_parameters(back)
     jnet.load_parameters(back)
@@ -221,7 +221,7 @@ def test_grad_req_write_overwrites_add_accumulates_null_skips():
         with tag.record():
             y = net(x).sum()
         y.backward()                              # torch's own method
-        np.testing.assert_allclose(net.weight.grad().numpy(),
+        np.testing.assert_allclose(net.weight.grad().asnumpy(),
                                    np.tile(x.sum(0).numpy(), (3, 1)),
                                    rtol=1e-6)
     net.weight.grad_req = "add"
@@ -230,7 +230,7 @@ def test_grad_req_write_overwrites_add_accumulates_null_skips():
         with tag.record():
             y = net(x).sum()
         tag.backward(y)
-    np.testing.assert_allclose(net.weight.grad().numpy(),
+    np.testing.assert_allclose(net.weight.grad().asnumpy(),
                                np.tile(sum(x.sum(0) for x in xs).numpy(),
                                        (3, 1)), rtol=1e-5)
     net.bias.grad_req = "null"
@@ -268,7 +268,7 @@ def test_jax_grads_of_a_block_match():
     ty.backward()
     for n in ("b_weight", "b_bias"):
         np.testing.assert_allclose(
-            tb.collect_params()[n].grad().numpy(),
+            tb.collect_params()[n].grad().asnumpy(),
             jb.collect_params()[n].grad().asnumpy(), rtol=1e-5, atol=1e-5)
 
 
@@ -302,12 +302,12 @@ def test_trainer_update_learning_rate_and_head_grads():
         y = net(x)
     # head_grads weight the outputs: d/dw of sum(2 * y) over 4 rows
     tag.backward([y], [torch.full_like(y, 2.0)])
-    np.testing.assert_allclose(net.weight.grad().numpy(), np.full((2, 3), 8.))
+    np.testing.assert_allclose(net.weight.grad().asnumpy(), np.full((2, 3), 8.))
     trainer.allreduce_grads()                 # one device: nothing to do
     trainer.update(4)                         # rescale 1/4, lr 0.25
-    np.testing.assert_allclose(net.weight.data().detach().numpy(),
+    np.testing.assert_allclose(net.weight.data().asnumpy(),
                                np.full((2, 3), 1.0 - 0.25 * 2.0))
-    np.testing.assert_allclose(net.bias.data().detach().numpy(),
+    np.testing.assert_allclose(net.bias.data().asnumpy(),
                                np.full((2,), 0.0 - 0.25 * 2.0))
 
 

@@ -663,6 +663,58 @@ def test_half_attention_kernels_match_plain(dev, dt, s, h_kv, causal, d,
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("route", ["nd", "sym"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_registry_flash_attention_op_matches_plain(dev, dt, route):
+    """``_contrib_flash_attention`` (what Gluon's MultiHeadAttention calls,
+    eager through ``mx.nd`` and hybridized through the executor) on the
+    card: one launch of each flash kernel a forward and backward, and
+    out / dq / dk / dv against the plain versions on the same inputs (q,
+    k, v handed over as transposed views, as the block makes them), with
+    the tolerances above: f32 ``_close``, bf16 within 2 half units."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import test_utils as U
+    from mxnet_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, s, h, d = 2, 96, 4, 64
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev)
+                   .to(dt).transpose(1, 2) for _ in range(4))
+    arrs = [mx.nd.NDArray(t) for t in (q, k, v)]
+    for a in arrs:
+        a.attach_grad()
+    counts = [f.launches for f in (A.flash_attention_fwd,
+                                   A.flash_attention_bwd_dq,
+                                   A.flash_attention_bwd_dkv)]
+    with mx.autograd.record():
+        if route == "nd":
+            out = mx.nd._contrib_flash_attention(*arrs, causal=True)
+        else:
+            names = [mx.sym.var(n) for n in ("q", "k", "v")]
+            block = mx.gluon.SymbolBlock(
+                mx.sym._contrib_flash_attention(*names, causal=True), names)
+            block.hybridize()
+            out = block(*arrs)
+    out.backward(mx.nd.NDArray(do.contiguous()))
+    torch.cuda.synchronize()
+    assert [f.launches for f in (A.flash_attention_fwd,
+                                 A.flash_attention_bwd_dq,
+                                 A.flash_attention_bwd_dkv)] == [
+        c + 1 for c in counts]
+    got = [out._data] + [a.grad._data for a in arrs]
+    qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+    ref, lse = A.reference_attention_with_lse(qc, kc, vc, causal=True)
+    rgrads = A.reference_flash_attention_bwd(qc, kc, vc, got[0], lse, doc,
+                                             causal=True)
+    if dt == torch.float32:
+        for a, r in zip(got, [ref, *rgrads]):
+            _close(a, r)
+    else:
+        terms = U.attention_term_scales(qc, kc, vc, True, o=got[0], do=doc)
+        for a, r, t in zip(got, [ref, *rgrads], terms):
+            assert U.half_units(a, r, t) <= 2
+
+
 def _tf32(x):
     return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
 

@@ -54,6 +54,11 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.contrib.quantization, mxnet_tpu_torch.convert, "
             "mxnet_tpu_torch.gluon, mxnet_tpu_torch.gluon.nn, "
             "mxnet_tpu_torch.gluon.loss, mxnet_tpu_torch.autograd, "
+            "mxnet_tpu_torch.gluon.block, mxnet_tpu_torch.gluon.trainer, "
+            "mxnet_tpu_torch.gluon.utils, mxnet_tpu_torch.gluon.parameter, "
+            "mxnet_tpu_torch.gluon.nn.conv_layers, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision.model_store, "
             "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.initializer, "
             "mxnet_tpu_torch.random, mxnet_tpu_torch.ops.nn, "
             "mxnet_tpu_torch.ops.conv_fused, mxnet_tpu_torch.rtc, "
@@ -145,7 +150,7 @@ def test_gluon_runs_on_the_cpu_when_asked():
         loss = net(torch.ones(4, 3)).sum()
     loss.backward()
     trainer.step(4)
-    assert net.weight.data().device.type == "cpu"
+    assert net.weight.data().context.device_type == "cpu"
     assert net.weight.list_ctx()[0].device_type == "cpu"
 
 
