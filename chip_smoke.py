@@ -104,6 +104,23 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            _contrib_flash_attention op in the executor's walk), 8 x 1024
            tokens, Adam, 3 steps after 1, held against the same net run
            eagerly from the same parameters; the flash kernels' launches
+  gluon_fused_resnet50
+           the model zoo's resnet50_v1 through gluon.trainer.fused_fit
+           (steps_per_dispatch=4: 4 replays of DataParallelTrainer's
+           CUDA graph a block) over a gluon.data.DataLoader of an
+           ArrayDataset at bench.py's flagship configuration, 8 batches
+           of images from RandomState(0), 2 epochs: img/s over the
+           second beside module_resnet50's and gluon_resnet50's, host
+           enqueue against device time a step, busy share, captures,
+           peak memory; beforehand K = 4 against K = 1 and 2 fused steps
+           against 2 steps of the hybridized Trainer loop at batch 8
+  gluon_fused_lm
+           the LM of gluon_lm_hybrid (encoder and head in one
+           HybridSequential, Adam) through fused_fit(steps_per_dispatch=2):
+           the flash forward, dQ and dK/dV kernels inside the captured
+           step, their launches counted over the replays (24 a step),
+           step time, device time a step, peak memory; the first 3 steps'
+           losses against gluon_lm_hybrid's loop from the same parameters
   dp_resnet50
            bench.py's flagship lane through parallel.DataParallelTrainer
            on data_parallel_mesh(1): ResNet-50 v1 at batch 128, bf16 with
@@ -343,6 +360,34 @@ GLM_WARMUP = 1
 GLM_STEPS = 3
 GLM_RTOL = 1e-5
 CIFAR_BAR = 0.9         # examples/gluon_cifar.py's own bar
+# Gluon's fused fit on the card (gluon_fused_resnet50, gluon_fused_lm):
+# resnet50_v1 at bench.py's flagship configuration through
+# gluon.trainer.fused_fit(steps_per_dispatch=GFUSED_K) over a
+# gluon.data.DataLoader of an ArrayDataset (GFUSED_BATCHES batches of
+# images from RandomState(SEED), GFUSED_EPOCHS epochs; img/s over the
+# last, read in the fit's thread, then again with GFUSED_WORKERS thread
+# workers reading ahead); beforehand, at batch GFUSED_CHECK_BATCH with
+# cuDNN's deterministic algorithms, K = GFUSED_K against K = 1 (every
+# parameter and aux state within GFUSED_STEPK_RTOL of its largest
+# magnitude, and the epoch loss) and 2 fused steps against 2 steps of
+# the hybridized Trainer loop (each tensor within GFUSED_LOOP_RTOL
+# norm-wise). The LM
+# (TRAIN, GLM_LAYERS layers) in one HybridSequential with Adam through
+# fused_fit(steps_per_dispatch=GFLM_K), 2 epochs of GFLM_STEPS steps on
+# the LM batch: the first GFLM_STEPS steps' losses within GFLM_RTOL of
+# gluon_lm_hybrid's hybridized loop from the same parameters (the fused
+# step's Adam correction is computed in float32 on the card), the flash
+# kernels' launches a replay (GLM_LAYERS each) times the replays.
+GFUSED_K = 4
+GFUSED_BATCHES = 8
+GFUSED_WORKERS = 4      # the second reading's thread workers
+GFUSED_EPOCHS = 2
+GFUSED_CHECK_BATCH = 8
+GFUSED_STEPK_RTOL = 1e-6
+GFUSED_LOOP_RTOL = 1e-5
+GFLM_K = 2
+GFLM_STEPS = 3
+GFLM_RTOL = 1e-4
 
 # the stem convolution (7 x 7 / 2, batch 2 at 224) through the registered
 # op against float64: its output (sums of 147 products) within
@@ -2695,6 +2740,24 @@ def _gluon_r50(mx, params=None, ctx=None, dtype=None):
     return net
 
 
+def _gluon_r50_init(mx):
+    """resnet50_v1's parameters (numpy, by name) drawn on the host from
+    the seed (He-normal, as module_resnet50), deferred shapes finished by
+    one forward."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.convert import gluon_params_to_numpy
+    mx.random.seed(SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    host = mx.gluon.model_zoo.vision.resnet50_v1(classes=1000,
+                                                 prefix="resnetv10_")
+    host.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2, generator=gen),
+                    ctx=mx.cpu())
+    host(mx.nd.array(np.zeros((1, 3, 32, 32), np.float32), ctx=mx.cpu()))
+    return gluon_params_to_numpy(host)
+
+
 def _gluon_trainer(mx, net):
     return (mx.gluon.Trainer(net.collect_params(), "sgd",
                              {"learning_rate": R50_LR, "momentum": 0.9}),
@@ -2733,23 +2796,12 @@ def phase_gluon_resnet50():
     import torch
     from torch.profiler import ProfilerActivity, profile
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch.convert import gluon_params_to_numpy
     _free_card()
     res = {"batch": R50_BATCH, "image": R50_IMG, "dtype": "float32",
            "model": "gluon.model_zoo.vision.resnet50_v1(classes=1000)",
            "hybridized": True}
-    # 1. parameters drawn on the host (He-normal, as module_resnet50),
-    # deferred shapes finished by one forward
-    mx.random.seed(SEED)
-    gen = torch.Generator().manual_seed(SEED)
-    host = mx.gluon.model_zoo.vision.resnet50_v1(classes=1000,
-                                                 prefix="resnetv10_")
-    host.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
-                                   magnitude=2, generator=gen),
-                    ctx=mx.cpu())
-    host(mx.nd.array(np.zeros((1, 3, 32, 32), np.float32), ctx=mx.cpu()))
-    init = gluon_params_to_numpy(host)
-    del host
+    # 1. parameters drawn on the host (He-normal, as module_resnet50)
+    init = _gluon_r50_init(mx)
     # 2. a whole step at batch 2: card against the CPU
     rng = np.random.RandomState(SEED)
     shape = (R50_CHECK_BATCH, 3, R50_IMG, R50_IMG)
@@ -2970,16 +3022,15 @@ def _glm_run(mx, init, hybrid, x, y):
     return losses, counts, step_s, after, graphs
 
 
-def phase_gluon_lm_hybrid():
-    """The causal LM of examples/transformer_lm.py at GPT-2 medium's
-    widths trained hybridized (the attention through
-    _contrib_flash_attention in the executor's walk), held against the
-    same net run eagerly from the same parameters."""
-    import numpy as np
-    import torch
-    import mxnet_tpu_torch as mx
+# the LM's parameters and its hybridized losses, kept by gluon_lm_hybrid
+# for gluon_fused_lm's check
+_GLM_REF = {}
+
+
+def _glm_init(mx):
+    """The LM's parameters (numpy by name, for the encoder and the head),
+    drawn on the card from the seed, and its batch (x, y) as NDArrays."""
     from mxnet_tpu_torch.convert import gluon_params_to_numpy
-    _free_card()
     cfg = dict(TRAIN, num_layers=GLM_LAYERS)
     mx.random.seed(SEED)
     net = mx.gluon.nn.TransformerEncoder(**cfg, prefix="lm_")
@@ -2994,7 +3045,22 @@ def phase_gluon_lm_hybrid():
     init.update(gluon_params_to_numpy(head))
     del net, head
     _free_card()
+    return init, x, y
+
+
+def phase_gluon_lm_hybrid():
+    """The causal LM of examples/transformer_lm.py at GPT-2 medium's
+    widths trained hybridized (the attention through
+    _contrib_flash_attention in the executor's walk), held against the
+    same net run eagerly from the same parameters."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    _free_card()
+    cfg = dict(TRAIN, num_layers=GLM_LAYERS)
+    init, x, y = _glm_init(mx)
     hyb = _glm_run(mx, init, True, x, y)
+    _GLM_REF.update(init=init, losses=hyb[0])
     eag = _glm_run(mx, init, False, x, y)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(hyb[0], eag[0]))
     norm_err = {n: float((hyb[3][n] - eag[3][n]).norm()
@@ -3034,6 +3100,331 @@ def phase_gluon_lm_hybrid():
     _free_card()
     if not res["ok"]:
         raise AssertionError("gluon_lm_hybrid failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
+@contextlib.contextmanager
+def _watch_step_k():
+    """Every DataParallelTrainer.step_k call of the enclosed code, as
+    fused_fit makes them: its trainer, its block's K, its losses, the
+    host's time in the call (the enqueue of K replays, nothing synced) and
+    CUDA events around it (the block's device time: the event before it
+    fires when the work queued ahead of it is done)."""
+    import torch
+    from mxnet_tpu_torch.parallel import dp
+    real = dp.DataParallelTrainer.step_k
+    calls = []
+
+    def watched(self, params, states, aux, inputs, *a, **kw):
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)] \
+            if DEV == "cuda" else None
+        if evs:
+            evs[0].record()
+        t0 = time.perf_counter()
+        out = real(self, params, states, aux, inputs, *a, **kw)
+        host = time.perf_counter() - t0
+        if evs:
+            evs[1].record()
+        calls.append({"trainer": self, "k": int(inputs[0].shape[0]),
+                      "losses": out[3], "host_ms": host * 1e3,
+                      "start": t0, "events": evs})
+        return out
+    dp.DataParallelTrainer.step_k = watched
+    try:
+        yield calls
+    finally:
+        dp.DataParallelTrainer.step_k = real
+
+
+def _block_device_ms(call):
+    return call["events"][0].elapsed_time(call["events"][1]) \
+        if call["events"] else 0.0
+
+
+def _host_params(net):
+    """Every parameter and aux state of a Gluon net as a host tensor."""
+    return {n: p.data()._data.detach().to("cpu", copy=True)
+            for n, p in net.collect_params().items()}
+
+
+def _norm_errs(got, ref):
+    """name -> ||got - ref|| / ||ref|| (float64)."""
+    return {n: float((got[n].double() - ref[n].double()).norm()
+                     / max(float(ref[n].double().norm()), 1e-30))
+            for n in ref}
+
+
+def _gluon_fit(mx, net, data, epochs, k, callback=None, optimizer="sgd",
+               optimizer_params=None):
+    """gluon.trainer.fused_fit of ``net`` on SoftmaxCrossEntropyLoss
+    over ``data``; by default SGD as bench.py trains (lr 0.05, momentum
+    0.9). The loader's batches and the fit's mesh follow the current
+    context, ``_ctx()``."""
+    with _ctx():
+        return mx.gluon.trainer.fused_fit(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), data, epochs,
+            optimizer=optimizer, optimizer_params=optimizer_params or {
+                "learning_rate": R50_LR, "momentum": 0.9},
+            steps_per_dispatch=k, epoch_callback=callback)
+
+
+def phase_gluon_fused_resnet50():
+    """ResNet-50 v1 of the model zoo through gluon.trainer.fused_fit on
+    the card at bench.py's flagship configuration, fed by a
+    gluon.data.DataLoader: K = 4 against K = 1, and 2 fused steps against
+    2 steps of the hybridized Trainer loop, then the timed fit."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    _free_card()
+    init = _gluon_r50_init(mx)
+    res = {"model": "gluon.model_zoo.vision.resnet50_v1(classes=1000)",
+           "batch": R50_BATCH, "image": R50_IMG, "dtype": "float32",
+           "k": GFUSED_K, "batches": GFUSED_BATCHES,
+           "epochs": GFUSED_EPOCHS}
+    # 1. fusing and the loop against each other at a small batch, from
+    # the same parameters, with cuDNN's deterministic algorithms
+    b = GFUSED_CHECK_BATCH
+    rng = np.random.RandomState(SEED)
+    xs = rng.uniform(0, 1, (GFUSED_K * b, 3, R50_IMG, R50_IMG)) \
+        .astype(np.float32)
+    ys = rng.randint(0, 1000, GFUSED_K * b).astype(np.float32)
+    runs = {}
+    with _cudnn_deterministic():
+        for k in (1, GFUSED_K):
+            net = _gluon_r50(mx, init, _ctx())
+            loader = mx.gluon.data.DataLoader(
+                mx.gluon.data.ArrayDataset(xs, ys), batch_size=b)
+            with _watch_step_k() as calls:
+                losses = _gluon_fit(mx, net, loader, 1, k)
+            runs[k] = (_host_params(net), losses, calls[0]["trainer"]
+                       .captures, [c["k"] for c in calls])
+            del net, calls
+            _free_card()
+        # 2 fused steps and 2 steps of the loop
+        two = [(mx.nd.array(xs[i * b:(i + 1) * b], ctx=_ctx()),
+                mx.nd.array(ys[i * b:(i + 1) * b], ctx=_ctx()))
+               for i in range(2)]
+        net = _gluon_r50(mx, init, _ctx())
+        _gluon_fit(mx, net, two, 1, 2)
+        fused = _host_params(net)
+        del net
+        _free_card()
+        net = _gluon_r50(mx, init, _ctx())
+        trainer, loss_fn = _gluon_trainer(mx, net)
+        for xb, yb in two:
+            with mx.autograd.record():
+                loss = loss_fn(net(xb), yb)
+            loss.backward()
+            trainer.step(b)
+        loop = _host_params(net)
+        del net, trainer, two
+        _free_card()
+    stepk = {n: _rel_err(runs[GFUSED_K][0][n].numpy(), v.numpy())
+             for n, v in runs[1][0].items()}
+    vs_loop = _norm_errs(fused, loop)
+    res["check"] = {
+        "batch": b, "k1_vs_k": max(stepk.values()),
+        "k1_vs_k_loss": abs(runs[GFUSED_K][1][0] - runs[1][1][0])
+        / abs(runs[1][1][0]), "stepk_rtol": GFUSED_STEPK_RTOL,
+        "blocks": {k: r[3] for k, r in runs.items()},
+        "captures": {k: r[2] for k, r in runs.items()},
+        "fused_vs_loop_norm_max": max(vs_loop.values()),
+        "fused_vs_loop_worst": sorted(vs_loop.items(),
+                                      key=lambda kv: -kv[1])[:4],
+        "fused_vs_loop_rtol": GFUSED_LOOP_RTOL, "tensors": len(vs_loop)}
+    res["check"]["ok"] = bool(
+        res["check"]["k1_vs_k"] <= GFUSED_STEPK_RTOL
+        and res["check"]["k1_vs_k_loss"] <= GFUSED_STEPK_RTOL
+        and res["check"]["fused_vs_loop_norm_max"] <= GFUSED_LOOP_RTOL
+        and all(c == (1 if DEV == "cuda" else 0)
+                for c in res["check"]["captures"].values()))
+    del runs, fused, loop
+    # 2. the timed fit: GFUSED_BATCHES batches of synthetic images from
+    # RandomState(SEED) through a DataLoader of an ArrayDataset, read in
+    # this thread (the phase's reading, its launches counted), then read
+    # ahead by GFUSED_WORKERS thread workers
+    n = GFUSED_BATCHES * R50_BATCH
+    x = np.empty((n, 3, R50_IMG, R50_IMG), np.float32)
+    for i in range(GFUSED_BATCHES):
+        x[i * R50_BATCH:(i + 1) * R50_BATCH] = rng.uniform(
+            0, 1, (R50_BATCH, 3, R50_IMG, R50_IMG))
+    y = rng.randint(0, 1000, n).astype(np.float32)
+    dataset = mx.gluon.data.ArrayDataset(x, y)
+    _reset_counts()
+    fit, tr = _r50_timed_fit(mx, init, dataset, 0)
+    counts = _read_counts()
+    res.update(fit)
+    res.update({
+        "module_fit_img_per_s_same_run":
+            RECORD.get("module_resnet50", {}).get("img_per_s"),
+        "gluon_hybrid_img_per_s_same_run":
+            RECORD.get("gluon_resnet50", {}).get("img_per_s"),
+        "captures": tr.captures, "graphs": tr.graph_stats(),
+        "launches": counts})
+    del tr
+    _free_card()
+    threaded, tr = _r50_timed_fit(mx, init, dataset, GFUSED_WORKERS)
+    res["thread_workers"] = dict(threaded, workers=GFUSED_WORKERS,
+                                 captures=tr.captures)
+    res["ok"] = bool(res["check"]["ok"] and res["losses_finite"]
+                     and threaded["losses_finite"]
+                     and res["captures"] == (1 if DEV == "cuda" else 0)
+                     and tr.captures == res["captures"]
+                     and not any(counts[k] for k in _wrappers()))
+    RECORD["gluon_fused_resnet50"] = res
+    del tr, dataset, x, y
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("gluon_fused_resnet50 failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
+def _r50_timed_fit(mx, init, dataset, workers):
+    """resnet50_v1 from ``init`` fused-fit for GFUSED_EPOCHS epochs over a
+    DataLoader of ``dataset`` with ``workers`` thread workers: (timings of
+    the last epoch, the trainer)."""
+    import torch
+    loader = mx.gluon.data.DataLoader(dataset, batch_size=R50_BATCH,
+                                      num_workers=workers)
+    net = _gluon_r50(mx, init, _ctx())
+    marks = []
+    _sync()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _watch_step_k() as calls:
+        losses = _gluon_fit(mx, net, loader, GFUSED_EPOCHS, GFUSED_K,
+                            lambda e, _n, _l: marks.append(
+                                time.perf_counter()))
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    last = calls[-(len(calls) // GFUSED_EPOCHS):]
+    epoch_s = [b - a for a, b in zip([t0] + marks, marks)]
+    dev_ms = sum(_block_device_ms(c) for c in last)
+    steps = sum(c["k"] for c in last)
+    fit = {
+        "epoch_losses": losses, "epoch_s": epoch_s,
+        "img_per_s": steps * R50_BATCH / epoch_s[-1],
+        "step_ms": epoch_s[-1] * 1e3 / steps,
+        "device_ms_per_step": dev_ms / steps,
+        "host_enqueue_ms_per_step": sum(c["host_ms"] for c in last) / steps,
+        "device_busy_share": dev_ms / (epoch_s[-1] * 1e3),
+        "idle_ms_last_epoch": epoch_s[-1] * 1e3 - dev_ms,
+        # the loader stacking, pinning and copying the epoch's first block
+        # while the card has nothing queued
+        "fill_ms_last_epoch": (last[0]["start"] - marks[-2]) * 1e3,
+        "blocks": [c["k"] for c in calls],
+        "host_enqueue_ms_each": [c["host_ms"] for c in calls],
+        "device_ms_each": [_block_device_ms(c) for c in calls],
+        "peak_mem_gb": peak / 1e9,
+        "losses_finite": bool(all(math.isfinite(v) for v in losses))}
+    tr = calls[0]["trainer"]
+    del net, calls, loader
+    return fit, tr
+
+
+def phase_gluon_fused_lm():
+    """The causal LM of examples/transformer_lm.py at GPT-2 medium's
+    widths (encoder and head in one HybridSequential) through
+    gluon.trainer.fused_fit with Adam, K = 2: the flash kernels inside
+    the captured step, counted over its replays; the first 3 fused steps'
+    losses held against gluon_lm_hybrid's loop from the same
+    parameters."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import load_gluon_params
+    _free_card()
+    if _GLM_REF:
+        init = _GLM_REF["init"]
+        x, y = (mx.nd.NDArray(t) for t in _lm_batch())
+        ref = _GLM_REF["losses"][:GFLM_STEPS]
+    else:
+        init, x, y = _glm_init(mx)
+        ref = _glm_run(mx, init, True, x, y)[0][:GFLM_STEPS]
+    cfg = dict(TRAIN, num_layers=GLM_LAYERS)
+    enc = mx.gluon.nn.TransformerEncoder(**cfg, prefix="lm_")
+    head = mx.gluon.nn.Dense(cfg["vocab_size"], flatten=False,
+                             prefix="head_")
+    for block in (enc, head):
+        load_gluon_params(block, {n: init[n] for n in
+                                  block.collect_params().keys()},
+                          ctx=_ctx())
+    net = mx.gluon.nn.HybridSequential()
+    net.add(enc, head)
+    net.hybridize()
+    data = [(x, y)] * GFLM_STEPS
+    marks = []
+    _sync()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _watch_step_k() as calls:
+        epoch_losses = _gluon_fit(
+            mx, net, data, 2, GFLM_K,
+            lambda e, _n, _l: marks.append(time.perf_counter()),
+            optimizer="adam",
+            optimizer_params={"learning_rate": TRAIN_LR})
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    tr = calls[0]["trainer"]
+    step_losses = [float(v) / TRAIN_BATCH for c in calls
+                   for v in c["losses"].cpu()]
+    fused = step_losses[:GFLM_STEPS]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(fused, ref))
+    per_epoch = len(calls) // 2
+    last = calls[-per_epoch:]
+    epoch_s = [b_ - a_ for a_, b_ in zip([t0] + marks, marks)]
+    graphs = tr.graph_stats()
+    per_replay = {}
+    replays = 0
+    for g in graphs["graphs"].values():
+        replays += g["replays"]
+        for kname, v in g["launches"].items():
+            per_replay[kname] = per_replay.get(kname, 0) + v
+    flash = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    replayed = {kname: per_replay.get(kname, 0) * replays
+                for kname in flash}
+    res = {"model": dict(cfg, head="Dense(vocab, flatten=False)",
+                         wrapped="HybridSequential(encoder, head)"),
+           "batch": TRAIN_BATCH, "tokens_per_step": TRAIN_BATCH
+           * cfg["max_length"], "k": GFLM_K, "optimizer": "adam",
+           "step_losses": step_losses, "epoch_losses": epoch_losses,
+           "hybrid_loop_losses": ref, "loss_rel_err": loss_err,
+           "rtol": GFLM_RTOL, "blocks": [c["k"] for c in calls],
+           "epoch_s": epoch_s,
+           "step_s": epoch_s[-1] / sum(c["k"] for c in last),
+           "device_ms_per_step": sum(_block_device_ms(c) for c in last)
+           / sum(c["k"] for c in last),
+           "host_enqueue_ms_per_step": sum(c["host_ms"] for c in last)
+           / sum(c["k"] for c in last),
+           "host_enqueue_ms_each": [c["host_ms"] for c in calls],
+           "device_ms_each": [_block_device_ms(c) for c in calls],
+           "device_busy_share": sum(_block_device_ms(c) for c in last)
+           / (epoch_s[-1] * 1e3),
+           "eager_step_s_same_run": RECORD.get("gluon_lm_hybrid", {})
+           .get("step_s_eager"),
+           "captures": tr.captures, "graphs": graphs,
+           "replays": replays, "launches_a_replay": per_replay,
+           "launches_replayed": replayed,
+           "launches_replayed_want_each": GLM_LAYERS * replays,
+           "peak_mem_gb": peak / 1e9, "launches": counts,
+           "finite": bool(all(math.isfinite(v) for v in step_losses))}
+    res["ok"] = bool(res["finite"] and loss_err <= GFLM_RTOL
+                     and tr.captures == (1 if DEV == "cuda" else 0)
+                     and replays == 2 * GFLM_STEPS
+                     and all(replayed[kname] == GLM_LAYERS * replays
+                             for kname in flash)
+                     and counts["dense_attention"] == 0)
+    RECORD["gluon_fused_lm"] = res
+    del net, enc, head, calls, tr, data
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("gluon_fused_lm failed: %s"
                              % json.dumps(res, default=str)[:4000])
     return res
 
@@ -3487,6 +3878,8 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("gluon_resnet50", phase_gluon_resnet50),
           ("gluon_cifar", phase_gluon_cifar),
           ("gluon_lm_hybrid", phase_gluon_lm_hybrid),
+          ("gluon_fused_resnet50", phase_gluon_fused_resnet50),
+          ("gluon_fused_lm", phase_gluon_fused_lm),
           ("dp_resnet50", phase_dp_resnet50),
           ("module_fused", phase_module_fused))
 
@@ -3579,7 +3972,8 @@ def main(argv=None):
     paths += [RECORD[k] for k in ("train", "serve_gqa", "conv", "rtc",
                                   "module_lenet", "module_resnet50",
                                   "gluon_resnet50", "gluon_cifar",
-                                  "gluon_lm_hybrid", "dp_resnet50",
+                                  "gluon_lm_hybrid", "gluon_fused_resnet50",
+                                  "gluon_fused_lm", "dp_resnet50",
                                   "module_fused")
               if k in RECORD]
     rows = []

@@ -20,6 +20,8 @@ both:
   MXNET_BACKWARD_DO_MIRROR  activation mirroring in the executor's
                             backward: not ported, so a nonzero value
                             raises at bind instead of being ignored
+  MXNET_FUSED_K             Gluon ``fused_fit``'s steps a dispatch when
+                            not given (0: the default, 8)
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ _DOCUMENTED = {
     "MXNET_QUANT_DTYPE": "int8",
     "MXNET_BACKWARD_DO_MIRROR": 0,
     "MXNET_UPDATE_ON_KVSTORE": 1,
+    "MXNET_FUSED_K": 0,
 }
 
 

@@ -1,14 +1,18 @@
 """Gluon of the port (counterpart of mxnet_tpu/gluon): blocks are
 ``torch.nn.Module``s that take and return NDArrays, run eagerly through
-``mx.nd`` or, hybridized, through the executor. ``gluon.data``,
-``gluon.rnn`` and ``fused_fit`` are not ported yet (ROADMAP queue 1
-items 9 and 12)."""
+``mx.nd`` or, hybridized, through the executor; parameters over one
+context or several (one buffer, replicated over their mesh); the
+``Trainer`` with its kvstore; ``trainer.fused_fit`` (K steps a dispatch
+through ``parallel.DataParallelTrainer``); ``gluon.data`` (datasets,
+samplers, the DataLoader, vision datasets and transforms). ``gluon.rnn``
+is not ported yet (ROADMAP queue 1 item 12)."""
 from .parameter import (Constant, DeferredInitializationError,  # noqa: F401
                         Parameter, ParameterDict)
 from .block import Block, HybridBlock, SymbolBlock  # noqa: F401
 from .trainer import Trainer  # noqa: F401
-from . import nn, loss, utils, model_zoo  # noqa: F401
+from . import nn, loss, utils, model_zoo, data, trainer  # noqa: F401
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError", "Block", "HybridBlock",
-           "SymbolBlock", "Trainer", "nn", "loss", "utils", "model_zoo"]
+           "SymbolBlock", "Trainer", "nn", "loss", "utils", "model_zoo",
+           "data", "trainer"]

@@ -48,6 +48,7 @@ from .. import ndarray as ndmod
 from .. import symbol as symmod
 from ..symbol import Symbol
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
+from .utils import MeshNDArray
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
@@ -528,7 +529,7 @@ class HybridBlock(Block):
         walk of ``executor._Plan`` (recorded by torch's autograd inside
         ``autograd.record()``), then the aux write-back."""
         from .. import random as _random
-        from ..executor import _Plan
+        from ..executor import _Plan, _run_mesh
 
         flat_args, _ = _flatten_args(args)
         inputs, out = self._get_graph(*args)
@@ -536,6 +537,11 @@ class HybridBlock(Block):
         params = {p.name: p for _, p in self.collect_params().items()}
         given = {inp.name: a for inp, a in zip(inputs, flat_args)}
         ctx = _first_ctx(flat_args)
+        # inputs sharded on axis 0 over a mesh run through the mesh walk
+        sharded = {n: a for n, a in given.items()
+                   if isinstance(a, MeshNDArray) and a.batch_axis == 0
+                   and len(a.contexts) > 1}
+        on_mesh = next(iter(sharded.values()), None)
         arg_t = {}
         for n in args_n:
             a = given[n.name] if n.name in given else params[n.name].data(ctx)
@@ -550,11 +556,22 @@ class HybridBlock(Block):
             plan = self._cached_plans[key] = _Plan(out, is_train)
         rng = _random.generator(device) if plan.needs_rng else None
         with torch.set_grad_enabled(autograd.is_recording()):
-            outs, updates = plan.run(arg_t, aux_t, device, rng)
+            if on_mesh is None:
+                outs, updates = plan.run(arg_t, aux_t, device, rng)
+            else:
+                outs, updates = _run_mesh(plan, arg_t, aux_t,
+                                          on_mesh.mesh.replicas,
+                                          set(sharded), rng)
         with torch.no_grad():
             for name, value in updates:
                 aux_t[name].copy_(value)
-        outputs = [NDArray(o) for o in outs]
+        if on_mesh is None:
+            outputs = [NDArray(o) for o in outs]
+        else:
+            carry = plan.batch_carriers(set(sharded))
+            outputs = [MeshNDArray(o, on_mesh.contexts, 0)
+                       if q in carry else NDArray(o)
+                       for o, (q, _) in zip(outs, plan.outputs)]
         if self._out_fmt is not None:
             regrouped = _regroup_args(outputs, self._out_fmt)
             return tuple(regrouped) if len(regrouped) > 1 else regrouped[0]
@@ -572,13 +589,18 @@ class HybridBlock(Block):
                 except DeferredInitializationError:
                     self._finish_deferred(x, *args)
                     return self._call_cached_graph(x, *args)
-            # a parameter lives on one device: an op given inputs on two
-            # raises (imperative._run_device)
+            # the parameters' value on the input's context (a parameter
+            # not there raises, as in the JAX package). A mesh array is
+            # the whole batch on its first context's device, which the
+            # eager ops compute there (the JAX package's SPMD result)
+            ctx = _first_ctx((x,) + args)
             try:
-                params = {k: v.data() for k, v in self._reg_params.items()}
+                params = {k: v.data(ctx)
+                          for k, v in self._reg_params.items()}
             except DeferredInitializationError:
                 self._finish_deferred(x, *args)
-                params = {k: v.data() for k, v in self._reg_params.items()}
+                params = {k: v.data(ctx)
+                          for k, v in self._reg_params.items()}
             return self.hybrid_forward(ndmod, x, *args, **params)
         if not isinstance(x, Symbol):
             raise TypeError("HybridBlock requires the first argument to "
@@ -613,9 +635,11 @@ class HybridBlock(Block):
 
 
 def _first_ctx(args):
+    """The context of the first NDArray (a mesh array's first context)."""
     for a in args:
         if isinstance(a, NDArray):
-            return a.context
+            return a.contexts[0] if isinstance(a, MeshNDArray) \
+                else a.context
     return current_context()
 
 

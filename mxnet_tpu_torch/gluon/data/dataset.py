@@ -1,0 +1,93 @@
+"""Datasets (counterpart of mxnet_tpu/gluon/data/dataset.py):
+``Dataset`` with ``transform`` / ``transform_first`` (lazy, or applied
+once when ``lazy=False``), ``SimpleDataset`` and ``ArrayDataset``.
+``RecordFileDataset`` needs ``recordio``, which is not ported (ROADMAP
+queue 1 item 17), and raises.
+"""
+from __future__ import annotations
+
+from ...base import MXNetError
+from ...ndarray.ndarray import NDArray
+
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
+
+
+class Dataset:
+    def __getitem__(self, idx):
+        raise NotImplementedError
+
+    def __len__(self):
+        raise NotImplementedError
+
+    def transform(self, fn, lazy=True):
+        trans = _LazyTransformDataset(self, fn)
+        if lazy:
+            return trans
+        return SimpleDataset([trans[i] for i in range(len(trans))])
+
+    def transform_first(self, fn, lazy=True):
+        def base_fn(x, *args):
+            if args:
+                return (fn(x),) + args
+            return fn(x)
+        return self.transform(base_fn, lazy)
+
+
+class SimpleDataset(Dataset):
+    def __init__(self, data):
+        self._data = data
+
+    def __len__(self):
+        return len(self._data)
+
+    def __getitem__(self, idx):
+        return self._data[idx]
+
+
+class _LazyTransformDataset(Dataset):
+    def __init__(self, data, fn):
+        self._data = data
+        self._fn = fn
+
+    def __len__(self):
+        return len(self._data)
+
+    def __getitem__(self, idx):
+        item = self._data[idx]
+        if isinstance(item, tuple):
+            return self._fn(*item)
+        return self._fn(item)
+
+
+class ArrayDataset(Dataset):
+    """The i-th sample is the tuple of every argument's i-th element (the
+    element itself for one argument); a 1-D NDArray is kept as numpy, so
+    its samples are scalars."""
+
+    def __init__(self, *args):
+        assert len(args) > 0, "Needs at least 1 arrays"
+        self._length = len(args[0])
+        self._data = []
+        for i, data in enumerate(args):
+            assert len(data) == self._length, \
+                f"All arrays must have the same length; array[0] has length " \
+                f"{self._length} while array[{i}] has {len(data)}."
+            if isinstance(data, NDArray) and data.ndim == 1:
+                data = data.asnumpy()
+            self._data.append(data)
+
+    def __getitem__(self, idx):
+        if len(self._data) == 1:
+            return self._data[0][idx]
+        return tuple(data[idx] for data in self._data)
+
+    def __len__(self):
+        return self._length
+
+
+class RecordFileDataset(Dataset):
+    """A dataset over an indexed RecordIO file: not ported."""
+
+    def __init__(self, filename):
+        raise MXNetError(f"RecordFileDataset({filename!r}) needs recordio, "
+                         "which is not ported yet (ROADMAP queue 1 item 17)")

@@ -9,8 +9,12 @@ initialization (a shape with a 0 resolves on the block's first forward).
 The leaf is an autograd variable (``autograd._mark``): ``grad_req=
 "write"`` overwrites the gradient on every backward, where torch would
 accumulate. ``var()`` is the parameter's Symbol for a hybridized trace.
-Several devices per parameter are not ported yet (ROADMAP queue 1
-item 9): a second context raises.
+
+Several contexts: as in the JAX package, every context maps to the same
+value, one leaf on the first context's device (replicated over the mesh
+of those contexts, which a hybridized block's mesh walk copies to each
+replica); ``list_data()`` and ``list_grad()`` give that one buffer under
+each context, and ``data(ctx)`` for a context that was not given raises.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, torch_dtype
-from ..context import Context, gpu
+from ..context import Context, current_context, gpu
 from .. import autograd
 from .. import initializer as init_mod
 
@@ -35,11 +39,8 @@ def _context_list(ctx):
     if isinstance(ctx, Context):
         ctx = [ctx]
     ctx = list(ctx)
-    if len(ctx) != 1:
-        raise MXNetError("the port keeps a parameter on one device "
-                         "(several contexts a Parameter are ROADMAP queue 1 "
-                         f"item 9); got contexts {ctx}")
-    ctx[0].torch_device()            # resolve now: raises without CUDA
+    for c in ctx:
+        c.torch_device()             # resolve now: raises without CUDA
     return ctx
 
 
@@ -196,9 +197,12 @@ class Parameter:
     # -- access -------------------------------------------------------------
 
     def _check_initialized(self, ctx=None):
+        """Raise unless initialized (on ``ctx``; None: the current context
+        when there are several, ``list``: any)."""
         if self._data is not None:
-            if ctx is not None and ctx is not list and \
-                    Context.of(self._data.device) != ctx:
+            if ctx is None and len(self._ctx) > 1:
+                ctx = current_context()
+            if ctx is not None and ctx is not list and ctx not in self._ctx:
                 raise RuntimeError(
                     f"Parameter '{self.name}' was not initialized on context "
                     f"{ctx}. It was only initialized on {self._ctx}.")
@@ -218,12 +222,14 @@ class Parameter:
 
     def data(self, ctx=None):
         """The value, an NDArray over the parameter's leaf tensor (the
-        same NDArray on every call)."""
+        same NDArray on every call and for every context)."""
         self._check_initialized(ctx)
         return self._nd
 
     def list_data(self):
-        return [self.data()]
+        """The value under each context: one NDArray, repeated."""
+        self._check_initialized(list)
+        return [self._nd] * len(self._ctx)
 
     def grad(self, ctx=None):
         """The gradient buffer, an NDArray over the leaf's ``.grad``."""
@@ -238,7 +244,8 @@ class Parameter:
         return NDArray(self._data.grad)
 
     def list_grad(self):
-        return [self.grad()]
+        """The gradient under each context: one NDArray, repeated."""
+        return [self.grad(list)] * len(self._ctx or ())
 
     def list_ctx(self):
         if self._data is None:
@@ -267,7 +274,7 @@ class Parameter:
     def set_data(self, data):
         """Copy ``data`` into the value in place (the leaf, its hooks and
         the optimizer's view of it stay)."""
-        self._check_initialized()
+        self._check_initialized(list)
         src = _as_tensor(data)
         if tuple(src.shape) != tuple(self._data.shape):
             raise MXNetError(f"set_data: shape {tuple(src.shape)} does not "

@@ -1,24 +1,228 @@
-"""Gluon Trainer (counterpart of mxnet_tpu/gluon/trainer.py).
+"""Gluon Trainer and ``fused_fit`` (counterpart of
+mxnet_tpu/gluon/trainer.py).
 
-The JAX package's constructor (``kvstore``, ``compression_params``,
-``update_on_kvstore``) and methods: ``step(batch_size,
-ignore_stale_grad)`` rescales gradients by 1 / batch_size and applies the
+``Trainer`` keeps the JAX package's constructor (``kvstore``,
+``compression_params``, ``update_on_kvstore``), methods and assertions:
+``step(batch_size, ignore_stale_grad)`` rescales gradients by 1 /
+batch_size, all-reduces them through the kvstore, and applies the
 optimizer to every parameter whose ``grad_req`` is not "null";
-``allreduce_grads`` + ``update`` split the same; ``save_states`` /
-``load_states`` write and read the ``Updater.get_states`` bytes, which
-the JAX package's files are too. The port keeps a parameter on one
-device, so there is nothing to reduce: like the reference without a
-kvstore (``model._create_kvstore`` gives none for one device),
-``allreduce_grads`` does nothing. Parameters on several contexts, and
-the kvstore over them, are ROADMAP queue 1 item 9 and raise.
+``allreduce_grads`` + ``update`` split the same. The kvstore comes from
+``model._create_kvstore`` at the first step: none for one context
+(unless a ``KVStore`` object is given), else one whose updater runs the
+optimizer when ``update_on_kvstore`` holds (gradients pushed, weights
+pulled), or which only sums the gradients (pushed and pulled back, with
+2-bit compression when asked) before the local update. A parameter over
+several contexts is one buffer under each (``Parameter``), so pushes and
+updates are de-duplicated on the device buffer: it is pushed and
+updated once. ``save_states`` / ``load_states`` go through the kvstore
+when it updates, else the first updater; either package reads the
+files.
+
+``fused_fit`` is the JAX package's K-steps-a-dispatch training loop
+for Gluon: net and loss traced into one Symbol, trained by a
+``parallel.DataParallelTrainer`` over the contexts' mesh (on one card,
+K replays of its CUDA graph a block).
 """
 from __future__ import annotations
 
 from ..base import MXNetError, atomic_write
 from .. import optimizer as opt
+from ..model import _create_kvstore
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "fused_fit"]
+
+_FUSED_DTYPES = ("float32", "bfloat16")
+
+
+def _buffer_key(a):
+    """The device buffer under an NDArray: a parameter over several
+    contexts gives the same buffer under each."""
+    t = a._data
+    return (t.device, t.data_ptr())
+
+
+def _unique(arrays):
+    seen, out = set(), []
+    for a in arrays:
+        k = _buffer_key(a)
+        if k not in seen:
+            seen.add(k)
+            out.append(a)
+    return out
+
+
+def fused_fit(net, loss, train_data, num_epoch, optimizer="sgd",
+              optimizer_params=None, steps_per_dispatch=None,
+              contexts=None, dtype=None, epoch_callback=None,
+              checkpoint_dir=None, checkpoint_period=None, resume=False):
+    """Train ``net`` (a HybridBlock) on ``loss`` over ``train_data``,
+    K = ``steps_per_dispatch`` steps a dispatch; returns the epoch mean
+    losses.
+
+    ``net(Variable("data"))`` and ``loss(out, Variable("fused_label"))``
+    are traced into one Symbol (a deferred-init net is finished on the
+    first batch first) and trained by a ``DataParallelTrainer`` over
+    ``mesh_for_contexts(contexts)`` (default: the current context) with
+    ``rescale_grad`` 1 / batch unless given. K defaults to
+    ``MXNET_FUSED_K``, else 8. ``train_data`` yields (data, label) pairs
+    of one shape, a DataLoader say; each block of K batches is one
+    ``step_k`` (the last block may be shorter). The next block is staged
+    on the device (stacked; host batches through pinned memory on a copy
+    stream) before the host reads the losses of the block in flight.
+    Parameters and aux states are written back into ``net`` at every
+    epoch end, before ``epoch_callback(epoch, net, mean_loss)``.
+
+    Only the optimizers with a fused update op train here (``sgd``,
+    ``adam``). ``checkpoint_dir`` / ``resume`` (ROADMAP queue 1 item 14)
+    and a ``dtype`` other than float32 or bfloat16 (item 10) raise.
+    """
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from .. import config
+    from .. import symbol as sym_mod
+    from ..context import current_context
+    from ..ndarray.ndarray import NDArray, array as nd_array
+    from ..parallel.dp import DataParallelTrainer
+    from ..parallel.mesh import mesh_for_contexts
+
+    if checkpoint_dir is not None or resume:
+        raise MXNetError("fused_fit: checkpoint_dir / resume need the "
+                         "checkpoint manager, which is not ported yet "
+                         "(ROADMAP queue 1 item 14)")
+    if dtype is None:
+        dtype = "float32"
+    if dtype not in _FUSED_DTYPES:
+        raise MXNetError(f"fused_fit: dtype {dtype!r} needs mixed precision "
+                         "with loss scaling, which is not ported yet "
+                         "(ROADMAP queue 1 item 10); float32 and bfloat16 "
+                         "train")
+    contexts = contexts or [current_context()]
+    if not isinstance(contexts, (list, tuple)):
+        contexts = [contexts]
+    contexts = list(contexts)
+
+    it = iter(train_data)
+    try:
+        first = next(it)
+    except StopIteration:
+        raise MXNetError("fused_fit: train_data is empty")
+    x0, y0 = first[0], first[1]
+    if not isinstance(x0, NDArray):
+        x0 = nd_array(np.asarray(x0), ctx=contexts[0])
+        y0 = nd_array(np.asarray(y0), ctx=contexts[0])
+    # finish deferred init (shapes come from the first batch) before the
+    # trace reads the parameters' shapes
+    with contexts[0]:
+        net(x0.as_in_context(contexts[0]))
+
+    out_sym = net(sym_mod.Variable("data"))
+    if isinstance(out_sym, (list, tuple)):
+        out_sym = out_sym[0]
+    loss_sym = loss(out_sym, sym_mod.Variable("fused_label"))
+    if isinstance(loss_sym, (list, tuple)):
+        loss_sym = loss_sym[0]
+
+    batch = int(x0.shape[0])
+    opt_params = dict(optimizer_params or {})
+    lr = float(opt_params.pop("learning_rate", 0.01))
+    mesh = mesh_for_contexts(contexts)
+    trainer = DataParallelTrainer(
+        loss_sym, mesh, data_names=("data",), label_names=("fused_label",),
+        optimizer=optimizer, learning_rate=lr,
+        momentum=float(opt_params.pop("momentum", 0.0)),
+        wd=float(opt_params.pop("wd", 0.0)),
+        rescale_grad=float(opt_params.pop("rescale_grad", 1.0 / batch)),
+        clip_gradient=opt_params.pop("clip_gradient", None), dtype=dtype,
+        **opt_params)
+    pmap = {p.name: p for _, p in net.collect_params().items()}
+    params, states, aux = trainer.init_state(
+        {"data": tuple(x0.shape), "fused_label": tuple(y0.shape)},
+        arg_params={n: pmap[n].list_data()[0] for n in trainer.param_names},
+        aux_params={n: pmap[n].list_data()[0] for n in trainer.aux_names
+                    if n in pmap})
+    device = mesh.replicas[0]
+    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" \
+        else None
+
+    if steps_per_dispatch is None:
+        steps_per_dispatch = int(config.get("MXNET_FUSED_K")) or 8
+    k = int(steps_per_dispatch)
+
+    def _column(block, i):
+        return [b[i]._data if isinstance(b[i], NDArray) else
+                torch.from_numpy(np.ascontiguousarray(np.asarray(b[i])))
+                for b in block]
+
+    def _stage(block):
+        """(inputs, copy event or None): the block's (K, batch, ...)
+        stacks on the mesh's first device. torch.stack copies, so the
+        loader may reuse its buffers."""
+        cols = [_column(block, 0), _column(block, 1)]
+        if all(t.device == device for col in cols for t in col):
+            return trainer.shard_inputs([torch.stack(c) for c in cols],
+                                        stacked=True), None
+        host = [torch.stack([t.cpu() for t in c]) for c in cols]
+        if copy_stream is None:
+            return trainer.shard_inputs(host, stacked=True), None
+        with torch.cuda.stream(copy_stream):
+            staged = [h.pin_memory().to(device, non_blocking=True)
+                      for h in host]
+        return trainer.shard_inputs(staged, stacked=True), \
+            copy_stream.record_event()
+
+    def _blocks(stream):
+        while True:
+            block = list(itertools.islice(stream, k))
+            if not block:
+                return
+            yield block
+
+    def _writeback():
+        with torch.no_grad():
+            for n, p in zip(trainer.param_names, params):
+                pmap[n].set_data(p)
+            for n, a in zip(trainer.aux_names, aux):
+                if n in pmap:
+                    pmap[n].set_data(a)
+
+    epoch_losses = []
+    for epoch in range(num_epoch):
+        stream = itertools.chain([first], it) if epoch == 0 \
+            else iter(train_data)
+        total, count, pending = 0.0, 0, None
+        for block in _blocks(stream):
+            inputs, copied = _stage(block)
+            if copied is not None:
+                cur = torch.cuda.current_stream(device)
+                cur.wait_event(copied)
+                for t in inputs:
+                    t.record_stream(cur)
+            params, states, aux, losses, _ = trainer.step_k(
+                params, states, aux, inputs)
+            if pending is not None:
+                # the block before this one: the card has this block
+                # queued behind it while the host waits
+                total += float(pending.sum())
+            pending = losses
+            count += len(block) * batch
+        if pending is not None:
+            total += float(pending.sum())
+        if count == 0:
+            # a single-pass generator is exhausted after epoch 0
+            raise MXNetError(
+                f"fused_fit: epoch {epoch} yielded no batches (is "
+                "train_data a single-pass generator? pass a re-iterable "
+                "like a DataLoader or list)")
+        mean_loss = total / count
+        epoch_losses.append(mean_loss)
+        _writeback()
+        if epoch_callback is not None:
+            epoch_callback(epoch, net, mean_loss)
+    return epoch_losses
 
 
 class Trainer:
@@ -38,33 +242,27 @@ class Trainer:
                     "First argument must be a list or dict of Parameters, "
                     f"got list of {type(param)}.")
             self._params.append(param)
-        if compression_params:
-            raise MXNetError("gradient compression needs a kvstore over "
-                             "several contexts (ROADMAP queue 1 item 9)")
-        if update_on_kvstore:
-            raise MXNetError("update_on_kvstore needs a kvstore over "
-                             "several contexts (ROADMAP queue 1 item 9)")
+        self._compression_params = compression_params
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._contexts = self._check_contexts()
         self._init_optimizer(optimizer, optimizer_params)
+        self._kv_initialized = False
+        self._kvstore = None
+        self._update_on_kvstore = update_on_kvstore
+        self._kvstore_kind = kvstore
 
     def _check_contexts(self):
         contexts = None
         for param in self._params:
             ctx = param.list_ctx()
-            if contexts is not None and \
-                    [repr(c) for c in contexts] != [repr(c) for c in ctx]:
+            if contexts is not None and contexts != ctx:
                 raise MXNetError(
                     "All Parameters must be initialized on the same set of "
                     f"contexts, but Parameter {param.name} is initialized "
                     f"on {ctx} while previous Parameters are initialized "
                     f"on {contexts}.")
             contexts = ctx
-        if contexts is not None and len(contexts) > 1:
-            raise MXNetError("a Trainer over several contexts (and its "
-                             "kvstore) is not ported yet (ROADMAP queue 1 "
-                             "item 9)")
         return contexts
 
     def _init_optimizer(self, optimizer, optimizer_params):
@@ -78,7 +276,29 @@ class Trainer:
         else:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
-        self._updater = opt.get_updater(self._optimizer)
+        self._updaters = [opt.get_updater(self._optimizer)
+                          for _ in self._contexts or [None]]
+
+    def _init_kvstore(self):
+        arg_arrays = {param.name: param.data(self._contexts[0])
+                      for param in self._params}
+        kvstore, update_on_kvstore = _create_kvstore(
+            self._kvstore_kind, len(self._contexts), arg_arrays)
+        if kvstore:
+            if self._compression_params:
+                kvstore.set_gradient_compression(self._compression_params)
+            if self._update_on_kvstore is not None:
+                update_on_kvstore = self._update_on_kvstore
+            for i, param in enumerate(self._params):
+                kvstore.init(i, param.data(self._contexts[0]))
+            if update_on_kvstore:
+                kvstore.set_optimizer(self._optimizer)
+            self._kvstore = kvstore
+            self._update_on_kvstore = update_on_kvstore
+        else:
+            self._kvstore = None
+            self._update_on_kvstore = False
+        self._kv_initialized = True
 
     @property
     def learning_rate(self):
@@ -88,35 +308,83 @@ class Trainer:
         self._optimizer.set_learning_rate(lr)
 
     def step(self, batch_size, ignore_stale_grad=False):
-        """Rescale by 1 / batch_size, all-reduce (nothing on one device),
-        update."""
+        """Rescale by 1 / batch_size, all-reduce, update."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
-        self.allreduce_grads()
+        self._allreduce_grads()
         self._update(ignore_stale_grad)
 
     def allreduce_grads(self):
-        """Nothing to reduce on one device."""
+        """Sum the gradients through the kvstore (nothing without one)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        assert not (self._kvstore and self._update_on_kvstore), \
+            "allreduce_grads() when parameters are updated on kvstore is " \
+            "not supported. Try setting `update_on_kvstore` to False when " \
+            "creating trainer."
+        self._allreduce_grads()
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The optimizer step alone (after ``allreduce_grads``)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        assert not (self._kvstore and self._update_on_kvstore), \
+            "update() when parameters are updated on kvstore is not " \
+            "supported. Try setting `update_on_kvstore` to False when " \
+            "creating trainer."
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
+    def _allreduce_grads(self):
+        if self._kvstore and not self._update_on_kvstore:
+            for i, param in enumerate(self._params):
+                if param.grad_req != "null":
+                    grads = _unique(param.list_grad())
+                    self._kvstore.push(i, grads, priority=-i)
+                    self._kvstore.pull(i, grads, priority=-i)
+
     def _update(self, ignore_stale_grad=False):
+        if self._kvstore and self._update_on_kvstore:
+            for i, param in enumerate(self._params):
+                if param.grad_req != "null":
+                    self._kvstore.push(i, _unique(param.list_grad()),
+                                       priority=-i)
+                    self._kvstore.pull(i, _unique(param.list_data()),
+                                       priority=-i)
+            return
         for i, param in enumerate(self._params):
             if param.grad_req == "null":
                 continue
-            self._updater(i, param.grad(), param.data())
+            # one update a device buffer
+            for upd, w, g in zip(self._updaters, _unique(param.list_data()),
+                                 _unique(param.list_grad())):
+                upd(i, g, w)
 
     def save_states(self, fname):
-        """The updater's states and optimizer, pickled (the bytes the JAX
-        package's ``save_states`` writes)."""
-        atomic_write(fname, self._updater.get_states(dump_optimizer=True))
+        """The optimizer's states and the optimizer, pickled under the
+        JAX package's names (through the kvstore when it updates)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
+        else:
+            atomic_write(fname,
+                         self._updaters[0].get_states(dump_optimizer=True))
 
     def load_states(self, fname):
         """States written by ``save_states`` of either package."""
-        with open(fname, "rb") as f:
-            self._updater.set_states(f.read())
-        self._optimizer = self._updater.optimizer
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            self._optimizer = self._kvstore._updater.optimizer
+        else:
+            with open(fname, "rb") as f:
+                states = f.read()
+            for updater in self._updaters:
+                updater.set_states(states)
+                updater.optimizer = self._updaters[0].optimizer
+            self._optimizer = self._updaters[0].optimizer
         self._optimizer.param_dict = {i: param for i, param in
                                       enumerate(self._params)}

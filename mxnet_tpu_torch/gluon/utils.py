@@ -1,8 +1,12 @@
 """Gluon utilities (counterpart of mxnet_tpu/gluon/utils.py):
 ``split_data``, ``split_and_load``, ``clip_global_norm``, ``check_sha1``
-and ``download``. ``split_and_load`` takes one context (several are
-ROADMAP queue 1 item 9); ``download`` serves local files: a ``file://``
-URL is copied, any other URL raises (nothing here reaches a network).
+and ``download``. ``split_and_load`` over several contexts returns, as
+the JAX package does, a one-element list: the whole batch, on the first
+context's device, marked as sharded on ``batch_axis`` over the mesh of
+those contexts (a ``MeshNDArray``), or as replicated when the batch does
+not split evenly and ``even_split`` is false. ``download`` serves local
+files: a ``file://`` URL is copied, any other URL raises (nothing here
+reaches a network).
 """
 from __future__ import annotations
 
@@ -15,7 +19,26 @@ from ..base import MXNetError
 from ..ndarray.ndarray import NDArray, array
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1",
-           "download"]
+           "download", "MeshNDArray"]
+
+
+class MeshNDArray(NDArray):
+    """A whole batch on the first of ``contexts``' devices, placed over the
+    mesh of those contexts: sharded on ``batch_axis``, or replicated when
+    ``batch_axis`` is None. A hybridized block runs it through the mesh
+    walk (``executor._run_mesh``); ops on it compute the whole batch."""
+
+    __slots__ = ("contexts", "batch_axis")
+
+    def __init__(self, data, contexts, batch_axis):
+        super().__init__(data)
+        self.contexts = list(contexts)
+        self.batch_axis = batch_axis
+
+    @property
+    def mesh(self):
+        from ..parallel.mesh import mesh_for_contexts
+        return mesh_for_contexts(self.contexts)
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -39,14 +62,24 @@ def split_data(data, num_slice, batch_axis=0, even_split=True):
 
 
 def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
-    """``data`` on the one context of ``ctx_list``, as a one-element
-    list."""
-    if len(ctx_list) != 1:
-        raise MXNetError("split_and_load over several contexts is not "
-                         "ported yet (ROADMAP queue 1 item 9)")
+    """``data`` loaded onto ``ctx_list``, as a one-element list: on the
+    one context, or a ``MeshNDArray`` over several."""
     if not isinstance(data, NDArray):
         data = array(data, ctx=ctx_list[0])
-    return [data.as_in_context(ctx_list[0])]
+    data = data.as_in_context(ctx_list[0])
+    if len(ctx_list) == 1:
+        return [data]
+    size = data.shape[batch_axis]
+    if size % len(ctx_list) != 0:
+        if even_split:
+            raise ValueError(
+                f"data with shape {tuple(data.shape)} cannot be evenly "
+                f"split into {len(ctx_list)} slices along axis "
+                f"{batch_axis}. Use a batch size that's a multiple of "
+                f"{len(ctx_list)} or set even_split=False.")
+        # every replica computes the whole (short) batch
+        return [MeshNDArray(data._data, ctx_list, None)]
+    return [MeshNDArray(data._data, ctx_list, batch_axis)]
 
 
 def clip_global_norm(arrays, max_norm):

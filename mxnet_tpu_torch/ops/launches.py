@@ -1,0 +1,41 @@
+"""Kernel launch counters: each kernel wrapper's ``launches`` (raised
+where it launches its kernel), the dense attention route's ``calls``,
+and the own count of each kernel library already loaded
+(``_build.launches``, as ``lib:<stem>``; a path without hand-written
+kernels loads none). A CUDA graph's replay passes no wrapper and no
+launch site, so the code that replays one adds what its capture moved
+the counters by (:func:`add`): the decode plans and the data-parallel
+trainer's step do."""
+from __future__ import annotations
+
+from .. import _build
+
+
+def _counters():
+    from . import attention as A, conv_fused as C, quantization as Q
+    return (("flash_attention_fwd", A.flash_attention_fwd, "launches"),
+            ("flash_attention_bwd_dq", A.flash_attention_bwd_dq, "launches"),
+            ("flash_attention_bwd_dkv", A.flash_attention_bwd_dkv,
+             "launches"),
+            ("decode_attention", A.decode_attention, "launches"),
+            ("quantized_matmul", Q.quantized_matmul, "launches"),
+            ("conv1x1", C.conv1x1, "launches"),
+            ("dense_attention", A.dense_attention, "calls"))
+
+
+def counts():
+    """{counter: value} of every wrapper and loaded library."""
+    out = {name: getattr(fn, attr) for name, fn, attr in _counters()}
+    out.update({"lib:" + s: _build.launches(s) for s in list(_build._LIBS)})
+    return out
+
+
+def add(delta):
+    """Raise the counters of :func:`counts` by ``delta`` (the launches of
+    one replay)."""
+    for name, fn, attr in _counters():
+        if delta.get(name):
+            setattr(fn, attr, getattr(fn, attr) + delta[name])
+    for key, n in delta.items():
+        if key.startswith("lib:") and n:
+            _build.add_launches(key[4:], n)

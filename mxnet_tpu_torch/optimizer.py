@@ -5,8 +5,8 @@ symbol's ``__lr_mult__`` / ``__wd_mult__`` attrs, from ``param_idx2name``
 or from Gluon parameters, ``register`` / ``create``), ``SGD``, ``Adam``
 and the ``Updater`` with ``get_states`` / ``set_states``.
 
-Two callers: Module's updater hands NDArrays, Gluon's ``Trainer`` hands
-tensors. Both go through the registered update ops
+Module, the kvstore and Gluon's ``Trainer`` hand the updater NDArrays;
+plain tensors work too. Either goes through the registered update ops
 (``ops/optimizer_ops.py``: ``sgd_update``, ``sgd_mom_update``,
 ``mp_sgd_*``, ``adam_update``), whose results are copied into the weight
 and its states in place. The ops follow MXNet's rules, which differ from
@@ -29,6 +29,7 @@ import io
 import logging
 import math
 import pickle
+import types
 
 import torch
 
@@ -353,8 +354,50 @@ class Updater:
         self.states_synced = dict.fromkeys(self.states.keys(), False)
 
     def get_states(self, dump_optimizer=False):
-        return pickle.dumps((self.states, self.optimizer) if dump_optimizer
-                            else self.states)
+        """The states (and the optimizer) pickled under the JAX package's
+        names, so that its plain ``pickle.loads`` builds its own NDArrays
+        and optimizer from them; ``set_states`` of either package reads
+        them."""
+        buf = io.BytesIO()
+        _StatePickler(buf).dump((self.states, self.optimizer)
+                                if dump_optimizer else self.states)
+        return buf.getvalue()
+
+
+_PORT, _JAX = "mxnet_tpu_torch", "mxnet_tpu"
+
+
+class _StatePickler(pickle._Pickler):
+    """Pickles the port's globals (its NDArray reducer, optimizers, lr
+    schedulers) under the JAX package's module of the same name, and a
+    ``torch.Tensor`` (the states of a weight handed in as a tensor) as an
+    NDArray; nothing of that package is imported. ``pickle`` checks that
+    a global's name resolves to the object saved, so the override writes
+    the name itself (the C pickler, and ``reducer_override``, cannot
+    rename a global)."""
+
+    dispatch = pickle._Pickler.dispatch.copy()
+
+    def __init__(self, file):
+        super().__init__(file, protocol=4)
+
+    def reducer_override(self, obj):
+        if isinstance(obj, torch.Tensor):
+            from .ndarray.ndarray import _from_numpy_reduce
+            return (_from_numpy_reduce, (NDArray(obj.detach()).asnumpy(),))
+        return NotImplemented
+
+    def save_global(self, obj, name=None):
+        module = getattr(obj, "__module__", None) or ""
+        if module != _PORT and not module.startswith(_PORT + "."):
+            return super().save_global(obj, name)
+        self.save(_JAX + module[len(_PORT):])
+        self.save(name or obj.__qualname__)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+    # the inherited entry is the base class's function, not the override
+    dispatch[types.FunctionType] = save_global
 
 
 class _StateUnpickler(pickle.Unpickler):

@@ -18,8 +18,10 @@ step for each set of input shapes and dtypes (after a warm-up step on a
 side stream whose effect on the state is undone), then replayed;
 ``step_k`` replays it K times, copying slice k of the stacked block into
 the graph's static input before each replay, with no host sync inside the
-K steps. The parameters, optimizer states and aux states the step updates
-are the trainer's own tensors, which the graphs read and write in place:
+K steps. A replay raises the kernel launch counters (the wrappers', the
+libraries') by what the capture moved them, as the decode plans do. The
+parameters, optimizer states and aux states the step updates are the
+trainer's own tensors, which the graphs read and write in place:
 a step returns those same tensors every time, so a caller that keeps a
 step's parameters clones them. Tensors handed in that are not the
 trainer's (from ``init_state``, ``import_training_state``, a caller's
@@ -45,6 +47,7 @@ import torch
 
 from ..base import MXNetError
 from ..executor import _Plan, _from_numpy, _run_mesh
+from ..ops.launches import add as _add_launches, counts as _launch_counts
 from ..ops.registry import AttrDict, OpCtx, get_op
 from .mesh import axis_size, data_axis, mesh_descriptor
 
@@ -75,16 +78,19 @@ def _resolve_stage(value):
 
 class _Graph:
     """One captured training step: static inputs, the graph, its static
-    loss and outputs, and what its capture cost."""
+    loss and outputs, what its capture cost, and the kernel launches a
+    replay makes (what the counters moved by across the capture, as the
+    decode plans count them)."""
 
     def __init__(self, static_in, graph, loss, outputs, capture_s,
-                 peak_bytes):
+                 peak_bytes, launches):
         self.static_in = static_in
         self.graph = graph
         self.loss = loss
         self.outputs = outputs
         self.capture_s = capture_s
         self.peak_bytes = peak_bytes
+        self.launches = launches
         self.replays = 0
 
 
@@ -386,12 +392,16 @@ class DataParallelTrainer:
         graph = torch.cuda.CUDAGraph()
         if self._plan.needs_rng:
             graph.register_generator_state(self._rng())
+        before = _launch_counts()
         with torch.cuda.graph(graph, pool=self._pool,
                               capture_error_mode="thread_local"):
             loss, outs = self._body(static_in)
+        after = _launch_counts()
         torch.cuda.synchronize(dev)
         g = _Graph(static_in, graph, loss, outs, time.perf_counter() - t0,
-                   devstats.capture_peak(self._pool, dev, mark))
+                   devstats.capture_peak(self._pool, dev, mark),
+                   {k: after[k] - before.get(k, 0) for k in after
+                    if after[k] != before.get(k, 0)})
         self._graphs[key] = g
         self.captures += 1
         if devstats.enabled():
@@ -416,6 +426,8 @@ class DataParallelTrainer:
                 s.copy_(x, non_blocking=True)
         g.graph.replay()
         g.replays += 1
+        if g.launches:
+            _add_launches(g.launches)
         return g.loss, g.outputs
 
     def _prepare(self, params, states, aux, inputs, rng):
@@ -469,14 +481,16 @@ class DataParallelTrainer:
     # -- graphs -------------------------------------------------------------
     def graph_stats(self):
         """The captured steps: {input shapes: capture seconds, peak bytes
-        during the capture, replays}, and the pool's bytes."""
+        during the capture, replays, launches a replay}, and the pool's
+        bytes."""
         from ..telemetry import devstats
         pool = devstats.pool_bytes(self._pool, self._device) \
             if self._pool is not None else 0
         return {"captures": self.captures, "pool_bytes": pool,
                 "graphs": {str([tuple(s) for s, _ in k]): {
                     "capture_s": g.capture_s, "peak_bytes": g.peak_bytes,
-                    "replays": g.replays} for k, g in self._graphs.items()}}
+                    "replays": g.replays, "launches": dict(g.launches)}
+                    for k, g in self._graphs.items()}}
 
     # -- host views ---------------------------------------------------------
     def host_params(self, params):

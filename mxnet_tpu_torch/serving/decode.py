@@ -61,7 +61,7 @@ from .. import config as _config
 from ..base import MXNetError
 from ..context import resolve_device
 from ..convert import load_decode_artifact, to_torch_params
-from ..ops import attention as _attention, quantization as _quantization
+from ..ops.launches import add as _add_launches, counts as _launch_counts
 from ..ops.attention import decode_attention, flash_attention
 from ..ops.quantization import quantized_matmul
 from ..telemetry import counter, devstats, gauge, histogram
@@ -399,39 +399,6 @@ class SessionPool:
 
 
 # -- plans ------------------------------------------------------------------
-
-# the launch counters the decode path raises: each kernel wrapper's
-# ``launches`` (raised where it launches its kernel) and the dense route's
-# ``calls``; and the kernel libraries (csrc/<stem>.cu) whose own counts
-# (``_build.launches``) its launches raise
-_COUNTERS = (("flash_attention_fwd", _attention.flash_attention_fwd,
-              "launches"),
-             ("decode_attention", _attention.decode_attention, "launches"),
-             ("quantized_matmul", _quantization.quantized_matmul,
-              "launches"),
-             ("dense_attention", _attention.dense_attention, "calls"))
-_STEMS = ("flash_attention", "decode_attention", "quantized_matmul")
-
-
-def _launch_counts():
-    """{counter: value} of :data:`_COUNTERS` and of each library of
-    :data:`_STEMS` (as ``lib:<stem>``)."""
-    out = {name: getattr(fn, attr) for name, fn, attr in _COUNTERS}
-    out.update({"lib:" + s: _build.launches(s) for s in _STEMS})
-    return out
-
-
-def _add_launches(counts):
-    """Raise the counters of :func:`_launch_counts` by ``counts``: the
-    launches of one graph replay, which passes no wrapper and no launch
-    site."""
-    for name, fn, attr in _COUNTERS:
-        if counts.get(name):
-            setattr(fn, attr, getattr(fn, attr) + counts[name])
-    for stem in _STEMS:
-        if counts.get("lib:" + stem):
-            _build.add_launches(stem, counts["lib:" + stem])
-
 
 class _Plan:
     """One compiled plan of an engine: ``fn(static_in) -> (out, logits)``

@@ -42,6 +42,9 @@ bit-identical. The f32 flash forward
 and dQ (three TF32 tensor-core products each) are held against float64
 within 4x the plain f32 version's own error, which one TF32 pass
 (emulated in torch) exceeds. Cross-attention takes the dense route.
+Gluon's ``fused_fit`` on the card (captured steps, a DataLoader on the
+card) is held against the port's CPU run, and a Trainer over two cards
+against one card (skips with fewer).
 """
 import contextlib
 import functools
@@ -1260,3 +1263,109 @@ def test_dp_mesh_over_four_cards_matches_one_card(dev):
     for k in got[0]:
         np.testing.assert_allclose(got[1][k], got[0][k], rtol=2e-4,
                                    atol=1e-5, err_msg=k)
+
+
+def _gluon_convnet(mx, ctx, values=None):
+    """A conv + BatchNorm + Dense Gluon net on ``ctx`` (a context or a
+    list), its deferred shapes finished on a (16, 3, 8, 8) batch, set
+    from ``values`` or a seeded draw; returns (net, values)."""
+    import numpy as np
+    nn = mx.gluon.nn
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Conv2D(8, kernel_size=3, padding=1), nn.BatchNorm(),
+                nn.Activation("relu"), nn.Dense(10))
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    first = ctx[0] if isinstance(ctx, list) else ctx
+    net(mx.nd.array(np.zeros((16, 3, 8, 8), np.float32), ctx=first))
+    rng = np.random.RandomState(2)
+    params = list(net.collect_params().values())
+    if values is None:
+        values = [rng.uniform(0.5, 1.5, p.shape).astype(np.float32)
+                  if p.name.endswith(("gamma", "var")) else
+                  rng.normal(0, 0.2, p.shape).astype(np.float32)
+                  for p in params]
+    for p, v in zip(params, values):
+        p.set_data(mx.nd.array(v, ctx=first))
+    return net, values
+
+
+def _gluon_batches(n):
+    import numpy as np
+    rng = np.random.RandomState(3)
+    return [(rng.standard_normal((16, 3, 8, 8)).astype(np.float32),
+             rng.randint(0, 10, 16).astype(np.float32)) for _ in range(n)]
+
+
+def test_gluon_fused_fit_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """fused_fit on the card (K = 4 replays of one captured step a block,
+    a tail block of 2, batches from a DataLoader on the card) against the
+    port's CPU run from the same parameters: epoch losses and parameters
+    within 1e-4 of the tensor's largest magnitude (float32 sums in
+    another order; cuDNN deterministic)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import dp
+    trainers = []
+    real_init = dp.DataParallelTrainer.__init__
+
+    def recording_init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        trainers.append(self)
+    monkeypatch.setattr(dp.DataParallelTrainer, "__init__", recording_init)
+    batches = _gluon_batches(6)
+    xs = np.stack([b[0] for b in batches]).reshape(-1, 3, 8, 8)
+    ys = np.concatenate([b[1] for b in batches])
+    got = []
+    values = None
+    with _cudnn_deterministic():
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            net, values = _gluon_convnet(mx, ctx, values)
+            with ctx:
+                loader = mx.gluon.data.DataLoader(
+                    mx.gluon.data.ArrayDataset(xs, ys), batch_size=16)
+                losses = mx.gluon.trainer.fused_fit(
+                    net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), loader, 2,
+                    optimizer="sgd",
+                    optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+                    steps_per_dispatch=4)
+            got.append((losses, [p.data().asnumpy() for p in
+                                 net.collect_params().values()]))
+    # one capture: the tail block replays the same per-step graph
+    assert trainers[0].captures == 0 and trainers[1].captures == 1
+    np.testing.assert_allclose(got[1][0], got[0][0], rtol=1e-4)
+    for a, b in zip(got[1][1], got[0][1]):
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-4 * np.abs(b).max())
+
+
+def test_gluon_trainer_over_two_cards_matches_one(dev):
+    """A hybridized net over gpu(0) and gpu(1) (split_and_load batches
+    through the mesh walk, the kvstore updating) against one card, 3
+    steps: the JAX package's data-parallel tolerance (rtol 2e-4, atol
+    1e-5)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    batches = _gluon_batches(3)
+    finals, values = [], None
+    with _cudnn_deterministic():
+        for ctxs in ([mx.gpu(0)], [mx.gpu(0), mx.gpu(1)]):
+            net, values = _gluon_convnet(mx, ctxs, values)
+            net.hybridize()
+            tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                  {"learning_rate": 0.1, "momentum": 0.9})
+            loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+            for x, y in batches:
+                xb = mx.gluon.utils.split_and_load(x, ctxs)[0]
+                yb = mx.gluon.utils.split_and_load(y, ctxs)[0]
+                with mx.autograd.record():
+                    loss = loss_fn(net(xb), yb)
+                loss.backward()
+                tr.step(16)
+            finals.append([p.data(ctxs[0]).asnumpy()
+                           for p in net.collect_params().values()])
+    assert tr._kvstore is not None
+    for a, b in zip(*finals):
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=1e-5)
