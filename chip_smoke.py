@@ -138,6 +138,26 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            steps_per_dispatch=1 from the same parameters, then the
            example's 8 epochs fused: validation accuracy, seconds an
            epoch, samples/s
+  gluon_fused_lm_amp (after gluon_fused_lm)
+           the same LM and fit under amp.init("bfloat16"): step time
+           beside the f32 step, the device split of a replay (flash
+           kernels, bf16 tensor-core and SIMT f32 GEMMs), the flash
+           kernels' launches a replay in bf16 (24 each), the first 3
+           losses against the f32 ones (1e-2) and falling; a control
+           with the op widened to fp32 by the policy must fail the bf16
+           check
+  dp_resnet50_fp16 (after dp_resnet50)
+           dp_resnet50's lane in float16 with the loss scaler on the
+           card: step_k against K steps, img/s beside the bf16 lane's;
+           an inf in one batch skipped without re-capture (state
+           bit-identical, scale halved, one more skip)
+  ckpt_resume
+           the amp LM (4 of 24 layers) through fused_fit and LeNet
+           through Module.fit, each resumed from an async checkpoint in a
+           fresh net or Module: the last 4 losses and the final
+           parameters bit-identical to the uninterrupted run; bench.py's
+           checkpoint lane (steps/s with no, blocking and async commits,
+           restore ms, bytes a commit)
 
 then the nvidia-smi line, a ``kernels`` summary line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no result)
@@ -388,6 +408,26 @@ GFUSED_LOOP_RTOL = 1e-5
 GFLM_K = 2
 GFLM_STEPS = 3
 GFLM_RTOL = 1e-4
+# gluon_fused_lm_amp: the LM under amp.init("bfloat16"); its first 3
+# losses against gluon_fused_lm's f32 ones (bf16 products over 24 layers)
+AMP_DTYPE = "bfloat16"
+AMP_LOSS_RTOL = 1e-2
+# dp_resnet50_fp16: DataParallelTrainer(dtype="float16"), windows as
+# dp_resnet50's bf16 lane
+FP16_WINDOWS = 3
+# ckpt_resume: the amp LM at CKPT_LM_LAYERS of its 24 layers, 2 epochs
+# of CKPT_LM_BATCHES batches (K = GFLM_K), against 1 epoch, a commit, a
+# fresh net and the resumed epoch; LeNet through Module.fit per batch,
+# CKPT_LENET_EPOCHS against half of them and a resume; bench.py's
+# checkpoint lane (bench.py:1129-1175): its MLP stepped CKPT_MLP_STEPS a
+# window, CKPT_WINDOWS windows, a commit every CKPT_EVERY steps
+CKPT_LM_LAYERS = 4
+CKPT_LM_BATCHES = 4
+CKPT_LENET_EPOCHS = 2
+CKPT_MLP = dict(batch=256, dim=1024, hidden=512, classes=64)
+CKPT_MLP_STEPS = 32
+CKPT_EVERY = 8
+CKPT_WINDOWS = 3
 
 # the stem convolution (7 x 7 / 2, batch 2 at 224) through the registered
 # op against float64: its output (sums of 147 products) within
@@ -1515,6 +1555,8 @@ def _reset_counts():
     from mxnet_tpu_torch.ops import attention as A
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "by_dtype"):
+            fn.by_dtype.clear()
     A.dense_attention.calls = 0
 
 
@@ -3156,17 +3198,17 @@ def _norm_errs(got, ref):
 
 
 def _gluon_fit(mx, net, data, epochs, k, callback=None, optimizer="sgd",
-               optimizer_params=None):
+               optimizer_params=None, **kw):
     """gluon.trainer.fused_fit of ``net`` on SoftmaxCrossEntropyLoss
-    over ``data``; by default SGD as bench.py trains (lr 0.05, momentum
-    0.9). The loader's batches and the fit's mesh follow the current
-    context, ``_ctx()``."""
+    over ``data`` (``kw``: its other options); by default SGD as bench.py
+    trains (lr 0.05, momentum 0.9). The loader's batches and the fit's
+    mesh follow the current context, ``_ctx()``."""
     with _ctx():
         return mx.gluon.trainer.fused_fit(
             net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), data, epochs,
             optimizer=optimizer, optimizer_params=optimizer_params or {
                 "learning_rate": R50_LR, "momentum": 0.9},
-            steps_per_dispatch=k, epoch_callback=callback)
+            steps_per_dispatch=k, epoch_callback=callback, **kw)
 
 
 def phase_gluon_fused_resnet50():
@@ -3325,26 +3367,11 @@ def _r50_timed_fit(mx, init, dataset, workers):
     return fit, tr
 
 
-def phase_gluon_fused_lm():
-    """The causal LM of examples/transformer_lm.py at GPT-2 medium's
-    widths (encoder and head in one HybridSequential) through
-    gluon.trainer.fused_fit with Adam, K = 2: the flash kernels inside
-    the captured step, counted over its replays; the first 3 fused steps'
-    losses held against gluon_lm_hybrid's loop from the same
-    parameters."""
-    import numpy as np
-    import torch
-    import mxnet_tpu_torch as mx
+def _glm_net(mx, init, layers):
+    """The LM (encoder and head in one hybridized HybridSequential) at
+    ``layers`` layers of GPT-2 medium's widths, from ``init``."""
     from mxnet_tpu_torch.convert import load_gluon_params
-    _free_card()
-    if _GLM_REF:
-        init = _GLM_REF["init"]
-        x, y = (mx.nd.NDArray(t) for t in _lm_batch())
-        ref = _GLM_REF["losses"][:GFLM_STEPS]
-    else:
-        init, x, y = _glm_init(mx)
-        ref = _glm_run(mx, init, True, x, y)[0][:GFLM_STEPS]
-    cfg = dict(TRAIN, num_layers=GLM_LAYERS)
+    cfg = dict(TRAIN, num_layers=layers)
     enc = mx.gluon.nn.TransformerEncoder(**cfg, prefix="lm_")
     head = mx.gluon.nn.Dense(cfg["vocab_size"], flatten=False,
                              prefix="head_")
@@ -3355,7 +3382,20 @@ def phase_gluon_fused_lm():
     net = mx.gluon.nn.HybridSequential()
     net.add(enc, head)
     net.hybridize()
-    data = [(x, y)] * GFLM_STEPS
+    return net
+
+
+def _glm_fused_run(mx, init, x, y, layers, steps=GFLM_STEPS, epochs=2,
+                   keep_params=False, **fit_kw):
+    """The LM through fused_fit(steps_per_dispatch=GFLM_K) with Adam on
+    ``steps`` batches an epoch: (record, the trainer, the step_k calls,
+    the parameters after as host tensors when ``keep_params``).
+    The record holds the step losses, step and device time, host
+    enqueue, captures, the replays and each kernel's launches a replay
+    (by dtype too), peak memory and the launch counters."""
+    import torch
+    net = _glm_net(mx, init, layers)
+    data = [(x, y)] * steps
     marks = []
     _sync()
     if DEV == "cuda":
@@ -3364,18 +3404,16 @@ def phase_gluon_fused_lm():
     t0 = time.perf_counter()
     with _watch_step_k() as calls:
         epoch_losses = _gluon_fit(
-            mx, net, data, 2, GFLM_K,
+            mx, net, data, epochs, GFLM_K,
             lambda e, _n, _l: marks.append(time.perf_counter()),
             optimizer="adam",
-            optimizer_params={"learning_rate": TRAIN_LR})
+            optimizer_params={"learning_rate": TRAIN_LR}, **fit_kw)
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
     tr = calls[0]["trainer"]
     step_losses = [float(v) / TRAIN_BATCH for c in calls
                    for v in c["losses"].cpu()]
-    fused = step_losses[:GFLM_STEPS]
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(fused, ref))
-    per_epoch = len(calls) // 2
+    per_epoch = max(1, len(calls) // epochs)
     last = calls[-per_epoch:]
     epoch_s = [b_ - a_ for a_, b_ in zip([t0] + marks, marks)]
     graphs = tr.graph_stats()
@@ -3385,18 +3423,15 @@ def phase_gluon_fused_lm():
         replays += g["replays"]
         for kname, v in g["launches"].items():
             per_replay[kname] = per_replay.get(kname, 0) + v
-    flash = ("flash_attention_fwd", "flash_attention_bwd_dq",
-             "flash_attention_bwd_dkv")
     replayed = {kname: per_replay.get(kname, 0) * replays
-                for kname in flash}
+                for kname in _FLASH}
+    cfg = dict(TRAIN, num_layers=layers)
     res = {"model": dict(cfg, head="Dense(vocab, flatten=False)",
                          wrapped="HybridSequential(encoder, head)"),
            "batch": TRAIN_BATCH, "tokens_per_step": TRAIN_BATCH
            * cfg["max_length"], "k": GFLM_K, "optimizer": "adam",
            "step_losses": step_losses, "epoch_losses": epoch_losses,
-           "hybrid_loop_losses": ref, "loss_rel_err": loss_err,
-           "rtol": GFLM_RTOL, "blocks": [c["k"] for c in calls],
-           "epoch_s": epoch_s,
+           "blocks": [c["k"] for c in calls], "epoch_s": epoch_s,
            "step_s": epoch_s[-1] / sum(c["k"] for c in last),
            "device_ms_per_step": sum(_block_device_ms(c) for c in last)
            / sum(c["k"] for c in last),
@@ -3405,26 +3440,222 @@ def phase_gluon_fused_lm():
            "host_enqueue_ms_each": [c["host_ms"] for c in calls],
            "device_ms_each": [_block_device_ms(c) for c in calls],
            "device_busy_share": sum(_block_device_ms(c) for c in last)
-           / (epoch_s[-1] * 1e3),
-           "eager_step_s_same_run": RECORD.get("gluon_lm_hybrid", {})
-           .get("step_s_eager"),
+           / max(epoch_s[-1] * 1e3, 1e-9),
            "captures": tr.captures, "graphs": graphs,
            "replays": replays, "launches_a_replay": per_replay,
            "launches_replayed": replayed,
-           "launches_replayed_want_each": GLM_LAYERS * replays,
-           "peak_mem_gb": peak / 1e9, "launches": counts,
+           "launches_replayed_want_each": layers * replays,
+           "layers": layers, "peak_mem_gb": peak / 1e9, "launches": counts,
            "finite": bool(all(math.isfinite(v) for v in step_losses))}
+    params = _host_params(net) if keep_params else None
+    del net
+    return res, tr, calls, params
+
+
+_FLASH = ("flash_attention_fwd", "flash_attention_bwd_dq",
+          "flash_attention_bwd_dkv")
+
+
+def _flash_replays_ok(res, tr, dtype=None):
+    """One capture, and each flash kernel launched ``layers`` times a
+    replay over every replay (in ``dtype`` alone when given: its
+    ``name[dtype]`` launches a replay are all of them), no dense call."""
+    per = res["launches_a_replay"]
+    layers = res["layers"]
+    ok = tr.captures == (1 if DEV == "cuda" else 0) \
+        and res["replays"] == len(res["step_losses"]) \
+        and all(res["launches_replayed"][k] == layers * res["replays"]
+                for k in _FLASH) \
+        and res["launches"]["dense_attention"] == 0
+    if dtype is not None:
+        ok = ok and all(per.get("%s[%s]" % (k, dtype), 0) == per.get(k, 0)
+                        == layers for k in _FLASH)
+    return bool(ok)
+
+
+def _kernel_group(name):
+    """The device-time group of a kernel of the LM's step: the flash
+    kernels; GEMMs on the tensor cores (cuBLAS's bf16 CUTLASS kernels and
+    its Hopper ``nvjet`` kernels) or on the FP32 pipes (SIMT sgemm and
+    the ``f32f32`` FFMA kernels); dtype casts and copies; the other
+    elementwise kernels (Adam, residuals, ReLU, LayerNorm's pieces); the
+    rest."""
+    n = name.lower()
+    for g in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if g in n:
+            return g
+    if "nvjet" in n or ("gemm" in n and ("bf16" in n or "s1688" in n
+                                         or "s16816" in n)):
+        return "gemm_tensor_core"
+    if "gemm" in n or "cutlass" in n:
+        return "gemm_f32_simt" if ("sgemm" in n or "simt" in n
+                                   or "f32f32" in n) else "gemm_other"
+    if "copy" in n or "memcpy" in n:
+        return "cast_copy"
+    if "elementwise" in n or "reduce" in n:
+        return "elementwise_reduce"
+    return "other"
+
+
+def _replay_split(tr, x, y):
+    """One more step_k of the trainer's captured LM step under
+    torch.profiler: device ms a step by group (the flash kernels, bf16
+    tensor-core GEMMs, SIMT f32 GEMMs, the rest) and each group's share,
+    with the largest kernels. The step trains on (the fit is over)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    inputs = tr.shard_inputs([torch.stack([x._data] * GFLM_K),
+                              torch.stack([y._data] * GFLM_K)],
+                             stacked=True)
+    tr.step_k(tr._params, tr._states, tr._aux, inputs)
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.step_k(tr._params, tr._states, tr._aux, inputs)
+        _sync()
+    rows = _device_rows(prof, GFLM_K)
+    dev_ms = sum(r[1] for r in rows)
+    groups = {}
+    for k, t, _c in rows:
+        g = _kernel_group(k)
+        groups[g] = groups.get(g, 0.0) + t
+    return {"device_ms_per_step": dev_ms, "groups_ms": groups,
+            "groups_share": {g: t / max(dev_ms, 1e-9)
+                             for g, t in groups.items()},
+            "top": [{"kernel": k[:140], "ms_per_step": t, "calls": c}
+                    for k, t, c in rows[:16]]}
+
+
+def phase_gluon_fused_lm():
+    """The causal LM of examples/transformer_lm.py at GPT-2 medium's
+    widths (encoder and head in one HybridSequential) through
+    gluon.trainer.fused_fit with Adam, K = 2: the flash kernels inside
+    the captured step, counted over its replays; the first 3 fused steps'
+    losses held against gluon_lm_hybrid's loop from the same
+    parameters."""
+    import mxnet_tpu_torch as mx
+    _free_card()
+    if "losses" in _GLM_REF:
+        init = _GLM_REF["init"]
+        x, y = (mx.nd.NDArray(t) for t in _lm_batch())
+        ref = _GLM_REF["losses"][:GFLM_STEPS]
+    else:
+        init, x, y = _glm_init(mx)
+        ref = _glm_run(mx, init, True, x, y)[0][:GFLM_STEPS]
+        _GLM_REF["init"] = init
+    res, tr, calls, _ = _glm_fused_run(mx, init, x, y, GLM_LAYERS)
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(res["step_losses"][:GFLM_STEPS], ref))
+    res.update(hybrid_loop_losses=ref, loss_rel_err=loss_err,
+               rtol=GFLM_RTOL, device_split=_replay_split(tr, x, y),
+               eager_step_s_same_run=RECORD.get("gluon_lm_hybrid", {})
+               .get("step_s_eager"))
     res["ok"] = bool(res["finite"] and loss_err <= GFLM_RTOL
-                     and tr.captures == (1 if DEV == "cuda" else 0)
-                     and replays == 2 * GFLM_STEPS
-                     and all(replayed[kname] == GLM_LAYERS * replays
-                             for kname in flash)
-                     and counts["dense_attention"] == 0)
+                     and _flash_replays_ok(res, tr))
     RECORD["gluon_fused_lm"] = res
-    del net, enc, head, calls, tr, data
+    del calls, tr
     _free_card()
     if not res["ok"]:
         raise AssertionError("gluon_fused_lm failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
+def _capture_cost(tr):
+    """What a checkpoint's capture of the trainer's whole state costs:
+    the copies on the card (the training thread's share: seconds to the
+    copies' end, bytes) and the saver thread's move of them to the host
+    (seconds)."""
+    from mxnet_tpu_torch.checkpoint.state import capture_fused_state
+    _sync()
+    t0 = time.perf_counter()
+    st = capture_fused_state(tr, tr._params, tr._states, tr._aux,
+                             "gluon_fused", 0, 0, 0, TRAIN_BATCH, AMP_DTYPE)
+    _sync()
+    t1 = time.perf_counter()
+    nbytes = sum(v.numel() * v.element_size() for v in st.arrays.values())
+    st.host_arrays()
+    t2 = time.perf_counter()
+    del st
+    _free_card()
+    return {"arrays_bytes": nbytes, "device_copy_s": t1 - t0,
+            "to_host_s": t2 - t1}
+
+
+def phase_gluon_fused_lm_amp():
+    """The LM of gluon_fused_lm (24 layers, 8 x 1024 tokens, Adam,
+    K = 2, 2 epochs of 3 steps, the same parameters) under
+    amp.init("bfloat16"): fused_fit's trainer in bf16 with fp32 masters,
+    the policy's casts in its captured step. Step time beside
+    gluon_fused_lm's f32 step, the device split of one replay (flash
+    kernels, bf16 tensor-core and SIMT f32 GEMMs), each flash kernel's
+    launches a replay in bf16 (24), the first 3 losses against the f32
+    ones (AMP_LOSS_RTOL) and falling. Two controls, one step each: the
+    policy's cast removed from _contrib_flash_attention (recorded: its
+    inputs come bf16 from the projections all the same) and the op
+    widened to fp32 by the policy, whose kernels must fail the bf16
+    check."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp
+    _free_card()
+    if "gluon_fused_lm" not in RECORD:
+        phase_gluon_fused_lm()
+    f32 = RECORD["gluon_fused_lm"]
+    init = _GLM_REF["init"]
+    x, y = (mx.nd.NDArray(t) for t in _lm_batch())
+    half = "torch." + AMP_DTYPE
+    op = "_contrib_flash_attention"
+    amp.init(AMP_DTYPE)
+    try:
+        res, tr, calls, _ = _glm_fused_run(mx, init, x, y, GLM_LAYERS)
+        res["device_split"] = _replay_split(tr, x, y)
+        res["flash_in_bf16"] = _flash_replays_ok(res, tr, half)
+        res["checkpoint_capture"] = _capture_cost(tr)
+        del calls, tr
+        _free_card()
+        controls = {}
+        for name, lists in (("flash_cast_removed",
+                             dict(ALLOW=amp.ALLOW - {op})),
+                            ("flash_widened",
+                             dict(ALLOW=amp.ALLOW - {op},
+                                  WIDEN=amp.WIDEN | {op}))):
+            saved = {k: getattr(amp, k) for k in lists}
+            for k, v in lists.items():
+                setattr(amp, k, v)
+            try:
+                cres, ctr, _c, _ = _glm_fused_run(
+                    mx, init, x, y, GLM_LAYERS, steps=GFLM_K, epochs=1)
+                controls[name] = {
+                    "flash_launches_a_replay": {
+                        k: v for k, v in cres["launches_a_replay"].items()
+                        if k.startswith("flash")},
+                    "flash_in_bf16": _flash_replays_ok(cres, ctr, half),
+                    "step_losses": cres["step_losses"]}
+            finally:
+                for k, v in saved.items():
+                    setattr(amp, k, v)
+            del ctr, _c
+            _free_card()
+    finally:
+        amp.disable()
+    ref = f32["step_losses"][:GFLM_STEPS]
+    got = res["step_losses"][:GFLM_STEPS]
+    res.update(
+        amp_dtype=AMP_DTYPE, f32_step_losses=ref,
+        loss_rel_err=max(abs(a - b) / abs(b) for a, b in zip(got, ref)),
+        loss_rtol=AMP_LOSS_RTOL,
+        losses_fall=res["step_losses"][-1] < res["step_losses"][0],
+        f32_step_s_same_run=f32["step_s"],
+        f32_device_ms_per_step_same_run=f32["device_ms_per_step"],
+        f32_device_split_same_run=f32.get("device_split"),
+        controls=controls)
+    res["ok"] = bool(res["finite"] and res["flash_in_bf16"]
+                     and res["loss_rel_err"] <= AMP_LOSS_RTOL
+                     and res["losses_fall"]
+                     and not controls["flash_widened"]["flash_in_bf16"])
+    RECORD["gluon_fused_lm_amp"] = res
+    if not res["ok"]:
+        raise AssertionError("gluon_fused_lm_amp failed: %s"
                              % json.dumps(res, default=str)[:4000])
     return res
 
@@ -3793,6 +4024,318 @@ def phase_dp_resnet50():
     return res
 
 
+def phase_dp_resnet50_fp16():
+    """dp_resnet50's lane in float16: DataParallelTrainer(dtype=
+    "float16") with its DynamicLossScaler on the card, step_k(K=4), batch
+    128 (FP16_WINDOWS windows of DP_WINDOW steps): img/s beside
+    dp_resnet50's bf16 in the same run, the scale and the steps skipped.
+    Beforehand step_k against K steps (deterministic cuDNN). Then an inf
+    placed in one batch: the step must be skipped with no re-capture
+    (parameters, momenta and BatchNorm statistics bit-identical to
+    before it, the scale halved, one more skip), and the next step must
+    train again."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    _free_card()
+    with mx.NameManager():
+        sym = resnet_v1_symbol(mx.sym)
+    res = {"batch": R50_BATCH, "image": R50_IMG, "k": DP_K,
+           "dtype": "float16",
+           "optimizer": "sgd lr 0.05 momentum 0.9 rescale_grad 1/128"}
+    t0 = time.perf_counter()
+    res["step_k_check"] = _dp_stepk_check(sym, "float16")
+    _free_card()
+    shapes = {"data": (R50_BATCH, 3, R50_IMG, R50_IMG),
+              "softmax_label": (R50_BATCH,)}
+    rng = np.random.RandomState(0)          # dp_resnet50's draws
+    x = rng.uniform(0, 1, shapes["data"]).astype(np.float32)
+    y = rng.randint(0, 1000, R50_BATCH).astype(np.float32)
+    xs = rng.uniform(0, 1, (DP_K,) + shapes["data"]).astype(np.float32)
+    ys = rng.randint(0, 1000, (DP_K, R50_BATCH)).astype(np.float32)
+    _reset_counts()
+    tr = _dp_trainer(sym, "float16", R50_BATCH)
+    state = tr.init_state(shapes)
+    inputs_k = tr.shard_inputs([xs, ys], stacked=True)
+    t1 = time.perf_counter()
+    p, st, a, losses, _ = tr.step_k(*state, inputs_k)      # capture
+    res["first_dispatch_s"] = time.perf_counter() - t1
+    res["first_losses"] = losses.cpu().tolist()
+    state = (p, st, a)
+    rates = []
+    for _ in range(FP16_WINDOWS):
+        state, sec = _dp_window(tr, state, inputs_k, DP_WINDOW, DP_K)
+        rates.append(DP_WINDOW * R50_BATCH / sec)
+    res["img_per_s_step_k"] = float(np.median(rates))
+    res["img_per_s_windows"] = rates
+    res["bf16_img_per_s_same_run"] = RECORD.get("dp_resnet50", {}).get(
+        "bf16", {}).get("img_per_s_step_k")
+    res["scale_after_windows"] = tr.loss_scale
+    res["skipped_in_windows"] = tr.skipped_steps
+    # the forced overflow, through the captured step
+    p, st, a = state
+    flat = lambda p_, st_, a_: list(p_) + [t for s_ in st_ for t in s_] \
+        + list(a_)
+    before = [t.clone() for t in flat(p, st, a)]
+    scale0, skipped0, captures0 = tr.loss_scale, tr.skipped_steps, \
+        tr.captures
+    bad = x.copy()
+    bad[0, 0, 0, 0] = np.inf
+    p, st, a, loss_bad, _ = tr.step(p, st, a, tr.shard_inputs([bad, y]))
+    unchanged = all(torch.equal(u, v) for u, v in zip(flat(p, st, a),
+                                                       before))
+    res["overflow"] = {
+        "scale_before": scale0, "scale_after": tr.loss_scale,
+        "skipped_before": skipped0, "skipped_after": tr.skipped_steps,
+        "captures_before": captures0, "captures_after": tr.captures,
+        "state_bit_identical": unchanged,
+        "amp_counters": mx.amp.counters()}
+    p, st, a, loss_next, _ = tr.step(p, st, a, tr.shard_inputs([x, y]))
+    res["overflow"]["next_step_trains"] = bool(
+        math.isfinite(float(loss_next)) and tr.skipped_steps
+        == skipped0 + 1 and not all(torch.equal(u, v) for u, v in zip(
+            flat(p, st, a), before)))
+    res.update(graphs=tr.graph_stats(), captures=tr.captures,
+               launches=_read_counts(),
+               seconds_total=time.perf_counter() - t0,
+               losses_finite=bool(np.isfinite(res["first_losses"]).all()))
+    o = res["overflow"]
+    res["ok"] = bool(
+        res["step_k_check"]["ok"] and res["losses_finite"]
+        and o["state_bit_identical"]
+        and o["scale_after"] == max(o["scale_before"] * 0.5, 1.0)
+        and o["skipped_after"] == o["skipped_before"] + 1
+        and o["captures_after"] == o["captures_before"]
+        == (1 if DEV == "cuda" else 0)
+        and o["next_step_trains"]
+        and not any(res["launches"][k] for k in _wrappers()))
+    RECORD["dp_resnet50_fp16"] = res
+    del tr, state, inputs_k, p, st, a, before
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("dp_resnet50_fp16 failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _d, fs in os.walk(path) for f in fs)
+
+
+def _ckpt_lm(mx, init, x, y, tmp):
+    """The amp LM at CKPT_LM_LAYERS layers through fused_fit: 2 epochs
+    straight, against 1 epoch with checkpoint_dir (its async commit at
+    the epoch's end) and then a fresh net resumed for the second. The
+    last CKPT_LM_BATCHES losses and every final parameter must be
+    bit-identical."""
+    import torch
+    from mxnet_tpu_torch import checkpoint
+    from mxnet_tpu_torch.checkpoint import state as cstate
+    d = os.path.join(tmp, "lm")
+    mx.amp.init(AMP_DTYPE)
+    capture_s = []
+    real = cstate.capture_fused_state
+
+    def timed(*a, **kw):
+        _sync()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        _sync()
+        capture_s.append(time.perf_counter() - t0)
+        return out
+    try:
+        straight, _t, _c, want = _glm_fused_run(
+            mx, init, x, y, CKPT_LM_LAYERS, steps=CKPT_LM_BATCHES,
+            keep_params=True)
+        del _t, _c
+        _free_card()
+        cstate.capture_fused_state = timed
+        first, _t, _c, _ = _glm_fused_run(
+            mx, init, x, y, CKPT_LM_LAYERS, steps=CKPT_LM_BATCHES,
+            epochs=1, checkpoint_dir=d)
+        del _t, _c
+        _free_card()
+        t0 = time.perf_counter()
+        state = checkpoint.CheckpointManager(d).restore()
+        restore_s = time.perf_counter() - t0
+        resumed, _t, _c, got = _glm_fused_run(
+            mx, init, x, y, CKPT_LM_LAYERS, steps=CKPT_LM_BATCHES,
+            checkpoint_dir=d, resume=True, keep_params=True)
+        del _t, _c
+    finally:
+        cstate.capture_fused_state = real
+        mx.amp.disable()
+    tail = straight["step_losses"][-CKPT_LM_BATCHES:]
+    res = {"layers": CKPT_LM_LAYERS, "amp_dtype": AMP_DTYPE,
+           "steps": len(straight["step_losses"]),
+           "straight_losses": straight["step_losses"],
+           "first_half_losses": first["step_losses"],
+           "resumed_losses": resumed["step_losses"],
+           "losses_bit_identical": resumed["step_losses"] == tail,
+           "params_bit_identical": sorted(got) == sorted(want) and all(
+               torch.equal(got[n], want[n]) for n in want),
+           "commit_bytes": _dir_bytes(os.path.join(
+               d, "step-%010d" % CKPT_LM_BATCHES)),
+           "capture_s": capture_s, "restore_s": restore_s,
+           "restored_meta": {k: state.meta.get(k) for k in
+                             ("kind", "epoch", "batch", "step",
+                              "amp_dtype", "trainer")},
+           "launches": resumed["launches"]}
+    res["ok"] = bool(res["losses_bit_identical"]
+                     and res["params_bit_identical"]
+                     and len(res["resumed_losses"]) == CKPT_LM_BATCHES)
+    return res
+
+
+def _ckpt_lenet(mx, tmp):
+    """LeNet through Module.fit per batch: CKPT_LENET_EPOCHS epochs
+    straight against half of them with checkpoint_dir and a resume in a
+    fresh Module; the last 4 batches' losses (cross-entropy of the
+    outputs) and every final parameter bit-identical."""
+    import numpy as np
+    d = os.path.join(tmp, "lenet")
+    opt = {"learning_rate": LENET_LR, "momentum": 0.9}
+
+    def fit(epochs, ckpt=None, resume=False):
+        np.random.seed(SEED)
+        mx.random.seed(SEED)
+        train, _ = _lenet_iters(mx, shuffle=False)
+        losses = []
+
+        def batch_end(param):
+            m = param.locals["self"]
+            prob = m.get_outputs()[0].asnumpy()
+            lab = param.locals["data_batch"].label[0].asnumpy()
+            losses.append(_ce(prob, lab))
+        mod = mx.mod.Module(lenet_symbol(mx.sym), context=_ctx())
+        mod.fit(train, num_epoch=epochs, optimizer="sgd",
+                optimizer_params=opt, initializer=mx.init.Xavier(),
+                batch_end_callback=batch_end, checkpoint_dir=ckpt,
+                resume=resume)
+        args, aux = mod.get_params()
+        return losses, {n: a.asnumpy() for d_ in (args, aux)
+                        for n, a in d_.items()}
+
+    with _cudnn_deterministic():
+        want_l, want_p = fit(CKPT_LENET_EPOCHS)
+        fit(CKPT_LENET_EPOCHS // 2, d)
+        got_l, got_p = fit(CKPT_LENET_EPOCHS, d, resume=True)
+    res = {"epochs": CKPT_LENET_EPOCHS, "batches": len(want_l),
+           "resumed_batches": len(got_l),
+           "last4_straight": want_l[-4:], "last4_resumed": got_l[-4:],
+           "losses_bit_identical": got_l[-4:] == want_l[-4:],
+           "params_bit_identical": all(np.array_equal(got_p[n], want_p[n])
+                                       for n in want_p)}
+    res["ok"] = bool(res["losses_bit_identical"]
+                     and res["params_bit_identical"])
+    return res
+
+
+def _ckpt_lane(mx, tmp):
+    """bench.py's checkpoint lane on the card: its MLP (batch 256,
+    1024 -> 512 -> 512 -> 64, SGD) through DataParallelTrainer.step,
+    CKPT_WINDOWS windows of CKPT_MLP_STEPS steps with no checkpoint, with
+    a blocking commit every CKPT_EVERY steps and with async commits:
+    steps/s (median), restore ms, bytes and save ms a commit."""
+    import numpy as np
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.checkpoint.state import TrainingState
+    c = CKPT_MLP
+    with mx.NameManager():
+        net = mx.sym.FullyConnected(mx.sym.Variable("data"),
+                                    num_hidden=c["hidden"], name="ckfc1")
+        net = mx.sym.Activation(net, act_type="relu")
+        net = mx.sym.FullyConnected(net, num_hidden=c["hidden"],
+                                    name="ckfc2")
+        net = mx.sym.Activation(net, act_type="relu")
+        net = mx.sym.FullyConnected(net, num_hidden=c["classes"],
+                                    name="ckfc3")
+        sym = mx.sym.SoftmaxOutput(net, name="softmax")
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (c["batch"], c["dim"])).astype(np.float32)
+    y = rng.randint(0, c["classes"], (c["batch"],)).astype(np.float32)
+    out = {}
+    for mode in ("none", "sync", "async"):
+        tr = _dp_trainer(sym, "float32", c["batch"])
+        state = tr.init_state({"data": x.shape, "softmax_label": y.shape})
+        inputs = tr.shard_inputs([x, y])
+        for _ in range(2):
+            p, st, a, loss, _ = tr.step(*state, inputs)
+            state = (p, st, a)
+        float(loss)
+        mgr = None if mode == "none" else CheckpointManager(
+            os.path.join(tmp, "lane_" + mode), async_save=mode == "async",
+            keep_last_n=2)
+        rates, gstep = [], 0
+        for _ in range(CKPT_WINDOWS):
+            t0 = time.perf_counter()
+            for _ in range(CKPT_MLP_STEPS):
+                p, st, a, loss, _ = tr.step(*state, inputs)
+                state = (p, st, a)
+                gstep += 1
+                if mgr is not None and gstep % CKPT_EVERY == 0:
+                    arrays, tmeta = tr.export_training_state(*state)
+                    mgr.save(TrainingState(arrays=arrays, meta={
+                        "kind": "bench", "epoch": 0, "batch": gstep,
+                        "step": gstep, "trainer": tmeta}), step=gstep)
+            float(loss)
+            if mgr is not None:
+                mgr.wait()
+            rates.append(CKPT_MLP_STEPS / (time.perf_counter() - t0))
+        lane = {"steps_per_s": float(np.median(rates)),
+                "steps_per_s_windows": rates}
+        if mgr is not None:
+            t0 = time.perf_counter()
+            back = mgr.restore()
+            lane["restore_ms"] = (time.perf_counter() - t0) * 1e3
+            cnt = mgr.counters()
+            commits = max(1, cnt["ckpt_commits"])
+            lane.update(commits=cnt["ckpt_commits"],
+                        bytes_per_commit=cnt["ckpt_bytes"] // commits,
+                        save_ms_per_commit=cnt["ckpt_save_us"] / commits
+                        / 1e3, overlap_frac=cnt["ckpt_overlap_frac"],
+                        restored_step=back.step)
+            mgr.close()
+        out[mode] = lane
+        del tr, state, inputs
+        _free_card()
+    out["ok"] = bool(out["sync"]["restored_step"] == out["async"][
+        "restored_step"] == CKPT_WINDOWS * CKPT_MLP_STEPS)
+    return out
+
+
+def phase_ckpt_resume():
+    """Checkpoints on the card: the amp LM through fused_fit and LeNet
+    through Module.fit, each resumed bit-identically (_ckpt_lm,
+    _ckpt_lenet), and bench.py's checkpoint lane (_ckpt_lane)."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    _free_card()
+    init = _GLM_REF.get("init")
+    if init is None:
+        init = _glm_init(mx)[0]
+    x, y = (mx.nd.NDArray(t) for t in _lm_batch())
+    tmp = tempfile.mkdtemp(prefix="ckpt_resume_")
+    try:
+        res = {"lm": _ckpt_lm(mx, init, x, y, tmp)}
+        _free_card()
+        res["lenet"] = _ckpt_lenet(mx, tmp)
+        res["lane"] = _ckpt_lane(mx, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["launches"] = res["lm"]["launches"]
+    res["ok"] = bool(res["lm"]["ok"] and res["lenet"]["ok"]
+                     and res["lane"]["ok"])
+    RECORD["ckpt_resume"] = res
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("ckpt_resume failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
 def phase_module_fused():
     """examples/train_mnist.py's LeNet through Module.fit with
     steps_per_dispatch=FUSED_K on the card: one unshuffled epoch against
@@ -3880,8 +4423,11 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("gluon_lm_hybrid", phase_gluon_lm_hybrid),
           ("gluon_fused_resnet50", phase_gluon_fused_resnet50),
           ("gluon_fused_lm", phase_gluon_fused_lm),
+          ("gluon_fused_lm_amp", phase_gluon_fused_lm_amp),
           ("dp_resnet50", phase_dp_resnet50),
-          ("module_fused", phase_module_fused))
+          ("dp_resnet50_fp16", phase_dp_resnet50_fp16),
+          ("module_fused", phase_module_fused),
+          ("ckpt_resume", phase_ckpt_resume))
 
 # (name, source, TPU kernel, case kind, case, its time / bound keys, errors,
 # its kernel launches a call: counted in the case)
@@ -3973,8 +4519,9 @@ def main(argv=None):
                                   "module_lenet", "module_resnet50",
                                   "gluon_resnet50", "gluon_cifar",
                                   "gluon_lm_hybrid", "gluon_fused_resnet50",
-                                  "gluon_fused_lm", "dp_resnet50",
-                                  "module_fused")
+                                  "gluon_fused_lm", "gluon_fused_lm_amp",
+                                  "dp_resnet50", "dp_resnet50_fp16",
+                                  "module_fused", "ckpt_resume")
               if k in RECORD]
     rows = []
     for (name, src, replaces, kind, case, ms_key, bound_key, by_key,

@@ -22,7 +22,10 @@ path (``nd`` arrays over tensors, the op registry, ``sym.Symbol``,
 ``metric``, ``lr_scheduler``, ``callback`` and ``model`` checkpoints);
 data-parallel training (``parallel.DataParallelTrainer`` over a mesh,
 with ``step_k`` as CUDA graph replays, ``kvstore``, ``Module`` over
-several contexts and ``fit(steps_per_dispatch=K)``).
+several contexts and ``fit(steps_per_dispatch=K)``); mixed precision
+(``amp``: the bf16/fp16 policy in the executor's walk, the fp16 loss
+scaler on the card) and fault-tolerant checkpoints (``checkpoint``:
+atomic sharded commits, async saves, resume).
 Entry points run on the card unless the caller asks for the host
 (``device="cpu"``, ``ctx=cpu()``, ``with cpu():``; the ops follow their
 tensors' device).
@@ -43,12 +46,16 @@ from . import module as mod  # noqa: F401
 from . import kvstore, parallel  # noqa: F401
 from . import kvstore as kv  # noqa: F401
 from . import gluon  # noqa: F401
+from . import amp, checkpoint, config  # noqa: F401
+
+config._apply_startup()
 
 __version__ = "0.4.0"
 
 __all__ = ["AttrScope", "MXNetError", "NameManager", "Context", "cpu",
            "gpu", "current_context", "resolve_device",
-           "autograd", "callback", "executor", "gluon", "imperative", "init",
+           "amp", "autograd", "callback", "checkpoint", "executor", "gluon",
+           "imperative", "init",
            "initializer", "io", "kv", "kvstore", "lr_scheduler", "metric",
            "mod", "model", "module", "nd", "ndarray", "optimizer",
            "parallel", "random", "rtc", "sym", "symbol"]

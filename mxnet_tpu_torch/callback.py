@@ -19,18 +19,32 @@ __all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False,
                       manager=None):
     """Checkpoint the Module (and optionally its optimizer states) every
-    ``period`` epochs as ``prefix-NNNN.params`` (+ ``.states``). The JAX
-    package's fault-tolerant ``manager`` is not ported (ROADMAP queue 1
-    item 14) and is refused."""
-    if manager is not None:
-        from .base import MXNetError
-        raise MXNetError("module_checkpoint(manager=...) is not ported yet "
-                         "(ROADMAP queue 1 item 14)")
+    ``period`` epochs as ``prefix-NNNN.params`` (+ ``.states``).
+
+    With ``manager`` (a ``checkpoint.CheckpointManager``, or a directory
+    one is made for), every save goes through the manager instead: an
+    atomic, asynchronous commit of the whole training state (optimizer
+    states with the fp32 masters, the random state, the cursor), whatever
+    ``save_optimizer_states`` says, restorable with ``fit(checkpoint_dir=,
+    resume=True)`` or ``manager.restore()``."""
     period = int(max(1, period))
+    if manager is not None and not hasattr(manager, "save"):
+        import atexit
+        from .checkpoint import CheckpointManager
+        manager = CheckpointManager(manager)
+        # nobody else owns this manager: drain its saver thread at exit,
+        # so a last async commit is not cut off
+        atexit.register(manager.close)
 
     def _callback(iter_no, sym=None, arg=None, aux=None):
-        if (iter_no + 1) % period == 0:
-            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+        if (iter_no + 1) % period != 0:
+            return
+        if manager is not None:
+            from .checkpoint import capture_module_state
+            manager.save(capture_module_state(mod, epoch=iter_no + 1),
+                         step=iter_no + 1)
+            return
+        mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
     return _callback
 
 

@@ -22,6 +22,19 @@ both:
                             raises at bind instead of being ignored
   MXNET_FUSED_K             Gluon ``fused_fit``'s steps a dispatch when
                             not given (0: the default, 8)
+  MXNET_AMP                 1 turns mixed precision on when the package is
+                            imported (``amp.init``); 0 leaves every
+                            program as it is in fp32
+  MXNET_AMP_DTYPE           its compute dtype ("bfloat16" | "float16")
+  MXNET_CHECKPOINT_ASYNC    0 makes every ``CheckpointManager.save``
+                            blocking (default: a saver thread)
+  MXNET_CHECKPOINT_KEEP     keep-last-N retention (<= 0 keeps everything)
+  MXNET_CHECKPOINT_BEST_K   also keep the best k commits by metric
+  MXNET_CHECKPOINT_SHARDS   shards a commit (<= 0: the visible cards, or
+                            1 without one)
+  MXNET_CHECKPOINT_RETRIES  retries of a failed shard read or write
+  MXNET_CHECKPOINT_BACKOFF_S
+                            the first retry's delay in seconds (doubling)
 """
 from __future__ import annotations
 
@@ -39,6 +52,14 @@ _DOCUMENTED = {
     "MXNET_BACKWARD_DO_MIRROR": 0,
     "MXNET_UPDATE_ON_KVSTORE": 1,
     "MXNET_FUSED_K": 0,
+    "MXNET_AMP": 0,
+    "MXNET_AMP_DTYPE": "bfloat16",
+    "MXNET_CHECKPOINT_ASYNC": 1,
+    "MXNET_CHECKPOINT_KEEP": 3,
+    "MXNET_CHECKPOINT_BEST_K": 0,
+    "MXNET_CHECKPOINT_SHARDS": 0,
+    "MXNET_CHECKPOINT_RETRIES": 2,
+    "MXNET_CHECKPOINT_BACKOFF_S": "0.5",
 }
 
 
@@ -55,3 +76,10 @@ def get(name, default=None):
         except ValueError:
             return default
     return raw
+
+
+def _apply_startup():
+    """Honour the variables that act when the package is imported."""
+    if get("MXNET_AMP"):
+        from . import amp
+        amp.init(get("MXNET_AMP_DTYPE") or "bfloat16")

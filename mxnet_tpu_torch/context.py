@@ -32,7 +32,6 @@ class Context:
             raise ValueError(f"unknown device type {device_type!r}")
         self.device_type = device_type
         self.device_id = int(device_id)
-        self._old_ctx = None
 
     def torch_device(self):
         if self.device_type == "cpu":
@@ -61,12 +60,16 @@ class Context:
     __str__ = __repr__
 
     def __enter__(self):
-        self._old_ctx = getattr(Context._current, "value", None)
+        # the contexts entered are a stack of this thread's: one Context
+        # object entered again inside its own ``with`` (fused_fit enters
+        # its caller's) must not overwrite where the outer one returns to
+        stack = Context._current.__dict__.setdefault("stack", [])
+        stack.append(getattr(Context._current, "value", None))
         Context._current.value = self
         return self
 
     def __exit__(self, *exc):
-        Context._current.value = self._old_ctx
+        Context._current.value = Context._current.stack.pop()
 
 
 Context.default_ctx = Context("gpu", 0)

@@ -38,6 +38,12 @@ FullyConnected, a Reshape that keeps dim 0, softmax off axis 0, ...);
 else it raises on a mesh instead of computing on one shard. A one-device
 mesh is the one-device executor.
 
+Mixed precision (``amp``) hooks the walk as the JAX package's runner:
+each op's inputs go through ``amp.cast_op_inputs`` with the policy the
+plan took when it was built (``_Plan.amp``), and the fp16 loss scale is
+injected below the legacy loss heads while a trainer has set it. With
+amp off and no scale, the walk makes no call.
+
 Not ported (each raises instead of being ignored): ``group2ctx`` model
 parallelism (ROADMAP queue 1 item 8) and ``MXNET_BACKWARD_DO_MIRROR``.
 """
@@ -48,6 +54,7 @@ import functools
 import numpy as _np
 import torch
 
+from . import amp as _amp
 from .base import MXNetError
 from .context import current_context, resolve_device
 from .ops.registry import OpCtx
@@ -282,6 +289,21 @@ class _Plan:
             self.steps.append((p, node.op, parsed, ins, n_out, aux_writes,
                                node.name))
         self.outputs = [(pos[id(n)], i) for (n, i) in symbol._outputs]
+        # the amp policy as it stands now (None: off), as the JAX
+        # package's trace takes it: amp.init after this changes nothing
+        self.amp = _amp.compute_dtype()
+        self._amp_counted = False
+
+    def _caster(self):
+        """The amp hook for one walk, or None when the walk makes no cast
+        (amp off when the plan was built, and no fp16 loss scale set):
+        the policy's casts and the loss-scale injection, per op."""
+        if self.amp is None and _amp._trace_loss_scale() is None:
+            return None
+        count = not self._amp_counted
+        self._amp_counted = True
+        return lambda name, xs: _amp.cast_op_inputs(name, xs, self.amp,
+                                                    count=count)
 
     def run(self, args, aux, device, rng=None, monitor=None):
         """args / aux: name -> tensor. Returns (outputs, [(aux name, new
@@ -290,12 +312,15 @@ class _Plan:
         for p, kind, name in self.variables:
             vals[p] = ((aux if kind == "aux" else args)[name],)
         octx = OpCtx(is_train=self.is_train, rng=rng, device=device)
+        cast = self._caster()
         updates = []
         for p, op, parsed, ins, n_out, aux_writes, name in self.steps:
             xs = [vals[q][i] for (q, i) in ins]
             if op is None:               # relu folded into its BatchNorm
                 vals[p] = (xs[0],)
                 continue
+            if cast is not None:
+                xs = cast(op.name, xs)
             res = op.fcompute(parsed, octx, *xs)
             vals[p] = res[:n_out]
             for j, aux_name in aux_writes:
@@ -330,12 +355,15 @@ class _Plan:
                        for g, a in replicas]
         octxs = [OpCtx(is_train=self.is_train, rng=rng, device=d)
                  for d in devices]
+        cast = self._caster()
         updates = []
         for p, op, parsed, ins, n_out, aux_writes, name in self.steps:
             xs = [[vals[q][r][i] for (q, i) in ins] for r in range(n)]
             if op is None:
                 vals[p] = [(x[0],) for x in xs]
                 continue
+            if cast is not None:
+                xs = [cast(op.name, x) for x in xs]
             carried = {j for j, (q, _) in enumerate(ins) if q in carry}
             if op.fmesh is not None:
                 res = op.fmesh(parsed, octxs[0], xs)

@@ -16,14 +16,20 @@ several contexts is one buffer under each (``Parameter``), so pushes and
 updates are de-duplicated on the device buffer: it is pushed and
 updated once. ``save_states`` / ``load_states`` go through the kvstore
 when it updates, else the first updater; either package reads the
-files.
+files. ``save_checkpoint`` / ``restore_checkpoint`` commit and restore
+the whole state (parameters, optimizer states and counts, the random
+state) through ``checkpoint.CheckpointManager``. Under amp the optimizer
+keeps fp32 masters of half-precision weights (``multi_precision``).
 
 ``fused_fit`` is the JAX package's K-steps-a-dispatch training loop
 for Gluon: net and loss traced into one Symbol, trained by a
 ``parallel.DataParallelTrainer`` over the contexts' mesh (on one card,
-K replays of its CUDA graph a block).
+K replays of its CUDA graph a block), in amp's dtype unless one is
+given, with checkpoints and resume.
 """
 from __future__ import annotations
+
+import logging
 
 from ..base import MXNetError, atomic_write
 from .. import optimizer as opt
@@ -31,9 +37,6 @@ from ..model import _create_kvstore
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer", "fused_fit"]
-
-_FUSED_DTYPES = ("float32", "bfloat16")
-
 
 def _buffer_key(a):
     """The device buffer under an NDArray: a parameter over several
@@ -73,33 +76,38 @@ def fused_fit(net, loss, train_data, num_epoch, optimizer="sgd",
     Parameters and aux states are written back into ``net`` at every
     epoch end, before ``epoch_callback(epoch, net, mean_loss)``.
 
-    Only the optimizers with a fused update op train here (``sgd``,
-    ``adam``). ``checkpoint_dir`` / ``resume`` (ROADMAP queue 1 item 14)
-    and a ``dtype`` other than float32 or bfloat16 (item 10) raise.
+    ``dtype`` None follows amp (``amp.init`` / ``MXNET_AMP``: its dtype
+    when on, else float32); "bfloat16" and "float16" train fp32 masters,
+    float16 with the loss scaler on the card. Only the optimizers with a
+    fused update op train here (``sgd``, ``adam``).
+
+    ``checkpoint_dir`` commits the trainer's whole state (parameters,
+    optimizer states, t, the fp16 scaler, the random state, the cursor)
+    at every epoch end and every ``checkpoint_period`` steps (at block
+    boundaries), asynchronously; ``resume=True`` restores the newest
+    commit and continues bit-identically (the iterator replayed to a
+    mid-epoch cursor). SIGTERM takes one final checkpoint at the next
+    block boundary and exits 143.
     """
     import itertools
 
     import numpy as np
     import torch
 
+    from .. import amp as _amp
     from .. import config
     from .. import symbol as sym_mod
+    from ..checkpoint.state import (capture_fused_state, rescale_cursor,
+                                    restore_rng)
+    from ..module.base_module import _close_checkpoints, _open_checkpoints
     from ..context import current_context
     from ..ndarray.ndarray import NDArray, array as nd_array
     from ..parallel.dp import DataParallelTrainer
     from ..parallel.mesh import mesh_for_contexts
 
-    if checkpoint_dir is not None or resume:
-        raise MXNetError("fused_fit: checkpoint_dir / resume need the "
-                         "checkpoint manager, which is not ported yet "
-                         "(ROADMAP queue 1 item 14)")
     if dtype is None:
-        dtype = "float32"
-    if dtype not in _FUSED_DTYPES:
-        raise MXNetError(f"fused_fit: dtype {dtype!r} needs mixed precision "
-                         "with loss scaling, which is not ported yet "
-                         "(ROADMAP queue 1 item 10); float32 and bfloat16 "
-                         "train")
+        # an explicit dtype wins over amp's
+        dtype = _amp.get_dtype() if _amp.is_enabled() else "float32"
     contexts = contexts or [current_context()]
     if not isinstance(contexts, (list, tuple)):
         contexts = [contexts]
@@ -148,6 +156,25 @@ def fused_fit(net, loss, train_data, num_epoch, optimizer="sgd",
     copy_stream = torch.cuda.Stream(device) if device.type == "cuda" \
         else None
 
+    begin_epoch, gstep, ckpt_skip = 0, 0, 0
+    ckpt_mgr, ckpt_state = _open_checkpoints(checkpoint_dir, resume,
+                                             logging.getLogger(__name__))
+    if ckpt_state is not None:
+        if ckpt_state.meta.get("trainer") is not None:
+            params, states, aux = trainer.import_training_state(
+                ckpt_state.arrays, ckpt_state.meta["trainer"])
+        restore_rng(ckpt_state.meta)
+        begin_epoch = int(ckpt_state.meta.get("epoch", 0))
+        gstep = int(ckpt_state.meta.get("step", 0))
+        ckpt_skip = rescale_cursor(ckpt_state.meta, batch)
+
+    def _ckpt_save(next_epoch, next_batch, step, metric=None,
+                   blocking=None):
+        ckpt_mgr.save(capture_fused_state(
+            trainer, params, states, aux, "gluon_fused", next_epoch,
+            next_batch, step, batch, dtype), step=step, metric=metric,
+            blocking=blocking)
+
     if steps_per_dispatch is None:
         steps_per_dispatch = int(config.get("MXNET_FUSED_K")) or 8
     k = int(steps_per_dispatch)
@@ -189,11 +216,11 @@ def fused_fit(net, loss, train_data, num_epoch, optimizer="sgd",
                 if n in pmap:
                     pmap[n].set_data(a)
 
-    epoch_losses = []
-    for epoch in range(num_epoch):
-        stream = itertools.chain([first], it) if epoch == 0 \
-            else iter(train_data)
+    def _epoch(stream, epoch, gstep):
+        """One epoch's blocks: (mean loss, the global step after it)."""
+        nonlocal params, states, aux
         total, count, pending = 0.0, 0, None
+        nbatch, last_ckpt = ckpt_skip, gstep
         for block in _blocks(stream):
             inputs, copied = _stage(block)
             if copied is not None:
@@ -209,6 +236,16 @@ def fused_fit(net, loss, train_data, num_epoch, optimizer="sgd",
                 total += float(pending.sum())
             pending = losses
             count += len(block) * batch
+            nbatch += len(block)
+            gstep += len(block)
+            if ckpt_mgr is not None:
+                if checkpoint_period and \
+                        gstep - last_ckpt >= int(checkpoint_period):
+                    _ckpt_save(epoch, nbatch, gstep)
+                    last_ckpt = gstep
+                if ckpt_mgr.preempted:
+                    _ckpt_save(epoch, nbatch, gstep, blocking=True)
+                    raise SystemExit(143)
         if pending is not None:
             total += float(pending.sum())
         if count == 0:
@@ -217,11 +254,31 @@ def fused_fit(net, loss, train_data, num_epoch, optimizer="sgd",
                 f"fused_fit: epoch {epoch} yielded no batches (is "
                 "train_data a single-pass generator? pass a re-iterable "
                 "like a DataLoader or list)")
-        mean_loss = total / count
-        epoch_losses.append(mean_loss)
-        _writeback()
-        if epoch_callback is not None:
-            epoch_callback(epoch, net, mean_loss)
+        return total / count, gstep
+
+    epoch_losses = []
+    if ckpt_mgr is not None:
+        ckpt_mgr.install_sigterm_hook()
+    try:
+        for epoch in range(begin_epoch, num_epoch):
+            stream = itertools.chain([first], it) if epoch == 0 \
+                else iter(train_data)
+            # a mid-epoch resume: the stream replayed to the cursor
+            for _ in itertools.islice(stream, ckpt_skip):
+                pass
+            mean_loss, gstep = _epoch(stream, epoch, gstep)
+            ckpt_skip = 0
+            epoch_losses.append(mean_loss)
+            _writeback()
+            if epoch_callback is not None:
+                epoch_callback(epoch, net, mean_loss)
+            if ckpt_mgr is not None:
+                _ckpt_save(epoch + 1, 0, gstep, metric=mean_loss)
+                if ckpt_mgr.preempted:
+                    ckpt_mgr.wait()
+                    raise SystemExit(143)
+    finally:
+        _close_checkpoints(ckpt_mgr)
     return epoch_losses
 
 
@@ -274,6 +331,12 @@ class Trainer:
             self._optimizer = optimizer
             self._optimizer.param_dict = param_dict
         else:
+            from .. import amp as _amp
+            if _amp.is_enabled():
+                # half-precision weights need fp32 masters: amp turns them
+                # on unless multi_precision is given
+                optimizer_params = dict(optimizer_params)
+                optimizer_params.setdefault("multi_precision", True)
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
         self._updaters = [opt.get_updater(self._optimizer)
@@ -388,3 +451,31 @@ class Trainer:
             self._optimizer = self._updaters[0].optimizer
         self._optimizer.param_dict = {i: param for i, param in
                                       enumerate(self._params)}
+
+    def save_checkpoint(self, directory, step, metric=None):
+        """Commit the whole state (parameters, optimizer states with the
+        fp32 masters and counts, the random state) through a
+        ``checkpoint.CheckpointManager``, blocking. ``directory`` is a
+        checkpoint root or a manager; returns the manager (reuse it across
+        steps to keep its retention)."""
+        from ..checkpoint import CheckpointManager
+        from ..checkpoint.state import capture_trainer_state
+        mgr = directory if hasattr(directory, "save") \
+            else CheckpointManager(directory)
+        mgr.save(capture_trainer_state(self, step=step), step=step,
+                 metric=metric, blocking=True)
+        return mgr
+
+    def restore_checkpoint(self, directory, step=None):
+        """Restore the newest commit (or exactly ``step``) into the
+        Parameters and the optimizer. Returns the step restored, or None
+        when there is none."""
+        from ..checkpoint import CheckpointManager
+        from ..checkpoint.state import restore_trainer_state
+        mgr = directory if hasattr(directory, "restore") \
+            else CheckpointManager(directory)
+        state = mgr.restore(step)
+        if state is None:
+            return None
+        restore_trainer_state(self, state)
+        return state.step

@@ -45,6 +45,29 @@ def _check_input_names(symbol, names, typename, throw):
         logging.warning(msg)
 
 
+def _open_checkpoints(checkpoint_dir, resume, logger):
+    """(manager or None, the restored state or None) of a fit. The caller
+    installs the SIGTERM hook where its loop's ``try`` begins, and
+    closes both in its ``finally`` (:func:`_close_checkpoints`)."""
+    if checkpoint_dir is None:
+        return None, None
+    from ..checkpoint import CheckpointManager
+    mgr = CheckpointManager(checkpoint_dir, logger=logger)
+    state = mgr.restore() if resume else None
+    if state is not None:
+        logger.info("checkpoint: resuming from committed step %s (epoch "
+                    "%d, batch %d)", state.step,
+                    int(state.meta.get("epoch", 0)),
+                    int(state.meta.get("batch", 0)))
+    return mgr, state
+
+
+def _close_checkpoints(mgr):
+    if mgr is not None:
+        mgr.remove_sigterm_hook()
+        mgr.close()
+
+
 def _as_list(obj):
     if obj is None:
         return []
@@ -161,16 +184,33 @@ class BaseModule:
         same updates on the same batches as K = 1, the training metric
         updated and the batch-end callbacks called once a block of K
         batches; a configuration that cannot fuse warns and falls back
-        to the per-batch loop, as in the JAX package.
+        to the per-batch loop, as in the JAX package. Under amp the fused
+        path trains in amp's dtype (float16 with the loss scaler on the
+        card); the per-batch path has no loss scaler and warns so.
 
-        Options of the JAX package not ported yet raise instead of being
-        ignored: ``checkpoint_dir`` / ``resume`` (ROADMAP queue 1 item 14)
-        and ``monitor``."""
+        ``checkpoint_dir`` commits the whole training state (parameters,
+        optimizer states with the fp32 masters, the fused trainer's t and
+        fp16 scaler, the random state, the cursor) at every epoch end and
+        every ``checkpoint_period`` batches, asynchronously
+        (``checkpoint.CheckpointManager``); ``resume=True`` restores the
+        newest commit and continues bit-identically (a mid-epoch cursor
+        replays the iterator to it). SIGTERM takes one final checkpoint at
+        the next batch boundary and exits 143.
+
+        ``monitor`` is not ported yet and raises instead of being
+        ignored."""
         assert num_epoch is not None, "please specify number of epochs"
-        if checkpoint_dir is not None or resume or checkpoint_period:
-            raise MXNetError("fit(checkpoint_dir=, resume=) is not ported "
-                             "yet (ROADMAP queue 1 item 14); use "
-                             "epoch_end_callback=callback.module_checkpoint")
+        from .. import amp as _amp
+        if _amp.is_enabled():
+            logging.info("AMP enabled: training casts matmul-class ops to "
+                         "%s (fp32 master weights)", _amp.get_dtype())
+            if _amp.get_dtype() == "float16" and not (
+                    steps_per_dispatch and steps_per_dispatch > 1):
+                logging.warning(
+                    "AMP float16: the per-batch fit path runs WITHOUT "
+                    "dynamic loss scaling — use steps_per_dispatch>1 "
+                    "(the fused trainer carries the DynamicLossScaler "
+                    "state on device) or expect underflowed gradients")
         if monitor is not None:
             raise MXNetError("fit(monitor=): monitor.Monitor is not ported "
                              "yet; use the executor's set_monitor_callback")
@@ -187,8 +227,20 @@ class BaseModule:
                     force_rebind=force_rebind, force_init=force_init,
                     begin_epoch=begin_epoch, num_epoch=num_epoch,
                     validation_metric=validation_metric,
-                    steps_per_dispatch=int(steps_per_dispatch)):
+                    steps_per_dispatch=int(steps_per_dispatch),
+                    checkpoint_dir=checkpoint_dir,
+                    checkpoint_period=checkpoint_period, resume=resume):
                 return
+
+        ckpt_mgr, ckpt_state = _open_checkpoints(checkpoint_dir, resume,
+                                                 self.logger)
+        if ckpt_state is not None:
+            # resuming continues that run: its parameters replace any
+            # given ones
+            arg_params = ckpt_state.arg_params_nd()
+            aux_params = ckpt_state.aux_params_nd()
+            force_init = True
+            begin_epoch = int(ckpt_state.meta.get("epoch", begin_epoch))
 
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
@@ -199,6 +251,24 @@ class BaseModule:
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
 
+        ckpt_bs = int(train_data.provide_data[0].shape[0]) \
+            if getattr(train_data, "provide_data", None) else None
+        gstep, ckpt_skip = 0, 0
+        if ckpt_state is not None:
+            from ..checkpoint.state import (restore_module_state,
+                                            rescale_cursor)
+            restore_module_state(self, ckpt_state, self.logger)
+            gstep = int(ckpt_state.meta.get("step", 0))
+            ckpt_skip = rescale_cursor(ckpt_state.meta, ckpt_bs)
+
+        def _ckpt_save(next_epoch, next_batch, step, metric_val=None,
+                       blocking=None):
+            from ..checkpoint.state import capture_module_state
+            ckpt_mgr.save(capture_module_state(
+                self, epoch=next_epoch, batch=next_batch, step=step,
+                batch_size=ckpt_bs), step=step, metric=metric_val,
+                blocking=blocking)
+
         if validation_metric is None:
             validation_metric = eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
@@ -207,52 +277,79 @@ class BaseModule:
         batch_callbacks = _as_list(batch_end_callback)
         epoch_callbacks = _as_list(epoch_end_callback)
 
-        for epoch in range(begin_epoch, num_epoch):
-            epoch_start = time.time()
-            eval_metric.reset()
-            # a DataBatch is only guaranteed valid until the next next()
-            # call, so batch N+1 is fetched after batch N's update
-            data_iter = iter(train_data)
-            data_batch = next(data_iter, None)
-            nbatch = 0
-            while data_batch is not None:
-                self.forward_backward(data_batch)
-                self.update()
-                upcoming = next(data_iter, None)
-                if upcoming is not None:
-                    self.prepare(upcoming, sparse_row_id_fn=sparse_row_id_fn)
-                self.update_metric(eval_metric, data_batch.label)
-                if batch_callbacks:
-                    cb_param = BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                             eval_metric=eval_metric,
-                                             locals=locals())
-                    for callback in batch_callbacks:
-                        callback(cb_param)
-                data_batch = upcoming
-                nbatch += 1
+        if ckpt_mgr is not None:
+            ckpt_mgr.install_sigterm_hook()
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                epoch_start = time.time()
+                eval_metric.reset()
+                # a DataBatch is only guaranteed valid until the next next()
+                # call, so batch N+1 is fetched after batch N's update
+                data_iter = iter(train_data)
+                if ckpt_skip:
+                    # a mid-epoch resume: the iterator replayed to the cursor,
+                    # so the batches come in the uninterrupted run's order
+                    for _ in itertools.islice(data_iter, ckpt_skip):
+                        pass
+                data_batch = next(data_iter, None)
+                nbatch, ckpt_skip = ckpt_skip, 0
+                while data_batch is not None:
+                    self.forward_backward(data_batch)
+                    self.update()
+                    upcoming = next(data_iter, None)
+                    if upcoming is not None:
+                        self.prepare(upcoming,
+                                     sparse_row_id_fn=sparse_row_id_fn)
+                    self.update_metric(eval_metric, data_batch.label)
+                    if batch_callbacks:
+                        cb_param = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                                 eval_metric=eval_metric,
+                                                 locals=locals())
+                        for callback in batch_callbacks:
+                            callback(cb_param)
+                    data_batch = upcoming
+                    nbatch += 1
+                    gstep += 1
+                    if ckpt_mgr is not None:
+                        if checkpoint_period and \
+                                nbatch % int(checkpoint_period) == 0:
+                            _ckpt_save(epoch, nbatch, gstep)
+                        if ckpt_mgr.preempted:
+                            _ckpt_save(epoch, nbatch, gstep, blocking=True)
+                            raise SystemExit(143)
 
-            # log-format contract: "Epoch[N] Train-<metric>=<val>"
-            for name, val in eval_metric.get_name_value():
-                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                             time.time() - epoch_start)
+                # log-format contract: "Epoch[N] Train-<metric>=<val>"
+                for name, val in eval_metric.get_name_value():
+                    self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+                self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                                 time.time() - epoch_start)
 
-            # round-trip params through get/set: the host-visible dicts
-            # that checkpoints and callbacks read
-            snapshot_args, snapshot_aux = self.get_params()
-            self.set_params(snapshot_args, snapshot_aux)
-            for callback in epoch_callbacks:
-                callback(epoch, self.symbol, snapshot_args, snapshot_aux)
+                # round-trip params through get/set: the host-visible dicts
+                # that checkpoints and callbacks read
+                snapshot_args, snapshot_aux = self.get_params()
+                self.set_params(snapshot_args, snapshot_aux)
+                for callback in epoch_callbacks:
+                    callback(epoch, self.symbol, snapshot_args, snapshot_aux)
 
-            if eval_data is not None:
-                for name, val in self.score(
-                        eval_data, validation_metric,
-                        score_end_callback=eval_end_callback,
-                        batch_end_callback=eval_batch_end_callback,
-                        epoch=epoch):
-                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
-                                     name, val)
-            train_data.reset()
+                if ckpt_mgr is not None:
+                    vals = eval_metric.get_name_value()
+                    _ckpt_save(epoch + 1, 0, gstep,
+                              metric_val=float(vals[0][1]) if vals else None)
+                    if ckpt_mgr.preempted:
+                        ckpt_mgr.wait()
+                        raise SystemExit(143)
+
+                if eval_data is not None:
+                    for name, val in self.score(
+                            eval_data, validation_metric,
+                            score_end_callback=eval_end_callback,
+                            batch_end_callback=eval_batch_end_callback,
+                            epoch=epoch):
+                        self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                         name, val)
+                train_data.reset()
+        finally:
+            _close_checkpoints(ckpt_mgr)
 
     def _fit_fused(self, train_data, **kwargs):
         """The steps_per_dispatch > 1 hook: a subclass that can fuse K

@@ -320,20 +320,30 @@ class Module(BaseModule):
                    eval_batch_end_callback, initializer, arg_params,
                    aux_params, allow_missing, force_rebind, force_init,
                    begin_epoch, num_epoch, validation_metric,
-                   steps_per_dispatch):
+                   steps_per_dispatch, checkpoint_dir=None,
+                   checkpoint_period=None, resume=False):
         """The K-steps-a-dispatch training loop (the JAX package's
         ``Module._fit_fused``): a normal bind and ``init_params`` (the
         parameter draw of K = 1), then a ``DataParallelTrainer`` over the
-        contexts' mesh fed K stacked batches a ``step_k(outputs_mode=
+        contexts' mesh in amp's dtype (fp32 masters; float16 with the loss
+        scaler on the card), fed K stacked batches a ``step_k(outputs_mode=
         "all")``, whose outputs update the training metric; parameters and
         aux written back into the module at every epoch end, before the
-        epoch-end callbacks and validation. Returns False, with the JAX
-        package's warning, for a configuration that cannot fuse."""
+        epoch-end callbacks and validation. ``checkpoint_dir`` commits the
+        trainer's whole state at every epoch end and every
+        ``checkpoint_period`` steps (at block boundaries); ``resume``
+        restores it (t, the scaler and the cursor included). Returns
+        False, with the JAX package's warning, for a configuration that
+        cannot fuse."""
         import itertools
+        from .. import amp as _amp
+        from ..checkpoint.state import (capture_fused_state, rescale_cursor,
+                                        restore_rng)
         from ..ndarray.ndarray import NDArray
         from ..parallel.dp import DataParallelTrainer, _OPT_OPS
         from ..parallel.mesh import mesh_for_contexts
-        from .base_module import _as_list
+        from .base_module import (_as_list, _close_checkpoints,
+                                  _open_checkpoints)
         from .. import metric as metric_mod
         from ..model import BatchEndParam
 
@@ -373,6 +383,13 @@ class Module(BaseModule):
             return False
         k = steps_per_dispatch
 
+        ckpt_mgr, ckpt_state = _open_checkpoints(checkpoint_dir, resume,
+                                                 self.logger)
+        if ckpt_state is not None:
+            arg_params = ckpt_state.arg_params_nd()
+            aux_params = ckpt_state.aux_params_nd()
+            force_init = True
+            begin_epoch = int(ckpt_state.meta.get("epoch", begin_epoch))
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -389,6 +406,7 @@ class Module(BaseModule):
         batch_size = self._data_shapes[0].shape[0]
         lr = float(opt_params.pop("learning_rate", 0.01))
         opt_params.pop("multi_precision", None)
+        fit_dtype = _amp.get_dtype() if _amp.is_enabled() else "float32"
         trainer = DataParallelTrainer(
             self._symbol, mesh_for_contexts(self._context),
             data_names=tuple(self._data_names),
@@ -399,13 +417,34 @@ class Module(BaseModule):
             rescale_grad=float(opt_params.pop("rescale_grad",
                                               1.0 / batch_size)),
             clip_gradient=opt_params.pop("clip_gradient", None),
-            **opt_params)
+            dtype=fit_dtype, **opt_params)
         shape_kwargs = {d.name: d.shape for d in
                         self._data_shapes + (self._label_shapes or [])}
         params, states, aux = trainer.init_state(
             shape_kwargs, arg_params=self._arg_params,
             aux_params=self._aux_params)
         self.fused_trainer = trainer
+        gstep, ckpt_skip = 0, 0
+        if ckpt_state is not None:
+            if ckpt_state.meta.get("kind") == "module_fused" and \
+                    ckpt_state.meta.get("trainer") is not None:
+                params, states, aux = trainer.import_training_state(
+                    ckpt_state.arrays, ckpt_state.meta["trainer"])
+            else:
+                self.logger.warning(
+                    "checkpoint: snapshot kind=%r has no fused-trainer "
+                    "state; params restored, optimizer state starts "
+                    "fresh", ckpt_state.meta.get("kind"))
+            restore_rng(ckpt_state.meta, self.logger)
+            gstep = int(ckpt_state.meta.get("step", 0))
+            ckpt_skip = rescale_cursor(ckpt_state.meta, batch_size)
+
+        def _ckpt_save(next_epoch, next_batch, metric_val=None,
+                       blocking=None):
+            ckpt_mgr.save(capture_fused_state(
+                trainer, params, states, aux, "module_fused", next_epoch,
+                next_batch, gstep, batch_size, fit_dtype), step=gstep,
+                metric=metric_val, blocking=blocking)
         data_idx = {n: i for i, n in enumerate(self._data_names)}
         label_idx = {n: i for i, n in enumerate(self._label_names)}
 
@@ -414,62 +453,87 @@ class Module(BaseModule):
                 return [b.data[data_idx[name]]._data for b in block]
             return [b.label[label_idx[name]]._data for b in block]
 
-        for epoch in range(begin_epoch, num_epoch):
-            epoch_start = time.time()
-            eval_metric.reset()
-            src = iter(train_data)
-            nbatch = 0
-            while True:
-                # torch.stack copies: the iterator may reuse its buffers
-                block = list(itertools.islice(src, k))
-                if not block:
-                    break
-                inputs = trainer.shard_inputs(
-                    [torch.stack(_column(block, n))
-                     for n in trainer.input_names], stacked=True)
-                params, states, aux, _, outputs = trainer.step_k(
-                    params, states, aux, inputs, outputs_mode="all")
-                # the metric over the block's K batches at once, the scan
-                # axis folded into the batch axis
-                pred_dict = {name: NDArray(o.reshape((-1,) + o.shape[2:]))
-                             for name, o in zip(self._output_names,
-                                                outputs)}
-                label_dict = {name: NDArray(torch.cat(
-                    [b.label[i]._data for b in block]))
-                    for name, i in label_idx.items()}
-                eval_metric.update_dict(label_dict, pred_dict)
-                nbatch += len(block)
-                if batch_callbacks:
-                    cb_param = BatchEndParam(epoch=epoch, nbatch=nbatch - 1,
-                                             eval_metric=eval_metric,
-                                             locals=locals())
-                    for callback in batch_callbacks:
-                        callback(cb_param)
+        if ckpt_mgr is not None:
+            ckpt_mgr.install_sigterm_hook()
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                epoch_start = time.time()
+                eval_metric.reset()
+                src = iter(train_data)
+                for _ in itertools.islice(src, ckpt_skip):
+                    pass
+                nbatch, ckpt_skip = ckpt_skip, 0
+                last_ckpt = gstep
+                while True:
+                    # torch.stack copies: the iterator may reuse its buffers
+                    block = list(itertools.islice(src, k))
+                    if not block:
+                        break
+                    inputs = trainer.shard_inputs(
+                        [torch.stack(_column(block, n))
+                         for n in trainer.input_names], stacked=True)
+                    params, states, aux, _, outputs = trainer.step_k(
+                        params, states, aux, inputs, outputs_mode="all")
+                    # the metric over the block's K batches at once, the scan
+                    # axis folded into the batch axis
+                    pred_dict = {name: NDArray(o.reshape((-1,) + o.shape[2:]))
+                                 for name, o in zip(self._output_names,
+                                                    outputs)}
+                    label_dict = {name: NDArray(torch.cat(
+                        [b.label[i]._data for b in block]))
+                        for name, i in label_idx.items()}
+                    eval_metric.update_dict(label_dict, pred_dict)
+                    nbatch += len(block)
+                    gstep += len(block)
+                    if batch_callbacks:
+                        cb_param = BatchEndParam(epoch=epoch,
+                                                 nbatch=nbatch - 1,
+                                                 eval_metric=eval_metric,
+                                                 locals=locals())
+                        for callback in batch_callbacks:
+                            callback(cb_param)
+                    if ckpt_mgr is not None:
+                        if checkpoint_period and \
+                                gstep - last_ckpt >= int(checkpoint_period):
+                            _ckpt_save(epoch, nbatch)
+                            last_ckpt = gstep
+                        if ckpt_mgr.preempted:
+                            _ckpt_save(epoch, nbatch, blocking=True)
+                            raise SystemExit(143)
 
-            for name, val in eval_metric.get_name_value():
-                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                             time.time() - epoch_start)
-            # the trainer's state written back (copies: the trainer keeps
-            # updating its own tensors), so callbacks, checkpoints and
-            # validation see what K = 1 would
-            self.set_params(
-                {n: NDArray(torch.from_numpy(v))
-                 for n, v in trainer.host_params(params).items()},
-                {n: NDArray(torch.from_numpy(v))
-                 for n, v in trainer.host_aux(aux).items()})
-            snapshot_args, snapshot_aux = self.get_params()
-            for callback in epoch_callbacks:
-                callback(epoch, self.symbol, snapshot_args, snapshot_aux)
-            if eval_data is not None:
-                for name, val in self.score(
-                        eval_data, validation_metric,
-                        score_end_callback=eval_end_callback,
-                        batch_end_callback=eval_batch_end_callback,
-                        epoch=epoch):
-                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
-                                     name, val)
-            train_data.reset()
+                for name, val in eval_metric.get_name_value():
+                    self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+                self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                                 time.time() - epoch_start)
+                # the trainer's state written back (copies: the trainer keeps
+                # updating its own tensors), so callbacks, checkpoints and
+                # validation see what K = 1 would
+                self.set_params(
+                    {n: NDArray(torch.from_numpy(v))
+                     for n, v in trainer.host_params(params).items()},
+                    {n: NDArray(torch.from_numpy(v))
+                     for n, v in trainer.host_aux(aux).items()})
+                snapshot_args, snapshot_aux = self.get_params()
+                for callback in epoch_callbacks:
+                    callback(epoch, self.symbol, snapshot_args, snapshot_aux)
+                if ckpt_mgr is not None:
+                    vals = eval_metric.get_name_value()
+                    _ckpt_save(epoch + 1, 0,
+                               metric_val=float(vals[0][1]) if vals else None)
+                    if ckpt_mgr.preempted:
+                        ckpt_mgr.wait()
+                        raise SystemExit(143)
+                if eval_data is not None:
+                    for name, val in self.score(
+                            eval_data, validation_metric,
+                            score_end_callback=eval_end_callback,
+                            batch_end_callback=eval_batch_end_callback,
+                            epoch=epoch):
+                        self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                         name, val)
+                train_data.reset()
+        finally:
+            _close_checkpoints(ckpt_mgr)
         return True
 
     # -- optimizer -----------------------------------------------------------
@@ -493,6 +557,11 @@ class Module(BaseModule):
             optimizer_params = dict(optimizer_params)
             if "rescale_grad" not in optimizer_params:
                 optimizer_params["rescale_grad"] = rescale_grad
+            # half-precision weights get fp32 masters under amp
+            # (multi_precision engages only on fp16/bf16 weights)
+            from .. import amp as _amp
+            if _amp.is_enabled():
+                optimizer_params.setdefault("multi_precision", True)
             optimizer = opt_mod.create(optimizer, sym=self.symbol,
                                        param_idx2name=idx2name,
                                        **optimizer_params)

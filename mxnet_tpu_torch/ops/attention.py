@@ -28,7 +28,8 @@ and dQ run their products on the tensor cores (bf16/f16: one mma a
 product; f32: three TF32 pieces), decode too for bf16/f16 (f32 decode
 takes f32 FMA products); dK/dV widens to f32 at load and rounds once at
 store. Each wrapper carries an integer ``launches``
-counter that is raised exactly where its kernel launches.
+counter that is raised exactly where its kernel launches (the three
+flash wrappers also count there by q's dtype, ``by_dtype``).
 
 Head dims: the kernels take 16, 32, 64 and the multiples of 128 up to
 :data:`MAX_HEAD_DIM` (:func:`kernel_head_dim` is the head-dim rule of the
@@ -44,6 +45,7 @@ before any launch. The raw kernel wrappers raise on all of these.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -292,11 +294,13 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
              s, d, float(scale), int(bool(causal)), code, q.device.index,
              _stream(q))
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.by_dtype[str(q.dtype)] += 1
     _build.check(err, "flash_attention", "flash_attention_fwd")
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.by_dtype = collections.Counter()
 
 
 def _check_bwd(name, q, k, v, o, lse, do, glse):
@@ -345,11 +349,13 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, glse=None, causal=False,
              d, float(scale), int(bool(causal)), code, q.device.index,
              _stream(q))
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.by_dtype[str(q.dtype)] += 1
     _build.check(err, "flash_attention_bwd", "flash_attention_bwd_dq")
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.by_dtype = collections.Counter()
 
 
 def flash_attention_bwd_dkv(q, k, v, o, lse, do, glse=None, causal=False,
@@ -372,11 +378,13 @@ def flash_attention_bwd_dkv(q, k, v, o, lse, do, glse=None, causal=False,
              h_kv, s, d, float(scale), int(bool(causal)), code,
              q.device.index, _stream(q))
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.by_dtype[str(q.dtype)] += 1
     _build.check(err, "flash_attention_bwd", "flash_attention_bwd_dkv")
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.by_dtype = collections.Counter()
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, glse=None, causal=False,

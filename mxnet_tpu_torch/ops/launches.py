@@ -1,5 +1,6 @@
 """Kernel launch counters: each kernel wrapper's ``launches`` (raised
-where it launches its kernel), the dense attention route's ``calls``,
+where it launches its kernel; the flash wrappers' ``by_dtype`` too), the
+dense attention route's ``calls``,
 and the own count of each kernel library already loaded
 (``_build.launches``, as ``lib:<stem>``; a path without hand-written
 kernels loads none). A CUDA graph's replay passes no wrapper and no
@@ -24,8 +25,13 @@ def _counters():
 
 
 def counts():
-    """{counter: value} of every wrapper and loaded library."""
-    out = {name: getattr(fn, attr) for name, fn, attr in _counters()}
+    """{counter: value} of every wrapper (and ``name[dtype]`` of those
+    that count by dtype) and loaded library."""
+    out = {}
+    for name, fn, attr in _counters():
+        out[name] = getattr(fn, attr)
+        for dt, n in getattr(fn, "by_dtype", {}).items():
+            out[f"{name}[{dt}]"] = n
     out.update({"lib:" + s: _build.launches(s) for s in list(_build._LIBS)})
     return out
 
@@ -36,6 +42,11 @@ def add(delta):
     for name, fn, attr in _counters():
         if delta.get(name):
             setattr(fn, attr, getattr(fn, attr) + delta[name])
+        by = getattr(fn, "by_dtype", None)
+        if by is not None:
+            for key, n in delta.items():
+                if n and key.startswith(name + "["):
+                    by[key[len(name) + 1:-1]] += n
     for key, n in delta.items():
         if key.startswith("lib:") and n:
             _build.add_launches(key[4:], n)

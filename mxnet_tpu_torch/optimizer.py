@@ -358,10 +358,17 @@ class Updater:
         names, so that its plain ``pickle.loads`` builds its own NDArrays
         and optimizer from them; ``set_states`` of either package reads
         them."""
-        buf = io.BytesIO()
-        _StatePickler(buf).dump((self.states, self.optimizer)
-                                if dump_optimizer else self.states)
-        return buf.getvalue()
+        return _dump_states(self.states,
+                            self.optimizer if dump_optimizer else None)
+
+
+def _dump_states(states, optimizer=None):
+    """(states, optimizer), or the states alone, pickled under the JAX
+    package's names (the bytes of ``Updater.get_states``)."""
+    buf = io.BytesIO()
+    _StatePickler(buf).dump((states, optimizer) if optimizer is not None
+                            else states)
+    return buf.getvalue()
 
 
 _PORT, _JAX = "mxnet_tpu_torch", "mxnet_tpu"

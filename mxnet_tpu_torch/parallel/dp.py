@@ -33,9 +33,19 @@ port has been run on one card).
 cast to bf16 outside the loss (the gradient is bf16, the replicas' sum
 too), float data inputs cast to bf16 after ``input_preproc`` (labels and
 integer inputs never), aux states fp32, the gradient widened into the
-fp32 update. ``dtype="float16"`` (dynamic loss scaling, ROADMAP queue 1
-item 10), ``zero_stage > 0`` and ``param_specs`` (item 15) and the
-optimizers whose update ops are not ported (item 4) raise.
+fp32 update. ``dtype="float16"`` is the same in fp16 with dynamic loss
+scaling (``amp.DynamicLossScaler``): the scaler's state is a 3-element
+tensor on the device; the step backpropagates ``loss * scale`` (below a
+legacy loss head, which drops its cotangent, the scale is injected into
+the head's input instead), takes one device boolean of the scaled
+gradients' finiteness, unscales in fp32, and writes each parameter,
+optimizer state and aux state back through ``torch.where(finite, new,
+old)``, so an overflowed step changes nothing but the scaler (scale
+backed off, skip counted) and ``t`` advances only on applied steps. No
+value is read on the host inside the step, so it is captured and
+replayed like the others. ``zero_stage > 0`` and ``param_specs`` (ROADMAP
+queue 1 item 15) and the optimizers whose update ops are not ported
+(item 4) raise.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ import time
 import numpy as _np
 import torch
 
+from .. import amp as _amp
 from ..base import MXNetError
 from ..executor import _Plan, _from_numpy, _run_mesh
 from ..ops.launches import add as _add_launches, counts as _launch_counts
@@ -63,7 +74,8 @@ _OPT_OPS = {
 # does not have yet
 _UNPORTED_OPT = ("rmsprop", "rmspropalex", "ftrl", "signsgd", "signum",
                  "ftml")
-_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 def _resolve_stage(value):
@@ -120,10 +132,6 @@ class DataParallelTrainer:
             raise MXNetError("DataParallelTrainer: param_specs (tensor "
                              "parallelism) is not ported yet (ROADMAP "
                              "queue 1 item 15)")
-        if dtype == "float16":
-            raise MXNetError("DataParallelTrainer: dtype='float16' needs "
-                             "dynamic loss scaling, not ported yet (ROADMAP "
-                             "queue 1 item 10); bfloat16 needs none")
         if dtype not in _DTYPES:
             raise MXNetError("DataParallelTrainer dtype must be float32, "
                              "bfloat16 or float16")
@@ -156,6 +164,17 @@ class DataParallelTrainer:
         self._dtype = dtype
         self._compute_dtype = _DTYPES[dtype]
         self._input_preproc = input_preproc
+        # fp16's 5-bit exponent: dynamic loss scaling with the skipped
+        # step; bf16 keeps fp32's exponent and needs none
+        self._has_ls = dtype == "float16"
+        if self._has_ls and loss_scaler is None:
+            loss_scaler = _amp.DynamicLossScaler()
+        self._scaler = loss_scaler if self._has_ls else None
+        # [scale, good, skipped] on the device, read by the captured step
+        self._ls_dev = self._scaler.state0(self._device) \
+            if self._has_ls else None
+        if self._has_ls:
+            _amp._register_scale_source(self)
 
         hp = dict(opt_kwargs)
         if momentum:
@@ -319,16 +338,34 @@ class DataParallelTrainer:
                 v = v.to(cdt)
             args[name] = v
         aux = dict(zip(self._aux_names, self._aux))
-        with torch.enable_grad():
-            outs, updates = _run_mesh(self._plan, args, aux, self._devices,
-                                      self._sharded, self._rng())
-            # the loss head's sum, as the JAX package's value_and_grad
-            # takes it (a SoftmaxOutput head drops the cotangent: its
-            # "loss" is the sum of its probabilities)
-            loss = outs[self._loss_index].sum().to(torch.float32)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        scale = self._ls_dev[0] if self._has_ls else None
+        # fp16: the executor's walk injects the scale below the legacy
+        # loss heads while it is set (amp.cast_op_inputs)
+        _amp._set_trace_loss_scale(scale)
+        try:
+            with torch.enable_grad():
+                outs, updates = _run_mesh(self._plan, args, aux,
+                                          self._devices, self._sharded,
+                                          self._rng())
+                # the loss head's sum, as the JAX package's value_and_grad
+                # takes it (a SoftmaxOutput head drops the cotangent: its
+                # "loss" is the sum of its probabilities)
+                loss = outs[self._loss_index].sum().to(torch.float32)
+                obj = loss * scale if self._has_ls else loss
+                grads = torch.autograd.grad(obj, leaves, allow_unused=True)
+        finally:
+            _amp._set_trace_loss_scale(None)
         with torch.no_grad():
-            self._t_dev.add_(1.0)
+            finite = None
+            if self._has_ls:
+                # one device boolean over the scaled gradients: a skipped
+                # step is no update, so t advances only on applied ones
+                finite = torch.stack([torch.isfinite(g).all()
+                                      for g in grads if g is not None]).all()
+                self._t_dev.add_(finite.to(torch.float32))
+                inv_scale = 1.0 / scale
+            else:
+                self._t_dev.add_(1.0)
             lr = self._lr_dev
             if self._is_adam:
                 b1, b2 = self._attrs["beta1"], self._attrs["beta2"]
@@ -338,14 +375,23 @@ class DataParallelTrainer:
             attrs["lr"] = lr
             octx = OpCtx(is_train=True, device=self._device)
             fcompute = self._opt_schema.fcompute
+            keep = (lambda new, old: new) if finite is None else \
+                (lambda new, old: torch.where(finite, new, old))
             for w, g, st in zip(self._params, grads, self._states):
                 g = torch.zeros_like(w) if g is None else g.to(torch.float32)
+                if finite is not None:
+                    # unscaled in fp32, so an overflow stays inf
+                    g = g * inv_scale
                 res = fcompute(attrs, octx, w, g, *st)
-                w.copy_(res[0])
+                w.copy_(keep(res[0], w))
                 for s, v in zip(st, res[1:]):
-                    s.copy_(v)
+                    s.copy_(keep(v, s))
+            # an overflowed forward would poison BatchNorm's statistics
             for name, v in updates:
-                aux[name].copy_(v)
+                aux[name].copy_(keep(v, aux[name]))
+            if finite is not None:
+                self._ls_dev.copy_(self._scaler.update_state(self._ls_dev,
+                                                             finite))
         return loss.detach(), [o.detach() for o in outs]
 
     def _rng(self):
@@ -374,7 +420,8 @@ class DataParallelTrainer:
         for s, x in zip(static_in, inputs):
             s.copy_(x)
         state = list(self._params) + [s for st in self._states for s in st] \
-            + list(self._aux) + [self._t_dev]
+            + list(self._aux) + [self._t_dev] \
+            + ([self._ls_dev] if self._has_ls else [])
         saved = [s.clone() for s in state]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -501,44 +548,70 @@ class DataParallelTrainer:
         """name -> host numpy array of an aux tuple."""
         return {n: _host(a) for n, a in zip(self._aux_names, aux)}
 
+    # -- the fp16 loss scale ------------------------------------------------
+    @property
+    def loss_scale(self):
+        """The live fp16 loss scale (None without loss scaling; reads the
+        device state: a sync)."""
+        return float(self._ls_dev[0]) if self._has_ls else None
+
+    @property
+    def skipped_steps(self):
+        """Steps skipped on non-finite fp16 gradients so far."""
+        return int(self._ls_dev[2]) if self._has_ls else 0
+
+    def _amp_counters(self):
+        """amp's counter hook (``amp.counters`` sums these)."""
+        return {"amp_scale": self.loss_scale,
+                "amp_skipped_steps": self.skipped_steps}
+
     # -- checkpoint round trip ------------------------------------------------
     def _t_value(self):
         return float(self._t if self._t_dev is None else self._t_dev.item())
 
     def export_training_state(self, params, states, aux):
-        """Host snapshot of the training state, with the JAX package's
-        keys: ``param:<name>``, ``opt:<name>:<i>``, ``aux:<name>``, and
-        meta {t, rng, loss_scaler, mesh}."""
+        """Snapshot of the training state with the JAX package's keys:
+        ``param:<name>``, ``opt:<name>:<i>``, ``aux:<name>`` (copies made
+        on the tensors' device, so later steps, which update the trainer's
+        tensors in place, leave them alone; ``checkpoint`` moves them to
+        the host on its saver thread), and meta {t, rng, loss_scaler,
+        mesh}. ``rng`` is None: the port's generator states do not carry
+        into the JAX package, whose restore reads a key there (the
+        checkpoint keeps them under a key of its own)."""
+        copy = lambda t: _tensor(t).detach().clone()
         arrays = {}
         for n, p in zip(self._param_names, params):
-            arrays[f"param:{n}"] = _host(p)
+            arrays[f"param:{n}"] = copy(p)
         for n, st in zip(self._param_names, states):
             for i, s in enumerate(st):
-                arrays[f"opt:{n}:{i}"] = _host(s)
+                arrays[f"opt:{n}:{i}"] = copy(s)
         for n, a in zip(self._aux_names, aux):
-            arrays[f"aux:{n}"] = _host(a)
-        meta = {"t": self._t_value(), "rng": None, "loss_scaler": None,
+            arrays[f"aux:{n}"] = copy(a)
+        meta = {"t": self._t_value(), "rng": None,
+                "loss_scaler": self._ls_dev.tolist() if self._has_ls
+                else None,
                 "mesh": mesh_descriptor(self._mesh)}
         return arrays, meta
 
     def import_training_state(self, arrays, meta):
-        """Inverse of :meth:`export_training_state`: (params, states,
-        aux) tensors (copied into the trainer's state at the next step)
-        and the step count ``t`` restored. The rng entry is ignored: a
-        generator's state does not carry between the packages."""
-        params = tuple(self._put(_np.asarray(arrays[f"param:{n}"],
-                                             _np.float32))
+        """Inverse of :meth:`export_training_state` (either package's):
+        (params, states, aux) tensors, copied into the trainer's state at
+        the next step, and ``t`` and the fp16 scaler's state written into
+        the trainer's device tensors in place (a captured step keeps
+        reading them). A ``rng`` entry (a JAX key) is not read."""
+        put = lambda a: _tensor(a).detach().to(self._device, torch.float32) \
+            .clone()
+        params = tuple(put(arrays[f"param:{n}"]) for n in self._param_names)
+        states = tuple(tuple(put(arrays[f"opt:{n}:{j}"])
+                             for j in range(self._n_states))
                        for n in self._param_names)
-        states = tuple(
-            tuple(self._put(_np.asarray(arrays[f"opt:{n}:{j}"],
-                                        _np.float32))
-                  for j in range(self._n_states))
-            for n in self._param_names)
-        aux = tuple(self._put(_np.asarray(arrays[f"aux:{n}"], _np.float32))
-                    for n in self._aux_names)
+        aux = tuple(put(arrays[f"aux:{n}"]) for n in self._aux_names)
         self._t = float(meta.get("t", 0.0))
         if self._t_dev is not None:
             self._t_dev.fill_(self._t)
+        ls = meta.get("loss_scaler")
+        if ls is not None and self._has_ls:
+            self._ls_dev.copy_(torch.tensor(ls, dtype=torch.float32))
         return params, states, aux
 
 

@@ -16,14 +16,30 @@
 """
 import hashlib
 
+import os
+
 import numpy as np
 import pytest
 
 import mxnet_tpu as jmx
+from mxnet_tpu.parallel.planner import AUTO_KNOB_VARS
 from mxnet_tpu import gluon as jgluon
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import cpu, gluon as tgluon
 from mxnet_tpu_torch.convert import gluon_params_to_numpy, load_gluon_params
+
+
+@pytest.fixture(autouse=True)
+def _no_planner_settings(monkeypatch):
+    """Another test in this process may leave the JAX planner's settings
+    in os.environ (``Plan.apply_env`` writes them; tests/test_planner.py's
+    ``test_knobs_auto_unless_set``): the ZeRO stage and the fused K change
+    what a trainer here does. Each one set is removed for the test and,
+    recorded by monkeypatch, put back after it."""
+    for k in AUTO_KNOB_VARS + ("MXNET_PLAN",):
+        if k in os.environ:
+            monkeypatch.delenv(k)
+
 
 CPU = cpu()
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -174,9 +190,10 @@ def test_trainer_load_states_across_packages(tmp_path, opt, params):
 
 def test_trainer_refuses_what_is_not_ported():
     """Several contexts, the kvstore and 2-bit compression are ported
-    (tests/test_torch_gluon_multi.py); what is not raises at first use:
-    another compression type, a distributed kvstore (ROADMAP queue 1
-    item 16), fused_fit's checkpoints (item 14) and float16 (item 10)."""
+    (tests/test_torch_gluon_multi.py), and so are fused_fit's checkpoints
+    and float16 (tests/test_torch_checkpoint.py, test_torch_amp.py); what
+    is not raises at first use: another compression type, a distributed
+    kvstore (ROADMAP queue 1 item 16), a dtype no trainer takes."""
     net = _dense(tgluon)
     net.initialize(ctx=[CPU, tmx.cpu(1)])
     tr = tgluon.Trainer(net.collect_params(), "sgd",
@@ -189,10 +206,9 @@ def test_trainer_refuses_what_is_not_ported():
     data = [(tmx.nd.array(np.ones((2, 4), np.float32), ctx=CPU),
              tmx.nd.array(np.zeros(2, np.float32), ctx=CPU))]
     loss = tgluon.loss.L2Loss()
-    with pytest.raises(tmx.MXNetError, match="item 14"):
-        tgluon.trainer.fused_fit(net, loss, data, 1, checkpoint_dir="ckpt")
-    with pytest.raises(tmx.MXNetError, match="item 10"):
-        tgluon.trainer.fused_fit(net, loss, data, 1, dtype="float16")
+    with pytest.raises(tmx.MXNetError, match="float16"):
+        tgluon.trainer.fused_fit(net, loss, data, 1, contexts=[CPU],
+                                 dtype="float64")
 
 
 def test_gluon_utils_match_jax(tmp_path):

@@ -18,12 +18,28 @@
   with ``update_on_kvstore``; ``save_states`` / ``load_states`` through
   the kvstore, read by the other package.
 """
+import os
+
 import numpy as np
 import pytest
 
 import mxnet_tpu as jmx
+from mxnet_tpu.parallel.planner import AUTO_KNOB_VARS
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import executor as texecutor
+
+
+@pytest.fixture(autouse=True)
+def _no_planner_settings(monkeypatch):
+    """Another test in this process may leave the JAX planner's settings
+    in os.environ (``Plan.apply_env`` writes them; tests/test_planner.py's
+    ``test_knobs_auto_unless_set``): the ZeRO stage and the fused K change
+    what a trainer here does. Each one set is removed for the test and,
+    recorded by monkeypatch, put back after it."""
+    for k in AUTO_KNOB_VARS + ("MXNET_PLAN",):
+        if k in os.environ:
+            monkeypatch.delenv(k)
+
 
 BATCH = 32
 N = 8

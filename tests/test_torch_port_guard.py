@@ -15,6 +15,20 @@ import numpy as np
 import pytest
 import torch
 
+
+@pytest.fixture(autouse=True)
+def _no_planner_settings(monkeypatch):
+    """Another test in this process may leave the JAX planner's settings
+    in os.environ (``Plan.apply_env`` writes them; tests/test_planner.py's
+    ``test_knobs_auto_unless_set``): the ZeRO stage and the fused K change
+    what a trainer here does. Each one set is removed for the test and,
+    recorded by monkeypatch, put back after it."""
+    from mxnet_tpu.parallel.planner import AUTO_KNOB_VARS
+    for k in AUTO_KNOB_VARS + ("MXNET_PLAN",):
+        if k in os.environ:
+            monkeypatch.delenv(k)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "mxnet_tpu")
 
