@@ -158,6 +158,30 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            parameters bit-identical to the uninterrupted run; bench.py's
            checkpoint lane (steps/s with no, blocking and async commits,
            restore ms, bytes a commit)
+  rnn_op   the fused RNN op (ops/rnn_ops.py) in its four modes, 2 layers,
+           one and two directions: outputs and gradients (data,
+           parameters, both states) in f32 on the card against the same
+           op on the CPU in float64, within 4x the CPU f32's own error (a
+           control with R transposed must fail); at the lstm_lm lane's
+           shape its forward + backward beside torch.nn.LSTM's (cuDNN,
+           the library yardstick, on no path) in f32 and bf16;
+           gluon.rnn.LSTM against LSTMCell.unroll with the same weights
+  lstm_lm  bench.py's lstm_lm lane as written (vocab 10000, hidden 512,
+           2 layers, batch 32, seq 64, bf16) through DataParallelTrainer:
+           step_k(K=16, unroll=2) in 3 windows of 64 steps, tokens/s
+           beside single-dispatch tokens/s, device ms a step, busy share,
+           kernels a step, peak memory; beforehand step_k against 16
+           steps and a batch-2 f32 step against the CPU's float64 step
+           (a step with the recurrent gradient zeroed must fail)
+  lstm_bucketing
+           examples/lstm_bucketing.py's program on the card with only its
+           import changed, --ctx gpu: its own perplexity bar, seconds,
+           steps/s, its 3 bucket modules over one parameter buffer (the
+           example's toy widths); then BucketingModule at the widths of
+           MXNet's example/rnn/bucketing defaults (2 x 200 LSTM, batch
+           32, buckets 10..60, vocab 10000) over a synthetic corpus:
+           tokens/s, samples/s, steps/s, ms a step by bucket, 6 modules
+           over one buffer, perplexity falling
 
 then the nvidia-smi line, a ``kernels`` summary line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no result)
@@ -487,6 +511,65 @@ DP_BF16_FACTOR = 1.25
 # the example's 8 epochs fused
 FUSED_K = 4
 FUSED_RTOL = 1e-5
+# recurrent networks (rnn_op, lstm_lm, lstm_bucketing). The RNN op of
+# ops/rnn_ops.py in its four modes at RNN_CHECK (2 layers, one and two
+# directions), f32 on the card and on the CPU, each against the same op
+# on the CPU in float64: the outputs (y, h, c) and the gradients of
+# random cotangents for data, parameters and both states, by
+# module_resnet50's float32 rule (_f32_rule: the card's errors within
+# R50_F32_FACTOR times the CPU's); the control, the card's op with each
+# gate's recurrent block R transposed in layer 0, must fail it. At the
+# lane's shape the op's forward + backward beside torch.nn.LSTM (cuDNN,
+# a library call, not on any path) on the same weights, f32 and bf16.
+# gluon.rnn.LSTM (the fused op) against LSTMCell.unroll with the same
+# weights on the card (tests/test_gluon.py's check, GLUON_RNN_RTOL).
+RNN_CHECK = dict(seq=16, batch=8, input=32, hidden=64, layers=2)
+RNN_TIME_ITERS = 5
+GLUON_RNN_RTOL = 1e-4
+# bench.py's lstm_lm lane (bench.py:198-261) as written: Embedding ->
+# TNC RNN (lstm) -> FullyConnected -> SoftmaxOutput, vocab 10000, hidden
+# 512, 2 layers, batch 32, seq 64; DataParallelTrainer(dtype="bfloat16",
+# sgd lr 0.1, rescale_grad 1 / (batch x seq)) on one card, states
+# entering batch-major; step_k(K = 16, unroll = 2), 3 windows of 64
+# steps (median tokens/s), then LSTM_SINGLE single steps. Beforehand:
+# step_k against 16 steps from the same state (LSTM_STEPK_RTOL of each
+# tensor's largest magnitude), and one f32 step at batch LSTM_CHECK_BATCH
+# (with momentum 0.9, so each momentum is -lr x rescale x its gradient)
+# on the card and on the CPU against the float64 step on the CPU by
+# _f32_rule, which the card's step with the recurrent blocks of the RNN
+# parameters' gradient zeroed must fail.
+LSTM_LM = dict(vocab=10000, hidden=512, layers=2, batch=32, seq=64)
+LSTM_K = 16
+LSTM_UNROLL = 2
+LSTM_WINDOW = 64
+LSTM_WINDOWS = 3
+LSTM_SINGLE = 10
+LSTM_LR = 0.1
+LSTM_CHECK_BATCH = 2
+LSTM_STEPK_RTOL = 1e-6
+# examples/lstm_bucketing.py's own bar: final train perplexity < 8.0
+# (its exit code); its 3 buckets (6, 10, 14)
+BUCKETS = 3
+# BucketingModule at real widths beside the example: the defaults of
+# MXNet's example/rnn/bucketing/lstm_bucketing.py (2 stacked LSTMCell
+# layers of 200, embed 200, batch 32, buckets 10..60, SGD lr 0.01 wd
+# 1e-5, Xavier(factor_type="in", magnitude=2.34), Perplexity(0)) at
+# PTB's vocab of 10000, eager through BaseModule.fit as that example
+# runs. PTB is not in the repo: BUCKET_LM["sentences"] synthetic
+# sentences from SEED, lengths uniform on 2..60, words Zipf (s = 1) on
+# 1..vocab-1 (0 pads). Epoch 1 binds a module a bucket; epoch 2 is
+# timed: tokens/s counts the positions a batch computes (bucket x
+# batch), samples/s as the example's Speedometer. Bar: a module for every
+# bucket over one parameter buffer, finite parameters, the train
+# perplexity after the epochs below the one before them, and one step a
+# bucket on the card against the CPU (BUCKET_STEP_RTOL).
+BUCKET_LM = dict(vocab=10000, hidden=200, embed=200, layers=2, batch=32,
+                 buckets=(10, 20, 30, 40, 50, 60), sentences=3200,
+                 epochs=2, lr=0.01, wd=1e-5)
+# one training step a bucket on the card against the same step on the
+# CPU from the same parameters and batches: each parameter within this of
+# its tensor's largest magnitude
+BUCKET_STEP_RTOL = 1e-5
 
 RECORD = {}
 DEV = "cuda"
@@ -4410,6 +4493,760 @@ def phase_module_fused():
     return res
 
 
+def lstm_lm_symbol(sym, vocab, hidden, layers):
+    """bench.py's lstm_lm symbol (bench.py:218-238) built with the given
+    package's ``sym``: Embedding -> TNC RNN (lstm; the initial states
+    enter batch-major and are transposed to the op's layout) ->
+    FullyConnected -> SoftmaxOutput."""
+    data = sym.Variable("data")
+    emb = sym.Embedding(data, input_dim=vocab, output_dim=hidden,
+                        name="emb")
+    emb_t = sym.transpose(emb, axes=(1, 0, 2))
+    state_bf = sym.Variable("state")
+    cell_bf = sym.Variable("state_cell")
+    rnn = sym.RNN(emb_t, sym.Variable("rnn_params"),
+                  sym.transpose(state_bf, axes=(1, 0, 2)),
+                  sym.transpose(cell_bf, axes=(1, 0, 2)),
+                  state_size=hidden, num_layers=layers, mode="lstm",
+                  name="lstm")
+    out = sym.transpose(rnn, axes=(1, 0, 2))
+    logits = sym.FullyConnected(sym.reshape(out, shape=(-1, hidden)),
+                                num_hidden=vocab, name="dec")
+    return sym.SoftmaxOutput(logits, name="softmax", multi_output=False)
+
+
+def _r_blocks(mode, layers, dirs, input_size, hidden):
+    """(offset, gates) of each recurrent block R of the RNN op's flat
+    parameter vector, by (layer, direction), in the order of the layout."""
+    g = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}[mode]
+    ptr, out = 0, {}
+    for layer in range(layers):
+        in_sz = input_size if layer == 0 else hidden * dirs
+        for d in range(dirs):
+            ptr += g * hidden * in_sz
+            out[(layer, d)] = (ptr, g)
+            ptr += g * hidden * hidden
+    return out
+
+
+def _rnn_arrays(rng, mode, bidirectional):
+    """Inputs, parameters, states and output cotangents of the op at
+    RNN_CHECK (numpy float64, from ``rng``)."""
+    from mxnet_tpu_torch.ops.rnn_ops import rnn_param_size
+    c = RNN_CHECK
+    dirs = 2 if bidirectional else 1
+    n_p = rnn_param_size(c["layers"], c["input"], c["hidden"],
+                         bidirectional, mode)
+    st = (c["layers"] * dirs, c["batch"], c["hidden"])
+    a = {"data": rng.uniform(-1, 1, (c["seq"], c["batch"], c["input"])),
+         "params": rng.uniform(-0.3, 0.3, n_p),
+         "state": rng.uniform(-0.5, 0.5, st),
+         "g_y": rng.standard_normal((c["seq"], c["batch"],
+                                     c["hidden"] * dirs)),
+         "g_h": rng.standard_normal(st)}
+    if mode == "lstm":
+        a["state_cell"] = rng.uniform(-0.5, 0.5, st)
+        a["g_c"] = rng.standard_normal(st)
+    return a
+
+
+def _rnn_tensors(mode, bidirectional, device, dtype, arrays, faulty=False):
+    """The RNN op's outputs and the gradients of sum(outputs x
+    cotangents) for its data, parameters and states, on ``device`` in
+    ``dtype``, as float64 numpy. ``faulty``: each gate's recurrent block
+    of layer 0 (both directions) transposed."""
+    import torch
+    from mxnet_tpu_torch.ops.registry import OpCtx, get_op
+    c = RNN_CHECK
+    schema = get_op("RNN")
+    attrs = schema.parse_attrs(dict(
+        state_size=c["hidden"], num_layers=c["layers"],
+        bidirectional=bidirectional, mode=mode, state_outputs=True))
+    leaves = ["data", "params", "state"] + (
+        ["state_cell"] if mode == "lstm" else [])
+    t = {k: torch.tensor(v, dtype=dtype, device=device,
+                         requires_grad=k in leaves)
+         for k, v in arrays.items()}
+    params = t["params"]
+    if faulty:
+        dirs = 2 if bidirectional else 1
+        h = c["hidden"]
+        blocks = _r_blocks(mode, c["layers"], dirs, c["input"], h)
+        pieces, ptr = [], 0
+        for d in range(dirs):
+            off, g = blocks[(0, d)]
+            r = params[off:off + g * h * h].view(g, h, h)
+            pieces += [params[ptr:off], r.transpose(1, 2).reshape(-1)]
+            ptr = off + g * h * h
+        params = torch.cat(pieces + [params[ptr:]])
+    ins = [t["data"], params, t["state"]] + (
+        [t["state_cell"]] if mode == "lstm" else [])
+    outs = schema.fcompute(attrs, OpCtx(is_train=True), *ins)
+    cts = [t["g_y"], t["g_h"]] + ([t["g_c"]] if mode == "lstm" else [])
+    loss = sum((o * g).sum() for o, g in zip(outs, cts))
+    grads = torch.autograd.grad(loss, [t[k] for k in leaves])
+    res = {"output": outs[0], "h": outs[1]}
+    if mode == "lstm":
+        res["c"] = outs[2]
+    res.update({"grad:" + k: g for k, g in zip(leaves, grads)})
+    return {k: v.detach().to("cpu", torch.float64).numpy()
+            for k, v in res.items()}
+
+
+def _profiled_ms(fn, iters):
+    """(device ms a call: the kernels' time under torch.profiler, wall ms
+    a call without the profiler, wall ms a call under it, kernels a call)
+    of ``fn`` after one warm-up call. bench_ms's spin cannot hold the card
+    for a call of thousands of launches: the launch queue fills and the
+    host waits on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    _sync()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        _sync()
+        wall_profiled = (time.perf_counter() - t0) * 1e3 / iters
+    rows = _device_rows(prof, iters)
+    return (sum(r[1] for r in rows), wall, wall_profiled,
+            sum(r[2] for r in rows))
+
+
+def _rnn_lane_timing():
+    """The RNN op's forward + backward at the lstm_lm lane's shape (2
+    layers, seq 64, batch 32, 512 -> 512) beside torch.nn.LSTM's (cuDNN,
+    TF32 off in f32) on the same weights, in f32 and bf16, eager: device
+    ms a call, wall ms a call without and under the profiler, kernels a
+    call; the op's output against the library's."""
+    import torch
+    from mxnet_tpu_torch.ops import nn as nnops
+    from mxnet_tpu_torch.ops.registry import OpCtx, get_op
+    c = LSTM_LM
+    T, N, H, L = c["seq"], c["batch"], c["hidden"], c["layers"]
+    torch.manual_seed(SEED)
+    lib32 = torch.nn.LSTM(H, H, num_layers=L).to(DEV)
+    flat32 = torch.cat(
+        [getattr(lib32, f"weight_{k}_l{i}").detach().reshape(-1)
+         for i in range(L) for k in ("ih", "hh")]
+        + [getattr(lib32, f"bias_{k}_l{i}").detach()
+           for i in range(L) for k in ("ih", "hh")])
+    schema = get_op("RNN")
+    attrs = schema.parse_attrs(dict(state_size=H, num_layers=L,
+                                    mode="lstm", state_outputs=True))
+    octx = OpCtx(is_train=True)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    res = {"shape": {"seq": T, "batch": N, "input": H, "hidden": H,
+                     "layers": L}, "iters": RNN_TIME_ITERS}
+    flops = 2 * 3 * 4 * H * (H + H) * T * N * L   # fwd + bwd products
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        lib = torch.nn.LSTM(H, H, num_layers=L).to(DEV, dt)
+        lib.load_state_dict(lib32.state_dict())
+        lib.flatten_parameters()
+        flat = flat32.to(dt).requires_grad_(True)
+        x = torch.randn((T, N, H), generator=gen, device=DEV).to(dt) \
+            .requires_grad_(True)
+        h0 = (0.1 * torch.randn((L, N, H), generator=gen, device=DEV)) \
+            .to(dt).requires_grad_(True)
+        c0 = (0.1 * torch.randn((L, N, H), generator=gen, device=DEV)) \
+            .to(dt).requires_grad_(True)
+        gy = torch.randn((T, N, H), generator=gen, device=DEV).to(dt)
+
+        def op_call():
+            y = schema.fcompute(attrs, octx, x, flat, h0, c0)[0]
+            torch.autograd.grad(y, [x, flat, h0, c0], gy)
+            return y
+
+        def lib_call():
+            y = lib(x, (h0, c0))[0]
+            torch.autograd.grad(y, [x, h0, c0] + list(lib.parameters()), gy)
+            return y
+
+        row = {}
+        with nnops.cudnn_f32():
+            for who, fn in (("op", op_call), ("cudnn", lib_call)):
+                row[who + "_ms"], row[who + "_wall_ms"], \
+                    row[who + "_wall_profiled_ms"], \
+                    row[who + "_kernels"] = _profiled_ms(fn, RNN_TIME_ITERS)
+            with torch.no_grad():
+                y_op = schema.fcompute(attrs, octx, x, flat, h0, c0)[0]
+                y_lib = lib(x, (h0, c0))[0]
+        row["op_vs_cudnn_max_rel_err"] = _rel_err(
+            y_op.float().cpu().numpy(), y_lib.float().cpu().numpy())
+        row["op_over_cudnn"] = row["op_ms"] / row["cudnn_ms"] \
+            if row["cudnn_ms"] else None
+        # each input read once (x, parameters, both states, dy), each
+        # output written once (y, dx, d parameters, both state gradients)
+        io_bytes = 2 * (x.numel() + flat.numel() + h0.numel() + c0.numel()) \
+            * x.element_size() + gy.numel() * gy.element_size() \
+            + y_op.numel() * y_op.element_size()
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            io_bytes, flops, PEAK_F32_FLOPS if dt == torch.float32
+            else PEAK_BF16_FLOPS)
+        res[name] = row
+    del lib, lib32
+    _free_card()
+    return res
+
+
+def _gluon_rnn_check():
+    """tests/test_gluon.py's check on the card: gluon.rnn.LSTM (the fused
+    op) against LSTMCell.unroll with the same weights, eager and
+    hybridized."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    c = RNN_CHECK
+    T, N, I, H = c["seq"], c["batch"], c["input"], c["hidden"]
+    rng = np.random.RandomState(SEED)
+    x = rng.uniform(-1, 1, (T, N, I)).astype(np.float32)
+    ctx = _ctx()
+    layer = mx.gluon.rnn.LSTM(H, num_layers=1, layout="TNC", input_size=I)
+    layer.initialize(mx.init.Xavier(), ctx=ctx)
+    fused = layer(mx.nd.array(x, ctx=ctx)).asnumpy()
+    layer.hybridize()
+    hybrid = layer(mx.nd.array(x, ctx=ctx)).asnumpy()
+    cell = mx.gluon.rnn.LSTMCell(H, input_size=I)
+    cell.initialize(ctx=ctx)
+    for n in ("i2h_weight", "h2h_weight", "i2h_bias", "h2h_bias"):
+        getattr(cell, n).set_data(getattr(layer, "l0_" + n).data())
+    outs, _ = cell.unroll(T, [mx.nd.array(x[t], ctx=ctx) for t in range(T)])
+    unrolled = np.stack([o.asnumpy() for o in outs])
+    err = _rel_err(fused, unrolled)
+    res = {"shape": [T, N, I, H], "fused_vs_cell_max_rel_err": err,
+           "hybrid_vs_eager_max_rel_err": _rel_err(hybrid, fused),
+           "rtol": GLUON_RNN_RTOL}
+    res["ok"] = bool(err <= GLUON_RNN_RTOL
+                     and res["hybrid_vs_eager_max_rel_err"] <= 1e-6)
+    return res
+
+
+def phase_rnn_op():
+    """The RNN op on the card in its four modes (see RNN_CHECK), its time
+    at the lstm_lm lane's shape beside cuDNN's, and gluon.rnn.LSTM against
+    LSTMCell.unroll."""
+    import numpy as np
+    import torch
+    _free_card()
+    rng = np.random.RandomState(SEED)
+    cases = []
+    for mode in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
+        for bi in (False, True):
+            arrays = _rnn_arrays(rng, mode, bi)
+            ref = _rnn_tensors(mode, bi, "cpu", torch.float64, arrays)
+            cpu = _rnn_tensors(mode, bi, "cpu", torch.float32, arrays)
+            card = _rnn_tensors(mode, bi, DEV, torch.float32, arrays)
+            ctrl = _rnn_tensors(mode, bi, DEV, torch.float32, arrays,
+                                faulty=True)
+            rule = _f32_rule(card, cpu, ref)
+            ctrl_rule = _f32_rule(ctrl, cpu, ref)
+            cases.append({
+                "mode": mode, "bidirectional": bi,
+                "output_err": rule["output_err"],
+                "norm_err_median": rule["norm_err_median"],
+                "norm_err_max": rule["norm_err_max"],
+                "worst": rule["worst"][:2],
+                "control_output_err": ctrl_rule["output_err"]["card"],
+                "control_norm_err_max": ctrl_rule["norm_err_max"]["card"],
+                "control_fails": not ctrl_rule["ok"],
+                "ok": bool(rule["ok"] and not ctrl_rule["ok"])})
+    res = {"check": RNN_CHECK, "factor": R50_F32_FACTOR, "cases": cases,
+           "gluon": _gluon_rnn_check()}
+    res["timing"] = _rnn_lane_timing() if DEV == "cuda" else None
+    res["ok"] = bool(all(c_["ok"] for c_ in cases) and res["gluon"]["ok"])
+    RECORD["rnn_op"] = res
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("rnn_op failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
+def _lstm_shapes(b):
+    c = LSTM_LM
+    st = (b, c["layers"], c["hidden"])
+    return {"data": (b, c["seq"]), "state": st, "state_cell": st,
+            "softmax_label": (b * c["seq"],)}
+
+
+def _lstm_trainer(sym, dtype, batch, device=None, momentum=0.0):
+    """bench.py's lstm_lm trainer on one device (``DEV`` unless
+    ``device`` names another)."""
+    from mxnet_tpu_torch.parallel import DataParallelTrainer, \
+        data_parallel_mesh
+    device = device or DEV
+    mesh = data_parallel_mesh(1) if device == "cuda" else \
+        data_parallel_mesh(1, [device])
+    return DataParallelTrainer(
+        sym, mesh, data_names=("data", "state", "state_cell"),
+        label_names=("softmax_label",), optimizer="sgd",
+        learning_rate=LSTM_LR, momentum=momentum,
+        rescale_grad=1.0 / (batch * LSTM_LM["seq"]), dtype=dtype)
+
+
+def _lstm_stepk_check(sym):
+    """step_k(K, unroll) against K step calls from the same state at the
+    lane's batch in bf16: each parameter within LSTM_STEPK_RTOL of its
+    tensor's largest magnitude."""
+    import numpy as np
+    import torch
+    c, b, k = LSTM_LM, LSTM_LM["batch"], LSTM_K
+    shapes = _lstm_shapes(b)
+    rng = np.random.RandomState(SEED)
+    xs = rng.randint(0, c["vocab"], (k, b, c["seq"])).astype(np.float32)
+    h0s = np.zeros((k,) + shapes["state"], np.float32)
+    ys = rng.randint(0, c["vocab"], (k, b * c["seq"])).astype(np.float32)
+    out, captures = [], []
+    for fused in (True, False):
+        tr = _lstm_trainer(sym, "bfloat16", b)
+        p, st, a = tr.init_state(shapes)
+        inputs = tr.shard_inputs([xs, h0s, h0s.copy(), ys], stacked=True)
+        if fused:
+            p, st, a, losses, _ = tr.step_k(p, st, a, inputs,
+                                            unroll=LSTM_UNROLL)
+        else:
+            losses = []
+            for i in range(k):
+                p, st, a, loss, _ = tr.step(p, st, a,
+                                            [x_[i] for x_ in inputs])
+                losses.append(loss)
+            losses = torch.stack(losses)
+        out.append([losses.cpu().numpy()] + [t.cpu().numpy() for t in p])
+        captures.append(tr.captures)
+        del tr, p, st, a
+        _free_card()
+    err = max(_rel_err(u, v) for u, v in zip(*out))
+    return {"k": k, "unroll": LSTM_UNROLL, "batch": b, "max_rel_err": err,
+            "rtol": LSTM_STEPK_RTOL, "captures": captures,
+            "ok": bool(err <= LSTM_STEPK_RTOL and captures == [
+                1 if DEV == "cuda" else 0] * 2)}
+
+
+def _lstm_reference(sym, shapes, params, feed):
+    """The float64 step of the executor on the CPU from ``params``: the
+    output and each parameter's momentum after one step from zero (-lr x
+    rescale x its gradient, formed in float64)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    ex = sym.simple_bind(ctx=mx.cpu(), type_dict={
+        n: "float64" for n in sym.list_arguments()}, **shapes)
+    ex.copy_params_from({n: mx.nd.array(v, ctx=mx.cpu())
+                         for n, v in params.items()})
+    ex.forward(is_train=True, **{n: mx.nd.array(v, ctx=mx.cpu())
+                                 for n, v in feed.items()})
+    ex.backward()
+    scale = -LSTM_LR / shapes["softmax_label"][0]
+    ref = {"output": ex.outputs[0].asnumpy().astype(np.float64)}
+    ref.update({"mom:" + n: scale * ex.grad_dict[n].asnumpy()
+                for n in params})
+    return ref
+
+
+def _lstm_card_vs_cpu(sym):
+    """One f32 trainer step (momentum 0.9) at batch LSTM_CHECK_BATCH from
+    the trainer's draw, on the card and on the CPU, each against the
+    float64 step on the CPU by _f32_rule; the card's step with the
+    recurrent blocks R of the RNN parameters' momentum zeroed must fail
+    it."""
+    import numpy as np
+    c, b = LSTM_LM, LSTM_CHECK_BATCH
+    shapes = _lstm_shapes(b)
+    rng = np.random.RandomState(SEED)
+    feed = {"data": rng.randint(0, c["vocab"], shapes["data"]),
+            "state": rng.uniform(-0.5, 0.5, shapes["state"]),
+            "state_cell": rng.uniform(-0.5, 0.5, shapes["state_cell"]),
+            "softmax_label": rng.randint(0, c["vocab"],
+                                         shapes["softmax_label"])}
+    feed = {k: v.astype(np.float32) for k, v in feed.items()}
+    tr = _lstm_trainer(sym, "float32", b, "cpu", momentum=0.9)
+    params = tr.host_params(tr.init_state(shapes)[0])
+    del tr
+
+    def step(device):
+        tr = _lstm_trainer(sym, "float32", b, device, momentum=0.9)
+        p, st, a = tr.init_state(shapes, arg_params=params)
+        p, st, a, _, outs = tr.step(p, st, a, tr.shard_inputs(
+            [feed[n] for n in tr.input_names]))
+        t = {"output": outs[0].float().cpu().numpy().astype(np.float64)}
+        t.update({"mom:" + n: s_[0].cpu().numpy().astype(np.float64)
+                  for n, s_ in zip(tr.param_names, st)})
+        del tr, p, st, a
+        _free_card()
+        return t
+    ref = _lstm_reference(sym, shapes, params, feed)
+    card, cpu = step(DEV), step("cpu")
+    res = _f32_rule(card, cpu, ref)
+    mom = card["mom:rnn_params"].copy()
+    h = c["hidden"]
+    for off, g in _r_blocks("lstm", c["layers"], 1, h, h).values():
+        mom[off:off + g * h * h] = 0.0
+    ctrl = _f32_rule(dict(card, **{"mom:rnn_params": mom}), cpu, ref)
+    res.update({"batch": b, "params": "init_state (N(0, 0.01))",
+                "control_r_grad_zeroed": {
+                    "norm_err_max": ctrl["norm_err_max"]["card"],
+                    "fails": not ctrl["ok"]}})
+    res["ok"] = bool(res["ok"] and not ctrl["ok"])
+    return res
+
+
+def phase_lstm_lm():
+    """bench.py's lstm_lm lane through the port's DataParallelTrainer on
+    one card (see LSTM_LM): the checks, then step_k windows, single
+    steps, a profiled dispatch."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mx
+    _free_card()
+    c, b, k = LSTM_LM, LSTM_LM["batch"], LSTM_K
+    with mx.NameManager():
+        sym = lstm_lm_symbol(mx.sym, c["vocab"], c["hidden"], c["layers"])
+    res = {"config": c, "k": k, "unroll": LSTM_UNROLL, "dtype": "bfloat16",
+           "optimizer": "sgd lr 0.1 rescale_grad 1/(batch x seq)"}
+    t0 = time.perf_counter()
+    res["step_k_check"] = _lstm_stepk_check(sym)
+    res["card_vs_cpu"] = _lstm_card_vs_cpu(sym)
+    res["check_s"] = time.perf_counter() - t0
+    shapes = _lstm_shapes(b)
+    rng = np.random.RandomState(0)          # bench.py's draws, in order
+    x = rng.randint(0, c["vocab"], (b, c["seq"])).astype(np.float32)
+    h0 = np.zeros(shapes["state"], np.float32)
+    y = rng.randint(0, c["vocab"], (b * c["seq"],)).astype(np.float32)
+    xs = rng.randint(0, c["vocab"], (k, b, c["seq"])).astype(np.float32)
+    h0s = np.zeros((k,) + shapes["state"], np.float32)
+    ys = rng.randint(0, c["vocab"], (k, b * c["seq"])).astype(np.float32)
+    tokens = b * c["seq"]
+    _reset_counts()
+    tr = _lstm_trainer(sym, "bfloat16", b)
+    p, st, a = tr.init_state(shapes)
+    inputs = tr.shard_inputs([x, h0, h0.copy(), y])
+    inputs_k = tr.shard_inputs([xs, h0s, h0s.copy(), ys], stacked=True)
+    t1 = time.perf_counter()
+    p, st, a, losses, _ = tr.step_k(p, st, a, inputs_k, unroll=LSTM_UNROLL)
+    float(losses[-1])
+    res["first_dispatch_s"] = time.perf_counter() - t1
+    for _ in range(2):
+        p, st, a, loss, _ = tr.step(p, st, a, inputs)
+    float(loss)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rates = []
+    for _ in range(LSTM_WINDOWS):
+        _sync()
+        t1 = time.perf_counter()
+        for _ in range(LSTM_WINDOW // k):
+            p, st, a, losses, _ = tr.step_k(p, st, a, inputs_k,
+                                            unroll=LSTM_UNROLL)
+        float(losses[-1])
+        rates.append(LSTM_WINDOW * tokens / (time.perf_counter() - t1))
+    _sync()
+    t1 = time.perf_counter()
+    for _ in range(LSTM_SINGLE):
+        p, st, a, loss, _ = tr.step(p, st, a, inputs)
+    float(loss)
+    single = LSTM_SINGLE * tokens / (time.perf_counter() - t1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        p, st, a, losses, _ = tr.step_k(p, st, a, inputs_k,
+                                        unroll=LSTM_UNROLL)
+        _sync()
+    rows = _device_rows(prof, k)
+    tok_s = float(np.median(rates))
+    step_ms = tokens / tok_s * 1e3
+    dev_ms = sum(r[1] for r in rows)
+    gemm = sum(r[1] for r in rows if any(
+        w in r[0].lower() for w in ("gemm", "cutlass", "nvjet", "xmma")))
+    res.update({
+        "tokens_per_s": tok_s, "tokens_per_s_windows": rates,
+        "tokens_per_s_single_dispatch": single, "step_ms": step_ms,
+        "device_ms_per_step": dev_ms,
+        "device_busy_share": dev_ms / step_ms,
+        "gemm_ms_per_step": gemm,
+        "kernels_a_step": sum(r[2] for r in rows),
+        "top": [{"kernel": k_[:120], "ms_per_step": t_, "calls": c_}
+                for k_, t_, c_ in rows[:12]],
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if DEV == "cuda" else 0.0),
+        "captures": tr.captures, "graphs": tr.graph_stats(),
+        "params_finite": bool(all(torch.isfinite(t_).all() for t_ in p)),
+        "launches": _read_counts(),
+        "seconds_total": time.perf_counter() - t0})
+    res["ok"] = bool(res["step_k_check"]["ok"] and res["card_vs_cpu"]["ok"]
+                     and res["params_finite"]
+                     and tr.captures == (1 if DEV == "cuda" else 0))
+    RECORD["lstm_lm"] = res
+    del tr, p, st, a
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("lstm_lm failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
+def _bucket_corpus(c):
+    """BUCKET_LM's synthetic sentences from SEED: lengths uniform on
+    2..max bucket, words Zipf (s = 1) on 1..vocab-1."""
+    import numpy as np
+    rng = np.random.RandomState(SEED)
+    ranks = np.arange(1, c["vocab"])
+    p = 1.0 / ranks
+    p /= p.sum()
+    lens = rng.randint(2, max(c["buckets"]) + 1, c["sentences"])
+    words = rng.choice(ranks, size=int(lens.sum()), p=p)
+    return [w.tolist() for w in np.split(words, np.cumsum(lens)[:-1])]
+
+
+def _bucket_sym_gen(mx, c):
+    """The sym_gen of MXNet's example/rnn/bucketing at BUCKET_LM's widths:
+    Embedding -> stacked LSTMCells unrolled to the bucket's length ->
+    FullyConnected -> SoftmaxOutput."""
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(c["layers"]):
+        stack.add(mx.rnn.LSTMCell(num_hidden=c["hidden"],
+                                  prefix="lstm_l%d_" % i))
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data, input_dim=c["vocab"],
+                                 output_dim=c["embed"], name="embed")
+        stack.reset()
+        outputs, _ = stack.unroll(seq_len, inputs=embed,
+                                  merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, c["hidden"]))
+        pred = mx.sym.FullyConnected(pred, num_hidden=c["vocab"],
+                                     name="pred")
+        lab = mx.sym.Reshape(label, shape=(-1,))
+        return (mx.sym.SoftmaxOutput(pred, lab, name="softmax"),
+                ("data",), ("softmax_label",))
+    return sym_gen
+
+
+def _bucketing_card_vs_cpu(mx, c, sentences):
+    """One training step a bucket (forward_backward, update) on the card
+    and on the CPU from the same parameters and batches: after each step
+    every parameter within BUCKET_STEP_RTOL of its tensor's largest
+    magnitude."""
+    import random
+    import numpy as np
+    mods = []
+    for ctx in (_ctx(), mx.cpu()):
+        np.random.seed(SEED)
+        random.seed(SEED)
+        it = mx.rnn.BucketSentenceIter(sentences, c["batch"],
+                                       buckets=list(c["buckets"]),
+                                       invalid_label=0)
+        mod = mx.mod.BucketingModule(
+            _bucket_sym_gen(mx, c), context=ctx,
+            default_bucket_key=it.default_bucket_key)
+        mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+        mods.append((mod, it))
+    (card, it_card), (cpu, it_cpu) = mods
+    cpu.init_params(initializer=mx.init.Xavier(factor_type="in",
+                                               magnitude=2.34))
+    card.init_params(arg_params=cpu.get_params()[0], aux_params={},
+                     force_init=True)
+    for m in (card, cpu):
+        m.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": c["lr"], "momentum": 0.0, "wd": c["wd"]})
+    errs = {}
+    for b_card, b_cpu in zip(it_card, it_cpu):
+        key = b_card.bucket_key
+        if key != b_cpu.bucket_key:
+            raise AssertionError("bucket keys differ: %s, %s"
+                                 % (key, b_cpu.bucket_key))
+        if key in errs:
+            continue
+        for m, b in ((card, b_card), (cpu, b_cpu)):
+            m.forward_backward(b)
+            m.update()
+        p_card, p_cpu = card.get_params()[0], cpu.get_params()[0]
+        errs[key] = max(_rel_err(p_card[n].asnumpy(), p_cpu[n].asnumpy())
+                        for n in p_cpu)
+    worst = max(errs.values())
+    return {"steps": len(errs), "max_rel_err_by_bucket": errs,
+            "rtol": BUCKET_STEP_RTOL,
+            "ok": bool(len(errs) == len(c["buckets"])
+                       and worst <= BUCKET_STEP_RTOL)}
+
+
+def _bucketing_full_width():
+    """BucketingModule at BUCKET_LM's widths on the card: perplexity
+    before and after BUCKET_LM["epochs"] epochs of BaseModule.fit, the
+    last epoch timed (tokens/s, samples/s, steps/s, median ms a step by
+    bucket), the modules bound and their parameter buffers; then one step
+    a bucket against the CPU (_bucketing_card_vs_cpu). The global
+    generators are seeded from SEED first."""
+    import random
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    c = BUCKET_LM
+    np.random.seed(SEED)
+    random.seed(SEED)
+    mx.random.seed(SEED)
+    t0 = time.perf_counter()
+    sentences = _bucket_corpus(c)
+    train = mx.rnn.BucketSentenceIter(sentences, c["batch"],
+                                      buckets=list(c["buckets"]),
+                                      invalid_label=0)
+    sym_gen = _bucket_sym_gen(mx, c)
+
+    mod = mx.mod.BucketingModule(sym_gen, context=_ctx(),
+                                 default_bucket_key=train.default_bucket_key)
+    mod.bind(data_shapes=train.provide_data,
+             label_shapes=train.provide_label)
+    init = mx.init.Xavier(factor_type="in", magnitude=2.34)
+    mod.init_params(initializer=init)
+    ppl0 = mod.score(train, mx.metric.Perplexity(0))[0][1]
+    marks = []
+
+    def mark(param):
+        marks.append((param.epoch, param.locals["data_batch"].bucket_key,
+                      time.perf_counter()))
+    epoch_starts = {}
+
+    def epoch_end(epoch, *_):
+        _sync()
+        epoch_starts[epoch + 1] = time.perf_counter()
+    train.reset()
+    _sync()
+    epoch_starts[0] = time.perf_counter()
+    mod.fit(train, num_epoch=c["epochs"], optimizer="sgd",
+            optimizer_params={"learning_rate": c["lr"], "momentum": 0.0,
+                              "wd": c["wd"]},
+            initializer=init, eval_metric=mx.metric.Perplexity(0),
+            batch_end_callback=mark, epoch_end_callback=epoch_end)
+    last = c["epochs"] - 1
+    ppl1 = mod.score(train, mx.metric.Perplexity(0))[0][1]
+    first = sum(1 for m in marks if m[0] == 0)
+    timed = [m for m in marks if m[0] == last]
+    prev = [epoch_starts[last]] + [m[2] for m in timed[:-1]]
+    per_bucket = {}
+    for (_, key, t), t_prev in zip(timed, prev):
+        per_bucket.setdefault(key, []).append((t - t_prev) * 1e3)
+    seconds = epoch_starts[last + 1] - epoch_starts[last]
+    steps = len(timed)
+    positions = sum(key for _, key, _ in timed) * c["batch"]
+    ptrs = {}
+    for m in mod._buckets.values():
+        for n in m._param_names:
+            ptrs.setdefault(n, set()).add(
+                m._exec.arg_dict[n]._data.data_ptr())
+    args, _ = mod.get_params()
+    res = {"config": dict(c, buckets=list(c["buckets"])),
+           "source": "MXNet example/rnn/bucketing/lstm_bucketing.py "
+                     "defaults, PTB vocab; synthetic Zipf corpus",
+           "perplexity_before": ppl0, "perplexity_after": ppl1,
+           "epoch_s": seconds, "steps": steps,
+           "steps_per_s": steps / seconds,
+           "samples_per_s": steps * c["batch"] / seconds,
+           "tokens_per_s": positions / seconds,
+           "step_ms_median_by_bucket": {
+               k: float(np.median(v)) for k, v in sorted(per_bucket.items())},
+           "first_epoch_s": epoch_starts[1] - epoch_starts[0],
+           "first_epoch_steps": first,
+           "buckets": sorted(mod._buckets),
+           "params_shared": bool(ptrs) and all(len(v) == 1
+                                                for v in ptrs.values()),
+           "params_finite": bool(all(np.isfinite(v.asnumpy()).all()
+                                     for v in args.values())),
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if DEV == "cuda" else 0.0)}
+    del mod, train
+    _free_card()
+    res["card_vs_cpu"] = _bucketing_card_vs_cpu(mx, c, sentences)
+    res["ok"] = bool(res["buckets"] == list(c["buckets"])
+                     and first == steps > 0 and res["params_shared"]
+                     and res["params_finite"]
+                     and math.isfinite(ppl1) and ppl1 < ppl0
+                     and res["card_vs_cpu"]["ok"])
+    res["seconds_total"] = time.perf_counter() - t0
+    _free_card()
+    return res
+
+
+def phase_lstm_bucketing():
+    """examples/lstm_bucketing.py's program on the card through the port:
+    its source with ``mxnet_tpu`` imported as ``mxnet_tpu_torch``, run with
+    ``--ctx gpu`` and its own other arguments; its own bar (final train
+    perplexity < 8.0, exit code 0); the bucket modules it bound (BUCKETS)
+    and that their parameters are one buffer (the same data_ptr). Then
+    BucketingModule at real widths (BUCKET_LM)."""
+    import io
+    import torch
+    import mxnet_tpu_torch as mx
+    path = os.path.join(HERE, "examples", "lstm_bucketing.py")
+    with open(path) as f:
+        src = f.read()
+    a, b = "import mxnet_tpu as mx", "import mxnet_tpu_torch as mx"
+    if a not in src:
+        raise AssertionError("examples/lstm_bucketing.py has no %r" % a)
+    src = src.replace(a, b)
+    made, updates = [], [0]
+    base = mx.mod.BucketingModule
+
+    class Recorded(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+        def update(self):
+            updates[0] += 1
+            super().update()
+    mx.mod.BucketingModule = Recorded
+    argv = sys.argv
+    sys.argv = [path, "--ctx", "gpu" if DEV == "cuda" else "cpu"]
+    buf = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            exec(compile(src, path, "exec"), {"__name__": "__main__",
+                                              "__file__": path})
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    finally:
+        sys.argv = argv
+        mx.mod.BucketingModule = base
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    mod = made[0] if made else None
+    buckets = sorted(mod._buckets) if mod is not None else []
+    ptrs = {}
+    if mod is not None:
+        for key, m in mod._buckets.items():
+            for n in m._param_names:
+                ptrs.setdefault(n, set()).add(
+                    m._exec.arg_dict[n]._data.data_ptr())
+    res = {"program": "examples/lstm_bucketing.py", "exit_code": code,
+           "lines": lines[-3:], "seconds": seconds,
+           "train_steps": updates[0],
+           "steps_per_s": updates[0] / seconds, "buckets": buckets,
+           "bucket_modules": len(buckets),
+           "params_shared": bool(ptrs) and all(len(v) == 1
+                                                for v in ptrs.values()),
+           "param_buffers": {n: len(v) for n, v in ptrs.items()},
+           "launches": _read_counts()}
+    res["ok"] = bool(code == 0 and len(buckets) == BUCKETS
+                     and res["params_shared"])
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    res["full_width"] = _bucketing_full_width()
+    res["ok"] = bool(res["ok"] and res["full_width"]["ok"])
+    RECORD["lstm_bucketing"] = res
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("lstm_bucketing failed: %s" % json.dumps(res))
+    return res
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("train", phase_train),
           ("train_profile", phase_train_profile),
@@ -4427,7 +5264,9 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("dp_resnet50", phase_dp_resnet50),
           ("dp_resnet50_fp16", phase_dp_resnet50_fp16),
           ("module_fused", phase_module_fused),
-          ("ckpt_resume", phase_ckpt_resume))
+          ("ckpt_resume", phase_ckpt_resume),
+          ("rnn_op", phase_rnn_op), ("lstm_lm", phase_lstm_lm),
+          ("lstm_bucketing", phase_lstm_bucketing))
 
 # (name, source, TPU kernel, case kind, case, its time / bound keys, errors,
 # its kernel launches a call: counted in the case)
@@ -4521,7 +5360,8 @@ def main(argv=None):
                                   "gluon_lm_hybrid", "gluon_fused_resnet50",
                                   "gluon_fused_lm", "gluon_fused_lm_amp",
                                   "dp_resnet50", "dp_resnet50_fp16",
-                                  "module_fused", "ckpt_resume")
+                                  "module_fused", "ckpt_resume",
+                                  "lstm_lm", "lstm_bucketing")
               if k in RECORD]
     rows = []
     for (name, src, replaces, kind, case, ms_key, bound_key, by_key,

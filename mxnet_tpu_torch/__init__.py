@@ -25,7 +25,10 @@ with ``step_k`` as CUDA graph replays, ``kvstore``, ``Module`` over
 several contexts and ``fit(steps_per_dispatch=K)``); mixed precision
 (``amp``: the bf16/fp16 policy in the executor's walk, the fp16 loss
 scaler on the card) and fault-tolerant checkpoints (``checkpoint``:
-atomic sharded commits, async saves, resume).
+atomic sharded commits, async saves, resume); recurrent networks (the
+fused ``RNN`` op, ``rnn`` cells and ``BucketSentenceIter``,
+``mod.BucketingModule``, ``SequentialModule``, ``PythonModule``,
+``gluon.rnn``).
 Entry points run on the card unless the caller asks for the host
 (``device="cpu"``, ``ctx=cpu()``, ``with cpu():``; the ops follow their
 tensors' device).
@@ -42,6 +45,7 @@ from . import symbol as sym  # noqa: F401
 from . import executor, imperative  # noqa: F401
 from . import callback, io, lr_scheduler, metric, model  # noqa: F401
 from . import module  # noqa: F401
+from . import rnn  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import kvstore, parallel  # noqa: F401
 from . import kvstore as kv  # noqa: F401
@@ -58,4 +62,4 @@ __all__ = ["AttrScope", "MXNetError", "NameManager", "Context", "cpu",
            "imperative", "init",
            "initializer", "io", "kv", "kvstore", "lr_scheduler", "metric",
            "mod", "model", "module", "nd", "ndarray", "optimizer",
-           "parallel", "random", "rtc", "sym", "symbol"]
+           "parallel", "random", "rnn", "rtc", "sym", "symbol"]

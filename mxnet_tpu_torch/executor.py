@@ -243,7 +243,9 @@ def _check_per_sample(op, attrs, name, carried, xs, outs=None):
             "it mixes samples or moves the batch axis of a sharded value, "
             "and each replica holds one shard; only per-sample ops and "
             "ops with a whole-batch hook (BatchNorm, SoftmaxOutput) run "
-            "there")
+            "there (a batch carried on another axis, as the RNN op's TNC "
+            "layout carries it, is not ported yet: ROADMAP queue 1 item "
+            "12)")
 
 
 class _Plan:

@@ -4,15 +4,15 @@
 context or several (one buffer, replicated over their mesh); the
 ``Trainer`` with its kvstore; ``trainer.fused_fit`` (K steps a dispatch
 through ``parallel.DataParallelTrainer``); ``gluon.data`` (datasets,
-samplers, the DataLoader, vision datasets and transforms). ``gluon.rnn``
-is not ported yet (ROADMAP queue 1 item 12)."""
+samplers, the DataLoader, vision datasets and transforms); ``gluon.rnn``
+(recurrent cells and the fused RNN, LSTM and GRU layers)."""
 from .parameter import (Constant, DeferredInitializationError,  # noqa: F401
                         Parameter, ParameterDict)
 from .block import Block, HybridBlock, SymbolBlock  # noqa: F401
 from .trainer import Trainer  # noqa: F401
-from . import nn, loss, utils, model_zoo, data, trainer  # noqa: F401
+from . import nn, loss, utils, model_zoo, data, rnn, trainer  # noqa: F401
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError", "Block", "HybridBlock",
            "SymbolBlock", "Trainer", "nn", "loss", "utils", "model_zoo",
-           "data", "trainer"]
+           "data", "rnn", "trainer"]

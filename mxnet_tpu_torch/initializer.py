@@ -27,8 +27,8 @@ from .base import MXNetError
 from . import random as _random
 
 __all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Xavier",
-           "MSRAPrelu", "One", "Zero", "Constant", "Mixed", "Load",
-           "register", "create"]
+           "MSRAPrelu", "One", "Zero", "Constant", "Orthogonal", "Bilinear",
+           "LSTMBias", "FusedRNN", "Mixed", "Load", "register", "create"]
 
 _INIT_REGISTRY = {}
 
@@ -312,6 +312,79 @@ class MSRAPrelu(Xavier):
         super().__init__("gaussian", factor_type, 2. / (1 + slope ** 2),
                          generator=generator)
         self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Orthogonal(Initializer):
+    """Saxe et al. (arXiv:1312.6120): the SVD of a random (n_out, fan_in)
+    matrix, uniform in [-1, 1] or standard normal, drawn from the
+    generator; whichever factor has that shape, times ``scale``, is the
+    weight. The SVD runs in float64."""
+
+    def __init__(self, scale=1.414, rand_type="uniform", generator=None):
+        super().__init__(generator, scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        t = _tensor(arr)
+        flat = (t.shape[0], math.prod(t.shape[1:]))
+        seed = torch.empty(flat, dtype=torch.float64, device=t.device)
+        if self.rand_type == "uniform":
+            seed.uniform_(-1.0, 1.0, generator=self._gen(t))
+        elif self.rand_type == "normal":
+            seed.normal_(0.0, 1.0, generator=self._gen(t))
+        else:
+            raise ValueError(f"unknown rand_type {self.rand_type!r}")
+        u, _sv, vt = torch.linalg.svd(seed, full_matrices=False)
+        basis = u if tuple(u.shape) == flat else vt
+        t.copy_((self.scale * basis).reshape(t.shape))
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel (the ``upsampling*`` legacy rule)."""
+
+    def _init_weight(self, name, arr):
+        self._init_bilinear(name, arr)
+
+
+@register
+class LSTMBias(Initializer):
+    """Zero bias except the forget gate's quarter (``forget_bias``)."""
+
+    def __init__(self, forget_bias=1.0, generator=None):
+        super().__init__(generator, forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        t = _tensor(arr)
+        h = t.shape[0] // 4
+        t.zero_()
+        t[h:2 * h] = self.forget_bias
+
+
+class FusedRNN(Initializer):
+    """A fused RNN op's flat parameter blob filled by an inner initializer
+    as one weight (the JAX package's rule: its biases are not set apart)."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0, generator=None):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = _INIT_REGISTRY[klass.lower()](**kwargs)
+        super().__init__(generator,
+                         init=init.dumps() if init is not None else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+
+    def _init_weight(self, desc, arr):
+        if self._init is not None:
+            if self._init._generator is None:
+                self._init._generator = self._generator
+            self._init._init_weight(desc, arr)
 
 
 # registry aliases matching the reference's names

@@ -1,7 +1,10 @@
 """``mx.mod``: symbolic training modules (counterpart of
-mxnet_tpu/module/). ``BucketingModule``, ``SequentialModule`` and
-``PythonModule`` are not ported yet (ROADMAP queue 1 item 12)."""
+mxnet_tpu/module/)."""
 from .base_module import BaseModule
 from .module import Module
+from .bucketing_module import BucketingModule
+from .sequential_module import SequentialModule
+from .python_module import PythonModule, PythonLossModule
 
-__all__ = ["BaseModule", "Module"]
+__all__ = ["BaseModule", "Module", "BucketingModule", "SequentialModule",
+           "PythonModule", "PythonLossModule"]

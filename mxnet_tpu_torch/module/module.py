@@ -12,7 +12,10 @@ BatchNorm's statistics and the gradients over the whole batch, as the
 JAX package's sharded executor) and a kvstore (``model._create_kvstore``)
 that runs the updater by default. ``fit(steps_per_dispatch=K)`` trains
 through a ``parallel.DataParallelTrainer`` (``_fit_fused``).
-``group2ctxs`` (ROADMAP queue 1 item 8) raises.
+``bind(shared_module=)`` takes the parameters', gradients' and aux
+states' NDArrays of another module and ``borrow_optimizer`` its updater
+(``BucketingModule``'s buckets). ``group2ctxs`` (ROADMAP queue 1 item 8)
+raises.
 """
 from __future__ import annotations
 
@@ -256,10 +259,6 @@ class Module(BaseModule):
         if self.binded:
             self.logger.warning("Already bound, ignoring bind()")
             return
-        if shared_module is not None:
-            raise MXNetError("bind(shared_module=) serves BucketingModule, "
-                             "which is not ported yet (ROADMAP queue 1 "
-                             "item 12)")
 
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
@@ -309,9 +308,31 @@ class Module(BaseModule):
         # already-initialized params (Module.load / rebind) must reach the
         # fresh executor (reference: bind → exec_group.set_params when
         # params_initialized, module.py:390)
-        if self.params_initialized and self._arg_params is not None:
+        if shared_module is None and self.params_initialized and \
+                self._arg_params is not None:
             self._exec.copy_params_from(self._arg_params,
                                         self._aux_params or {})
+
+        if shared_module is not None:
+            # the parameters', gradients' and aux states' NDArrays are the
+            # shared module's (BucketingModule): every bucket reads and
+            # updates the same tensors
+            src = shared_module._exec
+            ex = self._exec
+            for n in self._param_names:
+                if n in src.arg_dict:
+                    ex.arg_dict[n] = src.arg_dict[n]
+                    if n in src.grad_dict and n in ex.grad_dict:
+                        ex.grad_dict[n] = src.grad_dict[n]
+            for n in self._aux_names:
+                if n in src.aux_dict:
+                    ex.aux_dict[n] = src.aux_dict[n]
+            ex.arg_arrays = [ex.arg_dict[n] for n in ex._arg_names]
+            ex.grad_arrays = [ex.grad_dict.get(n) for n in ex._arg_names]
+            ex.aux_arrays = [ex.aux_dict[n] for n in ex._aux_names]
+            if shared_module.params_initialized:
+                self.params_initialized = True
+                self._sync_params_from_devices()
 
     # -- fused multi-step fit (steps_per_dispatch > 1) -----------------------
     def _fit_fused(self, train_data, eval_data, eval_metric,
@@ -707,6 +728,16 @@ class Module(BaseModule):
             return
         with open(fname, "rb") as f:
             self._updater.set_states(f.read())
+
+    def borrow_optimizer(self, shared_module):
+        """Share the optimizer, kvstore and updater (and so the optimizer
+        states) of another module (BucketingModule)."""
+        assert shared_module.optimizer_initialized
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True
 
     def install_monitor(self, mon):
         raise MXNetError("monitor.Monitor is not ported yet; use the "

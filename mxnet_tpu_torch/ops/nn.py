@@ -885,3 +885,56 @@ _lrelu_schema.num_inputs = lambda a: 2 if a["act_type"] == "prelu" else 1
 _lrelu_schema.list_inputs = lambda a: (["data", "gamma"]
                                        if a["act_type"] == "prelu"
                                        else ["data"])
+
+
+# ---------------------------------------------------------------------------
+# sequence ops (src/operator/sequence_*.cc): (seq_len, batch, ...) layout,
+# as the JAX package's
+# ---------------------------------------------------------------------------
+
+def _seq_inputs(a):
+    return ["data", "sequence_length"] if a["use_sequence_length"] \
+        else ["data"]
+
+
+def _register_seq(name, fn, params):
+    schema = register(name, fn, params={
+        "use_sequence_length": Param("bool", False),
+        "axis": Param("int", 0), **params},
+        inputs=("data", "sequence_length"))
+    schema.num_inputs = lambda a: 2 if a["use_sequence_length"] else 1
+    schema.list_inputs = _seq_inputs
+
+
+def _sequence_mask(attrs, octx, data, seq_len=None):
+    if not attrs["use_sequence_length"] or seq_len is None:
+        return (data,)
+    t = data.shape[0]
+    steps = torch.arange(t, device=data.device).reshape(
+        (t,) + (1,) * (data.ndim - 1))
+    sl = seq_len.reshape((1, -1) + (1,) * (data.ndim - 2))
+    return (torch.where(steps < sl, data,
+                        torch.full((), attrs["value"], dtype=data.dtype,
+                                   device=data.device)),)
+
+
+def _sequence_last(attrs, octx, data, seq_len=None):
+    if not attrs["use_sequence_length"] or seq_len is None:
+        return (data[-1],)
+    idx = seq_len.to(torch.int64) - 1
+    return (data[idx, torch.arange(data.shape[1], device=data.device)],)
+
+
+def _sequence_reverse(attrs, octx, data, seq_len=None):
+    if not attrs["use_sequence_length"] or seq_len is None:
+        return (torch.flip(data, (0,)),)
+    steps = torch.arange(data.shape[0], device=data.device)[:, None]
+    sl = seq_len.to(torch.int64)[None, :]
+    src = torch.where(steps < sl, sl - 1 - steps, steps)
+    return (data[src, torch.arange(data.shape[1], device=data.device)[None, :]],)
+
+
+_register_seq("SequenceMask", _sequence_mask,
+              {"value": Param("float", 0.0)})
+_register_seq("SequenceLast", _sequence_last, {})
+_register_seq("SequenceReverse", _sequence_reverse, {})

@@ -532,6 +532,33 @@ register("Concat", lambda attrs, octx, *xs: (torch.cat(xs, dim=attrs["dim"]),),
          infer_shape=_concat_infer)
 
 
+register("stack", lambda attrs, octx, *xs: (torch.stack(xs,
+                                                        dim=attrs["axis"]),),
+         params={"axis": Param("int", 0), "num_args": Param("int", None, True)},
+         inputs=("arg",), key_var_num_args="num_args")
+
+
+def _split(attrs, octx, x):
+    n, ax = attrs["num_outputs"], attrs["axis"]
+    if x.shape[ax] % n != 0:
+        raise MXNetError(f"SliceChannel: axis {ax} of shape "
+                         f"{tuple(x.shape)} does not split into {n} equal "
+                         "parts")
+    parts = torch.split(x, x.shape[ax] // n, dim=ax)
+    if attrs["squeeze_axis"]:
+        parts = [p.squeeze(ax) for p in parts]
+    return tuple(parts)
+
+
+_split_schema = register(
+    "SliceChannel", _split,
+    params={"num_outputs": Param("int", None, True),
+            "axis": Param("int", 1),
+            "squeeze_axis": Param("bool", False)},
+    aliases=("split",))
+_split_schema.num_outputs = lambda attrs: attrs["num_outputs"]
+
+
 def _broadcast_to(attrs, octx, x):
     tgt = [x.shape[i] if d == 0 else d for i, d in enumerate(attrs["shape"])]
     return (x.expand(*tgt),)

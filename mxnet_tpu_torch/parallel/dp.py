@@ -498,16 +498,24 @@ class DataParallelTrainer:
         return (self._params, self._states, self._aux, loss, tuple(outs))
 
     def step_k(self, params, states, aux, inputs, rng=None,
-               outputs_mode="none"):
+               outputs_mode="none", unroll=False):
         """K training steps over (K, batch, ...) stacked ``inputs``, the
         same as K ``step`` calls: on the card K replays of the step's
         graph, slice k copied into its static input before replay k,
         nothing synchronised. Returns (params, states, aux, losses (K,),
         outputs): ``outputs`` () for ``outputs_mode="none"``, each symbol
-        output of every step stacked on a leading K axis for "all"."""
+        output of every step stacked on a leading K axis for "all".
+
+        ``unroll`` is the JAX package's (``True``: the K steps unrolled
+        into straight-line code, else ``max(1, int(unroll))`` steps a
+        loop iteration of its scan). It is accepted and checked, and
+        changes nothing here: K replays of the graph are already
+        straight-line."""
         if outputs_mode not in ("none", "all"):
             raise MXNetError(f"outputs_mode must be 'none' or 'all', got "
                              f"{outputs_mode!r}")
+        # the JAX package's normalisation: a value it refuses raises here
+        unroll = "full" if unroll is True else max(1, int(unroll))
         inputs = self._prepare(params, states, aux, inputs, rng)
         k = int(inputs[0].shape[0])
         losses = torch.empty(k, dtype=torch.float32, device=self._device)

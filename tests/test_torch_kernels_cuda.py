@@ -44,7 +44,9 @@ within 4x the plain f32 version's own error, which one TF32 pass
 (emulated in torch) exceeds. Cross-attention takes the dense route.
 Gluon's ``fused_fit`` on the card (captured steps, a DataLoader on the
 card) is held against the port's CPU run, and a Trainer over two cards
-against one card (skips with fewer).
+against one card (skips with fewer). The fused RNN op (plain PyTorch
+ops on the card, as the JAX op is a scan of XLA ops) is held against
+float64 within 4x the CPU float32's own error.
 """
 import contextlib
 import functools
@@ -1369,3 +1371,43 @@ def test_gluon_trainer_over_two_cards_matches_one(dev):
     assert tr._kvstore is not None
     for a, b in zip(*finals):
         np.testing.assert_allclose(a, b, rtol=2e-4, atol=1e-5)
+
+
+def test_rnn_op_on_the_card_against_float64(dev):
+    """The fused RNN op (lstm, 2 layers, bidirectional) in float32 on the
+    card and on the CPU, each against the CPU's float64: the outputs and
+    the gradients of random cotangents for data, parameters and both
+    states within 4x the CPU float32's own error (norm-wise, the largest
+    over the tensors, plus 1e-7)."""
+    import numpy as np
+    from mxnet_tpu_torch.ops.registry import OpCtx, get_op
+    from mxnet_tpu_torch.ops.rnn_ops import rnn_param_size
+    T, N, I, H, L = 12, 4, 8, 16, 2
+    rng = np.random.RandomState(0)
+    ins = [rng.uniform(-1, 1, (T, N, I)),
+           rng.uniform(-0.3, 0.3, rnn_param_size(L, I, H, True, "lstm")),
+           rng.uniform(-0.5, 0.5, (2 * L, N, H)),
+           rng.uniform(-0.5, 0.5, (2 * L, N, H))]
+    cts = [rng.standard_normal((T, N, 2 * H)),
+           rng.standard_normal((2 * L, N, H)),
+           rng.standard_normal((2 * L, N, H))]
+    schema = get_op("RNN")
+    attrs = schema.parse_attrs(dict(state_size=H, num_layers=L,
+                                    bidirectional=True, mode="lstm"))
+
+    def run(device, dtype):
+        xs = [torch.tensor(a, dtype=dtype, device=device,
+                           requires_grad=True) for a in ins]
+        outs = schema.fcompute(attrs, OpCtx(is_train=True), *xs)
+        grads = torch.autograd.grad(outs, xs, [
+            torch.tensor(c, dtype=dtype, device=device) for c in cts])
+        return [t.detach().to("cpu", torch.float64).numpy()
+                for t in list(outs) + list(grads)]
+    ref = run("cpu", torch.float64)
+
+    def worst(got):
+        return max(np.linalg.norm(g - r) / np.linalg.norm(r)
+                   for g, r in zip(got, ref))
+    card, cpu = worst(run(dev, torch.float32)), \
+        worst(run("cpu", torch.float32))
+    assert card <= 4 * cpu + 1e-7, (card, cpu)
