@@ -182,6 +182,40 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            32, buckets 10..60, vocab 10000) over a synthetic corpus:
            tokens/s, samples/s, steps/s, ms a step by bucket, 6 modules
            over one buffer, perplexity falling
+  predict  the predict tier on ResNet-50 v1 at bench.py's inference lane
+           (batch 32, 224 x 224, weights from the seed, BatchNorm
+           statistics from 30 training-mode passes): export_model on the
+           card in f32 (cpu and cuda programs) and bf16, Predictor and
+           ServingEngine (one CUDA graph at the export batch) from the
+           file, every bucket's rows against the predictor's, wall ms by
+           bucket and the graph's replay ms, img/s at 32 beside the
+           executor plan's (bench.py's _infer_ips), a profiler read of a
+           bucket-32 call; the bf16 batch against the executor's bf16
+           walk and the f32 batch (norm-wise errors, top-1 agreement; the
+           f32 batch itself and the bf16 rows shifted by one must fail);
+           a batch-2 request on the card
+           and on the CPU against float64 (a plan that slices the padding
+           rows must fail); a DynamicBatcher closed loop (64 clients of 1
+           row, 10 s); bench.py's int8_serving lane as written (int8
+           within 1e-2 of bf16); quantize_model on ResNet-50 (naive, 2
+           batches) with every quantized node held bit for bit against
+           the CPU on the card's inputs, top-1 agreement and the two
+           graphs' ms; the int8 route at K = 4608 against the CPU and the
+           float32 route (which must be wrong); examples/export_predict.py
+           and quantize_resnet.py (naive, entropy) with only their
+           imports changed
+  serving_net
+           the frontend's --bench as bench.py's serving_net lane runs it
+           (2 toy MLPs x 2 replicas, 64 urllib clients, 768 requests);
+           examples/serve_two_models.py with only its import changed; the
+           f32 and bf16 ResNet-50 artifacts hot behind a ServingFrontend,
+           2 replicas each: 64 urllib clients of 1-image requests in a
+           closed loop against each (QPS, p50/p99, shed), then a budget
+           that evicts the LRU one when a third loads (the bytes each is
+           charged, the card's memory); a decode artifact at GPT-2
+           medium's widths (2 layers) driven by :generate through the
+           frontend against DecodeEngine.generate (the tokens vary; a
+           position table shifted by one must change them)
 
 then the nvidia-smi line, a ``kernels`` summary line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no result)
@@ -5247,6 +5281,1006 @@ def phase_lstm_bucketing():
     return res
 
 
+# -- the predict tier and int8 Symbols ---------------------------------------
+
+PREDICT_BATCH = 32           # bench.py's INFER_BATCH (inference_resnet50)
+PREDICT_IMG = 224
+PREDICT_ITERS = 20           # timed infer calls a bucket
+PREDICT_YARD_LOOPS = (3, 20)  # bench.py's _infer_ips: 3 loops (of 50 there)
+PREDICT_CHECK_BATCH = 2      # the card-vs-CPU request
+PREDICT_BN_PASSES = 30       # training-mode passes that set the BN statistics
+BUCKET_RTOL = 1e-5           # a bucket's rows against the predictor's
+BATCHER = dict(clients=64, seconds=10.0, max_wait_us=2000, queue_depth=256)
+INT8_MLP = dict(d_in=256, d_h=1024, d_out=256, batch=32, iters=60)
+QUANT_CALIB_BATCHES = 2
+QUANT_CHECK_ROWS = 4         # rows of each quantized node held against the CPU
+QUANT_K4608 = (PREDICT_BATCH, 512, 7, 7)   # stage 4's 3x3 convolution input
+# the served bf16 ResNet-50 batch (norm-wise error of the probabilities)
+# against the executor's bf16 walk on the same images (the same casts and
+# ops, run eagerly): within walk; against the f32 batch: as far as the
+# walk is from it (ratio within [1/ratio, ratio]: the cast shows), top-1
+# agreement at least top1. The f32 batch itself (a program that never
+# casts) and the bf16 rows shifted by one row must fail. Readings on an
+# H100 80GB HBM3 at 700 W: served vs walk 0.0 (as on the CPU), bf16 vs
+# f32 0.184, top-1 0.875; the f32 batch vs the walk 0.183; the shifted
+# rows vs the walk 0.272, top-1 0.875 (the argmax varies little over
+# images, so top-1 alone cannot tell the rows apart).
+BF16_CHECK = dict(walk=1e-2, ratio=2.0, top1=0.75)
+INT8_MAX_ABS_ERR = 1e-2      # int8_serving: int8 against bf16 (PERF.md 2)
+SERVE_REPLICAS = 2
+# the network tier at full width: 64 urllib clients, each sending
+# NET_REQUESTS 1-image requests of 224 x 224 (3 MB of JSON) back to back
+NET_CLIENTS, NET_REQUESTS, NET_DEADLINE_MS = 64, 2, 60000
+# :generate at the export phase's cut of GPT-2 medium (its widths, 2 of
+# 24 layers); the control shifts the position table by one
+GEN_NEW_TOKENS = 16
+
+
+def _serve_device():
+    """The entry points' device: None (their default, the card), or the
+    host when the phases are rehearsed with DEV = "cpu"."""
+    return None if DEV == "cuda" else "cpu"
+
+
+def _example_context():
+    """The context an example runs in: the port's default (the card), or
+    the host context when rehearsed with DEV = "cpu"."""
+    import mxnet_tpu_torch as mx
+    return contextlib.nullcontext() if DEV == "cuda" else mx.cpu()
+
+
+def _card_bytes():
+    """(allocated, reserved, total) bytes of the card (zeros on the
+    host)."""
+    import torch
+    if DEV != "cuda":
+        return 0, 0, 0
+    return (torch.cuda.memory_allocated(), torch.cuda.memory_reserved(),
+            torch.cuda.mem_get_info()[1])
+
+
+def _example_src(name, pairs):
+    path = os.path.join(HERE, "examples", name)
+    with open(path) as f:
+        src = f.read()
+    for a, b in pairs:
+        if a not in src:
+            raise AssertionError("examples/%s has no %r" % (name, a))
+        src = src.replace(a, b)
+    return path, src
+
+
+def _run_example(path, src, argv):
+    """exec an example's source as __main__ with ``argv``: (exit code,
+    its stdout lines, seconds)."""
+    import io
+    old, sys.argv = sys.argv, [path] + list(argv)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            exec(compile(src, path, "exec"), {"__name__": "__main__",
+                                              "__file__": path})
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    finally:
+        sys.argv = old
+    return code, buf.getvalue().strip().splitlines(), \
+        time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _digits_without_sklearn():
+    """examples/export_predict.py reads sklearn's digits; where scikit-learn
+    is not installed (the card's machine), ``sklearn.datasets.load_digits``
+    is provided for the example's run from tools/data/digits.csv.gz, a copy
+    of the file scikit-learn bundles (the UCI optical digits, 1797 x 64
+    plus the label column)."""
+    import gzip
+    import importlib.machinery
+    import importlib.util
+    import types
+    import numpy as np
+    if importlib.util.find_spec("sklearn") is not None:
+        yield False
+        return
+
+    def load_digits():
+        with gzip.open(os.path.join(HERE, "tools", "data",
+                                    "digits.csv.gz"), "rt") as f:
+            d = np.loadtxt(f, delimiter=",")
+        return types.SimpleNamespace(data=d[:, :-1],
+                                     target=d[:, -1].astype(int),
+                                     images=d[:, :-1].reshape(-1, 8, 8))
+    pkg = types.ModuleType("sklearn")
+    ds = types.ModuleType("sklearn.datasets")
+    # specs, so that importlib.util.find_spec (torch.export's trace rules
+    # ask it of loaded modules) finds these as it would the package
+    pkg.__spec__ = importlib.machinery.ModuleSpec("sklearn", None,
+                                                  is_package=True)
+    ds.__spec__ = importlib.machinery.ModuleSpec("sklearn.datasets", None)
+    ds.load_digits = load_digits
+    pkg.datasets = ds
+    sys.modules["sklearn"], sys.modules["sklearn.datasets"] = pkg, ds
+    try:
+        yield True
+    finally:
+        sys.modules.pop("sklearn", None)
+        sys.modules.pop("sklearn.datasets", None)
+
+
+def _r50_inference_params(mx, sym, shape):
+    """ResNet-50 parameters drawn on the host from SEED (``_init_bound``),
+    then PREDICT_BN_PASSES training-mode forwards on the card over one
+    batch of images, so the moving statistics describe the activations
+    (inference through identity BatchNorms would leave the logits in the
+    thousands and the softmax one-hot). Returns (args, auxs) as numpy."""
+    import numpy as np
+    host = sym.simple_bind(ctx=mx.cpu(), grad_req="null", data=shape)
+    _init_bound(host, mx, SEED)
+    ex = sym.simple_bind(ctx=_ctx(), grad_req="null", data=shape)
+    ex.copy_params_from(host.arg_dict, host.aux_dict)
+    x = np.random.RandomState(SEED + 1).uniform(0, 1, shape).astype(
+        np.float32)
+    for _ in range(PREDICT_BN_PASSES):
+        ex.forward(is_train=True, data=x)
+    args = {n: a.asnumpy() for n, a in ex.arg_dict.items()
+            if n not in ("data", "softmax_label")}
+    auxs = {n: a.asnumpy() for n, a in ex.aux_dict.items()}
+    return args, auxs
+
+
+def _plan_yardstick(mx, sym, args, auxs, x, dtype):
+    """bench.py's inference lane (``_infer_ips``) on the port: the
+    executor's inference walk (``executor._Plan(sym, is_train=False)``)
+    on the card at batch 32, params with ndim > 1 and the data in bf16
+    for bf16 (the casts export_model's program makes); the median of
+    PREDICT_YARD_LOOPS loops, img/s, the loops' rates and the walk's
+    output on ``x``."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.executor import _Plan
+    dev = torch.device(DEV)
+    plan = _Plan(sym, is_train=False)
+    half = dtype == "bfloat16"
+
+    def t(v):
+        v = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        return v.to(torch.bfloat16) if half and v.ndim > 1 else v
+    a = {n: t(v) for n, v in args.items()}
+    a["data"] = t(x)
+    a["softmax_label"] = torch.zeros(x.shape[0], device=dev)
+    aux = {n: t(v) for n, v in auxs.items()}
+
+    def run():
+        with torch.no_grad():
+            return plan.run(a, aux, dev)[0][0]
+    run()
+    _sync()
+    loops, n = PREDICT_YARD_LOOPS
+    rates = []
+    for _ in range(loops):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = run()
+        out = out.float().cpu()
+        rates.append(n * x.shape[0] / (time.perf_counter() - t0))
+    return float(np.median(rates)), rates, out.numpy()
+
+
+def _replay_ms(eng, iters):
+    """Device ms of one replay of the engine's graph (CUDA events on the
+    engine's stream), the median of ``iters``."""
+    import numpy as np
+    import torch
+    plan = eng._plan()
+    st = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    en = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    with torch.cuda.stream(eng._stream):
+        for i in range(iters):
+            st[i].record()
+            plan.graph.replay()
+            en[i].record()
+    eng._stream.synchronize()
+    dev = [s.elapsed_time(e) for s, e in zip(st, en)]
+    return float(np.median(dev))
+
+
+def _conv_net_group(name):
+    """The device-time group of a kernel of a served ResNet-50 replay."""
+    n = name.lower()
+    if "memcpy" in n or "memset" in n:
+        return "memcpy_memset"
+    if any(k in n for k in ("conv", "cudnn", "xmma", "implicit",
+                            "winograd", "fprop", "sm90", "nchwtonhwc",
+                            "nhwctonchw")):
+        return "cudnn"
+    if "gemm" in n or "nvjet" in n or "cutlass" in n:
+        return "gemm"
+    if "reduce" in n or "softmax" in n:
+        return "reduce_softmax"
+    if "elementwise" in n or "vectorized" in n or "unrolled" in n:
+        return "elementwise"
+    return "other"
+
+
+def _replay_profile(eng, x, iters=5):
+    """One profiler read of the bucket-32 plan served as a client sees it
+    (``eng.infer`` on host rows: the pinned copy, the replay, the copy
+    back): device ms a call by kernel group and the top kernels, and the
+    wall ms under the profiler; the busy share is the device sum over
+    the wall."""
+    from torch.profiler import ProfilerActivity, profile
+    eng.infer(x)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            eng.infer(x)
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    rows = _device_rows(prof, iters)
+    groups = {}
+    for k, ms, calls in rows:
+        g = _conv_net_group(k)
+        groups[g] = groups.get(g, 0.0) + ms
+    dev = sum(r[1] for r in rows)
+    return {"wall_ms": wall, "device_ms": dev,
+            "busy": dev / wall if wall else None,
+            "kernels_a_call": sum(r[2] for r in rows), "groups": groups,
+            "top": [(k[:80], ms, calls) for k, ms, calls in rows[:8]]}
+
+
+def _predict_artifact(mx, sym, args, auxs, x, dtype, td, res):
+    """export_model on the card, Predictor and ServingEngine from the
+    file; every bucket's rows against the predictor's; ms by bucket."""
+    import numpy as np
+    from mxnet_tpu_torch.contrib.export import export_model
+    from mxnet_tpu_torch.predictor import Predictor
+    from mxnet_tpu_torch.serving import ServingEngine
+    tag = "f32" if dtype == "float32" else "bf16"
+    path = os.path.join(td, "resnet50_%s.mxa" % tag)
+    out = {"dtype": dtype}
+    t0 = time.perf_counter()
+    # the bf16 artifact is served on the card only: its cpu program is
+    # not traced (the f32 artifact carries both)
+    export_model(path, sym, args, auxs, {"data": x.shape}, dtype=dtype,
+                 platforms=None if dtype == "float32" else (DEV,),
+                 model_name="resnet50_%s" % tag)
+    out["export_s"] = time.perf_counter() - t0
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        man = json.loads(z.read("MANIFEST.json"))
+        out["files"] = {i.filename: i.file_size for i in z.infolist()}
+    out["platforms"] = man["platforms"]
+    out["manifest_peak_bytes"] = (man.get("devstats") or {}).get(
+        "peak_bytes")
+    t0 = time.perf_counter()
+    pred = Predictor(path, device=_serve_device())
+    full = pred.forward(x)[0]
+    out["predictor_load_forward_s"] = time.perf_counter() - t0
+    out["finite"] = bool(np.isfinite(full).all())
+    t0 = time.perf_counter()
+    eng = ServingEngine(pred)
+    out["engine_warmup_s"] = time.perf_counter() - t0
+    out["plans"] = [{"batch": b, "graph": pl.graph is not None,
+                     "capture_s": pl.capture_s, "peak_bytes": pl.peak_bytes,
+                     "resident_bytes": eng.plan_bytes[b],
+                     "launches": pl.launches}
+                    for b, pl in sorted(eng._plans.items())]
+    out["plan_resident_bytes"] = eng.plan_resident_bytes
+    rows, ms = {}, {}
+    for b in eng.buckets:
+        got = eng.infer(x[:b])[0]
+        err = float(np.abs(got - full[:b]).max()
+                    / max(1e-30, np.abs(full[:b]).max()))
+        rows[b] = err
+        walls = []
+        for _ in range(PREDICT_ITERS):
+            t0 = time.perf_counter()
+            eng.infer(x[:b])
+            walls.append((time.perf_counter() - t0) * 1e3)
+        ms[b] = float(np.median(walls))
+    replay = _replay_ms(eng, PREDICT_ITERS) if DEV == "cuda" else None
+    out.update(bucket_rel_err=rows, bucket_ms=ms, replay_ms=replay,
+               img_s_b32=PREDICT_BATCH * 1e3 / ms[PREDICT_BATCH],
+               img_s_b32_device=PREDICT_BATCH * 1e3 / replay
+               if DEV == "cuda" else None,
+               graphs=all(p["graph"] for p in out["plans"]),
+               buckets_ok=all(e <= BUCKET_RTOL for e in rows.values()))
+    if DEV == "cuda":
+        out["replay_profile_b32"] = _replay_profile(eng, x)
+    out["yardstick_img_s"], out["yardstick_loops"], walk = \
+        _plan_yardstick(mx, sym, args, auxs, x, dtype)
+    res[tag] = out
+    return path, pred, eng, full, walk
+
+
+def _wrong_rows_engine(pred):
+    """The f32 rule's control: a ServingEngine whose plan slices the
+    padding rows out of the program's outputs, not the request's."""
+    from mxnet_tpu_torch.serving import ServingEngine
+
+    class WrongRows(ServingEngine):
+        def _rows(self, outs, n):
+            return [o[self.max_batch - n:] for o in outs]
+    return WrongRows(pred)
+
+
+def _predict_f32_rule(mx, sym, args, auxs, x, path, eng, pred):
+    """One batch-2 request served on the card and predicted on the CPU
+    (the artifact's cpu program), each against the float64 forward (the
+    executor on the card in float64): the card's error within
+    R50_F32_FACTOR times the CPU's; the wrong-rows control must fail."""
+    import torch
+    from mxnet_tpu_torch.predictor import Predictor
+    n = PREDICT_CHECK_BATCH
+    shape = (n,) + x.shape[1:]
+    ex = sym.simple_bind(ctx=_ctx(), grad_req="null", data=shape,
+                         type_dict={k: "float64"
+                                    for k in sym.list_arguments()})
+    for k, v in auxs.items():
+        ex.aux_dict[k]._data = torch.from_numpy(v).to(
+            device=DEV, dtype=torch.float64)
+    for k, v in args.items():
+        ex.arg_dict[k]._data.copy_(torch.from_numpy(v))
+    ref = ex.forward(is_train=False, data=x[:n].astype("float64"))[0] \
+        .asnumpy()
+    card = eng.infer(x[:n])[0]
+    t0 = time.perf_counter()
+    cpu = Predictor(path, device="cpu").forward(x[:n])[0]
+    card_device = str(eng.device)
+    cpu_s = time.perf_counter() - t0
+    faulty = _wrong_rows_engine(pred).infer(x[:n])[0]
+    err = {"card": _rel_err(card, ref), "cpu": _rel_err(cpu, ref),
+           "control_wrong_rows": _rel_err(faulty, ref)}
+
+    def rule(e):
+        return e <= R50_F32_FACTOR * err["cpu"] + R50_F32_FLOOR
+    return {"err": err, "factor": R50_F32_FACTOR, "cpu_forward_s": cpu_s,
+            "served_on": card_device,
+            "ok": bool(rule(err["card"])),
+            "control_fails": not rule(err["control_wrong_rows"])}
+
+
+def _bf16_vs_f32(b16, f32, walk):
+    """The served bf16 batch against the executor's bf16 walk and against
+    the f32 batch on the same images (BF16_CHECK); the f32 batch itself
+    (a program that never casts) and the bf16 rows shifted by one row
+    must fail."""
+    import numpy as np
+    c = BF16_CHECK
+
+    def dist(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    walk_f32 = dist(walk, f32)
+
+    def check(got):
+        r = {"vs_walk": dist(got, walk), "vs_f32": dist(got, f32),
+             "top1_vs_f32": float((got.argmax(1) == f32.argmax(1)).mean())}
+        r["ok"] = bool(r["vs_walk"] <= c["walk"]
+                       and walk_f32 / c["ratio"] <= r["vs_f32"]
+                       <= walk_f32 * c["ratio"]
+                       and r["top1_vs_f32"] >= c["top1"])
+        return r
+    out = dict(check(b16), walk_vs_f32=walk_f32, limits=c,
+               controls={"no_cast": check(f32),
+                         "rows_shifted": check(np.roll(b16, 1, axis=0))})
+    out["controls_fail"] = not any(v["ok"] for v in out["controls"].values())
+    out["ok"] = bool(out["ok"] and out["controls_fail"])
+    return out
+
+
+def _batcher_closed_loop(eng, x, full):
+    """BATCHER["clients"] threads send 1-row requests back to back for
+    BATCHER["seconds"] through a DynamicBatcher over ``eng``; every
+    answer is held against the predictor's row."""
+    import threading
+    import numpy as np
+    from mxnet_tpu_torch.serving import DynamicBatcher
+    errs, fails = [0.0], []
+    lock = threading.Lock()
+    stop = [False]
+    with DynamicBatcher(eng, max_wait_us=BATCHER["max_wait_us"],
+                        queue_depth=BATCHER["queue_depth"]) as bat:
+        def client(i):
+            r = i % PREDICT_BATCH
+            while not stop[0]:
+                try:
+                    out = bat.infer(x[r:r + 1], timeout_ms=30000)[0]
+                except Exception as e:      # counted, reported below
+                    with lock:
+                        fails.append(repr(e)[:200])
+                    continue
+                e = float(np.abs(out[0] - full[r]).max())
+                with lock:
+                    errs[0] = max(errs[0], e)
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(BATCHER["clients"])]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        time.sleep(BATCHER["seconds"])
+        stop[0] = True
+        for t in threads:
+            t.join(timeout=60)
+        dt = time.perf_counter() - t0
+        snap = bat.metrics.snapshot()
+    scale = float(np.abs(full).max())
+    return {"clients": BATCHER["clients"], "seconds": dt,
+            "max_wait_us": BATCHER["max_wait_us"],
+            "queue_depth": BATCHER["queue_depth"],
+            "completed": snap["completed"], "qps": snap["completed"] / dt,
+            "p50_ms": snap["p50_ms"], "p99_ms": snap["p99_ms"],
+            "mean_batch": snap["avg_batch_rows"],
+            "batch_hist": snap["batch_hist"], "shed": snap["shed"],
+            "timeouts": snap["timeouts"], "errors": fails[:3],
+            "n_errors": len(fails), "max_rel_err": errs[0] / scale,
+            "ok": bool(not fails and snap["completed"] > 0
+                       and errs[0] <= BUCKET_RTOL * scale)}
+
+
+def _int8_serving_lane(td):
+    """bench.py's int8_serving lane as written (bench.py:453-525): the
+    256-1024-1024-256 MLP at batch 32 exported twice, bf16 and bf16 with
+    weight-only int8, each served through ServingEngine(buckets=(32,));
+    img/s the median of 3 loops of INT8_MLP["iters"] calls."""
+    import zipfile
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib.export import export_model
+    from mxnet_tpu_torch.serving import ServingEngine
+    c = INT8_MLP
+    rng = np.random.RandomState(0)
+    with mx.NameManager():
+        net = mx.sym.FullyConnected(mx.sym.Variable("data"),
+                                    num_hidden=c["d_h"], name="fc1")
+        net = mx.sym.Activation(net, act_type="relu")
+        net = mx.sym.FullyConnected(net, num_hidden=c["d_h"], name="fc2")
+        net = mx.sym.Activation(net, act_type="relu")
+        net = mx.sym.FullyConnected(net, num_hidden=c["d_out"], name="fc3")
+        sym = mx.sym.SoftmaxOutput(net, name="softmax")
+    shapes = {"data": (c["batch"], c["d_in"]),
+              "softmax_label": (c["batch"],)}
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    args = {n: rng.normal(0, 0.05, s).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    x = rng.uniform(-1, 1, (c["batch"], c["d_in"])).astype(np.float32)
+
+    def serve_ips(path):
+        eng = ServingEngine(path, buckets=(c["batch"],),
+                            device=_serve_device())
+        try:
+            out = np.asarray(eng.infer(x)[0])
+            rates = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(c["iters"]):
+                    eng.infer(x)
+                rates.append(c["iters"] * c["batch"]
+                             / (time.perf_counter() - t0))
+            return float(np.median(rates)), out
+        finally:
+            eng.close()
+    p16 = os.path.join(td, "mlp_bf16.mxa")
+    p8 = os.path.join(td, "mlp_int8.mxa")
+    export_model(p16, sym, args, {}, {"data": shapes["data"]},
+                 dtype="bfloat16")
+    export_model(p8, sym, args, {}, {"data": shapes["data"]},
+                 dtype="bfloat16", quantize="int8")
+    with zipfile.ZipFile(p8) as z:
+        quant = json.loads(z.read("MANIFEST.json")).get("quant") or {}
+    bf16_ips, out16 = serve_ips(p16)
+    int8_ips, out8 = serve_ips(p8)
+    return {"batch": c["batch"], "bf16_ips": bf16_ips, "int8_ips": int8_ips,
+            "int8_vs_bf16": int8_ips / bf16_ips,
+            "max_abs_err": float(np.abs(out16 - out8).max()),
+            "quantized_params": len(quant.get("params", [])),
+            "max_abs_err_limit": INT8_MAX_ABS_ERR,
+            "ok": bool(np.isfinite(out8).all()
+                       and float(np.abs(out16 - out8).max())
+                       <= INT8_MAX_ABS_ERR
+                       and len(quant.get("params", [])) == 3)}
+
+
+def _entry_name(node, idx):
+    if node.op is None:
+        return node.name
+    return "%s_output%d" % (node.name, idx) if node.num_outputs() > 1 \
+        else "%s_output" % node.name
+
+
+def _ms_median(fn, iters=5):
+    import numpy as np
+    fn()
+    _sync()
+    walls = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def _quantized_conv_route(mx):
+    """The int8 route at ResNet-50 stage 4's K = 4608 convolution
+    (512 -> 512, 3 x 3, 7 x 7, batch 32): int8 inputs near +-127, so the
+    int32 sums pass 2^24. The registered op on the card (float64 products)
+    against the same op on the CPU, bit for bit; the control, the same
+    convolution accumulated in float32 on the card (TF32 off), must
+    differ. Device ms of the op's convolution beside the float32
+    convolution's."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.ops.nn import cudnn_f32
+    from mxnet_tpu_torch.ops.registry import OpCtx, get_op
+    rng = np.random.RandomState(SEED + 3)
+    d = rng.randint(100, 128, QUANT_K4608).astype(np.int8)
+    w = (rng.randint(100, 128, (512, 512, 3, 3))
+         * rng.choice([-1, 1], (512, 1, 1, 1))).astype(np.int8)
+    one = np.ones(1, np.float32)
+    op = get_op("_contrib_quantized_conv")
+    attrs = op.parse_attrs({"kernel": (3, 3), "num_filter": 512,
+                            "pad": (1, 1), "no_bias": True})
+
+    def run(device):
+        ts = [torch.from_numpy(a).to(device) for a in (d, w, -one, one,
+                                                       -one, one)]
+        return op.fcompute(attrs, OpCtx(device=torch.device(device)),
+                           *ts), ts
+    (card, _, _), ts = run(DEV)
+    cpu = run("cpu")[0][0]
+    dc, wc = ts[0], ts[1]
+    with cudnn_f32():
+        f32 = torch.nn.functional.conv2d(dc.float(), wc.float(),
+                                         padding=1)
+    f32_int = torch.round(f32).to(torch.int32)
+    q_ms = f_ms = None
+    if DEV == "cuda":
+        q_ms = bench_ms(lambda *a: op.fcompute(attrs, None, *a),
+                        [tuple(ts)], 10)
+
+        def f32_conv(a, b):
+            with cudnn_f32():
+                return torch.nn.functional.conv2d(a, b, padding=1)
+        f_ms = bench_ms(f32_conv, [(dc.float(), wc.float())], 10)
+    flops = 2.0 * 512 * 4608 * 49 * QUANT_K4608[0]
+    return {"shape": list(QUANT_K4608), "k": 4608,
+            "max_abs_int32": int(card.abs().max()),
+            "card_equals_cpu": bool(torch.equal(card.cpu(), cpu)),
+            "f32_route_wrong_elements": int((f32_int != card).sum()),
+            "f32_route_max_abs_diff": int((f32_int - card).abs().max()),
+            "int8_route_ms": q_ms, "f32_conv_ms": f_ms,
+            "flops": flops,
+            "ok": bool(torch.equal(card.cpu(), cpu)
+                       and bool((f32_int != card).any()))}
+
+
+def _quantize_resnet50(mx, sym, args, auxs, x, full_f32):
+    """quantize_model on ResNet-50 (naive calibration over
+    QUANT_CALIB_BATCHES batches of 32 on the card); the int8 graph on the
+    card with a monitor over its quantized nodes, and each of those nodes
+    run again on the CPU on the card's inputs (their first
+    QUANT_CHECK_ROWS rows: each row is computed alone): the int32 / int8
+    outputs and the range scalars must be bit-equal. Top-1 agreement and
+    the largest probability error against float32, and the two graphs'
+    ms on the card."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    from mxnet_tpu_torch.ops.registry import OpCtx
+    rng = np.random.RandomState(SEED + 4)
+    calib_x = rng.uniform(0, 1, (QUANT_CALIB_BATCHES * PREDICT_BATCH,)
+                          + x.shape[1:]).astype(np.float32)
+    calib = mx.io.NDArrayIter(calib_x, batch_size=PREDICT_BATCH,
+                              label_name=None)
+    nd_args = {k: mx.nd.array(v, ctx=_ctx()) for k, v in args.items()}
+    nd_auxs = {k: mx.nd.array(v, ctx=_ctx()) for k, v in auxs.items()}
+    t0 = time.perf_counter()
+    qsym, qargs, qauxs = quantize_model(
+        sym, nd_args, nd_auxs, ctx=_ctx(), calib_mode="naive",
+        calib_data=calib, num_calib_examples=len(calib_x))
+    out = {"quantize_s": time.perf_counter() - t0}
+    qnodes = [n for n in qsym._topo() if n.op is not None
+              and n.op.name.startswith("_contrib_quantized_")]
+    out["quantized_nodes"] = {}
+    for n in qnodes:
+        out["quantized_nodes"][n.op.name] = \
+            out["quantized_nodes"].get(n.op.name, 0) + 1
+    ex = qsym.simple_bind(ctx=_ctx(), grad_req="null", data=x.shape)
+    for k, v in list(qargs.items()) + list(qauxs.items()):
+        # the offline ranges are 0-d, bound as (1,): assigned as the
+        # example assigns them
+        (ex.arg_dict if k in ex.arg_dict else ex.aux_dict)[k][:] = v
+    needed = {_entry_name(s, i) for n in qnodes for (s, i) in n.inputs
+              if s.op is not None}
+    needed |= {_entry_name(n, i) for n in qnodes for i in range(3)}
+    rows = QUANT_CHECK_ROWS
+    taps = {}
+
+    def tap(name, arr):
+        if name in needed:
+            t = arr._data
+            taps[name] = (t[:rows] if t.ndim >= 2 else t).clone()
+    ex.set_monitor_callback(tap)
+    ex.forward(is_train=False, data=x)
+    ex.set_monitor_callback(None)
+    p8 = ex.outputs[0].asnumpy()
+    mismatched, checked, big_k = [], 0, 0
+    cpu = torch.device("cpu")
+    for n in qnodes:
+        ins = []
+        for s, i in n.inputs:
+            if s.op is None:
+                t = ex.arg_dict[s.name]._data
+                ins.append(t[:rows] if s.name == "data" else t)
+            else:
+                ins.append(taps[_entry_name(s, i)])
+        parsed = n.op.parse_attrs(n.attrs)
+        got = n.op.fcompute(parsed, OpCtx(device=cpu),
+                            *[t.cpu() for t in ins])
+        card = [taps[_entry_name(n, i)].cpu() for i in range(3)]
+        same = all(g.dtype == c.dtype and torch.equal(g.reshape(c.shape), c)
+                   for g, c in zip(got, card))
+        checked += 1
+        if n.op.name == "_contrib_quantized_conv":
+            w = ins[1]
+            big_k += int(w.shape[1] * w[0, 0].numel() > 1040)
+        if not same:
+            mismatched.append(n.name)
+    out.update(nodes_checked=checked, rows_checked=rows,
+               convs_with_k_over_1040=big_k, mismatched=mismatched[:8],
+               n_mismatched=len(mismatched))
+    out["top1_agreement"] = float((p8.argmax(1) == full_f32.argmax(1))
+                                  .mean())
+    out["max_prob_err"] = float(np.abs(p8 - full_f32).max())
+    out["finite"] = bool(np.isfinite(p8).all())
+    ex32 = sym.simple_bind(ctx=_ctx(), grad_req="null", data=x.shape)
+    ex32.copy_params_from(nd_args, nd_auxs, allow_extra_params=True)
+    out["int8_graph_ms"] = _ms_median(
+        lambda: ex.forward(is_train=False, data=x))
+    out["f32_graph_ms"] = _ms_median(
+        lambda: ex32.forward(is_train=False, data=x))
+    out["ok"] = bool(not mismatched and checked == len(qnodes)
+                     and out["finite"])
+    return out
+
+
+def phase_predict():
+    """The predict tier on ResNet-50 v1 at bench.py's inference lane
+    (batch 32, 224 x 224): export_model on the card (f32 and bf16),
+    Predictor and ServingEngine (one CUDA graph at the export batch) from
+    the file, every bucket's rows against the predictor's, ms by bucket
+    and img/s at 32 beside the executor plan's img/s (bench.py's
+    _infer_ips); the bf16 batch against the executor's bf16 walk and the
+    f32 batch (with a no-cast and a shifted-rows control); a batch-2
+    request on the card and on the CPU against float64 (with a wrong-rows
+    control); a DynamicBatcher closed loop; bench.py's int8_serving lane;
+    quantize_model on ResNet-50 with the quantized nodes held bit for bit
+    against the CPU, and the int8 route's control at K = 4608;
+    examples/export_predict.py and quantize_resnet.py (naive and entropy)
+    with only their imports changed."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    _free_card()
+    _reset_counts()
+    t_phase = time.perf_counter()
+    res = {"model": "resnet50_v1", "batch": PREDICT_BATCH,
+           "image": PREDICT_IMG}
+    with mx.NameManager():
+        sym = resnet_v1_symbol(mx.sym)
+    shape = (PREDICT_BATCH, 3, PREDICT_IMG, PREDICT_IMG)
+    t0 = time.perf_counter()
+    args, auxs = _r50_inference_params(mx, sym, shape)
+    res["params_s"] = time.perf_counter() - t0
+    x = np.random.RandomState(SEED + 2).uniform(0, 1, shape).astype(
+        np.float32)
+    work = os.path.join(HERE, "build")
+    os.makedirs(work, exist_ok=True)
+    td = tempfile.mkdtemp(dir=work)
+    try:
+        path32, pred32, eng32, full32, _ = _predict_artifact(
+            mx, sym, args, auxs, x, "float32", td, res)
+        path16, _, eng16, full16, walk16 = _predict_artifact(
+            mx, sym, args, auxs, x, "bfloat16", td, res)
+        res["bf16_vs_f32"] = _bf16_vs_f32(full16, full32, walk16)
+        res["f32_rule"] = _predict_f32_rule(mx, sym, args, auxs, x, path32,
+                                            eng32, pred32)
+        res["batcher"] = _batcher_closed_loop(eng32, x, full32)
+        eng16.close()
+        del eng16
+        _free_card()
+        res["int8_serving"] = _int8_serving_lane(td)
+        res["int8_conv_route"] = _quantized_conv_route(mx)
+        _free_card()
+        res["quantize_model"] = _quantize_resnet50(mx, sym, args, auxs, x,
+                                                   full32)
+        eng32.close()
+        del eng32, pred32
+        _free_card()
+        exp_path, exp_src = _example_src(
+            "export_predict.py",
+            (("import mxnet_tpu as mx", "import mxnet_tpu_torch as mx"),
+             ("from mxnet_tpu.", "from mxnet_tpu_torch.")))
+        cwd = os.getcwd()
+        os.chdir(td)
+        # the example draws its initial weights and its shuffles from the
+        # global generators: seeded from SEED as every phase's draws are
+        # (its bar is narrow: the JAX package's own CPU runs read 0.898
+        # and 0.902, the port's unseeded card runs 0.909-0.920)
+        np.random.seed(SEED)
+        mx.random.seed(SEED)
+        try:
+            with _digits_without_sklearn() as shim, _example_context():
+                code, lines, secs = _run_example(exp_path, exp_src, [])
+        finally:
+            os.chdir(cwd)
+        acc = float(lines[-1].split(":")[-1]) if lines else float("nan")
+        res["export_predict"] = {"exit_code": code, "accuracy": acc,
+                                 "bar": 0.9, "seconds": secs,
+                                 "sklearn_from_tools_data": shim,
+                                 "lines": lines[-3:],
+                                 "ok": bool(code == 0 and acc > 0.9)}
+        q_path, q_src = _example_src(
+            "quantize_resnet.py",
+            (("import mxnet_tpu as mx", "import mxnet_tpu_torch as mx"),
+             ("from mxnet_tpu.contrib import",
+              "from mxnet_tpu_torch.contrib import")))
+        res["quantize_resnet"] = {}
+        for calib in ("naive", "entropy"):
+            with _example_context():
+                code, lines, secs = _run_example(
+                    q_path, q_src, ["--calib", calib, "--ctx",
+                                    "tpu" if DEV == "cuda" else "cpu"])
+            res["quantize_resnet"][calib] = {
+                "exit_code": code, "lines": lines[-2:], "seconds": secs,
+                "ok": code == 0}
+        RECORD["predict_paths"] = {"f32": path32, "bf16": path16,
+                                   "dir": td}
+    except BaseException:
+        shutil.rmtree(td, ignore_errors=True)
+        raise
+    res["launches"] = _read_counts()
+    res["phase_s"] = time.perf_counter() - t_phase
+    f32, bf16 = res["f32"], res["bf16"]
+    res["ok"] = bool(
+        f32["buckets_ok"] and bf16["buckets_ok"] and f32["finite"]
+        and bf16["finite"] and res["bf16_vs_f32"]["ok"]
+        and res["f32_rule"]["ok"]
+        and res["f32_rule"]["control_fails"] and res["batcher"]["ok"]
+        and res["int8_serving"]["ok"] and res["int8_conv_route"]["ok"]
+        and res["quantize_model"]["ok"] and res["export_predict"]["ok"]
+        and all(v["ok"] for v in res["quantize_resnet"].values()))
+    RECORD["predict"] = res
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("predict failed: %s"
+                             % json.dumps(res, default=str)[:6000])
+    return res
+
+
+def phase_serving_net():
+    """The network tier: the frontend's --bench as bench.py's serving_net
+    lane runs it (2 hot 16-wide MLPs x 2 replicas, 64 urllib clients, 768
+    requests: a toy's numbers, not a user's); examples/serve_two_models.py
+    with only its import changed; then at full width a ServingFrontend
+    holding the f32 and bf16 ResNet-50 artifacts of phase predict
+    (exported here when it did not run), 2 replicas each: 64 urllib
+    clients in a closed loop against each (QPS, p50/p99, shed: the
+    serving_net metrics), then a budget that forces one LRU eviction when
+    a third artifact loads (the resident bytes each model is charged
+    against the card's memory); and a decode artifact at GPT-2 medium's
+    widths driven by :generate through the same frontend (the decode
+    kernel's path)."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.serving import frontend
+    from mxnet_tpu_torch.serving.router import manifest_need_bytes
+    _free_card()
+    _reset_counts()
+    t_phase = time.perf_counter()
+    res = {}
+    t0 = time.perf_counter()
+    res["bench"] = frontend.bench(requests=768, concurrency=64, replicas=2,
+                                  device=_serve_device())
+    res["bench"]["seconds"] = time.perf_counter() - t0
+    res["bench"]["model"] = "two 16-wide MLPs, export batch 8 (toy)"
+    path, src = _example_src(
+        "serve_two_models.py",
+        (("import mxnet_tpu as mx", "import mxnet_tpu_torch as mx"),
+         ("from mxnet_tpu.", "from mxnet_tpu_torch.")))
+    with _example_context():
+        code, lines, secs = _run_example(path, src, [])
+    res["serve_two_models"] = {"exit_code": code, "seconds": secs,
+                               "lines": lines[:12], "ok": code == 0}
+    paths = RECORD.get("predict_paths")
+    own = None
+    if paths is None:
+        own = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+        with mx.NameManager():
+            sym = resnet_v1_symbol(mx.sym)
+        shape = (PREDICT_BATCH, 3, PREDICT_IMG, PREDICT_IMG)
+        args, auxs = _r50_inference_params(mx, sym, shape)
+        from mxnet_tpu_torch.contrib.export import export_model
+        paths = {}
+        for tag, dt in (("f32", "float32"), ("bf16", "bfloat16")):
+            paths[tag] = os.path.join(own, "resnet50_%s.mxa" % tag)
+            export_model(paths[tag], sym, args, auxs, {"data": shape},
+                         dtype=dt, platforms=(DEV,),
+                         model_name="resnet50_%s" % tag)
+    try:
+        res["full_width"] = _serving_full_width(paths, manifest_need_bytes)
+        res["generate"] = _serving_generate()
+    finally:
+        if own is not None:
+            shutil.rmtree(own, ignore_errors=True)
+        if RECORD.get("predict_paths"):
+            shutil.rmtree(RECORD["predict_paths"]["dir"], ignore_errors=True)
+            RECORD["predict_paths"] = None
+    res["launches"] = _read_counts()
+    res["phase_s"] = time.perf_counter() - t_phase
+    b = res["bench"]
+    res["ok"] = bool(b["completed"] > 0 and b["qps"] > 0
+                     and res["serve_two_models"]["ok"]
+                     and res["full_width"]["ok"] and res["generate"]["ok"])
+    RECORD["serving_net"] = res
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("serving_net failed: %s"
+                             % json.dumps(res, default=str)[:6000])
+    return res
+
+
+def _serving_full_width(paths, need_of):
+    """Two ResNet-50 artifacts hot behind a ServingFrontend, SERVE_REPLICAS
+    each: one request each held against the predictor, then the HTTP
+    closed loop against each (``_http_closed_loop``); a third load under
+    a budget of their measured resident bytes plus the third's estimate,
+    less one byte, must evict the LRU one."""
+    import numpy as np
+    from mxnet_tpu_torch.predictor import Predictor
+    from mxnet_tpu_torch.serving.frontend import ServingFrontend, _http
+    out = {"replicas": SERVE_REPLICAS}
+    x = np.random.RandomState(SEED + 5).uniform(
+        0, 1, (1, 3, PREDICT_IMG, PREDICT_IMG)).astype(np.float32)
+    want = Predictor(paths["f32"], device=_serve_device()).forward(x)[0]
+    # probe: each model's measured resident bytes, unbudgeted
+    with ServingFrontend(replicas=SERVE_REPLICAS,
+                         device=_serve_device()) as probe:
+        charged = {}
+        for tag in ("f32", "bf16"):
+            code, st = _http("POST", "%s/v1/models/resnet50_%s:load"
+                                  % (probe.url, tag), {"path": paths[tag]})
+            if code != 200:
+                raise AssertionError("load %s: %s %s" % (tag, code, st))
+            charged[tag] = int(st["resident_bytes"])
+        out["probe_card_allocated"] = _card_bytes()[0]
+    need3 = int(need_of(paths["f32"])) * SERVE_REPLICAS
+    budget = charged["f32"] + charged["bf16"] + need3 - 1
+    total = _card_bytes()[2]
+    out.update(charged_bytes=charged, need_third=need3, budget=budget,
+               manifest_need={k: int(need_of(paths[k]))
+                              for k in ("f32", "bf16")})
+    with ServingFrontend(replicas=SERVE_REPLICAS, budget=budget,
+                         device=_serve_device()) as fe:
+        u = fe.url
+        for tag in ("f32", "bf16"):
+            code, st = _http("POST", "%s/v1/models/resnet50_%s:load"
+                                  % (u, tag), {"path": paths[tag]})
+            if code != 200:
+                raise AssertionError("load %s: %s %s" % (tag, code, st))
+        t0 = time.perf_counter()
+        code, body = _http("POST", "%s/v1/models/resnet50_f32:predict"
+                                % u, {"inputs": [x.tolist()]})
+        out["predict_http_s"] = time.perf_counter() - t0
+        got = np.asarray(body["outputs"][0], np.float32) if code == 200 \
+            else None
+        out["predict_status"] = code
+        out["predict_rel_err"] = None if got is None else _rel_err(got, want)
+        code16, _ = _http("POST", "%s/v1/models/resnet50_bf16:predict"
+                               % u, {"inputs": [x.tolist()]})
+        out["closed_loop"] = {tag: _http_closed_loop(
+            u, "resnet50_%s" % tag, x) for tag in ("f32", "bf16")}
+        table = _http("GET", "%s/v1/models" % u)[1]
+        out["resident_before"] = table["resident_bytes"]
+        (out["card_allocated"], out["card_reserved"],
+         out["card_total"]) = _card_bytes()
+        code3, st3 = _http("POST", "%s/v1/models/resnet50_c:load" % u,
+                                {"path": paths["f32"]})
+        table = _http("GET", "%s/v1/models" % u)[1]
+        held = sorted(table["models"])
+        out.update(third_status=code3, held_after=held,
+                   resident_after=table["resident_bytes"],
+                   charged_after={k: v.get("resident_bytes")
+                                  for k, v in table["models"].items()})
+    # bf16 was used last, so f32 is the LRU model and goes
+    out["ok"] = bool(code == 200 and code16 == 200 and code3 == 200
+                     and all(v["ok"] for v in out["closed_loop"].values())
+                     and out["predict_rel_err"] is not None
+                     and out["predict_rel_err"] <= BUCKET_RTOL
+                     and held == ["resnet50_bf16", "resnet50_c"])
+    return out
+
+
+def _http_closed_loop(url, model, x):
+    """NET_CLIENTS urllib clients send NET_REQUESTS 1-image requests each
+    to ``model`` back to back (the frontend's closed loop: interactive,
+    deadline NET_DEADLINE_MS, each client's JSON body encoded once):
+    QPS, p50/p99 of the answered requests, and the shed (429), timed-out
+    (504) and failed counts."""
+    from mxnet_tpu_torch.serving.frontend import _closed_loop, _pctl
+    row = [x.tolist()]
+    jobs = [(model, "interactive", NET_DEADLINE_MS, NET_REQUESTS, row)
+            for _ in range(NET_CLIENTS)]
+    counts, lats, dt = _closed_loop(url, jobs)
+    total = sum(counts.values())
+    ok = counts.get(("interactive", 200), 0)
+    inter = lats.get("interactive", [])
+    return {"clients": NET_CLIENTS, "requests": total, "completed": ok,
+            "seconds": dt, "qps": ok / dt, "p50_ms": _pctl(inter, 50),
+            "p99_ms": _pctl(inter, 99),
+            "shed": counts.get(("interactive", 429), 0),
+            "timeouts": counts.get(("interactive", 504), 0),
+            "failed": total - ok - counts.get(("interactive", 429), 0)
+            - counts.get(("interactive", 504), 0),
+            "request_bytes": len(json.dumps({"inputs": row})),
+            "ok": bool(total == NET_CLIENTS * NET_REQUESTS and ok > 0
+                       and ok + counts.get(("interactive", 429), 0)
+                       == total)}
+
+
+def _serving_generate():
+    """A decode artifact at the export phase's cut of GPT-2 medium (CFG's
+    widths, EXPORT_LAYERS layers, params from SEED) loaded into a
+    ServingFrontend and driven by POST :generate: the decode kernel's
+    path through the network tier, held against DecodeEngine.generate.
+    The tokens must not be one token repeated, and the control (the
+    position table shifted by one row, every position read one place
+    off) must change them."""
+    import tempfile
+    import numpy as np
+    from mxnet_tpu_torch.contrib.export import export_decode_model
+    from mxnet_tpu_torch.serving.decode import DecodeEngine, DecodeModel
+    from mxnet_tpu_torch.serving.frontend import ServingFrontend, _http
+    cfg = dict(CFG, layers=EXPORT_LAYERS)
+    model = DecodeModel(**cfg)
+    params = model.init_params(seed=SEED)
+    prompt = list(range(3, 20))
+    shifted = dict(params, pos=np.roll(params["pos"], 1, axis=0))
+    with DecodeEngine(DecodeModel(**cfg), shifted, num_slots=2,
+                      device=_serve_device()) as eng:
+        control = eng.generate(prompt, max_new_tokens=GEN_NEW_TOKENS)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as td:
+        path = os.path.join(td, "dec.mxa")
+        t0 = time.perf_counter()
+        export_decode_model(path, model.config(), params, model_name="dec")
+        export_s = time.perf_counter() - t0
+        del params, shifted
+        with DecodeEngine(path, num_slots=2, device=_serve_device()) as eng:
+            want = eng.generate(prompt, max_new_tokens=GEN_NEW_TOKENS)
+        with ServingFrontend(replicas=1, device=_serve_device()) as fe:
+            code, st = _http("POST", "%s/v1/models/dec:load" % fe.url,
+                             {"path": path}, timeout=300)
+            t0 = time.perf_counter()
+            code2, body = _http(
+                "POST", "%s/v1/models/dec:generate" % fe.url,
+                {"tokens": prompt, "max_new_tokens": GEN_NEW_TOKENS})
+            gen_s = time.perf_counter() - t0
+    tokens = body.get("tokens")
+    return {"widths": cfg, "export_s": export_s, "load_status": code,
+            "status": code2, "generate_http_s": gen_s, "tokens": tokens,
+            "engine_tokens": want, "distinct": len(set(tokens or ())),
+            "control_shifted_positions": control,
+            "control_differs": control != want,
+            "ok": bool(code == 200 and code2 == 200 and tokens == want
+                       and len(set(want)) > 1 and control != want)}
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("train", phase_train),
           ("train_profile", phase_train_profile),
@@ -5266,7 +6300,8 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("module_fused", phase_module_fused),
           ("ckpt_resume", phase_ckpt_resume),
           ("rnn_op", phase_rnn_op), ("lstm_lm", phase_lstm_lm),
-          ("lstm_bucketing", phase_lstm_bucketing))
+          ("lstm_bucketing", phase_lstm_bucketing),
+          ("predict", phase_predict), ("serving_net", phase_serving_net))
 
 # (name, source, TPU kernel, case kind, case, its time / bound keys, errors,
 # its kernel launches a call: counted in the case)
@@ -5361,7 +6396,8 @@ def main(argv=None):
                                   "gluon_fused_lm", "gluon_fused_lm_amp",
                                   "dp_resnet50", "dp_resnet50_fp16",
                                   "module_fused", "ckpt_resume",
-                                  "lstm_lm", "lstm_bucketing")
+                                  "lstm_lm", "lstm_bucketing", "predict",
+                                  "serving_net")
               if k in RECORD]
     rows = []
     for (name, src, replaces, kind, case, ms_key, bound_key, by_key,

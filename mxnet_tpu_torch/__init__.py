@@ -34,7 +34,8 @@ Entry points run on the card unless the caller asks for the host
 tensors' device).
 """
 from .base import AttrScope, MXNetError, NameManager
-from .context import Context, cpu, current_context, gpu, resolve_device
+from .context import (Context, cpu, current_context, gpu, resolve_device,
+                      tpu)
 from . import autograd, initializer, optimizer, random, rtc  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import ops  # noqa: F401
@@ -57,7 +58,7 @@ config._apply_startup()
 __version__ = "0.4.0"
 
 __all__ = ["AttrScope", "MXNetError", "NameManager", "Context", "cpu",
-           "gpu", "current_context", "resolve_device",
+           "gpu", "tpu", "current_context", "resolve_device",
            "amp", "autograd", "callback", "checkpoint", "executor", "gluon",
            "imperative", "init",
            "initializer", "io", "kv", "kvstore", "lr_scheduler", "metric",

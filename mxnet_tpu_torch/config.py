@@ -15,6 +15,12 @@ both:
                             sentinel warns (<= 0 disables)
   MXNET_TELEMETRY_PORT      port of the /metrics + /healthz exporter that
                             ``telemetry.start_server()`` binds
+  MXNET_SERVING_PORT        the serving frontend's default port (0 or unset:
+                            an ephemeral one)
+  MXNET_SERVING_REPLICAS    EnginePool replicas a model behind a ModelRouter
+  MXNET_SERVING_HBM_BUDGET  device-memory bytes a ModelRouter may fill (else
+                            devstats' budget of its device)
+  MXNET_SERVING_MAX_MODELS  hot-model table bound (0 = unbounded)
   MXNET_UPDATE_ON_KVSTORE   run the updater inside the kvstore of a
                             several-context Module (default 1)
   MXNET_BACKWARD_DO_MIRROR  activation mirroring in the executor's
@@ -45,6 +51,10 @@ _DOCUMENTED = {
     "MXNET_DEVSTATS_HBM_BYTES": None,
     "MXNET_DEVSTATS_RECOMPILE_LIMIT": 32,
     "MXNET_TELEMETRY_PORT": None,
+    "MXNET_SERVING_PORT": None,
+    "MXNET_SERVING_REPLICAS": 1,
+    "MXNET_SERVING_HBM_BUDGET": None,
+    "MXNET_SERVING_MAX_MODELS": 0,
     "MXNET_DECODE_SLOTS": 8,
     "MXNET_DECODE_MAX_LEN": 256,
     "MXNET_DECODE_MAX_NEW": 32,

@@ -1,6 +1,8 @@
 """Device contexts (counterpart of mxnet_tpu/context.py).
 
-``gpu(i)`` is ``cuda:i`` and ``cpu()`` the host. The default context is
+``gpu(i)`` is ``cuda:i`` and ``cpu()`` the host; ``tpu(i)``, the JAX
+package's accelerator context, is the card here too (``gpu(i)``), so
+scripts written for the JAX package run unchanged. The default context is
 ``gpu(0)``: every entry point that takes ``ctx=None`` or ``device=None``
 means the card, and without CUDA that raises instead of quietly running
 on the CPU. The CPU is used only when a caller asks for it: ``ctx=cpu()``,
@@ -14,7 +16,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "resolve_device"]
+__all__ = ["Context", "cpu", "gpu", "tpu", "current_context",
+           "resolve_device"]
 
 
 class Context:
@@ -80,6 +83,12 @@ def cpu(device_id=0):
 
 
 def gpu(device_id=0):
+    return Context("gpu", device_id)
+
+
+def tpu(device_id=0):
+    """The JAX package's accelerator context: on the port, the card
+    (``gpu(device_id)``)."""
     return Context("gpu", device_id)
 
 

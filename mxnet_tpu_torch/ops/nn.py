@@ -12,13 +12,13 @@ off for each call (``cudnn_f32``).
 """
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from ..predictor import f32_scope
 from .registry import Param, register
 
 __all__ = ["cudnn_f32"]
@@ -45,21 +45,13 @@ def _activation(x, act_type):
 # ---------------------------------------------------------------------------
 
 
-@contextlib.contextmanager
-def cudnn_f32():
-    """cuDNN and cuBLAS in full float32 for the enclosed calls: PyTorch
-    lets cuDNN convolutions use TF32 by default
-    (``torch.backends.cudnn.allow_tf32`` is True), unlike its matmuls;
-    the convolutions' GEMM weight gradient (``_conv_wgrad_gemm``) runs
-    inside the same scope. The flags are lowered for the call and
-    restored after it, never flipped for the process."""
-    cd, mm = torch.backends.cudnn, torch.backends.cuda.matmul
-    old = (cd.allow_tf32, mm.allow_tf32)
-    cd.allow_tf32 = mm.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cd.allow_tf32, mm.allow_tf32 = old
+# cuDNN and cuBLAS in full float32 for the enclosed calls: PyTorch lets
+# cuDNN convolutions use TF32 by default (``torch.backends.cudnn.allow_tf32``
+# is True), unlike its matmuls; the convolutions' GEMM weight gradient
+# (``_conv_wgrad_gemm``) runs inside the same scope. It is the predictor's
+# counted scope (predictor.py imports nothing of the package), so threads
+# whose scopes overlap restore the flags once, after the last one leaves.
+cudnn_f32 = f32_scope
 
 
 def _conv_wgrad_gemm(dy, x, w_shape, stride, pad, dilate):

@@ -14,6 +14,7 @@ from ..ops import registry as _registry
 from ..ops.registry import get_op
 from .symbol import (Symbol, Variable, var, Group, load, load_json,  # noqa
                      _Node)
+from . import contrib  # noqa: F401
 
 _SYM_FUNCS = {}
 

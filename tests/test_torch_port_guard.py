@@ -93,7 +93,13 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.module.base_module, "
             "mxnet_tpu_torch.module.module, mxnet_tpu_torch.kvstore, "
             "mxnet_tpu_torch.parallel, mxnet_tpu_torch.parallel.mesh, "
-            "mxnet_tpu_torch.parallel.dp\n"
+            "mxnet_tpu_torch.parallel.dp, mxnet_tpu_torch.predictor, "
+            "mxnet_tpu_torch.serving.engine, mxnet_tpu_torch.serving.pool, "
+            "mxnet_tpu_torch.serving.router, "
+            "mxnet_tpu_torch.serving.frontend, "
+            "mxnet_tpu_torch.serving.metrics, "
+            "mxnet_tpu_torch.serving.__main__, "
+            "mxnet_tpu_torch.ndarray.contrib, mxnet_tpu_torch.symbol.contrib\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'mxnet_tpu')]\n"
             "print(bad)\n"
@@ -268,3 +274,51 @@ def test_data_parallel_runs_on_host_replicas_when_asked():
     mod.fit(it, num_epoch=1, optimizer="sgd", steps_per_dispatch=2)
     assert mod.get_params()[0]["fc_weight"].context == mx.cpu()
 
+
+
+def test_predictor_imports_nothing_of_the_port():
+    """predictor.py is the amalgamation file: the standard library, numpy
+    and torch only (no relative import, nothing of either package)."""
+    path = os.path.join(ROOT, "mxnet_tpu_torch", "predictor.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    relative = [n.module for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom) and n.level]
+    assert not relative, relative
+    tops = {m.split(".")[0] for m in _imported(tree)}
+    assert not tops & {"mxnet_tpu_torch", "mxnet_tpu", "jax"}, tops
+
+
+def test_tpu_context_is_the_card_and_raises_without_one():
+    """mx.tpu(), the JAX package's accelerator context, names the card on
+    the port (the examples call it): the same device as mx.gpu()."""
+    import mxnet_tpu_torch as mx
+    assert mx.tpu() == mx.gpu(0) and mx.tpu(1) == mx.gpu(1)
+    if torch.cuda.is_available():
+        assert mx.tpu().torch_device().type == "cuda"
+        return
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        mx.tpu().torch_device()
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        mx.nd.zeros((2,), ctx=mx.tpu())
+
+
+def test_predict_tier_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib.export import export_model
+    from mxnet_tpu_torch.predictor import Predictor
+    from mxnet_tpu_torch.serving import ModelRouter, ServingEngine
+    sym = _mlp_symbol()
+    args = {"fc_weight": np.ones((4, 3), np.float32),
+            "fc_bias": np.zeros(4, np.float32)}
+    path = str(tmp_path / "m.mxa")
+    export_model(path, sym, args, {}, {"data": (2, 3)})
+    for make in (lambda: Predictor(path), lambda: ServingEngine(path),
+                 lambda: ModelRouter()):
+        with pytest.raises(mx.MXNetError, match="no CUDA device"):
+            make()
+    out = ServingEngine(path, device="cpu").infer(np.ones((1, 3),
+                                                          np.float32))
+    assert out[0].shape == (1, 4)
