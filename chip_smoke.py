@@ -215,7 +215,26 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            charged, the card's memory); a decode artifact at GPT-2
            medium's widths (2 layers) driven by :generate through the
            frontend against DecodeEngine.generate (the tokens vary; a
-           position table shifted by one must change them)
+           position table shifted by one must change them); and
+           python -m mxnet_tpu_torch.serving --selftest on the card with
+           its own 2x bar (the batcher's closed loop against one
+           Predictor call a request)
+  ssd300   SSD300-VGG16 (ssd300_vgg16_symbol: MXNet's example/ssd at its
+           published widths, 8,732 anchors, VOC's 20 classes) trained
+           through Module at batch 32 of 300 x 300 float32 images
+           (synthetic, seeded; SGD lr 0.004, momentum 0.9, wd 5e-4):
+           img/s over steps 3..12, the softmax and box losses first
+           against last, peak memory, one profiled step (top kernels,
+           the device time under MultiBoxPrior / MultiBoxTarget /
+           MultiBoxDetection); beforehand a batch-2 step on the card and
+           the CPU against float64 (module_resnet50's float32 rule, class
+           targets equal); then MultiBoxTarget and MultiBoxDetection
+           (nms_topk 400) on the trained network's batch of 32, card
+           against CPU (masks, classes, kept rows equal; floats within
+           1e-5), beside two wrong assignments that must fail (anchors
+           shifted by a row, the bipartite pass skipped), each op's
+           device and wall ms; examples/ssd_train.py with only its import
+           changed (--ctx tpu: the card)
 
 then the nvidia-smi line, a ``kernels`` summary line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no result)
@@ -604,6 +623,26 @@ BUCKET_LM = dict(vocab=10000, hidden=200, embed=200, layers=2, batch=32,
 # CPU from the same parameters and batches: each parameter within this of
 # its tensor's largest magnitude
 BUCKET_STEP_RTOL = 1e-5
+# SSD300-VGG16 (ssd300_vgg16_symbol): MXNet's example/ssd at its
+# published widths, VOC's 20 classes, batch 32 of 300 x 300 float32
+# images, train.py's default optimizer (SGD lr 0.004, momentum 0.9, wd
+# 5e-4, rescale_grad 1: the loss heads normalise by their valid count);
+# SSD_DISTINCT synthetic batches from SEED (1..8 boxes an image) cycled
+# over SSD_STEPS steps, img/s over steps SSD_TIMED_FROM.. (10 steps);
+# SSD_WIDTH_DIV divides the widths only for a rehearsal on the CPU
+SSD_BATCH = 32
+SSD_IMG = 300
+SSD_CLASSES = 20
+SSD_MAX_BOXES = 8
+SSD_WIDTH_DIV = 1
+SSD_STEPS = 13
+SSD_TIMED_FROM = 3
+SSD_DISTINCT = 4
+SSD_OPT = dict(learning_rate=0.004, momentum=0.9, wd=5e-4, rescale_grad=1.0)
+SSD_NMS_TOPK = 400
+SSD_CHECK_BATCH = 2      # the whole step's card-against-CPU check
+SSD_OPS_RTOL = 1e-5      # loc targets and boxes, card against CPU
+SSD_TIME_ITERS = 5
 
 RECORD = {}
 DEV = "cuda"
@@ -727,6 +766,140 @@ def lenet_symbol(sym):
     net = sym.Activation(net, act_type="tanh")
     net = sym.FullyConnected(net, num_hidden=10, name="f2")
     return sym.SoftmaxOutput(net, name="softmax")
+
+
+SSD300 = dict(
+    sizes=((.1, .141), (.2, .272), (.37, .447), (.54, .619), (.71, .79),
+           (.88, .961)),
+    ratios=((1, 2, .5),) + ((1, 2, .5, 3, 1. / 3),) * 3 + ((1, 2, .5),) * 2,
+    steps=tuple(s / 300. for s in (8, 16, 32, 64, 100, 300)),
+    extra=((512, 2, 1), (256, 2, 1), (256, 1, 0), (256, 1, 0)))
+
+
+def ssd300_vgg16_symbol(sym, num_classes=20, width_div=1, nms_topk=400):
+    """SSD300 on VGG16-reduced, as MXNet's example/ssd builds it
+    (symbol/vgg16_reduced.py, symbol_factory.get_config("vgg16_reduced",
+    300), symbol_builder.get_symbol_train), with the package whose
+    ``mx.sym`` is ``sym``; ``width_div`` divides every convolution's
+    width (1: the published widths). Backbone conv1-conv5 (3x3 pad 1 +
+    ReLU; 2x2 stride-2 max pools after conv1-4, pool3 "full" so 75 ->
+    38; pool5 3x3 stride 1 pad 1), fc6 a 3x3 convolution of 1024 at pad
+    and dilation 6, fc7 1x1 of 1024; four extra layers (1x1 of half the
+    width, then 3x3 at stride 2/2/1/1, pad 1/1/0/0); sources relu4_3
+    (L2Normalization over channels times a learned (1, C, 1, 1) scale,
+    init 20, __wd_mult__ 0.1), relu7 and the extra layers; 3x3 heads of
+    A (C + 1) class and 4 A box filters; 8,732 anchors at 300². Outputs:
+    SoftmaxOutput over the MultiBoxTarget classes, the valid-normalised
+    smooth-L1 MakeLoss of the masked box error, the class targets
+    (MakeLoss, grad_scale 0) and MultiBoxDetection on the trained outputs
+    (MakeLoss, grad_scale 0)."""
+    def conv(x, name, nf, kernel=3, pad=1, stride=1, dilate=1):
+        x = sym.Convolution(x, kernel=(kernel, kernel), pad=(pad, pad),
+                            stride=(stride, stride),
+                            dilate=(dilate, dilate),
+                            num_filter=max(1, nf // width_div), name=name)
+        return sym.Activation(x, act_type="relu",
+                              name="relu" + name[len("conv"):]
+                              if name.startswith("conv") else name + "_relu")
+
+    data = sym.Variable("data")
+    label = sym.Variable("label")
+    x = data
+    for stage, (n, nf) in enumerate(((2, 64), (2, 128), (3, 256),
+                                     (3, 512), (3, 512)), start=1):
+        for i in range(1, n + 1):
+            x = conv(x, "conv%d_%d" % (stage, i), nf)
+        if stage == 4:
+            relu4_3 = x
+        if stage < 5:
+            x = sym.Pooling(x, pool_type="max", kernel=(2, 2),
+                            stride=(2, 2), name="pool%d" % stage,
+                            pooling_convention="full" if stage == 3
+                            else "valid")
+        else:
+            x = sym.Pooling(x, pool_type="max", kernel=(3, 3),
+                            stride=(1, 1), pad=(1, 1), name="pool5")
+    x = sym.Convolution(x, kernel=(3, 3), pad=(6, 6), dilate=(6, 6),
+                        num_filter=1024 // width_div, name="fc6")
+    x = sym.Activation(x, act_type="relu", name="relu6")
+    x = sym.Convolution(x, kernel=(1, 1), num_filter=1024 // width_div,
+                        name="fc7")
+    relu7 = sym.Activation(x, act_type="relu", name="relu7")
+    sources, x = [relu4_3, relu7], relu7
+    for k, (nf, stride, pad) in enumerate(SSD300["extra"]):
+        x = conv(x, "multi_feat_%d_conv_1x1" % (k + 2), nf // 2, kernel=1,
+                 pad=0)
+        x = conv(x, "multi_feat_%d_conv_3x3" % (k + 2), nf, stride=stride,
+                 pad=pad)
+        sources.append(x)
+    import importlib
+    init = importlib.import_module(sym.__name__.rpartition(".")[0]).init
+    scale = sym.Variable("relu4_3_scale", shape=(1, 512 // width_div, 1, 1),
+                         wd_mult=0.1, init=init.Constant(20))
+    sources[0] = sym.broadcast_mul(
+        sym.L2Normalization(sources[0], mode="channel",
+                            name="relu4_3_norm"), scale)
+    cls_layers, loc_layers, anchor_layers = [], [], []
+    for k, src in enumerate(sources):
+        sizes, ratios = SSD300["sizes"][k], SSD300["ratios"][k]
+        na = len(sizes) - 1 + len(ratios)
+        name = "src%d" % k
+        loc = sym.Convolution(src, kernel=(3, 3), pad=(1, 1),
+                              num_filter=4 * na, name=name + "_loc_pred_conv")
+        loc_layers.append(sym.Flatten(sym.transpose(loc, axes=(0, 2, 3, 1))))
+        cls = sym.Convolution(src, kernel=(3, 3), pad=(1, 1),
+                              num_filter=na * (num_classes + 1),
+                              name=name + "_cls_pred_conv")
+        cls_layers.append(sym.Flatten(sym.transpose(cls, axes=(0, 2, 3, 1))))
+        step = SSD300["steps"][k]
+        anchor_layers.append(sym.Flatten(sym.contrib.MultiBoxPrior(
+            src, sizes=sizes, ratios=ratios, clip=False, steps=(step, step),
+            name=name + "_anchors")))
+    loc_preds = sym.Concat(*loc_layers, dim=1, name="multibox_loc_pred")
+    cls_preds = sym.transpose(sym.Reshape(
+        sym.Concat(*cls_layers, dim=1), shape=(0, -1, num_classes + 1)),
+        axes=(0, 2, 1), name="multibox_cls_pred")
+    anchors = sym.Reshape(sym.Concat(*anchor_layers, dim=1),
+                          shape=(0, -1, 4), name="multibox_anchors")
+    tgt = sym.contrib.MultiBoxTarget(
+        anchors, label, cls_preds, overlap_threshold=.5, ignore_label=-1,
+        negative_mining_ratio=3, minimum_negative_samples=0,
+        negative_mining_thresh=.5, variances=(.1, .1, .2, .2),
+        name="multibox_target")
+    cls_prob = sym.SoftmaxOutput(cls_preds, tgt[2], ignore_label=-1,
+                                 use_ignore=True, grad_scale=1.,
+                                 multi_output=True, normalization="valid",
+                                 name="cls_prob")
+    loc_loss = sym.MakeLoss(sym.smooth_l1(tgt[1] * (loc_preds - tgt[0]),
+                                          scalar=1.0, name="loc_loss_"),
+                            grad_scale=1., normalization="valid",
+                            name="loc_loss")
+    cls_label = sym.MakeLoss(tgt[2], grad_scale=0, name="cls_label")
+    det = sym.contrib.MultiBoxDetection(
+        cls_prob, loc_preds, anchors, nms_threshold=.45,
+        force_suppress=False, variances=(.1, .1, .2, .2), nms_topk=nms_topk,
+        name="detection")
+    det = sym.MakeLoss(det, grad_scale=0, name="det_out")
+    return sym.Group([cls_prob, loc_loss, cls_label, det])
+
+
+def synthetic_detection(n, img=300, max_boxes=8, num_classes=20, seed=0):
+    """Seeded images in [-1, 1] and 1..max_boxes ground-truth boxes an
+    image (class, x1, y1, x2, y2 in [0, 1]; the rest -1 rows), as
+    example/ssd's padded labels; no dataset is read. Box sides are
+    uniform on 0.03..0.7 of the image (VOC's objects run from a few
+    percent of it to most of it), so some boxes overlap no anchor by
+    more than 0.5 and only the bipartite pass assigns them."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-1, 1, (n, 3, img, img)).astype(np.float32)
+    y = -np.ones((n, max_boxes, 5), np.float32)
+    for i in range(n):
+        for j in range(rng.randint(1, max_boxes + 1)):
+            w, h = rng.uniform(0.03, 0.7, 2)
+            x1, y1 = rng.uniform(0, 1 - w), rng.uniform(0, 1 - h)
+            y[i, j] = (rng.randint(num_classes), x1, y1, x1 + w, y1 + h)
+    return x, y
 
 
 def synthetic_mnist(n=2048, seed=0):
@@ -6098,6 +6271,7 @@ def phase_serving_net():
         code, lines, secs = _run_example(path, src, [])
     res["serve_two_models"] = {"exit_code": code, "seconds": secs,
                                "lines": lines[:12], "ok": code == 0}
+    res["selftest_cli"] = _serving_selftest_cli()
     paths = RECORD.get("predict_paths")
     own = None
     if paths is None:
@@ -6127,6 +6301,7 @@ def phase_serving_net():
     b = res["bench"]
     res["ok"] = bool(b["completed"] > 0 and b["qps"] > 0
                      and res["serve_two_models"]["ok"]
+                     and res["selftest_cli"]["ok"]
                      and res["full_width"]["ok"] and res["generate"]["ok"])
     RECORD["serving_net"] = res
     _free_card()
@@ -6134,6 +6309,35 @@ def phase_serving_net():
         raise AssertionError("serving_net failed: %s"
                              % json.dumps(res, default=str)[:6000])
     return res
+
+
+def _serving_selftest_cli():
+    """``python -m mxnet_tpu_torch.serving --selftest`` on the card with
+    its own defaults (256 requests, 8 clients, --min-speedup 2.0): the
+    batcher's closed loop must beat one Predictor call a request by 2x
+    (its exit code), and /metrics must carry the serving series."""
+    import mxnet_tpu_torch
+    root = os.path.dirname(os.path.dirname(
+        os.path.abspath(mxnet_tpu_torch.__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "mxnet_tpu_torch.serving",
+                        "--selftest"], env=env, capture_output=True,
+                       text=True, timeout=300)
+    out = {"exit_code": r.returncode, "seconds": time.perf_counter() - t0}
+    try:
+        line = json.loads(r.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        out.update(ok=False, stderr=r.stderr[-2000:])
+        return out
+    out.update({k: line.get(k) for k in (
+        "device", "requests", "concurrency", "batched_qps",
+        "sequential_qps", "speedup", "avg_batch_rows", "batch_hist",
+        "shed", "timeouts", "telemetry_scrape_ok")})
+    out["ok"] = bool(r.returncode == 0 and line.get("ok")
+                     and str(line.get("device", "")).startswith("cuda"))
+    return out
 
 
 def _serving_full_width(paths, need_of):
@@ -6281,6 +6485,374 @@ def _serving_generate():
                        and len(set(want)) > 1 and control != want)}
 
 
+# -- ssd300 -------------------------------------------------------------------
+
+_SSD_TARGET = dict(overlap_threshold=.5, ignore_label=-1,
+                   negative_mining_ratio=3, minimum_negative_samples=0,
+                   negative_mining_thresh=.5, variances=(.1, .1, .2, .2))
+_SSD_DETECT = dict(nms_threshold=.45, force_suppress=False,
+                   variances=(.1, .1, .2, .2), nms_topk=SSD_NMS_TOPK)
+_SSD_OPS = ("_contrib_MultiBoxPrior", "_contrib_MultiBoxTarget",
+            "_contrib_MultiBoxDetection")
+# a step's device kernels by kind (matched lower-case, first group wins):
+# cuDNN's convolutions, the float64 forward route (im2col and DGEMM), the
+# other GEMMs, host-device copies, the rest
+_SSD_GROUPS = (("cudnn_conv", ("cudnn", "fprop", "dgrad", "wgrad",
+                               "implicit_gemm", "fft", "convolve")),
+               ("f64_route", ("im2col_kernel<double>", "f64f64",
+                              "dgemm")),
+               ("gemm_f32", ("gemm", "cutlass")),
+               ("copies", ("memcpy", "memset")),
+               ("elementwise", ("elementwise", "reduce", "pool",
+                                "softmax", "index", "sort", "scatter",
+                                "gather", "cat", "fill")))
+
+
+def _ssd_params(shapes):
+    """He-normal weights (fan in), zero biases, the L2Normalization scale
+    20 (its __init__), drawn on the host from SEED (numpy, by name)."""
+    import numpy as np
+    rng = np.random.RandomState(SEED)
+    out = {}
+    for name, shape in shapes.items():
+        if name in ("data", "label"):
+            continue
+        if name == "relu4_3_scale":
+            out[name] = np.full(shape, 20.0, np.float32)
+        elif name.endswith("_weight"):
+            out[name] = (rng.standard_normal(shape) * np.sqrt(
+                2.0 / int(np.prod(shape[1:])))).astype(np.float32)
+        else:
+            out[name] = np.zeros(shape, np.float32)
+    return out
+
+
+def _ssd_losses(outs):
+    """example/ssd's MultiBoxMetric from a step's outputs: the softmax
+    cross-entropy over the anchors the targets keep (class >= 0) and the
+    smooth-L1 box loss over the positive anchors."""
+    import numpy as np
+    prob, loc, label = (o.asnumpy() for o in outs[:3])
+    keep = label >= 0
+    lab = np.where(keep, label, 0).astype(np.int64)
+    p = np.take_along_axis(prob, lab[:, None, :], axis=1)[:, 0]
+    ce = float(-np.log(np.maximum(p[keep], 1e-30)).mean())
+    return {"softmax_ce": ce, "loc_loss": float(loc.sum() / max(
+        1, int((label > 0).sum()))), "positives": int((label > 0).sum()),
+        "negatives": int((label == 0).sum())}
+
+
+def _ssd_step_check(mx, sym, params):
+    """A batch-SSD_CHECK_BATCH training step (forward and backward) on the
+    card and on the CPU, in float32 and float64 from the same parameters:
+    float64 card against CPU, float32 by module_resnet50's rule
+    (_f32_rule) over the class probabilities, the box loss and every
+    gradient, and the class targets equal."""
+    import numpy as np
+    xb, yb = synthetic_detection(SSD_CHECK_BATCH, SSD_IMG, SSD_MAX_BOXES,
+                                 SSD_CLASSES, seed=SEED + 1)
+    host = {n: mx.nd.array(v, ctx=mx.cpu()) for n, v in params.items()}
+    t, labels = {}, {}
+    for key, ctx, dt in (("cpu64", mx.cpu(), "float64"),
+                         ("cpu32", mx.cpu(), "float32"),
+                         ("card64", _ctx(), "float64"),
+                         ("card32", _ctx(), "float32")):
+        ex = sym.simple_bind(ctx=ctx, data=xb.shape, label=yb.shape,
+                             type_dict={n: dt for n in
+                                        sym.list_arguments()})
+        ex.copy_params_from(host, {})
+        ex.forward(is_train=True, data=mx.nd.array(xb, ctx=mx.cpu()),
+                   label=mx.nd.array(yb, ctx=mx.cpu()))
+        ex.backward()
+        out = {"output": ex.outputs[0], "loc_loss": ex.outputs[1]}
+        out.update({"grad:" + n: ex.grad_dict[n] for n in params})
+        t[key] = {k: v.asnumpy().astype(np.float64) for k, v in out.items()}
+        labels[key] = ex.outputs[2].asnumpy()
+        del ex
+        _free_card()
+    ref = t["cpu64"]
+    e64 = {k: _rel_err(t["card64"][k], v) for k, v in ref.items()}
+    f32 = _f32_rule(t["card32"], t["cpu32"], ref)
+    # the card's class targets are the host's in each precision; float32
+    # against float64 may differ (reported): a box inside two anchors of
+    # one area ties their IoUs exactly, and rounding breaks the tie
+    same = {"card32_cpu32": bool(np.array_equal(labels["card32"],
+                                                labels["cpu32"])),
+            "card64_cpu64": bool(np.array_equal(labels["card64"],
+                                                labels["cpu64"]))}
+    return {"batch": SSD_CHECK_BATCH, "tensors": len(ref),
+            "f64_card_vs_cpu_max": max(e64.values()),
+            "f64_worst": sorted(e64.items(), key=lambda kv: -kv[1])[:4],
+            "f32": f32, "class_targets_equal": same,
+            "f32_f64_class_targets_differing": int(
+                (labels["cpu32"] != labels["cpu64"]).sum()),
+            "positives": int((labels["cpu64"] > 0).sum()),
+            "ok": bool(max(e64.values()) <= R50_F64_RTOL and f32["ok"]
+                       and all(same.values()))}
+
+
+def _ssd_op(name, attrs, *xs):
+    from mxnet_tpu_torch.ops import registry
+    schema = registry.get_op(name)
+    return schema.fcompute(schema.parse_attrs(attrs), registry.OpCtx(
+        device=xs[0].device), *xs)
+
+
+def _ssd_ops_check(mx, sym, arg_params, x, y):
+    """MultiBoxTarget and MultiBoxDetection on one full batch (the
+    trained network's class and box predictions and anchors, computed on
+    the card), run on the card and on the CPU: masks, classes and kept
+    rows equal, loc targets and boxes within SSD_OPS_RTOL of their
+    largest magnitude. Two wrong assignments must fail the same check:
+    the anchors shifted by one row, and the bipartite pass skipped.
+    Then each op's device and wall ms at the batch."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.ops import contrib
+    internals = sym.get_internals()
+    heads = mx.sym.Group([internals["multibox_cls_pred_output"],
+                          internals["multibox_loc_pred_output"],
+                          internals["multibox_anchors_output"]])
+    ex = heads.simple_bind(ctx=_ctx(), data=x.shape, grad_req="null")
+    ex.copy_params_from(arg_params, {}, allow_extra_params=True)
+    ex.forward(is_train=False, data=mx.nd.array(x, ctx=mx.cpu()))
+    cls_pred, loc_pred, anchors = (o._data.detach() for o in ex.outputs)
+    del ex
+    label = torch.tensor(y, device=cls_pred.device)
+    card = _ssd_op("_contrib_MultiBoxTarget", _SSD_TARGET, anchors, label,
+                   cls_pred)
+    cpu = _ssd_op("_contrib_MultiBoxTarget", _SSD_TARGET, anchors.cpu(),
+                  label.cpu(), cls_pred.cpu())
+
+    def compare_target(got):
+        loc, mask, cls = (g.cpu() for g in got)
+        return {"mask_equal": bool(torch.equal(mask, cpu[1])),
+                "class_equal": bool(torch.equal(cls, cpu[2])),
+                "classes_differing": int((cls != cpu[2]).sum()),
+                "loc_err": _rel_err(loc.numpy(), cpu[0].numpy())}
+
+    tgt = compare_target(card)
+    tgt["ok"] = bool(tgt["mask_equal"] and tgt["class_equal"]
+                     and tgt["loc_err"] <= SSD_OPS_RTOL)
+    tgt.update(positives=int((cpu[2] > 0).sum()),
+               negatives=int((cpu[2] == 0).sum()))
+    shifted = compare_target(_ssd_op(
+        "_contrib_MultiBoxTarget", _SSD_TARGET,
+        torch.roll(anchors, 1, dims=1), label, cls_pred))
+    real_assign = contrib._bipartite_assign
+
+    def no_bipartite(ious, thresh_ok=1e-6):
+        a, m_gt, m_iou = real_assign(ious, thresh_ok=float("inf"))
+        return a, m_gt, m_iou
+    contrib._bipartite_assign = no_bipartite
+    try:
+        skipped = compare_target(_ssd_op("_contrib_MultiBoxTarget",
+                                         _SSD_TARGET, anchors, label,
+                                         cls_pred))
+    finally:
+        contrib._bipartite_assign = real_assign
+    for c in (shifted, skipped):
+        c["fails"] = not (c["mask_equal"] and c["class_equal"]
+                          and c["loc_err"] <= SSD_OPS_RTOL)
+    tgt["control_anchors_shifted"] = shifted
+    tgt["control_bipartite_skipped"] = skipped
+    # detection on the SoftmaxOutput probabilities
+    prob = torch.softmax(cls_pred, dim=1)
+    d_card = _ssd_op("_contrib_MultiBoxDetection", _SSD_DETECT, prob,
+                     loc_pred, anchors)[0].cpu()
+    d_cpu = _ssd_op("_contrib_MultiBoxDetection", _SSD_DETECT, prob.cpu(),
+                    loc_pred.cpu(), anchors.cpu())[0]
+    kept = d_cpu[..., 0] >= 0
+    det = {"kept_rows_equal": bool(torch.equal(d_card[..., 0],
+                                               d_cpu[..., 0])),
+           "box_err": _rel_err(d_card[..., 1:].numpy(),
+                               d_cpu[..., 1:].numpy()),
+           "kept_per_image": [int(k) for k in kept.sum(1)],
+           "valid_per_image_max": int((d_cpu[..., 1] >= 0).sum(1).max())}
+    det["ok"] = bool(det["kept_rows_equal"]
+                     and det["box_err"] <= SSD_OPS_RTOL)
+    times = {}
+    for name, fn in (("multibox_target", lambda: _ssd_op(
+            "_contrib_MultiBoxTarget", _SSD_TARGET, anchors, label,
+            cls_pred)), ("multibox_detection", lambda: _ssd_op(
+                "_contrib_MultiBoxDetection", _SSD_DETECT, prob, loc_pred,
+                anchors))):
+        dev_ms, wall, _, kernels = _profiled_ms(fn, SSD_TIME_ITERS)
+        times[name] = {"device_ms": dev_ms, "wall_ms": wall,
+                       "kernels": kernels}
+    return {"target": tgt, "detection": det, "times_batch": times,
+            "batch": int(x.shape[0]), "anchors": int(anchors.shape[1]),
+            "ok": bool(tgt["ok"] and det["ok"] and shifted["fails"]
+                       and skipped["fails"])}
+
+
+@contextlib.contextmanager
+def _ssd_annotated():
+    """The detection ops' fcompute under torch.profiler ranges named
+    ``ssd:<op>``, so one profiled step reads the device time under
+    each."""
+    from torch.profiler import record_function
+    from mxnet_tpu_torch.ops import registry
+    saved = {}
+    for name in _SSD_OPS:
+        schema = registry.get_op(name)
+        saved[name] = schema.fcompute
+
+        def wrapped(attrs, octx, *xs, _f=schema.fcompute, _n=name):
+            with record_function("ssd:" + _n):
+                return _f(attrs, octx, *xs)
+        schema.fcompute = wrapped
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            registry.get_op(name).fcompute = fn
+
+
+def phase_ssd300():
+    """SSD300-VGG16 (ssd300_vgg16_symbol) trained through Module on the
+    card at example/ssd's published widths: a batch-2 step against the
+    CPU first; SSD_STEPS steps of batch 32, img/s over the last 10, the
+    MultiBoxMetric losses first against last, peak memory; one step
+    under torch.profiler (the top kernels, the device time under each
+    detection op); MultiBoxTarget and MultiBoxDetection on the trained
+    network's batch, card against CPU, beside two wrong assignments that
+    must fail; examples/ssd_train.py with only its import changed."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mx
+    _free_card()
+    t_phase = time.perf_counter()
+    res = {"batch": SSD_BATCH, "image": SSD_IMG, "classes": SSD_CLASSES,
+           "width_div": SSD_WIDTH_DIV, "optimizer": dict(SSD_OPT, name="sgd")}
+    with mx.NameManager():
+        sym = ssd300_vgg16_symbol(mx.sym, num_classes=SSD_CLASSES,
+                                  width_div=SSD_WIDTH_DIV,
+                                  nms_topk=SSD_NMS_TOPK)
+    dshape = (SSD_BATCH, 3, SSD_IMG, SSD_IMG)
+    lshape = (SSD_BATCH, SSD_MAX_BOXES, 5)
+    arg_shapes, out_shapes, _ = sym.infer_shape(data=dshape, label=lshape)
+    shapes = dict(zip(sym.list_arguments(), arg_shapes))
+    params = _ssd_params(shapes)
+    res["anchors"] = int(out_shapes[0][2])
+    res["params"] = int(sum(v.size for v in params.values()))
+    # 1. a batch-2 step, card against CPU
+    t0 = time.perf_counter()
+    res["check"] = _ssd_step_check(mx, sym, params)
+    res["check"]["seconds"] = time.perf_counter() - t0
+    # 2. training through Module
+    x, y = synthetic_detection(SSD_BATCH * SSD_DISTINCT, SSD_IMG,
+                               SSD_MAX_BOXES, SSD_CLASSES, seed=SEED)
+    batches = [mx.io.DataBatch(
+        data=[mx.nd.array(x[i * SSD_BATCH:(i + 1) * SSD_BATCH],
+                          ctx=mx.cpu())],
+        label=[mx.nd.array(y[i * SSD_BATCH:(i + 1) * SSD_BATCH],
+                           ctx=mx.cpu())]) for i in range(SSD_DISTINCT)]
+    mod = mx.mod.Module(sym, data_names=("data",), label_names=("label",),
+                        context=_ctx())
+    mod.bind(data_shapes=[("data", dshape)], label_shapes=[("label", lshape)])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                for k, v in params.items()})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(SSD_OPT))
+    _reset_counts()
+    step_s, losses = [], []
+    for step in range(SSD_STEPS):
+        if step == SSD_TIMED_FROM and DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        b = batches[step % SSD_DISTINCT]
+        _sync()
+        t0 = time.perf_counter()
+        mod.forward(b, is_train=True)
+        mod.backward()
+        mod.update()
+        _sync()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(_ssd_losses(mod.get_outputs()))
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    counts = _read_counts()
+    timed = step_s[SSD_TIMED_FROM:]
+    first, last = losses[0], losses[-1]
+    flops = 3 * 2 * 34.5e9 * SSD_BATCH / SSD_WIDTH_DIV ** 2
+    res.update({
+        "step_ms_each": [s * 1e3 for s in step_s],
+        "step_ms": float(np.mean(timed)) * 1e3,
+        "img_per_s": SSD_BATCH * len(timed) / sum(timed),
+        "losses": losses, "loss_first": first, "loss_last": last,
+        "peak_mem_gb": peak / 1e9, "launches": counts,
+        "flop_per_step_approx": flops,
+        "fp32_bound_ms": flops / PEAK_F32_FLOPS * 1e3})
+    # 3. one step under the profiler
+    b = batches[0]
+    with _ssd_annotated():
+        _sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mod.forward(b, is_train=True)
+            mod.backward()
+            mod.update()
+            _sync()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof, 1)
+    # the ssd: ranges' device spans (the kernels their fcompute launched,
+    # and the card's idle gaps between them), apart from the kernels
+    ranges = {}
+    for ev in prof.key_averages():
+        if ev.key.startswith("ssd:"):
+            t = getattr(ev, "device_time_total", None)
+            if t is None:
+                t = getattr(ev, "cuda_time_total", 0.0)
+            ranges[ev.key[4:]] = {"device_ms": t / 1e3,
+                                  "cpu_ms": ev.cpu_time_total / 1e3,
+                                  "calls": ev.count}
+    kernels = [r for r in rows if not r[0].startswith("ssd:")]
+    split = {}
+    for k, t, _ in kernels:
+        name = k.lower()
+        group = next((g for g, keys in _SSD_GROUPS
+                      if any(key in name for key in keys)), "other")
+        split[group] = split.get(group, 0.0) + t
+    dev_ms = sum(r[1] for r in kernels)
+    res["profile"] = {
+        "device_ms": dev_ms, "wall_ms_profiled": prof_wall,
+        "busy_share": dev_ms / max(1e-9, prof_wall),
+        "kernels": int(sum(r[2] for r in kernels)),
+        "split_ms": split,
+        "top": [{"kernel": k[:100], "ms": t, "calls": c}
+                for k, t, c in kernels[:12]],
+        "detection_ops": ranges}
+    # 4. the detection ops on the trained network's batch, card vs CPU
+    trained = mod.get_params()[0]
+    del mod, batches
+    _free_card()
+    res["ops"] = _ssd_ops_check(mx, sym, trained, x[:SSD_BATCH],
+                                y[:SSD_BATCH])
+    # 5. the example, with only its import changed
+    path, src = _example_src("ssd_train.py", (
+        ("import mxnet_tpu as mx", "import mxnet_tpu_torch as mx"),))
+    with _example_context():
+        code, lines, secs = _run_example(
+            path, src, ["--ctx", "tpu" if DEV == "cuda" else "cpu"])
+    res["example"] = {"exit_code": code, "seconds": secs,
+                      "lines": lines[-3:], "ok": code == 0}
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["ok"] = bool(res["check"]["ok"] and res["ops"]["ok"]
+                     and res["example"]["ok"]
+                     and res["anchors"] == 8732
+                     and all(np.isfinite([v for l in losses for v in
+                                          (l["softmax_ce"], l["loc_loss"])]))
+                     and last["softmax_ce"] < first["softmax_ce"]
+                     and last["loc_loss"] < first["loc_loss"]
+                     and not any(counts[k] for k in _wrappers()))
+    RECORD["ssd300"] = res
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("ssd300 failed: %s"
+                             % json.dumps(res, default=str)[:6000])
+    return res
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("train", phase_train),
           ("train_profile", phase_train_profile),
@@ -6301,7 +6873,8 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("ckpt_resume", phase_ckpt_resume),
           ("rnn_op", phase_rnn_op), ("lstm_lm", phase_lstm_lm),
           ("lstm_bucketing", phase_lstm_bucketing),
-          ("predict", phase_predict), ("serving_net", phase_serving_net))
+          ("predict", phase_predict), ("serving_net", phase_serving_net),
+          ("ssd300", phase_ssd300))
 
 # (name, source, TPU kernel, case kind, case, its time / bound keys, errors,
 # its kernel launches a call: counted in the case)
@@ -6397,7 +6970,7 @@ def main(argv=None):
                                   "dp_resnet50", "dp_resnet50_fp16",
                                   "module_fused", "ckpt_resume",
                                   "lstm_lm", "lstm_bucketing", "predict",
-                                  "serving_net")
+                                  "serving_net", "ssd300")
               if k in RECORD]
     rows = []
     for (name, src, replaces, kind, case, ms_key, bound_key, by_key,

@@ -70,7 +70,8 @@ def __getattr__(name):
     schema = _registry._REGISTRY.get(name)
     if schema is None:
         raise AttributeError(f"module 'mxnet_tpu_torch.ndarray' has no "
-                             f"attribute {name!r}")
+                             f"attribute {name!r}"
+                             f"{_registry.unported_note(name)}")
     fn = _make_op_func(schema)
     setattr(_self_module, name, fn)
     return fn

@@ -93,6 +93,74 @@ def _wgrad_route(x, w, stride, dilate, groups):
     return "cudnn"
 
 
+# cuDNN's float32 forward convolution on the H100 (cuDNN 9.2, on the
+# FP32 pipes): its error against float64 grows with the reduction length
+# K = C_in x kh x kw, to 6.5-11.8x the host's (oneDNN) from K = 2304 on
+# (3-4e-6 of the output's largest magnitude at K = 4608; 3.0-5.9x at
+# K <= 1152), so a whole SSD300 forward at batch 2 lands 6.4x the host's
+# error from float64. The forward of a float32 2-D convolution on the
+# card with a window (kh x kw > 1), groups 1, K >= _FWD_GEMM_MIN_K and an
+# output map of at least _FWD_GEMM_MIN_MAP pixels is therefore im2col in
+# float64 and one GEMM on the FP64 tensor cores, rounded once to float32
+# (~0.5 ulp). The map bound keeps the route where it costs about what
+# cuDNN does: at maps of 19 x 19 and more the GEMM took 0.43-1.57x
+# cuDNN's time (SSD300's conv3-conv5, fc6 and first two heads), at 14 x
+# 14 and less 2.0-4.9x (ResNet-50's 3 x 3 convolutions at 224^2, which
+# stay on cuDNN; tools/torch_conv_fwd_probe.py; PERF.md). The backward
+# stays cuDNN's.
+_FWD_GEMM_MIN_K = 2048
+_FWD_GEMM_MIN_MAP = 19 * 19
+# the float64 im2col columns a GEMM is given at once (the batch is cut
+# into chunks that fit)
+_FWD_GEMM_COLS_BYTES = 1 << 30
+
+
+def _conv_out_hw(in_hw, w_hw, stride, pad, dilate):
+    return tuple((n + 2 * p - d * (k - 1) - 1) // s + 1 for n, k, s, p, d
+                 in zip(in_hw, w_hw, stride, pad, dilate))
+
+
+def _fwd_gemm_shape(x_shape, w_shape, groups, stride, pad, dilate):
+    """Whether a 2-D convolution's shape takes the float64 GEMM forward
+    on the card (the type and device aside)."""
+    if len(x_shape) != 4 or groups != 1 or w_shape[2] * w_shape[3] == 1:
+        return False
+    ho, wo = _conv_out_hw(x_shape[2:], w_shape[2:], stride, pad, dilate)
+    return (w_shape[1] * w_shape[2] * w_shape[3] >= _FWD_GEMM_MIN_K
+            and ho * wo >= _FWD_GEMM_MIN_MAP)
+
+
+def _fwd_route(x, w, groups, stride, pad, dilate):
+    """"gemm" or "cudnn" for a convolution's forward, from its device,
+    type and shape alone."""
+    if (x.is_cuda and x.dtype == torch.float32
+            and _fwd_gemm_shape(x.shape, w.shape, groups, stride, pad,
+                                dilate)):
+        return "gemm"
+    return "cudnn"
+
+
+def _conv_fwd_gemm(x, w, b, stride, pad, dilate):
+    """A 2-D convolution (groups 1) as im2col (``F.unfold``) and one
+    batched float64 GEMM a chunk of the batch, y[n] = W (O x K) @ cols[n]
+    (K x L), rounded to x's type: the chunk's columns within
+    _FWD_GEMM_COLS_BYTES."""
+    n = x.shape[0]
+    o, c, kh, kw = w.shape
+    ho, wo = _conv_out_hw(x.shape[2:], w.shape[2:], stride, pad, dilate)
+    k, length = c * kh * kw, ho * wo
+    m = max(1, min(n, _FWD_GEMM_COLS_BYTES // (k * length * 8)))
+    wm = w.reshape(o, k).to(torch.float64)
+    y = torch.empty((n, o, ho, wo), dtype=x.dtype, device=x.device)
+    for i in range(0, n, m):
+        cols = F.unfold(x[i:i + m].to(torch.float64), (kh, kw),
+                        dilation=dilate, padding=pad, stride=stride)
+        y[i:i + m] = torch.matmul(wm, cols).view(-1, o, ho, wo)
+    if b is not None:
+        y += b.view(1, o, 1, 1)
+    return y
+
+
 class _BiasAddDead(torch.autograd.Function):
     """y + b whose bias gradient is an exact zero (the JAX package's
     ``_bias_add_dead_grad``): set by the executor's dead-bias pass when
@@ -154,14 +222,19 @@ class _Conv(torch.autograd.Function):
     """Convolution with its forward and backward both in full float32
     (``cudnn_f32``): the backward convolutions run when autograd calls
     them, outside any scope around the forward, so they set the flag
-    themselves. The weight gradient of the shapes ``_wgrad_route`` names
-    is the GEMM of ``_conv_wgrad_gemm``, not cuDNN's. ``dead_bias``
-    returns an exact zero bias gradient without reducing dy."""
+    themselves. The forward of the shapes ``_fwd_route`` names is the
+    GEMM of ``_conv_fwd_gemm``, and the weight gradient of those
+    ``_wgrad_route`` names the GEMM of ``_conv_wgrad_gemm``, not cuDNN's.
+    ``dead_bias`` returns an exact zero bias gradient without reducing
+    dy."""
 
     @staticmethod
     def forward(ctx, x, w, b, stride, pad, dilate, groups, dead_bias):
         with cudnn_f32():
-            y = _CONV[x.ndim - 2](x, w, b, stride, pad, dilate, groups)
+            if _fwd_route(x, w, groups, stride, pad, dilate) == "gemm":
+                y = _conv_fwd_gemm(x, w, b, stride, pad, dilate)
+            else:
+                y = _CONV[x.ndim - 2](x, w, b, stride, pad, dilate, groups)
         ctx.save_for_backward(x, w)
         ctx.conf = (stride, pad, dilate, groups, b is not None, dead_bias)
         return y
@@ -930,3 +1003,221 @@ _register_seq("SequenceMask", _sequence_mask,
               {"value": Param("float", 0.0)})
 _register_seq("SequenceLast", _sequence_last, {})
 _register_seq("SequenceReverse", _sequence_reverse, {})
+
+
+# ---------------------------------------------------------------------------
+# SoftmaxActivation, L2Normalization, LRN, UpSampling
+# ---------------------------------------------------------------------------
+
+def _softmax_activation(attrs, octx, x):
+    if attrs["mode"] == "channel":
+        return (torch.softmax(x, dim=1),)
+    return (torch.softmax(x.reshape(x.shape[0], -1), dim=-1)
+            .reshape(x.shape),)
+
+
+register("SoftmaxActivation", _softmax_activation,
+         params={"mode": Param("str", "instance")}, infer_shape=_same1)
+
+
+def _l2_normalization(attrs, octx, data):
+    mode = attrs["mode"]
+    if mode == "instance":
+        axes = tuple(range(1, data.ndim))
+    elif mode == "channel":
+        axes = (1,)
+    elif mode == "spatial":
+        axes = tuple(range(2, data.ndim))
+    else:
+        raise MXNetError(f"L2Normalization: unknown mode {mode}")
+    norm = torch.sqrt(torch.sum(torch.square(data), dim=axes, keepdim=True)
+                      + attrs["eps"])
+    return (data / norm,)
+
+
+register("L2Normalization", _l2_normalization,
+         params={"eps": Param("float", 1e-10),
+                 "mode": Param("str", "instance")}, infer_shape=_same1)
+
+
+def _lrn(attrs, octx, data):
+    """Cross-channel LRN: data / (knorm + alpha / n * sum of the squares
+    of the n channels centred on each) ** beta, zero-padded at the
+    ends."""
+    n = attrs["nsize"]
+    half = n // 2
+    sq = torch.square(data)
+    c = data.shape[1]
+    pad = [0, 0] * (data.ndim - 2) + [half, half]
+    sqp = F.pad(sq, pad)
+    acc = sqp[:, 0:c]
+    for i in range(1, n):
+        acc = acc + sqp[:, i:i + c]
+    return (data / torch.pow(attrs["knorm"] + (attrs["alpha"] / n) * acc,
+                             attrs["beta"]),)
+
+
+register("LRN", _lrn,
+         params={"alpha": Param("float", 1e-4), "beta": Param("float", 0.75),
+                 "knorm": Param("float", 2.0),
+                 "nsize": Param("int", None, True)},
+         infer_shape=_same1)
+
+
+def _upsampling(attrs, octx, *inputs):
+    """Only the first input is upsampled (the bilinear kind's weight
+    input is not read, as in the JAX op); bilinear samples at half-pixel
+    centres."""
+    scale = attrs["scale"]
+    st = attrs["sample_type"]
+    x = inputs[0]
+    if st == "nearest":
+        return (x.repeat_interleave(scale, dim=2)
+                .repeat_interleave(scale, dim=3),)
+    if st == "bilinear":
+        return (F.interpolate(x, scale_factor=scale, mode="bilinear",
+                              align_corners=False),)
+    raise MXNetError(f"UpSampling: unknown sample_type {st}")
+
+
+def _upsampling_infer(attrs, in_shapes):
+    ds = in_shapes[0]
+    if ds is None:
+        return in_shapes, [None]
+    s = attrs["scale"]
+    return in_shapes, [(ds[0], ds[1], ds[2] * s, ds[3] * s)]
+
+
+register("UpSampling", _upsampling,
+         params={"scale": Param("int", None, True),
+                 "sample_type": Param("str", None, True),
+                 "num_filter": Param("int", 0),
+                 "multi_input_mode": Param("str", "concat"),
+                 "num_args": Param("int", 1),
+                 "workspace": Param("int", 512)},
+         inputs=("data",), key_var_num_args="num_args",
+         infer_shape=_upsampling_infer)
+
+
+# ---------------------------------------------------------------------------
+# the legacy loss heads: the forward is the prediction, the backward the
+# gradient of the implied loss; the incoming cotangent is dropped, as the
+# reference does (ROADMAP queue 3 lists it as reference behaviour)
+# ---------------------------------------------------------------------------
+
+class _RegressionOutput(torch.autograd.Function):
+    """LinearRegressionOutput / LogisticRegressionOutput /
+    MAERegressionOutput: gradient (out - label), or its sign for MAE,
+    times grad_scale over the number of outputs a sample."""
+
+    @staticmethod
+    def forward(ctx, data, label, kind, grad_scale):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out, label)
+        ctx.kind, ctx.grad_scale = kind, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, _dy):
+        out, lbl = ctx.saved_tensors
+        diff = out - lbl
+        if ctx.kind == "mae":
+            diff = torch.sign(diff)
+        n = math.prod(out.shape[1:])
+        grad = diff * (ctx.grad_scale / n)
+        return grad.to(out.dtype), torch.zeros_like(lbl), None, None
+
+
+def _regression_output(name, kind):
+    def fcompute(attrs, octx, data, label):
+        return (_RegressionOutput.apply(data, label, kind,
+                                        attrs["grad_scale"]),)
+
+    def infer(attrs, in_shapes):
+        ds = in_shapes[0]
+        in_shapes = list(in_shapes)
+        if ds is not None and in_shapes[1] is None:
+            in_shapes[1] = ds
+        return in_shapes, [ds]
+
+    register(name, fcompute, params={"grad_scale": Param("float", 1.0)},
+             inputs=("data", "label"), infer_shape=infer)
+
+
+_regression_output("LinearRegressionOutput", "linear")
+_regression_output("LogisticRegressionOutput", "logistic")
+_regression_output("MAERegressionOutput", "mae")
+
+
+class _MakeLoss(torch.autograd.Function):
+    """Identity forward; backward grad_scale everywhere, over the batch
+    size (``batch``) or over the count of elements above valid_thresh
+    (``valid``, at least 1)."""
+
+    @staticmethod
+    def forward(ctx, data, attrs):
+        ctx.save_for_backward(data)
+        ctx.attrs = attrs
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, _dy):
+        (d,) = ctx.saved_tensors
+        a = ctx.attrs
+        grad = torch.full_like(d, a["grad_scale"])
+        if a["normalization"] == "batch":
+            grad = grad / d.shape[0]
+        elif a["normalization"] == "valid":
+            grad = grad / torch.clamp_min(
+                torch.sum((d > a["valid_thresh"]).to(d.dtype)), 1.0)
+        return grad, None
+
+
+register("MakeLoss", lambda attrs, octx, data: (_MakeLoss.apply(data, attrs),),
+         params={"grad_scale": Param("float", 1.0),
+                 "valid_thresh": Param("float", 0.0),
+                 "normalization": Param("str", "null")},
+         infer_shape=_same1)
+
+
+class _SVMOutput(torch.autograd.Function):
+    """Identity forward; backward the (squared, unless use_linear) hinge
+    loss's gradient against the label's class."""
+
+    @staticmethod
+    def forward(ctx, data, label, attrs):
+        ctx.save_for_backward(data, label)
+        ctx.attrs = attrs
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, _dy):
+        d, lbl = ctx.saved_tensors
+        a = ctx.attrs
+        oh = F.one_hot(lbl.to(torch.int64), d.shape[-1]).to(d.dtype)
+        score_y = torch.sum(d * oh, dim=-1, keepdim=True)
+        margin, coef = a["margin"], a["regularization_coefficient"]
+        if a["use_linear"]:
+            viol = ((d - score_y + margin) > 0).to(d.dtype) * (1 - oh)
+            grad = coef * (viol - oh * torch.sum(viol, dim=-1, keepdim=True))
+        else:
+            viol = torch.clamp_min(d - score_y + margin, 0.0) * (1 - oh)
+            grad = 2 * coef * (viol - oh * torch.sum(viol, dim=-1,
+                                                     keepdim=True))
+        return grad, torch.zeros_like(lbl), None
+
+
+def _svm_infer(attrs, in_shapes):
+    ds, ls = in_shapes
+    if ls is None and ds is not None:
+        ls = (ds[0],)
+    return [ds, ls], [ds]
+
+
+register("SVMOutput",
+         lambda attrs, octx, data, label: (_SVMOutput.apply(data, label,
+                                                            attrs),),
+         params={"margin": Param("float", 1.0),
+                 "regularization_coefficient": Param("float", 1.0),
+                 "use_linear": Param("bool", False)},
+         inputs=("data", "label"), infer_shape=_svm_infer)

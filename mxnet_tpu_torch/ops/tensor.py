@@ -774,3 +774,318 @@ def _cumsum_infer(attrs, in_shapes):
 register("cumsum", _cumsum, params={"axis": Param("int", None),
                                     "dtype": Param("dtype", None)},
          infer_shape=_cumsum_infer, aliases=("_np_cumsum",))
+
+
+# ---------------------------------------------------------------------------
+# loss helpers, activations and scaling
+# ---------------------------------------------------------------------------
+
+
+class _MakeLossT(torch.autograd.Function):
+    """make_loss: identity forward, gradient 1 everywhere (the incoming
+    cotangent is dropped, as the reference does)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.ones_like(g)
+
+
+def _smooth_l1(attrs, octx, x):
+    s2 = attrs["scalar"] ** 2
+    ax = x.abs()
+    return (torch.where(ax < 1.0 / s2, 0.5 * s2 * x * x, ax - 0.5 / s2),)
+
+
+ELEMENTWISE.update({"make_loss", "smooth_l1", "hard_sigmoid"})
+register("make_loss", lambda attrs, octx, x: (_MakeLossT.apply(x),),
+         infer_shape=_same_shape_infer)
+register("smooth_l1", _smooth_l1, params={"scalar": Param("float", 1.0)},
+         infer_shape=_same_shape_infer)
+register("hard_sigmoid", lambda attrs, octx, x: (torch.clamp(
+    attrs["alpha"] * x + attrs["beta"], 0.0, 1.0),),
+    params={"alpha": Param("float", 0.2), "beta": Param("float", 0.5)},
+    infer_shape=_same_shape_infer)
+register("_contrib_div_sqrt_dim", lambda attrs, octx, x: (
+    x / torch.sqrt(torch.tensor(float(x.shape[-1]), dtype=x.dtype,
+                                device=x.device)),),
+    infer_shape=_same_shape_infer)
+
+# ---------------------------------------------------------------------------
+# linear algebra (la_op): batched over the leading axes
+# ---------------------------------------------------------------------------
+
+
+def _t2(x, flag):
+    return x.transpose(-1, -2) if flag else x
+
+
+register("_linalg_gemm2", lambda attrs, octx, a, b: (
+    attrs["alpha"] * torch.matmul(_t2(a, attrs["transpose_a"]),
+                                  _t2(b, attrs["transpose_b"])),),
+    params={"transpose_a": Param("bool", False),
+            "transpose_b": Param("bool", False),
+            "alpha": Param("float", 1.0)},
+    inputs=("A", "B"), aliases=("linalg_gemm2",))
+register("_linalg_gemm", lambda attrs, octx, a, b, c: (
+    attrs["alpha"] * torch.matmul(_t2(a, attrs["transpose_a"]),
+                                  _t2(b, attrs["transpose_b"]))
+    + attrs["beta"] * c,),
+    params={"transpose_a": Param("bool", False),
+            "transpose_b": Param("bool", False),
+            "alpha": Param("float", 1.0), "beta": Param("float", 1.0)},
+    inputs=("A", "B", "C"), aliases=("linalg_gemm",))
+register("_linalg_potrf", lambda attrs, octx, a: (torch.linalg.cholesky(a),),
+         inputs=("A",), aliases=("linalg_potrf",))
+
+
+def _linalg_potri(attrs, octx, a):
+    # A^-1 from its Cholesky factor L: L^-T L^-1
+    li = torch.linalg.inv(a)
+    return (torch.matmul(li.transpose(-1, -2), li),)
+
+
+register("_linalg_potri", _linalg_potri, inputs=("A",),
+         aliases=("linalg_potri",))
+
+
+def _linalg_trsm(attrs, octx, a, b):
+    """alpha * op(A)^-1 B (or B op(A)^-1 with ``rightside``), A lower
+    triangular, op transposes with ``transpose``; the triangle read is
+    the JAX op's in each case."""
+    alpha = attrs["alpha"]
+    if attrs["rightside"]:
+        xt = torch.linalg.solve_triangular(
+            a.transpose(-1, -2), b.transpose(-1, -2),
+            upper=not attrs["transpose"])
+        return (alpha * xt.transpose(-1, -2),)
+    if attrs["transpose"]:
+        return (alpha * torch.linalg.solve_triangular(
+            a.transpose(-1, -2), b, upper=True),)
+    return (alpha * torch.linalg.solve_triangular(a, b, upper=False),)
+
+
+register("_linalg_trsm", _linalg_trsm,
+         params={"transpose": Param("bool", False),
+                 "rightside": Param("bool", False),
+                 "alpha": Param("float", 1.0)},
+         inputs=("A", "B"), aliases=("linalg_trsm",))
+
+
+def _linalg_trmm(attrs, octx, a, b):
+    at = _t2(a, attrs["transpose"])
+    if attrs["rightside"]:
+        return (attrs["alpha"] * torch.matmul(b, at),)
+    return (attrs["alpha"] * torch.matmul(at, b),)
+
+
+register("_linalg_trmm", _linalg_trmm,
+         params={"transpose": Param("bool", False),
+                 "rightside": Param("bool", False),
+                 "alpha": Param("float", 1.0)},
+         inputs=("A", "B"), aliases=("linalg_trmm",))
+register("_linalg_sumlogdiag", lambda attrs, octx, a: (torch.sum(torch.log(
+    torch.diagonal(a, dim1=-2, dim2=-1)), dim=-1),),
+    inputs=("A",), aliases=("linalg_sumlogdiag",))
+
+
+def _linalg_syrk(attrs, octx, a):
+    at = a.transpose(-1, -2)
+    if attrs["transpose"]:
+        return (attrs["alpha"] * torch.matmul(at, a),)
+    return (attrs["alpha"] * torch.matmul(a, at),)
+
+
+register("_linalg_syrk", _linalg_syrk,
+         params={"transpose": Param("bool", False),
+                 "alpha": Param("float", 1.0)},
+         inputs=("A",), aliases=("linalg_syrk",))
+
+# ---------------------------------------------------------------------------
+# shape manipulation: slice_like, repeat, tile, reverse, the broadcasts,
+# depth_to_space / space_to_depth
+# ---------------------------------------------------------------------------
+
+
+def _slice_like(attrs, octx, x, shape_like):
+    axes = attrs["axes"]
+    tgt = list(x.shape)
+    if not axes:
+        axes = tuple(range(min(x.ndim, shape_like.ndim)))
+    for a in axes:
+        tgt[a % x.ndim] = shape_like.shape[a % shape_like.ndim]
+    return (x[tuple(slice(0, t) for t in tgt)],)
+
+
+register("slice_like", _slice_like, params={"axes": Param("shape", ())},
+         inputs=("data", "shape_like"))
+register("repeat", lambda attrs, octx, x: (torch.repeat_interleave(
+    x, attrs["repeats"], dim=attrs["axis"]),),
+    params={"repeats": Param("int", None, True), "axis": Param("int", None)})
+register("tile", lambda attrs, octx, x: (torch.tile(x, attrs["reps"]),),
+         params={"reps": Param("shape", None, True)})
+register("reverse", lambda attrs, octx, x: (torch.flip(
+    x, tuple(attrs["axis"])),),
+    params={"axis": Param("shape", None, True)}, aliases=("flip",))
+
+
+def _broadcast_axis(attrs, octx, x):
+    tgt = list(x.shape)
+    for a, s in zip(attrs["axis"], attrs["size"]):
+        tgt[a] = s
+    return (x.expand(*tgt),)
+
+
+register("broadcast_axis", _broadcast_axis,
+         params={"axis": Param("shape", None, True),
+                 "size": Param("shape", None, True)},
+         aliases=("broadcast_axes",))
+register("broadcast_like", lambda attrs, octx, x, like: (
+    x.expand(*like.shape),), inputs=("lhs", "rhs"),
+    infer_shape=lambda attrs, s: (s, [s[1]]))
+
+
+def _depth_to_space(attrs, octx, x):
+    b = attrs["block_size"]
+    n, c, h, w = x.shape
+    y = x.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+    return (y.reshape(n, c // (b * b), h * b, w * b),)
+
+
+def _space_to_depth(attrs, octx, x):
+    b = attrs["block_size"]
+    n, c, h, w = x.shape
+    y = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+    return (y.reshape(n, c * b * b, h // b, w // b),)
+
+
+register("depth_to_space", _depth_to_space,
+         params={"block_size": Param("int", None, True)})
+register("space_to_depth", _space_to_depth,
+         params={"block_size": Param("int", None, True)})
+
+# ---------------------------------------------------------------------------
+# indexing: batch_take, gather_nd, scatter_nd, diag, _eye
+# ---------------------------------------------------------------------------
+
+register("batch_take", lambda attrs, octx, data, indices: (torch.gather(
+    data, 1, indices.to(torch.int64)[:, None])[:, 0],),
+    inputs=("a", "indices"))
+
+
+def _gather_nd(attrs, octx, data, indices):
+    idx = indices.to(torch.int64)
+    return (data[tuple(idx[i] for i in range(idx.shape[0]))],)
+
+
+def _scatter_nd(attrs, octx, data, indices):
+    idx = indices.to(torch.int64)
+    out = torch.zeros(attrs["shape"], dtype=data.dtype, device=data.device)
+    return (out.index_put(tuple(idx[i] for i in range(idx.shape[0])),
+                          data),)
+
+
+register("gather_nd", _gather_nd, inputs=("data", "indices"))
+register("scatter_nd", _scatter_nd,
+         params={"shape": Param("shape", None, True)},
+         inputs=("data", "indices"))
+
+
+def _diag(attrs, octx, x):
+    k = attrs["k"]
+    if x.ndim == 1:
+        return (torch.diag(x, k),)
+    return (torch.diagonal(x, offset=k, dim1=-2, dim2=-1),)
+
+
+register("diag", _diag, params={"k": Param("int", 0)})
+
+
+def _eye(attrs, octx):
+    n = attrs["N"]
+    m = attrs["M"] or n
+    i = torch.arange(n, device=octx.device)[:, None]
+    j = torch.arange(m, device=octx.device)[None, :]
+    return ((j - i == attrs["k"]).to(_dt(attrs)),)
+
+
+register("_eye", _eye, params={"N": Param("int", None, True),
+                               "M": Param("int", 0), "k": Param("int", 0),
+                               "dtype": Param("dtype", "float32")},
+         inputs=())
+
+# ---------------------------------------------------------------------------
+# ordering: sort, argsort, topk (stable: equal values keep their order, as
+# jnp.argsort and lax.top_k do; a descending order is the ascending one
+# reversed, as in the JAX ops)
+# ---------------------------------------------------------------------------
+
+
+def _sort(attrs, octx, x):
+    ax = attrs["axis"]
+    if ax is None:
+        x, ax = x.reshape(-1), 0
+    y = torch.sort(x, dim=ax, stable=True).values
+    return (y if attrs["is_ascend"] else torch.flip(y, (ax,)),)
+
+
+def _argsort(attrs, octx, x):
+    ax = attrs["axis"]
+    if ax is None:
+        x, ax = x.reshape(-1), 0
+    y = torch.argsort(x, dim=ax, stable=True)
+    if not attrs["is_ascend"]:
+        y = torch.flip(y, (ax,))
+    return (y.to(_dt(attrs)),)
+
+
+def _topk(attrs, octx, x):
+    ax = attrs["axis"]
+    k = attrs["k"]
+    ret = attrs["ret_typ"]
+    if ax is None:
+        x2, ax2 = x.reshape(-1), 0
+    else:
+        x2, ax2 = x, ax % x.ndim
+    xm = torch.movedim(x2, ax2, -1)
+    # lax.top_k: the k largest, equal values by ascending index (of -x
+    # for is_ascend)
+    order = torch.sort(xm, dim=-1, descending=not attrs["is_ascend"],
+                       stable=True).indices[..., :k]
+    vals = torch.movedim(torch.gather(xm, -1, order), -1, ax2)
+    idxs = torch.movedim(order, -1, ax2)
+    if ret == "value":
+        return (vals,)
+    if ret == "both":
+        return (vals, idxs.to(_dt(attrs)))
+    if ret == "mask":
+        oh = F.one_hot(idxs, xm.shape[-1]).to(x.dtype).sum(dim=-2)
+        return (torch.movedim(oh, -1, ax2) if ax is not None else oh,)
+    return (idxs.to(_dt(attrs)),)
+
+
+register("sort", _sort, params={"axis": Param("int", -1),
+                                "is_ascend": Param("bool", True)})
+register("argsort", _argsort, params={"axis": Param("int", -1),
+                                      "is_ascend": Param("bool", True),
+                                      "dtype": Param("dtype", "float32")})
+_topk_schema = register("topk", _topk,
+                        params={"axis": Param("int", -1),
+                                "k": Param("int", 1),
+                                "ret_typ": Param("str", "indices"),
+                                "is_ascend": Param("bool", False),
+                                "dtype": Param("dtype", "float32")})
+_topk_schema.num_outputs = lambda attrs: 2 if attrs["ret_typ"] == "both" \
+    else 1
+
+# shape-only ops: int64, the reference's dtype
+register("shape_array", lambda attrs, octx, x: (torch.tensor(
+    tuple(x.shape), dtype=torch.int64, device=x.device),),
+    infer_shape=lambda attrs, s: (s, [None if s[0] is None
+                                      else (len(s[0]),)]))
+register("size_array", lambda attrs, octx, x: (torch.tensor(
+    [x.numel()], dtype=torch.int64, device=x.device),),
+    infer_shape=lambda attrs, s: (s, [(1,)]))

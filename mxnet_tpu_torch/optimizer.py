@@ -2,15 +2,19 @@
 base (rescale_grad, clip_gradient, learning-rate schedulers,
 ``begin_num_update``, per-index update counts, lr/wd multipliers from a
 symbol's ``__lr_mult__`` / ``__wd_mult__`` attrs, from ``param_idx2name``
-or from Gluon parameters, ``register`` / ``create``), ``SGD``, ``Adam``
-and the ``Updater`` with ``get_states`` / ``set_states``.
+or from Gluon parameters, ``register`` / ``create``), the JAX package's
+17 optimizers (SGD, Signum, SignSGD, FTML, DCASGD, NAG, SGLD, ccSGD,
+Adam, AdaGrad, RMSProp, AdaDelta, Ftrl, Adamax, Nadam, LBSGD, Test) under
+its registered names, and the ``Updater`` with ``get_states`` /
+``set_states``.
 
 Module, the kvstore and Gluon's ``Trainer`` hand the updater NDArrays;
-plain tensors work too. Either goes through the registered update ops
-(``ops/optimizer_ops.py``: ``sgd_update``, ``sgd_mom_update``,
-``mp_sgd_*``, ``adam_update``), whose results are copied into the weight
-and its states in place. The ops follow MXNet's rules, which differ from
-``torch.optim``:
+plain tensors work too. SGD, Adam, RMSProp, Ftrl, Signum / SignSGD and
+FTML go through the registered update ops (``ops/optimizer_ops.py``),
+whose results are copied into the weight and its states in place; the
+others update the weight's and states' tensors in place with the JAX
+package's arithmetic, in its order. The ops follow MXNet's rules, which
+differ from ``torch.optim``:
 
 * SGD: g = clip(rescale_grad * grad) + wd * w (decay after clipping);
   with momentum, m = momentum * m - lr * g and w += m.
@@ -33,10 +37,14 @@ import types
 
 import torch
 
+from . import random as _random
+from .base import MXNetError
 from .ndarray.ndarray import NDArray
 
-__all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "register",
-           "create"]
+__all__ = ["Optimizer", "SGD", "Signum", "SignSGD", "FTML", "DCASGD", "NAG",
+           "SGLD", "ccSGD", "Adam", "AdaGrad", "RMSProp", "AdaDelta", "Ftrl",
+           "Adamax", "Nadam", "LBSGD", "Test", "Updater", "get_updater",
+           "register", "create"]
 
 
 def _is_nd(x):
@@ -225,11 +233,27 @@ def _master(weight):
     return weight.detach().to(torch.float32)
 
 
-def _zeros_like(weight):
-    if _is_nd(weight):
-        from .ndarray.ndarray import NDArray
-        return NDArray(torch.zeros_like(weight._data))
-    return torch.zeros_like(weight)
+def _zeros_like(weight, dtype=None):
+    """Zeros of the weight's shape on its device, as an NDArray when the
+    weight is one; in the weight's dtype unless ``dtype`` says (the JAX
+    package makes some optimizers' states float32 whatever the weight)."""
+    z = torch.zeros_like(_tensor_of(weight), dtype=dtype)
+    return NDArray(z) if _is_nd(weight) else z
+
+
+def _copy_of(weight):
+    t = _tensor_of(weight).detach().clone()
+    return NDArray(t) if _is_nd(weight) else t
+
+
+def _scaled_grad(opt, grad):
+    """rescale_grad * grad, clipped to +-clip_gradient whenever it is set
+    (the JAX package's arithmetic optimizers clip without the > 0 test
+    of the update ops)."""
+    g = _tensor_of(grad) * opt.rescale_grad
+    if opt.clip_gradient is not None:
+        g = g.clamp(-opt.clip_gradient, opt.clip_gradient)
+    return g
 
 
 register = Optimizer.register
@@ -306,6 +330,380 @@ class Adam(Optimizer):
         lr *= math.sqrt(1. - self.beta2 ** t) / (1. - self.beta1 ** t)
         self._apply("adam_update", weight, grad, state, lr=lr, wd=wd,
                     beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon)
+
+
+@register
+class Signum(Optimizer):
+    """signum_update with momentum, signsgd_update without."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        if state is not None:
+            kw = {"momentum": self.momentum} if self.momentum > 0 else {}
+            self._apply("signum_update", weight, grad, (state,), lr=lr,
+                        wd=wd, wd_lh=self.wd_lh, **kw)
+        else:
+            self._apply("signsgd_update", weight, grad, (), lr=lr, wd=wd)
+
+
+@register
+class SignSGD(Signum):
+    def __init__(self, **kwargs):
+        kwargs.setdefault("momentum", 0.0)
+        super().__init__(**kwargs)
+
+
+@register
+class FTML(Optimizer):
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight),
+                _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        t = self._index_update_count[index]
+        self._apply("ftml_update", weight, grad, state, lr=lr, wd=wd,
+                    beta1=self.beta1, beta2=self.beta2,
+                    epsilon=self.epsilon, t=t)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return (None, _copy_of(weight))
+        return (_zeros_like(weight), _copy_of(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = _scaled_grad(self, grad)
+        w = _tensor_of(weight)
+        mom, previous = state
+        prev = _tensor_of(previous)
+        delta = -lr * (g + wd * w + self.lamda * g * g * (w - prev))
+        if mom is not None:
+            m = _tensor_of(mom)
+            m.mul_(self.momentum).add_(delta)
+            delta = m
+        prev.copy_(w)
+        w.add_(delta)
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov accelerated SGD."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return _zeros_like(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = _scaled_grad(self, grad)
+        w = _tensor_of(weight)
+        if state is not None:
+            mom = _tensor_of(state)
+            mom.mul_(self.momentum)
+            g = g + wd * w
+            mom.add_(g)
+            g = g + self.momentum * mom
+            w.add_(-lr * g)
+        else:
+            w.add_(-lr * (g + wd * w))
+
+
+def _sgld_noise(weight, lr):
+    """SGLD's N(0, lr) noise for a weight tensor, from the port's
+    generator of its device."""
+    return torch.empty_like(weight).normal_(
+        0.0, math.sqrt(lr), generator=_random.generator(weight.device))
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic Gradient Langevin Dynamics."""
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = _scaled_grad(self, grad)
+        w = _tensor_of(weight)
+        w.add_(-lr / 2 * (g + wd * w) + _sgld_noise(w, lr))
+
+
+@register
+class ccSGD(SGD):
+    """The reference's deprecated name of SGD."""
+
+
+@register
+class AdaGrad(Optimizer):
+    """Dense AdaGrad (a row-sparse gradient raises: sparse storage is
+    ROADMAP item 3)."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight, torch.float32)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        if getattr(grad, "stype", "default") == "row_sparse":
+            raise MXNetError("AdaGrad: row_sparse gradients are not "
+                             "ported yet (ROADMAP item 3, sparse storage)")
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = _scaled_grad(self, grad)
+        w = _tensor_of(weight)
+        history = _tensor_of(state)
+        history.add_(g * g)
+        div = g / (history + self.float_stable_eps) ** 0.5
+        w.add_((div + w * wd) * -lr)
+
+
+@register
+class RMSProp(Optimizer):
+    """rmsprop_update, or rmspropalex_update when ``centered``."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        n = 3 if self.centered else 1
+        return tuple(_zeros_like(weight, torch.float32) for _ in range(n))
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        kw = {"gamma1": self.gamma1, "epsilon": self.epsilon}
+        if self.centered:
+            kw["gamma2"] = self.gamma2
+        if self.clip_weights:
+            kw["clip_weights"] = self.clip_weights
+        op = "rmspropalex_update" if self.centered else "rmsprop_update"
+        self._apply(op, weight, grad, state, lr=lr, wd=wd, **kw)
+
+
+@register
+class AdaDelta(Optimizer):
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight, torch.float32),
+                _zeros_like(weight, torch.float32))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = _scaled_grad(self, grad)
+        w = _tensor_of(weight)
+        acc_g, acc_delta = (_tensor_of(s) for s in state)
+        rho, eps = self.rho, self.epsilon
+        acc_g.mul_(rho).add_((1. - rho) * g * g)
+        delta = (acc_delta + eps).sqrt() / (acc_g + eps).sqrt() * g
+        acc_delta.mul_(rho).add_((1. - rho) * delta * delta)
+        w.sub_(delta + wd * w)
+
+
+@register
+class Ftrl(Optimizer):
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(**kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+        self.lr = learning_rate
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight, torch.float32),
+                _zeros_like(weight, torch.float32))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        lr = self._get_lr(index)
+        self._apply("ftrl_update", weight, grad, state, lr=lr, wd=wd,
+                    lamda1=self.lamda1, beta=self.beta)
+
+
+@register
+class Adamax(Optimizer):
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        t = self._index_update_count[index]
+        lr /= (1. - self.beta1 ** t)
+        w = _tensor_of(weight)
+        g = _tensor_of(grad) * self.rescale_grad + wd * w
+        if self.clip_gradient is not None:
+            g = g.clamp(-self.clip_gradient, self.clip_gradient)
+        m_t, u_t = (_tensor_of(s) for s in state)
+        m_t.mul_(self.beta1).add_((1. - self.beta1) * g)
+        u_t.copy_(torch.maximum(self.beta2 * u_t, g.abs()))
+        w.sub_(lr * m_t / u_t)
+
+
+@register
+class Nadam(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        t = self._index_update_count[index]
+        w = _tensor_of(weight)
+        g = _tensor_of(grad) * self.rescale_grad + wd * w
+        if self.clip_gradient is not None:
+            g = g.clamp(-self.clip_gradient, self.clip_gradient)
+        b1, b2 = self.beta1, self.beta2
+        momentum_t = b1 * (1. - 0.5 * (pow(0.96, t * self.schedule_decay)))
+        momentum_t_1 = b1 * (1. - 0.5 * (pow(0.96, (t + 1)
+                                             * self.schedule_decay)))
+        self.m_schedule = self.m_schedule * momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        m_t, v_t = (_tensor_of(s) for s in state)
+        m_t.mul_(b1).add_((1. - b1) * g)
+        v_t.mul_(b2).add_((1. - b2) * g * g)
+        grad_prime = g / (1. - self.m_schedule)
+        m_t_prime = m_t / (1. - m_schedule_next)
+        v_t_prime = v_t / (1. - pow(b2, t))
+        m_t_bar = (1. - momentum_t) * grad_prime + momentum_t_1 * m_t_prime
+        w.sub_(lr * m_t_bar / (v_t_prime.sqrt() + self.epsilon))
+
+
+@register
+class LBSGD(SGD):
+    """Large-batch SGD: the JAX package's warm-up of a layer-wise lr
+    multiplier (linear, power2 or sqrt up to batch_scale over
+    warmup_epochs)."""
+
+    def __init__(self, momentum=0.0, multi_precision=False,
+                 warmup_strategy="linear", warmup_epochs=5, batch_scale=1,
+                 updates_per_epoch=32, begin_epoch=0, num_epochs=60,
+                 **kwargs):
+        super().__init__(momentum=momentum, multi_precision=multi_precision,
+                         **kwargs)
+        self.warmup_strategy = warmup_strategy
+        self.warmup_epochs = warmup_epochs
+        self.batch_scale = batch_scale
+        self.updates_per_epoch = updates_per_epoch
+        self.init_updates = begin_epoch * updates_per_epoch
+        self.num_epochs = num_epochs
+        self.lbmult = 1.0
+
+    def _get_lbmult(self, nup):
+        nwup = self.warmup_epochs * self.updates_per_epoch
+        strategy = self.warmup_strategy
+        maxmult = float(self.batch_scale)
+        if nup >= nwup:
+            return maxmult
+        if nwup <= 1:
+            return 1.0
+        if strategy == "linear":
+            return 1.0 + (maxmult - 1) * nup / nwup
+        if strategy == "power2":
+            return 1.0 + (maxmult - 1) * (nup * nup) / (nwup * nwup)
+        if strategy == "sqrt":
+            return 1.0 + (maxmult - 1) * math.sqrt(float(nup) / nwup)
+        return 1.0
+
+    def _get_lr(self, index):
+        lr = super()._get_lr(index)
+        self.lbmult = self._get_lbmult(self.num_update + self.init_updates)
+        return lr * self.lbmult
+
+
+@register
+class Test(Optimizer):
+    """The reference's test optimizer: w += rescale_grad * grad; the
+    state holds the new weight."""
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight, torch.float32)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        w = _tensor_of(weight)
+        w.add_(_tensor_of(grad) * self.rescale_grad)
+        _tensor_of(state).copy_(w)
 
 
 class Updater:

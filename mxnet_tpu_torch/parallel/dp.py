@@ -43,9 +43,12 @@ optimizer state and aux state back through ``torch.where(finite, new,
 old)``, so an overflowed step changes nothing but the scaler (scale
 backed off, skip counted) and ``t`` advances only on applied steps. No
 value is read on the host inside the step, so it is captured and
-replayed like the others. ``zero_stage > 0`` and ``param_specs`` (ROADMAP
-queue 1 item 15) and the optimizers whose update ops are not ported
-(item 4) raise.
+replayed like the others. The update is any of the JAX package's eight
+fused optimizers (sgd with or without momentum, adam, rmsprop,
+rmspropalex, ftrl, signsgd, signum, ftml): their states are zeros on the
+device, and FTML's step count is the device tensor ``t``, as Adam's bias
+correction is. ``zero_stage > 0`` and ``param_specs`` (ROADMAP queue 1
+item 15) raise.
 """
 from __future__ import annotations
 
@@ -69,11 +72,13 @@ _OPT_OPS = {
     "sgd": lambda kw: ("sgd_mom_update" if kw.get("momentum")
                        else "sgd_update"),
     "adam": "adam_update",
+    "rmsprop": "rmsprop_update",
+    "rmspropalex": "rmspropalex_update",
+    "ftrl": "ftrl_update",
+    "signsgd": "signsgd_update",
+    "signum": "signum_update",
+    "ftml": "ftml_update",
 }
-# the JAX package's other fused optimizers, whose update ops the port
-# does not have yet
-_UNPORTED_OPT = ("rmsprop", "rmspropalex", "ftrl", "signsgd", "signum",
-                 "ftml")
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -111,9 +116,8 @@ class DataParallelTrainer:
 
     Parameters are replicated; the ``data_names`` / ``label_names``
     inputs are split on axis 0 over the mesh's replicas. The optimizer
-    update (``sgd`` with or without momentum, ``adam``) is part of the
-    step; lr and the step count are device tensors, so schedules never
-    re-capture."""
+    update (any of ``_OPT_OPS``) is part of the step; lr and the step
+    count are device tensors, so schedules never re-capture."""
 
     def __init__(self, symbol, mesh, data_names=("data",),
                  label_names=("softmax_label",), optimizer="sgd",
@@ -135,11 +139,6 @@ class DataParallelTrainer:
         if dtype not in _DTYPES:
             raise MXNetError("DataParallelTrainer dtype must be float32, "
                              "bfloat16 or float16")
-        if optimizer in _UNPORTED_OPT:
-            raise MXNetError(
-                f"DataParallelTrainer: fused optimizer {optimizer!r} is not "
-                f"ported yet (its update op, ROADMAP queue 1 item 4); "
-                f"supported: {sorted(_OPT_OPS)}")
         if optimizer not in _OPT_OPS:
             raise MXNetError(
                 f"DataParallelTrainer: fused optimizer {optimizer!r} not "
@@ -187,11 +186,13 @@ class DataParallelTrainer:
                        {"lr": self._lr, "wd": wd,
                         "rescale_grad": 1.0 if rescale_grad is None
                         else rescale_grad,
-                        "clip_gradient": clip_gradient}.items()
+                        "clip_gradient": clip_gradient,
+                        "t": 1 if "t" in schema.params else None}.items()
                        if k in schema.params and v is not None}
         attr_kwargs.update(hp)
         self._attrs = schema.parse_attrs(attr_kwargs)
         self._is_adam = optimizer == "adam"
+        self._has_t = "t" in schema.params
         self._plan = _Plan(symbol, is_train=True)
 
         # the trainer's own state (see the module docstring) and the
@@ -373,6 +374,8 @@ class DataParallelTrainer:
                     / (1.0 - torch.pow(b1, self._t_dev))
             attrs = AttrDict(self._attrs)
             attrs["lr"] = lr
+            if self._has_t:
+                attrs["t"] = self._t_dev
             octx = OpCtx(is_train=True, device=self._device)
             fcompute = self._opt_schema.fcompute
             keep = (lambda new, old: new) if finite is None else \

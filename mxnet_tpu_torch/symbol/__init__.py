@@ -14,7 +14,7 @@ from ..ops import registry as _registry
 from ..ops.registry import get_op
 from .symbol import (Symbol, Variable, var, Group, load, load_json,  # noqa
                      _Node)
-from . import contrib  # noqa: F401
+from . import contrib, random  # noqa: F401
 
 _SYM_FUNCS = {}
 
@@ -91,7 +91,8 @@ def __getattr__(name):
     schema = _registry._REGISTRY.get(name)
     if schema is None:
         raise AttributeError(f"module 'mxnet_tpu_torch.symbol' has no "
-                             f"attribute {name!r}")
+                             f"attribute {name!r}"
+                             f"{_registry.unported_note(name)}")
     fn = _make_sym_func(schema)
     setattr(_self_module, name, fn)
     _SYM_FUNCS[name] = fn

@@ -19,6 +19,7 @@ def __getattr__(name):
         fn = _sym_getattr(name)
     else:
         raise AttributeError(f"module 'mxnet_tpu_torch.symbol.contrib' has "
-                             f"no attribute {name!r}")
+                             f"no attribute {name!r}"
+                             f"{_registry.unported_note(full, name)}")
     setattr(_sys.modules[__name__], name, fn)
     return fn

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import json
 
-from ..base import MXNetError, AttrScope, attr_to_string
+from ..base import MXNetError, AttrScope, attr_to_string, parse_shape
 from ..ops.registry import get_op
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
@@ -300,7 +300,8 @@ class Symbol:
             changed = False
             for node in topo:
                 if node.op is None:
-                    s = var_shape.get(id(node)) or known.get(node.name)
+                    s = var_shape.get(id(node)) or known.get(node.name) \
+                        or _declared_shape(node)
                     if s is not None and shapes.get(id(node)) != [tuple(s)]:
                         shapes[id(node)] = [tuple(s)]
                         var_shape[id(node)] = tuple(s)
@@ -617,6 +618,17 @@ def load_json(json_str):
 def load(fname):
     with open(fname) as f:
         return load_json(f.read())
+
+
+def _declared_shape(node):
+    """A variable's ``Variable(shape=...)`` (its ``__shape__`` attr) when
+    it is complete (no 0 dims), as the reference's shape inference seeds
+    it: a weight no op's rule fills (SSD's L2Normalization scale)."""
+    s = node.user_attrs.get("__shape__")
+    if not s:
+        return None
+    shape = parse_shape(s)
+    return shape if shape and all(d > 0 for d in shape) else None
 
 
 def _eval_shape(node, parsed, in_shapes):

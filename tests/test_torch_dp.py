@@ -331,8 +331,11 @@ def test_step_returns_the_trainers_state_tensors():
 
 @pytest.mark.parametrize("kw", [
     dict(zero_stage=1), dict(zero_stage=2),
-    dict(param_specs={"fc1_weight": None}), dict(optimizer="rmsprop"),
-    dict(optimizer="ftml"), dict(optimizer="nadam"),
+    dict(param_specs={"fc1_weight": None}),
+    # the fused rmsprop and ftml take only their update ops' params: a
+    # misspelt one raises (the JAX trainer's parse_attrs check)
+    dict(optimizer="rmsprop", gamma3=0.5),
+    dict(optimizer="ftml", beta3=0.5), dict(optimizer="nadam"),
     dict(dtype="float64")],
     ids=["zero1", "zero2", "param_specs", "rmsprop", "ftml",
          "unknown_opt", "float64"])

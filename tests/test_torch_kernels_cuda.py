@@ -46,7 +46,14 @@ Gluon's ``fused_fit`` on the card (captured steps, a DataLoader on the
 card) is held against the port's CPU run, and a Trainer over two cards
 against one card (skips with fewer). The fused RNN op (plain PyTorch
 ops on the card, as the JAX op is a scan of XLA ops) is held against
-float64 within 4x the CPU float32's own error.
+float64 within 4x the CPU float32's own error. The detection ops (plain
+PyTorch ops too) at SSD300's 8,732 anchors equal the CPU's (masks,
+classes, kept rows; floats within 1e-5), anchors shifted by one row must
+change the targets, and MultiBoxTarget replays from a CUDA graph; the
+trainer's graph step is bitwise its eager step for all eight fused
+optimizers. The random ops draw on the card (means within 5 standard
+errors over 2^20 draws, one seed one draw), and the python-side
+optimizers' updates on the card equal the CPU's within 1e-5.
 """
 import contextlib
 import functools
@@ -1136,10 +1143,16 @@ def _dp_trainer(mx, n_batch, **kw):
     return tr, state, tr.shard_inputs([x, y], stacked=True)
 
 
-@pytest.mark.parametrize("kw", [dict(momentum=0.9, wd=1e-4),
-                                dict(optimizer="adam"),
-                                dict(momentum=0.9, dtype="bfloat16")],
-                         ids=["sgd", "adam", "bf16"])
+@pytest.mark.parametrize("kw", [
+    dict(momentum=0.9, wd=1e-4), dict(optimizer="adam"),
+    dict(momentum=0.9, dtype="bfloat16"),
+    dict(optimizer="rmsprop", gamma1=0.9, wd=1e-4),
+    dict(optimizer="rmspropalex", gamma1=0.9, gamma2=0.8),
+    dict(optimizer="ftrl", lamda1=1e-6), dict(optimizer="signsgd"),
+    dict(optimizer="signum", momentum=0.9, wd_lh=1e-4),
+    dict(optimizer="ftml", beta2=0.99)],
+    ids=["sgd", "adam", "bf16", "rmsprop", "rmspropalex", "ftrl", "signsgd",
+         "signum", "ftml"])
 def test_dp_graph_step_is_bitwise_the_eager_step(dev, kw):
     """The trainer's step as a CUDA graph replay against the same body
     run eagerly on the card, from the same state: losses, parameters,
@@ -1411,3 +1424,201 @@ def test_rnn_op_on_the_card_against_float64(dev):
     card, cpu = worst(run(dev, torch.float32)), \
         worst(run("cpu", torch.float32))
     assert card <= 4 * cpu + 1e-7, (card, cpu)
+
+
+# -- the detection ops (plain PyTorch ops, SSD300's shapes) -------------------
+
+def _ssd_inputs(batch=4, seed=0):
+    """SSD300's 8,732 anchors (chip_smoke.py's symbol at 1/16 width, its
+    MultiBoxPrior outputs), seeded class and box predictions, and
+    chip_smoke.synthetic_detection's labels with the last image's
+    ground truth removed."""
+    import os
+    import sys
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    with mx.NameManager():
+        sym = chip_smoke.ssd300_vgg16_symbol(mx.sym, width_div=16)
+    anc = sym.get_internals()["multibox_anchors_output"]
+    ex = anc.simple_bind(ctx=mx.cpu(), data=(1, 3, 300, 300),
+                         grad_req="null")
+    ex.forward(is_train=False,
+               data=mx.nd.zeros((1, 3, 300, 300), ctx=mx.cpu()))
+    anchors = ex.outputs[0]._data.clone()
+    _, y = chip_smoke.synthetic_detection(batch, seed=seed)
+    y[-1] = -1.0
+    rng = np.random.RandomState(seed + 1)
+    na = anchors.shape[1]
+    cls_pred = torch.tensor(rng.standard_normal((batch, 21, na)) * 2,
+                            dtype=torch.float32)
+    loc_pred = torch.tensor(rng.standard_normal((batch, na * 4)) * 0.5,
+                            dtype=torch.float32)
+    return anchors, torch.tensor(y), cls_pred, loc_pred
+
+
+def _op(name, attrs, *xs):
+    from mxnet_tpu_torch.ops import registry
+    s = registry.get_op(name)
+    return s.fcompute(s.parse_attrs(attrs), registry.OpCtx(
+        device=xs[0].device), *xs)
+
+
+@pytest.mark.parametrize("mining", [-1.0, 3.0])
+def test_multibox_target_on_the_card_is_the_cpu(dev, mining):
+    """Masks and classes equal, loc targets within 1e-5 of their largest
+    magnitude; anchors shifted by one row must break the equality."""
+    anchors, label, cls_pred, _ = _ssd_inputs()
+    attrs = dict(negative_mining_ratio=mining, negative_mining_thresh=0.5)
+    want = _op("_contrib_MultiBoxTarget", attrs, anchors, label, cls_pred)
+    got = [t.cpu() for t in _op("_contrib_MultiBoxTarget", attrs,
+                                anchors.to(dev), label.to(dev),
+                                cls_pred.to(dev))]
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert float((got[0] - want[0]).abs().max()) \
+        <= 1e-5 * float(want[0].abs().max())
+    assert (want[2][-1] == -1).all() and (want[2] > 0).any()
+    shifted = _op("_contrib_MultiBoxTarget", attrs,
+                  torch.roll(anchors, 1, dims=1).to(dev), label.to(dev),
+                  cls_pred.to(dev))
+    assert not torch.equal(shifted[2].cpu(), want[2])
+
+
+@pytest.mark.parametrize("topk", [-1, 400])
+def test_multibox_detection_on_the_card_is_the_cpu(dev, topk):
+    """The kept rows (ids) equal, scores and boxes within 1e-5 of their
+    largest magnitude, at nms_topk -1 and 400."""
+    anchors, _, cls_pred, loc_pred = _ssd_inputs()
+    prob = torch.softmax(cls_pred, dim=1)
+    attrs = dict(nms_threshold=0.45, nms_topk=topk)
+    want = _op("_contrib_MultiBoxDetection", attrs, prob, loc_pred,
+               anchors)[0]
+    got = _op("_contrib_MultiBoxDetection", attrs, prob.to(dev),
+              loc_pred.to(dev), anchors.to(dev))[0].cpu()
+    assert torch.equal(got[..., 0], want[..., 0])
+    assert float((got - want).abs().max()) <= 1e-5
+    assert (want[..., 0] >= 0).sum() > 0
+
+
+def test_box_nms_and_iou_and_matching_on_the_card_are_the_cpu(dev):
+    import numpy as np
+    rng = np.random.RandomState(3)
+    xy = rng.rand(3, 500, 2) * 0.6
+    rows = torch.tensor(np.concatenate([
+        rng.randint(0, 4, (3, 500, 1)), rng.rand(3, 500, 1), xy,
+        xy + rng.rand(3, 500, 2) * 0.4 + 0.02], -1), dtype=torch.float32)
+    for attrs in (dict(), dict(topk=100, id_index=0, overlap_thresh=0.3),
+                  dict(force_suppress=True, valid_thresh=0.2)):
+        want = _op("_contrib_box_nms", attrs, rows)[0]
+        got = _op("_contrib_box_nms", attrs, rows.to(dev))[0].cpu()
+        assert torch.equal(got, want), attrs
+    iou = _op("_contrib_box_iou", {}, rows[0, :, 2:6], rows[1, :, 2:6])[0]
+    got = _op("_contrib_box_iou", {}, rows[0, :, 2:6].to(dev),
+              rows[1, :, 2:6].to(dev))[0].cpu()
+    assert torch.equal(got, iou)
+    score = torch.rand(2, 30, 20, generator=torch.Generator().manual_seed(0))
+    want = _op("_contrib_bipartite_matching", dict(threshold=0.1), score)
+    got = _op("_contrib_bipartite_matching", dict(threshold=0.1),
+              score.to(dev))
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def test_multibox_target_is_captured_in_a_cuda_graph(dev):
+    """MultiBoxTarget has no host sync: it captures into a CUDA graph,
+    and the replay gives the eager result (a training step that holds it
+    can be a graph)."""
+    anchors, label, cls_pred, _ = _ssd_inputs()
+    args = [t.to(dev) for t in (anchors, label, cls_pred)]
+    attrs = dict(negative_mining_ratio=3.0)
+    want = _op("_contrib_MultiBoxTarget", attrs, *args)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        _op("_contrib_MultiBoxTarget", attrs, *args)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = _op("_contrib_MultiBoxTarget", attrs, *args)
+    g.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, w) for o, w in zip(out, want))
+
+
+
+# -- the random ops and the python-side optimizers on the card ----------------
+
+@pytest.mark.parametrize("name,attrs,mean,var", [
+    ("_random_uniform", dict(low=-1.0, high=3.0), 1.0, 16 / 12),
+    ("_random_normal", dict(loc=0.5, scale=2.0), 0.5, 4.0),
+    ("_random_gamma", dict(alpha=0.4, beta=2.0), 0.8, 1.6),
+    ("_random_gamma", dict(alpha=2.5, beta=1.5), 3.75, 5.625),
+    ("_random_exponential", dict(lam=4.0), 0.25, 1 / 16),
+    ("_random_poisson", dict(lam=3.5), 3.5, 3.5),
+    ("_random_negative_binomial", dict(k=3, p=0.4), 4.5, 11.25),
+    ("_random_randint", dict(low=-3, high=7), 1.5, 99 / 12)])
+def test_random_ops_draw_on_the_card(dev, name, attrs, mean, var):
+    """Each scalar-parameter random op draws on the card from the port's
+    generator of the card: the sample mean within 5 standard errors of
+    the distribution's over 10^6 draws, the same draws under one seed."""
+    import mxnet_tpu_torch as mx
+    n = 1 << 20
+
+    def draw():
+        mx.random.seed(7)
+        out = mx.nd.__getattr__(name)(shape=(n,), ctx=mx.gpu(0), **attrs)
+        return out._data
+    a, b = draw(), draw()
+    assert a.is_cuda and torch.equal(a, b)
+    x = a.double()
+    assert abs(float(x.mean()) - mean) <= 5 * math.sqrt(var / n)
+
+
+def test_multinomial_and_shuffle_on_the_card(dev):
+    import mxnet_tpu_torch as mx
+    mx.random.seed(3)
+    p = mx.nd.array([[0.1, 0.2, 0.7]], ctx=mx.gpu(0))
+    d, lp = mx.nd.random.multinomial(p, shape=(200000,), get_prob=True)
+    d = d._data
+    assert d.is_cuda
+    for c, q in enumerate((0.1, 0.2, 0.7)):
+        f = float((d == c).double().mean())
+        assert abs(f - q) <= 5 * math.sqrt(q * (1 - q) / d.numel())
+    assert torch.allclose(lp._data, torch.log(
+        torch.tensor([0.1, 0.2, 0.7], device=d.device))[d.long()])
+    rows = mx.nd.array([[float(i)] for i in range(1000)], ctx=mx.gpu(0))
+    got = mx.nd.random.shuffle(rows)._data
+    assert got.is_cuda and torch.equal(got.sort(0).values, rows._data)
+
+
+@pytest.mark.parametrize("name", ["signum", "ftml", "dcasgd", "nag", "sgld",
+                                  "adagrad", "rmsprop", "adadelta", "ftrl",
+                                  "adamax", "nadam", "lbsgd", "test"])
+def test_optimizer_on_the_card_is_the_cpu(dev, name):
+    """3 updates of the optimizer on the card against the same updates on
+    the CPU (SGLD's noise taken out): within 1e-5 of the weight's largest
+    magnitude."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import optimizer as O
+    rng = np.random.RandomState(0)
+    w0 = rng.uniform(-1, 1, (64, 33)).astype(np.float32)
+    grads = [rng.standard_normal(w0.shape).astype(np.float32)
+             for _ in range(3)]
+    noise = O._sgld_noise
+    O._sgld_noise = lambda w, lr: torch.zeros_like(w)
+    try:
+        out = []
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            opt = O.create(name, learning_rate=0.05, wd=0.01,
+                           rescale_grad=0.5, clip_gradient=1.0)
+            upd = O.get_updater(opt)
+            w = mx.nd.array(w0, ctx=ctx)
+            for g in grads:
+                upd(0, mx.nd.array(g, ctx=ctx), w)
+            out.append(w.asnumpy())
+    finally:
+        O._sgld_noise = noise
+    assert np.abs(out[1] - out[0]).max() <= 1e-5 * np.abs(out[0]).max()
+    assert np.abs(out[0] - w0).max() > 0

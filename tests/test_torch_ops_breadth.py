@@ -1,0 +1,329 @@
+"""The port's loss heads and layers (ops/nn.py), its tensor ops
+(ops/tensor.py) and long-tail ops (ops/extra.py) against the JAX
+package's, on the CPU: each op's registered fcompute is given the same
+seeded numpy inputs and attrs in both packages, and its outputs and its
+vector-Jacobian product (a seeded cotangent for every float output)
+compared, as cases of one parametrised test. Outputs and gradients are
+held within RTOL of each tensor's largest magnitude (plus ATOL);
+integer outputs (indices, shapes) exactly. The legacy loss heads drop
+the cotangent in both packages (their gradient is the implied loss's).
+
+Then the registry: the port lacks exactly the 25 JAX ops that ROADMAP
+items 3 and 17 hold, and asking for one of them names its item.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+import mxnet_tpu  # noqa: F401  (registers the JAX ops)
+import mxnet_tpu_torch  # noqa: F401
+from mxnet_tpu.ops import registry as jreg
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import registry as treg
+
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def _r(seed, *shape, lo=-1.0, hi=1.0):
+    return np.random.RandomState(seed).uniform(lo, hi, shape) \
+        .astype(np.float32)
+
+
+def _spd(seed, n):
+    a = _r(seed, n, n)
+    return (a @ a.T + n * np.eye(n)).astype(np.float32)
+
+
+def _lower(seed, n):
+    a = np.tril(_r(seed, n, n))
+    return (a + 2 * np.eye(n) * np.sign(np.diag(a) + 1e-3)).astype(
+        np.float32)
+
+
+def _idx(seed, hi, *shape):
+    return np.random.RandomState(seed).randint(0, hi, shape) \
+        .astype(np.float32)
+
+
+_TIES = np.array([[3., 1., 3., 2., 1., 3.], [0., 0., 5., 5., 4., 0.]],
+                 np.float32)
+
+# (case id, op, inputs, attrs, indices of the inputs differentiated)
+CASES = [
+    # ops/nn.py: loss heads and layers
+    ("MakeLoss", "MakeLoss", [_r(0, 4, 5)], {}, [0]),
+    ("MakeLoss_batch", "MakeLoss", [_r(1, 4, 5)],
+     {"normalization": "batch", "grad_scale": 2.0}, [0]),
+    ("MakeLoss_valid", "MakeLoss", [_r(2, 4, 5)],
+     {"normalization": "valid", "valid_thresh": 0.1}, [0]),
+    ("LinearRegressionOutput", "LinearRegressionOutput",
+     [_r(3, 4, 3), _r(4, 4, 3)], {"grad_scale": 0.5}, [0]),
+    ("LogisticRegressionOutput", "LogisticRegressionOutput",
+     [_r(5, 4, 3), _r(6, 4, 3, lo=0.0)], {}, [0]),
+    ("MAERegressionOutput", "MAERegressionOutput",
+     [_r(7, 4, 3), _r(8, 4, 3)], {}, [0]),
+    ("SVMOutput", "SVMOutput", [_r(9, 5, 4), _idx(10, 4, 5)],
+     {"margin": 0.5}, [0]),
+    ("SVMOutput_linear", "SVMOutput", [_r(11, 5, 4), _idx(12, 4, 5)],
+     {"use_linear": True, "regularization_coefficient": 0.3}, [0]),
+    ("SoftmaxActivation", "SoftmaxActivation", [_r(13, 2, 3, 4)], {}, [0]),
+    ("SoftmaxActivation_channel", "SoftmaxActivation", [_r(14, 2, 3, 4)],
+     {"mode": "channel"}, [0]),
+    ("L2Normalization", "L2Normalization", [_r(15, 2, 3, 4, 5)], {}, [0]),
+    ("L2Normalization_channel", "L2Normalization", [_r(16, 2, 3, 4, 5)],
+     {"mode": "channel"}, [0]),
+    ("L2Normalization_spatial", "L2Normalization", [_r(17, 2, 3, 4, 5)],
+     {"mode": "spatial", "eps": 1e-5}, [0]),
+    ("LRN", "LRN", [_r(18, 2, 7, 3, 4)],
+     {"nsize": 5, "alpha": 0.01, "beta": 0.75, "knorm": 2.0}, [0]),
+    ("UpSampling_nearest", "UpSampling", [_r(19, 2, 3, 4, 5)],
+     {"scale": 2, "sample_type": "nearest"}, [0]),
+    ("UpSampling_bilinear", "UpSampling", [_r(20, 2, 3, 4, 5)],
+     {"scale": 2, "sample_type": "bilinear"}, [0]),
+    # ops/tensor.py
+    ("make_loss", "make_loss", [_r(21, 3, 4)], {}, [0]),
+    ("smooth_l1", "smooth_l1", [_r(22, 3, 8, lo=-3, hi=3)],
+     {"scalar": 1.5}, [0]),
+    ("hard_sigmoid", "hard_sigmoid", [_r(23, 3, 8, lo=-4, hi=4)],
+     {"alpha": 0.3, "beta": 0.4}, [0]),
+    ("div_sqrt_dim", "_contrib_div_sqrt_dim", [_r(24, 2, 3, 16)], {}, [0]),
+    ("sort", "sort", [_r(25, 3, 6)], {}, [0]),
+    ("sort_desc_axis0", "sort", [_r(26, 5, 4)],
+     {"axis": 0, "is_ascend": False}, [0]),
+    ("argsort_ties", "argsort", [_TIES], {}, []),
+    ("argsort_desc_ties", "argsort", [_TIES],
+     {"is_ascend": False, "dtype": "int32"}, []),
+    ("topk_ties", "topk", [_TIES], {"k": 3}, []),
+    ("topk_value", "topk", [_r(27, 3, 7)], {"k": 2, "ret_typ": "value"},
+     [0]),
+    ("topk_both_asc_axis0", "topk", [_r(28, 6, 3)],
+     {"k": 2, "ret_typ": "both", "is_ascend": True, "axis": 0}, [0]),
+    ("topk_mask", "topk", [_TIES], {"k": 2, "ret_typ": "mask"}, []),
+    ("tile", "tile", [_r(29, 2, 3)], {"reps": (2, 1, 3)}, [0]),
+    ("repeat", "repeat", [_r(30, 2, 3)], {"repeats": 3, "axis": 1}, [0]),
+    ("repeat_flat", "repeat", [_r(31, 2, 3)], {"repeats": 2}, [0]),
+    ("reverse", "reverse", [_r(32, 2, 3, 4)], {"axis": (0, 2)}, [0]),
+    ("gather_nd", "gather_nd",
+     [_r(33, 4, 5, 3), np.array([[0, 3, 1], [4, 0, 2]], np.float32)],
+     {}, [0]),
+    ("scatter_nd", "scatter_nd",
+     [_r(34, 3, 2), np.array([[0, 2, 3], [1, 0, 4]], np.float32)],
+     {"shape": (4, 5, 2)}, [0]),
+    ("batch_take", "batch_take", [_r(35, 4, 6), _idx(36, 6, 4)], {}, [0]),
+    ("slice_like", "slice_like", [_r(37, 4, 5, 6), _r(38, 2, 3, 9)],
+     {"axes": (0, 1)}, [0]),
+    ("slice_like_all", "slice_like", [_r(39, 4, 5), _r(40, 3, 2)], {},
+     [0]),
+    ("broadcast_axis", "broadcast_axis", [_r(41, 2, 1, 3)],
+     {"axis": (1,), "size": (4,)}, [0]),
+    ("broadcast_like", "broadcast_like", [_r(42, 1, 3), _r(43, 4, 3)], {},
+     [0]),
+    ("depth_to_space", "depth_to_space", [_r(44, 2, 8, 3, 4)],
+     {"block_size": 2}, [0]),
+    ("space_to_depth", "space_to_depth", [_r(45, 2, 3, 4, 6)],
+     {"block_size": 2}, [0]),
+    ("diag_matrix", "diag", [_r(46, 4, 5)], {"k": 1}, [0]),
+    ("diag_vector", "diag", [_r(47, 4)], {"k": -1}, [0]),
+    ("eye", "_eye", [], {"N": 4, "M": 6, "k": 1}, []),
+    ("gemm", "_linalg_gemm", [_r(48, 2, 3, 4), _r(49, 2, 5, 4),
+                              _r(50, 2, 3, 5)],
+     {"transpose_b": True, "alpha": 0.5, "beta": 2.0}, [0, 1, 2]),
+    ("gemm2", "_linalg_gemm2", [_r(51, 4, 3), _r(52, 4, 5)],
+     {"transpose_a": True, "alpha": 1.5}, [0, 1]),
+    ("potrf", "_linalg_potrf", [_spd(53, 4)], {}, [0]),
+    ("potri", "_linalg_potri", [_lower(54, 4)], {}, [0]),
+    ("trsm", "_linalg_trsm", [_lower(55, 4), _r(56, 4, 3)],
+     {"alpha": 0.5}, [0, 1]),
+    ("trsm_transpose", "_linalg_trsm", [_lower(57, 4), _r(58, 4, 3)],
+     {"transpose": True}, [0, 1]),
+    ("trsm_rightside", "_linalg_trsm", [_lower(59, 4), _r(60, 3, 4)],
+     {"rightside": True}, [0, 1]),
+    ("trmm", "_linalg_trmm", [_lower(61, 4), _r(62, 4, 3)],
+     {"transpose": True, "alpha": 2.0}, [0, 1]),
+    ("trmm_rightside", "_linalg_trmm", [_lower(63, 4), _r(64, 3, 4)],
+     {"rightside": True}, [0, 1]),
+    ("sumlogdiag", "_linalg_sumlogdiag", [np.abs(_lower(65, 4))], {}, [0]),
+    ("syrk", "_linalg_syrk", [_r(66, 3, 5)], {"alpha": 0.5}, [0]),
+    ("syrk_transpose", "_linalg_syrk", [_r(67, 3, 5)],
+     {"transpose": True}, [0]),
+    ("shape_array", "shape_array", [_r(68, 2, 3, 4)], {}, []),
+    ("size_array", "size_array", [_r(69, 2, 3, 4)], {}, []),
+    # ops/extra.py
+    ("softmax_cross_entropy", "softmax_cross_entropy",
+     [_r(70, 5, 4), _idx(71, 4, 5)], {}, [0]),
+    ("gelqf", "_linalg_gelqf", [_r(72, 3, 5)], {}, [0]),
+    # forward only (rows aligned by sign); the eigenvalues' gradient has
+    # a test of its own
+    ("syevd", "_linalg_syevd", [_spd(73, 4)], {}, []),
+    ("slice_assign", "_slice_assign", [_r(74, 4, 5), _r(75, 2, 2)],
+     {"begin": (1, 0), "end": (3, 4), "step": (1, 2)}, [0, 1]),
+    ("slice_assign_scalar", "_slice_assign_scalar", [_r(76, 4, 5)],
+     {"begin": (0, 1), "end": (2, 3), "scalar": 2.5}, [0]),
+    ("scatter_set_nd", "_scatter_set_nd",
+     [_r(77, 4, 5), _r(78, 3), np.array([[0, 2, 3], [1, 4, 0]],
+                                        np.float32)],
+     {}, [0, 1]),
+    ("kl_sparse_reg", "IdentityAttachKLSparseReg",
+     [_r(79, 6, 4, lo=0.05, hi=0.95), _r(80, 4, lo=0.05, hi=0.95)],
+     {"penalty": 0.01, "sparseness_target": 0.2, "momentum": 0.8}, [0]),
+    ("cross_device_copy", "_CrossDeviceCopy", [_r(81, 3, 4)], {}, [0]),
+    ("identity_like_rhs", "_identity_with_attr_like_rhs",
+     [_r(82, 3, 4), _r(83, 2)], {}, [0]),
+]
+
+
+def _cotangents(outs, seed):
+    rng = np.random.RandomState(1000 + seed)
+    return [rng.standard_normal(np.shape(o)).astype(np.float32)
+            for o in outs]
+
+
+def _is_float(a):
+    return np.issubdtype(np.asarray(a).dtype, np.floating)
+
+
+def _jax(name, ins, attrs, diff, seed):
+    schema = jreg.get_op(name)
+    parsed = schema.parse_attrs(attrs)
+    octx = jreg.OpCtx(is_train=True)
+    xs = [jnp.asarray(x) for x in ins]
+
+    def f(*d):
+        args = list(xs)
+        for i, v in zip(diff, d):
+            args[i] = v
+        return tuple(schema.fcompute(parsed, octx, *args))
+
+    if not diff:
+        return [np.asarray(o) for o in f()], []
+    outs, vjp = jax.vjp(f, *[xs[i] for i in diff])
+    cts = _cotangents(outs, seed)
+    cts = tuple(jnp.asarray(c) if _is_float(o) else
+                np.zeros(np.shape(o), jax.dtypes.float0)
+                for c, o in zip(cts, outs))
+    return [np.asarray(o) for o in outs], [np.asarray(g) for g in vjp(cts)]
+
+
+def _torch(name, ins, attrs, diff, seed):
+    schema = treg.get_op(name)
+    parsed = schema.parse_attrs(attrs)
+    octx = treg.OpCtx(is_train=True, device=torch.device("cpu"))
+    xs = [torch.tensor(x) for x in ins]
+    leaves = [xs[i].requires_grad_(True) for i in diff]
+    with torch.enable_grad():
+        outs = schema.fcompute(parsed, octx, *xs)
+    onp = [o.detach().numpy() for o in outs]
+    if not diff:
+        return onp, []
+    cts = _cotangents(onp, seed)
+    pairs = [(o, torch.tensor(c)) for o, c in zip(outs, cts)
+             if o.requires_grad]
+    grads = torch.autograd.grad([o for o, _ in pairs],
+                                leaves, [c for _, c in pairs],
+                                allow_unused=True)
+    return onp, [np.zeros_like(ins[i]) if g is None else g.numpy()
+                 for i, g in zip(diff, grads)]
+
+
+def _close(got, want, what):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    if not _is_float(want):
+        np.testing.assert_array_equal(got, want, err_msg=what)
+        return
+    scale = float(np.abs(want).max()) if want.size else 0.0
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=ATOL + RTOL * scale, err_msg=what)
+
+
+def _align_rows(u, ref):
+    """Eigenvector rows of ``u`` flipped to the sign of ``ref``'s: the
+    JAX op leaves LAPACK's signs, which another LAPACK build may flip."""
+    s = np.sign(np.sum(u * ref, axis=-1, keepdims=True))
+    return u * np.where(s == 0, 1, s)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_op_against_jax(case):
+    cid, name, ins, attrs, diff = case
+    seed = CASES.index(case)
+    jo, jg = _jax(name, ins, attrs, diff, seed)
+    to, tg = _torch(name, ins, attrs, diff, seed)
+    assert len(to) == len(jo), (len(to), len(jo))
+    if name == "_linalg_syevd":
+        to[0] = _align_rows(to[0], jo[0])
+        np.testing.assert_allclose(to[0].T @ np.diag(to[1]) @ to[0], ins[0],
+                                   rtol=1e-5, atol=1e-4)
+    for k, (a, b) in enumerate(zip(to, jo)):
+        if np.asarray(b).dtype != np.asarray(a).dtype and not (
+                _is_float(a) and _is_float(b)):
+            # shape_array / size_array: the reference's int64 in the port,
+            # int32 in the JAX package without x64
+            a, b = np.asarray(a).astype(np.int64), np.asarray(b) \
+                .astype(np.int64)
+        _close(a, b, "%s output %d" % (cid, k))
+    for k, (a, b) in enumerate(zip(tg, jg)):
+        _close(a, b, "%s gradient of input %d" % (cid, diff[k]))
+
+
+def test_syevd_eigenvalue_gradient_against_jax():
+    """The eigenvalues' gradient (independent of the vectors' signs)."""
+    a = _spd(90, 5)
+    ct = np.random.RandomState(91).standard_normal(5).astype(np.float32)
+    schema = jreg.get_op("_linalg_syevd")
+    parsed = schema.parse_attrs({})
+    g_j = jax.grad(lambda x: jnp.sum(schema.fcompute(
+        parsed, jreg.OpCtx(), x)[1] * ct))(jnp.asarray(a))
+    x = torch.tensor(a, requires_grad=True)
+    ts = treg.get_op("_linalg_syevd")
+    w = ts.fcompute(ts.parse_attrs({}), treg.OpCtx(), x)[1]
+    (g_t,) = torch.autograd.grad((w * torch.tensor(ct)).sum(), x)
+    _close(g_t.numpy(), np.asarray(g_j), "syevd eigenvalue gradient")
+
+
+# ---------------------------------------------------------------------------
+# the registry
+# ---------------------------------------------------------------------------
+
+NOT_PORTED = {
+    # ROADMAP item 17: the non-detection contrib ops, the image ops, Custom
+    "BilinearSampler", "CTCLoss", "Correlation", "Crop", "GridGenerator",
+    "ROIPooling", "SpatialTransformer", "_contrib_AdaptiveAvgPooling2D",
+    "_contrib_BilinearResize2D", "_contrib_DeformableConvolution",
+    "_contrib_DeformablePSROIPooling", "_contrib_MultiProposal",
+    "_contrib_PSROIPooling", "_contrib_Proposal", "_contrib_count_sketch",
+    "_contrib_fft", "_contrib_ifft", "_contrib_quadratic", "khatri_rao",
+    "_image_normalize", "_image_to_tensor", "Custom",
+    # ROADMAP item 3: sparse storage
+    "cast_storage", "_sparse_retain", "_sparse_adagrad_update"}
+
+
+def test_the_port_lacks_exactly_the_named_ops():
+    jax_ops, port_ops = set(jreg.list_ops()), set(treg.list_ops())
+    assert len(NOT_PORTED) == 25
+    assert jax_ops - port_ops == NOT_PORTED
+    assert port_ops <= jax_ops
+    # every registered name of the JAX package resolves in the port, but
+    # the unported ops' own names and aliases
+    for name, schema in jreg._REGISTRY.items():
+        if schema.name not in NOT_PORTED:
+            assert treg.get_op(name).name == schema.name, name
+
+
+@pytest.mark.parametrize("name,item", [
+    ("ROIPooling", "item 17"), ("_contrib_Proposal", "item 17"),
+    ("ctc_loss", "item 17"), ("Custom", "item 17"),
+    ("image_to_tensor", "item 17"), ("cast_storage", "item 3"),
+    ("_sparse_adagrad_update", "item 3")])
+def test_an_unported_op_names_its_roadmap_item(name, item):
+    """get_op, and the mx.nd / mx.sym namespaces, name the item."""
+    import mxnet_tpu_torch as tmx
+    with pytest.raises(MXNetError, match=item):
+        treg.get_op(name)
+    for ns in (tmx.nd, tmx.sym):
+        with pytest.raises(AttributeError, match=item):
+            getattr(ns, name)
+    with pytest.raises(MXNetError, match="not registered$"):
+        treg.get_op("no_such_op")

@@ -662,18 +662,30 @@ def test_frontend_end_to_end_matches_engine(tmp_path):
 
 
 def test_serving_selftest_cli_on_the_cpu():
-    """python -m mxnet_tpu_torch.serving --selftest --device cpu: the
-    closed loop through the batcher beats one Predictor call a request
-    by >= 2x (its own bar) and /metrics carries the serving series."""
+    """python -m mxnet_tpu_torch.serving --selftest --device cpu: what the
+    batcher does, and nothing it measures against the wall clock. With 8
+    clients in a closed loop, the other clients' requests queue while a
+    batch runs, so the batches of 96 requests average well above one
+    row: at least 2 (a quarter of the clients; each batch holds at most
+    8). Nothing is shed or timed out, every request is answered, and
+    /metrics carries the serving series. The CLI's own 2x bar (batched
+    against one Predictor call a request) is a ratio of two wall-clock
+    loops that thread wake-ups set on a shared host (0.9-5.4 under
+    pytest-xdist), so it is passed 0 here; chip_smoke.py's serving_net
+    phase holds the card to its default."""
     env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     r = subprocess.run(
         [sys.executable, "-m", "mxnet_tpu_torch.serving", "--selftest",
-         "--device", "cpu", "--requests", "96"],
+         "--device", "cpu", "--requests", "96", "--min-speedup", "0"],
         env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, (r.stdout, r.stderr)
     res = json.loads(r.stdout.strip().splitlines()[-1])
     assert res["ok"] and res["device"] == "cpu"
+    assert res["telemetry_scrape_ok"]
     assert res["shed"] == 0 and res["timeouts"] == 0
-    assert sum(int(k) * v for k, v in res["batch_hist"].items()) \
-        == res["rounds"] * 96
+    hist = {int(k): v for k, v in res["batch_hist"].items()}
+    rows = sum(k * v for k, v in hist.items())
+    assert rows == res["rounds"] * 96
+    assert max(hist) <= res["concurrency"]
+    assert rows / sum(hist.values()) >= 2.0, hist
