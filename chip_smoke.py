@@ -235,6 +235,23 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            shifted by a row, the bipartite pass skipped), each op's
            device and wall ms; examples/ssd_train.py with only its import
            changed (--ctx tpu: the card)
+  dlrm     the row-sparse EmbeddingTrainer at the widths of
+           facebookresearch/dlrm's Criteo Kaggle script (its 26 tables
+           as one 33,762,577 x 16 table, 13 dense features, MLP
+           512-256-1) on synthetic zipf(1.3) clicks, the table drawn once
+           on the card and carried between arms by export and import:
+           sparse SGD at batch 128 and 2048, bf16 and fp8 wires, dense
+           SGD (the A/B), sparse Adam; each arm's steps/s and samples/s
+           (median of 3 windows), touched rows, analytic wire, peak
+           memory, busy share, kernels a step, top device operations,
+           and a warmed step under sync-debug "error"; then sparse =
+           dense bit for bit on permutation data, the card against the
+           CPU at a 2^20-row table (SGD with momentum in full, Adam's
+           first loss; untouched rows bit for bit) beside two faults
+           that must fail (every row's moments decayed, the inverse map
+           shifted), sparse.dot and kvstore row-sparse pushes on the
+           card, examples/dlrm_train.py's program (its loss falls; a
+           resumed step is bit-identical) and the CLI's --bench
 
 then the nvidia-smi line, a ``kernels`` summary line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no result)
@@ -6853,6 +6870,569 @@ def phase_ssd300():
     return res
 
 
+# -- the DLRM phase: the row-sparse embedding trainer -----------------------
+# facebookresearch/dlrm's bench/dlrm_s_criteo_kaggle.sh: Criteo Kaggle's 26
+# categorical tables (their rows, 33,762,577 in all) as the trainer's one
+# table, slot j's ids offset by the rows of tables 0..j-1;
+# --arch-sparse-feature-size=16, --arch-mlp-top=512-256-1, 13 dense
+# features, --learning-rate=0.1 at --mini-batch-size=128 (a mean loss:
+# rescale_grad 1/batch on the trainer's summed BCE). The trainer has no
+# bottom MLP and no dot interaction: it concatenates the 26 rows and the
+# dense features into its MLP, as the JAX package's does.
+DLRM_TABLE_ROWS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3,
+                   93145, 5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652,
+                   2173, 4, 7046547, 18, 15, 286181, 105, 142572)
+DLRM_DIM = 16
+DLRM_DENSE = 13
+DLRM_MLP = (512, 256)
+DLRM_SGD_LR = 0.1
+DLRM_ADAM_LR = 1e-2           # examples/dlrm_train.py's
+DLRM_BATCHES = (128, 2048)    # the script's, and a larger one
+DLRM_DISTINCT = 4             # synthetic batches cycled
+DLRM_WARMUP = 2
+DLRM_WINDOW = 20
+DLRM_WINDOWS = 3
+DLRM_WIRE_WINDOW = 5          # the bf16 / fp8 arms: a few steps a window
+DLRM_PROFILE_STEPS = 5
+DLRM_CHECK_ROWS = 1 << 20     # the card-vs-CPU table
+DLRM_CHECK_STEPS = 3
+DLRM_RTOL = 1e-5
+DLRM_NDARRAY = dict(rows=4096, cols=100_000, nnz_row=26, out=16,
+                    vocab=100_000, grad_rows=2048)
+# examples/dlrm_train.py's constants (its mesh: one card)
+DLRM_EXAMPLE = dict(vocab=50_000, dim=32, slots=4, dense=8, batch=64,
+                    steps=120, mlp=(64, 32), lr=1e-2)
+
+
+def _dlrm_mesh(cpu=False):
+    from mxnet_tpu_torch.context import cpu as cpu_ctx
+    from mxnet_tpu_torch.parallel.mesh import (data_parallel_mesh,
+                                               mesh_for_contexts)
+    if cpu or DEV != "cuda":
+        return mesh_for_contexts([cpu_ctx(0)])
+    return data_parallel_mesh(1)
+
+
+def _dlrm_split(total, parts):
+    """``parts`` table sizes summing to ``total`` (the last takes the
+    remainder)."""
+    rows = [total // parts] * parts
+    rows[-1] += total - sum(rows)
+    return tuple(rows)
+
+
+def dlrm_batch(rng, batch, rows=None, dense=None):
+    """Synthetic Criteo-shaped clicks: slot j's id zipf(1.3) within table
+    j's rows (examples/dlrm_train.py's draw), offset by the rows of the
+    tables before it; the label the parity of slots 0 and 1's ids XOR
+    dense[:, 0] > 0 (the example's learnable label)."""
+    import numpy as np
+    rows = np.asarray(DLRM_TABLE_ROWS if rows is None else rows, np.int64)
+    dense = DLRM_DENSE if dense is None else dense
+    local = np.minimum(rng.zipf(1.3, size=(batch, len(rows))) - 1, rows - 1)
+    offsets = np.concatenate([[0], np.cumsum(rows)[:-1]])
+    x = rng.normal(size=(batch, dense)).astype(np.float32)
+    y = (((local[:, 0] + local[:, 1]) % 2) ^ (x[:, 0] > 0)).astype(np.float32)
+    return (local + offsets).astype(np.int32), x, y
+
+
+def _dlrm_trainer(mesh, vocab, batch, optimizer="sgd", exchange="sparse",
+                  compress="none", slots=None, dim=None, dense=None,
+                  mlp=None, lr=None):
+    from mxnet_tpu_torch.parallel.embedding import EmbeddingTrainer
+    dim = DLRM_DIM if dim is None else dim
+    dense = DLRM_DENSE if dense is None else dense
+    mlp = DLRM_MLP if mlp is None else mlp
+    if lr is None:
+        lr = DLRM_SGD_LR if optimizer == "sgd" else DLRM_ADAM_LR
+    return EmbeddingTrainer(
+        mesh, vocab=vocab, embed_dim=dim,
+        n_slots=len(DLRM_TABLE_ROWS) if slots is None else slots,
+        dense_dim=dense, mlp_hidden=mlp, optimizer=optimizer,
+        learning_rate=lr, rescale_grad=1.0 / batch, exchange=exchange,
+        compress=compress, batch_size=batch)
+
+
+def _dlrm_profile(tr, state, inputs, n):
+    """Device ms, kernels and the largest device operations of ``n``
+    steps under torch.profiler; busy = kernel time over the wall."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            state, loss, _ = tr.step(state, inputs[i % len(inputs)])
+        _sync()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    # the step's own range (record_function) is not a kernel
+    rows = [r for r in _device_rows(prof, n, required=DEV == "cuda")
+            if r[0] != tr.program_tag]
+    dev_ms = sum(r[1] for r in rows)
+    return state, {"device_ms": dev_ms, "wall_ms_profiled": wall,
+                   "busy_share": dev_ms / max(1e-9, wall),
+                   "kernels": sum(r[2] for r in rows),
+                   "top": [{"kernel": k[:100], "ms": t, "calls": c}
+                           for k, t, c in rows[:10]]}
+
+
+def _dlrm_arm(tr, state, batches, window, profile=True):
+    """Warm-up steps, one step under sync-debug "error" (a host sync
+    raises), then DLRM_WINDOWS timed windows (each ends on a read of its
+    last loss), steps/s the median; peak memory over the windows; the
+    touched rows of each window's last step; a profiled run."""
+    import numpy as np
+    import torch
+    inputs = [tr.shard_inputs(list(b)) for b in batches]
+    for i in range(DLRM_WARMUP):
+        state, loss, nnz = tr.step(state, inputs[i % len(inputs)])
+    _sync()
+    res = {"exchange": tr.exchange, "compress": tr.compress,
+           "optimizer": tr.optimizer, "batch": tr._batch}
+    if DEV == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, loss, nnz = tr.step(state, inputs[0])
+            res["sync_free"] = True
+        except RuntimeError as e:
+            res["sync_free"] = False
+            res["sync_error"] = repr(e)[:300]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        _sync()
+        torch.cuda.reset_peak_memory_stats()
+    rates, losses, touched = [], [], []
+    k = 0
+    for _ in range(DLRM_WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(window):
+            state, loss, nnz = tr.step(state, inputs[k % len(inputs)])
+            k += 1
+        losses.append(float(loss) / tr._batch)
+        rates.append(window / (time.perf_counter() - t0))
+        res.setdefault("nnz", []).append(int(nnz))
+    touched = [len(np.unique(b[0])) for b in batches]
+    sps = float(np.median(rates))
+    from mxnet_tpu_torch.parallel.embedding import EmbeddingLayout
+    L = tr.layout
+    res.update({
+        "steps_per_s": sps, "samples_per_s": sps * tr._batch,
+        "rates": rates, "loss_per_sample": losses,
+        "touched_rows": touched,
+        "touched_share": [t / tr.vocab for t in touched],
+        "wire_bytes_analytic": L.wire_bytes_per_step(
+            tr.exchange, tr._wire_itemsize, tr._mlp_bytes()),
+        # the same step's wire over 8 cards (one card sends nothing)
+        "wire_bytes_analytic_8": EmbeddingLayout(
+            L.vocab, L.dim, 8, L.unique // 8 or 1, L.n_states)
+        .wire_bytes_per_step(tr.exchange, tr._wire_itemsize,
+                             tr._mlp_bytes()),
+        "peak_bytes": torch.cuda.max_memory_allocated()
+        if DEV == "cuda" else 0})
+    if profile:
+        state, res["profile"] = _dlrm_profile(tr, state, inputs,
+                                              DLRM_PROFILE_STEPS)
+    return state, res
+
+
+def _dlrm_carry(src, state, dst, moments=False):
+    """Export ``src``'s state to the host and import it into ``dst``
+    (Adam's moments zero when ``moments`` and the source has none)."""
+    import numpy as np
+    arrays, meta = src.export_training_state(state)
+    del state
+    _free_card()
+    if moments:
+        for n in ["embed"] + dst.mlp_names:
+            for j in range(2):
+                arrays.setdefault(f"opt:{n}:{j}",
+                                  np.zeros_like(arrays[f"param:{n}"]))
+        meta = dict(meta, t=0.0)
+    return dst.import_training_state(arrays, meta)
+
+
+def _dlrm_untouched(before, after, touched_rows, n_states):
+    """Rows a step did not touch keep their weight and moments bit for
+    bit: the count of such rows that changed."""
+    import numpy as np
+    mask = np.ones(before["param:embed"].shape[0], bool)
+    mask[touched_rows] = False
+    bad = 0
+    for name in ["param:embed"] + ["opt:embed:%d" % j
+                                   for j in range(n_states)]:
+        diff = (before[name] != after[name]).any(axis=1)
+        bad += int((diff & mask).sum())
+    return bad
+
+
+def _dlrm_run_check(mesh, batches, optimizer, patch=None):
+    """DLRM_CHECK_STEPS steps at the full-width batch and MLP over a
+    DLRM_CHECK_ROWS table (SGD with momentum 0.9, or Adam): losses,
+    touched rows, the final export, and the untouched rows that changed,
+    step by step."""
+    import numpy as np
+    from mxnet_tpu_torch.ops import sparse_ops
+    from mxnet_tpu_torch.parallel.embedding import EmbeddingTrainer
+    b = batches[0][0].shape[0]
+    tr = EmbeddingTrainer(
+        mesh, vocab=DLRM_CHECK_ROWS, embed_dim=DLRM_DIM,
+        n_slots=len(DLRM_TABLE_ROWS), dense_dim=DLRM_DENSE,
+        mlp_hidden=DLRM_MLP, optimizer=optimizer,
+        learning_rate=DLRM_SGD_LR if optimizer == "sgd" else DLRM_ADAM_LR,
+        momentum=0.9 if optimizer == "sgd" else 0.0, rescale_grad=1.0 / b,
+        batch_size=b)
+    state = tr.init_state(seed=SEED)
+    inputs = [tr.shard_inputs(list(x)) for x in batches]
+    saved = {}
+    if patch:
+        for name, fn in patch.items():
+            saved[name] = getattr(sparse_ops, name)
+            setattr(sparse_ops, name, fn(saved[name]))
+    try:
+        losses, nnz, changed = [], [], 0
+        before = tr.export_training_state(state)[0]
+        for s in range(DLRM_CHECK_STEPS):
+            state, loss, n = tr.step(state, inputs[s % len(inputs)])
+            losses.append(float(loss))
+            nnz.append(int(n))
+            after = tr.export_training_state(state)[0]
+            changed += _dlrm_untouched(
+                before, after, np.unique(batches[s % len(batches)][0]),
+                tr._n_states)
+            before = after
+    finally:
+        for name, fn in saved.items():
+            setattr(sparse_ops, name, fn)
+    del state
+    _free_card()
+    touched = np.unique(np.concatenate([x[0].reshape(-1) for x in batches]))
+    return {"losses": losses, "nnz": nnz, "untouched_changed": changed,
+            "final": after, "touched": touched}
+
+
+def _dlrm_against(card, cpu, gate_all=True):
+    """Card vs CPU: losses (relative), touched rows (counts equal; the
+    table's touched rows and the MLP, norm-wise), untouched rows (none
+    changed, bit for bit). Adam moves each parameter by about +-lr
+    whatever its gradient's size, so a gradient that sums to about 0
+    may flip its step between two summation orders: for Adam
+    (``gate_all`` False) only the first loss (before any update) is held
+    to DLRM_RTOL, the rest reported."""
+    import numpy as np
+    rel = [abs(a - b) / max(1e-30, abs(b))
+           for a, b in zip(card["losses"], cpu["losses"])]
+    state = 0.0
+    rows = cpu["touched"]
+    for k, ref in cpu["final"].items():
+        got = card["final"][k]
+        if "embed" in k:
+            got, ref = got[rows], ref[rows]
+        state = max(state, float(np.linalg.norm(got - ref)
+                                 / max(1e-30, np.linalg.norm(ref))))
+    held = rel if gate_all else rel[:1]
+    ok = bool(max(held) <= DLRM_RTOL
+              and (state <= DLRM_RTOL or not gate_all)
+              and card["nnz"] == cpu["nnz"]
+              and card["untouched_changed"] == 0
+              and cpu["untouched_changed"] == 0)
+    return {"loss_rel": rel, "state_rel": state, "nnz_card": card["nnz"],
+            "nnz_cpu": cpu["nnz"],
+            "untouched_changed": card["untouched_changed"],
+            "held": "all" if gate_all else "first loss", "ok": ok}
+
+
+def _adam_decays_every_row(orig):
+    """A faulty lazy Adam: every row's moments decay, the dense update's
+    habit (the control the untouched-rows check must catch)."""
+    def fn(weight, mean, var, rows, grad_rows, lr, beta1, beta2, eps,
+           **kw):
+        mean[:-1].mul_(beta1)
+        var[:-1].mul_(beta2)
+        return orig(weight, mean, var, rows, grad_rows, lr, beta1, beta2,
+                    eps, **kw)
+    return fn
+
+
+def _inverse_shifted(orig):
+    """unique_rows with its inverse map shifted by one slot."""
+    def fn(ids, size, fill):
+        uniq, inv, count = orig(ids, size, fill)
+        return uniq, (inv + 1) % size, count
+    return fn
+
+
+def _dlrm_checks(mesh):
+    """Sparse vs dense on permutation data (bit for bit), card vs CPU at
+    a 2^20-row table with both controls, and the NDArray layer."""
+    import numpy as np
+    from mxnet_tpu_torch.parallel.embedding import _permutation_data
+    res = {}
+    b = DLRM_BATCHES[-1]
+    slots = len(DLRM_TABLE_ROWS)
+    # 1. every row touched once: the two exchanges leave equal states
+    pdata = _permutation_data(b * slots, b, slots, DLRM_DENSE, seed=SEED)
+    bit = {}
+    for optimizer in ("sgd", "adam"):
+        outs = []
+        for exchange in ("sparse", "dense"):
+            tr = _dlrm_trainer(mesh, b * slots, b, optimizer, exchange)
+            state = tr.init_state(seed=SEED)
+            inputs = tr.shard_inputs(list(pdata))
+            for _ in range(DLRM_CHECK_STEPS):
+                state, _, _ = tr.step(state, inputs)
+            outs.append(tr.export_training_state(state)[0])
+            del state
+        bit[optimizer] = bool(all(np.array_equal(outs[0][k], outs[1][k])
+                                  for k in outs[0]))
+    res["sparse_dense_bitwise"] = bit
+    # 2. card against CPU (SGD with momentum; Adam), and two controls
+    rng = np.random.RandomState(SEED + 1)
+    rows = _dlrm_split(DLRM_CHECK_ROWS, slots)
+    batches = [dlrm_batch(rng, b, rows) for _ in range(DLRM_CHECK_STEPS)]
+    cpu, versus = {}, {}
+    t0 = time.perf_counter()
+    for optimizer in ("sgd", "adam"):
+        cpu[optimizer] = _dlrm_run_check(_dlrm_mesh(cpu=True), batches,
+                                         optimizer)
+    res["cpu_seconds"] = time.perf_counter() - t0
+    for optimizer in ("sgd", "adam"):
+        card = _dlrm_run_check(mesh, batches, optimizer)
+        versus[optimizer] = _dlrm_against(card, cpu[optimizer],
+                                          gate_all=optimizer == "sgd")
+    res["card_vs_cpu"] = versus
+    res["controls"] = {}
+    for name, optimizer, patch in (
+            ("adam_decays_every_row", "adam",
+             {"rows_adam_update_": _adam_decays_every_row}),
+            ("inverse_shifted", "sgd", {"unique_rows": _inverse_shifted})):
+        bad = _dlrm_run_check(mesh, batches, optimizer, patch)
+        verdict = _dlrm_against(bad, cpu[optimizer],
+                                gate_all=optimizer == "sgd")
+        res["controls"][name] = dict(verdict, failed=not verdict["ok"])
+    res["ndarray"] = _dlrm_ndarray_check()
+    res["ok"] = bool(all(bit.values())
+                     and all(v["ok"] for v in versus.values())
+                     and all(c["failed"] for c in res["controls"].values())
+                     and res["ndarray"]["ok"])
+    return res
+
+
+def _dlrm_kv(mx, ctx, w0, grads, opt):
+    """A kvstore holding ``w0`` on ``ctx``, two row-sparse pushes through
+    the updater of ``opt``; the pulled weight (numpy)."""
+    from mxnet_tpu_torch.ndarray import sparse
+    kv = mx.kv.create("local")
+    kv.init("emb", mx.nd.array(w0, ctx=ctx))
+    kv.set_optimizer(opt)
+    for pair in grads:
+        kv.push("emb", [sparse.row_sparse_array(g, shape=w0.shape, ctx=ctx)
+                        for g in pair])
+    out = mx.nd.zeros(w0.shape, ctx=ctx)
+    kv.pull("emb", out=out)
+    return out.asnumpy()
+
+
+def _dlrm_ndarray_check():
+    """sparse.dot(csr, dense) on the card against the dense product; lazy
+    SGD (momentum, wd) and Adam through kvstore row-sparse pushes: only
+    the pushed rows move, and the card's weights equal the CPU's."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import sparse
+    c = DLRM_NDARRAY
+    rng = np.random.RandomState(SEED + 2)
+    cols = rng.randint(0, c["cols"], size=(c["rows"], c["nnz_row"]))
+    indptr = np.arange(c["rows"] + 1) * c["nnz_row"]
+    data = rng.normal(size=cols.size).astype(np.float32)
+    rhs = rng.normal(size=(c["cols"], c["out"])).astype(np.float32)
+    csr = sparse.csr_matrix((data, cols.reshape(-1), indptr),
+                            shape=(c["rows"], c["cols"]), ctx=_ctx())
+    got = sparse.dot(csr, mx.nd.array(rhs, ctx=_ctx())).asnumpy()
+    dense = csr.tostype("default").asnumpy().astype(np.float64)
+    ref = dense @ rhs.astype(np.float64)
+    dot_err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    res = {"dot_rel_err": dot_err, "dot_has_parts": csr._ell is not None}
+    w0 = rng.normal(size=(c["vocab"], c["out"])).astype(np.float32)
+    grads = []
+    for _ in range(2):
+        pair = []
+        for _ in range(2):
+            ids = rng.choice(c["vocab"], c["grad_rows"], replace=False)
+            pair.append((rng.normal(size=(len(ids), c["out"]))
+                         .astype(np.float32), ids))
+        grads.append(pair)
+    pushed = np.unique(np.concatenate([g[1] for p in grads for g in p]))
+    untouched = np.setdiff1d(np.arange(c["vocab"]), pushed)
+    for name, make in (
+            ("sgd", lambda: mx.optimizer.SGD(learning_rate=0.1,
+                                             momentum=0.9, wd=1e-4)),
+            ("adam", lambda: mx.optimizer.Adam(learning_rate=1e-2,
+                                               wd=1e-4))):
+        card = _dlrm_kv(mx, _ctx(), w0, grads, make())
+        host = _dlrm_kv(mx, mx.cpu(), w0, grads, make())
+        res[name] = {
+            "rel_err_vs_cpu": float(np.abs(card - host).max()
+                                    / np.abs(host).max()),
+            "untouched_equal": bool(np.array_equal(card[untouched],
+                                                   w0[untouched])),
+            "pushed_moved": bool((card[pushed] != w0[pushed]).any(axis=1)
+                                 .all())}
+    res["ok"] = bool(dot_err <= DLRM_RTOL and res["dot_has_parts"] and all(
+        res[n]["rel_err_vs_cpu"] <= 1e-6 and res[n]["untouched_equal"]
+        and res[n]["pushed_moved"] for n in ("sgd", "adam")))
+    return res
+
+
+def _dlrm_example(mesh):
+    """examples/dlrm_train.py's constants, generator and steps through
+    the port's trainer (the example imports jax): the loss falls over
+    its 120 steps, and the step after an export and import equals the
+    uninterrupted step bit for bit."""
+    import numpy as np
+    c = DLRM_EXAMPLE
+    tr = _dlrm_trainer(mesh, c["vocab"], c["batch"], "adam",
+                       slots=c["slots"], dim=c["dim"], dense=c["dense"],
+                       mlp=c["mlp"], lr=c["lr"])
+    state = tr.init_state(c["batch"], seed=0)
+    rng = np.random.RandomState(7)
+
+    def batch():
+        ids = np.minimum(rng.zipf(1.3, size=(c["batch"], c["slots"])) - 1,
+                         c["vocab"] - 1).astype(np.int32)
+        dense = rng.normal(size=(c["batch"], c["dense"])).astype(np.float32)
+        y = (((ids[:, 0] + ids[:, 1]) % 2) ^ (dense[:, 0] > 0)) \
+            .astype(np.float32)
+        return ids, dense, y
+
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(c["steps"]):
+        state, loss, _ = tr.step(state, tr.shard_inputs(list(batch())))
+        losses.append(float(loss) / c["batch"])
+    secs = time.perf_counter() - t0
+    arrays, meta = tr.export_training_state(state)
+    resumed = tr.import_training_state(arrays, meta)
+    inputs = tr.shard_inputs(list(batch()))
+    state, l_a, _ = tr.step(state, inputs)
+    resumed, l_b, _ = tr.step(resumed, inputs)
+    a = tr.export_training_state(state)[0]
+    b = tr.export_training_state(resumed)[0]
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    bitwise = bool(float(l_a) == float(l_b)
+                   and all(np.array_equal(a[k], b[k]) for k in a))
+    return {"loss_first20": first, "loss_last20": last, "seconds": secs,
+            "resume_bitwise": bitwise, "ok": bool(last < first and bitwise)}
+
+
+def _dlrm_bench_cli():
+    """``python -m mxnet_tpu_torch.parallel.embedding --bench`` on the
+    card: its exit code and its JSON line."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    args = [sys.executable, "-m", "mxnet_tpu_torch.parallel.embedding",
+            "--bench"] + ([] if DEV == "cuda" else ["--ctx", "cpu"])
+    t0 = time.perf_counter()
+    proc = subprocess.run(args, capture_output=True, text=True,
+                          timeout=300, env=env, cwd=HERE)
+    line = (proc.stdout.strip().splitlines() or [""])[-1]
+    try:
+        rec = json.loads(line)
+    except ValueError:
+        rec = {"stdout": line[-500:], "stderr": proc.stderr[-500:]}
+    return {"exit_code": proc.returncode, "seconds":
+            time.perf_counter() - t0, "result": rec,
+            "ok": proc.returncode == 0}
+
+
+def phase_dlrm():
+    """The row-sparse EmbeddingTrainer at Criteo Kaggle's widths
+    (DLRM_TABLE_ROWS as one 33,762,577 x 16 table, 26 slots, 13 dense,
+    MLP 512-256-1) on synthetic zipf(1.3) clicks: the sparse exchange
+    with SGD at batch 128 and 2048, bf16 and fp8 wires, the dense
+    exchange (the A/B), Adam; each arm's steps/s, samples/s, touched
+    rows, analytic wire, peak memory, busy share, kernels a step and
+    largest device operations, with a warmed step under sync-debug
+    "error". The table is drawn once on the card and carried between
+    arms by export and import. Then the checks (sparse vs dense bit for
+    bit, card vs CPU with two controls that must fail, the NDArray
+    layer), examples/dlrm_train.py's program and the CLI's --bench."""
+    import numpy as np
+    import torch
+    _free_card()
+    t_phase = time.perf_counter()
+    mesh = _dlrm_mesh()
+    vocab = int(sum(DLRM_TABLE_ROWS))
+    res = {"vocab": vocab, "dim": DLRM_DIM, "slots": len(DLRM_TABLE_ROWS),
+           "dense": DLRM_DENSE, "mlp": list(DLRM_MLP) + [1],
+           "table_bytes": vocab * DLRM_DIM * 4}
+    rng = np.random.RandomState(SEED)
+    data = {b: [dlrm_batch(rng, b) for _ in range(DLRM_DISTINCT)]
+            for b in DLRM_BATCHES}
+    _reset_counts()
+    arms = {}
+    small, big = DLRM_BATCHES
+    tr = _dlrm_trainer(mesh, vocab, small)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    state = tr.init_state(small, generator=gen)
+    _sync()
+    res["init_seconds"] = time.perf_counter() - t0
+    plan = (("sparse_sgd_b%d" % small, tr, DLRM_WINDOW),
+            ("sparse_sgd_b%d" % big, _dlrm_trainer(mesh, vocab, big),
+             DLRM_WINDOW),
+            ("sparse_sgd_bf16_b%d" % big,
+             _dlrm_trainer(mesh, vocab, big, compress="bf16"),
+             DLRM_WIRE_WINDOW),
+            ("sparse_sgd_fp8_b%d" % big,
+             _dlrm_trainer(mesh, vocab, big, compress="fp8"),
+             DLRM_WIRE_WINDOW),
+            ("dense_sgd_b%d" % big,
+             _dlrm_trainer(mesh, vocab, big, exchange="dense"), DLRM_WINDOW),
+            ("sparse_adam_b%d" % big,
+             _dlrm_trainer(mesh, vocab, big, "adam"), DLRM_WINDOW))
+    prev = None
+    carry_s = 0.0
+    for name, arm_tr, window in plan:
+        if prev is not None:
+            t0 = time.perf_counter()
+            state = _dlrm_carry(prev, state, arm_tr,
+                                moments=arm_tr.optimizer == "adam")
+            _sync()
+            carry_s += time.perf_counter() - t0
+        state, arms[name] = _dlrm_arm(arm_tr, state, data[arm_tr._batch],
+                                      window)
+        prev = arm_tr
+    del state
+    _free_card()
+    res["carry_seconds"] = carry_s
+    res["arms"] = arms
+    res["launches"] = _read_counts()
+    sp_b = arms["sparse_sgd_b%d" % big]["steps_per_s"]
+    dn_b = arms["dense_sgd_b%d" % big]["steps_per_s"]
+    res["sparse_over_dense"] = sp_b / dn_b
+    res["meets_2x_bar"] = bool(sp_b >= 2 * dn_b)
+    t0 = time.perf_counter()
+    res["checks"] = _dlrm_checks(mesh)
+    res["checks"]["seconds"] = time.perf_counter() - t0
+    res["example"] = _dlrm_example(mesh)
+    res["bench_cli"] = _dlrm_bench_cli()
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["ok"] = bool(
+        res["checks"]["ok"] and res["example"]["ok"]
+        and res["bench_cli"]["ok"]
+        and all(a.get("sync_free", DEV != "cuda") for a in arms.values())
+        and all(np.isfinite(a["loss_per_sample"]).all()
+                for a in arms.values())
+        and not any(res["launches"][k] for k in _wrappers()))
+    RECORD["dlrm"] = res
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("dlrm failed: %s"
+                             % json.dumps(res, default=str)[:6000])
+    return res
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("train", phase_train),
           ("train_profile", phase_train_profile),
@@ -6874,7 +7454,7 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("rnn_op", phase_rnn_op), ("lstm_lm", phase_lstm_lm),
           ("lstm_bucketing", phase_lstm_bucketing),
           ("predict", phase_predict), ("serving_net", phase_serving_net),
-          ("ssd300", phase_ssd300))
+          ("ssd300", phase_ssd300), ("dlrm", phase_dlrm))
 
 # (name, source, TPU kernel, case kind, case, its time / bound keys, errors,
 # its kernel launches a call: counted in the case)
@@ -6970,7 +7550,7 @@ def main(argv=None):
                                   "dp_resnet50", "dp_resnet50_fp16",
                                   "module_fused", "ckpt_resume",
                                   "lstm_lm", "lstm_bucketing", "predict",
-                                  "serving_net", "ssd300")
+                                  "serving_net", "ssd300", "dlrm")
               if k in RECORD]
     rows = []
     for (name, src, replaces, kind, case, ms_key, bound_key, by_key,

@@ -29,6 +29,7 @@ def write_into(dst, value):
     it (so the storage other holders see is updated in place: a
     variable's leaf, such as a Gluon parameter's, stays the leaf),
     rebound otherwise."""
+    dst._invalidate()
     t = dst._data
     if t.shape == value.shape and t.dtype == value.dtype \
             and t.device == value.device and not value.requires_grad \

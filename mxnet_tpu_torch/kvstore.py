@@ -5,8 +5,12 @@ mxnet_tpu/kvstore.py), in one process.
   - ``push(key, vals)`` sums the values (one a device) onto the first
     value's device (the reference's CommDevice::Reduce); with an updater
     set the merged value updates the stored weight, else it replaces it;
+    row_sparse values (all of a push) merge instead: their rows
+    deduplicated and summed (``sparse.merge_row_sparse``), so the
+    updater's optimizer updates only those rows (its lazy path);
   - ``pull(key, out)`` writes the stored value into each out array, on
-    that array's device;
+    that array's device; ``row_sparse_pull(key, out, row_ids)`` only the
+    named rows, zeros elsewhere;
   - ``set_gradient_compression({"type": "2bit", "threshold": t})``
     quantizes each merged push to the reference's packed 2-bit wire
     format with an error-feedback residual (``quantize_2bit``, in torch,
@@ -99,14 +103,31 @@ class KVStore:
             acc += v.as_in_context(acc.context)
         return acc
 
+    def _reduce_row_sparse(self, k, vlist):
+        """The row-sparse reduce (the reference's comm.h Reduce over
+        kRowSparseStorage): every value's (rows, vals) concatenated,
+        deduplicated and duplicate rows summed, on the stored value's
+        device. The result keeps its parts, so the updater takes the
+        optimizers' scatter path. 2-bit compression is skipped: the
+        residual has no stable coordinates on a row set that changes
+        every push."""
+        from .ndarray import sparse as _sp
+        stored = self._store[k]
+        return _sp.merge_row_sparse(vlist, shape=stored.shape,
+                                    ctx=stored.context)
+
     def push(self, key, value, priority=0):
         keys, vlists = self._key_list(key, value)
         for k, vlist in zip(keys, vlists):
             if k not in self._store:
                 raise MXNetError(f"key {k!r} not initialized")
-            merged = self._reduce(vlist)
-            if self._compression is not None:
-                merged = self._compress(k, merged)
+            if all(getattr(v, "stype", "default") == "row_sparse"
+                   for v in vlist):
+                merged = self._reduce_row_sparse(k, vlist)
+            else:
+                merged = self._reduce(vlist)
+                if self._compression is not None:
+                    merged = self._compress(k, merged)
             stored = self._store[k]
             if self._updater is not None:
                 self._updater(self._str_key_int[k],
@@ -137,6 +158,62 @@ class KVStore:
                 raise MXNetError(f"key {k!r} not initialized")
             for o in olist:
                 self._store[k].copyto(o)
+
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        """Pull only the rows ``row_ids`` names (kvstore_dist.h:260's
+        row_sparse path), dense-backed: the other rows come back zero.
+        ``row_ids`` lines up with the outputs of a single key (one for
+        all of them, or one each), or holds one entry a key. Ids are
+        deduplicated; an empty list pulls zeros; an id out of range
+        (negative too) raises."""
+        if out is None:
+            raise MXNetError("row_sparse_pull requires out=")
+        if row_ids is None:
+            return self.pull(key, out=out, priority=priority)
+        keys, olists = self._key_list(key, out)
+        if not isinstance(key, (list, tuple)):
+            rlists = [row_ids if isinstance(row_ids, (list, tuple))
+                      else [row_ids]]
+        else:
+            rlists = list(row_ids) if isinstance(row_ids, (list, tuple)) \
+                else [row_ids]
+            if len(rlists) != len(keys):
+                raise MXNetError(
+                    f"row_sparse_pull: {len(keys)} keys but "
+                    f"{len(rlists)} row_ids entries")
+            rlists = [r if isinstance(r, (list, tuple)) else [r]
+                      for r in rlists]
+        for k, olist, rid_list in zip(keys, olists, rlists):
+            if k not in self._store:
+                raise MXNetError(f"key {k!r} not initialized")
+            stored = self._store[k]._data
+            if len(rid_list) == 1 and len(olist) > 1:
+                rid_list = list(rid_list) * len(olist)
+            if len(rid_list) != len(olist):
+                raise MXNetError(
+                    f"row_sparse_pull: key {k!r} has {len(olist)} outputs "
+                    f"but {len(rid_list)} row_ids")
+            for o, rid in zip(olist, rid_list):
+                ids = torch.as_tensor(getattr(rid, "_data", rid)) \
+                    .reshape(-1).to(device=stored.device, dtype=torch.int64)
+                if ids.numel():
+                    lo, hi = int(ids.min()), int(ids.max())
+                    # checked before indexing: a negative id would wrap
+                    if lo < 0 or hi >= stored.shape[0]:
+                        raise MXNetError(
+                            f"row_sparse_pull: row id out of range "
+                            f"[0, {stored.shape[0]}) for key {k!r} (min "
+                            f"{lo}, max {hi})")
+                keep = torch.zeros(stored.shape[0], dtype=torch.bool,
+                                   device=stored.device)
+                keep[ids] = True
+                masked = torch.where(
+                    keep.reshape((-1,) + (1,) * (stored.ndim - 1)), stored,
+                    torch.zeros((), dtype=stored.dtype,
+                                device=stored.device))
+                o._invalidate()
+                with torch.no_grad():
+                    o._data.copy_(masked)
 
     # -- optimizer ----------------------------------------------------------
     def set_optimizer(self, optimizer):

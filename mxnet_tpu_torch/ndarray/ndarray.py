@@ -90,9 +90,10 @@ class NDArray:
 
     def attach_grad(self, grad_req="write", stype=None):
         """Make this array a variable: backwards inside ``record()`` fill
-        ``grad`` (see :mod:`mxnet_tpu_torch.autograd`)."""
-        if stype not in (None, "default"):
-            raise MXNetError("sparse gradient storage is not ported")
+        ``grad`` (see :mod:`mxnet_tpu_torch.autograd`). ``stype`` is
+        accepted and the gradient stays dense, as in the JAX package."""
+        if stype not in (None, "default", "row_sparse", "csr"):
+            raise MXNetError(f"attach_grad: unknown stype {stype!r}")
         from .. import autograd
         autograd.mark_variables([self], [None], grad_req)
 
@@ -162,6 +163,7 @@ class NDArray:
             if other.shape != self.shape:
                 raise MXNetError(f"copyto: shape {self.shape} into "
                                  f"{other.shape}")
+            other._invalidate()
             with torch.no_grad():
                 other._data.copy_(self._data)
             return other
@@ -184,9 +186,24 @@ class NDArray:
         return NDArray(self._data.detach())
 
     def tostype(self, stype):
-        if stype != "default":
-            raise MXNetError("sparse storage types are not ported")
-        return self
+        """This array (``"default"``) or a dense-backed sparse view of its
+        tensor (``"row_sparse"`` / ``"csr"``, as
+        ``sparse.row_sparse_array(x)`` / ``sparse.csr_matrix(x)`` build
+        from a dense array)."""
+        if stype == "default":
+            return self
+        from . import sparse
+        if stype == "row_sparse":
+            return sparse.RowSparseNDArray(self._data)
+        if stype == "csr":
+            if self.ndim != 2:
+                raise MXNetError("tostype('csr') needs a 2-D array")
+            return sparse.CSRNDArray(self._data)
+        raise MXNetError(f"tostype: unknown stype {stype!r}")
+
+    def _invalidate(self):
+        """Called before a write into the tensor: a sparse array drops
+        the parts it kept (ndarray/sparse.py)."""
 
     # -- shape ops ----------------------------------------------------------
     def reshape(self, *shape, **kwargs):
@@ -425,6 +442,7 @@ class NDArray:
         return NDArray(self._data[self._norm_key(key, self._data.device)])
 
     def __setitem__(self, key, value):
+        self._invalidate()
         key = self._norm_key(key, self._data.device)
         if isinstance(value, NDArray):
             v = value._data
@@ -533,12 +551,13 @@ def save(fname, data):
     if isinstance(data, dict):
         if not all(isinstance(v, NDArray) for v in data.values()):
             raise TypeError("save: dict values must be NDArrays")
-        container.save_container(fname, {k: v.asnumpy()
+        container.save_container(fname, {k: container.blob_of(v)
                                          for k, v in data.items()})
     elif isinstance(data, (list, tuple)):
         if not all(isinstance(d, NDArray) for d in data):
             raise TypeError("save: list elements must be NDArrays")
-        container.save_container(fname, [d.asnumpy() for d in data])
+        container.save_container(fname, [container.blob_of(d)
+                                         for d in data])
     else:
         raise TypeError("save: data must be NDArray, list, or dict")
 
@@ -549,9 +568,17 @@ def load(fname, ctx=None):
     package's default context is); ``Module.set_params`` and the
     initializers copy them to the bound arrays' device."""
     from . import container
-    items = container.load_container(fname)
+    items = container.load_container(fname, sparse=True)
     ctx = ctx if ctx is not None else cpu()
+
+    def nd(v):
+        if isinstance(v, container.SparseBlob):
+            from . import sparse
+            make = sparse.row_sparse_array if v.stype == "row_sparse" \
+                else sparse.csr_matrix
+            return make(v.parts, shape=v.shape, ctx=ctx)
+        return array(v, ctx=ctx, dtype=v.dtype)
+
     if isinstance(items, dict):
-        return {k: array(v, ctx=ctx, dtype=v.dtype)
-                for k, v in items.items()}
-    return [array(v, ctx=ctx, dtype=v.dtype) for v in items]
+        return {k: nd(v) for k, v in items.items()}
+    return [nd(v) for v in items]

@@ -3,16 +3,19 @@
 the mutation ops behind ``__setitem__`` (``_slice_assign``,
 ``_slice_assign_scalar``, ``_scatter_set_nd``),
 ``IdentityAttachKLSparseReg``, the placement identities
-``_CrossDeviceCopy`` and ``_identity_with_attr_like_rhs``, and the
-reference's legacy names of registered ops.
+``_CrossDeviceCopy`` and ``_identity_with_attr_like_rhs``, the ops of
+the dense-backed sparse storage (``cast_storage``, ``_sparse_retain``,
+``_sparse_adagrad_update``), and the reference's legacy names of
+registered ops.
 
-Not ported yet, and named by ``registry.get_op``: ``cast_storage``,
-``_sparse_retain`` and ``_sparse_adagrad_update`` (ROADMAP item 3,
-sparse storage), ``_image_to_tensor`` and ``_image_normalize`` (item 17).
+Not ported yet, and named by ``registry.get_op``: ``_image_to_tensor``
+and ``_image_normalize`` (ROADMAP item 17).
 """
 from __future__ import annotations
 
 import torch
+
+from ..base import MXNetError
 
 from .registry import Param, register, register_alias
 
@@ -188,6 +191,54 @@ register("_identity_with_attr_like_rhs",
 # the reference's legacy and backend-specific names of registered ops
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# sparse storage, dense-backed (ndarray/sparse.py): a storage cast is the
+# identity on the tensor; the stype lives on the NDArray wrapper
+# ---------------------------------------------------------------------------
+
+register("cast_storage", lambda attrs, octx, data: (data.clone(),),
+         params={"stype": Param("str", None, True)})
+
+
+def _sparse_retain(attrs, octx, data, indices):
+    keep = torch.zeros(data.shape[0], dtype=torch.bool, device=data.device)
+    keep[indices.to(torch.int64)] = True
+    return (torch.where(keep.reshape((-1,) + (1,) * (data.ndim - 1)), data,
+                        torch.zeros((), dtype=data.dtype,
+                                    device=data.device)),)
+
+
+register("_sparse_retain", _sparse_retain, inputs=("data", "indices"),
+         infer_shape=lambda attrs, s: (s, [s[0]]))
+
+
+@torch.no_grad()
+def _sparse_adagrad_update(attrs, octx, weight, grad, history):
+    # the rowwise AdaGrad update run densely (optimizer_op.cc
+    # _sparse_adagrad_update): every row, the same values where the
+    # gradient is dense
+    if attrs["wd"] != 0.0:
+        # the reference refuses it too (optimizer_op-inl.h:1747)
+        raise MXNetError("_sparse_adagrad_update does not support wd != 0")
+    g = grad * attrs["rescale_grad"]
+    c = attrs["clip_gradient"]
+    if c is not None and c > 0:
+        g = g.clamp(-c, c)
+    new_hist = history + torch.square(g)
+    return (weight - attrs["lr"] * g / (torch.sqrt(new_hist)
+                                        + attrs["epsilon"]), new_hist)
+
+
+register("_sparse_adagrad_update", _sparse_adagrad_update,
+         params={"lr": Param("float", None, True),
+                 "epsilon": Param("float", 1e-7),
+                 "wd": Param("float", 0.0),
+                 "rescale_grad": Param("float", 1.0),
+                 "clip_gradient": Param("float", -1.0)},
+         inputs=("weight", "grad", "history"), aux=("history",),
+         mutates_aux=True, aux_always=True)
+
+
 for _alias, _name in (
         ("Convolution_v1", "Convolution"), ("Pooling_v1", "Pooling"),
         ("BatchNorm_v1", "BatchNorm"), ("CuDNNBatchNorm", "BatchNorm"),
@@ -209,5 +260,6 @@ for _alias, _name in (
         ("_scatter_plus_scalar", "_plus_scalar"),
         ("_scatter_minus_scalar", "_minus_scalar"),
         ("_scatter_elemwise_div", "elemwise_div"),
-        ("_sparse_dot", "dot"), ("_sparse_zeros_like", "zeros_like")):
+        ("_sparse_dot", "dot"), ("_sparse_zeros_like", "zeros_like"),
+        ("_sparse_cast_storage", "cast_storage")):
     register_alias(_alias, _name)

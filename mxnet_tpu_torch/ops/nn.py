@@ -20,13 +20,14 @@ import torch.nn.functional as F
 from ..base import MXNetError
 from ..predictor import f32_scope
 from .registry import Param, register
+from .tensor import relu as _relu
 
 __all__ = ["cudnn_f32"]
 
 
 def _activation(x, act_type):
     if act_type == "relu":
-        return torch.relu(x)
+        return _relu(x)
     if act_type == "sigmoid":
         return torch.sigmoid(x)
     if act_type == "tanh":

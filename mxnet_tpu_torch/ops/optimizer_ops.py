@@ -74,15 +74,33 @@ def _p(**extra):
     return d
 
 
+def _lazy(attrs, grad, new, old):
+    """The reference's lazy_update (optimizer_op.cc sparse sgd/adam
+    kernels): with ``lazy_update`` only the rows a row_sparse gradient
+    touches move; the others skip the decay, the momentum and the
+    moments. Dense-backed, a row is touched when any of its values is
+    nonzero (the JAX ops' ``_row_mask``: an explicitly listed all-zero
+    row counts as untouched here; the optimizers' scatter path, which
+    has the row list, does not). The optimizers set the attr only for a
+    row_sparse gradient."""
+    if not attrs.get("lazy_update"):
+        return new
+    axes = tuple(range(1, grad.ndim))
+    touched = (grad != 0).any(dim=axes) if axes else grad != 0
+    m = touched.reshape((-1,) + (1,) * (grad.ndim - 1))
+    return tuple(torch.where(m, n, o) for n, o in zip(new, old))
+
+
 @torch.no_grad()
 def _sgd_update(attrs, octx, weight, grad):
-    return (weight - attrs.lr * _prep(attrs, grad, weight),)
+    new_w = weight - attrs.lr * _prep(attrs, grad, weight)
+    return _lazy(attrs, grad, (new_w,), (weight,))
 
 
 @torch.no_grad()
 def _sgd_mom_update(attrs, octx, weight, grad, mom):
     new_mom = attrs.momentum * mom - attrs.lr * _prep(attrs, grad, weight)
-    return (weight + new_mom, new_mom)
+    return _lazy(attrs, grad, (weight + new_mom, new_mom), (weight, mom))
 
 
 @torch.no_grad()
@@ -107,7 +125,8 @@ def _adam_update(attrs, octx, weight, grad, mean, var):
     new_mean = b1 * mean + _one_minus(b1, mean) * g
     new_var = b2 * var + _one_minus(b2, var) * torch.square(g)
     step = attrs.lr * new_mean / (torch.sqrt(new_var) + attrs.epsilon)
-    return (weight - step, new_mean, new_var)
+    return _lazy(attrs, grad, (weight - step, new_mean, new_var),
+                 (weight, mean, var))
 
 
 @torch.no_grad()

@@ -216,7 +216,6 @@ def register_alias(alias, name):
 
 # the JAX package's ops the port does not have yet, by the ROADMAP item
 # (queue 1) that holds them; their registered aliases too
-_ITEM_3 = "ROADMAP item 3 (sparse storage)"
 _ITEM_17 = "ROADMAP item 17 (the remaining contrib, image and Custom ops)"
 UNPORTED = {
     **dict.fromkeys((
@@ -229,9 +228,6 @@ UNPORTED = {
         "_contrib_CTCLoss", "_contrib_ctc_loss", "ctc_loss",
         "_image_normalize", "_image_to_tensor", "image_normalize",
         "image_to_tensor", "Custom"), _ITEM_17),
-    **dict.fromkeys(("cast_storage", "_sparse_retain",
-                     "_sparse_adagrad_update", "_sparse_cast_storage"),
-                    _ITEM_3),
 }
 
 

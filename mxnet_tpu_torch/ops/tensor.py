@@ -50,6 +50,65 @@ ELEMENTWISE = {"_copy", "BlockGrad", "Cast", "add_n", "clip", "zeros_like",
                "ones_like"}
 
 
+# Gradients at kinks and ties are the JAX package's (the reference for
+# the port): max/min split a tie's cotangent in half, so relu, clip and
+# the scalar max/min pass 0.5 of it at the kink (``torch.clamp`` and
+# ``torch.relu`` pass 1 or 0), and abs passes +1 at 0 and -0.0.
+
+
+def _maximum_with(x, s):
+    return torch.maximum(x, x.new_full((), s))
+
+
+def _minimum_with(x, s):
+    return torch.minimum(x, x.new_full((), s))
+
+
+class _Relu(torch.autograd.Function):
+    """relu with the tie's half: the forward is ``torch.relu``, the
+    backward ``g * heaviside(x, 0.5)`` (two elementwise kernels; max's
+    own backward takes five)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.relu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.heaviside(x, x.new_full((), 0.5))
+
+
+def relu(x):
+    """max(x, 0), 0.5 of the cotangent at 0."""
+    return _Relu.apply(x) if torch.is_grad_enabled() and x.requires_grad \
+        else torch.relu(x)
+
+
+class _Abs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def abs_(x):
+    """|x|, whose gradient is +1 at 0 and at -0.0."""
+    return _Abs.apply(x) if torch.is_grad_enabled() and x.requires_grad \
+        else torch.abs(x)
+
+
+def _clip(x, lo, hi):
+    """min(max(x, lo), hi): 0.5 of the cotangent at either bound."""
+    return _minimum_with(_maximum_with(x, lo), hi)
+
+
 def _unary(name, fn, aliases=()):
     ELEMENTWISE.add(name)
     register(name, lambda attrs, octx, x: (fn(x),), aliases=aliases,
@@ -82,7 +141,7 @@ def _nonzero(x):
 # elementwise unary
 # ---------------------------------------------------------------------------
 
-_unary("relu", torch.relu, aliases=("_relu",))
+_unary("relu", relu, aliases=("_relu",))
 _unary("sigmoid", torch.sigmoid)
 _unary("softsign", lambda x: x / (1 + x.abs()))
 _unary("tanh", torch.tanh)
@@ -97,7 +156,7 @@ _unary("rsqrt", torch.rsqrt)
 _unary("cbrt", lambda x: torch.sign(x) * x.abs().pow(1.0 / 3.0))
 _unary("rcbrt", lambda x: 1.0 / (torch.sign(x) * x.abs().pow(1.0 / 3.0)))
 _unary("square", torch.square)
-_unary("abs", torch.abs)
+_unary("abs", abs_)
 _unary("sign", torch.sign)
 _unary("round", torch.round)
 _unary("rint", torch.round)
@@ -190,8 +249,8 @@ _scalar_op("_rmod_scalar", lambda x, s: torch.remainder(
 _scalar_op("_power_scalar", torch.pow, aliases=("_PowerScalar",))
 _scalar_op("_rpower_scalar", lambda x, s: torch.pow(s, x),
            aliases=("_RPowerScalar",))
-_scalar_op("_maximum_scalar", torch.clamp_min, aliases=("_MaximumScalar",))
-_scalar_op("_minimum_scalar", torch.clamp_max, aliases=("_MinimumScalar",))
+_scalar_op("_maximum_scalar", _maximum_with, aliases=("_MaximumScalar",))
+_scalar_op("_minimum_scalar", _minimum_with, aliases=("_MinimumScalar",))
 _scalar_op("_hypot_scalar", lambda x, s: torch.hypot(x, torch.full_like(x, s)),
            aliases=("_HypotScalar",))
 _scalar_op("_equal_scalar", torch.eq, cast_to_input=True,
@@ -508,8 +567,8 @@ def _slice_axis(attrs, octx, x):
 register("slice_axis", _slice_axis,
          params={"axis": Param("int", None, True), "begin": Param("int", 0),
                  "end": Param("int", None)})
-register("clip", lambda attrs, octx, x: (torch.clamp(x, attrs["a_min"],
-                                                     attrs["a_max"]),),
+register("clip", lambda attrs, octx, x: (_clip(x, attrs["a_min"],
+                                              attrs["a_max"]),),
          params={"a_min": Param("float", None, True),
                  "a_max": Param("float", None, True)},
          infer_shape=_same_shape_infer)

@@ -38,8 +38,8 @@ import types
 import torch
 
 from . import random as _random
-from .base import MXNetError
 from .ndarray.ndarray import NDArray
+from .ops import sparse_ops as sp
 
 __all__ = ["Optimizer", "SGD", "Signum", "SignSGD", "FTML", "DCASGD", "NAG",
            "SGLD", "ccSGD", "Adam", "AdaGrad", "RMSProp", "AdaDelta", "Ftrl",
@@ -246,6 +246,32 @@ def _copy_of(weight):
     return NDArray(t) if _is_nd(weight) else t
 
 
+def _stype(x):
+    return getattr(x, "stype", "default")
+
+
+def _sparse_components(grad):
+    """(values, row ids) of a row_sparse gradient built from its parts
+    (ndarray/sparse.py), else None: the gate of the scatter path, whose
+    work scales with the listed rows."""
+    ell = getattr(grad, "_ell", None)
+    if ell is None or len(ell) != 2:
+        return None     # dense-backed, or a CSR's three ELL parts
+    return ell
+
+
+def _row_kwargs(opt):
+    return {"rescale_grad": opt.rescale_grad,
+            "clip_gradient": -1.0 if opt.clip_gradient is None
+            else opt.clip_gradient}
+
+
+def _write(dst, new):
+    """Copy an update's result into the weight or state in place."""
+    with torch.no_grad():
+        _tensor_of(dst).copy_(new)
+
+
 def _scaled_grad(opt, grad):
     """rescale_grad * grad, clipped to +-clip_gradient whenever it is set
     (the JAX package's arithmetic optimizers clip without the > 0 test
@@ -285,11 +311,31 @@ class SGD(Optimizer):
         lr = self._get_lr(index)
         wd = self._get_wd(index)
         self._update_count(index)
+        # lazy_update engages only for a row_sparse gradient (the
+        # reference's optimizer.py:498): untouched rows skip the decay
+        # and the momentum
+        lazy = self.lazy_update and _stype(grad) == "row_sparse"
+        parts = _sparse_components(grad) if lazy else None
+        if parts is not None:
+            # the scatter path: only the gradient's listed rows
+            vals, rows = parts
+            kw = _row_kwargs(self)
+            if state is not None:
+                new_w, new_m = sp.rows_sgd_mom_update(
+                    _tensor_of(weight), _tensor_of(state), rows, vals, lr,
+                    self.momentum, wd=wd, **kw)
+                _write(state, new_m)
+            else:
+                new_w = sp.rows_sgd_update(_tensor_of(weight), rows, vals,
+                                           lr, wd=wd, **kw)
+            _write(weight, new_w)
+            return
         if state is not None:
             self._apply("sgd_mom_update", weight, grad, (state,), lr=lr,
-                        wd=wd, momentum=self.momentum)
+                        wd=wd, momentum=self.momentum, lazy_update=lazy)
         else:
-            self._apply("sgd_update", weight, grad, (), lr=lr, wd=wd)
+            self._apply("sgd_update", weight, grad, (), lr=lr, wd=wd,
+                        lazy_update=lazy)
 
     def update_multi_precision(self, index, weight, grad, state):
         if not (self.multi_precision and _half(_tensor_of(weight).dtype)):
@@ -328,8 +374,21 @@ class Adam(Optimizer):
         self._update_count(index)
         t = self._index_update_count[index]
         lr *= math.sqrt(1. - self.beta2 ** t) / (1. - self.beta1 ** t)
+        lazy = self.lazy_update and _stype(grad) == "row_sparse"
+        parts = _sparse_components(grad) if lazy else None
+        if parts is not None:
+            vals, rows = parts
+            mean, var = state
+            new_w, new_m, new_v = sp.rows_adam_update(
+                _tensor_of(weight), _tensor_of(mean), _tensor_of(var), rows,
+                vals, lr, self.beta1, self.beta2, self.epsilon, wd=wd,
+                **_row_kwargs(self))
+            for dst, new in ((weight, new_w), (mean, new_m), (var, new_v)):
+                _write(dst, new)
+            return
         self._apply("adam_update", weight, grad, state, lr=lr, wd=wd,
-                    beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon)
+                    beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon,
+                    lazy_update=lazy)
 
 
 @register
@@ -480,8 +539,10 @@ class ccSGD(SGD):
 
 @register
 class AdaGrad(Optimizer):
-    """Dense AdaGrad (a row-sparse gradient raises: sparse storage is
-    ROADMAP item 3)."""
+    """AdaGrad. A row_sparse gradient is used densely, its backing
+    tensor over every row (as the JAX class does: its arithmetic on the
+    gradient makes a dense array), so rows without gradient still take
+    the weight decay."""
 
     def __init__(self, eps=1e-7, **kwargs):
         super().__init__(**kwargs)
@@ -492,9 +553,6 @@ class AdaGrad(Optimizer):
 
     @torch.no_grad()
     def update(self, index, weight, grad, state):
-        if getattr(grad, "stype", "default") == "row_sparse":
-            raise MXNetError("AdaGrad: row_sparse gradients are not "
-                             "ported yet (ROADMAP item 3, sparse storage)")
         lr = self._get_lr(index)
         wd = self._get_wd(index)
         self._update_count(index)

@@ -8,8 +8,8 @@ held within RTOL of each tensor's largest magnitude (plus ATOL);
 integer outputs (indices, shapes) exactly. The legacy loss heads drop
 the cotangent in both packages (their gradient is the implied loss's).
 
-Then the registry: the port lacks exactly the 25 JAX ops that ROADMAP
-items 3 and 17 hold, and asking for one of them names its item.
+Then the registry: the port lacks exactly the 22 JAX ops that ROADMAP
+item 17 holds, and asking for one of them names the item.
 """
 import numpy as np
 import pytest
@@ -49,6 +49,11 @@ def _idx(seed, hi, *shape):
 
 _TIES = np.array([[3., 1., 3., 2., 1., 3.], [0., 0., 5., 5., 4., 0.]],
                  np.float32)
+# inputs on the kinks: 0 and -0.0 (relu, abs), the clip bounds -1 and 2,
+# the scalar 0.5
+_KINKS = np.array([[-1., 0., -0., 0.5, 2., -2.], [0.5, 3., 0., -1., 0.25,
+                                                   2.]], np.float32)
+_NANS = np.array([[0.5, np.nan, -1.], [np.nan, 2., 0.25]], np.float32)
 
 # (case id, op, inputs, attrs, indices of the inputs differentiated)
 CASES = [
@@ -171,6 +176,88 @@ CASES = [
     ("cross_device_copy", "_CrossDeviceCopy", [_r(81, 3, 4)], {}, [0]),
     ("identity_like_rhs", "_identity_with_attr_like_rhs",
      [_r(82, 3, 4), _r(83, 2)], {}, [0]),
+    # ops/tensor.py: shape, reduction and elementwise families
+    ("SwapAxis", "SwapAxis", [_r(84, 2, 3, 4)], {"dim1": 0, "dim2": 2},
+     [0]),
+    ("reshape_like", "reshape_like", [_r(85, 2, 6), _r(86, 3, 4)], {}, [0]),
+    ("argmax_channel", "argmax_channel", [_r(87, 4, 5)], {}, []),
+    ("nansum", "nansum", [_NANS], {"axis": 1}, [0]),
+    ("nanprod", "nanprod", [_r(88, 3, 4, lo=0.5, hi=1.5)], {"axis": 0},
+     [0]),
+    ("square_sum", "_square_sum", [_r(89, 3, 5)],
+     {"axis": 1, "keepdims": True}, [0]),
+    ("grad_add", "_grad_add", [_r(90, 3, 4), _r(91, 3, 4)], {}, [0, 1]),
+    ("elemwise_mul", "elemwise_mul", [_r(92, 3, 4), _r(93, 3, 4)], {},
+     [0, 1]),
+    ("elemwise_div", "elemwise_div",
+     [_r(94, 3, 4), _r(95, 3, 4, lo=0.5, hi=2.0)], {}, [0, 1]),
+] + [
+    # the scalar ops
+    (name, name, [_r(100 + i, 3, 5, lo=lo, hi=hi)], {"scalar": sc},
+     [0] if grad else [])
+    for i, (name, sc, lo, hi, grad) in enumerate((
+        ("_plus_scalar", 1.5, -1, 1, True),
+        ("_minus_scalar", 0.5, -1, 1, True),
+        ("_mul_scalar", -2.0, -1, 1, True),
+        ("_div_scalar", 4.0, -1, 1, True),
+        ("_mod_scalar", 0.7, 0.05, 0.65, True),
+        ("_rmod_scalar", 2.5, 0.9, 1.2, True),
+        ("_rpower_scalar", 1.7, -1, 1, True),
+        ("_hypot_scalar", 0.5, -1, 1, True),
+        ("_maximum_scalar", 0.1, -1, 1, True),
+        ("_minimum_scalar", 0.1, -1, 1, True),
+        ("_equal_scalar", 0.0, -1, 1, False),
+        ("_not_equal_scalar", 0.0, -1, 1, False),
+        ("_greater_scalar", 0.2, -1, 1, False),
+        ("_greater_equal_scalar", 0.2, -1, 1, False),
+        ("_lesser_scalar", 0.2, -1, 1, False),
+        ("_logical_and_scalar", 1.0, -1, 1, False),
+        ("_logical_or_scalar", 0.0, -1, 1, False),
+        ("_logical_xor_scalar", 1.0, -1, 1, False)))
+] + [
+    # the broadcast ops: (3, 4) against (1, 4)
+    (name, name, [_r(130 + i, 3, 4, lo=lo, hi=hi),
+                  _r(150 + i, 1, 4, lo=lo2, hi=hi2)], {},
+     [0, 1] if grad else [])
+    for i, (name, lo, hi, lo2, hi2, grad) in enumerate((
+        ("broadcast_greater_equal", -1, 1, -1, 1, False),
+        ("broadcast_lesser", -1, 1, -1, 1, False),
+        ("broadcast_lesser_equal", -1, 1, -1, 1, False),
+        ("broadcast_not_equal", -1, 1, -1, 1, False),
+        ("broadcast_minimum", -1, 1, -1, 1, True),
+        ("broadcast_mod", 0.1, 3.0, 0.7, 1.3, True),
+        ("broadcast_power", 0.5, 2.0, -1, 1, True),
+        ("broadcast_hypot", -1, 1, -1, 1, True),
+        ("broadcast_logical_and", -1, 1, -1, 1, False),
+        ("broadcast_logical_or", -1, 1, -1, 1, False),
+        ("broadcast_logical_xor", -1, 1, -1, 1, False)))
+] + [
+    # the unary ops, each on its domain
+    (name, name, [_r(170 + i, 3, 5, lo=lo, hi=hi)], {}, [0])
+    for i, (name, lo, hi) in enumerate((
+        ("sin", -3, 3), ("cos", -3, 3), ("tan", -1.2, 1.2),
+        ("arcsin", -0.9, 0.9), ("arccos", -0.9, 0.9), ("arctan", -3, 3),
+        ("sinh", -2, 2), ("cosh", -2, 2), ("arcsinh", -3, 3),
+        ("arccosh", 1.1, 4), ("arctanh", -0.9, 0.9), ("degrees", -3, 3),
+        ("radians", -200, 200), ("erf", -2, 2), ("erfinv", -0.9, 0.9),
+        ("gammaln", 0.2, 5), ("expm1", -2, 2), ("log10", 0.1, 10),
+        ("log1p", -0.5, 3), ("cbrt", 0.1, 8), ("rcbrt", 0.1, 8),
+        ("rsqrt", 0.1, 4), ("reciprocal", 0.5, 3), ("fix", -3.3, 3.3),
+        ("rint", -3.3, 3.3), ("trunc", -3.3, 3.3),
+        ("logical_not", -1, 1)))
+] + [
+    # gradients at kinks and ties: the JAX package's (0.5 of the
+    # cotangent at a tie of max/min, relu and clip; abs +1 at 0 and -0.0)
+    ("relu_tie", "relu", [_KINKS], {}, [0]),
+    ("_relu_tie", "_relu", [_KINKS], {}, [0]),
+    ("Activation_relu_tie", "Activation", [_KINKS], {"act_type": "relu"},
+     [0]),
+    ("abs_tie", "abs", [_KINKS], {}, [0]),
+    ("clip_tie", "clip", [_KINKS], {"a_min": -1.0, "a_max": 2.0}, [0]),
+    ("maximum_scalar_tie", "_maximum_scalar", [_KINKS], {"scalar": 0.5},
+     [0]),
+    ("minimum_scalar_tie", "_minimum_scalar", [_KINKS], {"scalar": 0.5},
+     [0]),
 ]
 
 
@@ -295,14 +382,12 @@ NOT_PORTED = {
     "_contrib_DeformablePSROIPooling", "_contrib_MultiProposal",
     "_contrib_PSROIPooling", "_contrib_Proposal", "_contrib_count_sketch",
     "_contrib_fft", "_contrib_ifft", "_contrib_quadratic", "khatri_rao",
-    "_image_normalize", "_image_to_tensor", "Custom",
-    # ROADMAP item 3: sparse storage
-    "cast_storage", "_sparse_retain", "_sparse_adagrad_update"}
+    "_image_normalize", "_image_to_tensor", "Custom"}
 
 
 def test_the_port_lacks_exactly_the_named_ops():
     jax_ops, port_ops = set(jreg.list_ops()), set(treg.list_ops())
-    assert len(NOT_PORTED) == 25
+    assert len(NOT_PORTED) == 22
     assert jax_ops - port_ops == NOT_PORTED
     assert port_ops <= jax_ops
     # every registered name of the JAX package resolves in the port, but
@@ -315,8 +400,8 @@ def test_the_port_lacks_exactly_the_named_ops():
 @pytest.mark.parametrize("name,item", [
     ("ROIPooling", "item 17"), ("_contrib_Proposal", "item 17"),
     ("ctc_loss", "item 17"), ("Custom", "item 17"),
-    ("image_to_tensor", "item 17"), ("cast_storage", "item 3"),
-    ("_sparse_adagrad_update", "item 3")])
+    ("image_to_tensor", "item 17"), ("_contrib_fft", "item 17"),
+    ("khatri_rao", "item 17")])
 def test_an_unported_op_names_its_roadmap_item(name, item):
     """get_op, and the mx.nd / mx.sym namespaces, name the item."""
     import mxnet_tpu_torch as tmx

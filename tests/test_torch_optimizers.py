@@ -28,7 +28,6 @@ import torch
 import mxnet_tpu as jmx
 from mxnet_tpu.parallel.planner import AUTO_KNOB_VARS
 import mxnet_tpu_torch as tmx
-from mxnet_tpu_torch.base import MXNetError
 
 from test_torch_dp import _assert_state, _batch, _np, _pair, _run
 
@@ -185,13 +184,30 @@ def test_sgld_noise_is_normal_with_variance_lr():
 
 
 def test_adagrad_refuses_a_row_sparse_gradient():
-    class _RowSparse:
-        stype = "row_sparse"
-
-    opt = tmx.optimizer.create("adagrad")
-    w = tmx.nd.zeros((2,), ctx=tmx.cpu())
-    with pytest.raises(MXNetError, match="item 3"):
-        opt.update(0, w, _RowSparse(), opt.create_state(0, w))
+    """Sparse storage is ported: AdaGrad takes a row_sparse gradient as
+    the JAX class does, densely (rows without gradient still decay),
+    and matches it within RTOL."""
+    from mxnet_tpu.ndarray import sparse as jsp
+    from mxnet_tpu_torch.ndarray import sparse as tsp
+    rng = np.random.RandomState(5)
+    w0 = rng.normal(size=(6, 3)).astype(np.float32)
+    data = rng.normal(size=(2, 3)).astype(np.float32)
+    rows = np.array([1, 4])
+    out = []
+    for mx, sp, ctx in ((jmx, jsp, None), (tmx, tsp, tmx.cpu())):
+        opt = mx.optimizer.create("adagrad", learning_rate=0.1, wd=0.01,
+                                  rescale_grad=0.5)
+        kw = {} if ctx is None else {"ctx": ctx}
+        w = mx.nd.array(w0, **kw)
+        g = sp.row_sparse_array((data, rows), shape=(6, 3), **kw)
+        state = opt.create_state(0, w)
+        for _ in range(2):
+            opt.update(0, w, g, state)
+        out.append((w.asnumpy(), state.asnumpy()))
+    for got, want in zip(out[1], out[0]):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=RTOL * np.abs(want).max())
+    assert not np.array_equal(out[1][0][0], w0[0])    # decayed, no grad
 
 
 @pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])
