@@ -252,6 +252,38 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            shifted), sparse.dot and kvstore row-sparse pushes on the
            card, examples/dlrm_train.py's program (its loss falls; a
            resumed step is bit-identical) and the CLI's --bench
+  device_feed
+           ResNet-50 v1 (gluon_fused_resnet50's configuration: batch
+           128, 224², float32, K = 4) through fused_fit over a
+           re-iterable source whose host cost a batch is one device step
+           (time.sleep, calibrated by a run of a free source: bench.py's
+           pipeline lane design), 3 epochs with MXNET_DEVICE_FEED off and
+           then on, cuDNN's deterministic algorithms in both: img/s over
+           epochs 1..2 of each and their ratio, the feed's overlap_frac,
+           feed_wait_us and feed_stage_us, the card's idle at each
+           epoch's start and between blocks; the parameters after the
+           two fits bit-identical
+  traced_lm
+           gluon_fused_lm's LM (24 layers, 8 x 1024 tokens, Adam, K = 2,
+           2 epochs of 3 steps) through fused_fit with every runtime
+           plane off, then with span tracing, the JSONL step log, the
+           flight recorder (flusher on), the watchdog and the profiler's
+           torch.profiler kernel lane on, from the same parameters:
+           losses and parameters bit-identical, steps/s of each and the
+           tracing tax; the trace shard merged (step.fused_dispatch,
+           feed.wait, feed.stage spans in their phases), one step-log
+           record a block with its feed / compute breakdown; the
+           kernel lane's flash_fwd_tc / flash_bwd_dq_tc / flash_bwd_dkv
+           counts against the launch counters over 2 more step_k calls
+           (replays; 2 eager steps of the hybridized loop as well); one
+           traced step_k (a span, the step log, a feed staging) under
+           torch.cuda.set_sync_debug_mode("error"); a stalled loop's
+           watchdog dump within its stall_s; an exception's flight-
+           recorder box holding the last spans; one /metrics scrape
+           (device_feed, devstats, span and step series) and /healthz;
+           Monitor(monitor_all=True) over 2 steps of LeNet's Module.fit on
+           the card against the CPU (the same names, stats within
+           MODULE_RTOL)
 
 then the nvidia-smi line, a ``kernels`` summary line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no result)
@@ -502,6 +534,18 @@ GFUSED_LOOP_RTOL = 1e-5
 GFLM_K = 2
 GFLM_STEPS = 3
 GFLM_RTOL = 1e-4
+# device_feed: gluon_fused_resnet50's configuration fed by a source that
+# sleeps one device step a batch (calibrated by a run of a free source),
+# FEED_EPOCHS epochs (epoch 0 captures; rates over 1..N), feed off then on
+FEED_EPOCHS = 3
+FEED_MIN_HOST_S = 2e-3
+# traced_lm: the watchdog's stall limit during the fit (it must not fire)
+# and in the stalled-loop check; eager steps of the kernel lane's check
+TRACE_FIT_STALL_S = 120.0
+TRACE_STALL_S = 0.5
+TRACE_EAGER_STEPS = 2
+# the flight recorder's check: a small MLP fused_fit whose source raises
+TRACE_MLP_BATCH = 64
 # gluon_fused_lm_amp: the LM under amp.init("bfloat16"); its first 3
 # losses against gluon_fused_lm's f32 ones (bf16 products over 24 layers)
 AMP_DTYPE = "bfloat16"
@@ -7433,6 +7477,558 @@ def phase_dlrm():
     return res
 
 
+class _FeedSource:
+    """A re-iterable (x, y) source of host numpy batches that sleeps
+    ``host_s`` before each (the decode / read stand-in of bench.py's
+    pipeline lane)."""
+
+    def __init__(self, xs, ys, host_s):
+        self.xs, self.ys, self.host_s = xs, ys, host_s
+
+    def __iter__(self):
+        for x, y in zip(self.xs, self.ys):
+            if self.host_s:
+                time.sleep(self.host_s)
+            yield x, y
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """os.environ with ``values`` set (None: unset) for the block."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _feed_arm(mx, init, source, feed_on):
+    """resnet50_v1 from ``init`` fused-fit for FEED_EPOCHS epochs over
+    ``source`` with the device feed on or off: (record, host params)."""
+    from mxnet_tpu_torch import pipeline
+    net = _gluon_r50(mx, init, _ctx())
+    marks = []
+    pipeline.reset_stats()
+    _sync()
+    with _env(MXNET_DEVICE_FEED=int(feed_on)), _watch_step_k() as calls:
+        losses = _gluon_fit(mx, net, source, FEED_EPOCHS, GFUSED_K,
+                            lambda e, _n, _l: marks.append(
+                                time.perf_counter()))
+    _sync()
+    feed = pipeline.stats()
+    per_epoch = len(calls) // FEED_EPOCHS
+    epochs = [calls[i * per_epoch:(i + 1) * per_epoch]
+              for i in range(FEED_EPOCHS)]
+
+    def gap(a, b):
+        return max(0.0, a["events"][1].elapsed_time(b["events"][0])) \
+            if a["events"] else 0.0
+    steps = sum(c["k"] for ep in epochs[1:] for c in ep)
+    span_s = marks[-1] - marks[0]
+    rec = {"feed": bool(feed_on), "epoch_losses": losses,
+           "img_per_s": steps * R50_BATCH / span_s,
+           "step_s": span_s / steps,
+           "idle_ms_at_epoch_start": [gap(epochs[e - 1][-1], epochs[e][0])
+                                      for e in range(1, FEED_EPOCHS)],
+           "idle_ms_between_blocks": [sum(gap(a, b) for a, b in
+                                          zip(ep, ep[1:])) for ep in epochs],
+           "device_ms_per_step": sum(_block_device_ms(c) for ep in epochs[1:]
+                                     for c in ep) / steps,
+           "captures": calls[0]["trainer"].captures,
+           "feed_stats": feed,
+           "losses_finite": bool(all(math.isfinite(v) for v in losses))}
+    params = _host_params(net)
+    del net, calls
+    _free_card()
+    return rec, params
+
+
+def phase_device_feed():
+    """ResNet-50 v1 through fused_fit at gluon_fused_resnet50's
+    configuration over a source that costs one device step a batch on
+    the host, with the device feed off and then on: both rates and their
+    ratio, the feed's counters, the card's idle at each epoch's start,
+    and the parameters bit-identical between the arms. Nothing is
+    claimed of the ratio: fused_fit already reads each block's losses a
+    block late, so staging overlapped the replays before the feed."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    _free_card()
+    init = _gluon_r50_init(mx)
+    rng = np.random.RandomState(SEED)
+    xs = [rng.uniform(0, 1, (R50_BATCH, 3, R50_IMG, R50_IMG))
+          .astype(np.float32) for _ in range(GFUSED_BATCHES)]
+    ys = [rng.randint(0, 1000, R50_BATCH).astype(np.float32)
+          for _ in range(GFUSED_BATCHES)]
+    res = {"model": "gluon.model_zoo.vision.resnet50_v1(classes=1000)",
+           "batch": R50_BATCH, "image": R50_IMG, "dtype": "float32",
+           "k": GFUSED_K, "batches": GFUSED_BATCHES, "epochs": FEED_EPOCHS,
+           "cudnn_deterministic": True}
+    _reset_counts()
+    with _cudnn_deterministic():
+        free, _ = _feed_arm(mx, init, _FeedSource(xs, ys, 0.0), False)
+        host_s = max(free["step_s"], FEED_MIN_HOST_S)
+        off, p_off = _feed_arm(mx, init, _FeedSource(xs, ys, host_s), False)
+        on, p_on = _feed_arm(mx, init, _FeedSource(xs, ys, host_s), True)
+    counts = _read_counts()
+    diff = [n for n in p_off if not torch.equal(p_off[n], p_on[n])]
+    res.update({"calibration": free, "host_cost_ms_per_batch": host_s * 1e3,
+                "feed_off": off, "feed_on": on,
+                "img_per_s_off": off["img_per_s"],
+                "img_per_s_on": on["img_per_s"],
+                "ratio_on_over_off": on["img_per_s"] / off["img_per_s"],
+                "overlap_frac": on["feed_stats"]["overlap_frac"],
+                "feed_wait_us": on["feed_stats"]["feed_wait_us"],
+                "feed_stage_us": on["feed_stats"]["feed_stage_us"],
+                "params_bit_identical": not diff, "params_differing": diff[:8],
+                "tensors": len(p_off), "launches": counts})
+    res["ok"] = bool(not diff and len(p_off) > 100
+                     and on["losses_finite"] and off["losses_finite"]
+                     and on["epoch_losses"] == off["epoch_losses"]
+                     and on["feed_stats"]["feed_batches"]
+                     == FEED_EPOCHS * -(-GFUSED_BATCHES // GFUSED_K)
+                     and on["feed_stats"]["feeds_active"] == 0
+                     and off["feed_stats"]["feed_batches"] == 0
+                     and on["captures"] == off["captures"]
+                     == (1 if DEV == "cuda" else 0)
+                     and not any(counts[k] for k in _wrappers()))
+    RECORD["device_feed"] = res
+    del p_off, p_on, xs, ys
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("device_feed failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
+_LANE_KERNELS = {"flash_attention_fwd": r"\bflash_fwd_tc\b",
+                 "flash_attention_bwd_dq": r"\bflash_bwd_dq_tc\b",
+                 "flash_attention_bwd_dkv": r"\bflash_bwd_dkv\b"}
+
+
+def _lane_counts(path):
+    """Kernel events of a torch.profiler chrome trace by flash wrapper
+    (the kernel each launches), and all kernel events."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    out = {w: sum(1 for n in kernels if re.search(rx, n))
+           for w, rx in _LANE_KERNELS.items()}
+    out["kernel_events"] = len(kernels)
+    return out
+
+
+def _lane_pad():
+    """Kernels that open a kernel-lane session before the counted work:
+    in the whole script (after the earlier phases' profiler sessions)
+    CUPTI did not record the first kernels a session ran, 2–3 flash
+    forwards of 96 and 48, where ``--phases device,build,traced_lm`` lost
+    none."""
+    import torch
+    if DEV != "cuda":
+        return
+    pad = torch.zeros(1024, device="cuda")
+    for _ in range(256):
+        pad.add_(1.0)
+    torch.cuda._sleep(50_000_000)
+    _sync()
+    time.sleep(0.05)
+
+
+def _lane_window(directory, fn):
+    """Launch counts and the kernel lane's flash counts over ``fn()``."""
+    from mxnet_tpu_torch import profiler
+    profiler.set_config(xplane_dir=directory, profile_imperative=False,
+                        profile_symbolic=False)
+    _sync()
+    profiler.set_state("run")
+    try:
+        _lane_pad()
+        _reset_counts()
+        fn()
+        _sync()
+    finally:
+        profiler.set_state("stop")
+    counts = _read_counts()
+    seen = _lane_counts(profiler.kernel_profile()[1])
+    return {"launches": {k: counts[k] for k in _FLASH}, "trace": seen,
+            "equal": all(seen[k] == counts[k] for k in _FLASH)}
+
+
+def _glm_eager_steps(mx, init, x, y, steps):
+    """``steps`` steps of the hybridized Trainer loop of the LM (one
+    warm-up step first, outside the caller's window)."""
+    net = _glm_net(mx, init, GLM_LAYERS)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": TRAIN_LR})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x).reshape((-3, 0)), y.reshape((-1,))).mean()
+        loss.backward()
+        trainer.step(1)
+    step()
+    return net, trainer, lambda: [step() for _ in range(steps)]
+
+
+class _MonitorRecorder:
+    """A Monitor subclass (made at run time) keeping each window."""
+
+    @staticmethod
+    def make(mx, **kw):
+        class Recorder(mx.Monitor):
+            def __init__(self):
+                super().__init__(**kw)
+                self.windows = []
+
+            def toc_print(self):
+                self.windows.append(self.toc())
+        return Recorder()
+
+
+def _monitor_check(mx):
+    """Monitor(monitor_all=True) over 2 steps of LeNet's Module.fit on the
+    card and on the CPU from the same parameters: the tapped names equal,
+    each mean |x| within MODULE_RTOL."""
+    import numpy as np
+    x, y = synthetic_mnist(2 * LENET_BATCH, SEED)
+    out = {}
+    host_params = None
+    for name, ctx in (("cpu", mx.cpu()), ("card", _ctx())):
+        it = mx.io.NDArrayIter(x, y, LENET_BATCH,
+                               label_name="softmax_label")
+        with mx.NameManager():
+            mod = mx.mod.Module(lenet_symbol(mx.sym), context=ctx)
+        if host_params is None:
+            mod.bind(data_shapes=it.provide_data,
+                     label_shapes=it.provide_label)
+            mx.random.seed(SEED)
+            mod.init_params(mx.init.Uniform(0.01))
+            host_params = mod.get_params()
+        mon = _MonitorRecorder.make(mx, interval=1, monitor_all=True)
+        mod.fit(it, num_epoch=1, optimizer="sgd", arg_params=host_params[0],
+                aux_params=host_params[1], force_init=True,
+                optimizer_params={"learning_rate": LENET_LR,
+                                  "rescale_grad": 1.0 / LENET_BATCH},
+                monitor=mon)
+        out[name] = mon.windows
+        del mod
+    names = {k: [r[1] for w in v for r in w] for k, v in out.items()}
+    errs = []
+    for wc, wh in zip(out["card"], out["cpu"]):
+        for (_, _, a), (_, _, b) in zip(wc, wh):
+            a = np.array([float(v) for v in a.split()])
+            b = np.array([float(v) for v in b.split()])
+            errs.append(float(np.abs(a - b).max()
+                              / max(np.abs(b).max(), 1e-30)))
+    return {"windows": len(out["card"]), "records": len(names["card"]),
+            "names_equal": names["card"] == names["cpu"],
+            "inputs_tapped": sum(1 for n in names["card"]
+                                 if not n.endswith("_output")),
+            "max_rel_err": max(errs) if errs else None, "rtol": MODULE_RTOL,
+            "ok": bool(names["card"] == names["cpu"] and len(out["card"]) == 2
+                       and errs and max(errs) <= MODULE_RTOL)}
+
+
+def _flightrec_check(mx, directory):
+    """A small MLP's fused_fit on the card whose source raises after a few
+    batches, with the flight recorder installed: the exception goes to
+    sys.excepthook as an uncaught one would; the box on disk names it and
+    holds the fit's last spans."""
+    import numpy as np
+    from mxnet_tpu_torch.telemetry import flightrec
+    rng = np.random.RandomState(SEED)
+
+    def source():
+        for i in range(6):
+            if i == 5:
+                raise RuntimeError("source failed at batch 5")
+            yield (rng.normal(size=(TRACE_MLP_BATCH, 32)).astype(np.float32),
+                   rng.randint(0, 4, TRACE_MLP_BATCH).astype(np.float32))
+
+    class Once:
+        def __iter__(self):
+            return source()
+    net = mx.gluon.nn.HybridSequential()
+    net.add(mx.gluon.nn.Dense(64, activation="relu"), mx.gluon.nn.Dense(4))
+    net.initialize(mx.init.Xavier(), ctx=_ctx())
+    net.hybridize()
+    prev = sys.excepthook
+    sys.excepthook = lambda *a: None      # the chained hook: quiet
+    try:
+        flightrec.install(directory=directory)
+        try:
+            _gluon_fit(mx, net, Once(), 1, 2)
+            raised = None
+        except RuntimeError:
+            raised = sys.exc_info()
+            sys.excepthook(*raised)
+    finally:
+        flightrec.uninstall()
+        sys.excepthook = prev
+    path = os.path.join(directory, "flightrec-rank-0.json")
+    with open(path) as f:
+        box = json.load(f)
+    names = [e["name"] for e in box["events"]]
+    del net
+    _free_card()
+    return {"raised": raised is not None, "reason": box["reason"],
+            "events": len(names), "last": names[-6:],
+            "ok": bool(raised is not None
+                       and box["reason"].startswith(
+                           "uncaught exception: RuntimeError")
+                       and "uncaught:RuntimeError" in names
+                       and "step.fused_dispatch" in names
+                       and "feed.wait" in names)}
+
+
+def _watchdog_check(directory):
+    """A loop that beats through the step log, then stalls: the watchdog
+    dumps every thread's stack within its stall limit."""
+    from mxnet_tpu_torch.telemetry import StepLogger, watchdog
+    from mxnet_tpu_torch.telemetry.registry import get_registry
+    c = get_registry().counter("mxnet_watchdog_stall_dumps_total")
+    before = c.value()
+    path = os.path.join(directory, "stall.txt")
+    watchdog.install(stall_s=TRACE_STALL_S, path=path, sigusr1=False)
+    slog = StepLogger("stalled_loop")
+    for _ in range(3):
+        slog.step(samples=1)
+        time.sleep(0.02)
+    t_last = time.monotonic()
+    while c.value() == before and time.monotonic() - t_last < 10:
+        time.sleep(0.01)
+    took = time.monotonic() - t_last
+    watchdog.uninstall()
+    slog.close()
+    with open(path) as f:
+        text = f.read()
+    return {"stall_s": TRACE_STALL_S, "beat_to_dump_s": took,
+            "dumps": c.value() - before,
+            "ok": bool(c.value() == before + 1 and "step stalled" in text
+                       and "(stalled_loop step)" in text
+                       and "Thread" in text
+                       and took <= TRACE_STALL_S * 1.25 + 0.25)}
+
+
+def _scrape_check():
+    """One /metrics scrape and /healthz of the exporter."""
+    import urllib.request
+    from mxnet_tpu_torch import telemetry
+    srv = telemetry.start_server(0, host="127.0.0.1")
+    try:
+        body = urllib.request.urlopen(srv.url + "/metrics",
+                                      timeout=30).read().decode()
+        health = json.loads(urllib.request.urlopen(
+            srv.url + "/healthz", timeout=30).read().decode())
+    finally:
+        telemetry.stop_server()
+    want = ["mxnet_device_feed_feed_batches", "mxnet_device_feed_overlap_frac",
+            "mxnet_devstats_programs", "mxnet_devstats_peak_bytes",
+            "mxnet_trace_compute_seconds_bucket",
+            "mxnet_trace_feed_seconds_bucket",
+            "mxnet_step_time_seconds_bucket", "mxnet_steps_total",
+            "mxnet_amp_amp_cast_bytes_saved"]
+    missing = [w for w in want if w not in body]
+    return {"missing": missing, "subsystems": health.get("subsystems"),
+            "metrics": health.get("metrics"), "bytes": len(body),
+            "ok": bool(not missing and health.get("status") == "ok"
+                       and {"device_feed", "devstats", "amp"}
+                       <= set(health.get("subsystems", [])))}
+
+
+def phase_traced_lm():
+    """gluon_fused_lm's LM through fused_fit with every runtime plane off
+    and then on (tracing, the step log, the flight recorder, the
+    watchdog, the profiler's kernel lane) from the same parameters:
+    bit-identical, the tracing tax, the trace and step log read back,
+    the kernel lane against the launch counters, a traced step_k under
+    sync-debug "error", the watchdog, the flight recorder, /metrics and
+    Monitor."""
+    import shutil
+    import tempfile
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import pipeline, profiler
+    from mxnet_tpu_torch.telemetry import StepLogger, tracing, watchdog
+    _free_card()
+    if "init" in _GLM_REF:
+        init = _GLM_REF["init"]
+        x, y = (mx.nd.NDArray(t) for t in _lm_batch())
+    else:
+        init, x, y = _glm_init(mx)
+        _GLM_REF["init"] = init
+    work = tempfile.mkdtemp(prefix="traced_lm_")
+    log = os.path.join(work, "steps.jsonl")
+    saved_cfg = dict(profiler._config)
+    res = {"layers": GLM_LAYERS, "k": GFLM_K, "steps_an_epoch": GFLM_STEPS,
+           "epochs": 2, "batch": TRAIN_BATCH}
+    try:
+        # 1. every plane off, then on, from the same parameters
+        with _env(MXNET_TRACE=0, MXNET_FLIGHTREC=0, MXNET_TELEMETRY=0,
+                  MXNET_TELEMETRY_LOG=None):
+            plain, tr0, calls0, p0 = _glm_fused_run(
+                mx, init, x, y, GLM_LAYERS, keep_params=True)
+        del tr0, calls0
+        _free_card()
+        from mxnet_tpu_torch.telemetry import flightrec
+        with _env(MXNET_TRACE=1, MXNET_FLIGHTREC=1, MXNET_TELEMETRY=1,
+                  MXNET_TELEMETRY_LOG=log):
+            profiler.clear_events()
+            tracing.reset_phase_totals()
+            flightrec.reset()
+            flightrec.install(directory=os.path.join(work, "box"))
+            watchdog.install(stall_s=TRACE_FIT_STALL_S,
+                             path=os.path.join(work, "fit_stall.txt"),
+                             sigusr1=False)
+            profiler.set_config(xplane_dir=os.path.join(work, "lane_fit"),
+                                filename=os.path.join(work, "ops.json"))
+            profiler.set_state("run")
+            try:
+                traced, tr1, calls1, p1 = _glm_fused_run(
+                    mx, init, x, y, GLM_LAYERS, keep_params=True)
+            finally:
+                profiler.set_state("stop")
+                watchdog.uninstall()
+                flightrec.uninstall()
+            shard = tracing.dump(path=os.path.join(work, "shards",
+                                                   "trace-rank-0.json"))
+        fit_lane = _lane_counts(profiler.kernel_profile()[1])
+        differ = [n for n in p0 if not torch.equal(p0[n], p1[n])]
+        res.update({
+            "plain": {k: plain[k] for k in ("step_losses", "step_s",
+                                            "device_ms_per_step",
+                                            "host_enqueue_ms_per_step",
+                                            "device_busy_share")},
+            "traced": {k: traced[k] for k in ("step_losses", "step_s",
+                                              "device_ms_per_step",
+                                              "host_enqueue_ms_per_step",
+                                              "device_busy_share")},
+            "steps_per_s_plain": 1.0 / plain["step_s"],
+            "steps_per_s_traced": 1.0 / traced["step_s"],
+            "tracing_tax": traced["step_s"] / plain["step_s"] - 1.0,
+            "losses_bit_identical":
+                plain["step_losses"] == traced["step_losses"],
+            "params_bit_identical": not differ,
+            "params_differing": differ[:8], "tensors": len(p0),
+            "launches": traced["launches"],
+            "fit_lane": {"trace": fit_lane,
+                         "launches": {k: traced["launches"][k]
+                                      for k in _FLASH},
+                         "captured_a_kernel": {
+                             k: traced["launches_a_replay"].get(k, 0)
+                             for k in _FLASH}}})
+        del p0, p1
+        # 2. the shard merged, the step log read back
+        merged_path, summary = tracing.merge(os.path.dirname(shard),
+                                             out_path=os.path.join(
+                                                 work, "merged.json"))
+        with open(merged_path) as f:
+            evs = json.load(f)["traceEvents"]
+        spans = {}
+        for e in evs:
+            if e.get("ph") == "X" and e.get("cat", "").startswith("trace:"):
+                key = "%s|%s" % (e["name"], e["cat"])
+                spans[key] = spans.get(key, 0) + 1
+        blocks = len(calls1)
+        with open(log) as f:
+            recs = [json.loads(line) for line in f if line.strip()]
+        steps = [r for r in recs if r["event"] == "step"]
+        res["trace"] = {"spans": spans, "events": summary["events"],
+                        "dropped": summary["dropped_events"],
+                        "summary": tracing.format_summary(summary)[:1500]}
+        res["step_log"] = {"records": len(recs), "step_records": len(steps),
+                           "blocks": blocks, "first": steps[:1]}
+        trace_ok = (spans.get("step.fused_dispatch|trace:compute") == blocks
+                    and spans.get("feed.wait|trace:feed", 0) >= blocks
+                    and spans.get("feed.stage|trace:feed_stage", 0)
+                    >= blocks)
+        log_ok = (len(steps) == blocks and all(
+            {"feed_us", "compute_us", "feed_compute_overlap_frac"} <= set(r)
+            for r in steps) and all(r["compute_us"] > 0 for r in steps))
+        # 3. the kernel lane against the counters: 2 more step_k calls
+        # (replays of the captured step), and 2 eager steps
+        inputs = tr1.shard_inputs([torch.stack([x._data] * GFLM_K),
+                                   torch.stack([y._data] * GFLM_K)],
+                                  stacked=True)
+        replays = _lane_window(
+            os.path.join(work, "lane_replays"),
+            lambda: [tr1.step_k(tr1._params, tr1._states, tr1._aux, inputs)
+                     for _ in range(2)])
+        # 4. one traced step_k, the step log and a feed staging under
+        # sync-debug "error": none of them waits for the card (on the
+        # host, a rehearsal, there is nothing to check)
+        sync_free = None
+        _sync()
+        with _env(MXNET_TRACE=1, MXNET_TELEMETRY_LOG=None):
+            copy_stream = torch.cuda.Stream() if DEV == "cuda" else None
+            host = torch.zeros(TRAIN_BATCH, 1024)
+            slog = StepLogger("sync_debug")
+            if DEV == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                with tracing.span("step.fused_dispatch", phase="compute",
+                                  k=GFLM_K):
+                    tr1.step_k(tr1._params, tr1._states, tr1._aux, inputs)
+                staged, ev = pipeline.stage_tensors(
+                    [host], _ctx().torch_device(), copy_stream)
+                pipeline.Staged(staged, staged, ev).ready()
+                slog.step(samples=GFLM_K * TRAIN_BATCH, steps=GFLM_K)
+                sync_free = DEV == "cuda"
+            finally:
+                if DEV == "cuda":
+                    torch.cuda.set_sync_debug_mode(0)
+            slog.close()
+        _sync()
+        del tr1, calls1, inputs
+        _free_card()
+        net, _tr, run = _glm_eager_steps(mx, init, x, y, TRACE_EAGER_STEPS)
+        eager = _lane_window(os.path.join(work, "lane_eager"), run)
+        del net, _tr, run
+        _free_card()
+        res["lane"] = {"replays_2_step_k": replays,
+                       "eager_steps": dict(eager, steps=TRACE_EAGER_STEPS)}
+        res["sync_debug_step_k_ok"] = sync_free
+        # 5. watchdog, flight recorder, /metrics, Monitor
+        res["watchdog"] = _watchdog_check(work)
+        res["flightrec"] = _flightrec_check(mx, os.path.join(work, "crash"))
+        res["metrics"] = _scrape_check()
+        res["monitor"] = _monitor_check(mx)
+    finally:
+        profiler._config.clear()
+        profiler._config.update(saved_cfg)
+        shutil.rmtree(work, ignore_errors=True)
+    res["ok"] = bool(
+        res["losses_bit_identical"] and res["params_bit_identical"]
+        and res["tensors"] > 100 and trace_ok and log_ok
+        and res["lane"]["eager_steps"]["equal"]
+        and all(res["lane"]["eager_steps"]["launches"][k] > 0
+                for k in _FLASH)
+        and res["sync_debug_step_k_ok"] and res["watchdog"]["ok"]
+        and res["flightrec"]["ok"] and res["metrics"]["ok"]
+        and res["monitor"]["ok"]
+        and all(traced["launches"][k] > 0 for k in _FLASH)
+        and not any(traced["launches"][k]
+                    for k in _wrappers() if k not in _FLASH))
+    RECORD["traced_lm"] = res
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("traced_lm failed: %s"
+                             % json.dumps(res, default=str)[:6000])
+    return res
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("train", phase_train),
           ("train_profile", phase_train_profile),
@@ -7454,7 +8050,9 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("rnn_op", phase_rnn_op), ("lstm_lm", phase_lstm_lm),
           ("lstm_bucketing", phase_lstm_bucketing),
           ("predict", phase_predict), ("serving_net", phase_serving_net),
-          ("ssd300", phase_ssd300), ("dlrm", phase_dlrm))
+          ("ssd300", phase_ssd300), ("dlrm", phase_dlrm),
+          ("device_feed", phase_device_feed),
+          ("traced_lm", phase_traced_lm))
 
 # (name, source, TPU kernel, case kind, case, its time / bound keys, errors,
 # its kernel launches a call: counted in the case)
@@ -7550,7 +8148,8 @@ def main(argv=None):
                                   "dp_resnet50", "dp_resnet50_fp16",
                                   "module_fused", "ckpt_resume",
                                   "lstm_lm", "lstm_bucketing", "predict",
-                                  "serving_net", "ssd300", "dlrm")
+                                  "serving_net", "ssd300", "dlrm",
+                                  "device_feed", "traced_lm")
               if k in RECORD]
     rows = []
     for (name, src, replaces, kind, case, ms_key, bound_key, by_key,

@@ -28,7 +28,10 @@ scaler on the card) and fault-tolerant checkpoints (``checkpoint``:
 atomic sharded commits, async saves, resume); recurrent networks (the
 fused ``RNN`` op, ``rnn`` cells and ``BucketSentenceIter``,
 ``mod.BucketingModule``, ``SequentialModule``, ``PythonModule``,
-``gluon.rnn``).
+``gluon.rnn``); the runtime planes (``pipeline.DeviceFeed``,
+``profiler`` with a ``torch.profiler`` kernel lane, ``telemetry``'s
+span tracing, step log, flight recorder and watchdog, ``Monitor``,
+``engine``).
 Entry points run on the card unless the caller asks for the host
 (``device="cpu"``, ``ctx=cpu()``, ``with cpu():``; the ops follow their
 tensors' device).
@@ -52,6 +55,8 @@ from . import kvstore, parallel  # noqa: F401
 from . import kvstore as kv  # noqa: F401
 from . import gluon  # noqa: F401
 from . import amp, checkpoint, config  # noqa: F401
+from . import engine, monitor, pipeline, profiler, telemetry  # noqa: F401
+from .monitor import Monitor  # noqa: F401
 
 config._apply_startup()
 
@@ -59,8 +64,9 @@ __version__ = "0.4.0"
 
 __all__ = ["AttrScope", "MXNetError", "NameManager", "Context", "cpu",
            "gpu", "tpu", "current_context", "resolve_device",
-           "amp", "autograd", "callback", "checkpoint", "executor", "gluon",
-           "imperative", "init",
+           "amp", "autograd", "callback", "checkpoint", "engine",
+           "executor", "gluon", "imperative", "init", "Monitor", "monitor",
+           "pipeline", "profiler", "telemetry",
            "initializer", "io", "kv", "kvstore", "lr_scheduler", "metric",
            "mod", "model", "module", "nd", "ndarray", "optimizer",
            "parallel", "random", "rnn", "rtc", "sym", "symbol"]

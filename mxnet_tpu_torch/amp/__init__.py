@@ -22,8 +22,8 @@ used and autograd returns the gradient in fp32. fp16 also needs the
 
 ``MXNET_AMP=1`` [``MXNET_AMP_DTYPE=bfloat16|float16``] calls :func:`init`
 when the package is imported (``config.py``). :func:`counters` reports
-amp_scale, amp_skipped_steps and amp_cast_bytes_saved; the port has no
-profiler to export them through yet (ROADMAP queue 1 item 16).
+amp_scale, amp_skipped_steps and amp_cast_bytes_saved, exported through
+``profiler.register_counter_export("amp")``.
 """
 from __future__ import annotations
 
@@ -204,3 +204,11 @@ def _reset_for_tests():
         _cast_bytes_saved[0] = 0
         _scale_sources[:] = []
     _tls.loss_scale = None
+
+
+def _ensure_counter_export():
+    from .. import profiler
+    profiler.register_counter_export("amp", counters)
+
+
+_ensure_counter_export()

@@ -48,9 +48,12 @@ Crash injection (``python -m mxnet_tpu_torch.checkpoint --selftest``):
 ``mid-arrays`` (torn payload), ``pre-rename`` (staging complete, no
 commit), ``post-rename`` (committed), SIGKILLs the process there.
 
-One process writes every shard. The JAX package's cooperative commit of
-several processes (``sharded=True`` over ``dist``), its tracing spans,
-watchdog beats and profiler export wait for ROADMAP queue 1 item 16.
+One process writes every shard. A commit records ``ckpt.stage`` /
+``ckpt.seal`` spans (phase "ckpt") and a ``ckpt.commit`` event in the
+trace, the saver thread beats the stall watchdog per shard, and the
+counters export through ``profiler.register_counter_export("checkpoint")``.
+The JAX package's cooperative commit of several processes
+(``sharded=True`` over ``dist``) waits for ROADMAP queue 1 item 16.
 """
 from __future__ import annotations
 
@@ -63,7 +66,10 @@ import signal
 import threading
 import time
 
+from .. import profiler
 from ..base import MXNetError
+from ..telemetry import tracing as _tracing
+from ..telemetry import watchdog as _watchdog
 from .state import TrainingState
 
 _STEP_PREFIX = "step-"
@@ -202,6 +208,7 @@ class CheckpointManager:
 
         os.makedirs(self.directory, exist_ok=True)
         self._sweep_staging()
+        profiler.register_counter_export("checkpoint", self.counters)
 
     # -- naming --------------------------------------------------------------
 
@@ -522,6 +529,8 @@ class CheckpointManager:
              "num_shards": self.num_shards, "files": manifest_files},
             indent=1).encode("utf-8")
         self._write_file(os.path.join(sdir, _MANIFEST), mpayload)
+        # a long commit reads as alive to the stall watchdog
+        _watchdog.beat(f"checkpoint_saver step {step} shard {k}")
         return sname, hashlib.sha256(mpayload).hexdigest(), nbytes
 
     def _seal_step(self, staging, state, step, metric, shards, shard_map):
@@ -550,6 +559,7 @@ class CheckpointManager:
 
     def _commit_local(self, state, step, metric):
         t0 = time.perf_counter()
+        _watchdog.beat(f"checkpoint_saver step {step}")
         final = os.path.join(self.directory, self._step_dirname(step))
         staging = os.path.join(
             self.directory,
@@ -561,17 +571,25 @@ class CheckpointManager:
             self.num_shards, ownership=self._zero_ownership(state))
         shards = {}
         nbytes = 0
+        # the "ckpt" phase spans cover stage and seal; the enclosing
+        # commit event has no phase, so StepLogger counts each committed
+        # microsecond once
+        t_stage = time.perf_counter()
         for k, files in enumerate(shard_files):
             sname, msha, n = self._write_shard(staging, k, files, step)
             shards[sname] = {"manifest_sha256": msha}
             nbytes += n
+        _tracing.event("ckpt.stage", t_stage, phase="ckpt", step=int(step))
+        t_seal = time.perf_counter()
         self._seal_step(staging, state, step, metric, shards, shard_map)
         _maybe_crash("pre-rename", step)
         if os.path.isdir(final):               # re-save of the same step
             shutil.rmtree(final)
         os.replace(staging, final)
         _fsync_dir(self.directory)
+        _tracing.event("ckpt.seal", t_seal, phase="ckpt", step=int(step))
         _maybe_crash("post-rename", step)
+        _tracing.event("ckpt.commit", t0, step=int(step))
         self._finish_commit(step, nbytes, time.perf_counter() - t0)
 
     def _finish_commit(self, step, nbytes, save_s):

@@ -41,6 +41,34 @@ both:
   MXNET_CHECKPOINT_RETRIES  retries of a failed shard read or write
   MXNET_CHECKPOINT_BACKOFF_S
                             the first retry's delay in seconds (doubling)
+  MXNET_ENGINE_TYPE         NaiveEngine: every imperative op waits for the
+                            card before it returns (``engine``)
+  MXNET_EXEC_BULK_EXEC_MAX_NODE_TRAIN
+                            ``engine.set_bulk_size`` at import (recorded)
+  MXNET_PROFILER_AUTOSTART  1 starts the profiler at import
+  MXNET_PROFILER_MODE       recorded (the JAX package's key)
+  MXNET_DEVICE_FEED         0 turns the device feed off: every loop stages
+                            its batches inline (``pipeline``)
+  MXNET_DEVICE_FEED_DEPTH   batches the feeder thread stays ahead
+  MXNET_TELEMETRY           0 turns step recording off (watchdog beats
+                            stay)
+  MXNET_TELEMETRY_LOG       JSONL file the StepLogger appends records to
+  MXNET_TELEMETRY_HTTP_LOG  1 keeps the exporter's per-request stderr lines
+  MXNET_TELEMETRY_STALL_S   seconds without a step before the watchdog
+                            dumps every thread's stack (installed at
+                            import when set)
+  MXNET_TELEMETRY_STALL_PATH
+                            file the watchdog appends its dumps to
+  MXNET_TRACE               1 records host-side spans and writes this
+                            process's trace-rank-K.json at exit
+  MXNET_TRACE_DIR           where the trace shard goes
+  MXNET_TRACE_FLUSH_S       seconds between shard snapshots (0: at exit)
+  MXNET_TRACE_MAX_EVENTS    bound of the shared chrome-event ring
+  MXNET_FLIGHTREC           0 turns the flight recorder off
+  MXNET_FLIGHTREC_EVENTS    its ring's size
+  MXNET_FLIGHTREC_DIR       where black boxes go; set, it arms the crash
+                            triggers and the flusher at import
+  MXNET_FLIGHTREC_FLUSH_S   the flusher's interval in seconds
 """
 from __future__ import annotations
 
@@ -70,6 +98,25 @@ _DOCUMENTED = {
     "MXNET_CHECKPOINT_SHARDS": 0,
     "MXNET_CHECKPOINT_RETRIES": 2,
     "MXNET_CHECKPOINT_BACKOFF_S": "0.5",
+    "MXNET_ENGINE_TYPE": "ThreadedEnginePerDevice",
+    "MXNET_EXEC_BULK_EXEC_MAX_NODE_TRAIN": 15,
+    "MXNET_PROFILER_AUTOSTART": 0,
+    "MXNET_PROFILER_MODE": 0,
+    "MXNET_DEVICE_FEED": 1,
+    "MXNET_DEVICE_FEED_DEPTH": 2,
+    "MXNET_TELEMETRY": 1,
+    "MXNET_TELEMETRY_LOG": None,
+    "MXNET_TELEMETRY_HTTP_LOG": None,
+    "MXNET_TELEMETRY_STALL_S": None,
+    "MXNET_TELEMETRY_STALL_PATH": None,
+    "MXNET_TRACE": 0,
+    "MXNET_TRACE_DIR": None,
+    "MXNET_TRACE_FLUSH_S": "0",
+    "MXNET_TRACE_MAX_EVENTS": 200000,
+    "MXNET_FLIGHTREC": 1,
+    "MXNET_FLIGHTREC_EVENTS": 4096,
+    "MXNET_FLIGHTREC_DIR": None,
+    "MXNET_FLIGHTREC_FLUSH_S": "0.5",
 }
 
 
@@ -90,6 +137,30 @@ def get(name, default=None):
 
 def _apply_startup():
     """Honour the variables that act when the package is imported."""
+    from . import engine
+    engine.set_engine_type(get("MXNET_ENGINE_TYPE"))
+    engine.set_bulk_size(get("MXNET_EXEC_BULK_EXEC_MAX_NODE_TRAIN"))
     if get("MXNET_AMP"):
         from . import amp
         amp.init(get("MXNET_AMP_DTYPE") or "bfloat16")
+    if get("MXNET_PROFILER_AUTOSTART"):
+        from . import profiler
+        profiler.set_state("run")
+    port = get("MXNET_TELEMETRY_PORT")
+    if port not in (None, ""):
+        from . import telemetry
+        try:
+            telemetry.start_server(int(port))
+        except (ValueError, OSError):
+            pass                      # bad port / port in use: no exporter
+    if get("MXNET_TELEMETRY_STALL_S") not in (None, ""):
+        from .telemetry import watchdog
+        watchdog.install()
+    if get("MXNET_TRACE"):
+        from .telemetry import tracing
+        tracing.arm_autodump()
+        from . import profiler
+        profiler.set_max_events(get("MXNET_TRACE_MAX_EVENTS"))
+    if get("MXNET_FLIGHTREC") and get("MXNET_FLIGHTREC_DIR"):
+        from .telemetry import flightrec
+        flightrec.install()

@@ -265,6 +265,7 @@ class _Plan:
         self.is_train = is_train
         self.variables = []        # (pos, "arg" | "aux", name)
         self.steps = []
+        self.input_names = {}      # pos -> the op's input names (monitor)
         self.needs_rng = False
         for p, node in enumerate(topo):
             if node.op is None:
@@ -288,6 +289,7 @@ class _Plan:
                     for j, ai in enumerate(node.op.aux_indices)
                     if id(node.inputs[ai][0]) in aux_ids)
             self.needs_rng |= node.op.needs_rng
+            self.input_names[p] = node.op.list_inputs(parsed)
             self.steps.append((p, node.op, parsed, ins, n_out, aux_writes,
                                node.name))
         self.outputs = [(pos[id(n)], i) for (n, i) in symbol._outputs]
@@ -307,9 +309,12 @@ class _Plan:
         return lambda name, xs: _amp.cast_op_inputs(name, xs, self.amp,
                                                     count=count)
 
-    def run(self, args, aux, device, rng=None, monitor=None):
+    def run(self, args, aux, device, rng=None, monitor=None,
+            monitor_inputs=False):
         """args / aux: name -> tensor. Returns (outputs, [(aux name, new
-        value)])."""
+        value)]). ``monitor(name, tensor)`` sees every op's outputs as
+        ``{node}_output[i]``, and with ``monitor_inputs`` its inputs first,
+        as ``{node}_{input}``."""
         vals = [None] * self.n
         for p, kind, name in self.variables:
             vals[p] = ((aux if kind == "aux" else args)[name],)
@@ -321,6 +326,11 @@ class _Plan:
             if op is None:               # relu folded into its BatchNorm
                 vals[p] = (xs[0],)
                 continue
+            if monitor_inputs:
+                in_names = self.input_names[p]
+                for i, x in enumerate(xs):
+                    monitor(f"{name}_{in_names[i] if i < len(in_names) else i}",
+                            x)
             if cast is not None:
                 xs = cast(op.name, xs)
             res = op.fcompute(parsed, octx, *xs)
@@ -568,6 +578,14 @@ class Executor:
                                         dtype=dst._data.dtype, copy=True)
 
     def forward(self, is_train=False, **kwargs):
+        from . import profiler
+        if profiler.symbolic_enabled():
+            return profiler.profile_op(
+                f"Forward({self._symbol.name or 'graph'})",
+                lambda: self._forward_impl(is_train, **kwargs))
+        return self._forward_impl(is_train, **kwargs)
+
+    def _forward_impl(self, is_train=False, **kwargs):
         self._pending = None            # a graph not backed through is freed
         for k, v in kwargs.items():
             self._feed(k, v)
@@ -584,7 +602,8 @@ class Executor:
 
         def run(args):
             if monitor is not None:
-                return plan.run(args, aux, self._device, rng, monitor)
+                return plan.run(args, aux, self._device, rng, monitor,
+                                self._monitor_all)
             return _run_mesh(plan, args, aux, self._replicas,
                              self._sharded_args, rng)
         if is_train and self._diff_names:
@@ -617,6 +636,14 @@ class Executor:
         """Gradients of the last training forward's outputs into
         ``grad_dict``. ``out_grads`` default to ones (a loss head such as
         SoftmaxOutput ignores them)."""
+        from . import profiler
+        if profiler.symbolic_enabled():
+            return profiler.profile_op(
+                f"Backward({self._symbol.name or 'graph'})",
+                lambda: self._backward_impl(out_grads, is_train))
+        return self._backward_impl(out_grads, is_train)
+
+    def _backward_impl(self, out_grads=None, is_train=True):
         from .ndarray.ndarray import NDArray
         if not self._diff_names:
             return                       # every grad_req is 'null'
@@ -665,11 +692,11 @@ class Executor:
 
     def set_monitor_callback(self, callback, monitor_all=False):
         """Call ``callback(name, NDArray)`` with every node's output on each
-        forward (the unfused graph runs while a callback is set)."""
-        if monitor_all:
-            raise MXNetError("monitor_all (tapping node inputs) is not "
-                             "ported; monitor outputs only")
+        forward (the unfused graph runs while a callback is set, so a
+        tapped BatchNorm output is pre-ReLU); ``monitor_all`` also taps
+        every node's inputs, as ``{node}_{input}``."""
         self._monitor_callback = callback
+        self._monitor_all = bool(monitor_all)
 
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):

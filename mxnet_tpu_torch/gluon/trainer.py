@@ -70,9 +70,12 @@ def fused_fit(net, loss, train_data, num_epoch, optimizer="sgd",
     ``rescale_grad`` 1 / batch unless given. K defaults to
     ``MXNET_FUSED_K``, else 8. ``train_data`` yields (data, label) pairs
     of one shape, a DataLoader say; each block of K batches is one
-    ``step_k`` (the last block may be shorter). The next block is staged
-    on the device (stacked; host batches through pinned memory on a copy
-    stream) before the host reads the losses of the block in flight.
+    ``step_k`` (the last block may be shorter). Blocks are staged on the
+    device (stacked; host batches through pinned memory on a copy
+    stream) by the device feed's thread (``pipeline.DeviceFeed``) while
+    the card runs the block before; with ``MXNET_DEVICE_FEED=0`` the same
+    staging runs inline. The host reads a block's losses one block late,
+    with the next block queued behind it.
     Parameters and aux states are written back into ``net`` at every
     epoch end, before ``epoch_callback(epoch, net, mean_loss)``.
 
@@ -104,6 +107,10 @@ def fused_fit(net, loss, train_data, num_epoch, optimizer="sgd",
     from ..ndarray.ndarray import NDArray, array as nd_array
     from ..parallel.dp import DataParallelTrainer
     from ..parallel.mesh import mesh_for_contexts
+    from ..pipeline import (Staged, close_feed, feed_or_inline,
+                            stack_to_device)
+    from ..telemetry import maybe_step_logger
+    from ..telemetry import tracing as _tracing
 
     if dtype is None:
         # an explicit dtype wins over amp's
@@ -185,21 +192,13 @@ def fused_fit(net, loss, train_data, num_epoch, optimizer="sgd",
                 for b in block]
 
     def _stage(block):
-        """(inputs, copy event or None): the block's (K, batch, ...)
-        stacks on the mesh's first device. torch.stack copies, so the
-        loader may reuse its buffers."""
-        cols = [_column(block, 0), _column(block, 1)]
-        if all(t.device == device for col in cols for t in col):
-            return trainer.shard_inputs([torch.stack(c) for c in cols],
-                                        stacked=True), None
-        host = [torch.stack([t.cpu() for t in c]) for c in cols]
-        if copy_stream is None:
-            return trainer.shard_inputs(host, stacked=True), None
-        with torch.cuda.stream(copy_stream):
-            staged = [h.pin_memory().to(device, non_blocking=True)
-                      for h in host]
-        return trainer.shard_inputs(staged, stacked=True), \
-            copy_stream.record_event()
+        """The block's (K, batch, ...) stacks on the mesh's first device
+        with their copy event (a ``pipeline.Staged``). torch.stack copies,
+        so the loader may reuse its buffers."""
+        stacked, event = stack_to_device(
+            [_column(block, 0), _column(block, 1)], device, copy_stream)
+        return Staged((trainer.shard_inputs(stacked, stacked=True),
+                       len(block)), stacked, event)
 
     def _blocks(stream):
         while True:
@@ -221,33 +220,43 @@ def fused_fit(net, loss, train_data, num_epoch, optimizer="sgd",
         nonlocal params, states, aux
         total, count, pending = 0.0, 0, None
         nbatch, last_ckpt = ckpt_skip, gstep
-        for block in _blocks(stream):
-            inputs, copied = _stage(block)
-            if copied is not None:
-                cur = torch.cuda.current_stream(device)
-                cur.wait_event(copied)
-                for t in inputs:
-                    t.record_stream(cur)
-            params, states, aux, losses, _ = trainer.step_k(
-                params, states, aux, inputs)
-            if pending is not None:
-                # the block before this one: the card has this block
-                # queued behind it while the host waits
-                total += float(pending.sum())
-            pending = losses
-            count += len(block) * batch
-            nbatch += len(block)
-            gstep += len(block)
-            if ckpt_mgr is not None:
-                if checkpoint_period and \
-                        gstep - last_ckpt >= int(checkpoint_period):
-                    _ckpt_save(epoch, nbatch, gstep)
-                    last_ckpt = gstep
-                if ckpt_mgr.preempted:
-                    _ckpt_save(epoch, nbatch, gstep, blocking=True)
-                    raise SystemExit(143)
+        feed = feed_or_inline(_blocks(stream), _stage,
+                              name="gluon_fused_fit")
+        try:
+            for inputs, n_blk in feed:
+                # "compute" span: the dispatch of the block's K replays and
+                # the read of the block before's losses
+                with _tracing.span("step.fused_dispatch", phase="compute",
+                                   k=n_blk):
+                    params, states, aux, losses, _ = trainer.step_k(
+                        params, states, aux, inputs)
+                    blk_loss = None
+                    if pending is not None:
+                        # the block before this one: the card has this
+                        # block queued behind it while the host waits
+                        blk_loss = float(pending[0].sum())
+                        total += blk_loss
+                # one record a block, for the block whose losses were read
+                slog.step(samples=n_blk * batch, steps=n_blk,
+                          loss=None if blk_loss is None
+                          else blk_loss / max(pending[1] * batch, 1),
+                          extra={"epoch": epoch})
+                pending = (losses, n_blk)
+                count += n_blk * batch
+                nbatch += n_blk
+                gstep += n_blk
+                if ckpt_mgr is not None:
+                    if checkpoint_period and \
+                            gstep - last_ckpt >= int(checkpoint_period):
+                        _ckpt_save(epoch, nbatch, gstep)
+                        last_ckpt = gstep
+                    if ckpt_mgr.preempted:
+                        _ckpt_save(epoch, nbatch, gstep, blocking=True)
+                        raise SystemExit(143)
+        finally:
+            close_feed(feed)
         if pending is not None:
-            total += float(pending.sum())
+            total += float(pending[0].sum())
         if count == 0:
             # a single-pass generator is exhausted after epoch 0
             raise MXNetError(
@@ -257,6 +266,10 @@ def fused_fit(net, loss, train_data, num_epoch, optimizer="sgd",
         return total / count, gstep
 
     epoch_losses = []
+    slog = maybe_step_logger("gluon_fused_fit", meta={
+        "optimizer": optimizer, "steps_per_dispatch": k,
+        "batch_size": batch, "num_epoch": num_epoch,
+        "amp_dtype": dtype if dtype != "float32" else None})
     if ckpt_mgr is not None:
         ckpt_mgr.install_sigterm_hook()
     try:
@@ -278,6 +291,7 @@ def fused_fit(net, loss, train_data, num_epoch, optimizer="sgd",
                     ckpt_mgr.wait()
                     raise SystemExit(143)
     finally:
+        slog.close()
         _close_checkpoints(ckpt_mgr)
     return epoch_losses
 

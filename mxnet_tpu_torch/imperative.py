@@ -8,13 +8,16 @@ the current context, which is the card unless a ``with cpu():`` scope or
 ``autograd.is_training()``; torch's grad mode (``autograd.record()``)
 decides whether the op is recorded: ``invoke`` sets it from
 ``autograd.is_recording()`` for the call, so nothing is recorded outside
-``record()``, as in the reference.
+``record()``, as in the reference. While the profiler runs, each op is
+timed until its outputs are ready (``profiler.profile_op``); under
+``MXNET_ENGINE_TYPE=NaiveEngine`` each op waits for the card before it
+returns.
 """
 from __future__ import annotations
 
 import torch
 
-from . import autograd
+from . import autograd, engine, profiler
 from . import random as _random
 from .base import MXNetError
 from .context import resolve_device
@@ -74,11 +77,21 @@ def invoke(schema: OpSchema, inputs, kwargs, out=None, is_train=None,
     rng = _random.generator(device) if schema.needs_rng else None
     octx = OpCtx(is_train=is_train, rng=rng, device=device)
     recording = autograd.is_recording()
-    if torch.is_grad_enabled() == recording:
-        results = schema.fcompute(attrs, octx, *datas)
-    else:
+
+    def _call():
+        if torch.is_grad_enabled() == recording:
+            return schema.fcompute(attrs, octx, *datas)
         with torch.set_grad_enabled(recording):
-            results = schema.fcompute(attrs, octx, *datas)
+            return schema.fcompute(attrs, octx, *datas)
+
+    if profiler.imperative_enabled():
+        # per-op timing waits for the op on the card (the engine's
+        # profiling timestamps, threaded_engine.cc:476)
+        results = profiler.profile_op(schema.name, _call)
+    else:
+        results = _call()
+    if engine._sync_mode:
+        engine.sync_device(device)       # NaiveEngine: one op at a time
     if not isinstance(results, tuple):
         results = (results,)
     n_out = schema.n_outputs(attrs)

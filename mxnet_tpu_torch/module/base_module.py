@@ -16,7 +16,6 @@ import itertools
 import logging
 import time
 
-from ..base import MXNetError
 from .. import metric as metric_mod
 from ..model import BatchEndParam
 from ..initializer import Uniform
@@ -94,19 +93,26 @@ class BaseModule:
 
     def _eval_batches(self, eval_data, num_batch, reset):
         """(index, batch, unpadded outputs) triples after an inference
-        forward on each batch."""
+        forward on each batch; batch N+1 is staged by the device feed
+        while batch N's forward runs."""
+        from ..pipeline import close_feed, feed_or_inline, module_stage
         assert self.binded and self.params_initialized
         if reset:
             eval_data.reset()
         batches = eval_data if num_batch is None \
             else itertools.islice(eval_data, num_batch)
-        for i, batch in enumerate(batches):
-            self.forward(batch, is_train=False)
-            outs = self.get_outputs()
-            if batch.pad:
-                # iterator tail-padding: drop the replicated rows
-                outs = [o[:o.shape[0] - batch.pad] for o in outs]
-            yield i, batch, outs
+        feed = feed_or_inline(batches, module_stage(self),
+                              name="module_eval")
+        try:
+            for i, batch in enumerate(feed):
+                self.forward(batch, is_train=False)
+                outs = self.get_outputs()
+                if batch.pad:
+                    # iterator tail-padding: drop the replicated rows
+                    outs = [o[:o.shape[0] - batch.pad] for o in outs]
+                yield i, batch, outs
+        finally:
+            close_feed(feed)
 
     def score(self, eval_data, eval_metric, num_batch=None,
               batch_end_callback=None, score_end_callback=None, reset=True,
@@ -122,14 +128,21 @@ class BaseModule:
         count = 0
         batches = eval_data if num_batch is None \
             else itertools.islice(eval_data, num_batch)
-        for nbatch, eval_batch in enumerate(batches):
-            self.forward(eval_batch, is_train=False)
-            self.update_metric(eval_metric, eval_batch.label)
-            for callback in callbacks:
-                callback(BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                       eval_metric=eval_metric,
-                                       locals=locals()))
-            count = nbatch + 1
+        # batch N+1 staged while batch N's forward runs
+        from ..pipeline import close_feed, feed_or_inline, module_stage
+        feed = feed_or_inline(batches, module_stage(self),
+                              name="module_score")
+        try:
+            for nbatch, eval_batch in enumerate(feed):
+                self.forward(eval_batch, is_train=False)
+                self.update_metric(eval_metric, eval_batch.label)
+                for callback in callbacks:
+                    callback(BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                           eval_metric=eval_metric,
+                                           locals=locals()))
+                count = nbatch + 1
+        finally:
+            close_feed(feed)
         for callback in _as_list(score_end_callback):
             callback(BatchEndParam(epoch=epoch, nbatch=count,
                                    eval_metric=eval_metric, locals=locals()))
@@ -197,8 +210,13 @@ class BaseModule:
         replays the iterator to it). SIGTERM takes one final checkpoint at
         the next batch boundary and exits 143.
 
-        ``monitor`` is not ported yet and raises instead of being
-        ignored."""
+        Batches are staged by the device feed (``pipeline``: batch N+1
+        copied to the card while step N runs; ``MXNET_DEVICE_FEED=0``
+        stages inline); a ``StepLogger`` records each step and a
+        ``step.dispatch`` span each dispatch. ``monitor`` (a
+        ``monitor.Monitor``) is installed on the executor, opened before
+        each batch and printed after its metric update; it keeps the fit
+        per batch."""
         assert num_epoch is not None, "please specify number of epochs"
         from .. import amp as _amp
         if _amp.is_enabled():
@@ -211,9 +229,6 @@ class BaseModule:
                     "dynamic loss scaling — use steps_per_dispatch>1 "
                     "(the fused trainer carries the DynamicLossScaler "
                     "state on device) or expect underflowed gradients")
-        if monitor is not None:
-            raise MXNetError("fit(monitor=): monitor.Monitor is not ported "
-                             "yet; use the executor's set_monitor_callback")
         if steps_per_dispatch and steps_per_dispatch > 1:
             if self._fit_fused(
                     train_data, eval_data=eval_data, eval_metric=eval_metric,
@@ -229,7 +244,8 @@ class BaseModule:
                     validation_metric=validation_metric,
                     steps_per_dispatch=int(steps_per_dispatch),
                     checkpoint_dir=checkpoint_dir,
-                    checkpoint_period=checkpoint_period, resume=resume):
+                    checkpoint_period=checkpoint_period, resume=resume,
+                    monitor=monitor):
                 return
 
         ckpt_mgr, ckpt_state = _open_checkpoints(checkpoint_dir, resume,
@@ -245,6 +261,8 @@ class BaseModule:
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -277,6 +295,13 @@ class BaseModule:
         batch_callbacks = _as_list(batch_end_callback)
         epoch_callbacks = _as_list(epoch_end_callback)
 
+        from ..pipeline import close_feed, feed_or_inline, module_stage
+        from ..telemetry import maybe_step_logger
+        from ..telemetry import tracing as _tracing
+        slog = maybe_step_logger("module_fit", meta={
+            "optimizer": optimizer if isinstance(optimizer, str)
+            else type(optimizer).__name__,
+            "begin_epoch": begin_epoch, "num_epoch": num_epoch})
         if ckpt_mgr is not None:
             ckpt_mgr.install_sigterm_hook()
         try:
@@ -284,39 +309,58 @@ class BaseModule:
                 epoch_start = time.time()
                 eval_metric.reset()
                 # a DataBatch is only guaranteed valid until the next next()
-                # call, so batch N+1 is fetched after batch N's update
-                data_iter = iter(train_data)
+                # call: inline, batch N+1 is fetched after batch N's
+                # update; the device feed copies each batch when it
+                # stages it, one batch ahead
+                src = iter(train_data)
                 if ckpt_skip:
                     # a mid-epoch resume: the iterator replayed to the cursor,
                     # so the batches come in the uninterrupted run's order
-                    for _ in itertools.islice(data_iter, ckpt_skip):
+                    for _ in itertools.islice(src, ckpt_skip):
                         pass
-                data_batch = next(data_iter, None)
-                nbatch, ckpt_skip = ckpt_skip, 0
-                while data_batch is not None:
-                    self.forward_backward(data_batch)
-                    self.update()
-                    upcoming = next(data_iter, None)
-                    if upcoming is not None:
-                        self.prepare(upcoming,
-                                     sparse_row_id_fn=sparse_row_id_fn)
-                    self.update_metric(eval_metric, data_batch.label)
-                    if batch_callbacks:
-                        cb_param = BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                                 eval_metric=eval_metric,
-                                                 locals=locals())
-                        for callback in batch_callbacks:
-                            callback(cb_param)
-                    data_batch = upcoming
-                    nbatch += 1
-                    gstep += 1
-                    if ckpt_mgr is not None:
-                        if checkpoint_period and \
-                                nbatch % int(checkpoint_period) == 0:
-                            _ckpt_save(epoch, nbatch, gstep)
-                        if ckpt_mgr.preempted:
-                            _ckpt_save(epoch, nbatch, gstep, blocking=True)
-                            raise SystemExit(143)
+                data_iter = feed_or_inline(src, module_stage(self),
+                                           name="module_fit")
+                try:
+                    data_batch = next(data_iter, None)
+                    nbatch, ckpt_skip = ckpt_skip, 0
+                    while data_batch is not None:
+                        if monitor is not None:
+                            monitor.tic()
+                        t0 = time.perf_counter()
+                        self.forward_backward(data_batch)
+                        self.update()
+                        upcoming = next(data_iter, None)
+                        if upcoming is not None:
+                            self.prepare(upcoming,
+                                         sparse_row_id_fn=sparse_row_id_fn)
+                        self.update_metric(eval_metric, data_batch.label)
+                        # "compute" span: the dispatch and the metric read
+                        _tracing.event("step.dispatch", t0, phase="compute")
+                        if monitor is not None:
+                            monitor.toc_print()
+                        if batch_callbacks:
+                            cb_param = BatchEndParam(epoch=epoch,
+                                                     nbatch=nbatch,
+                                                     eval_metric=eval_metric,
+                                                     locals=locals())
+                            for callback in batch_callbacks:
+                                callback(cb_param)
+                        slog.step(samples=int(data_batch.data[0].shape[0])
+                                  if data_batch.data else None,
+                                  extra={"epoch": epoch})
+                        data_batch = upcoming
+                        nbatch += 1
+                        gstep += 1
+                        if ckpt_mgr is not None:
+                            if checkpoint_period and \
+                                    nbatch % int(checkpoint_period) == 0:
+                                _ckpt_save(epoch, nbatch, gstep)
+                            if ckpt_mgr.preempted:
+                                _ckpt_save(epoch, nbatch, gstep,
+                                           blocking=True)
+                                raise SystemExit(143)
+                finally:
+                    close_feed(data_iter)
 
                 # log-format contract: "Epoch[N] Train-<metric>=<val>"
                 for name, val in eval_metric.get_name_value():
@@ -349,6 +393,7 @@ class BaseModule:
                                          name, val)
                 train_data.reset()
         finally:
+            slog.close()
             _close_checkpoints(ckpt_mgr)
 
     def _fit_fused(self, train_data, **kwargs):

@@ -342,7 +342,7 @@ class Module(BaseModule):
                    aux_params, allow_missing, force_rebind, force_init,
                    begin_epoch, num_epoch, validation_metric,
                    steps_per_dispatch, checkpoint_dir=None,
-                   checkpoint_period=None, resume=False):
+                   checkpoint_period=None, resume=False, monitor=None):
         """The K-steps-a-dispatch training loop (the JAX package's
         ``Module._fit_fused``): a normal bind and ``init_params`` (the
         parameter draw of K = 1), then a ``DataParallelTrainer`` over the
@@ -350,7 +350,8 @@ class Module(BaseModule):
         scaler on the card), fed K stacked batches a ``step_k(outputs_mode=
         "all")``, whose outputs update the training metric; parameters and
         aux written back into the module at every epoch end, before the
-        epoch-end callbacks and validation. ``checkpoint_dir`` commits the
+        epoch-end callbacks and validation. Blocks are staged by the device
+        feed (``pipeline.feed_or_inline``). ``checkpoint_dir`` commits the
         trainer's whole state at every epoch end and every
         ``checkpoint_period`` steps (at block boundaries); ``resume``
         restores it (t, the scaler and the cursor included). Returns
@@ -367,6 +368,10 @@ class Module(BaseModule):
                                   _open_checkpoints)
         from .. import metric as metric_mod
         from ..model import BatchEndParam
+        from ..pipeline import Staged, close_feed, feed_or_inline, \
+            stack_to_device
+        from ..telemetry import maybe_step_logger
+        from ..telemetry import tracing as _tracing
 
         opt_params = dict(optimizer_params or {})
         blockers = []
@@ -379,6 +384,8 @@ class Module(BaseModule):
         if "lr_scheduler" in opt_params:
             blockers.append("lr_scheduler (drive set_learning_rate "
                             "externally instead)")
+        if monitor is not None:
+            blockers.append("monitor")
         if self._state_names:
             blockers.append("state_names")
         if self._fixed_param_names:
@@ -474,6 +481,32 @@ class Module(BaseModule):
                 return [b.data[data_idx[name]]._data for b in block]
             return [b.label[label_idx[name]]._data for b in block]
 
+        device = trainer._device
+        copy_stream = torch.cuda.Stream(device) \
+            if device.type == "cuda" else None
+
+        def _blocks(src):
+            while True:
+                block = list(itertools.islice(src, k))
+                if not block:
+                    return
+                yield block
+
+        def _stage_block(block):
+            # torch.stack copies: the iterator may reuse its buffers
+            staged, event = stack_to_device(
+                [_column(block, n) for n in trainer.input_names], device,
+                copy_stream)
+            labels = {name: torch.cat([b.label[i]._data for b in block])
+                      for name, i in label_idx.items()}
+            return Staged((trainer.shard_inputs(staged, stacked=True),
+                           labels, len(block)), staged, event)
+
+        slog = maybe_step_logger("module_fit_fused", meta={
+            "optimizer": optimizer, "steps_per_dispatch": int(k),
+            "batch_size": int(batch_size), "begin_epoch": begin_epoch,
+            "num_epoch": num_epoch,
+            "amp_dtype": fit_dtype if fit_dtype != "float32" else None})
         if ckpt_mgr is not None:
             ckpt_mgr.install_sigterm_hook()
         try:
@@ -485,42 +518,47 @@ class Module(BaseModule):
                     pass
                 nbatch, ckpt_skip = ckpt_skip, 0
                 last_ckpt = gstep
-                while True:
-                    # torch.stack copies: the iterator may reuse its buffers
-                    block = list(itertools.islice(src, k))
-                    if not block:
-                        break
-                    inputs = trainer.shard_inputs(
-                        [torch.stack(_column(block, n))
-                         for n in trainer.input_names], stacked=True)
-                    params, states, aux, _, outputs = trainer.step_k(
-                        params, states, aux, inputs, outputs_mode="all")
-                    # the metric over the block's K batches at once, the scan
-                    # axis folded into the batch axis
-                    pred_dict = {name: NDArray(o.reshape((-1,) + o.shape[2:]))
-                                 for name, o in zip(self._output_names,
-                                                    outputs)}
-                    label_dict = {name: NDArray(torch.cat(
-                        [b.label[i]._data for b in block]))
-                        for name, i in label_idx.items()}
-                    eval_metric.update_dict(label_dict, pred_dict)
-                    nbatch += len(block)
-                    gstep += len(block)
-                    if batch_callbacks:
-                        cb_param = BatchEndParam(epoch=epoch,
-                                                 nbatch=nbatch - 1,
-                                                 eval_metric=eval_metric,
-                                                 locals=locals())
-                        for callback in batch_callbacks:
-                            callback(cb_param)
-                    if ckpt_mgr is not None:
-                        if checkpoint_period and \
-                                gstep - last_ckpt >= int(checkpoint_period):
-                            _ckpt_save(epoch, nbatch)
-                            last_ckpt = gstep
-                        if ckpt_mgr.preempted:
-                            _ckpt_save(epoch, nbatch, blocking=True)
-                            raise SystemExit(143)
+                feed = feed_or_inline(_blocks(src), _stage_block,
+                                      name="module_fit_fused")
+                try:
+                    for inputs, labels, n_blk in feed:
+                        # "compute" span: the dispatch and the metric
+                        # update that reads its outputs
+                        with _tracing.span("step.fused_dispatch",
+                                           phase="compute", k=n_blk):
+                            params, states, aux, _, outputs = \
+                                trainer.step_k(params, states, aux, inputs,
+                                               outputs_mode="all")
+                            # the metric over the block's K batches at
+                            # once, the scan axis folded into the batch
+                            pred_dict = {
+                                name: NDArray(o.reshape((-1,) + o.shape[2:]))
+                                for name, o in zip(self._output_names,
+                                                   outputs)}
+                            label_dict = {name: NDArray(v)
+                                          for name, v in labels.items()}
+                            eval_metric.update_dict(label_dict, pred_dict)
+                        slog.step(samples=n_blk * batch_size, steps=n_blk,
+                                  extra={"epoch": epoch})
+                        nbatch += n_blk
+                        gstep += n_blk
+                        if batch_callbacks:
+                            cb_param = BatchEndParam(epoch=epoch,
+                                                     nbatch=nbatch - 1,
+                                                     eval_metric=eval_metric,
+                                                     locals=locals())
+                            for callback in batch_callbacks:
+                                callback(cb_param)
+                        if ckpt_mgr is not None:
+                            if checkpoint_period and gstep - last_ckpt \
+                                    >= int(checkpoint_period):
+                                _ckpt_save(epoch, nbatch)
+                                last_ckpt = gstep
+                            if ckpt_mgr.preempted:
+                                _ckpt_save(epoch, nbatch, blocking=True)
+                                raise SystemExit(143)
+                finally:
+                    close_feed(feed)
 
                 for name, val in eval_metric.get_name_value():
                     self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
@@ -554,6 +592,7 @@ class Module(BaseModule):
                                          name, val)
                 train_data.reset()
         finally:
+            slog.close()
             _close_checkpoints(ckpt_mgr)
         return True
 
@@ -740,8 +779,9 @@ class Module(BaseModule):
         self.optimizer_initialized = True
 
     def install_monitor(self, mon):
-        raise MXNetError("monitor.Monitor is not ported yet; use the "
-                         "executor's set_monitor_callback")
+        assert self.binded
+        self._monitor = mon
+        mon.install(self._exec)
 
     def reshape(self, data_shapes, label_shapes=None):
         assert self.binded

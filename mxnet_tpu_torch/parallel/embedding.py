@@ -37,9 +37,9 @@ A step reads nothing back to the host: the touched-row count ``nnz`` is
 a device scalar that ``counters()`` reads when scraped. Sums of
 duplicate rows are ordered (``index_put_(accumulate=True)``), so a step
 repeats bit for bit on the card. The step runs eagerly (one card is one
-replica; a CUDA graph is a later step). The JAX module registers
-``counters`` with its profiler's counter export; the port has no
-``profiler.py`` yet (ROADMAP item 16), so callers read ``counters()``.
+replica; a CUDA graph is a later step). The first trainer
+registers ``counters`` with ``profiler.register_counter_export("embed")``
+(``_ensure_hook``), so ``/metrics`` and the step log carry them.
 
 CLI: ``python -m mxnet_tpu_torch.parallel.embedding --selftest`` (tiny
 DLRM: convergence, sparse-vs-dense bit identity, bf16/fp8 wires, resume
@@ -183,6 +183,11 @@ def counters():
     return dict(_COUNTERS)
 
 
+def _ensure_hook():
+    from .. import profiler
+    profiler.register_counter_export("embed", counters)
+
+
 def _bce_logits(logit, y):
     """Sum of binary cross-entropy with logits, in the JAX package's
     form (max(z, 0) splits a tie's gradient, |z| passes +1 at 0)."""
@@ -270,9 +275,7 @@ class EmbeddingTrainer:
         suffix = {"none": "n", "bf16": "b", "fp8": "f"}[self.compress]
         mode = {"sparse": "sp", "dense": "dn"}[self.exchange]
         self.program_tag = program_tag or f"estep_{mode}{suffix}"
-        # the JAX trainer registers counters() with its profiler's
-        # counter export here (_ensure_hook); the port has no profiler.py
-        # yet (ROADMAP item 16), so callers read counters() themselves
+        _ensure_hook()
 
     # -- parameter surface ---------------------------------------------------
 

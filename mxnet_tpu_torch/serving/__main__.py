@@ -21,9 +21,10 @@ should beat pad-to-full single-request serving by far more).
 Uses stdlib + numpy only on the client side; the built-in model export
 path imports mxnet_tpu_torch lazily (pass an existing .mxa to skip it).
 The engine and the predictor run on the card unless ``--device cpu``.
-The scrape checks the series the port's registry carries natively
-(queue depth, the latency histogram, plan bytes); the JAX package also
-checks the snapshot fields its profiler hook exports (ROADMAP item 16).
+The scrape checks the registry's native series (queue depth, the
+latency histogram, plan bytes) and the snapshot fields the metrics'
+profiler hook exports (completed, qps, p50 / p99, shed), as the JAX
+package's does.
 """
 from __future__ import annotations
 
@@ -177,7 +178,8 @@ def _self_scrape(metrics_name):
     from ..telemetry import start_server
     mname = metrics_name.replace("#", "_")
     expect = [f"mxnet_{mname}_{k}" for k in
-              ("queue_depth", "plan_resident_bytes")] + \
+              ("completed", "qps", "p50_ms", "p99_ms", "shed",
+               "queue_depth", "plan_resident_bytes")] + \
              [f"mxnet_{mname}_request_latency_seconds_bucket"]
     try:
         srv = start_server()

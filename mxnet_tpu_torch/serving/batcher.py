@@ -1,7 +1,7 @@
 """DynamicBatcher — micro-batching request queue in front of a
 ServingEngine (counterpart of mxnet_tpu/serving/batcher.py, the same
-semantics and deadlines; the JAX package's tracing spans wait for the
-port's tracing plane, ROADMAP item 16). ``Future`` and ``RequestTimeout``
+semantics and deadlines; each request's time in the queue is a
+retrospective ``serve.queue`` span). ``Future`` and ``RequestTimeout``
 are shared with the decode engine.
 
 Clipper-style adaptive batching: concurrent callers `submit()` small
@@ -44,6 +44,7 @@ from collections import deque
 
 import numpy as np
 
+from ..telemetry import tracing as _tracing
 from .metrics import ServingMetrics
 
 __all__ = ["ADMISSION_CLASSES", "DynamicBatcher", "Future", "RequestTimeout",
@@ -95,13 +96,14 @@ ADMISSION_CLASSES = ("interactive", "batch")
 
 
 class _Request:
-    __slots__ = ("arrays", "rows", "t_submit", "deadline", "future",
-                 "klass")
+    __slots__ = ("arrays", "rows", "t_submit", "t_perf", "deadline",
+                 "future", "klass")
 
     def __init__(self, arrays, rows, deadline, klass="interactive"):
         self.arrays = arrays
         self.rows = rows
         self.t_submit = time.monotonic()
+        self.t_perf = time.perf_counter()     # the tracing clock
         self.deadline = deadline
         self.future = Future(deadline)
         self.klass = klass
@@ -304,6 +306,11 @@ class DynamicBatcher:
                   for i in range(len(batch[0].arrays))] \
             if len(batch) > 1 else list(batch[0].arrays)
         rows = sum(r.rows for r in batch)
+        # each request's time in the queue: a retrospective "serve" span
+        # (the engine's serve.compute span follows inside infer())
+        for r in batch:
+            _tracing.event("serve.queue", r.t_perf, phase="serve",
+                           rows=r.rows)
         try:
             outs = self.engine.infer(*arrays)
         except Exception as e:

@@ -45,6 +45,7 @@ import torch
 from ..ops.launches import add as _add_launches, counts as _launch_counts
 from ..predictor import Predictor, f32_scope
 from ..telemetry import devstats
+from ..telemetry import tracing as _tracing
 from ..contrib.export import serving_buckets as _pow2_buckets
 
 
@@ -240,11 +241,22 @@ class ServingEngine:
         return plan
 
     def warmup(self):
-        """Build the plan up front (inline: no request pays a capture)."""
-        with self._lock:
-            self._run([np.zeros((1,) + tuple(
-                self._pred._input_shapes[n][1:]), np.float32)
-                for n in self.input_names])
+        """Build the plan up front, so no request pays a capture. Its
+        dummy inputs are made on the device feed's thread (``pipeline``),
+        as the JAX package's warm-up makes each bucket's."""
+        from ..pipeline import close_feed, feed_or_inline
+
+        def _stage(b):
+            return [np.zeros((b,) + tuple(self._pred._input_shapes[n][1:]),
+                             np.float32) for n in self.input_names]
+
+        feed = feed_or_inline(iter([1]), _stage, name="serving_warmup")
+        try:
+            with self._lock:
+                for staged in feed:
+                    self._run(staged)
+        finally:
+            close_feed(feed)
 
     # -- request path -------------------------------------------------------
 
@@ -276,8 +288,12 @@ class ServingEngine:
                     f"input {name!r}: shape {tuple(a.shape)} is not "
                     f"(n<= {self.max_batch},)+{tuple(want[1:])}")
         self.bucket_for(n)                  # raises outside [1, max_batch]
-        with self._lock:
-            return self._run(arrays)
+        # "serve" span: the lock wait and the plan's run, the compute
+        # latency a request sees
+        with _tracing.span("serve.compute", phase="serve",
+                           bucket=self.max_batch, rows=n):
+            with self._lock:
+                return self._run(arrays)
 
     def stats(self):
         return {"buckets": list(self.buckets),

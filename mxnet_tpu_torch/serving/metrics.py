@@ -7,10 +7,9 @@ tools. Queue depth, request latency, the engine's plan-cache bytes
 totals are native series of the telemetry registry, so ``/metrics``
 carries them as ``mxnet_serving_*`` with ``model`` (the manifest's
 model name), ``replica`` (in an EnginePool) and ``class`` labels. The
-JAX package also hands the whole snapshot to its profiler's
-counter-export hook, which its registry absorbs; the port has no
-profiler yet (ROADMAP item 16), so the snapshot's other fields are read
-through ``snapshot()`` only.
+whole snapshot is also the profiler's counter export under the metrics'
+name, which the registry absorbs into ``/metrics`` and ``profiler.dump()``
+embeds; ``close()`` unhooks it.
 
 Latency percentiles come from a bounded reservoir of the most recent
 ``latency_window`` request latencies (a deque ring): O(1) record, exact
@@ -58,6 +57,11 @@ class ServingMetrics:
         self.plans = 0                 # cached engine plans
         self._batch_hist = {}      # rows -> count
         self._lat = deque(maxlen=latency_window)
+        from .. import profiler
+        dom = profiler.Domain(self.name)
+        self._c_depth = dom.new_counter("queue_depth")
+        self._c_shed = dom.new_counter("shed_total")
+        profiler.register_counter_export(self.name, self.snapshot)
         # native registry series ("#2" -> "_2" for metric-name legality);
         # model name from the .mxa manifest rides as a constant label so
         # a multi-model process gets distinguishable series without the
@@ -105,8 +109,9 @@ class ServingMetrics:
         return c
 
     def close(self):
-        """Nothing to release: the registry's series stay, as the JAX
-        package's do (its close() unhooks the profiler export)."""
+        """Unhook the profiler export (the registry's series stay)."""
+        from .. import profiler
+        profiler.unregister_counter_export(self.name)
 
     # -- recording ----------------------------------------------------------
 
@@ -120,6 +125,7 @@ class ServingMetrics:
             self.shed_by_class[klass] = self.shed_by_class.get(klass, 0) + 1
             c = self._class_counter(self._c_shed_cls, "shed", klass)
         c.inc()
+        self._c_shed.increment()
 
     def record_timeout(self, klass="interactive"):
         with self._lock:
@@ -137,6 +143,9 @@ class ServingMetrics:
         with self._lock:
             self.queue_depth = depth
         self._g_depth.set(depth)
+        from .. import profiler
+        if profiler.is_running():
+            self._c_depth.set_value(depth)
 
     def record_batch(self, rows):
         with self._lock:

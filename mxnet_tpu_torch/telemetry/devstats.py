@@ -192,3 +192,10 @@ def counters():
             out[stat] = series
     return out
 
+
+def _ensure_hook():
+    from .. import profiler
+    profiler.register_counter_export("devstats", counters)
+
+
+_ensure_hook()

@@ -50,7 +50,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "pid": os.getpid(),
                 "uptime_s": round(time.monotonic()
                                   - self.server._t0, 3),
-                "subsystems": [],          # no profiler hooks yet
+                "subsystems": sorted(reg.absorbed().keys()),
                 "metrics": len(reg.own_metrics()),
             }).encode()
             self._reply(200, "application/json", body)

@@ -10,12 +10,13 @@ Counterpart of mxnet_tpu/telemetry/registry.py. Three metric types:
 Everything is host-side Python ints/floats behind one small lock per
 metric: recording never touches the card and never synchronises it.
 
-The JAX package's registry also absorbs its profiler's counter-export
-hooks into ``/metrics``. The port has no profiler yet, so
-``Registry(absorb_profiler=...)`` keeps the parameter and absorbs
-nothing: :meth:`Registry.render_prometheus` renders the registry's own
-metrics, in the same text as the JAX package's
-``Registry(absorb_profiler=False)``.
+The registry also absorbs the profiler's counter-export hooks
+(``profiler.register_counter_export``: serving, device_feed, checkpoint,
+amp, devstats, embed register there): ``render_prometheus()`` snapshots
+every hook and flattens its numeric fields into ``mxnet_<hook>_<key>``
+gauges, so one ``/metrics`` scrape carries every subsystem. The
+registry's own metrics go back the other way through a ``"telemetry"``
+profiler hook, so ``profiler.dump()`` embeds them too.
 """
 from __future__ import annotations
 
@@ -238,12 +239,10 @@ class Registry:
     the Prometheus shape of one name rendered with different constant
     label sets (one decode engine's series beside another's). The store
     key becomes (name, series); rendering emits the HELP/TYPE header once
-    per name and every series' samples under it.
-
-    ``absorb_profiler`` is accepted for the JAX package's signature and
-    absorbs nothing (module docstring)."""
+    per name and every series' samples under it."""
 
     def __init__(self, absorb_profiler=True):
+        self._absorb = absorb_profiler
         self._lock = threading.Lock()
         self._metrics = {}          # insertion-ordered
         self._const_labels = {}     # stamped on every rendered sample
@@ -306,16 +305,35 @@ class Registry:
         with self._lock:
             return list(self._metrics.values())
 
+    def get(self, name):
+        with self._lock:
+            return self._metrics.get(_sanitize(name))
+
     def snapshot(self):
-        """{name: value-or-histogram-summary} of the registry's metrics (a
-        series under ``{name}__{series}``)."""
+        """{name: value-or-histogram-summary} of the registry's own
+        metrics (a series under ``{name}__{series}``): what flows back
+        into ``profiler.dump()`` through the "telemetry" hook (absorbed
+        hooks are not exported again)."""
         return {getattr(m, "snapshot_name", m.name): m._snapshot()
                 for m in self.own_metrics()}
 
+    def absorbed(self):
+        """Snapshot of every profiler counter-export hook but the
+        registry's own "telemetry" one; {} when absorption is off."""
+        if not self._absorb:
+            return {}
+        from .. import profiler
+        out = profiler.export_counters()
+        out.pop("telemetry", None)
+        return out
+
     def render_prometheus(self):
-        """The /metrics payload (text exposition format 0.0.4): every
-        metric with its HELP/TYPE headers, constant labels on every
-        sample."""
+        """The /metrics payload (text exposition format 0.0.4): the
+        registry's metrics with their HELP/TYPE headers, then every
+        absorbed profiler hook flattened to ``mxnet_<hook>_<key>`` gauges
+        (a nested one-level dict becomes labeled series, e.g.
+        ``batch_hist{bucket="8"}``); a native name wins a collision.
+        Constant labels go on every sample."""
         lines = []
         seen = set()
         for m in self.own_metrics():
@@ -326,15 +344,50 @@ class Registry:
                 lines.append(f"# TYPE {m.name} {m.kind}")
             lines.extend(m._render())
             seen.add(m.name)
+        for hook, snap in sorted(self.absorbed().items()):
+            if not isinstance(snap, dict):
+                continue
+            prefix = _sanitize(f"mxnet_{hook}")
+            for key, val in snap.items():
+                name = _sanitize(f"{prefix}_{key}")
+                if name in seen:
+                    continue
+                if isinstance(val, dict):
+                    series = [(str(k), v) for k, v in sorted(val.items())
+                              if isinstance(v, (int, float))
+                              and not isinstance(v, bool)]
+                    if not series:
+                        continue
+                    seen.add(name)
+                    lines.append(f"# TYPE {name} gauge")
+                    for k, v in series:
+                        k = k.replace("\\", "\\\\").replace('"', '\\"')
+                        lines.append(f'{name}{{bucket="{k}"}} {_fmt(v)}')
+                elif isinstance(val, (int, float, bool)):
+                    seen.add(name)
+                    lines.append(f"# TYPE {name} gauge")
+                    lines.append(f"{name} {_fmt(val)}")
         const = self.constant_labels()
         if const:
             lines = [_with_labels(line, const) for line in lines]
         return "\n".join(lines) + "\n"
 
 _default = Registry()
+_hook_registered = [False]
+
+
+def _ensure_profiler_backexport():
+    """The registry's own snapshot as the profiler's "telemetry" counter
+    hook, so ``profiler.dump()`` / ``export_counters()`` carry it."""
+    if _hook_registered[0]:
+        return
+    from .. import profiler
+    profiler.register_counter_export("telemetry", _default.snapshot)
+    _hook_registered[0] = True
 
 
 def get_registry():
+    _ensure_profiler_backexport()
     return _default
 
 

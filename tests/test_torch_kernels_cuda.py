@@ -53,7 +53,11 @@ change the targets, and MultiBoxTarget replays from a CUDA graph; the
 trainer's graph step is bitwise its eager step for all eight fused
 optimizers. The random ops draw on the card (means within 5 standard
 errors over 2^20 draws, one seed one draw), and the python-side
-optimizers' updates on the card equal the CPU's within 1e-5.
+optimizers' updates on the card equal the CPU's within 1e-5. The
+runtime planes: the device feed's staged batches equal their sources
+with the copy event waited on, the profiler's kernel lane names the
+flash forward once a counted launch, and a traced step_k runs under
+sync-debug "error".
 """
 import contextlib
 import functools
@@ -1622,3 +1626,90 @@ def test_optimizer_on_the_card_is_the_cpu(dev, name):
         O._sgld_noise = noise
     assert np.abs(out[1] - out[0]).max() <= 1e-5 * np.abs(out[0]).max()
     assert np.abs(out[0] - w0).max() > 0
+
+
+# -- the runtime planes on the card ------------------------------------------
+
+def test_device_feed_stages_equal_tensors_and_honours_the_copy_event(dev):
+    """pipeline.DeviceFeed on the card (tests/test_torch_pipeline.py::
+    test_feed_order_values_and_shutdown pins the order and values on the
+    host): each batch staged by the feeder thread through pinned memory
+    on the feed's copy stream equals its source, in order; the copy is
+    queued behind a ~20 ms sleep on that stream, so a consumer that did
+    not wait on the copy event would read the copy's memory early."""
+    from mxnet_tpu_torch import pipeline
+    copy_stream = torch.cuda.Stream(dev)
+    gen = torch.Generator().manual_seed(0)
+    src = [torch.randn(1 << 22, generator=gen) for _ in range(4)]
+
+    def stage(t):
+        with torch.cuda.stream(copy_stream):
+            torch.cuda._sleep(40_000_000)
+        (out,), event = pipeline.stage_tensors([t], dev, copy_stream)
+        return pipeline.Staged(out, (out,), event)
+
+    with pipeline.DeviceFeed(iter(src), stage=stage) as feed:
+        got = [(t.device, t.sum(), t.clone()) for t in feed]
+    assert not feed._thread.is_alive()
+    for (device, s, t), ref in zip(got, src):
+        assert device.type == "cuda"
+        assert torch.equal(t.cpu(), ref)
+        assert float(s) == float(t.sum())
+
+
+def test_profiler_kernel_lane_lists_the_flash_kernel(dev, tmp_path):
+    """profiler.set_config(xplane_dir=...) on the card: the chrome trace
+    of torch.profiler names flash_fwd_tc once a launch the counter saw
+    (tests/test_torch_profiler.py::test_kernel_lane_writes_a_torch_trace
+    pins the lane on the host)."""
+    import json
+    import re
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.ops import attention as A
+    q, k, v = (torch.randn(2, 4, 128, 64, device=dev) for _ in range(3))
+    A.flash_attention_fwd(q, k, v, causal=True)     # built, warmed
+    torch.cuda.synchronize()
+    saved = dict(profiler._config)
+    before = A.flash_attention_fwd.launches
+    try:
+        profiler.set_config(xplane_dir=str(tmp_path))
+        profiler.set_state("run")
+        for _ in range(3):
+            A.flash_attention_fwd(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        profiler.set_state("stop")
+    finally:
+        profiler.set_state("stop")
+        profiler._config.clear()
+        profiler._config.update(saved)
+    with open(profiler.kernel_profile()[1]) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    seen = sum(1 for n in names if re.search(r"\bflash_fwd_tc\b", n))
+    assert seen == A.flash_attention_fwd.launches - before == 3
+
+
+def test_traced_step_k_runs_under_sync_debug_error(dev, monkeypatch):
+    """One step_k of a one-card DataParallelTrainer (replays of its
+    captured step) inside a tracing span, with the step log's record, runs
+    under torch.cuda.set_sync_debug_mode("error"): neither the spans nor
+    the StepLogger wait for the card (tests/test_torch_tracing.py::
+    test_span_traced_event_and_set_step pins the span semantics)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.telemetry import StepLogger, tracing
+    monkeypatch.setenv("MXNET_TRACE", "1")
+    monkeypatch.delenv("MXNET_TELEMETRY_LOG", raising=False)
+    tr, (params, states, aux), inputs = _dp_trainer(mx, 8)
+    tr.step_k(params, states, aux, inputs)          # captured here
+    torch.cuda.synchronize()
+    slog = StepLogger("sync_debug_test")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with tracing.span("step.fused_dispatch", phase="compute", k=4):
+            out = tr.step_k(params, states, aux, inputs)
+        slog.step(samples=32, steps=4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    slog.close()
+    assert tr.captures == 1
+    assert torch.isfinite(out[3]).all()

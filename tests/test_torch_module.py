@@ -408,10 +408,12 @@ def test_composite_metric_and_custom():
 
 def test_unported_fit_options_raise():
     _, tmod, _, tit = _pair("mlp", batch=8)
-    # several contexts, the fused fit (test_torch_module_multi.py) and
-    # checkpoints (test_torch_checkpoint.py) are ported; a monitor is not
-    with pytest.raises(tmx.MXNetError, match="monitor"):
-        tmod.fit(tit, num_epoch=1, monitor=object())
+    # several contexts, the fused fit (test_torch_module_multi.py),
+    # checkpoints (test_torch_checkpoint.py) and the monitor
+    # (test_torch_monitor.py) are ported: a Monitor rides fit
+    mon = tmx.Monitor(1)
+    tmod.fit(tit, num_epoch=1, monitor=mon)
+    assert mon.step > 0 and mon._executors == [tmod._exec]
     with tmx.NameManager():
         s = mlp(tmx)
     with pytest.raises(tmx.MXNetError, match="item 8"):

@@ -99,7 +99,14 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.serving.frontend, "
             "mxnet_tpu_torch.serving.metrics, "
             "mxnet_tpu_torch.serving.__main__, "
-            "mxnet_tpu_torch.ndarray.contrib, mxnet_tpu_torch.symbol.contrib\n"
+            "mxnet_tpu_torch.ndarray.contrib, mxnet_tpu_torch.symbol.contrib, "
+            "mxnet_tpu_torch.pipeline, mxnet_tpu_torch.profiler, "
+            "mxnet_tpu_torch.monitor, mxnet_tpu_torch.engine, "
+            "mxnet_tpu_torch.telemetry.tracing, "
+            "mxnet_tpu_torch.telemetry.steplog, "
+            "mxnet_tpu_torch.telemetry.flightrec, "
+            "mxnet_tpu_torch.telemetry.watchdog, "
+            "mxnet_tpu_torch.telemetry.__main__\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'mxnet_tpu')]\n"
             "print(bad)\n"

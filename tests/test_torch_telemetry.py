@@ -1,10 +1,11 @@
 """mxnet_tpu_torch.telemetry (registry, exporter) against the JAX
 package's mxnet_tpu.telemetry.
 
-One script of operations is applied to the port's ``Registry()`` and to
-the JAX package's ``Registry(absorb_profiler=False)`` (the port has no
-profiler hooks to absorb); the two must render the same Prometheus text
-and the same snapshot. The exporter is scraped on an ephemeral port on
+One script of operations is applied to the port's and the JAX package's
+``Registry(absorb_profiler=False)`` (each package's profiler hooks are
+its own); the two must render the same Prometheus text and the same
+snapshot. A registry that absorbs renders the port's profiler hooks
+after its own metrics. The exporter is scraped on an ephemeral port on
 localhost. The decode engines of both packages, given the same
 submissions, must leave the same values in their registry series.
 """
@@ -81,7 +82,7 @@ def _apply(reg, script):
 
 
 def _pair(script):
-    return (_apply(TR.Registry(), script),
+    return (_apply(TR.Registry(absorb_profiler=False), script),
             _apply(JR.Registry(absorb_profiler=False), script))
 
 
@@ -132,8 +133,11 @@ def test_registry_refusals_match_jax():
     # get-or-create hands back the registered instance
     assert ours.gauge("temp").value() == ref.gauge("temp").value() == -1e-7
     assert len(ours.own_metrics()) == len(ref.own_metrics()) == 3
-    # the port absorbs nothing, whatever absorb_profiler says
-    assert TR.Registry(absorb_profiler=True).render_prometheus() == "\n"
+    # absorption renders the profiler's counter exports; off, nothing
+    assert TR.Registry(absorb_profiler=False).render_prometheus() == "\n"
+    text = TR.Registry(absorb_profiler=True).render_prometheus()
+    assert "# TYPE mxnet_device_feed_feed_batches gauge" in text
+    assert "mxnet_amp_amp_cast_bytes_saved" in text
 
 
 def _get(url):
@@ -153,7 +157,10 @@ def test_exporter_serves_metrics_and_healthz_on_localhost():
         status, ctype, body = _get(srv.url + "/healthz")
         health = json.loads(body)
         assert status == 200 and ctype == "application/json"
-        assert health["status"] == "ok" and health["subsystems"] == []
+        assert health["status"] == "ok"
+        assert health["subsystems"] == sorted(reg.absorbed())
+        assert {"amp", "device_feed", "devstats"} <= \
+            set(health["subsystems"])
         assert health["metrics"] == len(reg.own_metrics())
         with pytest.raises(urllib.error.HTTPError) as ei:
             _get(srv.url + "/nope")
