@@ -1768,6 +1768,15 @@ def phase_kernels():
                     "bf16"),
         _flash_case("train_b8_s1024_f16", TRAIN_BATCH, 16, 16, 1024, 64,
                     True, gen, "f16"),
+        # the ring's blocks (ring_attention: 16 heads of 64, 4,096 rows
+        # a replica): the off-diagonal pairs non-causal, the diagonal
+        # causal, in both of the ring phase's dtypes
+        _flash_case("ring_block_s4096", 1, 16, 16, 4096, 64, False, gen),
+        _flash_case("ring_diag_s4096", 1, 16, 16, 4096, 64, True, gen),
+        _flash_case("ring_block_s4096_bf16", 1, 16, 16, 4096, 64, False,
+                    gen, "bf16"),
+        _flash_case("ring_diag_s4096_bf16", 1, 16, 16, 4096, 64, True, gen,
+                    "bf16"),
         _flash_exact_case("exact_flash_fwd_f32", 2, 16, 1024, 64, gen),
         _flash_exact_case("exact_flash_fwd_f32_hd128", 1, 8, 1000, 128, gen),
     ]
@@ -1793,6 +1802,15 @@ def phase_kernels():
                         dt="bf16"),
         _flash_bwd_case("gqa_h8_kv2_s1024_f16", 2, 8, 2, 1024, 64, True, gen,
                         glse=True, dt="f16"),
+        # the ring's backward blocks, each with a non-zero lse cotangent
+        _flash_bwd_case("ring_block_s4096", 1, 16, 16, 4096, 64, False, gen,
+                        glse=True, iters=5),
+        _flash_bwd_case("ring_diag_s4096", 1, 16, 16, 4096, 64, True, gen,
+                        glse=True, iters=5),
+        _flash_bwd_case("ring_block_s4096_bf16", 1, 16, 16, 4096, 64, False,
+                        gen, glse=True, iters=5, dt="bf16"),
+        _flash_bwd_case("ring_diag_s4096_bf16", 1, 16, 16, 4096, 64, True,
+                        gen, glse=True, iters=5, dt="bf16"),
         _flash_exact_case("exact_flash_dq_f32", 2, 16, 1024, 64, gen),
         _flash_exact_case("exact_flash_dq_f32_hd128", 1, 8, 1000, 128, gen),
     ]
@@ -8029,6 +8047,613 @@ def phase_traced_lm():
     return res
 
 
+# -- parallel breadth: sequence, ZeRO, tensor / expert / pipeline ------------
+
+# ring_attention: GPT-2 medium's attention widths (16 heads of 64) over a
+# sequence of 4 x 4096 split over 4 replicas of the card, causal, the SGD
+# step of examples/long_context_lm.py (q, k, v drawn x 0.3, an N(0, 1)
+# target, mean squared error, lr 0.5). Tolerances, norm-wise against one
+# flash call over the whole sequence: f32 1e-5 (the kernels' 3xTF32
+# products, the merge's exp in float32), bf16 1e-2 (each block's output
+# rounds to bf16 before the merge)
+RING = dict(batch=1, heads=16, head_dim=64, sp=4, seq_per_replica=4096)
+RING_SMALL_SEQ = 512            # a replica's block in the dense-body check
+RING_STEPS = 3
+RING_LR = 0.5
+RING_TOL = {"f32": 1e-5, "bf16": 1e-2}
+# the controls must miss the tolerance; the lse cotangent's share of the
+# gradients (0.6% norm-wise at these inputs) lies under bf16's 1e-2, so
+# only f32 gates the dropped-glse control (bf16 reports it)
+RING_GLSE_GATED = ("f32",)
+RING_TIME_ITERS = 3
+
+# zero_lm: gluon_fused_lm's LM (TRAIN, 8 x 1024 tokens, Adam) as one loss
+# Symbol through DataParallelTrainer over 4 replicas of the card (batch 2
+# a replica), 3 steps an arm from the same parameters
+ZERO_REPLICAS = 4
+ZERO_STEPS = 3
+ZERO_TOL = 1e-6                 # ZeRO-1 vs dp (when not bitwise), 2 vs 1
+# fp8 wire: the loss after its first compressed update against float32's
+# (e4m3 without a scale sends a gradient element under 2^-10 as 0 and
+# keeps it in the residual, so the gap grows over the first steps: every
+# step's is reported; tests/test_torch_zero.py holds the gap to the JAX
+# package's on a small LM). The error feedback is gated by a control arm
+# whose residual is zeroed after every step: it must leave the fp8 arm
+# at the third loss, the first after a step with a residual
+ZERO_FP8_LOSS_RTOL = 1e-2
+ZERO_FIT_STEPS = 2              # fused_fit under MXNET_ZERO_STAGE=2
+
+# tp_pp: GPT-2 medium's MLP (8,192 tokens x 1024, hidden 4096) over tp 4;
+# 8 experts of 1024 -> 4096 over ep 4; 4 stages of 1024 x 1024 with 8
+# microbatches of 1,024 rows. f32, norm-wise 1e-5 against each function's
+# reference on the card; on TP_CPU_ROWS tokens, in float64, the card and
+# the host each against the reference in float64 on the host (1e-10:
+# float64 sums in another order)
+TP = dict(tokens=8192, d=1024, hidden=4096, n=4)
+MOE = dict(tokens=8192, d=1024, hidden=4096, experts=8, n=4)
+PIPE = dict(stages=4, d=1024, micro=8, rows=1024)
+TP_TOL = 1e-5
+TP_F64_TOL = 1e-10
+TP_CPU_ROWS = 1024
+
+
+def _replica_mesh(axis, n, device=None):
+    """A mesh listing one device ``n`` times (the card, or the host)."""
+    import torch
+    from mxnet_tpu_torch.parallel import build_mesh
+    dev = device or DEV
+    dev = torch.device("cuda", 0) if dev == "cuda" else torch.device("cpu")
+    return build_mesh({axis: n}, [dev] * n)
+
+
+def _nerr(got, ref):
+    """||got - ref|| / ||ref||, in float64."""
+    g, r = got.detach().double(), ref.detach().double().to(got.device)
+    return float((g - r).norm() / max(float(r.norm()), 1e-300))
+
+
+def _attn_step(fn, q, k, v, target):
+    """(loss, output, (dq, dk, dv)) of long_context_lm.py's MSE loss."""
+    import torch
+    qs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*qs)
+    loss = ((out.float() - target) ** 2).mean()
+    grads = torch.autograd.grad(loss, qs)
+    return loss.detach(), out.detach(), grads
+
+
+def _ring_inputs(dt, s, seed):
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    shape = (RING["batch"], RING["heads"], s, RING["head_dim"])
+    q, k, v = ((torch.randn(shape, generator=g, device=DEV) * 0.3).to(dt)
+               for _ in range(3))
+    target = torch.randn(shape, generator=g, device=DEV)
+    return q, k, v, target
+
+
+def _counted(fn):
+    """fn()'s result and the kernel launches it made (counts set to 0
+    just before, read just after)."""
+    _sync()
+    _reset_counts()
+    out = fn()
+    _sync()
+    return out, _read_counts()
+
+
+def _add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _attn_path(name, fn, whole, q, k, v, target, tol, per_step):
+    """One attention path over the sequence split: RING_STEPS SGD steps
+    (the main path, counted), then its output and gradients at the first
+    state against one flash call over the whole sequence."""
+    import torch
+
+    def train():
+        a, b, c = q, k, v
+        losses = []
+        for _ in range(RING_STEPS):
+            loss, _, grads = _attn_step(fn, a, b, c, target)
+            a, b, c = (t - RING_LR * gr for t, gr in zip((a, b, c), grads))
+            losses.append(float(loss))
+        return losses
+
+    t0 = time.perf_counter()
+    losses, counts = _counted(train)
+    step_s = (time.perf_counter() - t0) / RING_STEPS
+    _, o_p, g_p = _attn_step(fn, q, k, v, target)
+    _, o_w, g_w = _attn_step(whole, q, k, v, target)
+    errs = {"out": _nerr(o_p, o_w)}
+    errs.update({"d" + n: _nerr(a, b) for n, a, b in zip("qkv", g_p, g_w)})
+    want = {f: per_step * RING_STEPS for f in _FLASH}
+    rec = {"losses": losses, "step_s": step_s,
+           "launches": counts, "launches_want": want,
+           "errors_vs_whole": errs, "tol": tol,
+           "finite": bool(all(math.isfinite(v) for v in losses))}
+    rec["ok"] = bool(rec["finite"] and max(errs.values()) <= tol
+                     and (DEV != "cuda" or all(
+                         counts[f] == want[f] for f in _FLASH))
+                     and counts["dense_attention"] == 0)
+    del o_p, g_p, o_w, g_w
+    return rec, counts
+
+
+def _attn_costs(fn, q, k, v, target):
+    """Device ms of one forward and backward of ``fn`` (CUDA events, the
+    mean of RING_TIME_ITERS after one warm-up) and its peak memory above
+    the inputs."""
+    import torch
+    _attn_step(fn, q, k, v, target)
+    _sync()
+    if DEV != "cuda":
+        return {"ms": None, "peak_extra_gb": None}
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st = torch.cuda.Event(enable_timing=True)
+    en = torch.cuda.Event(enable_timing=True)
+    st.record()
+    for _ in range(RING_TIME_ITERS):
+        _attn_step(fn, q, k, v, target)
+    en.record()
+    en.synchronize()
+    return {"ms": st.elapsed_time(en) / RING_TIME_ITERS,
+            "peak_extra_gb": (torch.cuda.max_memory_allocated() - base)
+            / 1e9}
+
+
+def phase_ring_attention():
+    """Sequence parallelism on the flash kernels over 4 replicas of the
+    card: ring_attention (16 forward, dQ and dK/dV launches a step, the
+    backward with a non-zero lse cotangent) and ulysses_attention (4 of
+    each), each in f32 and bf16 through long_context_lm.py's step, held
+    against one flash call over the whole sequence and the ring's dense
+    body; two controls (off-diagonal blocks unmasked, the lse cotangent
+    dropped) must fail; the profiler's kernel lane counts a ring step."""
+    import tempfile
+    import torch
+    from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.parallel import ring_attention, sp, \
+        ulysses_attention
+    _free_card()
+    n = RING["sp"]
+    s = n * RING["seq_per_replica"]
+    mesh = _replica_mesh("sp", n)
+    ring = lambda a, b, c: ring_attention(a, b, c, mesh, causal=True)
+    flash = lambda a, b, c: ring_attention(a, b, c, mesh, causal=True,
+                                           impl="flash")
+    uly = lambda a, b, c: ulysses_attention(a, b, c, mesh, causal=True)
+    whole = lambda a, b, c: A.flash_attention(a, b, c, causal=True)
+    res = {"model": dict(RING, seq=s, causal=True,
+                         mesh="build_mesh({'sp': %d}, [%s:0] * %d)"
+                         % (n, DEV, n)),
+           "step": "examples/long_context_lm.py (MSE, SGD lr %g), %d steps"
+           % (RING_LR, RING_STEPS)}
+    launches = {}
+    ok = True
+    for dname in ("f32", "bf16"):
+        dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dname]
+        tol = RING_TOL[dname]
+        q, k, v, target = _ring_inputs(dt, s, SEED + 11)
+        r, c = _attn_path("ring", ring, whole, q, k, v, target, tol, n * n)
+        _add_counts(launches, c)
+        u, c = _attn_path("ulysses", uly, whole, q, k, v, target, tol, n)
+        _add_counts(launches, c)
+        # the controls: each must miss the tolerance
+        _, o_w, g_w = _attn_step(whole, q, k, v, target)
+        real, merge, last = A.flash_attention_with_lse, sp._merge, {}
+
+        def keep_lse(*a, **kw):
+            o, last["lse"] = real(*a, **kw)
+            return o, last["lse"]
+        # every block merged with its own lse: the -inf mask undone
+        A.flash_attention_with_lse = keep_lse
+        sp._merge = lambda o, lse, o_i, lse_i: merge(o, lse, o_i,
+                                                     last["lse"])
+        try:
+            unmasked = flash(q, k, v)
+        finally:
+            A.flash_attention_with_lse, sp._merge = real, merge
+        ctrl_unmasked = _nerr(unmasked, o_w)
+
+        def no_glse(*a, **kw):
+            o, lse = real(*a, **kw)
+            return o, lse.detach()
+        A.flash_attention_with_lse = no_glse
+        try:
+            _, _, g_d = _attn_step(flash, q, k, v, target)
+        finally:
+            A.flash_attention_with_lse = real
+        ctrl_glse = max(_nerr(a, b) for a, b in zip(g_d, g_w))
+        del unmasked, g_d, o_w, g_w, last
+        # the dense ring body at a short sequence
+        sq, sk, sv, st = _ring_inputs(dt, n * RING_SMALL_SEQ, SEED + 12)
+        dense = lambda a, b, c: ring_attention(a, b, c, mesh, causal=True,
+                                               impl="dense")
+        _, o_f, g_f = _attn_step(flash, sq, sk, sv, st)
+        _, o_d, g_d = _attn_step(dense, sq, sk, sv, st)
+        vs_dense = {"out": _nerr(o_f, o_d)}
+        vs_dense.update({"d" + nm: _nerr(a, b)
+                         for nm, a, b in zip("qkv", g_f, g_d)})
+        costs = {"ring": _attn_costs(ring, q, k, v, target),
+                 "ulysses": _attn_costs(uly, q, k, v, target),
+                 "whole": _attn_costs(whole, q, k, v, target)}
+        res[dname] = {"ring": r, "ulysses": u,
+                      "control_unmasked_err": ctrl_unmasked,
+                      "control_no_glse_err": ctrl_glse,
+                      "vs_dense_body": vs_dense, "costs": costs}
+        ok = ok and r["ok"] and u["ok"] and ctrl_unmasked > tol \
+            and (ctrl_glse > tol or dname not in RING_GLSE_GATED) \
+            and max(vs_dense.values()) <= tol
+        del q, k, v, target, sq, sk, sv, st
+        _free_card()
+    if DEV == "cuda":
+        q, k, v, target = _ring_inputs(torch.float32, s, SEED + 11)
+        with tempfile.TemporaryDirectory() as td:
+            lane = _lane_window(td, lambda: _attn_step(ring, q, k, v,
+                                                       target))
+        lane["want_each"] = n * n
+        res["kernel_lane"] = lane
+        ok = ok and lane["equal"] and all(
+            lane["launches"][f] == n * n for f in _FLASH)
+        del q, k, v, target
+    res["launches"] = launches
+    res["ok"] = bool(ok)
+    RECORD["ring_attention"] = res
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("ring_attention failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
+def _zero_lm_symbol(mx, init):
+    """gluon_fused_lm's LM and SoftmaxCrossEntropyLoss traced into one
+    Symbol, as fused_fit traces them."""
+    net = _glm_net(mx, init, GLM_LAYERS)
+    out = net(mx.sym.Variable("data"))
+    loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(
+        out, mx.sym.Variable("fused_label"))
+    del net
+    _free_card()
+    return loss
+
+
+def _zero_trainer(mx, sym, mesh, stage, compress="none"):
+    from mxnet_tpu_torch.parallel import DataParallelTrainer
+    return DataParallelTrainer(
+        sym, mesh, data_names=("data",), label_names=("fused_label",),
+        optimizer="adam", learning_rate=TRAIN_LR,
+        rescale_grad=1.0 / TRAIN_BATCH, zero_stage=stage,
+        grad_compress=compress)
+
+
+def _zero_arm(mx, sym, init, mesh, stage, compress, x, y,
+              feedback=True):
+    """One arm: ZERO_STEPS steps from ``init`` (the main path, counted).
+    ``feedback=False`` zeroes the error-feedback residual after every
+    step: a control whose residual is never added back. Returns (record,
+    trainer, state)."""
+    import torch
+    from mxnet_tpu_torch.parallel import zero
+    tr = _zero_trainer(mx, sym, mesh, stage, compress)
+    state = tr.init_state({"data": tuple(x.shape),
+                           "fused_label": tuple(y.shape)},
+                          arg_params={n: init[n] for n in tr.param_names})
+    inputs = tr.shard_inputs([x, y])
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    c0 = zero.counters()
+
+    def run():
+        nonlocal state
+        losses, step_s = [], []
+        for _ in range(ZERO_STEPS):
+            t0 = time.perf_counter()
+            p, s, a, loss, _ = tr.step(*state, inputs)
+            state = (p, s, a)
+            losses.append(float(loss) / TRAIN_BATCH)
+            step_s.append(time.perf_counter() - t0)
+            if not feedback:
+                for rs in tr._resid:
+                    for r in rs:
+                        r.zero_()
+        return losses, step_s
+
+    (losses, step_s), counts = _counted(run)
+    c1 = zero.counters()
+    rec = {"stage": stage, "compress": compress, "losses": losses,
+           "step_s": step_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+           if DEV == "cuda" else None,
+           "launches": counts,
+           "flash_launches_per_step": {f: counts[f] / ZERO_STEPS
+                                       for f in _FLASH},
+           "finite": bool(all(math.isfinite(v) for v in losses))}
+    if stage:
+        L = tr.layout
+        rec.update(buckets=L.n_buckets, padded_floats=sum(L.padded),
+                   wire_bytes_per_step=tr.wire_bytes_per_step(),
+                   counter_wire_bytes=c1["zero_wire_bytes"]
+                   - c0["zero_wire_bytes"],
+                   wire_source="analytic")
+        rec["wire_ok"] = rec["counter_wire_bytes"] == \
+            ZERO_STEPS * rec["wire_bytes_per_step"]
+    return rec, tr, state
+
+
+def _named_clone(tr, params):
+    return {n: t.detach().clone()
+            for n, t in tr.device_params(params).items()}
+
+
+def _params_cmp(got, ref):
+    """(bit-identical, the largest norm-wise error) over the parameters."""
+    import torch
+    bitwise = all(torch.equal(got[n], ref[n]) for n in ref)
+    return bitwise, max(_nerr(got[n], ref[n]) for n in ref)
+
+
+def phase_zero_lm():
+    """ZeRO on the card: gluon_fused_lm's LM (GPT-2 medium, 24 layers,
+    8 x 1024 tokens, Adam) as its loss Symbol through DataParallelTrainer
+    over 4 replicas of the card, 3 steps an arm from the same parameters:
+    dp over the same mesh, ZeRO-1, ZeRO-2 and ZeRO-2 + fp8, and the fp8
+    arm again with its residual never added back (a control). ZeRO-1
+    against dp, ZeRO-2 against ZeRO-1, fp8's losses against float32's
+    and against the control's;
+    96 launches a step of each flash kernel; the counters' wire bytes;
+    s a step and peak memory an arm; a ZeRO-2 commit restored into dp
+    giving ZeRO-2's next step; then fused_fit under MXNET_ZERO_STAGE=2 on
+    [gpu(0)] writing back the trainer's parameters."""
+    import shutil
+    import tempfile
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.checkpoint import CheckpointManager, TrainingState
+    from mxnet_tpu_torch.parallel import ZeroTrainer
+    _free_card()
+    init = _GLM_REF.get("init")
+    if init is None:
+        init = _glm_init(mx)[0]
+    x, y = _lm_batch()
+    sym = _zero_lm_symbol(mx, init)
+    mesh = _replica_mesh("data", ZERO_REPLICAS)
+    res = {"model": dict(TRAIN, num_layers=GLM_LAYERS), "batch": TRAIN_BATCH,
+           "replicas": ZERO_REPLICAS, "per_replica_batch":
+           TRAIN_BATCH // ZERO_REPLICAS, "steps": ZERO_STEPS,
+           "optimizer": "adam", "tol": ZERO_TOL,
+           "mesh": "build_mesh({'data': %d}, [%s:0] * %d)"
+           % (ZERO_REPLICAS, DEV, ZERO_REPLICAS)}
+    launches = {}
+    want = GLM_LAYERS * ZERO_REPLICAS
+
+    dp, tr, st = _zero_arm(mx, sym, init, mesh, 0, "none", x, y)
+    _add_counts(launches, dp["launches"])
+    ref = _named_clone(tr, st[0])
+    del tr, st
+    _free_card()
+    z1, tr, st = _zero_arm(mx, sym, init, mesh, 1, "none", x, y)
+    _add_counts(launches, z1["launches"])
+    got1 = _named_clone(tr, st[0])
+    z1["bitwise_vs_dp"], z1["err_vs_dp"] = _params_cmp(got1, ref)
+    del tr, st, ref
+    _free_card()
+    z2, tr2, st2 = _zero_arm(mx, sym, init, mesh, 2, "none", x, y)
+    _add_counts(launches, z2["launches"])
+    z2["bitwise_vs_zero1"], z2["err_vs_zero1"] = _params_cmp(
+        _named_clone(tr2, st2[0]), got1)
+    del got1
+    _free_card()
+    # a ZeRO-2 commit restored into plain dp: the next step equals
+    # ZeRO-2's own
+    tmp = tempfile.mkdtemp(prefix="zero_lm_")
+    try:
+        arrays, meta = tr2.export_training_state(*st2)
+        mgr = CheckpointManager(tmp, async_save=False)
+        mgr.save(TrainingState(arrays=arrays, meta={
+            "kind": "zero_lm", "step": ZERO_STEPS, "trainer": meta}),
+            step=ZERO_STEPS)
+        mgr.close()
+        del arrays
+        restored = CheckpointManager(tmp).restore()
+        trd = _zero_trainer(mx, sym, mesh, 0)
+        trd.init_state({"data": tuple(x.shape),
+                        "fused_label": tuple(y.shape)},
+                       arg_params={n: init[n] for n in trd.param_names})
+        std = trd.import_training_state(restored.arrays,
+                                        restored.meta["trainer"])
+        del restored
+        std = trd.step(*std, trd.shard_inputs([x, y]))[:3]
+        st2 = tr2.step(*st2, tr2.shard_inputs([x, y]))[:3]
+        bitwise, err = _params_cmp(_named_clone(trd, std[0]),
+                                   _named_clone(tr2, st2[0]))
+        res["restore_into_dp"] = {"bitwise": bitwise, "err": err,
+                                  "ownership_entries":
+                                  len(meta["zero"]["ownership"])}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del tr2, st2, trd, std
+    _free_card()
+    z8, tr, st = _zero_arm(mx, sym, init, mesh, 2, "fp8", x, y)
+    _add_counts(launches, z8["launches"])
+    z8["residual_abs_sum"] = float(sum(float(r.abs().sum())
+                                       for rs in tr._resid for r in rs))
+    z8["loss_rel_err_vs_fp32_each"] = [abs(a - b) / abs(b) for a, b in
+                                       zip(z8["losses"], z2["losses"])]
+    z8["loss_rel_err_after_one_update"] = z8["loss_rel_err_vs_fp32_each"][1]
+    del tr, st
+    _free_card()
+    # the control: the same fp8 arm with the residual never added back
+    # must leave it at the third loss (the first step after a residual)
+    nofb, tr, st = _zero_arm(mx, sym, init, mesh, 2, "fp8", x, y,
+                             feedback=False)
+    _add_counts(launches, nofb["launches"])
+    nofb["loss_rel_err_vs_fp32_each"] = [
+        abs(a - b) / abs(b) for a, b in zip(nofb["losses"], z2["losses"])]
+    nofb["loss_rel_diff_vs_fp8_each"] = [
+        abs(a - b) / abs(b) for a, b in zip(nofb["losses"], z8["losses"])]
+    z8["feedback_ok"] = nofb["losses"][:2] == z8["losses"][:2] \
+        and nofb["losses"][2] != z8["losses"][2]
+    del tr, st
+    _free_card()
+    res.update(dp=dp, zero1=z1, zero2=z2, zero2_fp8=z8,
+               control_fp8_no_feedback=nofb)
+    flash_ok = all(a["flash_launches_per_step"][f] == want
+                   for a in (dp, z1, z2, z8, nofb) for f in _FLASH) \
+        if DEV == "cuda" else True
+    res["flash_launches_want_per_step"] = want
+
+    # fused_fit under MXNET_ZERO_STAGE=2 on [gpu(0)]
+    net = _glm_net(mx, init, GLM_LAYERS)
+    with _env(MXNET_ZERO_STAGE="2"), _watch_step_k() as calls:
+        fit_losses = _gluon_fit(mx, net, [(mx.nd.NDArray(x),
+                                           mx.nd.NDArray(y))]
+                                * ZERO_FIT_STEPS, 1, ZERO_FIT_STEPS,
+                                optimizer="adam",
+                                optimizer_params={"learning_rate":
+                                                  TRAIN_LR})
+    ftr = calls[0]["trainer"]
+    own = ftr.host_params(ftr._params)
+    written = _host_params(net)
+    fit_ok = isinstance(ftr, ZeroTrainer) and all(
+        torch.equal(written[n], torch.from_numpy(own[n]))
+        for n in ftr.param_names)
+    res["fused_fit_zero2"] = {"trainer": type(ftr).__name__,
+                              "stage": getattr(ftr, "_zero_stage", None),
+                              "epoch_losses": fit_losses,
+                              "written_back_equal": fit_ok}
+    del net, calls, ftr, own, written
+    res["launches"] = launches
+    res["ok"] = bool(
+        all(a["finite"] for a in (dp, z1, z2, z8, nofb))
+        and (z1["bitwise_vs_dp"] or z1["err_vs_dp"] <= ZERO_TOL)
+        and z2["err_vs_zero1"] <= ZERO_TOL
+        and z8["losses"][-1] < z8["losses"][0]
+        and z8["loss_rel_err_after_one_update"] <= ZERO_FP8_LOSS_RTOL
+        and z8["residual_abs_sum"] > 0 and z8["feedback_ok"]
+        and all(a["wire_ok"] for a in (z1, z2, z8)) and flash_ok
+        and res["restore_into_dp"]["err"] <= ZERO_TOL and fit_ok)
+    RECORD["zero_lm"] = res
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("zero_lm failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
+def _tp_case(fn, ref, arrs, cpu_fn, cpu_arrs):
+    """``fn`` on the card against ``ref`` on the card in float32 (output
+    and the gradients of its squared mean with respect to every input),
+    and on ``cpu_arrs`` in float64, card and host each against ``ref`` in
+    float64 on the host, within TP_F64_TOL. The host check is float64:
+    ReLU's kinks make a deep stack's input gradient ill-conditioned in
+    float32 (a pre-activation within rounding of 0 flips its mask), and
+    which elements flip depends on each device's rounding (pipeline_mlp's
+    input gradient at these shapes: 4.1e-4 off float64 on an H100, 5.6e-7
+    and 8.2e-4 on two x86 hosts)."""
+    import torch
+
+    def vg(f, xs):
+        ts = [t.detach().requires_grad_(True) for t in xs]
+        out = f(*ts)
+        grads = torch.autograd.grad((out ** 2).mean(), ts)
+        return [out.detach()] + [gr.detach() for gr in grads]
+
+    def worst(got, want):
+        return max(_nerr(a.cpu(), b) for a, b in zip(got, want))
+
+    t0 = time.perf_counter()
+    got = vg(fn, arrs)
+    _sync()
+    wall = time.perf_counter() - t0
+    vs_ref = worst(got, vg(ref, arrs))
+    del got
+    f64 = [t.double() for t in cpu_arrs]
+    card = vg(fn, [t.to(DEV) for t in f64])
+    host = vg(cpu_fn, f64)
+    want = vg(ref, f64)
+    card_err, host_err = worst(card, want), worst(host, want)
+    return {"vs_reference": vs_ref, "card_f64_vs_ref_f64": card_err,
+            "cpu_f64_vs_ref_f64": host_err, "fwd_bwd_wall_s": wall,
+            "ok": bool(vs_ref <= TP_TOL and card_err <= TP_F64_TOL
+                       and host_err <= TP_F64_TOL)}
+
+
+def phase_tp_pp():
+    """Tensor, expert and pipeline parallelism over 4 replicas of the
+    card, f32: megatron_mlp at GPT-2 medium's MLP, moe_ffn with 8
+    experts over ep 4, pipeline_mlp with 4 stages and 8 microbatches,
+    each (output and gradients) against its reference on the card and
+    against the same function over 4 host replicas. No kernel."""
+    import torch
+    from mxnet_tpu_torch.parallel import megatron_mlp, moe_ffn, \
+        pipeline_mlp, tp, pp
+    _free_card()
+    g = torch.Generator().manual_seed(SEED + 21)
+    rnd = lambda *s, scale=1.0: torch.randn(*s, generator=g) * scale
+    res = {"dtype": "float32", "tol": TP_TOL, "cpu_rows": TP_CPU_ROWS}
+    n = TP["n"]
+    host = lambda xs: [t.clone() for t in xs]
+    card = lambda xs: [t.to(DEV) for t in xs]
+
+    d, h = TP["d"], TP["hidden"]
+    arrs = [rnd(TP["tokens"], d), rnd(d, h, scale=d ** -0.5),
+            rnd(h, scale=0.1), rnd(h, d, scale=h ** -0.5),
+            rnd(d, scale=0.1)]
+    tmesh, cmesh = _replica_mesh("tp", n), _replica_mesh("tp", n, "cpu")
+    cpu_arrs = host([arrs[0][:TP_CPU_ROWS]] + arrs[1:])
+    res["megatron_mlp"] = _tp_case(
+        lambda *a: megatron_mlp(*a, tmesh),
+        lambda x, w1, b1, w2, b2: torch.relu(x @ w1 + b1) @ w2 + b2,
+        card(arrs), lambda *a: megatron_mlp(*a, cmesh), cpu_arrs)
+    res["megatron_mlp"]["config"] = dict(TP)
+
+    d, h, e = MOE["d"], MOE["hidden"], MOE["experts"]
+    arrs = [rnd(MOE["tokens"], d), rnd(d, e, scale=d ** -0.5),
+            rnd(e, d, h, scale=d ** -0.5), rnd(e, h, d, scale=h ** -0.5)]
+    # top-1 routing on the host's and the card's float32 logits: the
+    # tokens whose two best experts lie within 1e-3 would route by
+    # rounding, so the CPU check takes the first TP_CPU_ROWS of the others
+    logits = (arrs[0].double() @ arrs[1].double())
+    top2 = logits.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+    rows = arrs[0][clear][:TP_CPU_ROWS]
+    emesh, cemesh = _replica_mesh("ep", n), _replica_mesh("ep", n, "cpu")
+    res["moe_ffn"] = _tp_case(
+        lambda *a: moe_ffn(*a, emesh), tp.moe_ffn_reference,
+        card(arrs), lambda *a: moe_ffn(*a, cemesh),
+        host([rows] + arrs[1:]))
+    res["moe_ffn"].update(config=dict(MOE),
+                          routing_ties_left_out=int((~clear).sum()))
+    # the card's slice must be the same rows as the host's
+    res["moe_ffn"]["cpu_rows_note"] = "first %d tokens with a clear top-1" \
+        % TP_CPU_ROWS
+
+    m, rows_, d = PIPE["micro"], PIPE["rows"], PIPE["d"]
+    arrs = [rnd(m, rows_, d), rnd(PIPE["stages"], d, d, scale=d ** -0.5),
+            rnd(PIPE["stages"], d, scale=0.1)]
+    pmesh, cpmesh = _replica_mesh("pp", n), _replica_mesh("pp", n, "cpu")
+    res["pipeline_mlp"] = _tp_case(
+        lambda *a: pipeline_mlp(*a, pmesh),
+        pp.pipeline_reference, card(arrs),
+        lambda *a: pipeline_mlp(*a, cpmesh), host(arrs))
+    res["pipeline_mlp"].update(config=dict(PIPE),
+                               ticks=m + PIPE["stages"] - 1)
+    res["launches"] = {}
+    res["ok"] = bool(all(res[k]["ok"] for k in
+                         ("megatron_mlp", "moe_ffn", "pipeline_mlp")))
+    RECORD["tp_pp"] = res
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("tp_pp failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("train", phase_train),
           ("train_profile", phase_train_profile),
@@ -8052,7 +8677,9 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("predict", phase_predict), ("serving_net", phase_serving_net),
           ("ssd300", phase_ssd300), ("dlrm", phase_dlrm),
           ("device_feed", phase_device_feed),
-          ("traced_lm", phase_traced_lm))
+          ("traced_lm", phase_traced_lm),
+          ("ring_attention", phase_ring_attention),
+          ("zero_lm", phase_zero_lm), ("tp_pp", phase_tp_pp))
 
 # (name, source, TPU kernel, case kind, case, its time / bound keys, errors,
 # its kernel launches a call: counted in the case)
@@ -8149,7 +8776,8 @@ def main(argv=None):
                                   "module_fused", "ckpt_resume",
                                   "lstm_lm", "lstm_bucketing", "predict",
                                   "serving_net", "ssd300", "dlrm",
-                                  "device_feed", "traced_lm")
+                                  "device_feed", "traced_lm",
+                                  "ring_attention", "zero_lm", "tp_pp")
               if k in RECORD]
     rows = []
     for (name, src, replaces, kind, case, ms_key, bound_key, by_key,

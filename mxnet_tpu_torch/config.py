@@ -69,6 +69,11 @@ both:
   MXNET_FLIGHTREC_DIR       where black boxes go; set, it arms the crash
                             triggers and the flusher at import
   MXNET_FLIGHTREC_FLUSH_S   the flusher's interval in seconds
+  MXNET_ZERO_STAGE          1|2 makes ``DataParallelTrainer(...)`` build a
+                            ``parallel.zero.ZeroTrainer`` (0: plain dp)
+  MXNET_ZERO_BUCKET_MB      the ZeRO gradient buckets' size in MB
+  MXNET_GRAD_COMPRESS       the ZeRO wire dtype: none | bf16 | fp8 (with
+                            an error-feedback residual)
 """
 from __future__ import annotations
 
@@ -117,6 +122,9 @@ _DOCUMENTED = {
     "MXNET_FLIGHTREC_EVENTS": 4096,
     "MXNET_FLIGHTREC_DIR": None,
     "MXNET_FLIGHTREC_FLUSH_S": "0.5",
+    "MXNET_ZERO_STAGE": 0,
+    "MXNET_ZERO_BUCKET_MB": "4",
+    "MXNET_GRAD_COMPRESS": "none",
 }
 
 

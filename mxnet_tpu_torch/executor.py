@@ -204,7 +204,7 @@ def _per_sample_rules():
     rules = {n: always for n in ELEMENTWISE}
     rules.update({n: data_only for n in (
         "Activation", "Dropout", "Flatten", "Pooling", "Convolution",
-        "FullyConnected", "argmax_channel", "one_hot")})
+        "FullyConnected", "argmax_channel", "one_hot", "Embedding")})
     rules.update({n: reduce_ for n in (
         "sum", "_square_sum", "mean", "prod", "nansum", "nanprod", "max",
         "min")})
@@ -214,6 +214,7 @@ def _per_sample_rules():
         "Reshape": always, "broadcast_to": always, "batch_dot": always,
         "_contrib_flash_attention": always,
         "softmax": _axis_not0("axis"), "log_softmax": _axis_not0("axis"),
+        "LayerNorm": _axis_not0("axis"), "cumsum": _axis_not0("axis"),
         "argmax": _axis_not0("axis"), "argmin": _axis_not0("axis"),
         "Concat": _axis_not0("dim"), "slice_axis": _axis_not0("axis"),
         "norm": norm, "dot": dot, "take": take, "pick": pick,

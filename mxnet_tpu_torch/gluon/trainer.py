@@ -208,8 +208,10 @@ def fused_fit(net, loss, train_data, num_epoch, optimizer="sgd",
             yield block
 
     def _writeback():
+        # through the trainer: a ZeRO trainer's params are flat bucket
+        # shards, unflattened by its device_params (dp's are its tensors)
         with torch.no_grad():
-            for n, p in zip(trainer.param_names, params):
+            for n, p in trainer.device_params(params).items():
                 pmap[n].set_data(p)
             for n, a in zip(trainer.aux_names, aux):
                 if n in pmap:

@@ -1,13 +1,20 @@
-"""mx.parallel — data parallelism over a device mesh (counterpart of
+"""mx.parallel — parallelism over a device mesh (counterpart of
 mxnet_tpu/parallel).
 
 ``DataParallelTrainer`` runs forward, backward, the gradient sum over the
 replicas and the optimizer update as one step over a :class:`Mesh`
 (single-process, like the JAX package's one program over its mesh), as a
-CUDA graph on one card. ``EmbeddingTrainer`` (``parallel.embedding``)
-trains a row-sharded table with a row-sparse gradient exchange. ZeRO,
-tensor, pipeline and sequence parallelism and the planner are not ported
-yet (ROADMAP queue 1 items 11 and 15), so their names are absent here.
+CUDA graph on one card; ``zero_stage > 0`` (or ``MXNET_ZERO_STAGE``) makes
+it a ``ZeroTrainer`` (``parallel.zero``: sharded masters and optimizer
+states, bf16/fp8 gradient compression). ``EmbeddingTrainer``
+(``parallel.embedding``) trains a row-sharded table with a row-sparse
+gradient exchange. ``sp`` (ring and Ulysses attention), ``tp``
+(Megatron MLP, expert-parallel MoE) and ``pp`` (GPipe pipelining) run the
+JAX package's shard_map bodies once a replica, with the mesh's
+collectives (``mesh.psum``, ``all_gather``, ``ppermute``, ...). A mesh may
+list one card several times. The planner (``planner``, ``Plan``,
+``make_trainer``) and ``param_specs`` are not ported yet: they come with
+ROADMAP queue 1 item 15's planner slice, so their names are absent here.
 """
 from .mesh import (Mesh, build_mesh, data_parallel_mesh, single_axis_mesh,
                    mesh_for_contexts, mesh_for_devices, axis_size,
@@ -15,13 +22,22 @@ from .mesh import (Mesh, build_mesh, data_parallel_mesh, single_axis_mesh,
                    current_topology, replicated_sharding, batch_sharding,
                    put_replicated, put_batch_sharded)
 from .dp import DataParallelTrainer
+from . import zero
+from .zero import ZeroTrainer
 from . import embedding
 from .embedding import EmbeddingTrainer
+from . import sp
+from . import tp
+from . import pp
+from .sp import ring_attention, ulysses_attention
+from .tp import megatron_mlp, moe_ffn
+from .pp import pipeline_mlp
 
 __all__ = ["Mesh", "build_mesh", "data_parallel_mesh", "single_axis_mesh",
-           "DataParallelTrainer", "EmbeddingTrainer", "embedding",
-           "mesh_for_contexts", "mesh_for_devices",
-           "axis_size", "data_axis", "mesh_descriptor",
+           "DataParallelTrainer", "ZeroTrainer", "zero",
+           "EmbeddingTrainer", "embedding", "mesh_for_contexts",
+           "mesh_for_devices", "axis_size", "data_axis", "mesh_descriptor",
            "mesh_from_descriptor", "current_topology",
            "replicated_sharding", "batch_sharding", "put_replicated",
-           "put_batch_sharded"]
+           "put_batch_sharded", "sp", "tp", "pp", "ring_attention",
+           "ulysses_attention", "megatron_mlp", "moe_ffn", "pipeline_mlp"]

@@ -47,12 +47,15 @@ replayed like the others. The update is any of the JAX package's eight
 fused optimizers (sgd with or without momentum, adam, rmsprop,
 rmspropalex, ftrl, signsgd, signum, ftml): their states are zeros on the
 device, and FTML's step count is the device tensor ``t``, as Adam's bias
-correction is. ``zero_stage > 0`` and ``param_specs`` (ROADMAP queue 1
-item 15) raise.
+correction is. ``zero_stage > 0`` (or ``MXNET_ZERO_STAGE``, or
+``MXNET_PLAN=zero1|zero2``) makes a direct construction a
+``parallel.zero.ZeroTrainer``, as in the JAX package: the same
+constructor and step contract over sharded masters and optimizer
+states. ``param_specs`` (tensor-parallel layouts over a model axis)
+raises: it comes with the planner (ROADMAP queue 1 item 15).
 """
 from __future__ import annotations
 
-import os
 import time
 
 import numpy as _np
@@ -83,16 +86,6 @@ _DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
-def _resolve_stage(value):
-    """ZeRO stage: the explicit argument, else ``MXNET_ZERO_STAGE``."""
-    if value is None:
-        value = os.environ.get("MXNET_ZERO_STAGE") or 0
-    try:
-        return int(value)
-    except (TypeError, ValueError):
-        raise MXNetError(f"MXNET_ZERO_STAGE must be 0|1|2, got {value!r}")
-
-
 class _Graph:
     """One captured training step: static inputs, the graph, its static
     loss and outputs, what its capture cost, and the kernel launches a
@@ -119,6 +112,16 @@ class DataParallelTrainer:
     update (any of ``_OPT_OPS``) is part of the step; lr and the step
     count are device tensors, so schedules never re-capture."""
 
+    def __new__(cls, *args, **kwargs):
+        # zero_stage > 0 (argument, MXNET_ZERO_STAGE or a pure-zero
+        # MXNET_PLAN) makes a direct construction the ZeRO trainer (same
+        # constructor and step contract); subclasses construct themselves
+        if cls is DataParallelTrainer:
+            from .zero import ZeroTrainer, resolve_stage
+            if resolve_stage(kwargs.get("zero_stage")) > 0:
+                return object.__new__(ZeroTrainer)
+        return object.__new__(cls)
+
     def __init__(self, symbol, mesh, data_names=("data",),
                  label_names=("softmax_label",), optimizer="sgd",
                  learning_rate=0.01, momentum=0.0, wd=0.0, rescale_grad=None,
@@ -126,15 +129,13 @@ class DataParallelTrainer:
                  input_preproc=None, loss_scaler=None, param_specs=None,
                  zero_stage=None, zero_bucket_mb=None, grad_compress=None,
                  **opt_kwargs):
-        # zero_bucket_mb / grad_compress belong to the ZeRO trainer; as in
-        # the JAX package a stage-0 run may keep them in its kwargs
-        if _resolve_stage(zero_stage) > 0:
-            raise MXNetError("DataParallelTrainer: ZeRO (zero_stage > 0, "
-                             "MXNET_ZERO_STAGE) is not ported yet (ROADMAP "
-                             "queue 1 item 15)")
+        # zero_stage / zero_bucket_mb / grad_compress belong to the ZeRO
+        # trainer (``__new__``); as in the JAX package a stage-0 run may
+        # keep them in its kwargs
         if param_specs:
             raise MXNetError("DataParallelTrainer: param_specs (tensor "
-                             "parallelism) is not ported yet (ROADMAP "
+                             "parallelism over a model axis) is not ported "
+                             "yet: it comes with the planner (ROADMAP "
                              "queue 1 item 15)")
         if dtype not in _DTYPES:
             raise MXNetError("DataParallelTrainer dtype must be float32, "
@@ -551,6 +552,13 @@ class DataParallelTrainer:
                     for k, g in self._graphs.items()}}
 
     # -- host views ---------------------------------------------------------
+    def device_params(self, params):
+        """name -> the per-parameter tensors of a params tuple, on the
+        device (the tuple's own tensors: no copy). The spelling a fused
+        fit writes back through: a ZeRO trainer's params are flat bucket
+        shards, and its override unflattens them."""
+        return dict(zip(self._param_names, params))
+
     def host_params(self, params):
         """name -> host numpy array of a params tuple."""
         return {n: _host(p) for n, p in zip(self._param_names, params)}
@@ -598,11 +606,25 @@ class DataParallelTrainer:
                 arrays[f"opt:{n}:{i}"] = copy(s)
         for n, a in zip(self._aux_names, aux):
             arrays[f"aux:{n}"] = copy(a)
-        meta = {"t": self._t_value(), "rng": None,
+        return arrays, self._export_meta()
+
+    def _export_meta(self):
+        """The device-carried scalars of every trainer variant's export:
+        t, the fp16 scaler's state and the exporting mesh."""
+        return {"t": self._t_value(), "rng": None,
                 "loss_scaler": self._ls_dev.tolist() if self._has_ls
                 else None,
                 "mesh": mesh_descriptor(self._mesh)}
-        return arrays, meta
+
+    def _import_scalar_state(self, meta):
+        """Inverse of :meth:`_export_meta`: t and the fp16 scaler's state
+        into the trainer's device tensors, in place."""
+        self._t = float(meta.get("t", 0.0))
+        if self._t_dev is not None:
+            self._t_dev.fill_(self._t)
+        ls = meta.get("loss_scaler")
+        if ls is not None and self._has_ls:
+            self._ls_dev.copy_(torch.tensor(ls, dtype=torch.float32))
 
     def import_training_state(self, arrays, meta):
         """Inverse of :meth:`export_training_state` (either package's):
@@ -617,12 +639,7 @@ class DataParallelTrainer:
                              for j in range(self._n_states))
                        for n in self._param_names)
         aux = tuple(put(arrays[f"aux:{n}"]) for n in self._aux_names)
-        self._t = float(meta.get("t", 0.0))
-        if self._t_dev is not None:
-            self._t_dev.fill_(self._t)
-        ls = meta.get("loss_scaler")
-        if ls is not None and self._has_ls:
-            self._ls_dev.copy_(torch.tensor(ls, dtype=torch.float32))
+        self._import_scalar_state(meta)
         return params, states, aux
 
 

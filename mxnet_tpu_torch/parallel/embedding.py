@@ -56,6 +56,7 @@ import torch
 from ..base import MXNetError
 from ..ops import sparse_ops as sp
 from ..ops.tensor import abs_
+from .mesh import sum_to
 
 __all__ = ["EmbeddingTrainer", "EmbeddingLayout", "counters",
            "resolve_exchange", "resolve_compress", "resolve_unique_cap"]
@@ -553,7 +554,7 @@ class EmbeddingTrainer:
             self._update_rows_(tables[k], tstates[k], rows2, gsum.to(dev),
                                lrs[k])
         self._update_mlp(mlps, mstates, lrs, g_mlps)
-        return self._sum_on(losses, dev0), nnz
+        return sum_to(losses, dev0), nnz
 
     @torch.no_grad()
     def _step_dense(self, state, ids, dense, labels):
@@ -569,19 +570,11 @@ class EmbeddingTrainer:
         lrs = self._advance(ts)
         for k, dev in enumerate(devs):
             self._update_full_(tables[k], tstates[k],
-                               self._sum_on(g_tables, dev), lrs[k])
+                               sum_to(g_tables, dev), lrs[k])
         self._update_mlp(mlps, mstates, lrs, g_mlps)
         nnz = torch.full((), self._layout.padded_vocab, dtype=torch.int32,
                          device=dev0)
-        return self._sum_on(losses, dev0), nnz
-
-    @staticmethod
-    def _sum_on(parts, dev):
-        """The psum of per-replica tensors, in replica order."""
-        acc = parts[0].to(dev)
-        for p in parts[1:]:
-            acc = acc + p.to(dev)
-        return acc
+        return sum_to(losses, dev0), nnz
 
     def _advance(self, ts):
         """t += 1 on every replica; the step sizes of this update."""
@@ -594,7 +587,7 @@ class EmbeddingTrainer:
         # same update on each copy
         for i in range(len(g_mlps[0])):
             for k, dev in enumerate(self._devs):
-                g = self._sum_on([gm[i] for gm in g_mlps], dev)
+                g = sum_to([gm[i] for gm in g_mlps], dev)
                 self._update_full_(mlps[k][i], mstates[k][i], g, lrs[k])
 
     def step(self, state, inputs):

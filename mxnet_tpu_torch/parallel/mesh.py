@@ -6,8 +6,23 @@ program over several devices, with sharding as placement; the port keeps
 that single-process design: a data-parallel step walks the graph once
 over the mesh's replicas in lock step (``executor.py``), so a mesh of
 ``cpu(i)`` contexts holds n replicas on the host and the CPU tests run
-n-way arithmetic. ``devices=None`` means the CUDA devices and raises
-without a card.
+n-way arithmetic. A mesh may list one device several times, a CUDA
+device too: ``build_mesh({"sp": 4}, [cuda:0] * 4)`` is four replicas of
+one card, each with its own shards, so the sharded semantics (shards,
+collectives in replica order, per-replica BatchNorm under ZeRO, the ring's
+merge) run on a machine with one card. Memory is then the card's, not a
+replica's, and no interconnect is exercised. ``devices=None`` means the
+CUDA devices and raises without a card.
+
+Collectives: the JAX package runs ``shard_map`` bodies with ``jax.lax``
+collectives over a named axis. Here a body runs once a replica, in
+replica order, over per-replica lists of tensors, and the collectives are
+plain functions over those lists (:func:`psum`, :func:`pmean`,
+:func:`psum_scatter`, :func:`all_gather`, :func:`ppermute`,
+:func:`all_to_all`; ``jax.lax.axis_index`` is the body's position in the
+lists). They are torch ops, so autograd runs through them, and every sum
+is taken in one fixed order (replica 0 first unless the caller gives
+another), so a step repeats bit for bit.
 
 Placement: :func:`put_replicated` gives one copy a replica,
 :func:`put_batch_sharded` equal shards of the batch axis, one a replica
@@ -28,7 +43,9 @@ __all__ = ["Mesh", "AXIS_NAMES", "AXIS_ALIASES", "build_mesh",
            "data_axis", "mesh_for_devices", "mesh_for_contexts",
            "mesh_descriptor", "mesh_from_descriptor", "current_topology",
            "Sharding", "replicated_sharding", "batch_sharding", "put",
-           "put_replicated", "put_batch_sharded"]
+           "put_replicated", "put_batch_sharded", "psum",
+           "sum_to", "pmean", "psum_scatter", "all_gather", "ppermute",
+           "all_to_all", "shard", "cast_wire"]
 
 AXIS_NAMES = ("data", "model", "pipe", "sp", "ep")
 AXIS_ALIASES = {"dp": "data", "tp": "model", "pp": "pipe"}
@@ -219,3 +236,120 @@ def put_replicated(data, mesh):
 
 def put_batch_sharded(data, mesh, batch_axis=0):
     return put(data, batch_sharding(mesh, batch_axis))
+
+
+# -- collectives over per-replica lists ---------------------------------------
+
+def shard(x, mesh, dim, axis_name=None):
+    """x split into the mesh's equal shards along ``dim``, one a replica
+    on its device and contiguous, as a replica holds its own shard: the
+    ``P(..., axis, ...)`` in_spec of a shard_map. Differentiable."""
+    devs = mesh.replicas
+    n = len(devs) if axis_name is None else axis_size(mesh, axis_name)
+    if x.shape[dim] % n != 0:
+        raise MXNetError(f"dimension {dim} of shape {tuple(x.shape)} does "
+                         f"not split into {n} shards")
+    return [c.to(d).contiguous()
+            for c, d in zip(torch.chunk(x, n, dim=dim), devs)]
+
+
+def _wire_add(acc, x):
+    """acc + x rounded to their dtype. A float8 sum is taken in float32
+    and rounded back (torch has no float8 arithmetic), as a float8 add
+    rounds its exact sum."""
+    if acc.dtype in _FP8:
+        return cast_wire(acc.to(torch.float32) + x.to(torch.float32),
+                         acc.dtype)
+    return acc + x
+
+
+def sum_to(xs, device, order=None):
+    """The sum of per-replica tensors on ``device``: replica ``order[0]``
+    first (default 0, 1, ..., n-1), each partial sum in the tensors'
+    dtype."""
+    order = range(len(xs)) if order is None else order
+    acc = None
+    for r in order:
+        x = xs[r].to(device)
+        acc = x if acc is None else _wire_add(acc, x)
+    return acc
+
+
+def psum(xs, devices=None, order=None):
+    """``jax.lax.psum``: every replica gets the sum (on its device, from
+    ``devices`` or the tensors' own), taken once in a fixed order."""
+    devices = devices or [x.device for x in xs]
+    total = sum_to(xs, devices[0], order)
+    return [total if d == devices[0] else total.to(d) for d in devices]
+
+
+def pmean(xs, devices=None, order=None):
+    """``jax.lax.pmean``: the psum over the replica count."""
+    n = len(xs)
+    return [s / n for s in psum(xs, devices, order)]
+
+
+def psum_scatter(xs, dim=0, order=None):
+    """``jax.lax.psum_scatter(..., scatter_dimension=dim, tiled=True)``:
+    replica k gets the sum of everyone's k-th slice along ``dim`` (the same
+    order and rounding as :func:`psum`, one slice a replica)."""
+    n = len(xs)
+    parts = [torch.chunk(x, n, dim=dim) if x.shape[dim] % n == 0 else None
+             for x in xs]
+    if any(p is None for p in parts):
+        raise MXNetError(f"psum_scatter: dimension {dim} of "
+                         f"{tuple(xs[0].shape)} does not split {n} ways")
+    return [sum_to([p[k] for p in parts], xs[k].device, order)
+            for k in range(n)]
+
+
+def all_gather(xs, dim=0, devices=None):
+    """``jax.lax.all_gather(..., tiled=True)``: every replica gets the
+    replicas' tensors concatenated along ``dim`` in replica order."""
+    devices = devices or [x.device for x in xs]
+    return [torch.cat([x.to(d) for x in xs], dim) for d in devices]
+
+
+def ppermute(xs, perm):
+    """``jax.lax.ppermute``: replica ``dst`` gets replica ``src``'s tensor
+    for each ``(src, dst)`` in ``perm``; a replica no pair sends to gets
+    zeros."""
+    out = [None] * len(xs)
+    for src, dst in perm:
+        out[dst] = xs[src].to(xs[dst].device)
+    return [torch.zeros_like(x) if o is None else o
+            for x, o in zip(xs, out)]
+
+
+def all_to_all(xs, split_axis, concat_axis):
+    """``jax.lax.all_to_all(..., tiled=True)``: replica j gets chunk j of
+    every replica's ``split_axis``, concatenated along ``concat_axis`` in
+    replica order."""
+    n = len(xs)
+    if xs[0].shape[split_axis] % n:
+        raise MXNetError(f"all_to_all: axis {split_axis} of "
+                         f"{tuple(xs[0].shape)} does not split {n} ways")
+    parts = [torch.chunk(x, n, dim=split_axis) for x in xs]
+    return [torch.cat([p[j].to(xs[j].device) for p in parts], concat_axis)
+            for j in range(n)]
+
+
+_FP8 = tuple(getattr(torch, n) for n in ("float8_e4m3fn", "float8_e5m2")
+             if hasattr(torch, n))
+# the largest finite float8 e4m3fn value and the midpoint above it: a
+# value past the midpoint rounds to NaN in the format's own rounding
+# (ml_dtypes, XLA); torch's cast saturates to 448 instead
+_E4M3_MAX_MID = 464.0
+
+
+def cast_wire(x, dtype):
+    """x rounded to the wire dtype as the JAX package's ``astype`` does:
+    float8 e4m3fn takes ties to even and turns a value beyond ±464 (and
+    ±inf) into NaN, where torch's own cast saturates to ±448."""
+    c = x.to(dtype)
+    if dtype == getattr(torch, "float8_e4m3fn", None):
+        x32 = x.to(torch.float32)
+        c = torch.where(x32.abs() > _E4M3_MAX_MID,
+                        torch.full_like(x32, float("nan")),
+                        c.to(torch.float32)).to(dtype)
+    return c

@@ -330,7 +330,9 @@ def test_step_returns_the_trainers_state_tensors():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(zero_stage=1), dict(zero_stage=2),
+    # ZeRO is ported (parallel/zero.py): an unknown wire dtype and a stage
+    # past 2 still raise
+    dict(zero_stage=1, grad_compress="fp4"), dict(zero_stage=3),
     dict(param_specs={"fc1_weight": None}),
     # the fused rmsprop and ftml take only their update ops' params: a
     # misspelt one raises (the JAX trainer's parse_attrs check)
@@ -345,11 +347,18 @@ def test_unsupported_configurations_raise(kw):
 
 
 def test_zero_stage_from_the_environment_raises(monkeypatch):
-    monkeypatch.setenv("MXNET_ZERO_STAGE", "1")
-    with pytest.raises(MXNetError, match="item 15"):
+    """A stage the JAX package refuses raises from the environment too; 1
+    builds the ZeRO trainer (tests/test_torch_zero.py), 0 plain dp."""
+    from mxnet_tpu_torch.parallel import ZeroTrainer
+    monkeypatch.setenv("MXNET_ZERO_STAGE", "3")
+    with pytest.raises(MXNetError, match=r"MXNET_ZERO_STAGE must be 0\|1\|2"):
         TTrainer(mlp(tmx), mesh_for_contexts([tmx.cpu(0)]))
+    monkeypatch.setenv("MXNET_ZERO_STAGE", "1")
+    assert isinstance(TTrainer(mlp(tmx), mesh_for_contexts([tmx.cpu(0)])),
+                      ZeroTrainer)
     monkeypatch.setenv("MXNET_ZERO_STAGE", "0")
-    TTrainer(mlp(tmx), mesh_for_contexts([tmx.cpu(0)]))
+    assert not isinstance(
+        TTrainer(mlp(tmx), mesh_for_contexts([tmx.cpu(0)])), ZeroTrainer)
 
 
 def test_a_batch_that_does_not_divide_raises():

@@ -58,6 +58,11 @@ runtime planes: the device feed's staged batches equal their sources
 with the copy event waited on, the profiler's kernel lane names the
 flash forward once a counted launch, and a traced step_k runs under
 sync-debug "error".
+Parallel breadth over a mesh listing the card 4 times: ring attention
+(16 launches of each flash kernel, the backward with a non-zero lse
+cotangent) and Ulysses (4 of each) against one flash call over the whole
+sequence (norm-wise 1e-5 in float32), ZeRO-1 and ZeRO-2 bit-identical
+to dp on the card, and the fp8 wire cast equal to the CPU's.
 """
 import contextlib
 import functools
@@ -1713,3 +1718,80 @@ def test_traced_step_k_runs_under_sync_debug_error(dev, monkeypatch):
     slog.close()
     assert tr.captures == 1
     assert torch.isfinite(out[3]).all()
+
+
+def _nerr(got, ref):
+    got, ref = got.detach().double(), ref.detach().double()
+    return float((got - ref).norm() / ref.norm())
+
+
+@pytest.mark.parametrize("kind", ["ring", "ulysses"])
+def test_sequence_parallel_attention_on_the_card(dev, kind):
+    """ring_attention (auto impl: flash on a CUDA mesh) and
+    ulysses_attention over build_mesh({"sp": 4}, [cuda:0] * 4): output and
+    gradients against one flash call over the whole sequence, norm-wise
+    1e-5 in float32 (tests/test_torch_sp.py holds the bodies against the
+    JAX package on the host); the kernels' launches a step."""
+    from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.parallel import build_mesh, ring_attention, \
+        ulysses_attention
+    mesh = build_mesh({"sp": 4}, [dev] * 4)
+    fn = ring_attention if kind == "ring" else ulysses_attention
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(1, 8, 1024, 64, generator=g, device=dev)
+               .requires_grad_(True) for _ in range(3))
+    fwd, dq = A.flash_attention_fwd.launches, \
+        A.flash_attention_bwd_dq.launches
+    out = fn(q, k, v, mesh, causal=True)
+    grads = torch.autograd.grad((out ** 2).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    want = 16 if kind == "ring" else 4
+    assert A.flash_attention_fwd.launches - fwd == want
+    assert A.flash_attention_bwd_dq.launches - dq == want
+    ref = A.flash_attention(q, k, v, causal=True)
+    rgrads = torch.autograd.grad((ref ** 2).sum(), (q, k, v))
+    assert _nerr(out, ref) <= 1e-5
+    for a, b in zip(grads, rgrads):
+        assert _nerr(a, b) <= 1e-5
+
+
+def test_zero_equals_dp_on_the_card(dev):
+    """ZeRO-1 and ZeRO-2 over 4 replicas of the card equal dp over the
+    same mesh bit for bit in float32 (the sums in autograd's order; an
+    MLP: cuBLAS's products are the same a replica in both)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import DataParallelTrainer, build_mesh
+    mesh = build_mesh({"data": 4}, [dev] * 4)
+    with mx.NameManager():
+        net = mx.sym.FullyConnected(mx.sym.Variable("data"),
+                                    num_hidden=64, name="fc1")
+        net = mx.sym.Activation(net, act_type="relu")
+        net = mx.sym.FullyConnected(net, num_hidden=10, name="fc")
+        sym = mx.sym.SoftmaxOutput(net, name="softmax")
+    rng = np.random.RandomState(0)
+    x = rng.normal(size=(16, 32)).astype(np.float32)
+    y = rng.randint(0, 10, 16).astype(np.float32)
+    host = []
+    for stage in (0, 1, 2):
+        tr = DataParallelTrainer(sym, mesh, optimizer="adam",
+                                 learning_rate=0.01, rescale_grad=1 / 16,
+                                 zero_stage=stage, zero_bucket_mb=0.002)
+        state = tr.init_state({"data": x.shape, "softmax_label": y.shape})
+        inputs = tr.shard_inputs([x, y])
+        for _ in range(3):
+            state = tr.step(*state, inputs)[:3]
+        host.append(tr.host_params(state[0]))
+    for h in host[1:]:
+        for n in host[0]:
+            assert np.array_equal(h[n], host[0][n]), n
+
+
+def test_fp8_wire_cast_on_the_card_is_the_cpus(dev):
+    from mxnet_tpu_torch.parallel.mesh import cast_wire
+    v = torch.tensor([447, 448, 449, 464, 464.5, 500, -465, 17, 19, 1.0625,
+                      float("inf"), float("-inf"), 2.0 ** -10, 3e-3])
+    got = cast_wire(v.to(dev), torch.float8_e4m3fn).float().cpu()
+    want = cast_wire(v, torch.float8_e4m3fn).float()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got[~got.isnan()], want[~want.isnan()])

@@ -244,6 +244,13 @@ def _fit_log(mx, log, monkeypatch, trace="1"):
 
 def test_step_log_keys_match_jax_and_tracing_changes_nothing(
         monkeypatch, tmp_path):
+    # a step record carries zero_* keys once a ZeRO trainer of its package
+    # has registered the "zero" counter export (process-wide, in both
+    # packages): register both, so the keys compare whatever ran before
+    from mxnet_tpu.parallel import zero as jzero
+    from mxnet_tpu_torch.parallel import zero as tzero
+    jzero._ensure_hook()
+    tzero._ensure_hook()
     ours, params = _fit_log(tmx, tmp_path / "t.jsonl", monkeypatch)
     ref, _ = _fit_log(jmx, tmp_path / "j.jsonl", monkeypatch)
     assert [r["event"] for r in ours] == [r["event"] for r in ref] == \
