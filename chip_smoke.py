@@ -284,6 +284,24 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            Monitor(monitor_all=True) over 2 steps of LeNet's Module.fit on
            the card against the CPU (the same names, stats within
            MODULE_RTOL)
+  planner  the sharding planner on zero_lm's GPT-2-medium LM loss Symbol
+           over 4 replicas of the card: plan_auto's table (every
+           candidate's FLOPs, bytes, wire, peak, cost and status; dp,
+           zero1, zero2, dp2.tp2, dp2.tp2+zero2 priced, pp4 unsupported),
+           two runs in the same order, a 1 GiB budget rejecting all with
+           no trainer built; dp, dp2.tp2 and dp2.tp2+zero2 trained 3
+           steps each from one seed (losses against dp's, 96 launches a
+           step of each flash kernel with the kernel lane equal to the
+           counters, per-replica resident bytes against
+           estimate_hbm_bytes, s a step, the cost source's FLOPs and their
+           share of the f32 peak), the predicted order beside the
+           measured; the planner CLI's --selftest and --bench
+  group2ctx
+           LeNet through Module.fit with the convolutions in a group on
+           gpu(0) and the FC head on cpu(): each node's outputs on its
+           group's device, card + host against the all-card walk
+           (outputs and gradients within MODULE_RTOL), a control with
+           the head on the card making no cross-device copy; ms a step
 
 then the nvidia-smi line, a ``kernels`` summary line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no result)
@@ -766,6 +784,32 @@ def bound_ms(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
     tf = flops / peak_flops * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+_FLOPS = {}
+
+
+def step_flops(tag, sym, shapes, hand):
+    """A training step's FLOPs (forward + backward) of ``sym`` at the
+    input ``shapes``, from the port's cost source (telemetry.costs: the
+    products counted exactly from the shapes), printed once beside the
+    hand count ``hand`` it replaced (RECORD["flop_counts"])."""
+    from mxnet_tpu_torch.telemetry import costs
+    key = (tag, tuple(sorted(shapes.items())))
+    if key not in _FLOPS:
+        params = [a for a in sym.list_arguments() if a not in shapes]
+        gc = costs.graph_costs(sym, shapes, sharded=tuple(shapes),
+                               diff=params)
+        got = gc.fwd_flops + gc.bwd_flops
+        _FLOPS[key] = got
+        rec = {"model": tag, "shapes": {k: list(v) for k, v in
+                                        shapes.items()},
+               "cost_source_flops": got, "hand_flops": hand,
+               "ratio": got / hand, "unruled": sorted(set(gc.unruled))}
+        RECORD.setdefault("flop_counts", []).append(rec)
+        print("step FLOPs %s: cost source %.6e, hand count %.6e "
+              "(ratio %.4f)" % (tag, got, hand, got / hand), flush=True)
+    return _FLOPS[key]
 
 
 def err_of(got, ref):
@@ -3098,7 +3142,9 @@ def phase_module_resnet50():
         _sync()
     small_dev = sum(r[1] for r in _device_rows(prof, 1))
     del small
-    flops = 3 * 8.18e9 * R50_BATCH
+    flops = step_flops("resnet50", sym, {
+        "data": (R50_BATCH, 3, R50_IMG, R50_IMG),
+        "softmax_label": (R50_BATCH,)}, 3 * 8.18e9 * R50_BATCH)
     res.update({
         "fit_s": fit_s, "step_ms": step_s * 1e3,
         "img_per_s": R50_BATCH / step_s,
@@ -3316,7 +3362,9 @@ def phase_gluon_resnet50():
         _sync()
     small_dev = sum(r[1] for r in _device_rows(prof, 1))
     losses = [float(v.asnumpy()) for v in losses]
-    flops = 3 * 8.18e9 * R50_BATCH
+    flops = step_flops("resnet50", resnet_v1_symbol(mx.sym), {
+        "data": (R50_BATCH, 3, R50_IMG, R50_IMG),
+        "softmax_label": (R50_BATCH,)}, 3 * 8.18e9 * R50_BATCH)
     module_ips = RECORD.get("module_resnet50", {}).get("img_per_s")
     res.update({
         "step_ms": mean_ms, "step_ms_each": step_ms,
@@ -4293,7 +4341,7 @@ def phase_dp_resnet50():
     y = rng.randint(0, 1000, R50_BATCH).astype(np.float32)
     xs = rng.uniform(0, 1, (DP_K,) + shapes["data"]).astype(np.float32)
     ys = rng.randint(0, 1000, (DP_K, R50_BATCH)).astype(np.float32)
-    flops = 3 * 8.18e9 * R50_BATCH
+    flops = step_flops("resnet50", sym, shapes, 3 * 8.18e9 * R50_BATCH)
     _reset_counts()
     lanes = {}
     for dtype in ("bfloat16", "float32"):
@@ -6852,14 +6900,15 @@ def phase_ssd300():
     counts = _read_counts()
     timed = step_s[SSD_TIMED_FROM:]
     first, last = losses[0], losses[-1]
-    flops = 3 * 2 * 34.5e9 * SSD_BATCH / SSD_WIDTH_DIV ** 2
+    flops = step_flops("ssd300", sym, {"data": dshape, "label": lshape},
+                       3 * 2 * 34.5e9 * SSD_BATCH / SSD_WIDTH_DIV ** 2)
     res.update({
         "step_ms_each": [s * 1e3 for s in step_s],
         "step_ms": float(np.mean(timed)) * 1e3,
         "img_per_s": SSD_BATCH * len(timed) / sum(timed),
         "losses": losses, "loss_first": first, "loss_last": last,
         "peak_mem_gb": peak / 1e9, "launches": counts,
-        "flop_per_step_approx": flops,
+        "flop_per_step": flops,
         "fp32_bound_ms": flops / PEAK_F32_FLOPS * 1e3})
     # 3. one step under the profiler
     b = batches[0]
@@ -8333,7 +8382,9 @@ def _zero_trainer(mx, sym, mesh, stage, compress="none"):
 
 def _zero_arm(mx, sym, init, mesh, stage, compress, x, y,
               feedback=True):
-    """One arm: ZERO_STEPS steps from ``init`` (the main path, counted).
+    """One arm: ZERO_STEPS steps from ``init`` (the main path), the
+    launches counted over all but the first (dp's step over replicas of
+    one card is a CUDA graph: its first step captures).
     ``feedback=False`` zeroes the error-feedback residual after every
     step: a control whose residual is never added back. Returns (record,
     trainer, state)."""
@@ -8348,10 +8399,11 @@ def _zero_arm(mx, sym, init, mesh, stage, compress, x, y,
         torch.cuda.reset_peak_memory_stats()
     c0 = zero.counters()
 
-    def run():
+    losses, step_s = [], []
+
+    def run(n):
         nonlocal state
-        losses, step_s = [], []
-        for _ in range(ZERO_STEPS):
+        for _ in range(n):
             t0 = time.perf_counter()
             p, s, a, loss, _ = tr.step(*state, inputs)
             state = (p, s, a)
@@ -8361,16 +8413,16 @@ def _zero_arm(mx, sym, init, mesh, stage, compress, x, y,
                 for rs in tr._resid:
                     for r in rs:
                         r.zero_()
-        return losses, step_s
 
-    (losses, step_s), counts = _counted(run)
+    run(1)
+    _, counts = _counted(lambda: run(ZERO_STEPS - 1))
     c1 = zero.counters()
     rec = {"stage": stage, "compress": compress, "losses": losses,
            "step_s": step_s,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
            if DEV == "cuda" else None,
-           "launches": counts,
-           "flash_launches_per_step": {f: counts[f] / ZERO_STEPS
+           "launches": counts, "captures": tr.captures,
+           "flash_launches_per_step": {f: counts[f] / (ZERO_STEPS - 1)
                                        for f in _FLASH},
            "finite": bool(all(math.isfinite(v) for v in losses))}
     if stage:
@@ -8653,6 +8705,378 @@ def phase_tp_pp():
                              % json.dumps(res, default=str)[:4000])
     return res
 
+# -- planner: the sharding planner on the LM over 4 replicas of the card -------
+
+PLAN_REPLICAS = 4
+PLAN_STEPS = 3                  # a step of capture / warm-up, then 2 timed
+PLAN_ARMS = ("dp", "dp2.tp2", "dp2.tp2+zero2")
+PLAN_LOSS_RTOL = 1e-4
+PLAN_BUDGET = 1 << 30           # 1 GiB: under every candidate's lower bound
+PLAN_WANT = ("dp", "zero1", "zero2", "dp2.tp2", "dp2.tp2+zero2", "pp4")
+
+
+def _plan_resident(tr, params, states):
+    """Parameter and optimizer-state bytes one replica holds: dp's whole
+    tensors; a tensor-parallel parameter's one shard; ZeRO's one shard
+    of every bucket."""
+    from mxnet_tpu_torch.parallel import ZeroTrainer
+    nbytes = lambda t: t.numel() * t.element_size()
+    if isinstance(tr, ZeroTrainer):
+        return sum(nbytes(b[0]) for b in params) + sum(
+            nbytes(st[0]) for b in states for st in b)
+    one = lambda p: nbytes(p[0]) if isinstance(p, tuple) else nbytes(p)
+    return sum(one(p) for p in params) + sum(one(s) for st in states
+                                             for s in st)
+
+
+def _plan_arm(mx, planner, sym, shapes, kw, devices, init, x, y, plan,
+              directory):
+    """PLAN_STEPS steps of one plan from ``init``: the first outside the
+    counted window (a graph capture, or a warm-up step), the rest in a
+    kernel-lane window. Returns the arm's record."""
+    import torch
+    tr = planner.make_trainer(sym, shapes, plan=plan, devices=devices,
+                              apply_knobs=False, **kw)
+    state = tr.init_state(shapes, arg_params={n: init[n]
+                                              for n in tr.param_names})
+    inputs = tr.shard_inputs([x, y])
+    model = planner.ModelSpec(sym, shapes, **kw)
+    resident = _plan_resident(tr, state[0], state[1])
+    est = planner.estimate_hbm_bytes(model, tr._sharding_plan)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+
+    def one():
+        nonlocal state
+        t0 = time.perf_counter()
+        p, st, a, loss, _ = tr.step(*state, inputs)
+        state = (p, st, a)
+        losses.append(float(loss) / TRAIN_BATCH)
+        step_s.append(time.perf_counter() - t0)
+
+    one()
+    lane = _lane_window(directory, lambda: [one() for _ in
+                                            range(PLAN_STEPS - 1)])
+    counted = PLAN_STEPS - 1
+    costs = tr._step_costs(shapes)
+    timed = step_s[1:]
+    mean_s = sum(timed) / len(timed)
+    flops_all = costs["flops"] * PLAN_REPLICAS
+    rec = {"plan": plan, "trainer": type(tr).__name__,
+           "losses": losses, "step_s_each": step_s, "step_s": mean_s,
+           "flash_launches_per_step": {f: lane["launches"][f] / counted
+                                       for f in _FLASH},
+           "lane": lane, "launches": lane["launches"],
+           "resident_param_state_bytes": resident,
+           "estimate_hbm_bytes": est,
+           "resident_within_estimate": bool(resident <= est),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+           if DEV == "cuda" else None,
+           "flops_per_replica_step": costs["flops"],
+           "flops_step_all_replicas": flops_all,
+           "flop_share_of_f32_peak": flops_all / mean_s / PEAK_F32_FLOPS,
+           "captures": tr.captures,
+           "finite": bool(all(math.isfinite(v) for v in losses))}
+    del tr, state, inputs
+    _free_card()
+    return rec
+
+
+def _planner_cli(flag):
+    """``python -m mxnet_tpu_torch.parallel.planner <flag> --devices 4``
+    on the card: its exit code and last JSON line."""
+    import mxnet_tpu_torch
+    root = os.path.dirname(os.path.dirname(
+        os.path.abspath(mxnet_tpu_torch.__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    args = [sys.executable, "-m", "mxnet_tpu_torch.parallel.planner", flag,
+            "--devices", str(PLAN_REPLICAS)]
+    if DEV != "cuda":
+        args += ["--ctx", "cpu"]
+    t0 = time.perf_counter()
+    r = subprocess.run(args, env=env, capture_output=True, text=True,
+                       timeout=600)
+    out = {"exit_code": r.returncode, "seconds": time.perf_counter() - t0}
+    try:
+        out["result"] = json.loads(r.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        out["stderr"] = r.stderr[-2000:]
+    return out
+
+
+def phase_planner():
+    """The sharding planner (parallel.planner) on the card: zero_lm's LM
+    loss Symbol (GPT-2 medium, 24 layers, 8 x 1024 tokens, Adam, f32)
+    over 4 replicas of the card. plan_auto's table printed (every
+    candidate's FLOPs, bytes, wire, peak, cost and status), twice in the
+    same order; a 1 GiB budget rejecting every candidate with no trainer
+    built; dp, dp2.tp2 and dp2.tp2+zero2 trained 3 steps each from one
+    seed: losses within PLAN_LOSS_RTOL of dp's at every step, 96 launches
+    of each flash kernel a step (the kernel lane equal to the counters),
+    per-replica resident bytes within estimate_hbm_bytes, s a step, the
+    cost source's FLOPs and their share of the f32 peak; the predicted
+    order beside the measured one (one card stands for four, so the wire
+    is analytic: not gated); the CLI's --selftest (must pass) and
+    --bench."""
+    import tempfile
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import planner
+    _free_card()
+    init = _GLM_REF.get("init")
+    if init is None:
+        init = _glm_init(mx)[0]
+    x, y = _lm_batch()
+    sym = _zero_lm_symbol(mx, init)
+    shapes = {"data": tuple(x.shape), "fused_label": tuple(y.shape)}
+    kw = dict(data_names=("data",), label_names=("fused_label",),
+              optimizer="adam", learning_rate=TRAIN_LR,
+              rescale_grad=1.0 / TRAIN_BATCH)
+    model = planner.ModelSpec(sym, shapes, **kw)
+    dev = torch.device("cuda", 0) if DEV == "cuda" else torch.device("cpu")
+    devices = [dev] * PLAN_REPLICAS
+    res = {"model": dict(TRAIN, num_layers=GLM_LAYERS), "batch": TRAIN_BATCH,
+           "replicas": PLAN_REPLICAS, "steps": PLAN_STEPS,
+           "optimizer": "adam", "loss_rtol": PLAN_LOSS_RTOL,
+           "wire_gbps": planner.resolve_wire_bw() / 1e9,
+           "mesh": "build_mesh(plan.axes, [%s] * %d)" % (dev, PLAN_REPLICAS)}
+    # 1. the table, twice
+    built0 = planner._BUILT[0]
+    t0 = time.perf_counter()
+    r1 = planner.plan_auto(model, devices=devices)
+    res["plan_auto_s"] = time.perf_counter() - t0
+    r2 = planner.plan_auto(model, devices=devices)
+    rows = []
+    for e in r1.entries:
+        name = e["plan"].name if e.get("plan") else e["name"]
+        row = {"name": name, "status": e["status"]}
+        for k in ("flops", "bytes", "wire_bytes", "wire_bytes_estimate",
+                  "peak_bytes", "cost_s", "reason"):
+            if k in e:
+                row[k] = e[k]
+        rows.append(row)
+        print("plan %-14s %-11s %s" % (name, e["status"], json.dumps(
+            {k: v for k, v in row.items() if k not in ("name", "status")},
+            default=str)), flush=True)
+    order = lambda r: [(e["plan"].name, e["cost_s"]) for e in r.entries
+                       if "cost_s" in e]
+    res["table"] = rows
+    res["chosen"] = r1.chosen.name
+    res["deterministic"] = bool(r1.chosen.name == r2.chosen.name
+                                and order(r1) == order(r2))
+    res["candidates_ok"] = bool(
+        [r["name"] for r in rows] == list(PLAN_WANT)
+        and rows[-1]["status"] == "unsupported"
+        and all(r["status"] in ("scored", "selected") for r in rows[:-1]))
+    res["built_while_planning"] = planner._BUILT[0] - built0
+    # 2. a budget under every lower bound: nothing priced, nothing built
+    lower = {p.name: planner.estimate_hbm_bytes(model, p)
+             for p, _ in planner.enumerate_candidates(model, PLAN_REPLICAS)
+             if p is not None}
+    built0 = planner._BUILT[0]
+    try:
+        planner.plan_auto(model, devices=devices, budget=PLAN_BUDGET)
+        pruned = {"raised": False}
+    except mx.MXNetError as e:
+        rep = e.report
+        pruned = {"raised": True, "priced": rep.compiled,
+                  "built": rep.built, "statuses": sorted(
+                      {x["status"] for x in rep.entries})}
+    pruned["trainers_built"] = planner._BUILT[0] - built0
+    pruned["budget"] = PLAN_BUDGET
+    pruned["lower_bounds"] = lower
+    pruned["ok"] = bool(pruned["raised"] and pruned["priced"] == 0
+                        and pruned["built"] == 0
+                        and pruned["trainers_built"] == 0
+                        and min(lower.values()) > PLAN_BUDGET)
+    res["pruning"] = pruned
+    # 3. the arms
+    arms = {}
+    with tempfile.TemporaryDirectory(prefix="planner_lane_") as d:
+        for plan in PLAN_ARMS:
+            arms[plan] = _plan_arm(mx, planner, sym, shapes, kw, devices,
+                                   init, x, y, plan, os.path.join(d, plan))
+    ref = arms["dp"]["losses"]
+    want = GLM_LAYERS * PLAN_REPLICAS
+    for a in arms.values():
+        a["loss_rel_err_vs_dp"] = [abs(g - r) / abs(r)
+                                   for g, r in zip(a["losses"], ref)]
+        a["losses_ok"] = bool(a["finite"] and max(
+            a["loss_rel_err_vs_dp"]) <= PLAN_LOSS_RTOL)
+        a["launches_ok"] = bool(
+            DEV != "cuda" or (all(v == want for v in
+                                  a["flash_launches_per_step"].values())
+                              and a["lane"]["equal"]))
+    res["arms"] = arms
+    res["flash_launches_want_per_step"] = want
+    launches = {}
+    for a in arms.values():
+        _add_counts(launches, a["launches"])
+    res["launches"] = launches
+    measured = sorted(arms, key=lambda k: (arms[k]["step_s"], k))
+    predicted = sorted(PLAN_ARMS, key=lambda k: (
+        next(e["cost_s"] for e in r1.entries
+             if e.get("plan") is not None and e["plan"].name == k), k))
+    res["predicted_order"] = predicted
+    res["measured_order"] = measured
+    print("planner order: predicted %s, measured %s" % (predicted,
+                                                        measured),
+          flush=True)
+    # 4. the CLI
+    res["selftest"] = _planner_cli("--selftest")
+    res["bench"] = _planner_cli("--bench")
+    res["ok"] = bool(
+        res["deterministic"] and res["candidates_ok"]
+        and res["built_while_planning"] == 0 and pruned["ok"]
+        and all(a["losses_ok"] and a["launches_ok"]
+                and a["resident_within_estimate"] for a in arms.values())
+        and res["selftest"]["exit_code"] == 0
+        and res["selftest"].get("result", {}).get("ok")
+        and res["bench"]["exit_code"] == 0)
+    RECORD["planner"] = res
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("planner failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
+# -- group2ctx: LeNet's FC head on the host ------------------------------------
+
+G2C_BATCH = 64
+G2C_N = 1024
+G2C_EPOCHS = 2
+
+
+def _g2c_lenet(mx):
+    """examples/train_mnist.py's LeNet with its convolutions in group
+    "convs" and its FC head (and the loss) in group "head"."""
+    with mx.NameManager():
+        data = mx.sym.Variable("data")
+        with mx.AttrScope(ctx_group="convs"):
+            net = mx.sym.Convolution(data, kernel=(5, 5), num_filter=20,
+                                     name="c1")
+            net = mx.sym.Activation(net, act_type="tanh")
+            net = mx.sym.Pooling(net, pool_type="max", kernel=(2, 2),
+                                 stride=(2, 2))
+            net = mx.sym.Convolution(net, kernel=(5, 5), num_filter=50,
+                                     name="c2")
+            net = mx.sym.Activation(net, act_type="tanh")
+            net = mx.sym.Pooling(net, pool_type="max", kernel=(2, 2),
+                                 stride=(2, 2))
+        with mx.AttrScope(ctx_group="head"):
+            net = mx.sym.FullyConnected(mx.sym.Flatten(net), num_hidden=500,
+                                        name="f1")
+            net = mx.sym.Activation(net, act_type="tanh")
+            net = mx.sym.FullyConnected(net, num_hidden=10, name="f2")
+            return mx.sym.SoftmaxOutput(net, name="softmax")
+
+
+def _g2c_module(mx, head_ctx, params, train):
+    mod = mx.mod.Module(_g2c_lenet(mx), context=_ctx(),
+                        group2ctxs={"convs": _ctx(), "head": head_ctx})
+    mod.bind(data_shapes=train.provide_data,
+             label_shapes=train.provide_label)
+    mod.set_params(*params)
+    return mod
+
+
+def phase_group2ctx():
+    """group2ctx model parallelism (executor._Placement) on the card:
+    LeNet through Module.fit with the convolutions in a group on gpu(0)
+    and the FC head on cpu(). Each node's outputs on its group's device
+    (a monitor over one forward); card + host against the all-card walk
+    from the same parameters on one batch (outputs and gradients within
+    MODULE_RTOL); the control with the head on the card makes no
+    cross-device copy; ms a step of both fits and the fit's accuracy."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    _free_card()
+    x, yl = synthetic_mnist(G2C_N, SEED)
+    train = mx.io.NDArrayIter(x, yl, G2C_BATCH, label_name="softmax_label")
+    with mx.NameManager():
+        init = mx.mod.Module(lenet_symbol(mx.sym), context=mx.cpu())
+    init.bind(data_shapes=train.provide_data,
+              label_shapes=train.provide_label)
+    mx.random.seed(SEED)
+    init.init_params(mx.init.Xavier())
+    params = init.get_params()
+    res = {"batch": G2C_BATCH, "groups": {"convs": str(_ctx()),
+                                          "head": "cpu(0)"}}
+    _reset_counts()
+    # 1. placement: every node's output on its group's device
+    split = _g2c_module(mx, mx.cpu(), params, train)
+    ex = split._exec
+    seen = {}
+    ex.set_monitor_callback(lambda n, t: seen.setdefault(
+        n.rsplit("_output", 1)[0], t._data.device))
+    batch = next(iter(train))
+    split.forward(batch, is_train=True)
+    ex.set_monitor_callback(None)
+    placed = {n: str(c.torch_device()) for n, c in ex.placement.items()}
+    wrong = {n: (str(seen.get(n)), d) for n, d in placed.items()
+             if str(seen.get(n)) != d}
+    res["placement"] = placed
+    res["segments"] = [(str(c), ns) for c, ns in ex.segments]
+    res["placement_ok"] = bool(not wrong and seen and any(
+        d == "cpu" for d in placed.values()) and any(
+        d.startswith(DEV) for d in placed.values()))
+    res["misplaced"] = wrong
+    # 2. card + host against the all-card walk, one batch
+    whole = _g2c_module(mx, _ctx(), params, train)
+    got = {}
+    for tag, mod in (("split", split), ("card", whole)):
+        c0 = mod._exec.copies
+        mod.forward_backward(batch)
+        got[tag] = {"output": mod.get_outputs()[0].asnumpy(),
+                    **{n: g.asnumpy() for n, g in
+                       mod._exec.grad_dict.items() if n in params[0]},
+                    "copies": mod._exec.copies - c0}
+    err = {k: _rel_err(got["split"][k], got["card"][k])
+           for k in got["card"] if k != "copies"}
+    res["check"] = {"rtol": MODULE_RTOL, "max_rel_err": max(err.values()),
+                    "errors": err}
+    res["copies_a_step"] = {"split": got["split"]["copies"],
+                            "all_card_control": got["card"]["copies"]}
+    # 3. the fits, ms a step
+    fits = {}
+    for tag, head in (("split", mx.cpu()), ("all_card", _ctx())):
+        mod = _g2c_module(mx, head, params, train)
+        steps = []
+        train.reset()
+        _sync()
+        last = [time.perf_counter()]
+
+        def tick(_):
+            _sync()
+            now = time.perf_counter()
+            steps.append((now - last[0]) * 1e3)
+            last[0] = now
+        mod.fit(train, num_epoch=G2C_EPOCHS, optimizer="sgd",
+                optimizer_params={"learning_rate": LENET_LR,
+                                  "momentum": 0.9,
+                                  "rescale_grad": 1.0 / G2C_BATCH},
+                batch_end_callback=tick)
+        acc = mod.score(train, mx.metric.Accuracy())[0][1]
+        fits[tag] = {"ms_a_step": float(np.median(steps[1:])),
+                     "steps": len(steps), "train_accuracy": float(acc),
+                     "copies": mod._exec.copies}
+    res["fits"] = fits
+    res["launches"] = _read_counts()
+    res["ok"] = bool(res["placement_ok"]
+                     and res["check"]["max_rel_err"] <= MODULE_RTOL
+                     and res["copies_a_step"]["split"] > 0
+                     and res["copies_a_step"]["all_card_control"] == 0
+                     and fits["all_card"]["copies"] == 0)
+    RECORD["group2ctx"] = res
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("group2ctx failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
 
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("train", phase_train),
@@ -8679,7 +9103,8 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("device_feed", phase_device_feed),
           ("traced_lm", phase_traced_lm),
           ("ring_attention", phase_ring_attention),
-          ("zero_lm", phase_zero_lm), ("tp_pp", phase_tp_pp))
+          ("zero_lm", phase_zero_lm), ("tp_pp", phase_tp_pp),
+          ("planner", phase_planner), ("group2ctx", phase_group2ctx))
 
 # (name, source, TPU kernel, case kind, case, its time / bound keys, errors,
 # its kernel launches a call: counted in the case)
@@ -8777,7 +9202,8 @@ def main(argv=None):
                                   "lstm_lm", "lstm_bucketing", "predict",
                                   "serving_net", "ssd300", "dlrm",
                                   "device_feed", "traced_lm",
-                                  "ring_attention", "zero_lm", "tp_pp")
+                                  "ring_attention", "zero_lm", "tp_pp",
+                                  "planner", "group2ctx")
               if k in RECORD]
     rows = []
     for (name, src, replaces, kind, case, ms_key, bound_key, by_key,

@@ -74,6 +74,13 @@ both:
   MXNET_ZERO_BUCKET_MB      the ZeRO gradient buckets' size in MB
   MXNET_GRAD_COMPRESS       the ZeRO wire dtype: none | bf16 | fp8 (with
                             an error-feedback residual)
+  MXNET_PLAN                the sharding plan ``parallel.make_trainer``
+                            builds: auto (the planner's cost model picks)
+                            | dp | zero1 | zero2 | dpK.tpT[+zero1|+zero2]
+                            | tpT[...]; zero1|zero2 also reroute a plain
+                            ``DataParallelTrainer(...)``
+  MXNET_PLAN_WIRE_GBPS      the cross-device bandwidth (GB/s) the
+                            planner prices collective bytes at
 """
 from __future__ import annotations
 
@@ -125,6 +132,8 @@ _DOCUMENTED = {
     "MXNET_ZERO_STAGE": 0,
     "MXNET_ZERO_BUCKET_MB": "4",
     "MXNET_GRAD_COMPRESS": "none",
+    "MXNET_PLAN": "auto",
+    "MXNET_PLAN_WIRE_GBPS": "25",
 }
 
 

@@ -139,7 +139,10 @@ def dp_state_from_jax(trainer, arrays, meta):
     package's ``DataParallelTrainer.export_training_state`` output
     (``param:<name>``, ``opt:<name>:<i>``, ``aux:<name>`` numpy arrays and
     its meta); the trainer's step count ``t`` is restored, so Adam's bias
-    correction continues. The JAX rng key does not carry over."""
+    correction continues. The JAX rng key does not carry over. The full
+    parameters go in whatever the trainer's plan: a tensor-parallel
+    trainer (``param_specs``) gives each model rank its shard, a ZeRO
+    trainer on an N-D mesh packs them into its joint shards."""
     return trainer.import_training_state(
         {k: np.asarray(v) for k, v in arrays.items()}, dict(meta))
 
@@ -148,5 +151,6 @@ def dp_state_to_numpy(trainer, params, states, aux):
     """(arrays, meta) in the JAX package's export format from the port
     trainer's tuples: what ``mxnet_tpu``'s
     ``DataParallelTrainer.import_training_state`` takes (its rng entry
-    None, so that package keeps its own key)."""
+    None, so that package keeps its own key); the full parameters and
+    states, also of a tensor-parallel or N-D ZeRO trainer."""
     return trainer.export_training_state(params, states, aux)

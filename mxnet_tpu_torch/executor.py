@@ -44,12 +44,37 @@ plan took when it was built (``_Plan.amp``), and the fp16 loss scale is
 injected below the legacy loss heads while a trainer has set it. With
 amp off and no scale, the walk makes no call.
 
-Not ported (each raises instead of being ignored): ``group2ctx`` model
-parallelism (ROADMAP queue 1 item 8) and ``MXNET_BACKWARD_DO_MIRROR``.
+Tensor parallelism (``parallel.dp``'s ``param_specs`` on a data x model
+mesh): ``_tp_layout`` decides, per node, whether each output is
+replicated over the ``"model"`` axis or split along one dimension, and
+which collective each boundary needs: ``FullyConnected`` column-parallel
+(weight split on its rows, bias with it: the output split on its last
+dimension) and row-parallel (weight split on its columns: the input's
+features split, then a psum over the model group, then the bias);
+``Convolution`` split on its output channels; elementwise and activation
+ops keep a split layout; every other op first all-gathers its split
+inputs, so any mix of layouts stays the one-device computation, as
+GSPMD's does. ``_run_tp`` walks that plan over the mesh's replicas (the
+batch split over the data axis; a replica's collectives run over its
+model group, ``parallel.mesh.axis_groups``); the loss and outputs are the
+model index 0 replicas', so autograd's sums through the collectives are
+the gradient. ``telemetry.costs`` runs the same pass on shapes alone.
+
+Model parallelism (``group2ctx``): the nodes whose ``ctx_group`` names a
+group run on that group's device. The walk is already eager, so this is a
+placement rule plus copies: a node's inputs are copied to its device
+(``Tensor.to``, so autograd carries the backward across the boundary),
+its outputs land there, and the topological order splits into maximal
+same-device runs (``Executor.segments``). The bound arrays stay on the
+executor's context. On a data-parallel mesh it raises, as the JAX
+package's does.
+
+Not ported (raises instead of being ignored): ``MXNET_BACKWARD_DO_MIRROR``.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as _np
 import torch
@@ -255,6 +280,8 @@ class _Plan:
     from, and which aux states it updates."""
 
     def __init__(self, symbol, is_train, fuse=True):
+        self.symbol = symbol
+        self._tp_cache = {}
         topo = symbol._topo()
         _, aux_n = symbol._input_vars()
         aux_ids = {id(n): n.name for n in aux_n}
@@ -311,11 +338,12 @@ class _Plan:
                                                     count=count)
 
     def run(self, args, aux, device, rng=None, monitor=None,
-            monitor_inputs=False):
+            monitor_inputs=False, placement=None):
         """args / aux: name -> tensor. Returns (outputs, [(aux name, new
         value)]). ``monitor(name, tensor)`` sees every op's outputs as
         ``{node}_output[i]``, and with ``monitor_inputs`` its inputs first,
-        as ``{node}_{input}``."""
+        as ``{node}_{input}``. ``placement`` (group2ctx): a
+        :class:`_Placement`, whose devices the nodes run on."""
         vals = [None] * self.n
         for p, kind, name in self.variables:
             vals[p] = ((aux if kind == "aux" else args)[name],)
@@ -327,6 +355,8 @@ class _Plan:
             if op is None:               # relu folded into its BatchNorm
                 vals[p] = (xs[0],)
                 continue
+            if placement is not None:
+                xs, octx = placement.place(p, xs, self.is_train, rng)
             if monitor_inputs:
                 in_names = self.input_names[p]
                 for i, x in enumerate(xs):
@@ -424,17 +454,421 @@ def _run_mesh(plan, args, aux, devices, sharded, rng=None):
     return merged, updates
 
 
-def _unsupported(what, item):
-    return MXNetError(f"{what} is not ported yet (ROADMAP queue 1 item "
-                      f"{item}); it is refused rather than ignored")
+# -- tensor parallelism over a data x model mesh -----------------------------
+
+def _tp_keeps(op, parsed):
+    """Ops that compute each element from the same element of their
+    (broadcast) inputs: a split layout passes through them."""
+    from .ops.tensor import ELEMENTWISE
+    if op.name in ELEMENTWISE or op.name == "Activation":
+        return True
+    return op.name == "LeakyReLU" and parsed.get("act_type") != "prelu"
+
+
+def _spec_dim(spec, ndim, name):
+    """The (negative) dimension a param spec splits over ``"model"``, or
+    None. Specs are tuples of axis names or None, the port's spelling of a
+    ``PartitionSpec``; only the model axis splits a parameter."""
+    if spec is None:
+        return None
+    spec = tuple(spec)
+    dims = [i for i, a in enumerate(spec) if a is not None]
+    if not dims:
+        return None
+    if len(dims) > 1 or spec[dims[0]] not in ("model", "tp") or \
+            len(spec) > ndim:
+        raise MXNetError(f"param_specs[{name!r}] = {spec}: only one "
+                         "dimension split over the 'model' axis is ported")
+    return dims[0] - ndim
+
+
+class _TPStep:
+    """One op of the tensor-parallel plan: its mode ("col" / "row" /
+    "conv" / "keep" / "plain"), what each input needs first (None,
+    "gather": all-gathered over the model group, "slice": its own part
+    cut locally, "feat": the row-parallel input's features cut), the
+    layout of each output (None: replicated, else the negative split
+    dimension), and the collectives' bytes a device, forward and
+    backward."""
+    __slots__ = ("mode", "acts", "out", "fwd_wire", "bwd_wire")
+
+    def __init__(self, mode, acts, out, fwd_wire=0.0, bwd_wire=0.0):
+        self.mode, self.acts, self.out = mode, acts, out
+        self.fwd_wire, self.bwd_wire = fwd_wire, bwd_wire
+
+
+class _TPLayout:
+    """The tensor-parallel plan of a ``_Plan`` (``_tp_layout``): the
+    layout of every value, each op's step, the outputs that are gathered
+    at the end, the local (a replica's) shape of every value and the
+    collectives' bytes a device of one step (forward + backward)."""
+
+    def __init__(self, lay, steps, local, carry, grad, out_wire):
+        self.lay, self.steps, self.local = lay, steps, local
+        self.carry, self.grad, self.out_wire = carry, grad, out_wire
+
+    @property
+    def wire_bytes(self):
+        w = sum(s.fwd_wire + s.bwd_wire for s in self.steps.values())
+        return w + self.out_wire
+
+
+def _tp_local(shape, carried, split, d, t):
+    if shape is None:
+        return None
+    s = list(shape)
+    if carried and s:
+        s[0] //= d
+    if split is not None:
+        s[split] //= t
+    return tuple(s)
+
+
+def _tp_layout(plan, shapes, specs, sharded, diff, d, t, itemsize=4):
+    """The tensor-parallel plan of ``plan`` on a d x t (data x model)
+    mesh from the global shapes of every value (``shapes``: position ->
+    output shapes), the param specs (name -> spec), the batch inputs
+    (``sharded``, split over the data axis) and the differentiated
+    arguments (``diff``: their values' collectives have a backward)."""
+    specs = specs or {}
+    carry = plan.batch_carriers(sharded)
+    lay, grad = {}, set()
+    for p, kind, name in plan.variables:
+        shp = shapes[p][0]
+        dim = _spec_dim(specs.get(name), len(shp), name) \
+            if kind == "arg" and shp is not None else None
+        if dim is not None and shp[dim] % t:
+            raise MXNetError(f"param_specs[{name!r}]: dimension "
+                             f"{len(shp) + dim} of {shp} does not split "
+                             f"{t} ways")
+        lay[p] = [dim]
+        if kind == "arg" and name in diff:
+            grad.add(p)
+    local = {}
+
+    def loc(q, i):
+        key = (q, i)
+        if key not in local:
+            local[key] = _tp_local(shapes[q][i], q in carry, lay[q][i], d, t)
+        return local[key]
+
+    def nbytes(shape):
+        return itemsize * (math.prod(shape) if shape else 1)
+
+    ring = (t - 1) / t
+    steps = {}
+    for p, op, parsed, ins, n_out, aux_writes, name in plan.steps:
+        in_lay = [lay[q][i] for q, i in ins]
+        g = any(q in grad for q, _ in ins)
+        if g:
+            grad.add(p)
+        if op is None:
+            lay[p] = [in_lay[0]]
+            continue
+        out_shapes = shapes[p]
+        mode, acts, out = "plain", [None] * len(ins), [None] * n_out
+        split = [x is not None for x in in_lay]
+        if op.name == "FullyConnected" and len(ins) >= 2 and n_out == 1:
+            wl = in_lay[1]
+            xl = in_lay[0]
+            flat = parsed["flatten"]
+            xshape = shapes[ins[0][0]][ins[0][1]]
+            if wl == -2:                                    # column
+                mode = "col"
+                acts[0] = "gather" if xl is not None else None
+                if len(ins) > 2:
+                    bl = in_lay[2]
+                    acts[2] = None if bl == -1 else (
+                        "slice" if bl is None else "gather")
+                out = [-1]
+            elif wl == -1:                                  # row
+                mode = "row"
+                if xl == -1 and (len(xshape) == 2 or not flat):
+                    acts[0] = None
+                elif xl is None:
+                    acts[0] = "feat"
+                else:
+                    acts[0] = "gather+feat"
+                if len(ins) > 2 and in_lay[2] is not None:
+                    acts[2] = "gather"
+            elif any(split):
+                acts = ["gather" if x is not None else None for x in in_lay]
+        elif op.name == "Convolution" and len(ins) >= 2 and n_out == 1 \
+                and in_lay[1] is not None \
+                and in_lay[1] == -len(shapes[ins[1][0]][ins[1][1]]) \
+                and parsed["num_group"] == 1:
+            mode = "conv"
+            acts[0] = "gather" if in_lay[0] is not None else None
+            if len(ins) > 2:
+                bl = in_lay[2]
+                acts[2] = None if bl == -1 else (
+                    "slice" if bl is None else "gather")
+            out = [1 - len(out_shapes[0])]
+        elif any(split) and n_out == 1 and _tp_keeps(op, parsed):
+            dims = {x for x in in_lay if x is not None}
+            oshape = out_shapes[0]
+            k = dims.pop() if len(dims) == 1 else None
+            ok = k is not None and oshape is not None and -k <= len(oshape)
+            if ok:
+                for j, (q, i) in enumerate(ins):
+                    if in_lay[j] is not None:
+                        ok = ok and len(shapes[q][i]) == len(oshape)
+                        continue
+                    s_in = shapes[q][i]
+                    if s_in is None or len(s_in) < -k or s_in[k] == 1:
+                        continue                        # broadcast
+                    if s_in[k] == oshape[k]:
+                        acts[j] = "slice"
+                    else:
+                        ok = False
+            if ok:
+                mode, out = "keep", [k]
+            else:
+                acts = ["gather" if x is not None else None for x in in_lay]
+        elif any(split):
+            acts = ["gather" if x is not None else None for x in in_lay]
+        lay[p] = out
+        fw = bw = 0.0
+        for j, (q, i) in enumerate(ins):
+            if acts[j] in ("gather", "gather+feat"):
+                b = (t - 1) * nbytes(loc(q, i))
+                fw += b
+                if q in grad:
+                    bw += b
+        if mode == "row":
+            ob = ring * 2 * nbytes(_tp_local(out_shapes[0], p in carry,
+                                             None, d, t))
+            fw += ob
+            if g:
+                bw += ob
+        steps[p] = _TPStep(mode, acts, out, fw, bw)
+    out_wire = 0.0
+    for q, i in plan.outputs:
+        if lay[q][i] is not None:
+            b = (t - 1) * nbytes(loc(q, i))
+            out_wire += b + (b if q in grad else 0.0)
+    for p in lay:
+        for i in range(len(lay[p])):
+            loc(p, i)
+    return _TPLayout(lay, steps, local, carry, grad, out_wire)
+
+
+def _node_shapes(plan, arg_shapes):
+    """position -> the global output shapes of every value of ``plan``
+    (shape inference over the symbol's internals)."""
+    internals = plan.symbol.get_internals()
+    _, outs, _ = internals.infer_shape_partial(**arg_shapes)
+    shapes, k = {}, 0
+    for p, node in enumerate(plan.symbol._topo()):
+        n = node.num_outputs()
+        shapes[p] = [None if o is None else tuple(o)
+                     for o in outs[k:k + n]]
+        k += n
+    return shapes
+
+
+def _tp_axes(mesh):
+    from .parallel.mesh import axis_groups, axis_size, data_axis
+    if "model" not in mesh.axis_names:
+        raise MXNetError(f"param_specs need a 'model' axis on the mesh, "
+                         f"not {mesh.shape}")
+    return (axis_size(mesh, data_axis(mesh)), axis_size(mesh, "model"),
+            axis_groups(mesh, "model"), axis_groups(mesh, data_axis(mesh)))
+
+
+def _cut(x, dim, t, k):
+    return torch.chunk(x, t, dim=dim)[k]
+
+
+def _run_tp(plan, args, aux, mesh, sharded, specs, diff, rng=None):
+    """One walk of ``plan`` over a data x model mesh's replicas under the
+    param ``specs`` (name -> spec): the tensor-parallel plan
+    (``_tp_layout``, cached by the arguments' shapes) executed replica by
+    replica in lock step. ``args``: name -> the global tensor, or for a
+    split parameter its model shards (a list, shard k for model index k).
+    Returns (outputs, aux updates), the outputs those of the model index 0
+    replicas (concatenated over the data axis where they carry the
+    batch)."""
+    from .parallel import mesh as _mesh
+    d, t, mgroups, dgroups = _tp_axes(mesh)
+    devices = mesh.replicas
+    n = len(devices)
+    coords = _mesh.replica_coords(mesh)
+    didx = [c[_mesh.data_axis(mesh)] for c in coords]
+    midx = [c["model"] for c in coords]
+    arg_shapes = {}
+    for k, v in args.items():
+        if isinstance(v, (list, tuple)):
+            dim = _spec_dim(specs.get(k), v[0].ndim, k)
+            s = list(v[0].shape)
+            s[dim] *= len(v)
+            arg_shapes[k] = tuple(s)
+        else:
+            arg_shapes[k] = tuple(v.shape)
+    key = (tuple(sorted(arg_shapes.items())), d, t)
+    lay = plan._tp_cache.get(key)
+    if lay is None:
+        lay = _tp_layout(plan, _node_shapes(plan, arg_shapes), specs,
+                         sharded, diff, d, t)
+        plan._tp_cache[key] = lay
+    vals = [None] * plan.n
+    for p, kind, name in plan.variables:
+        src = aux if kind == "aux" else args
+        v = src[name]
+        dim = lay.lay[p][0]
+        if name in sharded and kind == "arg":
+            ch = torch.chunk(v, d, dim=0)
+            vals[p] = [(ch[didx[r]].to(devices[r]),) for r in range(n)]
+        elif dim is not None:
+            parts = v if isinstance(v, (list, tuple)) else \
+                torch.chunk(v, t, dim=dim)
+            vals[p] = [(parts[midx[r]].to(devices[r]),) for r in range(n)]
+        else:
+            vals[p] = [(v.to(devices[r]),) for r in range(n)]
+    octxs = [OpCtx(is_train=plan.is_train, rng=rng, device=dv)
+             for dv in devices]
+    cast = plan._caster()
+    grad_on = torch.is_grad_enabled()
+
+    def gather(xs, dim):
+        got = _mesh.all_gather(xs, dim=dim, groups=mgroups)
+        if grad_on and xs[0].requires_grad:      # its reduce-scatter
+            _mesh.add_wire(_mesh._ring("all_gather", t,
+                                       t * _mesh._nbytes(xs[0])))
+        return got
+
+    updates = []
+    for p, op, parsed, ins, n_out, aux_writes, name in plan.steps:
+        xs = [[vals[q][r][i] for (q, i) in ins] for r in range(n)]
+        if op is None:
+            vals[p] = [(x[0],) for x in xs]
+            continue
+        st = lay.steps[p]
+        for j, (q, i) in enumerate(ins):
+            a = st.acts[j]
+            if a is None:
+                continue
+            if a.startswith("gather"):
+                col = gather([x[j] for x in xs], lay.lay[q][i])
+                for r in range(n):
+                    xs[r][j] = col[r]
+            if a == "slice":
+                dim = -1 if st.mode in ("col", "conv") else st.out[0]
+                for r in range(n):
+                    xs[r][j] = _cut(xs[r][j], dim, t, midx[r])
+            elif a.endswith("feat"):
+                for r in range(n):
+                    x = xs[r][j]
+                    if parsed["flatten"]:
+                        x = x.reshape(x.shape[0], -1)
+                    xs[r][j] = _cut(x, -1, t, midx[r])
+        if cast is not None:
+            xs = [cast(op.name, x) for x in xs]
+        if st.mode == "row":
+            part = dict(parsed)
+            part["no_bias"] = True
+            part["flatten"] = False
+            local = [op.fcompute(part, octxs[r], *xs[r][:2])[0]
+                     for r in range(n)]
+            total = _mesh.psum(local, groups=mgroups)
+            if grad_on and local[0].requires_grad:   # the cotangents' sum
+                _mesh.add_wire(_mesh._ring("all_reduce", t,
+                                           _mesh._nbytes(local[0])))
+            if len(ins) > 2:
+                total = [o + xs[r][2].to(o.dtype) for r, o in
+                         enumerate(total)]
+            res = [(o,) for o in total]
+        elif st.mode != "plain" or d == 1:
+            res = [op.fcompute(parsed, octxs[r], *xs[r]) for r in range(n)]
+        else:
+            carried = {j for j, (q, _) in enumerate(ins) if q in lay.carry}
+            if op.fmesh is not None:
+                res = [None] * n
+                for grp in dgroups:
+                    got = op.fmesh(parsed, octxs[grp[0]],
+                                   [xs[r] for r in grp])
+                    for r, v in zip(grp, got):
+                        res[r] = v
+            elif carried:
+                _check_per_sample(op, parsed, name, carried, xs[0])
+                res = [op.fcompute(parsed, octxs[r], *xs[r])
+                       for r in range(n)]
+                _check_per_sample(op, parsed, name, carried, xs[0],
+                                  res[0][:n_out])
+            else:
+                res = [op.fcompute(parsed, octxs[r], *xs[r])
+                       for r in range(n)]
+        vals[p] = [r_[:n_out] for r_ in res]
+        for j, aux_name in aux_writes:
+            updates.append((aux_name, res[0][j]))
+    outs = []
+    first = [r for r in range(n) if midx[r] == 0]
+    dev0 = devices[0]
+    for q, i in plan.outputs:
+        per = [vals[q][r][i] for r in range(n)]
+        if lay.lay[q][i] is not None:
+            per = gather(per, lay.lay[q][i])
+        if q in lay.carry and d > 1:
+            outs.append(torch.cat([per[r].to(dev0) for r in first], 0))
+        else:
+            outs.append(per[0])
+    return outs, updates
+
+
+# -- model parallelism: group2ctx -----------------------------------------------
+
+class _Placement:
+    """group2ctx placement of one ``_Plan``: each op position's device
+    (its node's ``ctx_group``'s, else the executor's), the maximal
+    same-device runs of the topological order, and a count of the
+    cross-device copies the walks made."""
+
+    def __init__(self, symbol, group2ctx, default_ctx):
+        self.default = default_ctx
+        self.ctx_of = {}                 # position -> Context
+        self.segments = []               # [(Context, [node names])]
+        self.copies = 0
+        for p, node in enumerate(symbol._topo()):
+            if node.op is None:
+                continue
+            grp = node.user_attrs.get("ctx_group")
+            ctx = group2ctx.get(grp, default_ctx) if grp is not None \
+                else default_ctx
+            self.ctx_of[p] = ctx
+            if self.segments and self.segments[-1][0] == ctx:
+                self.segments[-1][1].append(node.name)
+            else:
+                self.segments.append((ctx, [node.name]))
+        self.dev_of = {p: resolve_device(c) for p, c in self.ctx_of.items()}
+        self._rngs = {}
+
+    def place(self, p, xs, is_train, rng):
+        """The inputs of op ``p`` on its device (counted copies) and the
+        op context there."""
+        dev = self.dev_of[p]
+        moved = []
+        for x in xs:
+            if x.device != dev:
+                self.copies += 1
+                x = x.to(dev)
+            moved.append(x)
+        if rng is not None:
+            g = self._rngs.get(dev)
+            if g is None:
+                from . import random as _random
+                g = rng if rng.device == dev else _random.generator(dev)
+                self._rngs[dev] = g
+            rng = g
+        return moved, OpCtx(is_train=is_train, rng=rng, device=dev)
 
 
 class Executor:
     def __init__(self, symbol, ctx, arg_dict, grad_dict, grad_req_dict,
                  aux_dict, mesh=None, sharded_args=(), group2ctx=None):
         from . import config
-        if group2ctx:
-            raise _unsupported("group2ctx model parallelism", 8)
+        if group2ctx and mesh is not None:
+            raise MXNetError("group2ctx model parallelism cannot be combined "
+                             "with a data-parallel mesh executor")
         if config.get("MXNET_BACKWARD_DO_MIRROR"):
             raise MXNetError("MXNET_BACKWARD_DO_MIRROR (activation "
                              "mirroring) is not ported; unset it")
@@ -466,6 +900,9 @@ class Executor:
         self.aux_arrays = [aux_dict[n] for n in self._aux_names]
         self.outputs = []
         self._plans = {}
+        self._group2ctx = dict(group2ctx) if group2ctx else None
+        self._placement = _Placement(symbol, self._group2ctx, self._ctx) \
+            if self._group2ctx else None
         self._monitor_callback = None
         self._monitor_all = False
         self._pending = None          # (graph outputs, leaves) of a train fwd
@@ -477,8 +914,6 @@ class Executor:
     def _simple_bind(symbol, ctx, grad_req, type_dict, shape_kwargs,
                      mesh=None, sharded_args=(), group2ctx=None):
         from .ndarray import ndarray as ndmod
-        if group2ctx:
-            raise _unsupported("group2ctx model parallelism", 8)
         ctx = ctx or current_context()
         resolve_device(ctx)             # no card: raise before allocating
         arg_shapes, _, aux_shapes = symbol.infer_shape(**shape_kwargs)
@@ -500,14 +935,13 @@ class Executor:
         aux_dict = {n: ndmod.zeros(s, ctx=ctx)
                     for n, s in zip(aux_names, aux_shapes)}
         return Executor(symbol, ctx, arg_dict, grad_dict, reqs, aux_dict,
-                        mesh=mesh, sharded_args=sharded_args)
+                        mesh=mesh, sharded_args=sharded_args,
+                        group2ctx=group2ctx)
 
     @staticmethod
     def _bind(symbol, ctx, args, args_grad, grad_req, aux_states,
               group2ctx=None):
         from .ndarray import ndarray as ndmod
-        if group2ctx:
-            raise _unsupported("group2ctx model parallelism", 8)
         ctx = ctx or current_context()
         arg_names = symbol.list_arguments()
         aux_names = symbol.list_auxiliary_states()
@@ -542,7 +976,32 @@ class Executor:
             aux_dict = dict(zip(aux_names, aux_states))
         else:
             aux_dict = dict(aux_states)
-        return Executor(symbol, ctx, arg_dict, grad_dict, req, aux_dict)
+        return Executor(symbol, ctx, arg_dict, grad_dict, req, aux_dict,
+                        group2ctx=group2ctx)
+
+    # -- group2ctx -------------------------------------------------------------
+    @property
+    def segments(self):
+        """group2ctx: the maximal same-device runs of the topological
+        order, [(Context, [node names])] (one run without group2ctx)."""
+        if self._placement is None:
+            return [(self._ctx, [s[-1] for s in
+                                 self._plan(True).steps])]
+        return [(c, list(ns)) for c, ns in self._placement.segments]
+
+    @property
+    def placement(self):
+        """group2ctx: op node name -> the Context it runs on."""
+        if self._placement is None:
+            return {}
+        topo = self._symbol._topo()
+        return {topo[p].name: c for p, c in self._placement.ctx_of.items()}
+
+    @property
+    def copies(self):
+        """Cross-device copies the group2ctx walks have made (stage
+        boundaries, and bound arrays read by another device's node)."""
+        return 0 if self._placement is None else self._placement.copies
 
     # -- execution -------------------------------------------------------------
     def _plan(self, is_train):
@@ -602,9 +1061,9 @@ class Executor:
                              "executor is not ported")
 
         def run(args):
-            if monitor is not None:
+            if monitor is not None or self._placement is not None:
                 return plan.run(args, aux, self._device, rng, monitor,
-                                self._monitor_all)
+                                self._monitor_all, self._placement)
             return _run_mesh(plan, args, aux, self._replicas,
                              self._sharded_args, rng)
         if is_train and self._diff_names:
@@ -736,7 +1195,8 @@ class Executor:
                     for n, s in zip(self._aux_names, aux_shapes)}
         return Executor(self._symbol, self._ctx, arg_dict, grad_dict,
                         dict(self._grad_req), aux_dict, mesh=self._mesh,
-                        sharded_args=self._sharded_args)
+                        sharded_args=self._sharded_args,
+                        group2ctx=self._group2ctx)
 
 
 def _copy_value(src, dst):

@@ -293,7 +293,10 @@ def fused_fit(net, loss, train_data, num_epoch, optimizer="sgd",
                     ckpt_mgr.wait()
                     raise SystemExit(143)
     finally:
-        slog.close()
+        # run_end carries the step program's counted costs (which program
+        # the per-step MFU was measured against, the peaks in force)
+        from ..telemetry import devstats as _devstats
+        slog.close(**_devstats.fit_summary())
         _close_checkpoints(ckpt_mgr)
     return epoch_losses
 

@@ -14,8 +14,10 @@ that runs the updater by default. ``fit(steps_per_dispatch=K)`` trains
 through a ``parallel.DataParallelTrainer`` (``_fit_fused``).
 ``bind(shared_module=)`` takes the parameters', gradients' and aux
 states' NDArrays of another module and ``borrow_optimizer`` its updater
-(``BucketingModule``'s buckets). ``group2ctxs`` (ROADMAP queue 1 item 8)
-raises.
+(``BucketingModule``'s buckets). ``group2ctxs`` (a ctx_group -> Context
+mapping, or a list of them of which the first is used, as in the JAX
+package) binds a group2ctx executor (``executor._Placement``); the fused
+fit falls back to per-batch dispatch for it.
 """
 from __future__ import annotations
 
@@ -50,9 +52,11 @@ class Module(BaseModule):
         if isinstance(context, Context):
             context = [context]
         context = list(context)
-        if group2ctxs:
-            raise MXNetError("Module(group2ctxs=) model parallelism is not "
-                             "ported yet (ROADMAP queue 1 item 8)")
+        # group2ctxs: ctx_group -> Context (or a list a replica; the one
+        # executor takes one mapping), as the JAX package's Module
+        if isinstance(group2ctxs, (list, tuple)):
+            group2ctxs = group2ctxs[0] if group2ctxs else None
+        self._group2ctxs = group2ctxs
         for c in context:
             c.torch_device()            # no card: raise before binding
         self._context = context
@@ -302,7 +306,8 @@ class Module(BaseModule):
                         f"be divisible by the number of contexts ({n})")
         self._exec = self._symbol.simple_bind(
             ctx=self._context[0], grad_req=reqs, type_dict=type_kwargs,
-            mesh=mesh, sharded_args=sharded, **shape_kwargs)
+            mesh=mesh, sharded_args=sharded, group2ctx=self._group2ctxs,
+            **shape_kwargs)
         self.binded = True
 
         # already-initialized params (Module.load / rebind) must reach the
@@ -390,6 +395,8 @@ class Module(BaseModule):
             blockers.append("state_names")
         if self._fixed_param_names:
             blockers.append("fixed_param_names")
+        if self._group2ctxs:
+            blockers.append("group2ctxs")
         if not blockers:
             from ..ops.registry import get_op
             op_entry = _OPT_OPS[optimizer]
@@ -592,7 +599,10 @@ class Module(BaseModule):
                                          name, val)
                 train_data.reset()
         finally:
-            slog.close()
+            # run_end carries the step program's counted costs (which
+            # program the per-step MFU was measured against, the peaks)
+            from ..telemetry import devstats as _devstats
+            slog.close(**_devstats.fit_summary())
             _close_checkpoints(ckpt_mgr)
         return True
 

@@ -12,9 +12,11 @@ gradient exchange. ``sp`` (ring and Ulysses attention), ``tp``
 (Megatron MLP, expert-parallel MoE) and ``pp`` (GPipe pipelining) run the
 JAX package's shard_map bodies once a replica, with the mesh's
 collectives (``mesh.psum``, ``all_gather``, ``ppermute``, ...). A mesh may
-list one card several times. The planner (``planner``, ``Plan``,
-``make_trainer``) and ``param_specs`` are not ported yet: they come with
-ROADMAP queue 1 item 15's planner slice, so their names are absent here.
+list one card several times. ``DataParallelTrainer(param_specs=)`` is
+tensor parallelism on a data x model mesh, and ``ZeroTrainer`` splits its
+state over an N-D mesh's joint axes; ``planner`` (MXNET_PLAN: ``Plan``,
+``make_trainer``, ``PlanReport``, ``ModelSpec``) prices the compositions
+and builds the one it picks.
 """
 from .mesh import (Mesh, build_mesh, data_parallel_mesh, single_axis_mesh,
                    mesh_for_contexts, mesh_for_devices, axis_size,
@@ -26,6 +28,8 @@ from . import zero
 from .zero import ZeroTrainer
 from . import embedding
 from .embedding import EmbeddingTrainer
+from . import planner
+from .planner import Plan, PlanReport, ModelSpec, make_trainer
 from . import sp
 from . import tp
 from . import pp
@@ -35,7 +39,8 @@ from .pp import pipeline_mlp
 
 __all__ = ["Mesh", "build_mesh", "data_parallel_mesh", "single_axis_mesh",
            "DataParallelTrainer", "ZeroTrainer", "zero",
-           "EmbeddingTrainer", "embedding", "mesh_for_contexts",
+           "EmbeddingTrainer", "embedding", "planner", "Plan",
+           "PlanReport", "ModelSpec", "make_trainer", "mesh_for_contexts",
            "mesh_for_devices", "axis_size", "data_axis", "mesh_descriptor",
            "mesh_from_descriptor", "current_topology",
            "replicated_sharding", "batch_sharding", "put_replicated",

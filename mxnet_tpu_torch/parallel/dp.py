@@ -51,8 +51,26 @@ correction is. ``zero_stage > 0`` (or ``MXNET_ZERO_STAGE``, or
 ``MXNET_PLAN=zero1|zero2``) makes a direct construction a
 ``parallel.zero.ZeroTrainer``, as in the JAX package: the same
 constructor and step contract over sharded masters and optimizer
-states. ``param_specs`` (tensor-parallel layouts over a model axis)
-raises: it comes with the planner (ROADMAP queue 1 item 15).
+states.
+
+``param_specs`` (name -> a spec: a tuple of axis names or None, the
+port's spelling of a ``PartitionSpec``, e.g. ``("model", None)``) is
+tensor parallelism on a data x model mesh: the listed parameters and
+their optimizer states live split over the model axis (a parameter is a
+tuple of its model shards, shard k held by the replicas of model index
+k), the batch is split over the data axis, and the step walks the graph
+through ``executor._run_tp`` (Megatron column- and row-parallel layers,
+the collectives over each replica's model group). The replicas'
+gradients meet in the shards (split parameters: over their data group)
+and in the replicated tensors (over the whole mesh). ``param_specs=None``
+is the data-parallel program, unchanged. When every replica of the mesh
+is the one card (a mesh may list a card several times), the step is
+still a CUDA graph.
+
+Each dispatch hands ``telemetry.devstats.on_dispatch`` its step's costs
+(``telemetry.costs``, per replica), which the step log turns into MFU,
+and the step adds its gradients' all-reduce to the mesh's wire counter
+(``mesh.add_wire``; a replay adds what its capture counted).
 """
 from __future__ import annotations
 
@@ -63,9 +81,10 @@ import torch
 
 from .. import amp as _amp
 from ..base import MXNetError
-from ..executor import _Plan, _from_numpy, _run_mesh
+from ..executor import _Plan, _from_numpy, _run_mesh, _run_tp, _spec_dim
 from ..ops.launches import add as _add_launches, counts as _launch_counts
 from ..ops.registry import AttrDict, OpCtx, get_op
+from . import mesh as _mesh
 from .mesh import axis_size, data_axis, mesh_descriptor
 
 __all__ = ["DataParallelTrainer"]
@@ -93,7 +112,7 @@ class _Graph:
     decode plans count them)."""
 
     def __init__(self, static_in, graph, loss, outputs, capture_s,
-                 peak_bytes, launches):
+                 peak_bytes, launches, wire=0.0):
         self.static_in = static_in
         self.graph = graph
         self.loss = loss
@@ -101,6 +120,7 @@ class _Graph:
         self.capture_s = capture_s
         self.peak_bytes = peak_bytes
         self.launches = launches
+        self.wire = wire
         self.replays = 0
 
 
@@ -132,11 +152,6 @@ class DataParallelTrainer:
         # zero_stage / zero_bucket_mb / grad_compress belong to the ZeRO
         # trainer (``__new__``); as in the JAX package a stage-0 run may
         # keep them in its kwargs
-        if param_specs:
-            raise MXNetError("DataParallelTrainer: param_specs (tensor "
-                             "parallelism over a model axis) is not ported "
-                             "yet: it comes with the planner (ROADMAP "
-                             "queue 1 item 15)")
         if dtype not in _DTYPES:
             raise MXNetError("DataParallelTrainer dtype must be float32, "
                              "bfloat16 or float16")
@@ -163,6 +178,8 @@ class DataParallelTrainer:
         self._loss_index = loss_index
         self._dtype = dtype
         self._compute_dtype = _DTYPES[dtype]
+        self._compute_itemsize = 4 if self._compute_dtype is None else \
+            torch.empty((), dtype=self._compute_dtype).element_size()
         self._input_preproc = input_preproc
         # fp16's 5-bit exponent: dynamic loss scaling with the skipped
         # step; bf16 keeps fp32's exponent and needs none
@@ -195,6 +212,27 @@ class DataParallelTrainer:
         self._is_adam = optimizer == "adam"
         self._has_t = "t" in schema.params
         self._plan = _Plan(symbol, is_train=True)
+        self._opname = schema.name
+        self._specs = None
+        self._split = {}           # param index -> its split dimension
+        if param_specs:
+            if "model" not in mesh.axis_names:
+                raise MXNetError(f"param_specs need a mesh with a 'model' "
+                                 f"axis, not {mesh.shape}")
+            unknown = sorted(set(param_specs) - set(self._param_names))
+            if unknown:
+                raise MXNetError(f"param_specs name no parameter: "
+                                 f"{unknown}")
+            self._specs = {str(k): None if v is None else tuple(v)
+                           for k, v in dict(param_specs).items()}
+            self._model_size = axis_size(mesh, "model")
+            coords = _mesh.replica_coords(mesh)
+            # shard k lives on the first replica of model index k
+            self._shard_dev = [next(self._devices[r]
+                                    for r, c in enumerate(coords)
+                                    if c["model"] == k)
+                               for k in range(self._model_size)]
+        self._costs = {}
 
         # the trainer's own state (see the module docstring) and the
         # device-carried scalars
@@ -220,7 +258,40 @@ class DataParallelTrainer:
         return list(self._aux_names)
 
     def _graphed(self):
-        return len(self._devices) == 1 and self._device.type == "cuda"
+        return self._device.type == "cuda" and all(
+            d == self._device for d in self._devices)
+
+    # -- tensor-parallel shards ---------------------------------------------
+    def _shard_dims(self, shapes):
+        """param index -> the dimension its spec splits (from the full
+        shapes); checked to divide over the model axis."""
+        out = {}
+        for i, (n, s) in enumerate(zip(self._param_names, shapes)):
+            dim = _spec_dim(self._specs.get(n), len(s), n)
+            if dim is None:
+                continue
+            if s[dim] % self._model_size:
+                raise MXNetError(f"param_specs[{n!r}]: dimension "
+                                 f"{len(s) + dim} of {tuple(s)} does not "
+                                 f"split {self._model_size} ways")
+            out[i] = dim
+        return out
+
+    def _to_shards(self, i, t):
+        """Parameter i's full tensor as its model shards (own copies)."""
+        if i not in self._split:
+            return t
+        return tuple(c.to(d).contiguous().clone() for c, d in
+                     zip(torch.chunk(t, self._model_size,
+                                     dim=self._split[i]),
+                         self._shard_dev))
+
+    def _full(self, i, p):
+        """Parameter i (or its state) as one tensor on the first device."""
+        if isinstance(p, (tuple, list)):
+            return torch.cat([c.detach().to(self._device) for c in p],
+                             dim=self._split[i])
+        return p
 
     # -- state --------------------------------------------------------------
     def init_state(self, shape_kwargs, initializer=None, seed=0,
@@ -249,7 +320,11 @@ class DataParallelTrainer:
             else:
                 v = rng.normal(0, 0.01, size=s).astype(_np.float32)
             params.append(self._put(_np.asarray(v, _np.float32)))
-        states = tuple(tuple(torch.zeros_like(p)
+        if self._specs:
+            self._split = self._shard_dims([shapes[n]
+                                            for n in self._param_names])
+            params = [self._to_shards(i, p) for i, p in enumerate(params)]
+        states = tuple(tuple(_zeros_like(p)
                              for _ in range(self._n_states))
                        for p in params)
         aux = tuple(self._put(
@@ -268,10 +343,10 @@ class DataParallelTrainer:
         """Make (params, states, aux) the trainer's state: nothing when
         they are its own tensors, else a copy into them (allocated the
         first time)."""
-        flat = list(params) + [s for st in states for s in st] + list(aux)
+        flat = _flat(params) + _flat(states) + list(aux)
         if self._params is not None:
-            own = list(self._params) + [s for st in self._states
-                                        for s in st] + list(self._aux)
+            own = _flat(self._params) + _flat(self._states) \
+                + list(self._aux)
             if len(own) == len(flat) and all(a is b
                                               for a, b in zip(own, flat)):
                 return
@@ -281,8 +356,11 @@ class DataParallelTrainer:
             return
         conv = lambda t: _tensor(t).to(self._device, torch.float32) \
             .detach().clone()
-        self._params = tuple(conv(p) for p in params)
-        self._states = tuple(tuple(conv(s) for s in st) for st in states)
+        conv_p = lambda p: tuple(c.detach().to(torch.float32).clone()
+                                 for c in p) \
+            if isinstance(p, (tuple, list)) else conv(p)
+        self._params = tuple(conv_p(p) for p in params)
+        self._states = tuple(tuple(conv_p(s) for s in st) for st in states)
         self._aux = tuple(conv(a) for a in aux)
         self._lr_dev = torch.tensor(self._lr, dtype=torch.float32,
                                     device=self._device)
@@ -329,8 +407,10 @@ class DataParallelTrainer:
         over the mesh, the gradient of the summed loss head, the update.
         Returns (loss, outputs)."""
         cdt = self._compute_dtype
-        leaves = [(p.detach() if cdt is None else p.detach().to(cdt))
-                  .requires_grad_(True) for p in self._params]
+        leaf = lambda p: (p.detach() if cdt is None else
+                          p.detach().to(cdt)).requires_grad_(True)
+        leaves = [tuple(leaf(c) for c in p) if isinstance(p, tuple)
+                  else leaf(p) for p in self._params]
         args = dict(zip(self._param_names, leaves))
         for name, v in zip(self._input_names, inputs):
             if self._input_preproc is not None:
@@ -346,24 +426,41 @@ class DataParallelTrainer:
         _amp._set_trace_loss_scale(scale)
         try:
             with torch.enable_grad():
-                outs, updates = _run_mesh(self._plan, args, aux,
-                                          self._devices, self._sharded,
-                                          self._rng())
+                if self._specs:
+                    outs, updates = _run_tp(
+                        self._plan, args, aux, self._mesh, self._sharded,
+                        self._specs, frozenset(self._param_names),
+                        self._rng())
+                else:
+                    outs, updates = _run_mesh(self._plan, args, aux,
+                                              self._devices, self._sharded,
+                                              self._rng())
                 # the loss head's sum, as the JAX package's value_and_grad
                 # takes it (a SoftmaxOutput head drops the cotangent: its
                 # "loss" is the sum of its probabilities)
                 loss = outs[self._loss_index].sum().to(torch.float32)
                 obj = loss * scale if self._has_ls else loss
-                grads = torch.autograd.grad(obj, leaves, allow_unused=True)
+                flat = _flat(leaves)
+                got = torch.autograd.grad(obj, flat, allow_unused=True)
         finally:
             _amp._set_trace_loss_scale(None)
+        grads, k = [], 0
+        for lf in leaves:
+            if isinstance(lf, tuple):
+                grads.append(tuple(got[k:k + len(lf)]))
+                k += len(lf)
+            else:
+                grads.append(got[k])
+                k += 1
+        _mesh.add_wire(self._reduce_wire())
         with torch.no_grad():
             finite = None
             if self._has_ls:
                 # one device boolean over the scaled gradients: a skipped
                 # step is no update, so t advances only on applied ones
                 finite = torch.stack([torch.isfinite(g).all()
-                                      for g in grads if g is not None]).all()
+                                      for g in _flat(grads)
+                                      if g is not None]).all()
                 self._t_dev.add_(finite.to(torch.float32))
                 inv_scale = 1.0 / scale
             else:
@@ -381,12 +478,19 @@ class DataParallelTrainer:
             fcompute = self._opt_schema.fcompute
             keep = (lambda new, old: new) if finite is None else \
                 (lambda new, old: torch.where(finite, new, old))
-            for w, g, st in zip(self._params, grads, self._states):
+            on = {self._device: (attrs, octx)}
+            for w, g, st in _pieces(self._params, grads, self._states):
                 g = torch.zeros_like(w) if g is None else g.to(torch.float32)
                 if finite is not None:
                     # unscaled in fp32, so an overflow stays inf
                     g = g * inv_scale
-                res = fcompute(attrs, octx, w, g, *st)
+                if w.device not in on:       # a shard on another card
+                    a = AttrDict(attrs)
+                    a["lr"] = lr.to(w.device)
+                    if self._has_t:
+                        a["t"] = self._t_dev.to(w.device)
+                    on[w.device] = (a, OpCtx(is_train=True, device=w.device))
+                res = fcompute(*on[w.device], w, g, *st)
                 w.copy_(keep(res[0], w))
                 for s, v in zip(st, res[1:]):
                     s.copy_(keep(v, s))
@@ -397,6 +501,65 @@ class DataParallelTrainer:
                 self._ls_dev.copy_(self._scaler.update_state(self._ls_dev,
                                                              finite))
         return loss.detach(), [o.detach() for o in outs]
+
+    def _reduce_wire(self):
+        """Bytes a device of the gradients' all-reduce moves a step:
+        replicated parameters over the whole mesh, split ones over their
+        data group (ring accounting, in the gradients' type)."""
+        n = len(self._devices)
+        d = axis_size(self._mesh, self._data_axis)
+        rep = split = 0
+        for p in self._params:
+            if isinstance(p, tuple):
+                split += p[0].numel()
+            else:
+                rep += p.numel()
+        return self._compute_itemsize * (
+            2 * (n - 1) / n * rep
+            + (2 * (d - 1) / d * split if d > 1 else 0.0))
+
+    def _dispatch_name(self, k=None):
+        return "dp.step" if k is None else "dp.step_k%d" % k
+
+    def _step_costs(self, shapes):
+        """A replica's costs of one step at these input shapes
+        (``telemetry.costs.step_costs``, memoized)."""
+        key = tuple(sorted(shapes.items()))
+        got = self._costs.get(key)
+        if got is None:
+            from ..telemetry.costs import step_costs
+            d = axis_size(self._mesh, self._data_axis)
+            axes = {"data": d, "model": len(self._devices) // d}
+            got = step_costs(
+                self._symbol, dict(shapes), self._data_names,
+                [n for n in self._input_names if n not in self._data_names],
+                self._opname, axes=axes,
+                zero_stage=getattr(self, "_zero_stage", 0),
+                specs=self._specs, itemsize=self._compute_itemsize,
+                bucket_bytes=getattr(self, "_bucket_bytes", None),
+                wire_itemsize=getattr(self, "_wire_itemsize", None))
+            self._costs[key] = got
+        return got
+
+    def _publish(self, inputs, k=None):
+        """devstats: the dispatch's costs (memoized per input shapes)."""
+        from ..telemetry import devstats
+        if not devstats.enabled():
+            return
+        off = 0 if k is None else 1
+        shapes = {n: tuple(x.shape[off:])
+                  for n, x in zip(self._input_names, inputs)}
+        steps = 1 if k is None else k
+
+        def program():
+            c = self._step_costs(shapes)
+            return dict(c, flops=c["flops"] * steps,
+                        bytes=c["bytes"] * steps,
+                        input_bytes=sum(x.numel() * x.element_size()
+                                        for x in inputs))
+        devstats.on_dispatch(self._dispatch_name(k), program,
+                             (tuple(sorted(shapes.items())), steps),
+                             steps=steps, dtype=self._dtype)
 
     def _rng(self):
         if not self._plan.needs_rng:
@@ -423,7 +586,7 @@ class DataParallelTrainer:
         static_in = [torch.empty_like(x) for x in inputs]
         for s, x in zip(static_in, inputs):
             s.copy_(x)
-        state = list(self._params) + [s for st in self._states for s in st] \
+        state = _flat(self._params) + _flat(self._states) \
             + list(self._aux) + [self._t_dev] \
             + ([self._ls_dev] if self._has_ls else [])
         saved = [s.clone() for s in state]
@@ -444,15 +607,17 @@ class DataParallelTrainer:
         if self._plan.needs_rng:
             graph.register_generator_state(self._rng())
         before = _launch_counts()
+        wire0 = _mesh.wire_bytes()
         with torch.cuda.graph(graph, pool=self._pool,
                               capture_error_mode="thread_local"):
             loss, outs = self._body(static_in)
         after = _launch_counts()
+        wire = _mesh.wire_bytes() - wire0
         torch.cuda.synchronize(dev)
         g = _Graph(static_in, graph, loss, outs, time.perf_counter() - t0,
                    devstats.capture_peak(self._pool, dev, mark),
                    {k: after[k] - before.get(k, 0) for k in after
-                    if after[k] != before.get(k, 0)})
+                    if after[k] != before.get(k, 0)}, wire)
         self._graphs[key] = g
         self.captures += 1
         if devstats.enabled():
@@ -479,6 +644,7 @@ class DataParallelTrainer:
         g.replays += 1
         if g.launches:
             _add_launches(g.launches)
+        _mesh.add_wire(g.wire)
         return g.loss, g.outputs
 
     def _prepare(self, params, states, aux, inputs, rng):
@@ -496,6 +662,7 @@ class DataParallelTrainer:
         outputs): the trainer's own state tensors, updated in place, and
         the step's loss and outputs (copies)."""
         inputs = self._prepare(params, states, aux, inputs, rng)
+        self._publish(inputs)
         loss, outs = self._one(inputs)
         if self._graphed():
             loss, outs = loss.clone(), [o.clone() for o in outs]
@@ -522,6 +689,7 @@ class DataParallelTrainer:
         unroll = "full" if unroll is True else max(1, int(unroll))
         inputs = self._prepare(params, states, aux, inputs, rng)
         k = int(inputs[0].shape[0])
+        self._publish(inputs, k)
         losses = torch.empty(k, dtype=torch.float32, device=self._device)
         stacked = None
         for i in range(k):
@@ -556,12 +724,15 @@ class DataParallelTrainer:
         """name -> the per-parameter tensors of a params tuple, on the
         device (the tuple's own tensors: no copy). The spelling a fused
         fit writes back through: a ZeRO trainer's params are flat bucket
-        shards, and its override unflattens them."""
-        return dict(zip(self._param_names, params))
+        shards, and its override unflattens them; a tensor-parallel
+        parameter's shards are concatenated (a new tensor)."""
+        return {n: self._full(i, p)
+                for i, (n, p) in enumerate(zip(self._param_names, params))}
 
     def host_params(self, params):
         """name -> host numpy array of a params tuple."""
-        return {n: _host(p) for n, p in zip(self._param_names, params)}
+        return {n: _host(self._full(i, p))
+                for i, (n, p) in enumerate(zip(self._param_names, params))}
 
     def host_aux(self, aux):
         """name -> host numpy array of an aux tuple."""
@@ -599,11 +770,11 @@ class DataParallelTrainer:
         checkpoint keeps them under a key of its own)."""
         copy = lambda t: _tensor(t).detach().clone()
         arrays = {}
-        for n, p in zip(self._param_names, params):
-            arrays[f"param:{n}"] = copy(p)
-        for n, st in zip(self._param_names, states):
-            for i, s in enumerate(st):
-                arrays[f"opt:{n}:{i}"] = copy(s)
+        for i, (n, p) in enumerate(zip(self._param_names, params)):
+            arrays[f"param:{n}"] = copy(self._full(i, p))
+        for i, (n, st) in enumerate(zip(self._param_names, states)):
+            for j, s in enumerate(st):
+                arrays[f"opt:{n}:{j}"] = copy(self._full(i, s))
         for n, a in zip(self._aux_names, aux):
             arrays[f"aux:{n}"] = copy(a)
         return arrays, self._export_meta()
@@ -634,13 +805,46 @@ class DataParallelTrainer:
         reading them). A ``rng`` entry (a JAX key) is not read."""
         put = lambda a: _tensor(a).detach().to(self._device, torch.float32) \
             .clone()
-        params = tuple(put(arrays[f"param:{n}"]) for n in self._param_names)
-        states = tuple(tuple(put(arrays[f"opt:{n}:{j}"])
+        full = [put(arrays[f"param:{n}"]) for n in self._param_names]
+        if self._specs:
+            # the full parameters in; each model rank takes its shard
+            self._split = self._shard_dims([tuple(p.shape) for p in full])
+        params = tuple(self._to_shards(i, p) for i, p in enumerate(full))
+        states = tuple(tuple(self._to_shards(i, put(arrays[f"opt:{n}:{j}"]))
                              for j in range(self._n_states))
-                       for n in self._param_names)
+                       for i, n in enumerate(self._param_names))
         aux = tuple(put(arrays[f"aux:{n}"]) for n in self._aux_names)
         self._import_scalar_state(meta)
         return params, states, aux
+
+
+def _flat(xs):
+    """The tensors of a params / states structure (a tensor-parallel
+    parameter's shards in model order)."""
+    out = []
+    for x in xs:
+        if isinstance(x, (tuple, list)):
+            out.extend(_flat(x))
+        else:
+            out.append(x)
+    return out
+
+
+def _zeros_like(p):
+    if isinstance(p, tuple):
+        return tuple(torch.zeros_like(c) for c in p)
+    return torch.zeros_like(p)
+
+
+def _pieces(params, grads, states):
+    """(parameter, gradient, [states]) per tensor: a split parameter's
+    shards one by one."""
+    for w, g, st in zip(params, grads, states):
+        if isinstance(w, tuple):
+            for k, c in enumerate(w):
+                yield c, g[k], [s[k] for s in st]
+        else:
+            yield w, g, list(st)
 
 
 def _tensor(a):

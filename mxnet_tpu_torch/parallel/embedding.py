@@ -596,12 +596,36 @@ class EmbeddingTrainer:
         touched rows) device scalars. Reads nothing back to the host."""
         ids, dense, labels = inputs
         self._ensure_layout(ids[0].shape[0] * self.n_slots)
+        from ..telemetry import devstats
+        b = int(ids[0].shape[0])
+        devstats.on_dispatch(f"embed_{self.exchange}.step",
+                             lambda: self._program(b), (b,), steps=1)
         step = self._step_sparse if self.exchange == "sparse" \
             else self._step_dense
         with torch.profiler.record_function(self.program_tag):
             loss, nnz = step(state, ids, dense, labels)
         self._tick_counters(nnz)
         return state, loss, nnz
+
+    def _program(self, b):
+        """A replica's costs of one step at local batch ``b`` (what
+        ``devstats.on_dispatch`` records): the MLP's products forward and
+        backward (2·b·in·out, twice that back) and the updates of its
+        parameters and of the batch's table rows (every id of the batch
+        counted: the unique rows are known only on the device)."""
+        from ..telemetry.costs import update_costs
+        opname = "adam_update" if self.optimizer == "adam" \
+            else "sgd_update"
+        shapes = self._mlp_shapes()
+        prods = sum(2.0 * b * s[0] * s[1] for s in shapes if len(s) == 2)
+        elems = sum(int(_np.prod(s)) for s in shapes) \
+            + b * self.n_slots * self.dim
+        uf, ub = update_costs(opname, elems)
+        act = 4.0 * b * sum(s[-1] for s in shapes if len(s) == 2)
+        return {"flops": 3 * prods + uf, "bytes": ub + 3 * act,
+                "param_bytes": 4.0 * elems, "act_bytes": act,
+                "input_bytes": 4.0 * b * (self.n_slots + self.dense_dim
+                                          + 1)}
 
     def _tick_counters(self, nnz_dev):
         L = self._layout

@@ -45,7 +45,8 @@ __all__ = ["Mesh", "AXIS_NAMES", "AXIS_ALIASES", "build_mesh",
            "Sharding", "replicated_sharding", "batch_sharding", "put",
            "put_replicated", "put_batch_sharded", "psum",
            "sum_to", "pmean", "psum_scatter", "all_gather", "ppermute",
-           "all_to_all", "shard", "cast_wire"]
+           "all_to_all", "shard", "cast_wire", "axis_groups",
+           "replica_coords", "wire_bytes", "add_wire", "reset_wire"]
 
 AXIS_NAMES = ("data", "model", "pipe", "sp", "ep")
 AXIS_ALIASES = {"dp": "data", "tp": "model", "pp": "pipe"}
@@ -238,6 +239,79 @@ def put_batch_sharded(data, mesh, batch_axis=0):
     return put(data, batch_sharding(mesh, batch_axis))
 
 
+def replica_coords(mesh):
+    """Each replica's index along every axis, in mesh order: one
+    ``{axis: index}`` dict a replica (row-major over the axes, the order
+    of :attr:`Mesh.replicas`)."""
+    sizes = mesh.devices.shape
+    return [dict(zip(mesh.axis_names, (int(i) for i in
+                                       np.unravel_index(r, sizes))))
+            for r in range(int(np.prod(sizes)))]
+
+
+def axis_groups(mesh, axis_name):
+    """The replicas that differ only along ``axis_name``: one list of
+    replica positions a group, each group in axis order (``"model"`` on a
+    data x model mesh: the T replicas that share a data index; ``"data"``:
+    the D replicas that share a model index)."""
+    name = AXIS_ALIASES.get(axis_name, axis_name)
+    coords = replica_coords(mesh)
+    groups = {}
+    for r, c in enumerate(coords):
+        key = tuple(v for k, v in c.items() if k != name)
+        groups.setdefault(key, []).append(r)
+    return [groups[k] for k in sorted(groups)]
+
+
+# -- wire accounting ----------------------------------------------------------
+
+_WIRE = [0.0]
+
+
+def wire_bytes():
+    """Bytes the collectives have moved a device so far (ring
+    accounting; a float: per-device shares of a group's bytes)."""
+    return _WIRE[0]
+
+
+def add_wire(nbytes):
+    """Add ``nbytes`` a device to the counter (a reduction that autograd
+    takes, as dp's gradient all-reduce, counts itself here)."""
+    _WIRE[0] += float(nbytes)
+
+
+def reset_wire():
+    _WIRE[0] = 0.0
+
+
+def _nbytes(x):
+    return x.numel() * x.element_size()
+
+
+def _ring(kind, g, nbytes):
+    """Bytes a device of a g-replica group moves for one collective over
+    an ``nbytes`` buffer (all-gather: the gathered buffer; reduce-scatter
+    and all-reduce: the reduced buffer)."""
+    if g <= 1:
+        return 0.0
+    frac = (g - 1) / g
+    return (2 * frac if kind == "all_reduce" else frac) * nbytes
+
+
+def _grouped(fn, xs, groups, **kw):
+    """Apply the per-list collective ``fn`` within each group of
+    replica positions; the results back in replica order. The groups run
+    side by side, so a device's bytes are one group's (their mean)."""
+    out = [None] * len(xs)
+    before = _WIRE[0]
+    for grp in groups:
+        res = fn([xs[r] for r in grp], **kw)
+        for r, v in zip(grp, res):
+            out[r] = v
+    _WIRE[0] = before + (_WIRE[0] - before) / max(len(groups), 1)
+    return out
+
+
 # -- collectives over per-replica lists ---------------------------------------
 
 def shard(x, mesh, dim, axis_name=None):
@@ -275,38 +349,54 @@ def sum_to(xs, device, order=None):
     return acc
 
 
-def psum(xs, devices=None, order=None):
+def psum(xs, devices=None, order=None, groups=None, count=True):
     """``jax.lax.psum``: every replica gets the sum (on its device, from
-    ``devices`` or the tensors' own), taken once in a fixed order."""
+    ``devices`` or the tensors' own), taken once in a fixed order.
+    ``count=False`` leaves the wire counter alone (the aux statistics'
+    average, which the planner's estimate leaves out)."""
+    if groups is not None:
+        return _grouped(psum, xs, groups, order=order, count=count)
     devices = devices or [x.device for x in xs]
     total = sum_to(xs, devices[0], order)
+    if count:
+        add_wire(_ring("all_reduce", len(xs), _nbytes(total))
+                 * len(devices) / len(xs))
     return [total if d == devices[0] else total.to(d) for d in devices]
 
 
-def pmean(xs, devices=None, order=None):
+def pmean(xs, devices=None, order=None, groups=None, count=True):
     """``jax.lax.pmean``: the psum over the replica count."""
+    if groups is not None:
+        return _grouped(pmean, xs, groups, order=order, count=count)
     n = len(xs)
-    return [s / n for s in psum(xs, devices, order)]
+    return [s / n for s in psum(xs, devices, order, count=count)]
 
 
-def psum_scatter(xs, dim=0, order=None):
+def psum_scatter(xs, dim=0, order=None, groups=None):
     """``jax.lax.psum_scatter(..., scatter_dimension=dim, tiled=True)``:
     replica k gets the sum of everyone's k-th slice along ``dim`` (the same
     order and rounding as :func:`psum`, one slice a replica)."""
+    if groups is not None:
+        return _grouped(psum_scatter, xs, groups, dim=dim, order=order)
     n = len(xs)
     parts = [torch.chunk(x, n, dim=dim) if x.shape[dim] % n == 0 else None
              for x in xs]
     if any(p is None for p in parts):
         raise MXNetError(f"psum_scatter: dimension {dim} of "
                          f"{tuple(xs[0].shape)} does not split {n} ways")
+    add_wire(_ring("reduce_scatter", n, _nbytes(xs[0])))
     return [sum_to([p[k] for p in parts], xs[k].device, order)
             for k in range(n)]
 
 
-def all_gather(xs, dim=0, devices=None):
+def all_gather(xs, dim=0, devices=None, groups=None):
     """``jax.lax.all_gather(..., tiled=True)``: every replica gets the
     replicas' tensors concatenated along ``dim`` in replica order."""
+    if groups is not None:
+        return _grouped(all_gather, xs, groups, dim=dim)
     devices = devices or [x.device for x in xs]
+    add_wire(_ring("all_gather", len(xs), len(xs) * _nbytes(xs[0]))
+             * len(devices) / len(xs))
     return [torch.cat([x.to(d) for x in xs], dim) for d in devices]
 
 

@@ -41,8 +41,13 @@ equals stage 1.
 
 The step runs eagerly (a CUDA graph of it is later work); on one card a
 mesh may list the card several times, and the replicas then share its
-memory. Only a 1-D data mesh is supported: ZeRO over an N-D mesh's joint
-axes comes with the planner (ROADMAP queue 1 item 15).
+memory. On an N-D mesh (the planner's ``dpK.tpT+zero1|+zero2``) the
+masters, states and residuals are split jointly over all D·T replicas
+(in mesh order), the batch over the data axis only: the T replicas of a
+data index compute the same gradients, so each is scaled by 1/T (exact
+for a power-of-two T) before the joint reduce, and the loss, outputs and
+BatchNorm statistics are the model index 0 replicas'. A 1-D mesh is the
+same program as before, bit for bit.
 
 Env: ``MXNET_ZERO_STAGE=0|1|2`` (0 = plain dp; > 0 reroutes
 ``DataParallelTrainer(...)`` here), ``MXNET_ZERO_BUCKET_MB`` (default 4),
@@ -67,7 +72,8 @@ from .. import amp as _amp
 from ..base import MXNetError
 from ..ops.registry import AttrDict, OpCtx
 from .dp import DataParallelTrainer, _tensor
-from .mesh import all_gather, cast_wire, pmean, psum, psum_scatter, sum_to
+from .mesh import (all_gather, axis_size, cast_wire, data_axis, pmean, psum,
+                   psum_scatter, replica_coords, sum_to)
 
 __all__ = ["ZeroTrainer", "ZeroLayout", "counters", "resolve_stage",
            "resolve_compress", "WIRE_DTYPES"]
@@ -79,28 +85,23 @@ WIRE_DTYPES = {
     "fp8": torch.float8_e4m3fn,
 }
 
-_PLANNER = "ROADMAP queue 1 item 15, the planner"
-
 
 def resolve_stage(value=None):
     """ZeRO stage: the explicit argument, else MXNET_ZERO_STAGE, else the
-    stage a pure-zero MXNET_PLAN names (``zero1`` / ``zero2``), else 0.
-    Any other plan name (but the default ``auto``) raises: the planner's
-    plans are not ported."""
+    stage a pure-zero MXNET_PLAN names (``zero1`` / ``zero2``, so that
+    ``MXNET_PLAN=zero2`` reroutes a plain trainer construction without
+    the planner), else 0: every other plan (``auto``, ``dp``, the tp
+    forms, which ``planner.make_trainer`` builds) leaves a direct
+    construction plain dp, as in the JAX package."""
     if value is None:
+        from .. import config
         # unset / empty collapses to 0; an explicit "0" is the truthy
         # string "0" here, so it wins over the plan
         value = os.environ.get("MXNET_ZERO_STAGE") or 0
         if not value:
-            plan = str(os.environ.get("MXNET_PLAN") or "auto") \
-                .strip().lower()
+            plan = str(config.get("MXNET_PLAN", "auto")).strip().lower()
             if plan in ("zero1", "zero2"):
                 return int(plan[-1])
-            if plan != "auto":
-                raise MXNetError(
-                    f"MXNET_PLAN={plan!r}: the planner is not ported yet "
-                    f"({_PLANNER}); only the pure-zero plans zero1 and "
-                    "zero2 route a trainer")
     try:
         stage = int(value)
     except (TypeError, ValueError):
@@ -251,9 +252,8 @@ _HOOKED = False
 
 def counters():
     """Host-side ZeRO counters (no device sync): cumulative analytic wire
-    bytes, steps, the current stage, buckets and overlap share.
-    ``zero_flops_per_step`` stays 0: the port has no cost source yet (it
-    comes with the planner)."""
+    bytes, steps, the current stage, buckets, overlap share, and a
+    replica's FLOPs of the last step (``telemetry.costs``)."""
     return dict(_COUNTERS)
 
 
@@ -304,26 +304,31 @@ class ZeroTrainer(DataParallelTrainer):
                          loss_index=loss_index, dtype=dtype,
                          input_preproc=input_preproc,
                          loss_scaler=loss_scaler, **opt_kwargs)
-        if len(self._mesh.axis_names) != 1:
-            raise MXNetError(
-                f"ZeroTrainer: only a 1-D data mesh is supported, not "
-                f"{self._mesh.shape}; ZeRO over an N-D mesh's joint axes "
-                f"comes with the planner ({_PLANNER})")
         self._zero_stage = stage
         self._bucket_bytes = _resolve_bucket_bytes(zero_bucket_mb)
         self._compress = resolve_compress(grad_compress)
         self._wire_dtype = (None if self._compress == "none"
                             else WIRE_DTYPES[self._compress])
         self._n_dev = len(self._devices)
+        # N-D meshes: each replica's data index (its batch shard) and the
+        # model factor T whose replicas compute the same gradients
+        self._n_data = axis_size(self._mesh, data_axis(self._mesh))
+        self._model_factor = self._n_dev // self._n_data
+        dax = data_axis(self._mesh)
+        coords = replica_coords(self._mesh)
+        self._didx = [c[dax] for c in coords]
+        self._first = [r for r, c in enumerate(coords)
+                       if all(v == 0 for k, v in c.items() if k != dax)]
+        self._flops = 0.0
         self._layout = None
         self._resid = ()
-        self._compute_itemsize = (_itemsize(self._compute_dtype)
-                                  if self._compute_dtype is not None else 4)
         self._wire_itemsize = (_itemsize(self._wire_dtype)
                                if self._wire_dtype is not None
                                else self._compute_itemsize)
         suffix = {"none": "n", "bf16": "b16", "fp8": "f8"}[self._compress]
-        self._program_tag = f"zstep_s{stage}{suffix}"
+        self._program_tag = (f"zstep_t{self._model_factor}s{stage}{suffix}"
+                             if self._model_factor > 1
+                             else f"zstep_s{stage}{suffix}")
         _ensure_hook()
 
     @property
@@ -332,6 +337,10 @@ class ZeroTrainer(DataParallelTrainer):
 
     def _graphed(self):
         return False
+
+    def _dispatch_name(self, k=None):
+        return "zero%d.step" % self._zero_stage if k is None \
+            else "zero%d.step_k%d" % (self._zero_stage, k)
 
     # -- layout and sharded state ---------------------------------------------
     def _ensure_layout(self, shapes):
@@ -423,7 +432,7 @@ class ZeroTrainer(DataParallelTrainer):
                 leaves[i] = view.detach().requires_grad_(True)
         args = dict(zip(self._param_names, leaves))
         for name, parts in zip(self._input_names, chunks):
-            v = parts[r].to(dev)
+            v = parts[self._didx[r]].to(dev)
             if self._input_preproc is not None:
                 v = self._input_preproc(name, v)
             if cdt is not None and name in self._data_names and \
@@ -449,6 +458,11 @@ class ZeroTrainer(DataParallelTrainer):
                                 if grads[i] is None else grads[i]
                                 for i in L.buckets[b]], b)
                      for b in range(L.n_buckets)]
+            if self._model_factor > 1:
+                # the T model replicas' equal gradients: the joint sum
+                # counts each T times
+                scale = 1.0 / self._model_factor
+                flats = [g * scale for g in flats]
         return (loss.detach(), [o.detach() for o in outs],
                 dict((n, v.detach()) for n, v in updates), flats)
 
@@ -476,7 +490,10 @@ class ZeroTrainer(DataParallelTrainer):
         # gather (a bf16 gather moves half-width words)
         cast = [[m if cdt is None else m.to(cdt) for m in self._params[b]]
                 for b in range(L.n_buckets)]
-        chunks = [torch.chunk(x, n, dim=0) for x in inputs]
+        self._flops = self._step_costs(
+            {nm: tuple(x.shape) for nm, x in zip(self._input_names,
+                                                 inputs)})["flops"]
+        chunks = [torch.chunk(x, self._n_data, dim=0) for x in inputs]
         gen = self._rng()
         gen_state = gen.get_state() if gen is not None else None
         # a skipped fp16 step must leave the residual as it was: keep the
@@ -559,19 +576,20 @@ class ZeroTrainer(DataParallelTrainer):
                     r.copy_(keep(new_resid[b][k], r))
         # aux: an overflowed step keeps the old values; the replicas'
         # local statistics averaged back to one copy (pmean)
+        first = self._first
         for i, name in enumerate(self._aux_names):
             if name not in auxes[0]:
                 continue
             old = self._aux[i]
             vals = [auxes[r][name] if finite is None else
                     torch.where(finite.to(devs[r]), auxes[r][name],
-                                old.to(devs[r])) for r in range(n)]
-            old.copy_(pmean(vals, devices=[dev0])[0])
+                                old.to(devs[r])) for r in first]
+            old.copy_(pmean(vals, devices=[dev0], count=False)[0])
         if has_ls:
             self._ls_dev.copy_(self._scaler.update_state(self._ls_dev,
                                                          finite))
-        loss = sum_to(losses, dev0)
-        outputs = [torch.cat([o[i].to(dev0) for o in outs], 0)
+        loss = sum_to([losses[r] for r in first], dev0)
+        outputs = [torch.cat([outs[r][i].to(dev0) for r in first], 0)
                    for i in range(len(outs[0]))]
         self._tick_counters(1)
         return loss, outputs
@@ -589,6 +607,8 @@ class ZeroTrainer(DataParallelTrainer):
         _COUNTERS["zero_stage"] = self._zero_stage
         _COUNTERS["zero_buckets"] = L.n_buckets
         _COUNTERS["zero_compress_bits"] = self._wire_itemsize * 8
+        # a replica's FLOPs of one step, counted by telemetry.costs
+        _COUNTERS["zero_flops_per_step"] = self._flops
 
     def wire_bytes_per_step(self):
         """The layout's analytic wire bytes of one step of this trainer."""

@@ -23,9 +23,10 @@ passes a host float it already has, the amp counters are sampled only
 while amp is on, and the feed and checkpoint counters are host dicts.
 Every ``step()`` beats the stall watchdog. ``MXNET_TELEMETRY=0`` swaps in
 ``_NullStepLogger``, which still beats the watchdog and records nothing.
-The JAX package's per-step MFU fields come from XLA's cost analysis of
-the step program; the port has no such analysis, so its records carry
-no ``mfu`` / ``roofline_frac`` fields.
+Each step's ``mfu`` / ``roofline_frac`` / ``model_flops_per_s`` come from
+``devstats.step_sample`` (the step program's FLOPs and bytes, counted by
+``telemetry.costs``, published by the fused fits' trainers); the run_end
+record of a fused fit carries ``devstats.fit_summary()``.
 """
 from __future__ import annotations
 
@@ -243,6 +244,13 @@ class StepLogger:
         if loss is not None:
             self._g_loss.set(float(loss))
         trace_fields = self._trace_sample(wall, n)
+        # MFU and roofline attainment from the step program's counted
+        # FLOPs and bytes (host floats; gauges set even without a sink)
+        try:
+            from . import devstats as _devstats
+            devstats_fields = _devstats.step_sample(wall, int(steps))
+        except Exception:
+            devstats_fields = None
         if self._file is None:
             return
         amp_scale, amp_skipped = self._amp_sample()
@@ -262,6 +270,8 @@ class StepLogger:
         if trace_fields:
             rec["trace_id"] = self.trace_id
             rec.update(trace_fields)
+        if devstats_fields:
+            rec.update(devstats_fields)
         zero = self._zero_counters()
         if zero is not None:
             last = self._zero_last or {"zero_wire_bytes": 0}

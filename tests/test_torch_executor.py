@@ -231,9 +231,17 @@ def test_reshape_and_output_dict():
 
 def test_unported_options_raise():
     ts, shape = _build("lenet", tmx)
-    with pytest.raises(tmx.MXNetError, match="item 8"):
+    # group2ctx is ported (tests/test_torch_segmented.py): it binds, and
+    # with a data-parallel mesh it raises as the JAX package's does
+    ex = ts.simple_bind(ctx=tmx.cpu(), data=shape,
+                        group2ctx={"a": tmx.cpu()})
+    assert ex.copies == 0 and len(ex.segments) == 1
+    from mxnet_tpu_torch.parallel import mesh_for_contexts
+    with pytest.raises(tmx.MXNetError, match="group2ctx"):
         ts.simple_bind(ctx=tmx.cpu(), data=shape,
-                       group2ctx={"a": tmx.cpu()})
+                       group2ctx={"a": tmx.cpu()},
+                       mesh=mesh_for_contexts([tmx.cpu(0), tmx.cpu(1)]),
+                       sharded_args=("data",))
     # the data-parallel mesh is ported: what is not a Mesh raises
     with pytest.raises(tmx.MXNetError, match="parallel.Mesh"):
         ts.simple_bind(ctx=tmx.cpu(), data=shape, mesh=object())

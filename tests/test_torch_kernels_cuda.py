@@ -1795,3 +1795,86 @@ def test_fp8_wire_cast_on_the_card_is_the_cpus(dev):
     want = cast_wire(v, torch.float8_e4m3fn).float()
     assert torch.equal(got.isnan(), want.isnan())
     assert torch.equal(got[~got.isnan()], want[~want.isnan()])
+
+
+def test_tensor_parallel_walk_on_the_card(dev):
+    """dp2.tp2 and dp2.tp2+zero2 over 4 replicas of the card against dp
+    over the same mesh (3 SGD steps with momentum of an MLP): within
+    1e-5 of each tensor's largest element (cuBLAS sums a split product
+    in another order); the tensor-parallel step is a CUDA graph (one
+    capture) whose replays add the wire the planner priced."""
+    import numpy as np
+    from mxnet_tpu_torch.parallel import mesh as pmesh, planner
+    model = planner._small_model()[0]
+    rng = np.random.RandomState(0)
+    x = rng.normal(size=(16, 32)).astype(np.float32)
+    y = rng.randint(0, 8, 16).astype(np.float32)
+    host = {}
+    for plan in ("dp", "dp2.tp2", "dp2.tp2+zero2"):
+        tr = planner.make_trainer(model.symbol, model.shape_kwargs,
+                                  plan=plan, devices=[dev] * 4,
+                                  apply_knobs=False, optimizer="sgd",
+                                  **model.trainer_kwargs)
+        state = tr.init_state(model.shape_kwargs)
+        inputs = tr.shard_inputs([x, y])
+        state = tr.step(*state, inputs)[:3]
+        pmesh.reset_wire()
+        for _ in range(2):
+            state = tr.step(*state, inputs)[:3]
+        torch.cuda.synchronize()
+        priced = planner.score_plan(model, tr._sharding_plan)["wire_bytes"]
+        assert abs(pmesh.wire_bytes() - 2 * priced) < 2.0, plan
+        if plan == "dp2.tp2":
+            assert tr.captures == 1
+        host[plan] = tr.host_params(state[0])
+    for plan in ("dp2.tp2", "dp2.tp2+zero2"):
+        for n, ref in host["dp"].items():
+            err = np.abs(host[plan][n] - ref).max() / np.abs(ref).max()
+            assert err <= 1e-5, (plan, n, err)
+
+
+def test_segmented_walk_on_the_card(dev):
+    """group2ctx with a head group on the host: every node's output on
+    its group's device, outputs and gradients equal the all-card walk's
+    within 1e-4, copies at the stage boundaries; the head on the card
+    makes none."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+
+    def build():
+        with mx.NameManager():
+            x = mx.sym.Variable("data")
+            with mx.AttrScope(ctx_group="body"):
+                h = mx.sym.FullyConnected(x, num_hidden=32, name="fc0")
+                h = mx.sym.Activation(h, act_type="tanh")
+            with mx.AttrScope(ctx_group="head"):
+                h = mx.sym.FullyConnected(h, num_hidden=4, name="fc1")
+                return mx.sym.SoftmaxOutput(h, name="softmax")
+    rng = np.random.RandomState(0)
+    xs = rng.normal(size=(8, 16)).astype(np.float32)
+    ys = rng.randint(0, 4, 8).astype(np.float32)
+    gpu = mx.gpu(dev.index or 0)
+    got = {}
+    for head in (mx.cpu(), gpu):
+        ex = build().simple_bind(gpu, data=(8, 16), softmax_label=(8,),
+                                 group2ctx={"body": gpu, "head": head})
+        r = np.random.RandomState(1)
+        for k in ("fc0_weight", "fc0_bias", "fc1_weight", "fc1_bias"):
+            ex.arg_dict[k][:] = r.normal(0, 0.3, ex.arg_dict[k].shape) \
+                .astype(np.float32)
+        seen = {}
+        ex.set_monitor_callback(lambda n, t: seen.setdefault(
+            n.rsplit("_output", 1)[0], t._data.device))
+        out = ex.forward(is_train=True, data=mx.nd.array(xs, ctx=gpu),
+                         softmax_label=mx.nd.array(ys, ctx=gpu))[0]
+        ex.backward()
+        for n, c in ex.placement.items():
+            assert seen[n] == c.torch_device(), n
+        got[head.device_type] = (out.asnumpy(), {
+            k: g.asnumpy() for k, g in ex.grad_dict.items()}, ex.copies)
+    (o1, g1, c1), (o2, g2, c2) = got["cpu"], got["gpu"]
+    assert c1 > 0 and c2 == 0
+    np.testing.assert_allclose(o1, o2, rtol=1e-4, atol=1e-6)
+    for k in g2:
+        np.testing.assert_allclose(g1[k], g2[k], rtol=1e-4, atol=1e-6,
+                                   err_msg=k)

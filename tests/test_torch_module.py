@@ -414,7 +414,32 @@ def test_unported_fit_options_raise():
     mon = tmx.Monitor(1)
     tmod.fit(tit, num_epoch=1, monitor=mon)
     assert mon.step > 0 and mon._executors == [tmod._exec]
+    # group2ctxs is ported (tests/test_torch_segmented.py): the module
+    # binds a group2ctx executor, as the JAX package's, and its fit
+    # equals the JAX module's fit from the same parameters
     with tmx.NameManager():
         s = mlp(tmx)
-    with pytest.raises(tmx.MXNetError, match="item 8"):
-        tmx.mod.Module(s, context=tmx.cpu(), group2ctxs={"a": tmx.cpu()})
+    with jmx.base.NameManager():
+        js = mlp(jmx)
+    gm = tmx.mod.Module(s, context=tmx.cpu(),
+                        group2ctxs=[{"a": tmx.cpu()}])
+    jg = jmx.mod.Module(js, context=jmx.cpu(), group2ctxs={"a": jmx.cpu()})
+    x, y = _data("mlp", 8 * STEPS)
+    jit = jmx.io.NDArrayIter(x, y, 8, label_name="softmax_label")
+    tit = tmx.io.NDArrayIter(x, y, 8, label_name="softmax_label")
+    gm.bind(data_shapes=tit.provide_data, label_shapes=tit.provide_label)
+    jg.bind(data_shapes=jit.provide_data, label_shapes=jit.provide_label)
+    jmx.random.seed(1)
+    jg.init_params(jmx.init.Xavier())
+    args, aux = jg.get_params()
+    load_module_params(gm, {k: v.asnumpy() for k, v in args.items()},
+                       {k: v.asnumpy() for k, v in aux.items()})
+    assert gm._exec._group2ctx == {"a": tmx.cpu()}
+    opt = dict(learning_rate=0.1, momentum=0.9)
+    gm.fit(tit, num_epoch=1, optimizer="sgd", optimizer_params=opt)
+    jg.fit(jit, num_epoch=1, optimizer="sgd", optimizer_params=opt)
+    got, _ = gm.get_params()
+    want, _ = jg.get_params()
+    for k in want:
+        np.testing.assert_allclose(got[k].asnumpy(), want[k].asnumpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)

@@ -96,6 +96,8 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.parallel.dp, mxnet_tpu_torch.predictor, "
             "mxnet_tpu_torch.parallel.zero, mxnet_tpu_torch.parallel.sp, "
             "mxnet_tpu_torch.parallel.tp, mxnet_tpu_torch.parallel.pp, "
+            "mxnet_tpu_torch.parallel.planner, "
+            "mxnet_tpu_torch.telemetry.costs, "
             "mxnet_tpu_torch.serving.engine, mxnet_tpu_torch.serving.pool, "
             "mxnet_tpu_torch.serving.router, "
             "mxnet_tpu_torch.serving.frontend, "

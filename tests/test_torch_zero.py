@@ -319,8 +319,10 @@ def test_fp16_scaler_skip_changes_nothing_but_the_scaler():
 
 def test_routing_and_refusals(monkeypatch):
     """MXNET_ZERO_STAGE and the pure-zero plans route a plain
-    construction; other plans, param_specs and an N-D mesh raise citing
-    the planner's queue item."""
+    construction; every other plan name routes to stage 0 as the JAX
+    package's ``resolve_stage`` does; param_specs build a tensor-parallel
+    trainer on a data x model mesh and a ZeroTrainer takes an N-D mesh
+    (the planner's compositions, tests/test_torch_planner.py)."""
     sym = _mlp(tmx)
     mesh = mesh_for_contexts([tmx.cpu(i) for i in range(N)])
     monkeypatch.setenv("MXNET_ZERO_STAGE", "2")
@@ -334,9 +336,10 @@ def test_routing_and_refusals(monkeypatch):
     assert isinstance(tr, ZeroTrainer) and tr._zero_stage == 2
     monkeypatch.setenv("MXNET_PLAN", "zero1")
     assert DataParallelTrainer(sym, mesh)._zero_stage == 1
-    monkeypatch.setenv("MXNET_PLAN", "dp2.tp2")
-    with pytest.raises(MXNetError, match="item 15"):
-        DataParallelTrainer(sym, mesh)
+    for plan in ("dp2.tp2", "dp2.tp2+zero2", "tp2", "dp", "auto"):
+        monkeypatch.setenv("MXNET_PLAN", plan)
+        assert zero.resolve_stage() == jzero.resolve_stage() == 0, plan
+        assert not isinstance(DataParallelTrainer(sym, mesh), ZeroTrainer)
     monkeypatch.delenv("MXNET_PLAN")
     monkeypatch.setenv("MXNET_ZERO_STAGE", "7")
     with pytest.raises(MXNetError, match="0|1|2"):
@@ -347,10 +350,18 @@ def test_routing_and_refusals(monkeypatch):
     tr = DataParallelTrainer(sym, mesh, zero_stage=1)
     assert tr._compress == "fp8" and tr._bucket_bytes == 1 << 19
     assert isinstance(ZeroTrainer(sym, mesh), ZeroTrainer)
-    with pytest.raises(MXNetError, match="planner"):
-        DataParallelTrainer(sym, mesh, param_specs={"zfc1_weight": None})
-    with pytest.raises(MXNetError, match="item 15"):
-        ZeroTrainer(sym, build_mesh({"data": 2, "model": 2}, ["cpu"] * 4))
+    monkeypatch.delenv("MXNET_GRAD_COMPRESS")
+    mesh2 = build_mesh({"data": 2, "model": 2}, ["cpu"] * 4)
+    tr = DataParallelTrainer(sym, mesh2, param_specs={
+        "zfc1_weight": ("model", None), "zfc1_bias": ("model",),
+        "zfc2_weight": (None, "model")})
+    params, _, _ = tr.init_state(SHAPES)
+    assert [len(p) if isinstance(p, tuple) else 1 for p in params] == \
+        [2, 2, 2, 1]
+    tz = ZeroTrainer(sym, mesh2, zero_stage=2)
+    assert tz._model_factor == 2 and tz._program_tag == "zstep_t2s2n"
+    masters, _, _ = tz.init_state(SHAPES)
+    assert all(len(b) == 4 for b in masters)
 
 
 def test_resume_across_stage_change_and_into_dp():
