@@ -284,13 +284,14 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            Monitor(monitor_all=True) over 2 steps of LeNet's Module.fit on
            the card against the CPU (the same names, stats within
            MODULE_RTOL)
-  planner  the sharding planner on zero_lm's GPT-2-medium LM loss Symbol
-           over 4 replicas of the card: plan_auto's table (every
+  planner  the sharding planner on zero_lm's LM loss Symbol (GPT-2
+           medium's widths, 12 of its 24 layers) over 4 replicas of the
+           card: plan_auto's table (every
            candidate's FLOPs, bytes, wire, peak, cost and status; dp,
            zero1, zero2, dp2.tp2, dp2.tp2+zero2 priced, pp4 unsupported),
            two runs in the same order, a 1 GiB budget rejecting all with
            no trainer built; dp, dp2.tp2 and dp2.tp2+zero2 trained 3
-           steps each from one seed (losses against dp's, 96 launches a
+           steps each from one seed (losses against dp's, 48 launches a
            step of each flash kernel with the kernel lane equal to the
            counters, per-replica resident bytes against
            estimate_hbm_bytes, s a step, the cost source's FLOPs and their
@@ -302,6 +303,36 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            group's device, card + host against the all-card walk
            (outputs and gradients within MODULE_RTOL), a control with
            the head on the card making no cross-device copy; ms a step
+  image_codec
+           nvJPEG (csrc/nvjpeg_codec.cu) decoding the committed JPEG
+           fixture (tests/data/jpeg_fixture.npz) against the JAX
+           package's OpenCV decode beside it (mean and largest
+           difference; another entry's pixels must fail), an encode
+           round trip at quality 95 (PSNR), the batched decode's rate
+           on 1 and 4 host threads, and the batch-assembly kernel
+           (csrc/image_assemble.cu) against its plain version at the
+           main shape, 128 JPEGs of 256² -> 3 x 224² (uint8 with crop
+           and mirror bit-identical, float32 with mean/std), timed
+           beside its bytes bound
+  image_rec_resnet50
+           bench.py's e2e_data lane: a .rec of 2560 synthetic 256²
+           JPEGs (quality 90, labels 0-999) encoded on the card by
+           recordio.pack_img, ImageRecordIter on the card route (batch
+           128, 224², random crop and mirror, 4 threads, 3 batches in
+           flight, uint8): the pipeline alone (img/s), then ResNet-50
+           v1 through DataParallelTrainer in bf16 with input_preproc
+           normalizing on the card (img/s end to end beside
+           dp_resnet50's synthetic-input img/s), cross-entropy a step,
+           peak memory, the card's busy share over 5 steps from the
+           profiler's kernel lane; one batch's crops and mirrors held
+           against the same iterator at ctx=cpu()
+  image_det_rec
+           ImageDetIter on the card (nvJPEG, the detection augmenters
+           as torch ops) from a .rec of 256 JPEGs of 300² with 1-4
+           packed boxes, SSD300's batch 32 with rand_crop and
+           rand_mirror, feeding 3 steps of the ssd300 phase's Module;
+           the labels after the augmenters equal the host iterator's
+           for the same seed
 
 then the nvidia-smi line, a ``kernels`` summary line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no result)
@@ -1954,6 +1985,7 @@ def phase_kernels():
 
 def _wrappers():
     from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.image import assemble as I
     from mxnet_tpu_torch.ops import attention as A, conv_fused as C, \
         quantization as Q
     return {"flash_attention_fwd": A.flash_attention_fwd,
@@ -1961,7 +1993,8 @@ def _wrappers():
             "flash_attention_bwd_dkv": A.flash_attention_bwd_dkv,
             "decode_attention": A.decode_attention,
             "quantized_matmul": Q.quantized_matmul,
-            "conv1x1": C.conv1x1, "rtc": rtc.CudaKernel}
+            "conv1x1": C.conv1x1, "rtc": rtc.CudaKernel,
+            "image_assemble": I.assemble}
 
 
 def _reset_counts():
@@ -8120,6 +8153,11 @@ RING_TIME_ITERS = 3
 # Symbol through DataParallelTrainer over 4 replicas of the card (batch 2
 # a replica), 3 steps an arm from the same parameters
 ZERO_REPLICAS = 4
+# the LM's depth in zero_lm and planner (4 replicas of the card, eager
+# ZeRO arms): 12 of GPT-2 medium's 24 layers, so that the whole script
+# stays well inside its time limit (24 layers took 175 s of the two
+# phases' 1091 in the run that added the image phases)
+ZERO_LM_LAYERS = 12
 ZERO_STEPS = 3
 ZERO_TOL = 1e-6                 # ZeRO-1 vs dp (when not bitwise), 2 vs 1
 # fp8 wire: the loss after its first compressed update against float32's
@@ -8360,9 +8398,10 @@ def phase_ring_attention():
 
 
 def _zero_lm_symbol(mx, init):
-    """gluon_fused_lm's LM and SoftmaxCrossEntropyLoss traced into one
-    Symbol, as fused_fit traces them."""
-    net = _glm_net(mx, init, GLM_LAYERS)
+    """gluon_fused_lm's LM at ZERO_LM_LAYERS layers and
+    SoftmaxCrossEntropyLoss traced into one Symbol, as fused_fit traces
+    them."""
+    net = _glm_net(mx, init, ZERO_LM_LAYERS)
     out = net(mx.sym.Variable("data"))
     loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(
         out, mx.sym.Variable("fused_label"))
@@ -8450,14 +8489,14 @@ def _params_cmp(got, ref):
 
 
 def phase_zero_lm():
-    """ZeRO on the card: gluon_fused_lm's LM (GPT-2 medium, 24 layers,
-    8 x 1024 tokens, Adam) as its loss Symbol through DataParallelTrainer
-    over 4 replicas of the card, 3 steps an arm from the same parameters:
-    dp over the same mesh, ZeRO-1, ZeRO-2 and ZeRO-2 + fp8, and the fp8
-    arm again with its residual never added back (a control). ZeRO-1
-    against dp, ZeRO-2 against ZeRO-1, fp8's losses against float32's
-    and against the control's;
-    96 launches a step of each flash kernel; the counters' wire bytes;
+    """ZeRO on the card: gluon_fused_lm's LM (GPT-2 medium's widths,
+    ZERO_LM_LAYERS layers, 8 x 1024 tokens, Adam) as its loss Symbol
+    through DataParallelTrainer over 4 replicas of the card, 3 steps an
+    arm from the same parameters: dp over the same mesh, ZeRO-1, ZeRO-2
+    and ZeRO-2 + fp8, and the fp8 arm again with its residual never
+    added back (a control). ZeRO-1 against dp, ZeRO-2 against ZeRO-1,
+    fp8's losses against float32's and against the control's; 4 x
+    ZERO_LM_LAYERS launches a step of each flash kernel; the counters' wire bytes;
     s a step and peak memory an arm; a ZeRO-2 commit restored into dp
     giving ZeRO-2's next step; then fused_fit under MXNET_ZERO_STAGE=2 on
     [gpu(0)] writing back the trainer's parameters."""
@@ -8474,14 +8513,15 @@ def phase_zero_lm():
     x, y = _lm_batch()
     sym = _zero_lm_symbol(mx, init)
     mesh = _replica_mesh("data", ZERO_REPLICAS)
-    res = {"model": dict(TRAIN, num_layers=GLM_LAYERS), "batch": TRAIN_BATCH,
+    res = {"model": dict(TRAIN, num_layers=ZERO_LM_LAYERS),
+           "batch": TRAIN_BATCH,
            "replicas": ZERO_REPLICAS, "per_replica_batch":
            TRAIN_BATCH // ZERO_REPLICAS, "steps": ZERO_STEPS,
            "optimizer": "adam", "tol": ZERO_TOL,
            "mesh": "build_mesh({'data': %d}, [%s:0] * %d)"
            % (ZERO_REPLICAS, DEV, ZERO_REPLICAS)}
     launches = {}
-    want = GLM_LAYERS * ZERO_REPLICAS
+    want = ZERO_LM_LAYERS * ZERO_REPLICAS
 
     dp, tr, st = _zero_arm(mx, sym, init, mesh, 0, "none", x, y)
     _add_counts(launches, dp["launches"])
@@ -8560,7 +8600,7 @@ def phase_zero_lm():
     res["flash_launches_want_per_step"] = want
 
     # fused_fit under MXNET_ZERO_STAGE=2 on [gpu(0)]
-    net = _glm_net(mx, init, GLM_LAYERS)
+    net = _glm_net(mx, init, ZERO_LM_LAYERS)
     with _env(MXNET_ZERO_STAGE="2"), _watch_step_k() as calls:
         fit_losses = _gluon_fit(mx, net, [(mx.nd.NDArray(x),
                                            mx.nd.NDArray(y))]
@@ -8808,7 +8848,8 @@ def _planner_cli(flag):
 
 def phase_planner():
     """The sharding planner (parallel.planner) on the card: zero_lm's LM
-    loss Symbol (GPT-2 medium, 24 layers, 8 x 1024 tokens, Adam, f32)
+    loss Symbol (GPT-2 medium's widths, ZERO_LM_LAYERS layers, 8 x 1024
+    tokens, Adam, f32)
     over 4 replicas of the card. plan_auto's table printed (every
     candidate's FLOPs, bytes, wire, peak, cost and status), twice in the
     same order; a 1 GiB budget rejecting every candidate with no trainer
@@ -8837,7 +8878,8 @@ def phase_planner():
     model = planner.ModelSpec(sym, shapes, **kw)
     dev = torch.device("cuda", 0) if DEV == "cuda" else torch.device("cpu")
     devices = [dev] * PLAN_REPLICAS
-    res = {"model": dict(TRAIN, num_layers=GLM_LAYERS), "batch": TRAIN_BATCH,
+    res = {"model": dict(TRAIN, num_layers=ZERO_LM_LAYERS),
+           "batch": TRAIN_BATCH,
            "replicas": PLAN_REPLICAS, "steps": PLAN_STEPS,
            "optimizer": "adam", "loss_rtol": PLAN_LOSS_RTOL,
            "wire_gbps": planner.resolve_wire_bw() / 1e9,
@@ -8899,7 +8941,7 @@ def phase_planner():
             arms[plan] = _plan_arm(mx, planner, sym, shapes, kw, devices,
                                    init, x, y, plan, os.path.join(d, plan))
     ref = arms["dp"]["losses"]
-    want = GLM_LAYERS * PLAN_REPLICAS
+    want = ZERO_LM_LAYERS * PLAN_REPLICAS
     for a in arms.values():
         a["loss_rel_err_vs_dp"] = [abs(g - r) / abs(r)
                                    for g, r in zip(a["losses"], ref)]
@@ -9078,6 +9120,556 @@ def phase_group2ctx():
     return res
 
 
+# -- the image record pipeline: nvJPEG and the batch-assembly kernel --------
+# bench.py's e2e_data lane on the port: a synthetic ImageNet-shaped .rec
+# (2560 JPEGs of 256², quality 90, labels 0-999, seed 0, bench.py's
+# _build_synth_rec), ImageRecordIter at batch 128 and 224² with random
+# crops and mirrors, uint8 batches normalized on the card by the trainer's
+# input_preproc, ResNet-50 through DataParallelTrainer in bf16. The
+# detection lane: SSD300's batch and size from a .rec of packed boxes.
+IMG_REC_N = 2560
+IMG_SIZE = 256
+IMG_QUALITY = 90
+IMG_THREADS = 4              # bench.py's preprocess_threads
+IMG_PREFETCH = 3             # bench.py's prefetch_buffer
+IMG_WARMUP = 3
+IMG_TIMED = 20
+IMG_PROFILE_STEPS = 5        # the kernel lane's window of e2e steps
+IMG_HELD_STEPS = 12          # e2e steps whose batches are held after
+CODEC_MEAN_TOL = 1.5         # mean |nvJPEG - the JAX package's decode|
+CODEC_MAX_TOL = 16           # largest: another IDCT and chroma upsampling
+ASSEMBLE_F32_ATOL = 1e-5     # the float32 path (the same rounded ops)
+CODEC_PSNR_MIN = 30.0        # an encode/decode round trip at quality 95
+DET_N = 256
+DET_STEPS = 3
+DET_MAX_BOXES = 4
+DET_MEAN_TOL = 1.5           # card vs host data after the augmenters
+
+
+def _jpeg_fixture():
+    """[(JPEG bytes, the JAX package's decoded BGR pixels)] of
+    tests/data/jpeg_fixture.npz (made by tests/test_torch_image.py)."""
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.test_utils import jpeg_fixture
+    return [(recordio.unpack(r)[1], pix) for r, pix in jpeg_fixture(
+        os.path.join(HERE, "tests", "data", "jpeg_fixture.npz"))]
+
+
+def _decode(buf, to_rgb=True):
+    """nvJPEG on the card (a host tensor under DEV = "cpu")."""
+    import torch
+    from mxnet_tpu_torch.image import codec
+    if DEV == "cuda":
+        return codec.decode(buf, torch.device("cuda"), to_rgb=to_rgb)
+    return torch.from_numpy(codec.host_imdecode(buf, 1, to_rgb).copy())
+
+
+def _synth_images(n, size, seed):
+    """bench.py's synthetic images, made on the card: an 8x8 base from
+    RandomState(seed) resized bicubic to ``size``² (image.imresize), plus
+    uniform noise in [-10, 10) from a torch generator of the same seed;
+    and labels 0-999."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.image import imresize
+    rng = np.random.RandomState(seed)
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    for i in range(n):
+        base = torch.from_numpy(rng.randint(0, 255, (8, 8, 3), np.uint8))
+        img = imresize(base.to(dev), size, size, interp=2)._data
+        noise = torch.randint(-10, 10, img.shape, generator=g, device=dev,
+                              dtype=torch.int16)
+        img = (img.to(torch.int16) + noise).clamp_(0, 255).to(torch.uint8)
+        yield img, float(rng.randint(0, 1000))
+
+
+def _write_synth_rec(path, n, size, seed, label_of=None):
+    """A .rec of ``n`` JPEGs encoded by the port's pack_img on the card
+    (OpenCV on the host under DEV = "cpu"); returns the seconds."""
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    w = mx.recordio.MXRecordIO(path, "w")
+    for i, (img, label) in enumerate(_synth_images(n, size, seed)):
+        if label_of is not None:
+            label = label_of(i)
+        w.write(mx.recordio.pack_img(mx.recordio.IRHeader(0, label, i, 0),
+                                     img, quality=IMG_QUALITY, ctx=_ctx()))
+    w.close()
+    _sync()
+    return time.perf_counter() - t0
+
+
+def _assemble_case(raw, plans, offs):
+    """The assembly kernel against its plain version at the main shape:
+    uint8 (crop, mirror) bit-identical, float32 with mean/std within
+    ASSEMBLE_F32_ATOL; device time, the bytes bound, the plain time."""
+    import torch
+    from mxnet_tpu_torch.image import assemble as A, IMAGENET_DEFAULT_MEAN, \
+        IMAGENET_DEFAULT_STD
+    hw = (R50_IMG, R50_IMG)
+    k = A.assemble(raw, plans, offs, hw)
+    p = A.assemble_plain(raw, plans, offs, hw)
+    st = dict(mean=IMAGENET_DEFAULT_MEAN, std=IMAGENET_DEFAULT_STD)
+    kf = A.assemble(raw, plans, offs, hw, "float32", **st)
+    pf = A.assemble_plain(raw, plans, offs, hw, "float32", **st)
+    _sync()
+    u8_equal = bool(torch.equal(k, p))
+    f32_err = float((kf - pf).abs().max())
+    case = {"kernel": "image_assemble", "case": "b128_256_to_224_u8",
+            "shape": [len(plans), 3, R50_IMG, R50_IMG],
+            "u8_bit_identical": u8_equal, "max_abs_err": f32_err,
+            "f32_atol": ASSEMBLE_F32_ATOL, "kernel_launches_per_call": 1,
+            "library_ms": None,
+            "library_note": "no single PyTorch call crops, mirrors and "
+                            "packs a batch of differently sized images"}
+    if DEV == "cuda":
+        desc = A.descriptors(plans, offs, raw.device)
+        case["kernel_ms"] = bench_ms(
+            lambda: A.assemble(raw, plans, offs, hw, desc=desc), [()], 50)
+        case["kernel_ms_f32"] = bench_ms(
+            lambda: A.assemble(raw, plans, offs, hw, "float32", desc=desc,
+                               **st), [()], 50)
+        case["plain_ms"] = bench_ms(
+            lambda: A.assemble_plain(raw, plans, offs, hw), [()], 3)
+        # each crop's pixels read once, the batch written once
+        nbytes = 2 * len(plans) * 3 * R50_IMG * R50_IMG
+        case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 0)
+        case["bound_ms_f32"] = bound_ms(nbytes // 2 * 5, 0)[0]
+        case["bytes"] = nbytes
+        case["launches_a_batch"] = 1
+    case["ok"] = u8_equal and f32_err <= ASSEMBLE_F32_ATOL
+    RECORD.setdefault("kernel_cases", []).append(case)
+    return case
+
+
+def phase_image_codec():
+    """nvJPEG and the assembly kernel: the fixture's decode against the
+    JAX package's (a control from another entry must fail), an encode
+    round trip's PSNR, the batched decode's rate (1 and IMG_THREADS host
+    threads), and the assembly kernel against its plain version at the
+    main shape (128 images of 256² -> 3 x 224², uint8 with crop and
+    mirror), timed beside its bound."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.image import assemble as A, codec
+    res = {"mean_tol": CODEC_MEAN_TOL, "max_tol": CODEC_MAX_TOL}
+    entries = _jpeg_fixture()
+    fx = []
+    for i, (buf, pix) in enumerate(entries):
+        d = np.abs(_decode(buf, to_rgb=False).cpu().numpy().astype(np.int64)
+                   - pix)
+        fx.append({"entry": i, "shape": list(pix.shape),
+                   "max_abs_diff": int(d.max()),
+                   "mean_abs_diff": float(d.mean())})
+    res["fixture"] = fx
+    ctl = np.abs(_decode(entries[0][0], to_rgb=False).cpu().numpy()
+                 .astype(np.int64) - entries[1][1])
+    res["control_mean_abs_diff"] = float(ctl.mean())
+    img = _decode(entries[2][0], to_rgb=False)
+    if DEV == "cuda":
+        back = _decode(codec.encode(img, 95, bgr=True), to_rgb=False)
+        res["hardware_refused_status"] = codec.hardware_status()
+    else:
+        back = torch.from_numpy(codec.host_imdecode(codec.host_encode(
+            img.numpy(), 95), 1, False).copy())
+    mse = float(((back.float() - img.float()) ** 2).mean())
+    res["roundtrip_q95_psnr_db"] = 10 * math.log10(255 ** 2 / max(mse, 1e-12))
+    # the main shape: 128 JPEGs of 256², bench.py's quality
+    bufs = []
+    for img, _ in _synth_images(R50_BATCH, IMG_SIZE, SEED):
+        bufs.append(codec.encode(img, IMG_QUALITY, bgr=False)
+                    if DEV == "cuda" else
+                    codec.host_encode(img.numpy()[:, :, ::-1], IMG_QUALITY))
+    sizes = [codec.jpeg_size(b)[:2] for b in bufs]
+    offs = [int(o) for o in np.concatenate(
+        [[0], np.cumsum([h * w * 3 for h, w in sizes])])[:-1]]
+    total = offs[-1] + sizes[-1][0] * sizes[-1][1] * 3
+    raw = torch.empty(total, dtype=torch.uint8, device=DEV)
+    if DEV == "cuda":
+        rates = {}
+        import concurrent.futures as cf
+        for threads in (1, IMG_THREADS):
+            pool = cf.ThreadPoolExecutor(threads)
+            chunks = [c for c in np.array_split(np.arange(len(bufs)),
+                                                threads) if len(c)]
+
+            def run(ids):
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.default_stream())  # raw's
+                with torch.cuda.stream(side):
+                    codec.decode_batch([bufs[i] for i in ids], raw,
+                                       [offs[i] for i in ids],
+                                       [sizes[i] for i in ids])
+            list(pool.map(run, chunks))            # warm: contexts
+            t0 = time.perf_counter()
+            for _ in range(3):
+                list(pool.map(run, chunks))
+            rates[threads] = 3 * len(bufs) / (time.perf_counter() - t0)
+            pool.shutdown()
+        res["decode_img_per_s_by_threads"] = rates
+    else:
+        for b, o in zip(bufs, offs):
+            im = codec.host_imdecode(b, 1, True)
+            raw[o:o + im.size] = torch.from_numpy(im.reshape(-1))
+    plans = [A.plan_record(A._IR.pack(0, 0.0, i, 0) + b,
+                           lambda p: codec.jpeg_size(p)[:2], SEED, 1, i,
+                           (3, R50_IMG, R50_IMG), 0, True, True, 1)
+             for i, b in enumerate(bufs)]
+    res["mirrored"] = sum(p.mirror for p in plans)
+    res["assemble"] = _assemble_case(raw, plans, offs)
+    res["ok"] = bool(
+        all(f["mean_abs_diff"] <= CODEC_MEAN_TOL
+            and f["max_abs_diff"] <= CODEC_MAX_TOL for f in fx)
+        and res["control_mean_abs_diff"] > CODEC_MEAN_TOL
+        and res["roundtrip_q95_psnr_db"] >= CODEC_PSNR_MIN
+        and 0 < res["mirrored"] < R50_BATCH
+        and res["assemble"]["ok"])
+    RECORD["image_codec"] = res
+    if not res["ok"]:
+        raise AssertionError("image_codec failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
+def _kernel_busy(path, window):
+    """The card's busy ms inside the ``window`` range of a torch.profiler
+    chrome trace (the kernel lane): the union of its kernels' intervals
+    clipped to the range's span (one time base), the span's ms, and the
+    kernels that ran in it."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    w = next(e for e in events if e.get("name") == window
+             and e.get("ph") == "X" and e.get("cat") != "gpu_user_annotation")
+    lo, hi = float(w["ts"]), float(w["ts"]) + float(w["dur"])
+    spans = sorted((max(lo, float(e["ts"])),
+                    min(hi, float(e["ts"]) + float(e.get("dur", 0))))
+                   for e in events if e.get("cat") == "kernel")
+    spans = [(a, b) for a, b in spans if b > a]
+    busy, end = 0.0, lo
+    for a, b in spans:
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    return busy / 1e3, (hi - lo) / 1e3, len(spans)
+
+
+def phase_image_rec_resnet50():
+    """bench.py's e2e_data lane on the port (see the IMG_* constants): the
+    .rec built on the card, the pipeline alone (img/s), ResNet-50 trained
+    from it through DataParallelTrainer in bf16 (img/s end to end, beside
+    dp_resnet50's synthetic-input img/s), a window under the profiler's
+    kernel lane (the card's busy share), the batches of IMG_HELD_STEPS
+    more steps held against the plain assembly of a fresh decode of their
+    own plans (the producer's buffers never share a block with the
+    training stream's work in flight), and one batch's draws held against
+    the same iterator at ctx=cpu() with the plain version."""
+    import tempfile
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.image import IMAGENET_DEFAULT_MEAN, \
+        IMAGENET_DEFAULT_STD, assemble as A, codec
+    _free_card()
+    res = {"records": IMG_REC_N, "image": IMG_SIZE, "quality": IMG_QUALITY,
+           "batch": R50_BATCH, "crop": R50_IMG, "threads": IMG_THREADS,
+           "prefetch": IMG_PREFETCH}
+    tmp = tempfile.mkdtemp(prefix="img_rec_")
+    rec = os.path.join(tmp, "synth.rec")
+    res["build_rec_s"] = _write_synth_rec(rec, IMG_REC_N, IMG_SIZE, SEED)
+    res["rec_mb"] = os.path.getsize(rec) / 1e6
+    kw = dict(path_imgrec=rec, data_shape=(3, R50_IMG, R50_IMG),
+              batch_size=R50_BATCH, shuffle=True, rand_crop=True,
+              rand_mirror=True, preprocess_threads=IMG_THREADS,
+              prefetch_buffer=IMG_PREFETCH, output_dtype="uint8")
+    with mx.NameManager():
+        sym = resnet_v1_symbol(mx.sym)
+    mean = torch.tensor(IMAGENET_DEFAULT_MEAN, dtype=torch.float32,
+                        device=DEV).reshape(1, 3, 1, 1)
+    stdinv = 1.0 / torch.tensor(IMAGENET_DEFAULT_STD, dtype=torch.float32,
+                                device=DEV).reshape(1, 3, 1, 1)
+
+    def preproc(name, v):
+        if name == "data":
+            return (v.to(torch.float32) - mean) * stdinv
+        return v
+    _reset_counts()
+    codec.counts.update(decoded=0, batched_calls=0)
+    it = mx.image.ImageRecordIter(ctx=_ctx(), **kw)
+    res["route"] = type(it).__name__
+
+    def get():
+        while True:
+            try:
+                return it.next()
+            except StopIteration:
+                it.reset()
+    for _ in range(IMG_WARMUP):
+        get()
+    t0 = time.perf_counter()
+    for _ in range(IMG_TIMED):
+        get()
+    res["pipeline_img_per_s"] = IMG_TIMED * R50_BATCH / (
+        time.perf_counter() - t0)
+    stages = np.asarray(list(it.stage_seconds)[1:])  # the first: contexts
+    res["stage_ms_median"] = dict(zip(("read", "decode", "assemble"),
+                                      (np.median(stages, 0) * 1e3).tolist()))
+    res["stage_batches"] = len(stages)
+    from mxnet_tpu_torch.parallel import DataParallelTrainer, \
+        data_parallel_mesh
+    mesh = data_parallel_mesh(1) if DEV == "cuda" else \
+        data_parallel_mesh(1, [DEV])
+    tr = DataParallelTrainer(sym, mesh, optimizer="sgd",
+                             learning_rate=R50_LR, momentum=0.9,
+                             rescale_grad=1.0 / R50_BATCH, dtype="bfloat16",
+                             input_preproc=preproc)
+    state = tr.init_state({"data": (R50_BATCH, 3, R50_IMG, R50_IMG),
+                           "softmax_label": (R50_BATCH,)})
+    losses = []
+
+    def steps(n, held=None):
+        nonlocal state
+        for _ in range(n):
+            b = get()
+            if held is not None:
+                held.append((b.data[0]._data, it.last_plans))
+                # 7s the size of a batch's decoded images, written on an
+                # idle card and freed while their sum waits behind a sleep,
+                # just as the taken batch frees the producer to decode the
+                # next one: it must not take the block (its buffers live on
+                # its own stream)
+                _sync()
+                sevens = torch.full((sevens_n,), 7, dtype=torch.uint8,
+                                    device=DEV)
+                if DEV == "cuda":
+                    torch.cuda._sleep(100_000_000)     # ~50 ms
+                sums.append(sevens.sum(dtype=torch.int64))
+                del sevens
+            y = b.label[0]._data
+            p, st, a, _, outs = tr.step(*state, tr.shard_inputs(
+                [b.data[0], y]))
+            state = (p, st, a)
+            # the step's cross-entropy from the softmax rows, on the card
+            prob = outs[0].float().gather(1, y.long()[:, None])
+            losses.append(-prob.clamp_min(1e-30).log().mean())
+    steps(IMG_WARMUP)
+    _sync()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    steps(IMG_TIMED)
+    _sync()
+    res["e2e_img_per_s"] = IMG_TIMED * R50_BATCH / (time.perf_counter() - t0)
+    res["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                          if DEV == "cuda" else 0.0)
+    res["captures"] = tr.captures
+    res["launches"] = _read_counts()
+    res["decoded"] = dict(codec.counts)
+    res["cross_entropy"] = [float(v) for v in torch.stack(losses).cpu()]
+    res["losses_finite"] = bool(np.isfinite(res["cross_entropy"]).all())
+    synth = RECORD.get("dp_resnet50", {}).get("bf16", {})
+    res["dp_resnet50_synthetic_img_per_s_step"] = synth.get("img_per_s_step")
+    res["dp_resnet50_synthetic_img_per_s_step_k"] = synth.get(
+        "img_per_s_step_k")
+    # the card's busy share over a window, from the kernel lane
+    if DEV == "cuda":
+        lane = tempfile.mkdtemp(prefix="img_lane_")
+        profiler.set_config(xplane_dir=lane, profile_imperative=False,
+                            profile_symbolic=False)
+        profiler.set_state("run")
+        try:
+            _lane_pad()
+            with torch.profiler.record_function("image_rec_window"):
+                steps(IMG_PROFILE_STEPS)
+                _sync()
+        finally:
+            profiler.set_state("stop")
+        busy, span, nk = _kernel_busy(profiler.kernel_profile()[1],
+                                      "image_rec_window")
+        res["profile"] = {"steps": IMG_PROFILE_STEPS, "window_ms": span,
+                          "device_busy_ms": busy, "busy_share": busy / span,
+                          "kernel_events": nk}
+    held, sums = [], []
+    sevens_n = R50_BATCH * IMG_SIZE * IMG_SIZE * 3
+    steps(IMG_HELD_STEPS, held)
+    _sync()
+    unequal = 0
+    for data, plans in held:
+        offs = [int(o) for o in np.concatenate([[0], np.cumsum(
+            [p.sh * p.sw * 3 for p in plans])])]
+        if DEV == "cuda":
+            raw = torch.empty(offs[-1], dtype=torch.uint8, device=DEV)
+            codec.decode_batch([p.payload for p in plans], raw, offs[:-1],
+                               [(p.sh, p.sw) for p in plans])
+        else:
+            raw = torch.cat([_decode(p.payload).reshape(-1) for p in plans])
+        ref = A.assemble_plain(raw, plans, offs[:-1], (R50_IMG, R50_IMG))
+        unequal += int(not torch.equal(data, ref))
+    res["held_while_training"] = {
+        "batches": len(held), "unequal_to_a_fresh_decode": unequal,
+        "freed_blocks_overwritten": sum(int(v) != 7 * sevens_n
+                                        for v in sums)}
+    del tr, state, held
+    it.close()
+    _free_card()
+    # one batch's draws: the card route against its ctx=cpu() twin
+    twin = {"card": mx.image.ImageRecordIter(ctx=_ctx(), **kw),
+            "cpu": mx.image.ImageRecordIter(ctx=mx.cpu(), **kw)}
+    got = {k: v.next() for k, v in twin.items()}
+    draws = {k: v.last_draws for k, v in twin.items()}
+    plans, _ = twin["cpu"].plans(0)
+    offs = [int(o) for o in np.concatenate([[0], np.cumsum(
+        [p.sh * p.sw * 3 for p in plans])])]
+    if DEV == "cuda":       # the card route's own decode of these JPEGs
+        raw = torch.empty(offs[-1], dtype=torch.uint8, device=DEV)
+        codec.decode_batch([p.payload for p in plans], raw, offs[:-1],
+                           [(p.sh, p.sw) for p in plans])
+    else:
+        raw = torch.cat([_decode(p.payload).reshape(-1) for p in plans])
+    ref = A.assemble_plain(raw, plans, offs[:-1], (R50_IMG, R50_IMG))
+    card = got["card"].data[0]._data
+    host = got["cpu"].data[0]._data
+    res["twin"] = {
+        "draws_equal": draws["card"] == draws["cpu"],
+        "mirrored": sum(d[4] for d in draws["cpu"]),
+        "card_equals_plain_of_its_decode": bool(torch.equal(card, ref)),
+        "labels_equal": bool(torch.equal(got["card"].label[0]._data.cpu(),
+                                          got["cpu"].label[0]._data)),
+        "card_vs_host_codec_mean_abs_diff": float(
+            (card.cpu().float() - host.float()).abs().mean())}
+    for v in twin.values():
+        v.close()
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    t = res["twin"]
+    res["ok"] = bool(
+        res["route"] == "_NativeImageRecordIter"
+        and res["losses_finite"]
+        and res["held_while_training"]["unequal_to_a_fresh_decode"] == 0
+        and res["held_while_training"]["freed_blocks_overwritten"] == 0
+        and (res["launches"]["image_assemble"] > 0 or DEV != "cuda")
+        and t["draws_equal"] and t["card_equals_plain_of_its_decode"]
+        and t["labels_equal"] and 0 < t["mirrored"] < R50_BATCH
+        and t["card_vs_host_codec_mean_abs_diff"] <= CODEC_MEAN_TOL
+        and res["captures"] == (1 if DEV == "cuda" else 0))
+    RECORD["image_rec_resnet50"] = res
+    if not res["ok"]:
+        raise AssertionError("image_rec_resnet50 failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
+def _det_label(rng):
+    """[2, 5, (id, xmin, ymin, xmax, ymax) x 1-4] as ImageDetIter reads
+    it, the boxes inside the image and at least 0.1 wide."""
+    import numpy as np
+    n = int(rng.randint(1, DET_MAX_BOXES + 1))
+    lo = rng.uniform(0.0, 0.6, (n, 2))
+    hi = np.minimum(lo + rng.uniform(0.1, 0.4, (n, 2)), 1.0)
+    cls = rng.randint(0, SSD_CLASSES, (n, 1))
+    return np.concatenate([[2.0, 5.0], np.concatenate(
+        [cls, lo, hi], 1).ravel()]).astype(np.float32)
+
+
+def phase_image_det_rec():
+    """ImageDetIter on the card from a .rec of DET_N JPEGs of SSD300's
+    300² with 1-4 packed boxes each, at SSD300's batch with rand_crop and
+    rand_mirror, feeding DET_STEPS training steps of the ssd300 phase's
+    Module; its labels after the augmenters held against the same
+    iterator at ctx=cpu() for the same seed (exact), its data within
+    DET_MEAN_TOL (nvJPEG against the host codec)."""
+    import random
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    _free_card()
+    res = {"records": DET_N, "image": SSD_IMG, "batch": SSD_BATCH,
+           "steps": DET_STEPS}
+    tmp = tempfile.mkdtemp(prefix="img_det_")
+    rec = os.path.join(tmp, "det.rec")
+    rng = np.random.RandomState(SEED + 1)
+    labels = [_det_label(rng) for _ in range(DET_N)]
+    res["build_rec_s"] = _write_synth_rec(rec, DET_N, SSD_IMG, SEED + 1,
+                                          label_of=lambda i: labels[i])
+    kw = dict(batch_size=SSD_BATCH, data_shape=(3, SSD_IMG, SSD_IMG),
+              path_imgrec=rec, rand_crop=0.5, rand_mirror=True, mean=True,
+              std=True)
+    random.seed(SEED)
+    it = mx.image.ImageDetIter(ctx=_ctx(), **kw)
+    it.reshape(label_shape=(SSD_MAX_BOXES, 5))
+    with mx.NameManager():
+        sym = ssd300_vgg16_symbol(mx.sym, num_classes=SSD_CLASSES,
+                                  width_div=SSD_WIDTH_DIV,
+                                  nms_topk=SSD_NMS_TOPK)
+    dshape = (SSD_BATCH, 3, SSD_IMG, SSD_IMG)
+    lshape = (SSD_BATCH, SSD_MAX_BOXES, 5)
+    arg_shapes, _, _ = sym.infer_shape(data=dshape, label=lshape)
+    params = _ssd_params(dict(zip(sym.list_arguments(), arg_shapes)))
+    mod = mx.mod.Module(sym, data_names=("data",), label_names=("label",),
+                        context=_ctx())
+    mod.bind(data_shapes=[("data", dshape)], label_shapes=[("label", lshape)])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                for k, v in params.items()})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(SSD_OPT))
+    # the iterator's batches first (its draws are ``random``'s, which
+    # nothing else may take in between), then the steps from them
+    _reset_counts()
+    batches, iter_s, losses, step_s = [], [], [], []
+    for _ in range(DET_STEPS):
+        t0 = time.perf_counter()
+        batches.append(it.next())
+        _sync()
+        iter_s.append(time.perf_counter() - t0)
+    for b in batches:
+        t0 = time.perf_counter()
+        mod.forward(b, is_train=True)
+        mod.backward()
+        mod.update()
+        _sync()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(_ssd_losses(mod.get_outputs()))
+    res.update({"batch_data_device": str(b.data[0]._data.device),
+                "launches": _read_counts(),
+                "iter_ms": [s * 1e3 for s in iter_s],
+                "step_ms": [s * 1e3 for s in step_s], "losses": losses})
+    card_batches = [(b.data[0]._data.cpu(), b.label[0]._data.cpu())
+                    for b in batches]
+    del batches
+    del mod
+    _free_card()
+    random.seed(SEED)
+    host = mx.image.ImageDetIter(ctx=mx.cpu(), **kw)
+    host.reshape(label_shape=(SSD_MAX_BOXES, 5))
+    lab_eq, diffs = [], []
+    for d_card, l_card in card_batches:
+        hb = host.next()
+        lab_eq.append(bool(torch.equal(l_card, hb.label[0]._data)))
+        diffs.append(float((d_card - hb.data[0]._data).abs().mean()))
+    shutil.rmtree(tmp, ignore_errors=True)
+    # the normalized data's mean difference, in 8-bit units (std ~57.6)
+    res["labels_equal_cpu"] = lab_eq
+    res["data_mean_abs_diff_units"] = [d * float(np.mean(
+        [58.395, 57.12, 57.375])) for d in diffs]
+    res["boxes_a_batch"] = [int((l_[:, :, 0] >= 0).sum())
+                            for _, l_ in card_batches]
+    res["ok"] = bool(
+        all(lab_eq)
+        and all(d <= DET_MEAN_TOL for d in res["data_mean_abs_diff_units"])
+        and all(np.isfinite([v for l_ in losses for v in
+                             (l_["softmax_ce"], l_["loc_loss"])]))
+        and res["batch_data_device"].startswith(DEV))
+    RECORD["image_det_rec"] = res
+    if not res["ok"]:
+        raise AssertionError("image_det_rec failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("train", phase_train),
           ("train_profile", phase_train_profile),
@@ -9104,7 +9696,10 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("traced_lm", phase_traced_lm),
           ("ring_attention", phase_ring_attention),
           ("zero_lm", phase_zero_lm), ("tp_pp", phase_tp_pp),
-          ("planner", phase_planner), ("group2ctx", phase_group2ctx))
+          ("planner", phase_planner), ("group2ctx", phase_group2ctx),
+          ("image_codec", phase_image_codec),
+          ("image_rec_resnet50", phase_image_rec_resnet50),
+          ("image_det_rec", phase_image_det_rec))
 
 # (name, source, TPU kernel, case kind, case, its time / bound keys, errors,
 # its kernel launches a call: counted in the case)
@@ -9136,6 +9731,11 @@ KERNEL_ROWS = (
      "kernel_launches_per_call"),
     ("rtc", "mxnet_tpu_torch/rtc.py", "mxnet_tpu/rtc.py:71", "rtc",
      "scale_add", "kernel_ms", "bound_ms", "bound_by", ("max_abs_err",),
+     "kernel_launches_per_call"),
+    # no TPU kernel: the JAX package's native pipeline's ProcessRecord
+    ("image_assemble", "mxnet_tpu_torch/csrc/image_assemble.cu",
+     "src/runtime_native.cc:357", "image_assemble", "b128_256_to_224_u8",
+     "kernel_ms", "bound_ms", "bound_by", ("max_abs_err",),
      "kernel_launches_per_call"),
 )
 
@@ -9203,7 +9803,8 @@ def main(argv=None):
                                   "serving_net", "ssd300", "dlrm",
                                   "device_feed", "traced_lm",
                                   "ring_attention", "zero_lm", "tp_pp",
-                                  "planner", "group2ctx")
+                                  "planner", "group2ctx",
+                                  "image_rec_resnet50", "image_det_rec")
               if k in RECORD]
     rows = []
     for (name, src, replaces, kind, case, ms_key, bound_key, by_key,

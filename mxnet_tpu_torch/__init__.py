@@ -31,7 +31,9 @@ fused ``RNN`` op, ``rnn`` cells and ``BucketSentenceIter``,
 ``gluon.rnn``); the runtime planes (``pipeline.DeviceFeed``,
 ``profiler`` with a ``torch.profiler`` kernel lane, ``telemetry``'s
 span tracing, step log, flight recorder and watchdog, ``Monitor``,
-``engine``).
+``engine``); the image record pipeline (``recordio``, ``image``:
+nvJPEG decode and a batch-assembly kernel on the card, the augmenters,
+``ImageIter``, ``ImageRecordIter``, ``ImageDetIter``).
 Entry points run on the card unless the caller asks for the host
 (``device="cpu"``, ``ctx=cpu()``, ``with cpu():``; the ops follow their
 tensors' device).
@@ -48,11 +50,13 @@ from . import symbol  # noqa: F401
 from . import symbol as sym  # noqa: F401
 from . import executor, imperative  # noqa: F401
 from . import callback, io, lr_scheduler, metric, model  # noqa: F401
+from . import recordio  # noqa: F401
 from . import module  # noqa: F401
 from . import rnn  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import kvstore, parallel  # noqa: F401
 from . import kvstore as kv  # noqa: F401
+from . import image  # noqa: F401
 from . import gluon  # noqa: F401
 from . import amp, checkpoint, config  # noqa: F401
 from . import engine, monitor, pipeline, profiler, telemetry  # noqa: F401
@@ -65,8 +69,8 @@ __version__ = "0.4.0"
 __all__ = ["AttrScope", "MXNetError", "NameManager", "Context", "cpu",
            "gpu", "tpu", "current_context", "resolve_device",
            "amp", "autograd", "callback", "checkpoint", "engine",
-           "executor", "gluon", "imperative", "init", "Monitor", "monitor",
-           "pipeline", "profiler", "telemetry",
+           "executor", "gluon", "image", "imperative", "init", "Monitor",
+           "monitor", "pipeline", "profiler", "telemetry",
            "initializer", "io", "kv", "kvstore", "lr_scheduler", "metric",
            "mod", "model", "module", "nd", "ndarray", "optimizer",
-           "parallel", "random", "rnn", "rtc", "sym", "symbol"]
+           "parallel", "random", "recordio", "rnn", "rtc", "sym", "symbol"]

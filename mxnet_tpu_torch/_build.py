@@ -2,9 +2,11 @@
 
 Every ``mxnet_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into its own shared library with a plain C interface,
-all sources in parallel, into ``build/kernels/`` beside the package. The
-file names carry a hash of the sources and flags, so an edited kernel is
-rebuilt and an unchanged one is loaded as it is. Libraries are loaded
+linked against the toolkit libraries its ``mxt-link`` line names (the
+nvJPEG codec's ``-lnvjpeg``), all sources in parallel, into
+``build/kernels/`` beside the package. The file names carry a hash of
+the sources and flags, so an edited kernel is rebuilt and an unchanged
+one is loaded as it is. Libraries are loaded
 with ``ctypes``: pointers and the stream are ``c_void_p``, and every C
 entry returns ``cudaGetLastError()``, which :func:`check` turns into an
 error. Nothing here includes PyTorch's headers, so a build takes seconds.
@@ -39,6 +41,10 @@ _BOUND = {}
 # register/shared-memory report, kept beside each library and read back
 # when it is reused), and which sources it built
 last_build = {}
+# a source that needs a library of the toolkit names it on a line of its
+# own, "// mxt-link: -lname": those flags are added to its nvcc command
+# only (the key hashes every source's text, so a changed line rebuilds)
+_LINK = "// mxt-link:"
 
 
 def _nvcc():
@@ -54,6 +60,19 @@ def _nvcc():
 
 def _sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def _link_flags(src):
+    """The source's own ``mxt-link`` flags, and the toolkit's library
+    directory to find them in at build and at load time."""
+    flags = []
+    for line in src.read_text().splitlines():
+        if line.startswith(_LINK):
+            flags += line[len(_LINK):].split()
+    if not flags:
+        return []
+    lib = os.path.join(os.path.dirname(os.path.dirname(_nvcc())), "lib64")
+    return ["-L", lib, "-Xlinker", "-rpath," + lib, *flags]
 
 
 def _key():
@@ -77,7 +96,8 @@ def build():
         if lib.exists():
             continue
         tmp = lib.with_suffix(".so.tmp%d" % os.getpid())
-        cmd = [_nvcc(), *FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src),
+               *_link_flags(src)]
         procs[src.stem] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), tmp, lib)

@@ -81,6 +81,10 @@ both:
                             ``DataParallelTrainer(...)``
   MXNET_PLAN_WIRE_GBPS      the cross-device bandwidth (GB/s) the
                             planner prices collective bytes at
+  MXNET_TPU_DISABLE_NATIVE_ITER
+                            1 sends every ``ImageRecordIter`` down the
+                            Python route (no nvJPEG batch, no assembly
+                            kernel)
 """
 from __future__ import annotations
 
@@ -134,6 +138,7 @@ _DOCUMENTED = {
     "MXNET_GRAD_COMPRESS": "none",
     "MXNET_PLAN": "auto",
     "MXNET_PLAN_WIRE_GBPS": "25",
+    "MXNET_TPU_DISABLE_NATIVE_ITER": 0,
 }
 
 

@@ -384,14 +384,22 @@ class _Plan:
                 carry.add(p)
         return carry
 
-    def run_replicas(self, replicas, devices, carry, rng=None):
+    def run_replicas(self, replicas, devices, carry, rng=None, monitor=None,
+                     monitor_inputs=False):
         """One walk over a mesh's replicas in lock step. ``replicas``: one
         (args, aux) pair of name -> tensor dicts a replica. An op with an
         ``fmesh`` hook sees every replica's inputs at once; any other op
-        runs on each replica. Returns (each replica's outputs, [(aux name,
-        new value)] of the first replica: the hooks give every replica the
-        same global values)."""
+        runs on each replica. ``monitor`` taps what :meth:`run` taps, in
+        its order, as the whole batch's values: a value that carries the
+        batch is its replicas' shards concatenated on axis 0 (on the
+        first device), any other the first replica's. Returns (each
+        replica's outputs, [(aux name, new value)] of the first replica:
+        the hooks give every replica the same global values)."""
         n = len(devices)
+
+        def tap(name, parts, carried):
+            monitor(name, torch.cat([t.to(devices[0]) for t in parts], 0)
+                    if carried and parts[0].ndim else parts[0])
         vals = [None] * self.n
         for p, kind, name in self.variables:
             vals[p] = [((a if kind == "aux" else g)[name],)
@@ -405,9 +413,14 @@ class _Plan:
             if op is None:
                 vals[p] = [(x[0],) for x in xs]
                 continue
+            carried = {j for j, (q, _) in enumerate(ins) if q in carry}
+            if monitor_inputs:
+                in_names = self.input_names[p]
+                for j in range(len(ins)):
+                    tap(f"{name}_{in_names[j] if j < len(in_names) else j}",
+                        [x[j] for x in xs], j in carried)
             if cast is not None:
                 xs = [cast(op.name, x) for x in xs]
-            carried = {j for j, (q, _) in enumerate(ins) if q in carry}
             if op.fmesh is not None:
                 res = op.fmesh(parsed, octxs[0], xs)
             elif carried:
@@ -423,11 +436,17 @@ class _Plan:
             vals[p] = [r_[:n_out] for r_ in res]
             for j, aux_name in aux_writes:
                 updates.append((aux_name, res[0][j]))
+            if monitor is not None:
+                for i in range(n_out):
+                    tap(f"{name}_output{i}" if n_out > 1
+                        else f"{name}_output", [r_[i] for r_ in res],
+                        p in carry)
         return [[vals[q][r][i] for (q, i) in self.outputs]
                 for r in range(n)], updates
 
 
-def _run_mesh(plan, args, aux, devices, sharded, rng=None):
+def _run_mesh(plan, args, aux, devices, sharded, rng=None, monitor=None,
+              monitor_inputs=False):
     """A walk of ``plan`` over a mesh's replica ``devices``: ``args`` /
     ``aux`` are the global name -> tensor dicts on ``devices[0]``; each
     replica gets its equal shard (axis 0) of the ``sharded`` arguments and
@@ -435,9 +454,10 @@ def _run_mesh(plan, args, aux, devices, sharded, rng=None):
     autograd sums the replicas' gradients into the global tensors.
     Outputs that carry the batch axis are concatenated onto
     ``devices[0]``, others are the first replica's. One device: the plain
-    walk. Returns (outputs, aux updates)."""
+    walk. ``monitor`` / ``monitor_inputs``: as :meth:`_Plan.run_replicas`.
+    Returns (outputs, aux updates)."""
     if len(devices) == 1:
-        return plan.run(args, aux, devices[0], rng)
+        return plan.run(args, aux, devices[0], rng, monitor, monitor_inputs)
     n = len(devices)
     chunks = {k: torch.chunk(v, n, dim=0) for k, v in args.items()
               if k in sharded}
@@ -446,7 +466,8 @@ def _run_mesh(plan, args, aux, devices, sharded, rng=None):
                  {k: v.to(d) for k, v in aux.items()})
                 for r, d in enumerate(devices)]
     carry = plan.batch_carriers(sharded)
-    outs, updates = plan.run_replicas(replicas, devices, carry, rng)
+    outs, updates = plan.run_replicas(replicas, devices, carry, rng,
+                                      monitor, monitor_inputs)
     dev0 = devices[0]
     merged = [torch.cat([o[i].to(dev0) for o in outs], 0)
               if plan.outputs[i][0] in carry else outs[0][i]
@@ -1056,16 +1077,14 @@ class Executor:
             rng = _random.generator(self._device)
         aux = {n: a._data for n, a in self.aux_dict.items()}
         monitor = self._monitor_fn()
-        if monitor is not None and len(self._replicas) > 1:
-            raise MXNetError("a monitor callback on a data-parallel mesh "
-                             "executor is not ported")
 
         def run(args):
-            if monitor is not None or self._placement is not None:
+            if self._placement is not None:
                 return plan.run(args, aux, self._device, rng, monitor,
                                 self._monitor_all, self._placement)
             return _run_mesh(plan, args, aux, self._replicas,
-                             self._sharded_args, rng)
+                             self._sharded_args, rng, monitor,
+                             self._monitor_all)
         if is_train and self._diff_names:
             leaves = {n: self.arg_dict[n]._data.detach().requires_grad_(True)
                       for n in self._diff_names}

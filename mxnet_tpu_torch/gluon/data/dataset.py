@@ -1,12 +1,12 @@
 """Datasets (counterpart of mxnet_tpu/gluon/data/dataset.py):
 ``Dataset`` with ``transform`` / ``transform_first`` (lazy, or applied
-once when ``lazy=False``), ``SimpleDataset`` and ``ArrayDataset``.
-``RecordFileDataset`` needs ``recordio``, which is not ported (ROADMAP
-queue 1 item 17), and raises.
+once when ``lazy=False``), ``SimpleDataset``, ``ArrayDataset`` and
+``RecordFileDataset`` (the records of a ``.rec`` file, on ``recordio``).
 """
 from __future__ import annotations
 
-from ...base import MXNetError
+import os
+
 from ...ndarray.ndarray import NDArray
 
 __all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
@@ -86,8 +86,18 @@ class ArrayDataset(Dataset):
 
 
 class RecordFileDataset(Dataset):
-    """A dataset over an indexed RecordIO file: not ported."""
+    """The records of an indexed RecordIO file (its ``.idx`` beside it,
+    else the table is built from the file's framing), as bytes."""
 
     def __init__(self, filename):
-        raise MXNetError(f"RecordFileDataset({filename!r}) needs recordio, "
-                         "which is not ported yet (ROADMAP queue 1 item 17)")
+        from ... import recordio
+        self.idx_file = os.path.splitext(filename)[0] + ".idx"
+        self.filename = filename
+        self._record = recordio.MXIndexedRecordIO(self.idx_file,
+                                                  self.filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

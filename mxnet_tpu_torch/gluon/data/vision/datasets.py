@@ -6,9 +6,11 @@ or CIFAR's binary batches) when present under ``root``, else the JAX
 package's deterministic synthetic sets (``io._synthetic_mnist``, seeded
 templates for CIFAR); nothing is downloaded. Samples are host NDArrays
 (uint8 HWC images) and numpy int32 labels: the DataLoader makes the one
-copy of a batch to the device. ``ImageRecordDataset`` and
-``ImageFolderDataset`` need the image decoders, which are not ported
-(ROADMAP queue 1 item 17), and raise.
+copy of a batch to the device. ``ImageRecordDataset`` (a ``.rec`` of
+im2rec) and ``ImageFolderDataset`` (one folder a class) decode with
+``image.imdecode`` on ``ctx``: the card's nvJPEG by default, as every
+entry point of the port, or the host with ``ctx=cpu()``, which a
+DataLoader's process workers need (they cannot reach the card).
 """
 from __future__ import annotations
 
@@ -16,9 +18,8 @@ import os
 
 import numpy as np
 
-from ....base import MXNetError
 from ....context import cpu
-from ..dataset import Dataset
+from ..dataset import Dataset, RecordFileDataset
 from ....ndarray.ndarray import array
 from ....io import (_read_mnist_images, _read_mnist_labels,
                     _synthetic_mnist)
@@ -146,19 +147,68 @@ class CIFAR100(_CIFAR):
         super().__init__(root, train, transform)
 
 
-class ImageRecordDataset(Dataset):
-    """Images in a RecordIO file: not ported."""
+class ImageRecordDataset(RecordFileDataset):
+    """(image, label) of each record of a ``.rec``: the image decoded by
+    ``imdecode(flag)`` on ``ctx`` (default: the context current where an
+    item is read, the card), the header's label. Under a ``DataLoader``
+    with process workers pass ``ctx=cpu()``: a forked worker cannot use
+    the card."""
 
-    def __init__(self, filename, flag=1, transform=None):
-        raise MXNetError(f"ImageRecordDataset({filename!r}) needs recordio "
-                         "and the image decoders, which are not ported yet "
-                         "(ROADMAP queue 1 item 17)")
+    def __init__(self, filename, flag=1, transform=None, ctx=None):
+        super().__init__(filename)
+        self._flag = flag
+        self._transform = transform
+        self._ctx = ctx
+
+    def __getitem__(self, idx):
+        from .... import recordio
+        from ....image import imdecode
+        record = super().__getitem__(idx)
+        header, img = recordio.unpack(record)
+        img = imdecode(img, self._flag, ctx=self._ctx)
+        if self._transform is not None:
+            return self._transform(img, header.label)
+        return img, header.label
 
 
 class ImageFolderDataset(Dataset):
-    """Images in per-class folders: not ported."""
+    """(image, label) of every .jpg / .jpeg / .png under ``root``'s
+    folders, one folder a class (``synsets``, in sorted order), decoded
+    by ``imread(flag)`` on ``ctx`` (default: the context current where an
+    item is read, the card; ``ctx=cpu()`` under a ``DataLoader`` with
+    process workers)."""
 
-    def __init__(self, root, flag=1, transform=None):
-        raise MXNetError(f"ImageFolderDataset({root!r}) needs the image "
-                         "decoders, which are not ported yet (ROADMAP queue "
-                         "1 item 17)")
+    def __init__(self, root, flag=1, transform=None, ctx=None):
+        self._root = os.path.expanduser(root)
+        self._flag = flag
+        self._transform = transform
+        self._ctx = ctx
+        self._exts = [".jpg", ".jpeg", ".png"]
+        self._list_images(self._root)
+
+    def _list_images(self, root):
+        self.synsets = []
+        self.items = []
+        for folder in sorted(os.listdir(root)):
+            path = os.path.join(root, folder)
+            if not os.path.isdir(path):
+                continue
+            label = len(self.synsets)
+            self.synsets.append(folder)
+            for filename in sorted(os.listdir(path)):
+                filename = os.path.join(path, filename)
+                ext = os.path.splitext(filename)[1]
+                if ext.lower() not in self._exts:
+                    continue
+                self.items.append((filename, label))
+
+    def __getitem__(self, idx):
+        from ....image import imread
+        img = imread(self.items[idx][0], self._flag, ctx=self._ctx)
+        label = self.items[idx][1]
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
+
+    def __len__(self):
+        return len(self.items)

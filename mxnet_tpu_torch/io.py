@@ -5,13 +5,16 @@ last batches; shuffled once by ``np.random`` as the JAX package does),
 
 Batches are built on the host, as NDArrays over host tensors (pinned
 when the current context is a card); the executor copies them into its
-bound arrays on the card. ``PrefetchingIter`` and ``ImageRecordIter`` are not ported.
+bound arrays on the card. ``PrefetchingIter`` runs one or more iterators
+a batch ahead on background threads. ``ImageRecordIter`` is
+``image.ImageRecordIter`` (also ``mx.io.ImageRecordIter``).
 """
 from __future__ import annotations
 
 import logging
 import os
 import struct
+import threading
 
 import numpy as np
 import torch
@@ -21,7 +24,7 @@ from .context import current_context
 from .ndarray.ndarray import NDArray
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
-           "CSVIter", "MNISTIter"]
+           "PrefetchingIter", "CSVIter", "MNISTIter", "ImageRecordIter"]
 
 
 class DataDesc(tuple):
@@ -150,6 +153,139 @@ class ResizeIter(DataIter):
             self.current_batch = self.data_iter.next()
         self.cur += 1
         return True
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+class PrefetchingIter(DataIter):
+    """Background-thread prefetch over one or more iterators (io.py:349;
+    the role of src/io/iter_prefetcher.h's double buffering): each
+    iterator's next batch is fetched on a thread of its own while the
+    current one is used. ``rename_data`` / ``rename_label``: one
+    {old name: new name} dict an iterator."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None):
+        super().__init__()
+        if not isinstance(iters, list):
+            iters = [iters]
+        self.n_iter = len(iters)
+        assert self.n_iter > 0
+        self.iters = iters
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self.batch_size = self.provide_data[0][1][0]
+        self.data_ready = [threading.Event() for _ in range(self.n_iter)]
+        self.data_taken = [threading.Event() for _ in range(self.n_iter)]
+        for e in self.data_taken:
+            e.set()
+        self.started = True
+        self.current_batch = [None for _ in range(self.n_iter)]
+        self.next_batch = [None for _ in range(self.n_iter)]
+        self.errors = [None for _ in range(self.n_iter)]
+
+        def prefetch_func(self, i):
+            while True:
+                self.data_taken[i].wait()
+                if not self.started:
+                    break
+                try:
+                    self.next_batch[i] = self.iters[i].next()
+                except StopIteration:
+                    self.next_batch[i] = None
+                except Exception as e:        # raised where it is read
+                    self.next_batch[i] = None
+                    self.errors[i] = e
+                self.data_taken[i].clear()
+                self.data_ready[i].set()
+
+        self.prefetch_threads = [
+            threading.Thread(target=prefetch_func, args=[self, i], daemon=True)
+            for i in range(self.n_iter)]
+        for thread in self.prefetch_threads:
+            thread.start()
+
+    def __del__(self):
+        try:
+            self.started = False
+            for e in self.data_taken:
+                e.set()
+            for thread in self.prefetch_threads:
+                thread.join(timeout=1)
+        except Exception:
+            pass
+
+    @property
+    def provide_data(self):
+        if self.rename_data is None:
+            return sum([i.provide_data for i in self.iters], [])
+        return sum([[
+            DataDesc(r[x.name], x.shape, x.dtype)
+            if isinstance(x, DataDesc) else DataDesc(*x)
+            for x in i.provide_data
+        ] for r, i in zip(self.rename_data, self.iters)], [])
+
+    @property
+    def provide_label(self):
+        if self.rename_label is None:
+            return sum([i.provide_label for i in self.iters], [])
+        return sum([[
+            DataDesc(r[x.name], x.shape, x.dtype)
+            if isinstance(x, DataDesc) else DataDesc(*x)
+            for x in i.provide_label
+        ] for r, i in zip(self.rename_label, self.iters)], [])
+
+    def reset(self):
+        for e in self.data_ready:
+            e.wait()
+        for i in self.iters:
+            i.reset()
+        self.errors = [None for _ in range(self.n_iter)]
+        for e in self.data_ready:
+            e.clear()
+        for e in self.data_taken:
+            e.set()
+
+    def iter_next(self):
+        for e in self.data_ready:
+            e.wait()
+        for err in self.errors:
+            if err is not None:
+                raise err
+        if self.next_batch[0] is None:
+            for i in self.next_batch:
+                assert i is None, \
+                    "Number of entry mismatches between iterators"
+            return False
+        for batch in self.next_batch:
+            assert batch.pad == self.next_batch[0].pad, \
+                "Different pad value in the data batches"
+        self.current_batch = DataBatch(
+            sum([batch.data for batch in self.next_batch], []),
+            sum([batch.label for batch in self.next_batch], []),
+            self.next_batch[0].pad,
+            self.next_batch[0].index,
+            provide_data=self.provide_data,
+            provide_label=self.provide_label)
+        for e in self.data_ready:
+            e.clear()
+        for e in self.data_taken:
+            e.set()
+        return True
+
+    def next(self):
+        if self.iter_next():
+            return self.current_batch
+        raise StopIteration
 
     def getdata(self):
         return self.current_batch.data
@@ -409,3 +545,9 @@ def _synthetic_mnist(n, seed=0):
     noise = rng.normal(0, 0.15, size=(n, 28, 28)).astype(np.float32)
     images = templates[labels.astype(np.int64)] + noise
     return np.clip(images, 0, 1).astype(np.float32), labels
+
+
+def ImageRecordIter(*args, **kwargs):
+    """``image.io.ImageRecordIter`` (the image package imports io)."""
+    from .image.io import ImageRecordIter as _impl
+    return _impl(*args, **kwargs)

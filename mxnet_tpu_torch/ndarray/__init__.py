@@ -11,7 +11,7 @@ from .. import imperative as _imp
 from .ndarray import (NDArray, array, zeros, ones, full, empty,  # noqa: F401
                       arange, zeros_like, ones_like, concatenate, save, load,
                       waitall, moveaxis)
-from . import contrib, random, sparse  # noqa: F401
+from . import contrib, image, random, sparse  # noqa: F401
 
 
 def _make_op_func(schema):

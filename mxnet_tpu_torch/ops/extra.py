@@ -5,11 +5,9 @@ the mutation ops behind ``__setitem__`` (``_slice_assign``,
 ``IdentityAttachKLSparseReg``, the placement identities
 ``_CrossDeviceCopy`` and ``_identity_with_attr_like_rhs``, the ops of
 the dense-backed sparse storage (``cast_storage``, ``_sparse_retain``,
-``_sparse_adagrad_update``), and the reference's legacy names of
-registered ops.
-
-Not ported yet, and named by ``registry.get_op``: ``_image_to_tensor``
-and ``_image_normalize`` (ROADMAP item 17).
+``_sparse_adagrad_update``), the image ops ``_image_to_tensor`` and
+``_image_normalize`` (``mx.nd.image``), and the reference's legacy
+names of registered ops.
 """
 from __future__ import annotations
 
@@ -237,6 +235,46 @@ register("_sparse_adagrad_update", _sparse_adagrad_update,
                  "clip_gradient": Param("float", -1.0)},
          inputs=("weight", "grad", "history"), aux=("history",),
          mutates_aux=True, aux_always=True)
+
+
+# ---------------------------------------------------------------------------
+# image ops (src/operator/image/image_random.cc): to_tensor, normalize
+# ---------------------------------------------------------------------------
+
+def _image_to_tensor(attrs, octx, data):
+    """HWC (or NHWC) [0, 255] -> CHW (NCHW) float32 [0, 1]."""
+    x = data.to(torch.float32) / 255.0
+    if data.dim() == 3:
+        return (x.permute(2, 0, 1),)
+    return (x.permute(0, 3, 1, 2),)
+
+
+def _to_tensor_infer(attrs, in_shapes):
+    s = in_shapes[0]
+    if s is None:
+        return in_shapes, [None]
+    if len(s) == 3:
+        return in_shapes, [(s[2], s[0], s[1])]
+    return in_shapes, [(s[0], s[3], s[1], s[2])]
+
+
+register("_image_to_tensor", _image_to_tensor, inputs=("data",),
+         infer_shape=_to_tensor_infer, aliases=("image_to_tensor",))
+
+
+def _image_normalize(attrs, octx, data):
+    """(x - mean[c]) / std[c] over the channel axis of CHW / NCHW."""
+    mean = torch.as_tensor(attrs["mean"], dtype=data.dtype,
+                           device=data.device)
+    std = torch.as_tensor(attrs["std"], dtype=data.dtype, device=data.device)
+    shape = (-1, 1, 1) if data.dim() == 3 else (1, -1, 1, 1)
+    return ((data - mean.reshape(shape)) / std.reshape(shape),)
+
+
+register("_image_normalize", _image_normalize,
+         params={"mean": Param("floats", (0.0,)),
+                 "std": Param("floats", (1.0,))},
+         inputs=("data",), aliases=("image_normalize",))
 
 
 for _alias, _name in (

@@ -216,7 +216,7 @@ def register_alias(alias, name):
 
 # the JAX package's ops the port does not have yet, by the ROADMAP item
 # (queue 1) that holds them; their registered aliases too
-_ITEM_17 = "ROADMAP item 17 (the remaining contrib, image and Custom ops)"
+_ITEM_17 = "ROADMAP item 17 (the remaining contrib ops and Custom)"
 UNPORTED = {
     **dict.fromkeys((
         "BilinearSampler", "CTCLoss", "Correlation", "Crop", "GridGenerator",
@@ -226,8 +226,7 @@ UNPORTED = {
         "_contrib_PSROIPooling", "_contrib_Proposal", "_contrib_count_sketch",
         "_contrib_fft", "_contrib_ifft", "_contrib_quadratic", "khatri_rao",
         "_contrib_CTCLoss", "_contrib_ctc_loss", "ctc_loss",
-        "_image_normalize", "_image_to_tensor", "image_normalize",
-        "image_to_tensor", "Custom"), _ITEM_17),
+        "Custom"), _ITEM_17),
 }
 
 

@@ -537,14 +537,22 @@ def _py_slice(b, e, s):
 
 
 def _slice(attrs, octx, x):
+    """Python slicing per axis; torch takes no negative step, so such an
+    axis is flipped and sliced forward over the flipped positions (the
+    gradient flows back through the flip)."""
     begin, end, step = attrs["begin"], attrs["end"], attrs["step"]
     idx = []
     for i in range(len(begin)):
         e = end[i] if i < len(end) else None
         s = step[i] if step and i < len(step) else None
-        if s is not None and s < 0:
-            raise MXNetError("slice: negative steps are not ported")
-        idx.append(_py_slice(begin[i], e, s))
+        sl = _py_slice(begin[i], e, s)
+        if sl.step is not None and sl.step < 0:
+            n = x.shape[i]
+            picked = range(*sl.indices(n))
+            x = x.flip(i)
+            sl = slice(n - 1 - picked[0], n - picked[-1], -sl.step) \
+                if len(picked) else slice(0, 0)
+        idx.append(sl)
     return (x[tuple(idx)],)
 
 

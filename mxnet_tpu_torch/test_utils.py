@@ -12,11 +12,16 @@ causal rows and keys differ in magnitude by 30x and more.
 ``attention_term_scales`` gives those root-sum-squares, and
 ``attention_without_keys`` the control that such a check must reject: the
 same attention with one tile of keys left out of every row.
+
+``jpeg_fixture`` reads the committed JPEG fixture (tests/data/
+jpeg_fixture.npz): JPEG records beside the JAX package's decode of each,
+for the card's decoders, which are held against it without JAX.
 """
+import numpy as np
 import torch
 
 __all__ = ["half_ulp", "half_units", "attention_term_scales",
-           "decode_term_scales", "attention_without_keys"]
+           "decode_term_scales", "attention_without_keys", "jpeg_fixture"]
 
 
 def half_ulp(x, dtype):
@@ -125,3 +130,16 @@ def attention_without_keys(q, k, v, start, stop, causal=False, scale=None,
             loss = loss + (torch.logsumexp(sc, -1) * glse.float()).sum()
         grads = torch.autograd.grad(loss, (qf, kf, vf))
     return tuple(t.detach().to(q.dtype) for t in (out, *grads))
+
+
+def jpeg_fixture(path):
+    """[(record bytes, decoded BGR pixels)] of a fixture written by
+    tests/test_torch_image.py's ``write_fixture``."""
+    f = np.load(path)
+    ends = [int(e) for e in f["record_ends"]]
+    recs = [f["records"][a:b].tobytes() for a, b in zip([0] + ends, ends)]
+    offs = np.concatenate([[0], np.cumsum([int(np.prod(s))
+                                           for s in f["shapes"]])])
+    return [(r, f["pixels"][offs[i]:offs[i + 1]].reshape(f["shapes"][i]))
+            for i, r in enumerate(recs)]
+

@@ -63,10 +63,20 @@ Parallel breadth over a mesh listing the card 4 times: ring attention
 cotangent) and Ulysses (4 of each) against one flash call over the whole
 sequence (norm-wise 1e-5 in float32), ZeRO-1 and ZeRO-2 bit-identical
 to dp on the card, and the fp8 wire cast equal to the CPU's.
+The image pipeline: nvJPEG's decode of the committed JPEG fixture
+(tests/data/jpeg_fixture.npz, the JAX package's OpenCV decode beside
+each JPEG) within a mean of 1.5 and a largest difference of 16 units
+(another IDCT and chroma upsampling than libjpeg's), which another
+entry's pixels must fail; an nvJPEG encode round trip; the assembly
+kernel bit-identical to its plain version (uint8, crop, mirror, resize)
+and float32 with mean/std equal; and ImageRecordIter's card route
+drawing the crops and flips of its ``ctx=cpu()`` twin, its batch the
+plain assembly of the card's decode at those draws.
 """
 import contextlib
 import functools
 import math
+import os
 
 import pytest
 import torch
@@ -1878,3 +1888,174 @@ def test_segmented_walk_on_the_card(dev):
     for k in g2:
         np.testing.assert_allclose(g1[k], g2[k], rtol=1e-4, atol=1e-6,
                                    err_msg=k)
+
+
+JPEG_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "data", "jpeg_fixture.npz")
+
+
+def _jpeg_fixture():
+    """[(JPEG bytes, the JAX package's decoded BGR pixels)]."""
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.test_utils import jpeg_fixture
+    return [(recordio.unpack(r)[1], pix)
+            for r, pix in jpeg_fixture(JPEG_FIXTURE)]
+
+
+def test_nvjpeg_decodes_the_fixture_as_the_jax_package(dev):
+    import numpy as np
+    from mxnet_tpu_torch.image import codec
+    entries = _jpeg_fixture()
+    for buf, pix in entries:
+        got = codec.decode(buf, dev, to_rgb=False).cpu().numpy()
+        d = np.abs(got.astype(np.int64) - pix)
+        assert d.mean() <= 1.5 and d.max() <= 16, (d.mean(), d.max())
+    # the control: entry 0's decode against entry 1's pixels
+    got = codec.decode(entries[0][0], dev, to_rgb=False).cpu().numpy()
+    assert np.abs(got.astype(np.int64) - entries[1][1]).mean() > 1.5
+    # RGB is BGR reversed; an encode round trip at quality 95
+    rgb = codec.decode(entries[2][0], dev).cpu().numpy()
+    bgr = torch.from_numpy(rgb[:, :, ::-1].copy()).to(dev)
+    back = codec.decode(codec.encode(bgr, 95, bgr=True), dev,
+                        to_rgb=False).float()
+    mse = float(((back - bgr.float()) ** 2).mean())
+    assert 10 * math.log10(255 ** 2 / max(mse, 1e-12)) > 30
+
+
+def _assembly_case(dev, n, resize, out=32):
+    import numpy as np
+    from mxnet_tpu_torch.image import assemble, codec
+    rng = np.random.RandomState(0)
+    plans, offs, pos = [], [], 0
+    for i in range(n):
+        h, w = rng.randint(out + 2, out + 40, 2)
+        rec = assemble._IR.pack(0, float(i), i, 0) + b"\xff\xd8"
+        plans.append(assemble.plan_record(
+            rec, lambda p, h=h, w=w: (int(h), int(w)), 3, 1, i,
+            (3, out, out), resize, True, True, 1))
+        offs.append(pos)
+        pos += int(h) * int(w) * 3
+    raw = torch.randint(0, 256, (pos,), dtype=torch.uint8, device=dev)
+    return raw, plans, offs, codec
+
+
+@pytest.mark.parametrize("resize", [0, 40])
+def test_image_assemble_kernel_matches_plain(dev, resize):
+    from mxnet_tpu_torch.image import assemble
+    raw, plans, offs, _ = _assembly_case(dev, 9, resize)
+    n0 = assemble.assemble.launches
+    got = assemble.assemble(raw, plans, offs, (32, 32))
+    ref = assemble.assemble_plain(raw, plans, offs, (32, 32))
+    assert assemble.assemble.launches == n0 + 1
+    assert torch.equal(got, ref)
+    kw = dict(mean=[123.68, 116.28, 103.53], std=[58.395, 57.12, 57.375])
+    got = assemble.assemble(raw, plans, offs, (32, 32), "float32", **kw)
+    ref = assemble.assemble_plain(raw, plans, offs, (32, 32), "float32",
+                                  **kw)
+    assert torch.equal(got, ref)
+    # the host's plain version on the same bytes: the same batch
+    host = assemble.assemble_plain(raw.cpu(), plans, offs, (32, 32),
+                                   "float32", **kw)
+    assert torch.equal(got.cpu(), host)
+
+
+def test_image_record_iter_card_draws_equal_the_cpu_twin(dev, tmp_path):
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.image import assemble, codec
+    rng = np.random.RandomState(1)
+    rec = str(tmp_path / "c.rec")
+    w = mx.recordio.MXRecordIO(rec, "w")
+    for i in range(12):
+        img = torch.from_numpy(rng.randint(0, 256, (rng.randint(36, 60),
+                                                    rng.randint(36, 60), 3))
+                               .astype(np.uint8))
+        w.write(mx.recordio.pack_img(mx.recordio.IRHeader(0, float(i), i, 0),
+                                     img, quality=90, ctx=mx.gpu()))
+    w.close()
+    kw = dict(path_imgrec=rec, data_shape=(3, 32, 32), batch_size=5,
+              shuffle=True, rand_crop=True, rand_mirror=True, resize=40,
+              output_dtype="uint8", seed=4)
+    card = mx.image.ImageRecordIter(ctx=mx.gpu(), **kw)
+    host = mx.image.ImageRecordIter(ctx=mx.cpu(), **kw)
+    n0 = assemble.assemble.launches
+    for k in range(3):
+        b = card.next()
+        plans, _ = card.plans(k)
+        host.next()
+        assert card.last_draws == host.last_draws
+        assert b.data[0].context == mx.gpu()
+        raw = torch.cat([codec.decode(p.payload, dev).reshape(-1)
+                         for p in plans])
+        offs = np.concatenate([[0], np.cumsum(
+            [p.sh * p.sw * 3 for p in plans])])[:-1]
+        ref = assemble.assemble_plain(raw, plans, list(offs), (32, 32))
+        assert torch.equal(b.data[0]._data, ref)
+    assert assemble.assemble.launches == n0 + 3
+    card.close()
+    host.close()
+
+
+def test_image_record_iter_card_draws_hold_while_training(dev, tmp_path):
+    """Batches the card route delivers while a one-card trainer steps on
+    the current stream equal the plain assembly of a fresh decode of their
+    own plans, and the producer's buffers never take a block that work
+    still queued on that stream reads: after each step a tensor of 7s the
+    size of a batch's decoded images is freed while a sum over it waits
+    behind a sleep on the card, and every sum must still see only 7s."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.image import assemble, codec
+    from mxnet_tpu_torch.parallel import DataParallelTrainer, \
+        data_parallel_mesh
+    rng = np.random.RandomState(2)
+    rec = str(tmp_path / "t.rec")
+    w = mx.recordio.MXRecordIO(rec, "w")
+    for i in range(48):
+        img = torch.from_numpy(rng.randint(0, 256, (48, 52, 3))
+                               .astype(np.uint8))
+        w.write(mx.recordio.pack_img(
+            mx.recordio.IRHeader(0, float(i % 10), i, 0), img, quality=90,
+            ctx=mx.gpu()))
+    w.close()
+    it = mx.image.ImageRecordIter(
+        path_imgrec=rec, data_shape=(3, 32, 32), batch_size=8, shuffle=True,
+        rand_crop=True, rand_mirror=True, resize=40, output_dtype="uint8",
+        preprocess_threads=4, prefetch_buffer=3, seed=5, ctx=mx.gpu())
+    with mx.NameManager():
+        net = mx.sym.Convolution(mx.sym.Variable("data"), kernel=(3, 3),
+                                 num_filter=16, pad=(1, 1), name="c1")
+        net = mx.sym.Activation(net, act_type="relu")
+        net = mx.sym.FullyConnected(net, num_hidden=10, name="fc")
+        sym = mx.sym.SoftmaxOutput(net, name="softmax")
+    tr = DataParallelTrainer(
+        sym, data_parallel_mesh(1), learning_rate=0.01, rescale_grad=1 / 8,
+        input_preproc=lambda name, v: (v.float() - 128.0) / 64.0
+        if name == "data" else v)
+    state = tr.init_state({"data": (8, 3, 32, 32), "softmax_label": (8,)})
+    held, sums = [], []
+    n = 8 * 48 * 52 * 3                       # a batch's decoded bytes
+    for _ in range(18):                       # three epochs of six
+        try:
+            b = it.next()
+        except StopIteration:
+            it.reset()
+            b = it.next()
+        held.append((b.data[0]._data, it.last_plans))
+        p, st, a, _, _ = tr.step(*state, tr.shard_inputs(
+            [b.data[0], b.label[0]._data]))
+        state = (p, st, a)
+        sevens = torch.full((n,), 7, dtype=torch.uint8, device=dev)
+        torch.cuda._sleep(20_000_000)         # ~10 ms on the card
+        sums.append(sevens.sum(dtype=torch.int64))
+        del sevens                            # free while its sum waits
+    torch.cuda.synchronize()
+    it.close()
+    assert [int(v) for v in sums] == [7 * n] * len(sums)
+    for data, plans in held:
+        raw = torch.cat([codec.decode(p.payload, dev).reshape(-1)
+                         for p in plans])
+        offs = np.concatenate([[0], np.cumsum(
+            [p.sh * p.sw * 3 for p in plans])])[:-1]
+        ref = assemble.assemble_plain(raw, plans, list(offs), (32, 32))
+        assert torch.equal(data, ref)

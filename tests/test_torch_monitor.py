@@ -5,9 +5,9 @@ without ``monitor_all`` (every node's inputs tapped as
 ``{node}_{input}``), gives the same windows (steps), the same tapped
 names in the same order, and the same mean(|x|) statistics within 1e-5
 relative (float32 sums in another order). Also: ``install_monitor`` on a
-bound Module, ``sort``, ``pattern`` and ``interval``, and the refusal of
-a monitor on a data-parallel mesh executor, which the JAX package has
-too.
+bound Module, ``sort``, ``pattern`` and ``interval``, and a monitor on a
+data-parallel mesh executor (a Module over two contexts), whose taps are
+the whole batch's values, as the JAX package's.
 """
 import numpy as np
 import pytest
@@ -110,15 +110,80 @@ def test_install_sort_and_pattern():
         assert mon.toc() == []
 
 
+def _tapper(mx, monitor_all):
+    class Tapper(mx.Monitor):
+        """Keeps each tapped array itself, in the order of the taps."""
+
+        def __init__(self):
+            super().__init__(1, pattern=".*", monitor_all=monitor_all)
+            self.taps = []
+
+        def __call__(self, name, array):
+            if self._window_open:
+                self.taps.append((name, array.asnumpy().copy()))
+    return Tapper()
+
+
+def _mesh_taps_match_jax(monitor_all):
+    """A monitor on a Module over two contexts (a data-parallel mesh
+    executor) taps the whole batch's values, as the JAX package's
+    monitored forward does: the same names in the same order, and the
+    same values within 1e-5 relative (float32 products summed in another
+    order)."""
+    got = {}
+    for n, mx in PKGS.items():
+        x, y, params = _data()
+        mod = mx.mod.Module(_mlp_sym(mx), context=[mx.cpu(0), mx.cpu(1)])
+        mod.bind(data_shapes=[("data", (16, 8))],
+                 label_shapes=[("softmax_label", (16,))])
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in params.items()})
+        mon = _tapper(mx, monitor_all)
+        mod.install_monitor(mon)
+        mon.tic()
+        mod.forward(mx.io.DataBatch([mx.nd.array(x[:16], ctx=mx.cpu())],
+                                    [mx.nd.array(y[:16], ctx=mx.cpu())]),
+                    is_train=True)
+        mon.toc()
+        got[n] = mon.taps
+    assert [t[0] for t in got["torch"]] == [t[0] for t in got["jax"]]
+    assert len(got["jax"]) == (13 if monitor_all else 4), \
+        [t[0] for t in got["jax"]]
+    for (name, a), (_, b) in zip(got["torch"], got["jax"]):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=1e-6,
+                                   err_msg=name)
+
+
 def test_monitor_refused_on_a_data_parallel_mesh():
-    mod = tmx.mod.Module(_mlp_sym(tmx), context=[tmx.cpu(0), tmx.cpu(1)])
-    mod.bind(data_shapes=[("data", (16, 8))],
-             label_shapes=[("softmax_label", (16,))])
-    mod.init_params(tmx.init.Xavier())
-    mon = tmx.Monitor(1, monitor_all=True)
-    mod.install_monitor(mon)
-    mon.tic()
-    with pytest.raises(tmx.MXNetError, match="data-parallel mesh"):
-        mod.forward(tmx.io.DataBatch(
-            [tmx.nd.array(np.ones((16, 8), np.float32), ctx=tmx.cpu())],
-            [tmx.nd.zeros((16,), ctx=tmx.cpu())]), is_train=False)
+    """No longer refused: every node's inputs and outputs, tapped over
+    the mesh, as the JAX package taps them."""
+    _mesh_taps_match_jax(monitor_all=True)
+
+
+def test_monitor_on_a_data_parallel_mesh_taps_outputs():
+    _mesh_taps_match_jax(monitor_all=False)
+
+
+def test_fit_with_a_monitor_over_two_contexts():
+    """Module.fit(monitor=) over [cpu(0), cpu(1)]: the windows' names and
+    mean(|x|) statistics match the JAX package's within 1e-5 relative."""
+    got = {}
+    for n, mx in PKGS.items():
+        x, y, params = _data()
+        it = mx.io.NDArrayIter(x, y, batch_size=16, shuffle=False)
+        mod = mx.mod.Module(_mlp_sym(mx), context=[mx.cpu(0), mx.cpu(1)])
+        mon = _recorder(mx, interval=2)
+        mod.fit(it, num_epoch=2, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.1},
+                arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                            for k, v in params.items()},
+                monitor=mon)
+        got[n] = mon.windows
+    assert len(got["torch"]) == len(got["jax"]) == 6
+    assert sum(len(w) for w in got["torch"]) == 15
+    for ours, ref in zip(got["torch"], got["jax"]):
+        assert [r[:2] for r in ours] == [r[:2] for r in ref]
+        for (step, name, a), (_, _, b) in zip(ours, ref):
+            np.testing.assert_allclose(_floats(a), _floats(b), rtol=RTOL,
+                                       err_msg=f"step {step} {name}")

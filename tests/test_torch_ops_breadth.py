@@ -8,7 +8,7 @@ held within RTOL of each tensor's largest magnitude (plus ATOL);
 integer outputs (indices, shapes) exactly. The legacy loss heads drop
 the cotangent in both packages (their gradient is the implied loss's).
 
-Then the registry: the port lacks exactly the 22 JAX ops that ROADMAP
+Then the registry: the port lacks exactly the 20 JAX ops that ROADMAP
 item 17 holds, and asking for one of them names the item.
 """
 import numpy as np
@@ -166,6 +166,20 @@ CASES = [
      {"begin": (1, 0), "end": (3, 4), "step": (1, 2)}, [0, 1]),
     ("slice_assign_scalar", "_slice_assign_scalar", [_r(76, 4, 5)],
      {"begin": (0, 1), "end": (2, 3), "scalar": 2.5}, [0]),
+    # slice with negative steps: None bounds, explicit bounds (negative
+    # ones too), a step past the axis, and an empty selection
+    ("slice_neg_step_none", "slice",
+     [np.arange(12, dtype=np.float32).reshape(3, 4)],
+     {"begin": (None, None), "end": (None, None), "step": (-1, 2)}, [0]),
+    ("slice_neg_step_bounds", "slice", [_r(120, 5, 6, 4)],
+     {"begin": (4, 1, None), "end": (0, 5, None), "step": (-2, 3, -1)},
+     [0]),
+    ("slice_neg_step_negative_bounds", "slice", [_r(121, 7, 5)],
+     {"begin": (-2, None), "end": (-7, 1), "step": (-3, -1)}, [0]),
+    ("slice_neg_step_long", "slice", [_r(122, 4, 3)],
+     {"begin": (3, 0), "end": (None, 3), "step": (-5, 1)}, [0]),
+    ("slice_neg_step_empty", "slice", [_r(123, 4, 3)],
+     {"begin": (1, 0), "end": (3, 3), "step": (-1, 1)}, [0]),
     ("scatter_set_nd", "_scatter_set_nd",
      [_r(77, 4, 5), _r(78, 3), np.array([[0, 2, 3], [1, 4, 0]],
                                         np.float32)],
@@ -375,19 +389,19 @@ def test_syevd_eigenvalue_gradient_against_jax():
 # ---------------------------------------------------------------------------
 
 NOT_PORTED = {
-    # ROADMAP item 17: the non-detection contrib ops, the image ops, Custom
+    # ROADMAP item 17: the non-detection contrib ops and Custom
     "BilinearSampler", "CTCLoss", "Correlation", "Crop", "GridGenerator",
     "ROIPooling", "SpatialTransformer", "_contrib_AdaptiveAvgPooling2D",
     "_contrib_BilinearResize2D", "_contrib_DeformableConvolution",
     "_contrib_DeformablePSROIPooling", "_contrib_MultiProposal",
     "_contrib_PSROIPooling", "_contrib_Proposal", "_contrib_count_sketch",
     "_contrib_fft", "_contrib_ifft", "_contrib_quadratic", "khatri_rao",
-    "_image_normalize", "_image_to_tensor", "Custom"}
+    "Custom"}
 
 
 def test_the_port_lacks_exactly_the_named_ops():
     jax_ops, port_ops = set(jreg.list_ops()), set(treg.list_ops())
-    assert len(NOT_PORTED) == 22
+    assert len(NOT_PORTED) == 20
     assert jax_ops - port_ops == NOT_PORTED
     assert port_ops <= jax_ops
     # every registered name of the JAX package resolves in the port, but
@@ -400,7 +414,7 @@ def test_the_port_lacks_exactly_the_named_ops():
 @pytest.mark.parametrize("name,item", [
     ("ROIPooling", "item 17"), ("_contrib_Proposal", "item 17"),
     ("ctc_loss", "item 17"), ("Custom", "item 17"),
-    ("image_to_tensor", "item 17"), ("_contrib_fft", "item 17"),
+    ("Correlation", "item 17"), ("_contrib_fft", "item 17"),
     ("khatri_rao", "item 17")])
 def test_an_unported_op_names_its_roadmap_item(name, item):
     """get_op, and the mx.nd / mx.sym namespaces, name the item."""

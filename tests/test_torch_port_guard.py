@@ -110,7 +110,12 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.telemetry.steplog, "
             "mxnet_tpu_torch.telemetry.flightrec, "
             "mxnet_tpu_torch.telemetry.watchdog, "
-            "mxnet_tpu_torch.telemetry.__main__\n"
+            "mxnet_tpu_torch.telemetry.__main__, "
+            "mxnet_tpu_torch.recordio, mxnet_tpu_torch.image, "
+            "mxnet_tpu_torch.image.image, mxnet_tpu_torch.image.io, "
+            "mxnet_tpu_torch.image.codec, mxnet_tpu_torch.image.assemble, "
+            "mxnet_tpu_torch.image.detection, mxnet_tpu_torch.ndarray.image, "
+            "mxnet_tpu_torch.gluon.data.vision.datasets\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'mxnet_tpu')]\n"
             "print(bad)\n"
@@ -333,3 +338,43 @@ def test_predict_tier_defaults_to_cuda(tmp_path):
     out = ServingEngine(path, device="cpu").infer(np.ones((1, 3),
                                                           np.float32))
     assert out[0].shape == (1, 4)
+
+
+def test_image_pipeline_defaults_to_cuda(tmp_path):
+    """The image record pipeline's entry points decode and assemble on
+    the card unless asked for the host: without a card they raise, and
+    nothing is built or decoded quietly on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.image import assemble
+    rec = str(tmp_path / "a.rec")
+    w = mx.recordio.MXRecordIO(rec, "w")
+    img = np.full((40, 40, 3), 128, np.uint8)
+    jpeg = mx.recordio.pack_img(mx.recordio.IRHeader(0, 1.0, 0, 0), img,
+                                ctx=mx.cpu())
+    w.write(jpeg)
+    w.close()
+    (tmp_path / "cls").mkdir()
+    (tmp_path / "cls" / "0.jpg").write_bytes(mx.recordio.unpack(jpeg)[1])
+    vision = mx.gluon.data.vision
+    for make in (lambda: mx.image.ImageRecordIter(rec, (3, 32, 32), 1),
+                 lambda: vision.ImageRecordDataset(rec)[0],
+                 lambda: vision.ImageFolderDataset(str(tmp_path))[0],
+                 lambda: mx.image.ImageIter(1, (3, 32, 32),
+                                            path_imgrec=rec),
+                 lambda: mx.image.ImageDetIter(1, (3, 32, 32),
+                                               path_imgrec=rec),
+                 lambda: mx.image.imdecode(b"\xff\xd8"),
+                 lambda: mx.recordio.pack_img(
+                     mx.recordio.IRHeader(0, 1.0, 0, 0), img)):
+        with pytest.raises(mx.MXNetError, match="no CUDA device"):
+            make()
+    before = assemble.assemble.launches
+    it = mx.image.ImageRecordIter(rec, (3, 32, 32), 1, ctx=mx.cpu())
+    assert it.next().data[0].context == mx.cpu()
+    assert assemble.assemble.launches == before
+    for ds in (vision.ImageRecordDataset(rec, ctx=mx.cpu()),
+               vision.ImageFolderDataset(str(tmp_path), ctx=mx.cpu())):
+        assert ds[0][0].context == mx.cpu()
+
