@@ -333,6 +333,37 @@ NVRTC (rtc.CudaModule). Phases, one JSON line each:
            rand_mirror, feeding 3 steps of the ssd300 phase's Module;
            the labels after the augmenters equal the host iterator's
            for the same seed
+  faster_rcnn
+           Faster R-CNN VGG16 (tools/torch_rcnn.py: example/rcnn's
+           end-to-end training, one 600 x 1000 image a step, 21 classes,
+           Proposal 12,000 -> 2,000 at NMS 0.7, the proposal_target Custom
+           op sampling 128 rois, ROIPooling 7 x 7, fc6/fc7 of 4096)
+           trained through Module.fit in float32: a float64 step at
+           192 x 320 on the card and the host first (proposals and
+           sampled rois equal, losses and gradients within 1e-9); 12
+           steps, images/s and ms a step over steps 3-12, each loss term
+           first against last, ROIPooling's and the NMS's launches and
+           the Custom op's host ms a step, peak memory; 2 profiled steps
+           (device ms by kernel group and under Proposal, Custom and
+           ROIPooling); the NMS kernel's keep mask on the trained
+           network's boxes against its plain version, and a control at
+           another threshold that must fail. The kernels phase holds
+           both kernels (csrc/roi_pooling.cu, csrc/proposal_nms.cu) at
+           these shapes
+  contrib_ops
+           the other contrib ops at realistic shapes (R-FCN's PSROI and
+           deformable PSROI pooling, a 3 x 3 512 -> 512 deformable
+           convolution at 37 x 62, CTC at T 80 x 128, the samplers 60²
+           -> 40², FlowNet-C's correlation, fft over 1,024, ...) on the
+           card against the host in float64 by the float32 rule; LeNet
+           with a Custom head through DataParallelTrainer.step_k, eager
+           with its reason, against 8 Module steps
+  feedforward
+           LeNet through mx.model.FeedForward over the bundled digits:
+           validation accuracy over 0.9, save/load with predict
+           bit-identical, and the JAX package's FeedForward checkpoint
+           (tests/data/feedforward_jax-*) loaded and predicting its own
+           stored probabilities
 
 then the nvidia-smi line, a ``kernels`` summary line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no result)
@@ -354,6 +385,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -367,6 +399,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_F64_FLOPS = 34e12        # outside the tensor cores (H100 SXM data sheet)
 # the flash forward and dQ kernels form each f32 product as 3 TF32
 # tensor-core products (bf16/f16 inputs: 1 product at the bf16 rate)
 TF32_PIECES = 3
@@ -1973,6 +2006,10 @@ def phase_kernels():
                             64, 56 * 56, "f16", gen, residual=True,
                             wdtype="bf16"))
     cases += _rtc_cases(gen)
+    # the R-CNN path's kernels at faster_rcnn's shapes
+    cases += [_roi_pool_case("rcnn_r128_512x37x62", gen),
+              _nms_case("rcnn_pre12000_f32", gen, RCNN_NMS[0]),
+              _nms_case("rcnn_pre12000_f64", gen, RCNN_NMS[0], "f64")]
     RECORD["kernel_cases"] = cases
     for c in cases:
         emit(dict(phase="kernel_case", **c))
@@ -1987,14 +2024,15 @@ def _wrappers():
     from mxnet_tpu_torch import rtc
     from mxnet_tpu_torch.image import assemble as I
     from mxnet_tpu_torch.ops import attention as A, conv_fused as C, \
-        quantization as Q
+        quantization as Q, rcnn as R
     return {"flash_attention_fwd": A.flash_attention_fwd,
             "flash_attention_bwd_dq": A.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": A.flash_attention_bwd_dkv,
             "decode_attention": A.decode_attention,
             "quantized_matmul": Q.quantized_matmul,
             "conv1x1": C.conv1x1, "rtc": rtc.CudaKernel,
-            "image_assemble": I.assemble}
+            "image_assemble": I.assemble, "roi_pooling": R.roi_pooling,
+            "proposal_nms": R.proposal_nms}
 
 
 def _reset_counts():
@@ -6847,20 +6885,25 @@ def _ssd_ops_check(mx, sym, arg_params, x, y):
 
 
 @contextlib.contextmanager
-def _ssd_annotated():
-    """The detection ops' fcompute under torch.profiler ranges named
-    ``ssd:<op>``, so one profiled step reads the device time under
-    each."""
+def _annotated(prefix, ops, host_ms=None):
+    """The ops' fcompute under torch.profiler ranges named
+    ``<prefix><op>``, so one profiled step reads the device time under
+    each; with ``host_ms``, the Custom op's host wall ms a call (the copy
+    to the host, the user's forward, the copy back) appended to it."""
     from torch.profiler import record_function
     from mxnet_tpu_torch.ops import registry
     saved = {}
-    for name in _SSD_OPS:
+    for name in ops:
         schema = registry.get_op(name)
         saved[name] = schema.fcompute
 
         def wrapped(attrs, octx, *xs, _f=schema.fcompute, _n=name):
-            with record_function("ssd:" + _n):
-                return _f(attrs, octx, *xs)
+            t0 = time.perf_counter()
+            with record_function(prefix + _n):
+                out = _f(attrs, octx, *xs)
+            if host_ms is not None and _n == "Custom":
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
         schema.fcompute = wrapped
     try:
         yield
@@ -6945,7 +6988,7 @@ def phase_ssd300():
         "fp32_bound_ms": flops / PEAK_F32_FLOPS * 1e3})
     # 3. one step under the profiler
     b = batches[0]
-    with _ssd_annotated():
+    with _annotated("ssd:", _SSD_OPS):
         _sync()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -9670,6 +9713,859 @@ def phase_image_det_rec():
     return res
 
 
+# -- the R-CNN path: Faster R-CNN VGG16, the other contrib ops, Custom and
+# FeedForward --------------------------------------------------------------
+# MXNet's example/rcnn end-to-end VGG16 training (py-faster-rcnn's
+# faster_rcnn_end2end settings; tools/torch_rcnn.py defines the network,
+# the proposal_target Custom op and the anchor assignment once for either
+# package): one 600 x 1000 image a step, 21 classes, conv1_* and conv2_*
+# fixed, SGD lr 0.001 momentum 0.9 wd 5e-4.
+RCNN_IMG = (600, 1000)
+RCNN_CLASSES = 21
+RCNN_STAGES = None           # None: torch_rcnn.VGG16
+RCNN_HIDDEN = 4096
+RCNN_NMS = (12000, 2000)     # rpn_pre_nms_top_n, rpn_post_nms_top_n
+RCNN_ROIS = 128
+RCNN_SCALES = (8, 16, 32)
+RCNN_STEPS = 12
+RCNN_TIMED_FROM = 2          # steps 3-12 timed
+RCNN_OPT = dict(learning_rate=0.001, momentum=0.9, wd=5e-4,
+                rescale_grad=1.0)
+RCNN_CHECK_IMG = (192, 320)  # the float64 card-against-host step
+RCNN_F64_RTOL = 1e-9         # losses and gradients, card against host
+RCNN_ROIS_RTOL = 1e-12       # proposals and sampled rois: exp's last bit
+RCNN_PROFILE_STEPS = 2
+RCNN_ROI_GRAD_RTOL = 1e-5    # ROIPooling's data gradient: atomics' order
+RCNN_NMS_CONTROL = 0.5       # the keep-mask control's threshold
+_RCNN_OPS = ("_contrib_Proposal", "Custom", "ROIPooling")
+# a step's device kernels by kind (matched lower-case, first group wins)
+_RCNN_GROUPS = (("roi_pooling", ("roi_pool",)),
+                ("proposal_nms", ("nms_mask", "nms_sweep")),
+                ("cudnn_conv", ("cudnn", "fprop", "dgrad", "wgrad",
+                                "implicit_gemm", "convolve")),
+                ("f64_conv_route", ("im2col_kernel<double>", "f64f64",
+                                    "dgemm")),
+                ("gemm_f32", ("gemm", "cutlass")),
+                ("sort_topk", ("sort", "radix", "topk")),
+                ("copies", ("memcpy", "memset")))
+
+
+def _rcnn_tools():
+    """tools/torch_rcnn.py (the network, proposal_target and the anchor
+    assignment), imported from beside this script."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_rcnn", os.path.join(HERE, "tools", "torch_rcnn.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _rcnn_symbol(mx, R, dropout=0.5):
+    with mx.NameManager():
+        return R.faster_rcnn_symbol(
+            mx, num_classes=RCNN_CLASSES, stages=RCNN_STAGES or R.VGG16,
+            rpn_pre=RCNN_NMS[0], rpn_post=RCNN_NMS[1], batch_rois=RCNN_ROIS,
+            hidden=RCNN_HIDDEN, dropout=dropout, scales=RCNN_SCALES)
+
+
+def _rcnn_data(R, n, hw, seed):
+    return R.synthetic_images(n, hw[0], hw[1], RCNN_CLASSES, seed=seed,
+                              stages=RCNN_STAGES or R.VGG16,
+                              scales=RCNN_SCALES)
+
+
+def _rcnn_params(R, sym, hw):
+    shapes = R.param_shapes(sym, hw[0], hw[1], stages=RCNN_STAGES or R.VGG16,
+                            scales=RCNN_SCALES)
+    return R.init_params(shapes, seed=SEED)
+
+
+def _rcnn_f64_check(mx, R):
+    """One training step of the network at RCNN_CHECK_IMG in float64, on
+    the card and on the host, from the same parameters (dropout off: the
+    two devices' generators differ): the proposals and the sampled rois
+    (tapped by the executor's monitor) within RCNN_ROIS_RTOL of their
+    magnitude (the box decode's exp may differ in its last bit between
+    the card's and the host's libm), bit-identical reported; the losses
+    and every gradient within RCNN_F64_RTOL."""
+    import numpy as np
+    sym = _rcnn_symbol(mx, R, dropout=0.0)
+    params = _rcnn_params(R, sym, RCNN_CHECK_IMG)
+    d = _rcnn_data(R, 1, RCNN_CHECK_IMG, seed=SEED + 1)
+    names = R.DATA_NAMES + R.LABEL_NAMES
+    taps = ("rois_output0", "proposal_target_output0")
+    res = {}
+    for key, ctx in (("card", _ctx()), ("cpu", mx.cpu())):
+        ex = sym.simple_bind(ctx=ctx, type_dict={n: "float64" for n in
+                                                 sym.list_arguments()},
+                             **{n: d[n].shape for n in names})
+        ex.copy_params_from({k: mx.nd.array(v.astype(np.float64),
+                                            ctx=mx.cpu())
+                             for k, v in params.items()})
+        seen = {}
+        ex.set_monitor_callback(
+            lambda name, arr: seen.__setitem__(name, arr.asnumpy())
+            if name in taps else None)
+        ex.forward(is_train=True, **{n: mx.nd.array(
+            d[n].astype(np.float64), ctx=mx.cpu()) for n in names})
+        ex.backward()
+        t = {"out%d" % i: o.asnumpy() for i, o in enumerate(ex.outputs)}
+        t.update({"grad:" + n: ex.grad_dict[n].asnumpy() for n in params})
+        t.update({k: seen[k] for k in taps})
+        res[key] = t
+        del ex
+        _free_card()
+    card, cpu = res["card"], res["cpu"]
+    errs = {k: _rel_err(card[k], v) for k, v in cpu.items()
+            if k not in taps}
+    rois = {k: {"rel_err": _rel_err(card[k], cpu[k]),
+                "bit_identical": bool(np.array_equal(card[k], cpu[k])),
+                "shape": list(cpu[k].shape)} for k in taps}
+    fg = int((cpu["out4"] > 0).sum())
+    return {"image": list(RCNN_CHECK_IMG), "dtype": "float64",
+            "tensors": len(errs), "max_rel_err": max(errs.values()),
+            "worst": sorted(errs.items(), key=lambda kv: -kv[1])[:4],
+            "rtol": RCNN_F64_RTOL, "proposals": rois[taps[0]],
+            "sampled_rois": rois[taps[1]], "rois_rtol": RCNN_ROIS_RTOL,
+            "fg_rois": fg,
+            "losses": R.losses([cpu["out%d" % i] for i in range(5)],
+                               d["label"][0]),
+            "ok": bool(max(errs.values()) <= RCNN_F64_RTOL
+                       and all(r["rel_err"] <= RCNN_ROIS_RTOL
+                               for r in rois.values()))}
+
+
+def _rcnn_keep_check(mx, R, sym, params, d):
+    """The Proposal kernel's keep mask against its plain version on the
+    step's real boxes: the RPN's class probabilities and box deltas of
+    the trained network on one image, decoded, filtered and sorted as
+    Proposal does. A control with the plain version at another NMS
+    threshold (RCNN_NMS_CONTROL) must differ."""
+    import torch
+    from mxnet_tpu_torch.ops import contrib, rcnn, registry
+    internals = sym.get_internals()
+    rpn = mx.sym.Group([internals["rpn_cls_act_reshape_output"],
+                        internals["rpn_bbox_pred_output"]])
+    ex = rpn.simple_bind(ctx=_ctx(), grad_req="null",
+                         data=d["data"][:1].shape)
+    ex.copy_params_from(params, {}, allow_extra_params=True)
+    ex.forward(is_train=False, data=mx.nd.array(d["data"][:1],
+                                                ctx=mx.cpu()))
+    prob, delta = (o._data for o in ex.outputs)
+    del ex
+    attrs = registry.get_op("_contrib_Proposal").parse_attrs(dict(
+        feature_stride=R.STRIDE, scales=RCNN_SCALES, ratios=R.RATIOS,
+        rpn_pre_nms_top_n=RCNN_NMS[0], rpn_post_nms_top_n=RCNN_NMS[1],
+        threshold=0.7, rpn_min_size=R.STRIDE))
+    info = torch.tensor(d["im_info"][:1], device=prob.device)
+    a = prob.shape[1] // 2
+    top, _, _ = contrib.proposal_candidates(prob[:, a:], delta, info, attrs)
+    boxes = contrib.nms_boxes(top)
+    keep = rcnn.proposal_nms(boxes, 0.7)
+    plain = rcnn.proposal_nms_plain(boxes, 0.7)
+    control = rcnn.proposal_nms_plain(boxes, RCNN_NMS_CONTROL)
+    _sync()
+    return {"boxes": int(boxes.shape[1]), "kept": int(keep.sum()),
+            "equal": bool(torch.equal(keep, plain)),
+            "control_threshold": RCNN_NMS_CONTROL,
+            "control_kept": int(control.sum()),
+            "control_fails": not bool(torch.equal(keep, control)),
+            "ok": bool(torch.equal(keep, plain)
+                       and not torch.equal(keep, control))}
+
+
+def _rcnn_lane(mod, batch):
+    """RCNN_PROFILE_STEPS training steps under the profiler's kernel lane
+    (``profiler.set_config(xplane_dir=...)``), each in a range of its
+    own: per step, each kernel group's device ms (ROIPooling's and the
+    NMS's kernels among them), the card's busy ms inside the step, the
+    device span under each R-CNN op's range and the Custom op's host ms;
+    their means over the steps."""
+    import numpy as np
+    from torch.profiler import record_function
+    from mxnet_tpu_torch import profiler
+    host = []
+    steps = []
+    with tempfile.TemporaryDirectory() as td:
+        profiler.set_config(xplane_dir=td, profile_imperative=False,
+                            profile_symbolic=False)
+        with _annotated("rcnn:", _RCNN_OPS, host):
+            _sync()
+            profiler.set_state("run")
+            try:
+                _lane_pad()
+                for i in range(RCNN_PROFILE_STEPS):
+                    t0 = time.perf_counter()
+                    with record_function("rcnn_step%d" % i):
+                        mod.forward(batch, is_train=True)
+                        mod.backward()
+                        mod.update()
+                        _sync()
+                    steps.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                profiler.set_state("stop")
+        path = profiler.kernel_profile()[1]
+        if path is None:
+            return {"steps": RCNN_PROFILE_STEPS, "wall_ms": steps,
+                    "note": "no kernel-lane trace (no card)"}
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        per = []
+        for i in range(RCNN_PROFILE_STEPS):
+            name = "rcnn_step%d" % i
+            w = next(e for e in events if e.get("name") == name
+                     and e.get("ph") == "X"
+                     and e.get("cat") != "gpu_user_annotation")
+            lo, hi = float(w["ts"]), float(w["ts"]) + float(w["dur"])
+            split = {}
+            for e in events:
+                if e.get("cat") != "kernel" or not lo <= float(e["ts"]) < hi:
+                    continue
+                k = e.get("name", "").lower()
+                g = next((g for g, keys in _RCNN_GROUPS
+                          if any(key in k for key in keys)), "other")
+                split[g] = split.get(g, 0.0) + float(e.get("dur", 0)) / 1e3
+            ops = {}
+            for e in events:
+                if (e.get("cat") == "gpu_user_annotation"
+                        and e.get("name", "").startswith("rcnn:")
+                        and lo <= float(e["ts"]) < hi + 1e6):
+                    key = e["name"][5:]
+                    ops[key] = ops.get(key, 0.0) + float(e["dur"]) / 1e3
+            busy, span, nk = _kernel_busy(path, name)
+            per.append({"split_ms": split, "kernel_ms": sum(split.values()),
+                        "busy_ms": busy, "step_ms": span, "kernels": nk,
+                        "op_device_span_ms": ops})
+    groups = sorted({g for p in per for g in p["split_ms"]})
+    return {"steps": RCNN_PROFILE_STEPS, "each": per,
+            "wall_ms": steps,
+            "split_ms": {g: float(np.mean([p["split_ms"].get(g, 0.0)
+                                           for p in per])) for g in groups},
+            "kernel_ms": float(np.mean([p["kernel_ms"] for p in per])),
+            "busy_share": float(np.mean([p["busy_ms"] / max(1e-9,
+                                                            p["step_ms"])
+                                         for p in per])),
+            "custom_host_ms": float(np.mean(host)) if host else None}
+
+
+def phase_faster_rcnn():
+    """Faster R-CNN VGG16 trained end to end through the port's
+    Module.fit on the card in float32 (tools/torch_rcnn.py at example/
+    rcnn's settings): first one float64 step at RCNN_CHECK_IMG on the
+    card and on the host (proposals and sampled rois equal, losses and
+    gradients within RCNN_F64_RTOL); then RCNN_STEPS steps of one
+    600 x 1000 image: images/s and ms a step over steps 3-12, each loss
+    term first against last, per step the launches of ROIPooling's and
+    the NMS's kernels and the Custom op's host ms, peak memory above what
+    was allocated when the phase began; two
+    steps under the profiler's kernel lane (device ms of each kernel
+    group, ROIPooling's and the NMS's kernels among them, busy share, the
+    device span under each R-CNN op's range); the NMS kernel's keep mask
+    on the trained
+    network's real boxes against its plain version, beside a control at
+    another threshold that must fail. The RPN's log loss must fall (the
+    mean of the last three steps under the first)."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import rcnn
+    R = _rcnn_tools()
+    _free_card()
+    # what earlier phases left allocated: the peak below is this phase's
+    # own, above it
+    base = torch.cuda.memory_allocated() if DEV == "cuda" else 0
+    t_phase = time.perf_counter()
+    res = {"image": list(RCNN_IMG), "classes": RCNN_CLASSES,
+           "rpn_nms": list(RCNN_NMS), "rois": RCNN_ROIS,
+           "optimizer": dict(RCNN_OPT, name="sgd")}
+    t0 = time.perf_counter()
+    res["check"] = _rcnn_f64_check(mx, R)
+    res["check"]["seconds"] = time.perf_counter() - t0
+    sym = _rcnn_symbol(mx, R)
+    params = _rcnn_params(R, sym, RCNN_IMG)
+    d = _rcnn_data(R, RCNN_STEPS, RCNN_IMG, seed=SEED)
+    res["params"] = int(sum(v.size for v in params.values()))
+    stages = RCNN_STAGES or R.VGG16
+    res["feature_map"] = list(R.feature_shape(stages, *RCNN_IMG))
+    train = mx.io.NDArrayIter(
+        data={n: d[n] for n in R.DATA_NAMES},
+        label={n: d[n] for n in R.LABEL_NAMES}, batch_size=1,
+        shuffle=False)
+    mod = mx.mod.Module(sym, data_names=R.DATA_NAMES,
+                        label_names=R.LABEL_NAMES, context=_ctx(),
+                        fixed_param_names=R.fixed_param_names(stages))
+    host_ms, marks, losses, counts = [], [], [], []
+
+    def on_batch(param):
+        _sync()
+        t_in = time.perf_counter()
+        i = param.nbatch
+        if i == RCNN_TIMED_FROM and DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        outs = [o.asnumpy() for o in mod.get_outputs()]
+        losses.append(R.losses(outs, d["label"][i]))
+        counts.append((rcnn.roi_pooling.launches,
+                       rcnn.proposal_nms.launches))
+        marks.append((t_in, time.perf_counter()))
+
+    _reset_counts()
+    with _annotated("rcnn:", _RCNN_OPS, host_ms):
+        _sync()
+        t_fit = time.perf_counter()
+        mod.fit(train, num_epoch=1, optimizer="sgd",
+                optimizer_params=dict(RCNN_OPT),
+                arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                            for k, v in params.items()},
+                eval_metric=mx.metric.CustomMetric(
+                    lambda label, pred: 0.0, name="none",
+                    allow_extra_outputs=True),
+                batch_end_callback=on_batch)
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    # step i: from the end of callback i - 1 (fit's start for step 0) to
+    # the start of callback i
+    step_s = [marks[0][0] - t_fit] + [marks[i][0] - marks[i - 1][1]
+                                      for i in range(1, len(marks))]
+    timed = step_s[RCNN_TIMED_FROM:]
+    per_step = [{"roi_pooling": b[0] - a[0], "proposal_nms": b[1] - a[1]}
+                for a, b in zip([(0, 0)] + counts[:-1], counts)]
+    first, last = losses[0], losses[-1]
+    res.update({
+        "steps": len(step_s), "step_ms_each": [s * 1e3 for s in step_s],
+        "step_ms": float(np.mean(timed)) * 1e3,
+        "img_per_s": len(timed) / sum(timed),
+        "loss_first": first, "loss_last": last, "losses": losses,
+        "launches": launches, "launches_each_step": per_step,
+        "custom_host_ms_each_step": host_ms,
+        "resident_at_start_gb": base / 1e9,
+        "peak_mem_gb": (peak - base) / 1e9})
+    # RCNN_PROFILE_STEPS steps under the port's kernel lane
+    batch = mx.io.DataBatch(
+        data=[mx.nd.array(d[n][:1], ctx=mx.cpu()) for n in R.DATA_NAMES],
+        label=[mx.nd.array(d[n][:1], ctx=mx.cpu()) for n in R.LABEL_NAMES])
+    res["profile"] = _rcnn_lane(mod, batch)
+    trained = mod.get_params()[0]
+    res["keep_mask"] = _rcnn_keep_check(mx, R, sym, trained, d)
+    del mod
+    _free_card()
+    res["phase_s"] = time.perf_counter() - t_phase
+    on_card = DEV != "cuda" or all(
+        s["roi_pooling"] >= 1 and s["proposal_nms"] >= 1 for s in per_step)
+    res["ok"] = bool(
+        res["check"]["ok"] and res["keep_mask"]["ok"] and on_card
+        and len(losses) == RCNN_STEPS
+        and all(np.isfinite(list(l_.values())).all() for l_ in losses)
+        and np.mean([l_["rpn_log_loss"] for l_ in losses[-3:]])
+        < first["rpn_log_loss"])
+    RECORD["faster_rcnn"] = res
+    if not res["ok"]:
+        raise AssertionError("faster_rcnn failed: %s"
+                             % json.dumps(res, default=str)[:6000])
+    return res
+
+
+# the other contrib ops at realistic shapes: (case, op, attrs, inputs as
+# (shape, kind) with kind "normal", "uniform:lo:hi", "rois:n:h:w",
+# "probs", "labels:n:len" or an array maker, indices differentiated)
+CONTRIB_CASES = (
+    # R-FCN's position-sensitive head: 21 classes, 7 x 7 groups at 1/16
+    ("psroi_rfcn", "_contrib_PSROIPooling",
+     dict(spatial_scale=1 / 16, output_dim=21, pooled_size=7, group_size=7),
+     (((1, 1029, 37, 62), "normal"), ((300, 5), "rois:600:1000")), (0,)),
+    ("deformable_psroi_rfcn", "_contrib_DeformablePSROIPooling",
+     dict(spatial_scale=1 / 16, output_dim=21, group_size=7, pooled_size=7,
+          part_size=7, sample_per_part=4, trans_std=0.1),
+     (((1, 1029, 37, 62), "normal"), ((300, 5), "rois:600:1000"),
+      ((300, 2, 7, 7), "normal")), (0, 2)),
+    ("deformable_conv_512", "_contrib_DeformableConvolution",
+     dict(kernel=(3, 3), pad=(1, 1), num_filter=512),
+     (((1, 512, 37, 62), "normal"), ((1, 18, 37, 62), "uniform:-2:2"),
+      ((512, 512, 3, 3), "weight"), ((512,), "normal")), (0, 1, 2, 3)),
+    ("ctc_t80_b128", "CTCLoss", {},
+     (((80, 128, 11), "normal"), ((128, 4), "labels:11:4")), (0,)),
+    ("bilinear_sampler_60to40", "BilinearSampler", {},
+     (((64, 8, 60, 60), "normal"), ((64, 2, 40, 40), "uniform:-1.1:1.1")),
+     (0, 1)),
+    ("grid_generator_40", "GridGenerator",
+     dict(transform_type="affine", target_shape=(40, 40)),
+     (((64, 6), "affine"),), (0,)),
+    ("spatial_transformer_60to40", "SpatialTransformer",
+     dict(target_shape=(40, 40)),
+     (((64, 8, 60, 60), "normal"), ((64, 6), "affine")), (0, 1)),
+    ("bilinear_resize_60to40", "_contrib_BilinearResize2D",
+     dict(height=40, width=40), (((64, 8, 60, 60), "normal"),), (0,)),
+    ("adaptive_avg_60to40", "_contrib_AdaptiveAvgPooling2D",
+     dict(output_size=(40, 40)), (((64, 8, 60, 60), "normal"),), (0,)),
+    # FlowNet-C's correlation: displacement 20 at stride 2 over conv3's
+    # 256 channels at 48 x 64 (a 384 x 512 input)
+    ("correlation_flownetc", "Correlation",
+     dict(kernel_size=1, max_displacement=20, stride1=1, stride2=2,
+          pad_size=20),
+     (((2, 256, 48, 64), "normal"), ((2, 256, 48, 64), "normal")), (0, 1)),
+    ("fft_1024", "_contrib_fft", {}, (((256, 1024), "normal"),), (0,)),
+    ("ifft_1024", "_contrib_ifft", {}, (((256, 2048), "normal"),), (0,)),
+    ("crop_center", "Crop", dict(h_w=(64, 64), center_crop=True),
+     (((8, 64, 100, 100), "normal"),), (0,)),
+    ("count_sketch", "_contrib_count_sketch", dict(out_dim=512),
+     (((128, 2048), "normal"), ((1, 2048), "index:512"),
+      ((1, 2048), "sign")), (0,)),
+    ("khatri_rao", "khatri_rao", dict(num_args=2),
+     (((64, 32), "normal"), ((64, 32), "normal")), (0, 1)),
+    ("quadratic", "_contrib_quadratic", dict(a=1.5, b=-2.0, c=0.5),
+     (((1024, 1024), "normal"),), (0,)),
+)
+
+
+def _contrib_input(rng, shape, kind):
+    import numpy as np
+    if kind == "normal":
+        return rng.standard_normal(shape)
+    if kind == "weight":
+        return rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+    if kind.startswith("uniform:"):
+        lo, hi = (float(v) for v in kind.split(":")[1:])
+        return rng.uniform(lo, hi, shape)
+    if kind.startswith("rois:"):
+        h, w = (float(v) for v in kind.split(":")[1:])
+        x = np.sort(rng.uniform(0, w, (shape[0], 2)), axis=1)
+        y = np.sort(rng.uniform(0, h, (shape[0], 2)), axis=1)
+        return np.concatenate([np.zeros((shape[0], 1)), x[:, :1], y[:, :1],
+                               x[:, 1:], y[:, 1:]], axis=1)
+    if kind.startswith("labels:"):
+        alphabet, length = (int(v) for v in kind.split(":")[1:])
+        lab = rng.randint(1, alphabet, shape).astype(np.float64)
+        lens = rng.randint(1, length + 1, shape[0])
+        lab[np.arange(shape[1])[None, :] >= lens[:, None]] = 0
+        return lab
+    if kind == "affine":
+        return np.array([1, 0, 0, 0, 1, 0]) + 0.2 * rng.uniform(-1, 1, shape)
+    if kind.startswith("index:"):
+        return rng.randint(0, int(kind.split(":")[1]), shape)
+    if kind == "sign":
+        return np.sign(rng.uniform(-1, 1, shape))
+    raise ValueError(kind)
+
+
+def _fft_reference(arrs, ct):
+    """_contrib_fft in float64 numpy (the op computes in float32 whatever
+    its input's type): the interleaved spectrum and its vector-Jacobian
+    product, Re(N ifft(C)) of the cotangent pairs C."""
+    import numpy as np
+    x = arrs[0]
+    spec = np.fft.fft(x, axis=-1)
+    out = np.stack([spec.real, spec.imag], -1).reshape(x.shape[:-1] + (-1,))
+    c = ct.reshape(x.shape + (2,))
+    grad = np.real(np.fft.ifft(c[..., 0] + 1j * c[..., 1], axis=-1)
+                   * x.shape[-1])
+    return {"output": out, "grad:0": grad}
+
+
+def _ifft_reference(arrs, ct):
+    """_contrib_ifft in float64 numpy: Re(ifft(Z)) * d of the pairs Z, and
+    its vector-Jacobian product, the interleaved fft of the cotangent."""
+    import numpy as np
+    x = arrs[0]
+    pairs = x.reshape(x.shape[:-1] + (-1, 2))
+    d = pairs.shape[-2]
+    out = np.real(np.fft.ifft(pairs[..., 0] + 1j * pairs[..., 1], axis=-1)) * d
+    g = np.fft.fft(ct, axis=-1)
+    return {"output": out, "grad:0": np.stack([g.real, g.imag], -1)
+            .reshape(x.shape)}
+
+
+# ops whose port computes in float32 whatever the input's type: their
+# float64 reference is numpy's
+_CONTRIB_REFERENCES = {"_contrib_fft": _fft_reference,
+                       "_contrib_ifft": _ifft_reference}
+
+
+def _contrib_case(case, name, attrs, inputs, diff, seed):
+    """The op on the card in float32 and on the host in float32 and
+    float64 from the same draws, with a seeded cotangent: outputs and the
+    differentiated inputs' gradients by module_resnet50's float32 rule
+    (the card's error against float64 within R50_F32_FACTOR of the
+    host's; the float64 reference of fft / ifft, which compute in float32
+    whatever the type, is numpy's); the card's ms a call."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.ops import registry
+    schema = registry.get_op(name)
+    parsed = schema.parse_attrs(attrs)
+    rng = np.random.RandomState(seed)
+    arrs = [_contrib_input(rng, s, k) for s, k in inputs]
+    ct = None
+    t = {}
+    for key, dev, dt in (("card", DEV, torch.float32),
+                         ("cpu32", "cpu", torch.float32),
+                         ("cpu64", "cpu", torch.float64)):
+        xs = [torch.tensor(a, dtype=dt, device=dev) for a in arrs]
+        leaves = [xs[i].requires_grad_(True) for i in diff]
+        octx = registry.OpCtx(is_train=True, device=torch.device(dev))
+        _sync()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            out = schema.fcompute(parsed, octx, *xs)[0]
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        if ct is None:
+            ct = np.random.RandomState(seed + 1).standard_normal(out.shape)
+        grads = torch.autograd.grad(out, leaves, torch.tensor(
+            ct, dtype=dt, device=dev))
+        t[key] = {"output": out.detach().cpu().double().numpy()}
+        t[key].update({"grad:%d" % i: g.cpu().double().numpy()
+                       for i, g in zip(diff, grads)})
+        if key == "card":
+            t["card_ms"] = ms
+    if name in _CONTRIB_REFERENCES:
+        t["cpu64"] = _CONTRIB_REFERENCES[name](arrs, ct)
+    rule = _f32_rule(t["card"], t["cpu32"], t["cpu64"])
+    return {"case": case, "op": name, "shapes": [list(s) for s, _ in inputs],
+            "card_ms_first_call": t["card_ms"], "rule": rule,
+            "ok": rule["ok"]}
+
+
+def _custom_head_check(mx):
+    """LeNet with a Custom op ("smoke_halve": x / 2, its backward g / 2)
+    before its SoftmaxOutput, trained by DataParallelTrainer.step_k over
+    4 stacked batches on the card: the step runs eagerly (no capture)
+    with the reason naming the op, said in one warning, and equals 4
+    eager Module steps from the same parameters (DP_STEPK_RTOL)."""
+    import warnings
+    import numpy as np
+    import torch
+    if "smoke_halve" not in mx.operator.get_all_registered():
+        class Halve(mx.operator.CustomOp):
+            def forward(self, is_train, req, in_data, out_data, aux):
+                self.assign(out_data[0], req[0], in_data[0] / 2)
+
+            def backward(self, req, out_grad, in_data, out_data, in_grad,
+                         aux):
+                self.assign(in_grad[0], req[0], out_grad[0] / 2)
+
+        @mx.operator.register("smoke_halve")
+        class HalveProp(mx.operator.CustomOpProp):
+            def create_operator(self, ctx, shapes, dtypes):
+                return Halve()
+    sym = lenet_symbol(mx.sym)
+    internals = sym.get_internals()
+    head = mx.sym.Custom(internals["f2_output"],
+                         op_type="smoke_halve", name="halve")
+    sym = mx.sym.SoftmaxOutput(head, name="softmax")
+    b, k = 64, 4
+    x, y = synthetic_mnist(b * k, seed=SEED + 3)
+    xs, ys = x.reshape(k, b, 1, 28, 28), y.reshape(k, b)
+    tr = _dp_trainer(sym, "float32", b)
+    p, st, a = tr.init_state({"data": (b, 1, 28, 28),
+                              "softmax_label": (b,)})
+    init = {n: t.detach().cpu().numpy().copy()
+            for n, t in tr.device_params(p).items()}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        p, st, a, _, _ = tr.step_k(p, st, a, tr.shard_inputs(
+            [xs, ys], stacked=True))
+        p, st, a, _, _ = tr.step_k(p, st, a, tr.shard_inputs(
+            [xs, ys], stacked=True))
+    said = [str(w.message) for w in caught if "Custom" in str(w.message)]
+    stats = tr.graph_stats()
+    got = {n: t.detach().cpu().numpy() for n, t in
+           tr.device_params(p).items()}
+    mod = mx.mod.Module(sym, context=_ctx())
+    mod.bind(data_shapes=[("data", (b, 1, 28, 28))],
+             label_shapes=[("softmax_label", (b,))])
+    mod.init_params(arg_params={n: mx.nd.array(v, ctx=mx.cpu())
+                                for n, v in init.items()})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
+        learning_rate=R50_LR, momentum=0.9, rescale_grad=1.0 / b))
+    for _ in range(2):
+        for i in range(k):
+            mod.forward(mx.io.DataBatch(
+                data=[mx.nd.array(xs[i], ctx=mx.cpu())],
+                label=[mx.nd.array(ys[i], ctx=mx.cpu())]), is_train=True)
+            mod.backward()
+            mod.update()
+    ref = {n: v.asnumpy() for n, v in mod.get_params()[0].items()}
+    err = max(_rel_err(got[n], ref[n]) for n in ref)
+    del tr, mod
+    _free_card()
+    reason = stats.get("eager_reason") or ""
+    return {"batch": b, "k": k, "calls": 2, "captures": stats["captures"],
+            "eager_reason": reason, "warnings": said,
+            "max_rel_err_vs_module": err, "rtol": DP_STEPK_RTOL,
+            "ok": bool(stats["captures"] == 0 and "smoke_halve" in reason
+                       and (DEV != "cuda" or len(said) == 1)
+                       and err <= DP_STEPK_RTOL)}
+
+
+def phase_contrib_ops():
+    """The other ops of the slice on the card at realistic shapes (R-FCN's
+    PSROIPooling and DeformablePSROIPooling with trans, a 3 x 3 512 -> 512
+    DeformableConvolution at 37 x 62, CTC at T 80 x batch 128 over 11
+    symbols, the samplers and the spatial transformer 60² -> 40²,
+    FlowNet-C's Correlation, fft over 1,024, the small ops), each held by
+    the float32 rule against the same op on the host in float64; then
+    LeNet with a Custom head through DataParallelTrainer.step_k, eager on
+    the card, against 8 Module steps."""
+    _free_card()
+    cases = [_contrib_case(c, n, a, i, d, SEED + 10 * j)
+             for j, (c, n, a, i, d) in enumerate(CONTRIB_CASES)]
+    res = {"cases": cases, "custom_step_k": _custom_head_check(
+        __import__("mxnet_tpu_torch"))}
+    bad = [c["case"] for c in cases if not c["ok"]]
+    res["failed"] = bad
+    res["ok"] = bool(not bad and res["custom_step_k"]["ok"])
+    RECORD["contrib_ops"] = res
+    _free_card()
+    if not res["ok"]:
+        raise AssertionError("contrib_ops failed: %s"
+                             % json.dumps(res, default=str)[:6000])
+    return res
+
+
+FF_EPOCHS = 10
+FF_BATCH = 64
+FF_LR = 0.1
+FF_BAR = 0.9                  # examples/train_mnist.py's validation bar
+FF_JAX_FIXTURE = ("tests", "data", "feedforward_jax")
+
+
+def _digits_28():
+    """sklearn's bundled digits (tools/data/digits.csv.gz), each 8 x 8
+    image repeated 3 x 3 and padded to LeNet's 28 x 28, scaled to
+    [0, 1]; a seeded 80/20 split."""
+    import gzip
+    import numpy as np
+    with gzip.open(os.path.join(HERE, "tools", "data", "digits.csv.gz"),
+                   "rt") as f:
+        d = np.loadtxt(f, delimiter=",")
+    x = np.kron(d[:, :-1].reshape(-1, 8, 8), np.ones((3, 3))) / 16.0
+    x = np.pad(x, ((0, 0), (2, 2), (2, 2)))[:, None].astype(np.float32)
+    y = d[:, -1].astype(np.float32)
+    order = np.random.RandomState(SEED).permutation(len(y))
+    cut = int(0.8 * len(y))
+    return (x[order[:cut]], y[order[:cut]]), (x[order[cut:]], y[order[cut:]])
+
+
+def phase_feedforward():
+    """LeNet through the legacy mx.model.FeedForward on the card over the
+    bundled digits: validation accuracy against the example's bar, save
+    and load with predict bit-identical, and the JAX package's
+    FeedForward checkpoint (tests/data/feedforward_jax-*) loaded, its
+    predictions against the JAX package's own (stored beside it)."""
+    import warnings
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    mx.random.seed(SEED)
+    np.random.seed(SEED)
+    (xt, yt), (xv, yv) = _digits_28()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model = mx.model.FeedForward(
+            lenet_symbol(mx.sym), ctx=_ctx(), num_epoch=FF_EPOCHS,
+            numpy_batch_size=FF_BATCH, learning_rate=FF_LR, momentum=0.9,
+            initializer=mx.init.Xavier())
+    deprecated = any(issubclass(w.category, DeprecationWarning)
+                     for w in caught)
+    t0 = time.perf_counter()
+    model.fit(xt, yt, eval_data=(xv, yv))
+    fit_s = time.perf_counter() - t0
+    probs = model.predict(xv)
+    acc = float((probs.argmax(1) == yv).mean())
+    score = float(model.score(xv, yv))
+    with tempfile.TemporaryDirectory() as td:
+        prefix = os.path.join(td, "lenet")
+        model.save(prefix)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            loaded = mx.model.FeedForward.load(prefix, FF_EPOCHS,
+                                               ctx=_ctx(),
+                                               numpy_batch_size=FF_BATCH)
+        again = loaded.predict(xv)
+    fix = os.path.join(HERE, *FF_JAX_FIXTURE)
+    with np.load(fix + "-expected.npz") as z:
+        fx, fprobs = z["x"], z["probs"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        jmodel = mx.model.FeedForward.load(fix, 2, ctx=_ctx())
+    jprobs = jmodel.predict(fx)
+    jerr = _rel_err(jprobs, fprobs)
+    res = {"train": int(len(yt)), "val": int(len(yv)), "epochs": FF_EPOCHS,
+           "fit_s": fit_s, "val_acc": acc, "score": score, "bar": FF_BAR,
+           "deprecation_warning": deprecated,
+           "reload_bit_identical": bool(np.array_equal(probs, again)),
+           "reload_max_abs_diff": float(np.abs(probs - again).max()),
+           "jax_checkpoint_rel_err": jerr,
+           "ok": bool(acc > FF_BAR and score > FF_BAR
+                      and deprecated and np.array_equal(probs, again)
+                      and jerr <= 1e-5)}
+    RECORD["feedforward"] = res
+    if not res["ok"]:
+        raise AssertionError("feedforward failed: %s"
+                             % json.dumps(res, default=str)[:4000])
+    return res
+
+
+def _rcnn_rois(gen, n, hw, batch=1):
+    """n rois [0, x1, y1, x2, y2] inside an hw image: corners uniform,
+    sides at least 16 pixels (Proposal's min size)."""
+    import torch
+    h, w = hw
+    xy = torch.rand(n, 4, generator=gen, device=DEV)
+    x1 = xy[:, 0] * (w - 16)
+    y1 = xy[:, 1] * (h - 16)
+    x2 = x1 + 16 + xy[:, 2] * (w - 16 - x1)
+    y2 = y1 + 16 + xy[:, 3] * (h - 16 - y1)
+    b = torch.zeros(n, device=DEV)
+    return torch.stack([b, x1, y1, x2, y2], dim=1)
+
+
+def _roi_windows(rois, h, w, scale):
+    """Map elements under the union of the rois' windows (each roi's
+    bins cover rows [y1, y1 + max(y2 - y1 + 1, 1)) and the like columns,
+    corners rounded half away, clipped to the map), and the sum of the
+    windows' sizes over the rois (host tensors)."""
+    import torch
+    from mxnet_tpu_torch.ops.contrib import _round_half_away
+    x1, y1, x2, y2 = (_round_half_away(rois[:, k].float() * scale)
+                      for k in (1, 2, 3, 4))
+    rows = (y1, y1 + torch.clamp_min(y2 - y1 + 1, 1))
+    cols = (x1, x1 + torch.clamp_min(x2 - x1 + 1, 1))
+    ys = torch.arange(h, dtype=torch.float32)
+    xs = torch.arange(w, dtype=torch.float32)
+    my = (ys >= rows[0][:, None]) & (ys < rows[1][:, None])     # (R, H)
+    mx_ = (xs >= cols[0][:, None]) & (xs < cols[1][:, None])    # (R, W)
+    union = (my[:, :, None] & mx_[:, None, :]).any(0)
+    window = float((my.sum(1) * mx_.sum(1)).sum())
+    return int(union.sum()), window
+
+
+def _library_ms(call, iters, name, without):
+    """(ms, note) of ``call(torchvision.ops)`` where torchvision is
+    installed and runs here (for the library times only: the port never
+    uses it), else (None, why not)."""
+    try:
+        import torchvision.ops
+    except Exception as e:          # not installed, or built for another torch
+        return None, "torchvision not importable (%s); %s" % (
+            type(e).__name__, without)
+    try:
+        return bench_ms(lambda: call(torchvision.ops), [()], iters), name
+    except Exception as e:
+        return None, "%s failed: %r" % (name, e)
+
+
+def _roi_pool_case(name, gen):
+    """ROIPooling at Faster R-CNN's second stage (the conv5_3 map of a
+    600 x 1000 image, 512 x 37 x 62 after ReLU, RCNN_ROIS rois, 7 x 7
+    bins at 1/16): the forward equal to the plain version, the data
+    gradient within RCNN_ROI_GRAD_RTOL of its largest magnitude; device
+    times of the forward and backward kernels beside the plain forward's
+    and torchvision's roi_pool (where installed), and the bounds of this
+    run's data: the forward reads the union of the rois' windows of the
+    map once and writes the output once, the backward reads that union
+    and the output's gradient once and writes the whole data gradient
+    once; each does a comparison an element of each roi's window."""
+    import torch
+    from mxnet_tpu_torch.ops import rcnn
+    fh, fw = 37, 62
+    data = torch.relu(torch.randn(1, 512, fh, fw, generator=gen,
+                                  device=DEV))
+    rois = _rcnn_rois(gen, RCNN_ROIS, RCNN_IMG)
+    x = data.clone().requires_grad_(True)
+    xp = data.clone().requires_grad_(True)
+    out = rcnn.roi_pooling(x, rois, (7, 7), 1 / 16)
+    ref = rcnn.roi_pooling_plain(xp, rois, (7, 7), 1 / 16)
+    g = torch.randn(out.shape, generator=gen, device=DEV)
+    (gx,) = torch.autograd.grad(out, x, g)
+    (gp,) = torch.autograd.grad(ref, xp, g)
+    out, ref = out.detach(), ref.detach()
+    _sync()
+    fwd_equal = bool(torch.equal(out, ref))
+    grad_err = float((gx - gp).abs().max()) / max(1e-30,
+                                                  float(gp.abs().max()))
+    case = {"kernel": "roi_pooling", "case": name,
+            "shape": [1, 512, fh, fw], "rois": RCNN_ROIS,
+            "forward_equal": fwd_equal, "max_abs_err":
+            float((out - ref).abs().max()), "grad_rel_err": grad_err,
+            "grad_rtol": RCNN_ROI_GRAD_RTOL, "library_ms": None}
+    if DEV == "cuda":
+        covered, window = _roi_windows(rois.cpu(), fh, fw, 1 / 16)
+        read = 4 * 512 * covered + rois.numel() * 4
+        window *= 512
+        nbytes = read + out.numel() * 4
+        case["bytes"], case["operations"] = nbytes, window
+        case["bound_ms"], case["bound_by"] = bound_ms(nbytes, window)
+        bwd_bytes = read + out.numel() * 4 + data.numel() * 4
+        case["bwd_bytes"] = bwd_bytes
+        case["bwd_bound_ms"], case["bwd_bound_by"] = bound_ms(bwd_bytes,
+                                                              window)
+        case["library_ms"], case["library_note"] = _library_ms(
+            lambda lib: lib.roi_pool(data, rois, (7, 7), 1 / 16), 50,
+            "torchvision.ops.roi_pool", "no torch call pools rois")
+        case["kernel_ms"] = bench_ms(
+            lambda: rcnn.roi_pooling(data, rois, (7, 7), 1 / 16), [()], 50)
+        case["plain_ms"] = bench_ms(
+            lambda: rcnn.roi_pooling_plain(data, rois, (7, 7), 1 / 16),
+            [()], 3)
+        y = rcnn.roi_pooling(x, rois, (7, 7), 1 / 16)
+        case["bwd_kernel_ms"] = bench_ms(
+            lambda: torch.autograd.grad(y, x, g, retain_graph=True), [()],
+            20)
+        case["kernel_launches_per_call"] = launches_per_call(
+            lambda: rcnn.roi_pooling(data, rois, (7, 7), 1 / 16),
+            "roi_pooling")
+    case["ok"] = fwd_equal and grad_err <= RCNN_ROI_GRAD_RTOL
+    return case
+
+
+def _nms_case(name, gen, n, dtype="f32"):
+    """Proposal's NMS at its pre-NMS count: n boxes of a 600 x 1000 image
+    (centres uniform, sides 16-316 pixels) sorted by a random score, the
+    +1 shift applied; the kernel's keep mask identical to the plain
+    version's at threshold 0.7. Device times; the bound of this run's
+    data: the boxes read once, the mask written once, ~14 operations an
+    IoU over the n (n - 1) / 2 pairs. torchvision's nms on the same
+    boxes as the library's time where it is installed (it suppresses at
+    IoU > threshold, not >=, and reads its mask back to the host)."""
+    import torch
+    from mxnet_tpu_torch.ops import rcnn
+    dt = torch.float64 if dtype == "f64" else torch.float32
+    ctr = torch.rand(n, 2, generator=gen, device=DEV, dtype=torch.float64) \
+        * torch.tensor([1000.0, 600.0], device=DEV, dtype=torch.float64)
+    wh = torch.rand(n, 2, generator=gen, device=DEV,
+                    dtype=torch.float64) * 300 + 16
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], dim=1).to(dt)[None]
+    keep = rcnn.proposal_nms(boxes, 0.7)
+    plain = rcnn.proposal_nms_plain(boxes, 0.7)
+    _sync()
+    equal = bool(torch.equal(keep, plain))
+    case = {"kernel": "proposal_nms", "case": name, "boxes": n,
+            "dtype": dtype, "kept": int(keep.sum()), "keep_equal": equal,
+            "max_abs_err": 0.0 if equal else 1.0, "library_ms": None}
+    if DEV == "cuda":
+        nbytes = boxes.numel() * boxes.element_size() + n
+        flops = 14.0 * n * (n - 1) / 2
+        case["bytes"], case["operations"] = nbytes, flops
+        case["bound_ms"], case["bound_by"] = bound_ms(
+            nbytes, flops, PEAK_F32_FLOPS if dtype == "f32"
+            else PEAK_F64_FLOPS)
+        score = torch.arange(n, 0, -1, device=DEV, dtype=dt)
+        case["library_ms"], case["library_note"] = _library_ms(
+            lambda lib: lib.nms(boxes[0], score, 0.7), 20,
+            "torchvision.ops.nms (IoU > threshold, a host read)",
+            "no torch call runs greedy NMS")
+        case["kernel_ms"] = bench_ms(lambda: rcnn.proposal_nms(boxes, 0.7),
+                                     [()], 20)
+        t0 = time.perf_counter()
+        rcnn.proposal_nms_plain(boxes, 0.7)
+        _sync()
+        case["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        case["kernel_launches_per_call"] = launches_per_call(
+            lambda: rcnn.proposal_nms(boxes, 0.7), "proposal_nms")
+    case["ok"] = equal
+    return case
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("train", phase_train),
           ("train_profile", phase_train_profile),
@@ -9699,7 +10595,10 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("planner", phase_planner), ("group2ctx", phase_group2ctx),
           ("image_codec", phase_image_codec),
           ("image_rec_resnet50", phase_image_rec_resnet50),
-          ("image_det_rec", phase_image_det_rec))
+          ("image_det_rec", phase_image_det_rec),
+          ("faster_rcnn", phase_faster_rcnn),
+          ("contrib_ops", phase_contrib_ops),
+          ("feedforward", phase_feedforward))
 
 # (name, source, TPU kernel, case kind, case, its time / bound keys, errors,
 # its kernel launches a call: counted in the case)
@@ -9735,6 +10634,15 @@ KERNEL_ROWS = (
     # no TPU kernel: the JAX package's native pipeline's ProcessRecord
     ("image_assemble", "mxnet_tpu_torch/csrc/image_assemble.cu",
      "src/runtime_native.cc:357", "image_assemble", "b128_256_to_224_u8",
+     "kernel_ms", "bound_ms", "bound_by", ("max_abs_err",),
+     "kernel_launches_per_call"),
+    # no TPU kernel: ROIPooling and Proposal's NMS are plain XLA there
+    ("roi_pooling", "mxnet_tpu_torch/csrc/roi_pooling.cu",
+     "mxnet_tpu/ops/contrib.py:528", "roi_pooling", "rcnn_r128_512x37x62",
+     "kernel_ms", "bound_ms", "bound_by", ("max_abs_err",),
+     "kernel_launches_per_call"),
+    ("proposal_nms", "mxnet_tpu_torch/csrc/proposal_nms.cu",
+     "mxnet_tpu/ops/contrib.py:286", "proposal_nms", "rcnn_pre12000_f32",
      "kernel_ms", "bound_ms", "bound_by", ("max_abs_err",),
      "kernel_launches_per_call"),
 )
@@ -9787,6 +10695,9 @@ def main(argv=None):
             if name in ("device", "build"):
                 break
     if chosen is not None:
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+            json.dump(RECORD, f, indent=1, default=str)
         emit({"ok": not failed, "phases": chosen,
               "package": mxnet_tpu_torch.__file__})
         return 1 if failed else 0
@@ -9804,7 +10715,8 @@ def main(argv=None):
                                   "device_feed", "traced_lm",
                                   "ring_attention", "zero_lm", "tp_pp",
                                   "planner", "group2ctx",
-                                  "image_rec_resnet50", "image_det_rec")
+                                  "image_rec_resnet50", "image_det_rec",
+                                  "faster_rcnn")
               if k in RECORD]
     rows = []
     for (name, src, replaces, kind, case, ms_key, bound_key, by_key,

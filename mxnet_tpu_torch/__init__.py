@@ -44,6 +44,7 @@ from .context import (Context, cpu, current_context, gpu, resolve_device,
 from . import autograd, initializer, optimizer, random, rtc  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import ops  # noqa: F401
+from . import operator  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from . import symbol  # noqa: F401

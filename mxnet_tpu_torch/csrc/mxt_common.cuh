@@ -38,6 +38,34 @@ static inline cudaError_t mxt_set_device(int device) {
   return cudaSetDevice(device);
 }
 
+// Explicitly rounded products, quotients, sums and differences in float or
+// double: nvcc contracts a * b + c into one FMA, which changes the last
+// bit; a kernel that must equal its plain version's rounding uses these.
+static __device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+static __device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+static __device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+static __device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+static __device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+static __device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+static __device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+static __device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+
 // cp.async: 16 bytes from device to shared memory, zero-filled when !pred
 // (src must still be a valid address); commit a group; wait for all.
 static __device__ __forceinline__ void cp_async16(void* dst, const void* src,

@@ -7,7 +7,6 @@ queue 1 item 17).
 """
 from __future__ import annotations
 
-from ..base import MXNetError
 from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
@@ -134,13 +133,35 @@ class KLDivLoss(Loss):
 
 
 class CTCLoss(Loss):
-    """Connectionist temporal classification loss: not ported yet (its
-    ``CTCLoss`` op is ROADMAP queue 1 item 17), so it raises."""
+    """Connectionist temporal classification loss over the ``CTCLoss`` op
+    (the reference's gluon contract: the blank is the LAST alphabet
+    entry, labels are 0-based classes padded with -1)."""
 
     def __init__(self, layout="NTC", label_layout="NT", weight=None,
                  **kwargs):
-        raise MXNetError("gluon.loss.CTCLoss is not ported yet: its "
-                         "CTCLoss op is ROADMAP queue 1 item 17")
+        assert layout in ("NTC", "TNC")
+        assert label_layout in ("NT", "TN")
+        self._layout = layout
+        self._label_layout = label_layout
+        batch_axis = label_layout.find("N")
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)   # the op takes TNC
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        args = [pred, label]
+        if pred_lengths is not None:
+            args.append(pred_lengths)
+        if label_lengths is not None:
+            args.append(label_lengths)
+        loss = F.CTCLoss(*args,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None,
+                         blank_label="last")
+        return self._finalize(F, loss, sample_weight, mean=False)
 
 
 class HuberLoss(Loss):

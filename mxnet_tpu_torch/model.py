@@ -10,8 +10,11 @@ One device has no kvstore: ``_create_kvstore("local", 1, ...)`` returns
 Several devices get a ``kvstore.KVStore`` and, by default
 (``MXNET_UPDATE_ON_KVSTORE=1``), the updater runs inside it, unless a
 parameter has more than 16M elements (the reference's rule for
-``local``). The ``dist*`` kinds (ROADMAP queue 1 item 16) and the legacy
-``FeedForward`` are not ported.
+``local``). The ``dist*`` kinds (ROADMAP queue 1 item 16) are not
+ported.
+
+``FeedForward`` is the legacy model API (deprecated upstream, and here
+with a ``DeprecationWarning``): numpy in, numpy out, over ``Module``.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from .ndarray import ndarray as nd
 from . import symbol as sym
 
 __all__ = ["save_checkpoint", "load_checkpoint", "load_params",
-           "BatchEndParam"]
+           "BatchEndParam", "FeedForward"]
 
 BatchEndParam = collections.namedtuple(
     "BatchEndParams", ["epoch", "nbatch", "eval_metric", "locals"])
@@ -64,6 +67,181 @@ def load_checkpoint(prefix, epoch):
     symbol = sym.load(f"{prefix}-symbol.json")
     arg_params, aux_params = load_params(prefix, epoch)
     return symbol, arg_params, aux_params
+
+
+class FeedForward:
+    """The legacy model API over ``mod.Module``: numpy ``X`` / ``y`` are
+    wrapped into an ``NDArrayIter`` (or a DataIter is taken as it is),
+    ``fit`` runs ``Module.fit``, ``predict`` / ``score`` a module bound
+    for inference (kept across calls for the same shapes), ``save`` /
+    ``load`` the checkpoint files of ``save_checkpoint``. Keyword
+    arguments beyond the named ones are the optimizer's."""
+
+    def __init__(self, symbol, ctx=None, num_epoch=None, epoch_size=None,
+                 optimizer="sgd", initializer=None, numpy_batch_size=128,
+                 arg_params=None, aux_params=None, allow_extra_params=False,
+                 begin_epoch=0, **kwargs):
+        import warnings
+        warnings.warn(
+            "FeedForward is deprecated (as in the reference). "
+            "Please use Module instead.", DeprecationWarning, stacklevel=2)
+        from .context import Context, current_context
+        from .initializer import Uniform
+        if ctx is None:
+            ctx = [current_context()]
+        elif isinstance(ctx, Context):
+            ctx = [ctx]
+        self.symbol = symbol
+        self.ctx = ctx
+        self.num_epoch = num_epoch
+        self.epoch_size = epoch_size
+        self.optimizer = optimizer
+        self.initializer = initializer if initializer is not None \
+            else Uniform(0.01)
+        self.numpy_batch_size = numpy_batch_size
+        self.arg_params = arg_params
+        self.aux_params = aux_params
+        self.allow_extra_params = allow_extra_params
+        self.begin_epoch = begin_epoch
+        self.kwargs = dict(kwargs)
+        self._module = None
+        self._eval_cache = None
+
+    def _init_iter(self, X, y, is_train):
+        """numpy (X, y) -> NDArrayIter; a DataIter passes through."""
+        import numpy as np
+        from . import io as io_mod
+        if hasattr(X, "provide_data"):
+            return X
+        X = np.asarray(X)
+        if y is None:
+            if is_train:
+                raise ValueError("y is required for training")
+            y = np.zeros(X.shape[0], dtype=np.float32)
+        y = np.asarray(y)
+        batch = min(self.numpy_batch_size, X.shape[0])
+        return io_mod.NDArrayIter(X, y.astype(np.float32),
+                                  batch_size=batch, shuffle=is_train,
+                                  label_name="softmax_label")
+
+    def _make_module(self, data_iter):
+        from .module.module import Module
+        labels = [n for n, _ in (data_iter.provide_label or [])]
+        return Module(self.symbol, label_names=labels or None,
+                      context=self.ctx)
+
+    def fit(self, X, y=None, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None,
+            kvstore="local", logger=None, work_load_list=None, monitor=None,
+            eval_end_callback=None, eval_batch_end_callback=None):
+        """Train through ``Module.fit`` over the same data."""
+        assert self.num_epoch is not None, "num_epoch must be set"
+        train_iter = self._init_iter(X, y, is_train=True)
+        if eval_data is not None and not hasattr(eval_data, "provide_data"):
+            eval_data = self._init_iter(eval_data[0], eval_data[1],
+                                        is_train=False)
+        self._module = self._make_module(train_iter)
+        if logger is not None:
+            self._module.logger = logger
+        self._module.fit(
+            train_iter, eval_data=eval_data, eval_metric=eval_metric,
+            epoch_end_callback=epoch_end_callback,
+            batch_end_callback=batch_end_callback, kvstore=kvstore,
+            optimizer=self.optimizer, optimizer_params=dict(self.kwargs),
+            eval_end_callback=eval_end_callback,
+            eval_batch_end_callback=eval_batch_end_callback,
+            initializer=self.initializer, arg_params=self.arg_params,
+            aux_params=self.aux_params,
+            allow_missing=self.arg_params is not None,
+            begin_epoch=self.begin_epoch, num_epoch=self.num_epoch,
+            monitor=monitor)
+        self.arg_params, self.aux_params = self._module.get_params()
+        return self
+
+    def _bound_for_eval(self, data_iter):
+        """A module bound for inference at the iterator's shapes, kept
+        across predict / score calls; the current params set each call."""
+        key = (tuple(map(tuple, data_iter.provide_data)),
+               tuple(map(tuple, data_iter.provide_label or [])))
+        if self._eval_cache is not None and self._eval_cache[0] == key:
+            mod = self._eval_cache[1]
+        else:
+            mod = self._make_module(data_iter)
+            mod.bind(data_shapes=data_iter.provide_data,
+                     label_shapes=data_iter.provide_label,
+                     for_training=False)
+            self._eval_cache = (key, mod)
+        mod.set_params(self.arg_params or {}, self.aux_params or {},
+                       allow_missing=False)
+        return mod
+
+    def predict(self, X, num_batch=None, return_data=False, reset=True):
+        """Predict -> numpy (and the data and labels with
+        ``return_data``)."""
+        import numpy as np
+        data_iter = self._init_iter(X, None, is_train=False)
+        if reset:
+            data_iter.reset()
+        mod = self._bound_for_eval(data_iter)
+        outs = mod.predict(data_iter, num_batch=num_batch, reset=False,
+                           always_output_list=True)
+        outs_np = [o.asnumpy() for o in outs]
+        result = outs_np[0] if len(outs_np) == 1 else outs_np
+        if return_data:
+            data_iter.reset()
+            xs, ys = [], []
+            for b in data_iter:
+                keep = b.data[0].shape[0] - b.pad
+                xs.append(b.data[0].asnumpy()[:keep])
+                ys.append(b.label[0].asnumpy()[:keep])
+            return result, np.concatenate(xs), np.concatenate(ys)
+        return result
+
+    def score(self, X, y=None, eval_metric="acc", num_batch=None,
+              batch_end_callback=None, reset=True):
+        """The metric's value over X."""
+        data_iter = self._init_iter(X, y, is_train=False)
+        if reset:
+            data_iter.reset()
+        mod = self._bound_for_eval(data_iter)
+        res = mod.score(data_iter, eval_metric, num_batch=num_batch,
+                        batch_end_callback=batch_end_callback, reset=False)
+        return res[0][1]
+
+    def save(self, prefix, epoch=None):
+        """``save_checkpoint`` at ``epoch`` (default: num_epoch)."""
+        if epoch is None:
+            epoch = self.num_epoch
+        assert epoch is not None
+        save_checkpoint(prefix, epoch, self.symbol, self.arg_params or {},
+                        self.aux_params or {})
+
+    @staticmethod
+    def load(prefix, epoch, ctx=None, **kwargs):
+        """A FeedForward from a checkpoint (either package's files)."""
+        symbol, arg_params, aux_params = load_checkpoint(prefix, epoch)
+        return FeedForward(symbol, ctx=ctx, arg_params=arg_params,
+                           aux_params=aux_params, begin_epoch=epoch,
+                           **kwargs)
+
+    @staticmethod
+    def create(symbol, X, y=None, ctx=None, num_epoch=None, epoch_size=None,
+               optimizer="sgd", initializer=None, eval_data=None,
+               eval_metric="acc", epoch_end_callback=None,
+               batch_end_callback=None, kvstore="local", logger=None,
+               work_load_list=None, eval_end_callback=None,
+               eval_batch_end_callback=None, **kwargs):
+        """Construct and fit in one call."""
+        model = FeedForward(symbol, ctx=ctx, num_epoch=num_epoch,
+                            epoch_size=epoch_size, optimizer=optimizer,
+                            initializer=initializer, **kwargs)
+        model.fit(X, y, eval_data=eval_data, eval_metric=eval_metric,
+                  epoch_end_callback=epoch_end_callback,
+                  batch_end_callback=batch_end_callback, kvstore=kvstore,
+                  logger=logger, work_load_list=work_load_list,
+                  eval_end_callback=eval_end_callback,
+                  eval_batch_end_callback=eval_batch_end_callback)
+        return model
 
 
 def _create_kvstore(kvstore, num_device, arg_params):

@@ -70,8 +70,7 @@ def __getattr__(name):
     schema = _registry._REGISTRY.get(name)
     if schema is None:
         raise AttributeError(f"module 'mxnet_tpu_torch.ndarray' has no "
-                             f"attribute {name!r}"
-                             f"{_registry.unported_note(name)}")
+                             f"attribute {name!r}")
     fn = _make_op_func(schema)
     setattr(_self_module, name, fn)
     return fn

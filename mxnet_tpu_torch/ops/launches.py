@@ -13,7 +13,8 @@ from .. import _build
 
 
 def _counters():
-    from . import attention as A, conv_fused as C, quantization as Q
+    from . import attention as A, conv_fused as C, quantization as Q, \
+        rcnn as R
     return (("flash_attention_fwd", A.flash_attention_fwd, "launches"),
             ("flash_attention_bwd_dq", A.flash_attention_bwd_dq, "launches"),
             ("flash_attention_bwd_dkv", A.flash_attention_bwd_dkv,
@@ -21,6 +22,8 @@ def _counters():
             ("decode_attention", A.decode_attention, "launches"),
             ("quantized_matmul", Q.quantized_matmul, "launches"),
             ("conv1x1", C.conv1x1, "launches"),
+            ("roi_pooling", R.roi_pooling, "launches"),
+            ("proposal_nms", R.proposal_nms, "launches"),
             ("dense_attention", A.dense_attention, "calls"))
 
 

@@ -214,35 +214,11 @@ def register_alias(alias, name):
     return schema
 
 
-# the JAX package's ops the port does not have yet, by the ROADMAP item
-# (queue 1) that holds them; their registered aliases too
-_ITEM_17 = "ROADMAP item 17 (the remaining contrib ops and Custom)"
-UNPORTED = {
-    **dict.fromkeys((
-        "BilinearSampler", "CTCLoss", "Correlation", "Crop", "GridGenerator",
-        "ROIPooling", "SpatialTransformer", "_contrib_AdaptiveAvgPooling2D",
-        "_contrib_BilinearResize2D", "_contrib_DeformableConvolution",
-        "_contrib_DeformablePSROIPooling", "_contrib_MultiProposal",
-        "_contrib_PSROIPooling", "_contrib_Proposal", "_contrib_count_sketch",
-        "_contrib_fft", "_contrib_ifft", "_contrib_quadratic", "khatri_rao",
-        "_contrib_CTCLoss", "_contrib_ctc_loss", "ctc_loss",
-        "Custom"), _ITEM_17),
-}
-
-
-def unported_note(*names):
-    """", not ported yet: <item>" for the first of ``names`` that
-    UNPORTED holds, else ""."""
-    item = next((UNPORTED[n] for n in names if n in UNPORTED), None)
-    return "" if item is None else f", not ported yet: {item}"
-
-
 def get_op(name) -> OpSchema:
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise MXNetError(f"operator {name!r} not registered"
-                         f"{unported_note(name)}") from None
+        raise MXNetError(f"operator {name!r} not registered") from None
 
 
 def list_ops():

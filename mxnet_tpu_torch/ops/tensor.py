@@ -57,11 +57,11 @@ ELEMENTWISE = {"_copy", "BlockGrad", "Cast", "add_n", "clip", "zeros_like",
 
 
 def _maximum_with(x, s):
-    return torch.maximum(x, x.new_full((), s))
+    return torch.maximum(x, s if torch.is_tensor(s) else x.new_full((), s))
 
 
 def _minimum_with(x, s):
-    return torch.minimum(x, x.new_full((), s))
+    return torch.minimum(x, s if torch.is_tensor(s) else x.new_full((), s))
 
 
 class _Relu(torch.autograd.Function):
@@ -105,7 +105,8 @@ def abs_(x):
 
 
 def _clip(x, lo, hi):
-    """min(max(x, lo), hi): 0.5 of the cotangent at either bound."""
+    """min(max(x, lo), hi) (numbers or tensors): 0.5 of the cotangent at
+    either bound."""
     return _minimum_with(_maximum_with(x, lo), hi)
 
 

@@ -75,11 +75,13 @@ and the step adds its gradients' all-reduce to the mesh's wire counter
 from __future__ import annotations
 
 import time
+import warnings
 
 import numpy as _np
 import torch
 
 from .. import amp as _amp
+from .. import operator as _operator
 from ..base import MXNetError
 from ..executor import _Plan, _from_numpy, _run_mesh, _run_tp, _spec_dim
 from ..ops.launches import add as _add_launches, counts as _launch_counts
@@ -243,6 +245,7 @@ class DataParallelTrainer:
         self._graphs = {}
         self._pool = None
         self.captures = 0
+        self._eager = None
 
     # -- names --------------------------------------------------------------
     @property
@@ -259,7 +262,23 @@ class DataParallelTrainer:
 
     def _graphed(self):
         return self._device.type == "cuda" and all(
-            d == self._device for d in self._devices)
+            d == self._device for d in self._devices) \
+            and not self._eager_reason()
+
+    def _eager_reason(self):
+        """Why a step on the card runs eagerly instead of as a CUDA graph
+        replay: a ``Custom`` op's host call cannot be captured. Said once,
+        in a warning; ``graph_stats()["eager_reason"]`` keeps it."""
+        if self._eager is None:
+            types = _operator.custom_types(self._plan)
+            self._eager = "" if not types else (
+                "the graph holds Custom op(s) %s: their host calls cannot "
+                "be captured in a CUDA graph, so each step runs eagerly on "
+                "the card" % ", ".join(repr(t) for t in types))
+            if self._eager and self._device.type == "cuda":
+                warnings.warn("DataParallelTrainer: " + self._eager,
+                              stacklevel=3)
+        return self._eager
 
     # -- tensor-parallel shards ---------------------------------------------
     def _shard_dims(self, shapes):
@@ -714,6 +733,7 @@ class DataParallelTrainer:
         pool = devstats.pool_bytes(self._pool, self._device) \
             if self._pool is not None else 0
         return {"captures": self.captures, "pool_bytes": pool,
+                "eager_reason": self._eager_reason() or None,
                 "graphs": {str([tuple(s) for s, _ in k]): {
                     "capture_s": g.capture_s, "peak_bytes": g.peak_bytes,
                     "replays": g.replays, "launches": dict(g.launches)}

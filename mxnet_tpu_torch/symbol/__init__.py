@@ -91,8 +91,7 @@ def __getattr__(name):
     schema = _registry._REGISTRY.get(name)
     if schema is None:
         raise AttributeError(f"module 'mxnet_tpu_torch.symbol' has no "
-                             f"attribute {name!r}"
-                             f"{_registry.unported_note(name)}")
+                             f"attribute {name!r}")
     fn = _make_sym_func(schema)
     setattr(_self_module, name, fn)
     _SYM_FUNCS[name] = fn

@@ -19,7 +19,6 @@ def __getattr__(name):
         fn = _sym_getattr(name)
     else:
         raise AttributeError(f"module 'mxnet_tpu_torch.symbol.contrib' has "
-                             f"no attribute {name!r}"
-                             f"{_registry.unported_note(full, name)}")
+                             f"no attribute {name!r}")
     setattr(_sys.modules[__name__], name, fn)
     return fn

@@ -1,5 +1,5 @@
 """Every layer of the port's gluon.nn basic and conv layers, and every
-loss but CTCLoss, against the JAX package's, on the CPU: eager (through
+loss, against the JAX package's, on the CPU: eager (through
 ``mx.nd``) and hybridized (the traced Symbol run by the executor's walk).
 
 Each case builds the layer in both packages with the same prefix,
@@ -500,5 +500,24 @@ def test_loss_matches_jax(name, make, kind, sw, hybrid):
 
 
 def test_ctc_loss_raises_naming_its_item():
-    with pytest.raises(tmx.MXNetError, match="item 17"):
-        tgluon.loss.CTCLoss()
+    """CTCLoss raised before its op was ported; now it is the JAX
+    package's loss (blank last, -1 padding, NTC), eager and hybridized:
+    the losses and the prediction's gradient within TOL."""
+    rng = np.random.RandomState(31)
+    pred = rng.normal(size=(2, 6, 5)).astype(np.float32)
+    label = np.array([[0, 3, -1], [1, 1, 2]], np.float32)
+    for hybrid in (False, True):
+        res = []
+        for g, mx, kw in ((jgluon, jmx, {}), (tgluon, tmx, {"ctx": CPU})):
+            loss = g.loss.CTCLoss()
+            if hybrid:
+                loss.hybridize()
+            x = mx.nd.array(pred, **kw)
+            x.attach_grad()
+            with mx.autograd.record():
+                out = loss(x, mx.nd.array(label, **kw))
+            out.backward()
+            res.append((out.asnumpy(), x.grad.asnumpy()))
+        (jo, jg), (to, tg) = res
+        np.testing.assert_allclose(to, jo, **TOL)
+        np.testing.assert_allclose(tg, jg, **TOL)

@@ -441,7 +441,6 @@ def test_image_ops_and_nd_image_match_jax():
         for name in ("_image_to_tensor", "image_to_tensor",
                      "_image_normalize", "image_normalize"):
             assert name in tmx.ops.registry._REGISTRY
-            assert name not in tmx.ops.registry.UNPORTED
     # the Symbol path runs the same op
     data = tmx.sym.Variable("data")
     s = tmx.sym._image_normalize(tmx.sym._image_to_tensor(data),

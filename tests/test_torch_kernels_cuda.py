@@ -2059,3 +2059,164 @@ def test_image_record_iter_card_draws_hold_while_training(dev, tmp_path):
             [p.sh * p.sw * 3 for p in plans])])[:-1]
         ref = assemble.assemble_plain(raw, plans, list(offs), (32, 32))
         assert torch.equal(data, ref)
+
+
+def _roi_case(dev, dtype, n, c, h, w, r, seed, ties=None):
+    """Data of ``dtype`` (``ties``: "plateau" clips at 0 after a shift, so
+    whole bins tie; "all" makes every value equal) and r rois over an
+    image of 16 h x 16 w (some past its edges)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    data = torch.randn(n, c, h, w, generator=g, dtype=torch.float64)
+    if ties == "plateau":
+        data = torch.clamp_min(data - 0.5, 0.0)
+    elif ties == "all":
+        data = torch.full_like(data, 0.25)
+    xy = torch.rand(r, 4, generator=g, dtype=torch.float64) \
+        * torch.tensor([w, h, w, h], dtype=torch.float64) * 18 - 16
+    x1, x2 = torch.minimum(xy[:, 0], xy[:, 2]), torch.maximum(xy[:, 0],
+                                                              xy[:, 2])
+    y1, y2 = torch.minimum(xy[:, 1], xy[:, 3]), torch.maximum(xy[:, 1],
+                                                              xy[:, 3])
+    b = torch.randint(0, n, (r,), generator=g).to(torch.float64)
+    rois = torch.stack([b, x1, y1, x2, y2], dim=1)
+    rdt = torch.float64 if dtype == torch.float64 else torch.float32
+    return data.to(dtype).to(dev), rois.to(rdt).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape,ties", [
+    ((2, 8, 20, 31, 24), None), ((1, 16, 37, 62, 64), "plateau"),
+    ((1, 4, 9, 11, 12), "all")])
+def test_roi_pooling_kernel_matches_plain(dev, dtype, shape, ties):
+    """Forward equal to the plain version (a max is one of the data's
+    values); the data gradient by the JAX op's tie rule within 1e-5 of
+    its largest magnitude (float32 atomics in another order) of the
+    plain version's, which for the half types runs in float32 on the
+    same values (the kernel accumulates in float32 and rounds once: one
+    unit of the type, 1e-2 of the largest magnitude); the rois'
+    gradient None, one launch each way."""
+    from mxnet_tpu_torch.ops import rcnn
+    n, c, h, w, r = shape
+    data, rois = _roi_case(dev, dtype, n, c, h, w, r, seed=r, ties=ties)
+    half = dtype in (torch.float16, torch.bfloat16)
+    x = data.clone().requires_grad_(True)
+    xp = (data.float() if half else data).clone().requires_grad_(True)
+    n0 = rcnn.roi_pooling.launches
+    out = rcnn.roi_pooling(x, rois, (7, 7), 1.0 / 16)
+    ref = rcnn.roi_pooling_plain(xp, rois, (7, 7), 1.0 / 16)
+    assert rcnn.roi_pooling.launches == n0 + 1
+    assert torch.equal(out, ref.to(dtype))
+    assert torch.equal(out, rcnn.roi_pooling_plain(data, rois, (7, 7),
+                                                   1.0 / 16))
+    g = torch.randn(out.shape, generator=torch.Generator(device=dev)
+                    .manual_seed(1), device=dev).to(dtype)
+    (gx,) = torch.autograd.grad(out, x, g)
+    (gp,) = torch.autograd.grad(ref, xp, g.to(ref.dtype))
+    assert rcnn.roi_pooling.launches == n0 + 2
+    tol = (1e-2 if half else 1e-5) * float(gp.abs().max()) + 1e-12
+    assert float((gx.double() - gp.double()).abs().max()) <= tol
+    # the host's plain version on the same data: the same forward
+    host = rcnn.roi_pooling_plain(data.cpu(), rois.cpu(), (7, 7), 1.0 / 16)
+    assert torch.equal(out.cpu(), host)
+
+
+def _nms_boxes(dev, dtype, b, n, seed, thresh=None):
+    """Score-sorted boxes in a 600 x 1000 image; with ``thresh``, box 1
+    is box 0 widened so their IoU is exactly ``thresh`` in the type."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ctr = torch.rand(b, n, 2, generator=g, dtype=torch.float64) \
+        * torch.tensor([1000.0, 600.0], dtype=torch.float64)
+    wh = torch.rand(b, n, 2, generator=g, dtype=torch.float64) * 200 + 16
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], dim=2).to(dtype)
+    if thresh is not None:
+        # a 10 x 10 box and a 10 x 10 / thresh one around the same corner:
+        # IoU 100 / (100 / thresh) -- chosen so it rounds to thresh
+        boxes[:, 0] = torch.tensor([100.0, 100.0, 110.0, 110.0],
+                                   dtype=dtype)
+        boxes[:, 1] = torch.tensor([100.0, 100.0, 110.0, 100.0 + 10.0
+                                    / thresh], dtype=dtype)
+    return boxes.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,n", [(1, 12000), (3, 1000), (2, 130)])
+def test_proposal_nms_kernel_matches_plain(dev, dtype, b, n):
+    """The keep mask equals the plain version's (and the host's), one
+    call."""
+    from mxnet_tpu_torch.ops import rcnn
+    boxes = _nms_boxes(dev, dtype, b, n, seed=n)
+    n0 = rcnn.proposal_nms.launches
+    keep = rcnn.proposal_nms(boxes, 0.7)
+    assert rcnn.proposal_nms.launches == n0 + 1
+    assert torch.equal(keep, rcnn.proposal_nms_plain(boxes, 0.7))
+    if n <= 1000:
+        assert torch.equal(keep.cpu(),
+                           rcnn.proposal_nms_plain(boxes.cpu(), 0.7))
+    assert 0 < int(keep.sum()) < b * n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_proposal_nms_suppresses_at_exactly_the_threshold(dev, dtype):
+    """Two boxes whose IoU is the threshold to the last bit: ``>=``
+    suppresses the second, on the card and on the host; a threshold one
+    step above keeps it."""
+    from mxnet_tpu_torch.ops import contrib, rcnn
+    thresh = 0.5
+    boxes = _nms_boxes(dev, dtype, 1, 64, seed=3, thresh=thresh)
+    iou = contrib._pair_iou(boxes[0, :1], boxes[0, 1:2])[0, 0]
+    assert float(iou) == thresh
+    keep = rcnn.proposal_nms(boxes, thresh)
+    assert bool(keep[0, 0]) and not bool(keep[0, 1])
+    assert torch.equal(keep, rcnn.proposal_nms_plain(boxes, thresh))
+    above = float(torch.nextafter(iou, iou.new_full((), 1.0)))
+    keep2 = rcnn.proposal_nms(boxes, above)
+    assert bool(keep2[0, 1])
+    assert torch.equal(keep2, rcnn.proposal_nms_plain(boxes, above))
+
+
+def test_empty_inputs_launch_nothing_and_count_nothing(dev):
+    """0 rois (forward and backward) and 0 boxes: empty results of the
+    right shapes, and neither launch count moves."""
+    from mxnet_tpu_torch.ops import rcnn
+    data, rois = _roi_case(dev, torch.float32, 1, 8, 20, 30, 4, seed=0)
+    x = data.clone().requires_grad_(True)
+    r0, p0 = rcnn.roi_pooling.launches, rcnn.proposal_nms.launches
+    out = rcnn.roi_pooling(x, rois[:0], (7, 7), 1.0 / 16)
+    assert out.shape == (0, 8, 7, 7)
+    (gx,) = torch.autograd.grad(out.sum(), x, allow_unused=True)
+    assert gx is None or not bool(gx.any())
+    for b, n in [(0, 100), (2, 0)]:
+        boxes = _nms_boxes(dev, torch.float32, max(b, 1), 100, seed=1)
+        keep = rcnn.proposal_nms(boxes[:b, :n], 0.7)
+        assert keep.shape == (b, n)
+    assert rcnn.roi_pooling.launches == r0
+    assert rcnn.proposal_nms.launches == p0
+
+
+def test_proposal_op_on_the_card_equals_the_host(dev):
+    """_contrib_Proposal at Faster R-CNN's widths (37 x 62 x 9 anchors,
+    12,000 before NMS, 2,000 after) in float64: the card's rois and
+    scores are the host's, and its gradients too (within 1e-12)."""
+    from mxnet_tpu_torch.ops import registry
+    schema = registry.get_op("_contrib_Proposal")
+    attrs = schema.parse_attrs(dict(
+        scales=(8, 16, 32), ratios=(0.5, 1, 2), rpn_pre_nms_top_n=12000,
+        rpn_post_nms_top_n=2000, threshold=0.7, rpn_min_size=16))
+    g = torch.Generator(device="cpu").manual_seed(5)
+    z = torch.randn(1, 2, 9, 37, 62, generator=g, dtype=torch.float64)
+    prob = torch.softmax(z, dim=1).reshape(1, 18, 37, 62)
+    delta = torch.randn(1, 36, 37, 62, generator=g,
+                        dtype=torch.float64) * 0.2
+    info = torch.tensor([[600.0, 1000.0, 1.0]], dtype=torch.float64)
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        p = prob.to(d).requires_grad_(True)
+        dl = delta.to(d).requires_grad_(True)
+        rois, scores = schema.fcompute(attrs, registry.OpCtx(device=d), p,
+                                       dl, info.to(d))
+        gp, gd = torch.autograd.grad((rois[:, 1:].sum() + scores.sum()),
+                                     (p, dl))
+        res[d.type] = [t.detach().cpu() for t in (rois, scores, gp, gd)]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())

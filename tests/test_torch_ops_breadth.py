@@ -8,8 +8,8 @@ held within RTOL of each tensor's largest magnitude (plus ATOL);
 integer outputs (indices, shapes) exactly. The legacy loss heads drop
 the cotangent in both packages (their gradient is the implied loss's).
 
-Then the registry: the port lacks exactly the 20 JAX ops that ROADMAP
-item 17 holds, and asking for one of them names the item.
+Then the registry: the port has every op of the JAX package's, under
+the same names and aliases.
 """
 import numpy as np
 import pytest
@@ -45,6 +45,25 @@ def _lower(seed, n):
 def _idx(seed, hi, *shape):
     return np.random.RandomState(seed).randint(0, hi, shape) \
         .astype(np.float32)
+
+
+def _rois(seed, n, batch, h=24, w=32):
+    """(n, 5) rois [batch index, x1, y1, x2, y2] in an h x w image, some
+    past its edges (in image pixels: spatial_scale maps them)."""
+    rng = np.random.RandomState(seed)
+    x = np.sort(rng.uniform(-2, w + 2, (n, 2)), axis=1)
+    y = np.sort(rng.uniform(-2, h + 2, (n, 2)), axis=1)
+    b = rng.randint(0, batch, (n, 1))
+    return np.concatenate([b, x[:, :1], y[:, :1], x[:, 1:], y[:, 1:]],
+                          axis=1).astype(np.float32)
+
+
+def _rpn_probs(seed, b, a, h, w):
+    """(b, 2a, h, w): each anchor's (background, foreground) softmax
+    pair, background channels first (the RPN's layout)."""
+    z = np.random.RandomState(seed).standard_normal((b, 2, a, h, w))
+    p = np.exp(z) / np.exp(z).sum(1, keepdims=True)
+    return p.reshape(b, 2 * a, h, w).astype(np.float32)
 
 
 _TIES = np.array([[3., 1., 3., 2., 1., 3.], [0., 0., 5., 5., 4., 0.]],
@@ -272,6 +291,106 @@ CASES = [
      [0]),
     ("minimum_scalar_tie", "_minimum_scalar", [_KINKS], {"scalar": 0.5},
      [0]),
+] + [
+    # the contrib ops of ROADMAP item 17 (the detection family's R-CNN
+    # ops, samplers, CTC, fft and the rest), with their traps as cases
+    ("ROIPooling", "ROIPooling", [_r(300, 2, 3, 12, 16), _rois(301, 6, 2)],
+     {"pooled_size": (3, 3), "spatial_scale": 0.5}, [0]),
+    # after ReLU zeros tie in whole plateaus; integer data ties often
+    ("ROIPooling_relu_plateaus", "ROIPooling",
+     [np.maximum(_r(302, 2, 3, 12, 16), 0.6), _rois(303, 8, 2)],
+     {"pooled_size": (4, 3), "spatial_scale": 0.5}, [0]),
+    ("ROIPooling_integer_ties", "ROIPooling",
+     [_idx(304, 3, 1, 2, 10, 11), _rois(305, 8, 1, 20, 22)],
+     {"pooled_size": (3, 4), "spatial_scale": 0.5}, [0]),
+    ("PSROIPooling", "_contrib_PSROIPooling",
+     [_r(306, 1, 8, 10, 12), _rois(307, 5, 1, 20, 24)],
+     {"spatial_scale": 0.5, "output_dim": 2, "pooled_size": 2,
+      "group_size": 2}, [0]),
+    ("DeformableConvolution", "_contrib_DeformableConvolution",
+     [_r(308, 1, 4, 7, 8), _r(309, 1, 36, 7, 8, lo=-1.5, hi=1.5),
+      _r(310, 6, 2, 3, 3), _r(311, 6)],
+     {"kernel": (3, 3), "pad": (1, 1), "num_filter": 6, "num_group": 2,
+      "num_deformable_group": 2}, [0, 1, 2, 3]),
+    # integer offsets sit on the floor's kinks, half-integer ones put
+    # samples exactly on the -0.5 / w - 0.5 border and on clip's bounds
+    ("DeformableConvolution_kinks", "_contrib_DeformableConvolution",
+     [_r(312, 1, 2, 6, 7), np.random.RandomState(313).choice(
+         [-1.5, -1.0, -0.5, 0.0, 0.5, 1.0, 2.0], (1, 18, 6, 7))
+      .astype(np.float32), _r(314, 3, 2, 3, 3)],
+     {"kernel": (3, 3), "pad": (1, 1), "num_filter": 3, "no_bias": True},
+     [0, 1, 2]),
+    ("DeformablePSROIPooling", "_contrib_DeformablePSROIPooling",
+     [_r(315, 1, 16, 10, 12), _rois(316, 4, 1, 20, 24),
+      _r(317, 4, 4, 2, 2)],
+     {"spatial_scale": 0.5, "output_dim": 4, "group_size": 2,
+      "pooled_size": 2, "part_size": 2, "sample_per_part": 2,
+      "trans_std": 0.1}, [0, 2]),
+    ("DeformablePSROIPooling_no_trans", "_contrib_DeformablePSROIPooling",
+     [_r(318, 1, 8, 10, 12), _rois(319, 4, 1, 20, 24)],
+     {"spatial_scale": 0.5, "output_dim": 2, "group_size": 2,
+      "pooled_size": 2, "sample_per_part": 3, "no_trans": True}, [0]),
+    ("BilinearSampler", "BilinearSampler",
+     [_r(320, 2, 3, 6, 7), _r(321, 2, 2, 4, 5, lo=-1.1, hi=1.1)], {},
+     [0, 1]),
+    ("GridGenerator_affine", "GridGenerator", [_r(322, 2, 6)],
+     {"transform_type": "affine", "target_shape": (4, 5)}, [0]),
+    ("GridGenerator_warp", "GridGenerator", [_r(323, 2, 2, 5, 6)],
+     {"transform_type": "warp"}, [0]),
+    ("SpatialTransformer", "SpatialTransformer",
+     [_r(324, 2, 3, 6, 7), (np.array([1, 0, 0, 0, 1, 0], np.float32)
+                            + 0.2 * _r(325, 2, 6))],
+     {"target_shape": (4, 5)}, [0, 1]),
+    ("AdaptiveAvgPooling2D", "_contrib_AdaptiveAvgPooling2D",
+     [_r(326, 2, 3, 7, 9)], {"output_size": (3, 4)}, [0]),
+    ("BilinearResize2D", "_contrib_BilinearResize2D", [_r(327, 2, 3, 5, 6)],
+     {"height": 8, "width": 4}, [0]),
+    ("Correlation", "Correlation", [_r(328, 1, 3, 9, 10), _r(329, 1, 3, 9,
+                                                               10)],
+     {"kernel_size": 3, "max_displacement": 2, "pad_size": 2}, [0, 1]),
+    ("Correlation_abs_stride2", "Correlation",
+     [_r(330, 2, 2, 11, 12), _r(331, 2, 2, 11, 12)],
+     {"kernel_size": 1, "max_displacement": 4, "stride1": 2, "stride2": 2,
+      "pad_size": 4, "is_multiply": False}, [0, 1]),
+    ("Crop", "Crop", [_r(332, 2, 3, 7, 8)],
+     {"h_w": (3, 4), "offset": (1, 2)}, [0]),
+    ("Crop_center_like", "Crop", [_r(333, 2, 3, 7, 8), _r(334, 2, 3, 4, 5)],
+     {"num_args": 2, "center_crop": True}, [0]),
+    ("CTCLoss", "CTCLoss", [_r(335, 6, 3, 5, lo=-2, hi=2), np.array(
+        [[1, 2, 0], [3, 3, 1], [2, 0, 0]], np.float32)], {}, [0]),
+    ("CTCLoss_lengths_last", "ctc_loss",
+     [_r(336, 7, 3, 5, lo=-2, hi=2), np.array(
+         [[1, 2, -1], [0, 0, 3], [2, -1, -1]], np.float32),
+      np.array([7, 5, 6], np.float32), np.array([2, 3, 1], np.float32)],
+     {"use_data_lengths": True, "use_label_lengths": True,
+      "blank_label": "last"}, [0]),
+    # no alignment fits 3 labels with a repeat into 3 frames: a finite
+    # loss near 1e30, not inf
+    ("CTCLoss_infeasible", "CTCLoss", [_r(337, 3, 2, 4, lo=-2, hi=2),
+                                       np.array([[1, 1, 2], [2, 3, 0]],
+                                                np.float32)], {}, [0]),
+    ("fft", "_contrib_fft", [_r(338, 2, 3, 8)], {}, [0]),
+    ("ifft", "_contrib_ifft", [_r(339, 2, 16)], {}, [0]),
+    ("count_sketch", "_contrib_count_sketch",
+     [_r(340, 3, 6), _idx(341, 4, 1, 6),
+      np.sign(_r(342, 1, 6)).astype(np.float32)], {"out_dim": 4}, [0]),
+    ("khatri_rao", "khatri_rao", [_r(343, 3, 4), _r(344, 2, 4)],
+     {"num_args": 2}, [0, 1]),
+    ("quadratic", "_contrib_quadratic", [_r(345, 3, 4)],
+     {"a": 1.5, "b": -2.0, "c": 0.5}, [0]),
+    # anchors in the padding and boxes under rpn_min_size score -1.0 and
+    # tie: pre_n reaches into them, post_n past the kept boxes cycles
+    ("Proposal", "_contrib_Proposal",
+     [_rpn_probs(346, 1, 9, 4, 6), _r(347, 1, 36, 4, 6, lo=-0.3, hi=0.3),
+      np.array([[60, 90, 1.0]], np.float32)],
+     {"scales": (2.0, 4.0, 8.0), "rpn_pre_nms_top_n": 160,
+      "rpn_post_nms_top_n": 100, "threshold": 0.6, "rpn_min_size": 8},
+     [0, 1]),
+    ("MultiProposal", "_contrib_MultiProposal",
+     [_rpn_probs(348, 2, 9, 4, 6), _r(349, 2, 36, 4, 6, lo=-0.3, hi=0.3),
+      np.array([[64, 96, 1.0], [50, 70, 0.8]], np.float32)],
+     {"scales": (2.0, 4.0, 8.0), "rpn_pre_nms_top_n": 60,
+      "rpn_post_nms_top_n": 40, "threshold": 0.5}, [0, 1]),
 ]
 
 
@@ -388,41 +507,27 @@ def test_syevd_eigenvalue_gradient_against_jax():
 # the registry
 # ---------------------------------------------------------------------------
 
-NOT_PORTED = {
-    # ROADMAP item 17: the non-detection contrib ops and Custom
-    "BilinearSampler", "CTCLoss", "Correlation", "Crop", "GridGenerator",
-    "ROIPooling", "SpatialTransformer", "_contrib_AdaptiveAvgPooling2D",
-    "_contrib_BilinearResize2D", "_contrib_DeformableConvolution",
-    "_contrib_DeformablePSROIPooling", "_contrib_MultiProposal",
-    "_contrib_PSROIPooling", "_contrib_Proposal", "_contrib_count_sketch",
-    "_contrib_fft", "_contrib_ifft", "_contrib_quadratic", "khatri_rao",
-    "Custom"}
-
-
 def test_the_port_lacks_exactly_the_named_ops():
+    """None: the port's registry holds every op of the JAX package's, and
+    every registered name of the JAX package (aliases too) resolves to
+    the same op."""
     jax_ops, port_ops = set(jreg.list_ops()), set(treg.list_ops())
-    assert len(NOT_PORTED) == 20
-    assert jax_ops - port_ops == NOT_PORTED
-    assert port_ops <= jax_ops
-    # every registered name of the JAX package resolves in the port, but
-    # the unported ops' own names and aliases
+    assert port_ops == jax_ops
     for name, schema in jreg._REGISTRY.items():
-        if schema.name not in NOT_PORTED:
-            assert treg.get_op(name).name == schema.name, name
+        assert treg.get_op(name).name == schema.name, name
 
 
-@pytest.mark.parametrize("name,item", [
-    ("ROIPooling", "item 17"), ("_contrib_Proposal", "item 17"),
-    ("ctc_loss", "item 17"), ("Custom", "item 17"),
-    ("Correlation", "item 17"), ("_contrib_fft", "item 17"),
-    ("khatri_rao", "item 17")])
-def test_an_unported_op_names_its_roadmap_item(name, item):
-    """get_op, and the mx.nd / mx.sym namespaces, name the item."""
+@pytest.mark.parametrize("name,op", [
+    ("ROIPooling", "ROIPooling"), ("_contrib_Proposal", "_contrib_Proposal"),
+    ("ctc_loss", "CTCLoss"), ("Custom", "Custom"),
+    ("Correlation", "Correlation"), ("_contrib_fft", "_contrib_fft"),
+    ("khatri_rao", "khatri_rao")])
+def test_a_formerly_unported_op_resolves(name, op):
+    """get_op, and the mx.nd / mx.sym namespaces, resolve the op to the
+    JAX schema's name; an unknown op still raises."""
     import mxnet_tpu_torch as tmx
-    with pytest.raises(MXNetError, match=item):
-        treg.get_op(name)
+    assert treg.get_op(name).name == jreg.get_op(name).name == op
     for ns in (tmx.nd, tmx.sym):
-        with pytest.raises(AttributeError, match=item):
-            getattr(ns, name)
+        assert callable(getattr(ns, name))
     with pytest.raises(MXNetError, match="not registered$"):
         treg.get_op("no_such_op")

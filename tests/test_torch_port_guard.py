@@ -1,6 +1,7 @@
 """The port stands alone and defaults to the card.
 
-- No module of mxnet_tpu_torch, nor chip_smoke.py, imports jax,
+- No module of mxnet_tpu_torch, nor chip_smoke.py or the R-CNN tools it
+  loads (tools/torch_rcnn.py), imports jax,
   ml_dtypes or anything of the JAX package (an AST scan).
 - Importing mxnet_tpu_torch leaves jax out of sys.modules.
 - Entry points default to CUDA: without a card they raise instead of
@@ -34,7 +35,8 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "mxnet_tpu")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "tools", "torch_rcnn.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -105,6 +107,8 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.serving.__main__, "
             "mxnet_tpu_torch.ndarray.contrib, mxnet_tpu_torch.symbol.contrib, "
             "mxnet_tpu_torch.pipeline, mxnet_tpu_torch.profiler, "
+            "mxnet_tpu_torch.operator, mxnet_tpu_torch.ops.rcnn, "
+            "mxnet_tpu_torch.ops.contrib, "
             "mxnet_tpu_torch.monitor, mxnet_tpu_torch.engine, "
             "mxnet_tpu_torch.telemetry.tracing, "
             "mxnet_tpu_torch.telemetry.steplog, "

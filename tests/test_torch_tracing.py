@@ -242,15 +242,41 @@ def _fit_log(mx, log, monkeypatch, trace="1"):
     return recs, {n: a.asnumpy() for n, a in args.items()}
 
 
+def _same_step_log_state():
+    """Make both packages' process-wide step-log state equal, whatever
+    ran before in this process: a step record carries zero_* / embed_*
+    keys once a ZeRO / embedding trainer of its package has registered
+    that counter export, and mfu / roofline_frac / model_flops_per_s
+    once devstats holds a step cost. Register both exports in both
+    packages and forget both packages' step costs."""
+    from mxnet_tpu.parallel import embedding as jembed, zero as jzero
+    from mxnet_tpu.telemetry import devstats as jdev
+    from mxnet_tpu_torch.parallel import embedding as tembed, zero as tzero
+    from mxnet_tpu_torch.telemetry import devstats as tdev
+    for mod in (jzero, tzero, jembed, tembed):
+        mod._ensure_hook()
+    jdev.reset()
+    tdev.reset()
+
+
+def test_step_log_keys_match_after_one_packages_embed_hook(monkeypatch,
+                                                           tmp_path):
+    """An earlier test that built only the port's embedding trainer (its
+    "embed" export registered, the JAX package's not) leaves the keys
+    comparable."""
+    from mxnet_tpu_torch.parallel import embedding as tembed
+    tembed._ensure_hook()
+    _same_step_log_state()
+    ours, _ = _fit_log(tmx, tmp_path / "t.jsonl", monkeypatch)
+    ref, _ = _fit_log(jmx, tmp_path / "j.jsonl", monkeypatch)
+    for a, b in zip(ours, ref):
+        assert sorted(a) == sorted(b), (a["event"], a, b)
+    assert any("embed_wire_bytes" in r for r in ours)
+
+
 def test_step_log_keys_match_jax_and_tracing_changes_nothing(
         monkeypatch, tmp_path):
-    # a step record carries zero_* keys once a ZeRO trainer of its package
-    # has registered the "zero" counter export (process-wide, in both
-    # packages): register both, so the keys compare whatever ran before
-    from mxnet_tpu.parallel import zero as jzero
-    from mxnet_tpu_torch.parallel import zero as tzero
-    jzero._ensure_hook()
-    tzero._ensure_hook()
+    _same_step_log_state()
     ours, params = _fit_log(tmx, tmp_path / "t.jsonl", monkeypatch)
     ref, _ = _fit_log(jmx, tmp_path / "j.jsonl", monkeypatch)
     assert [r["event"] for r in ours] == [r["event"] for r in ref] == \
